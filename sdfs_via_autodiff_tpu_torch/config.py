@@ -1,0 +1,24 @@
+"""Device policy of the PyTorch port.
+
+The JAX package's ``config.py`` picks a backend for the caller.  The
+port never does: every factory and driver takes an explicit ``device``,
+a request for CUDA on a machine without a card raises, and nothing falls
+back to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a :class:`torch.device`; raises when it names CUDA
+    and no CUDA device is available."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} was requested but no CUDA device is "
+            "available; the port does not fall back to the CPU")
+    return dev

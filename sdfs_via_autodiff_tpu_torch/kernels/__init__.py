@@ -1,0 +1,8 @@
+from .streamed_two_phase import (LAUNCHES, make_streamed_T_log, pass_b,
+                                 pass_b_plain, pass_c, pass_c_plain,
+                                 streamed_supported)
+from .tiled_two_phase import make_tiled_T_log, make_tiled_T_log_ssy
+
+__all__ = ["LAUNCHES", "make_streamed_T_log", "pass_b", "pass_b_plain",
+           "pass_c", "pass_c_plain", "streamed_supported",
+           "make_tiled_T_log", "make_tiled_T_log_ssy"]

@@ -1,0 +1,323 @@
+"""Streamed two-pass operator: hand-written CUDA pass-B / pass-C kernels.
+
+PyTorch port of ``sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py``
+for the "full" configuration with a shared c2 factor (plain discrete SSY
+operand sets).  One application of log T(w) is two passes over the field:
+
+    pass B (column phase):  ell (R, I, J) -> midway field (R, I, J)
+    pass C (row phase):     midway field (R, C) -> log T(w) (R, C)
+
+with R = n_r1 * n_r2 rows and C = I * J columns.  Mode "fast" takes one
+shift per field row in pass B and carries the midway field linearly, with
+the rescale ``exp(s - max s)`` computed on the device between the
+passes; mode "lse" shifts per axis at every contraction.
+
+Each pass has a plain PyTorch version (``pass_b_plain``, ``pass_c_plain``)
+and a dispatcher (``pass_b``, ``pass_c``): a CPU tensor goes to the plain
+version, a CUDA tensor to the kernel in ``csrc/streamed_two_phase.cu``
+(built from source at first use) or to an error.  ``LAUNCHES`` counts the
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..config import resolve_device
+from ..operators.two_phase import TwoPhaseOperands, make_eager_two_phase_T
+from . import _build
+
+__all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
+           "pass_c_tile", "streamed_supported", "make_streamed_T_log"]
+
+# Kernel launches per pass since the last reset (the wrappers add one per
+# launch; the plain versions never count).
+LAUNCHES = {"pass_b": 0, "pass_c": 0}
+
+_MODES = {"fast": 0, "lse": 1}
+# Shared memory one block may use on sm_90 (227 KB).
+SMEM_LIMIT = 232_448
+_PASS_C_TILES = (32, 16, 8, 4, 2, 1)
+
+
+def pass_b_smem_bytes(I: int, J: int) -> int:
+    """Shared memory of one pass-B block (mirrors the .cu layout: the
+    first buffer also holds two 16-row K-tiles of W_c2, the second pads
+    its rows to a multiple of 4)."""
+    up4 = lambda n: -(-n // 4) * 4
+    return 4 * (up4(max(I * J, 32 * J)) + I * up4(J) + max(I, J) + 32)
+
+
+def pass_c_tile(R: int, K: int) -> Optional[int]:
+    """Columns per pass-C block: the widest tile whose (R, TC) working set
+    (two buffers plus the lse shifts) fits one block's shared memory, or
+    None when not even one column fits."""
+    for tc in _PASS_C_TILES:
+        if 4 * (2 * R * tc + K * tc + tc) <= SMEM_LIMIT:
+            return tc
+    return None
+
+
+def streamed_supported(ops: TwoPhaseOperands) -> bool:
+    """True when the kernels cover this operand set: shared factors, no
+    baseline corrections, and both passes' blocks fit shared memory."""
+    n_r1, n_r2, n_c1, n_c2 = ops.shapes
+    return (ops.is_plain
+            and pass_b_smem_bytes(n_c1, n_c2) <= SMEM_LIMIT
+            and pass_c_tile(n_r1 * n_r2, n_r2) is not None)
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r} (choose 'fast' or 'lse')")
+
+
+# --------------------------------------------------------------- pass B
+
+def pass_b_plain(ell, W_c1, W_c2t, theta: float, mode: str):
+    """Column phase of ``ell`` (R, I, J): contract i' with ``W_c1`` (I, I),
+    then j' with ``W_c2t`` (J', J) = W_c2 transposed.
+
+    fast: returns (mid, s) with s (R, 1) = max over the row's (I, J) of
+    a = theta*ell and mid = W_c1 exp(a - s) W_c2^T (linear).
+    lse:  returns the log-domain mid with per-axis shifts.
+    """
+    _check_mode(mode)
+    a = theta * ell
+    if mode == "fast":
+        s = torch.amax(a, dim=(1, 2), keepdim=True)
+        u = torch.matmul(W_c1, torch.exp(a - s))
+        return torch.matmul(u, W_c2t), s.reshape(-1, 1)
+    m = torch.amax(a, dim=1, keepdim=True)
+    a = m + torch.log(torch.matmul(W_c1, torch.exp(a - m)))
+    m = torch.amax(a, dim=2, keepdim=True)
+    return m + torch.log(torch.matmul(torch.exp(a - m), W_c2t))
+
+
+def _lib():
+    lib = _build.load("streamed_two_phase")
+    if not getattr(lib, "_sdfs_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sdfs_pass_b.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
+        lib.sdfs_pass_b.restype = i
+        lib.sdfs_pass_c.argtypes = [p, p, p, p, p, p, p, p,
+                                    i, i, i, i, f, f, i, p]
+        lib.sdfs_pass_c.restype = i
+        lib.sdfs_error_string.argtypes = [i]
+        lib.sdfs_error_string.restype = ctypes.c_char_p
+        lib._sdfs_typed = True
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, device, shape) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.sdfs_error_string(rc).decode()} ({rc})")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _pass_b_cuda(ell, W_c1, W_c2t, theta, mode):
+    R, I, J = ell.shape
+    dev = ell.device
+    _check("ell", ell, dev, (R, I, J))
+    _check("W_c1", W_c1, dev, (I, I))
+    _check("W_c2t", W_c2t, dev, (J, J))
+    if pass_b_smem_bytes(I, J) > SMEM_LIMIT:
+        raise ValueError(f"pass B block (I, J) = ({I}, {J}) exceeds "
+                         "shared memory")
+    mid = torch.empty_like(ell)
+    s = (torch.empty((R, 1), dtype=torch.float32, device=dev)
+         if mode == "fast" else None)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdfs_pass_b(_ptr(ell), _ptr(W_c1), _ptr(W_c2t), _ptr(mid),
+                             _ptr(s), R, I, J, float(theta), _MODES[mode],
+                             ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "pass B")
+    LAUNCHES["pass_b"] += 1
+    return (mid, s) if mode == "fast" else mid
+
+
+def pass_b(ell, W_c1, W_c2t, theta: float, mode: str):
+    """Pass B on the tensors' device: the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (same arguments and results as
+    :func:`pass_b_plain`)."""
+    _check_mode(mode)
+    if ell.device.type == "cpu":
+        return pass_b_plain(ell, W_c1, W_c2t, theta, mode)
+    if ell.device.type == "cuda":
+        return _pass_b_cuda(ell, W_c1, W_c2t, theta, mode)
+    raise ValueError(f"no pass-B kernel for device {ell.device}")
+
+
+# --------------------------------------------------------------- pass C
+
+def pass_c_plain(mid, scale, S, W_r1, W_r2, add_row, add_col,
+                 theta: float, beta: float, mode: str):
+    """Row phase of ``mid`` (R, C), R = L*K: contract l' with ``W_r1``
+    (L, L), then k' with ``W_r2`` (K, K), add ``add_row`` (L, K) and
+    ``add_col`` (C,), and apply the epilogue log1p(beta*exp(lh/theta)).
+
+    fast: ``mid`` is linear; row r is rescaled by ``scale`` (R, 1) =
+    exp(s - S) first and ``S`` (1,) is added back after the log.
+    lse:  ``mid`` is log-domain; ``scale`` and ``S`` are unused (None).
+    """
+    _check_mode(mode)
+    L, K = W_r1.shape[0], W_r2.shape[0]
+    R, C = mid.shape
+    if mode == "fast":
+        v = torch.matmul(W_r1, (mid * scale).reshape(L, K * C))
+        v = torch.matmul(W_r2, v.reshape(L, K, C))
+        lh = torch.log(v) + S
+    else:
+        v = mid.reshape(L, K, C)
+        m1 = torch.amax(v, dim=0, keepdim=True)               # (1, K, C)
+        u = torch.matmul(W_r1, torch.exp(v - m1).reshape(L, K * C))
+        m2 = torch.amax(m1, dim=1, keepdim=True)              # (1, 1, C)
+        u = u.reshape(L, K, C) * torch.exp(m1 - m2)
+        lh = torch.log(torch.matmul(W_r2, u)) + m2
+    lh = lh + add_row[:, :, None] + add_col[None, None, :]
+    return torch.log1p(beta * torch.exp(lh / theta)).reshape(R, C)
+
+
+def _pass_c_cuda(mid, scale, S, W_r1, W_r2, add_row, add_col, theta, beta,
+                 mode):
+    R, C = mid.shape
+    L, K = W_r1.shape[0], W_r2.shape[0]
+    dev = mid.device
+    _check("mid", mid, dev, (R, C))
+    _check("W_r1", W_r1, dev, (L, L))
+    _check("W_r2", W_r2, dev, (K, K))
+    _check("add_row", add_row, dev, (L, K))
+    _check("add_col", add_col, dev, (C,))
+    if L * K != R:
+        raise ValueError(f"mid has {R} rows, W_r1/W_r2 give {L}*{K}")
+    if mode == "fast":
+        _check("scale", scale, dev, (R, 1))
+        _check("S", S, dev, (1,))
+    TC = pass_c_tile(R, K)
+    if TC is None:
+        raise ValueError(f"pass C with {R} rows exceeds shared memory")
+    out = torch.empty_like(mid)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdfs_pass_c(_ptr(mid), _ptr(scale), _ptr(S), _ptr(W_r1),
+                             _ptr(W_r2), _ptr(add_row), _ptr(add_col),
+                             _ptr(out), L, K, C, TC, float(theta),
+                             float(beta), _MODES[mode],
+                             ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "pass C")
+    LAUNCHES["pass_c"] += 1
+    return out
+
+
+def pass_c(mid, scale, S, W_r1, W_r2, add_row, add_col, theta: float,
+           beta: float, mode: str):
+    """Pass C on the tensors' device: the plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors (same arguments and result as
+    :func:`pass_c_plain`)."""
+    _check_mode(mode)
+    if mid.device.type == "cpu":
+        return pass_c_plain(mid, scale, S, W_r1, W_r2, add_row, add_col,
+                            theta, beta, mode)
+    if mid.device.type == "cuda":
+        return _pass_c_cuda(mid, scale, S, W_r1, W_r2, add_row, add_col,
+                            theta, beta, mode)
+    raise ValueError(f"no pass-C kernel for device {mid.device}")
+
+
+# ------------------------------------------------------------- operator
+
+def make_streamed_T_log(ops: TwoPhaseOperands,
+                        dtype: torch.dtype = torch.float32,
+                        mode: str = "auto", *, device) -> Callable:
+    """Streamed two-pass operator ell (4-D field) -> log T(w) from a plain
+    two-phase operand set.
+
+    mode "fast": one shift per field row (exact whenever the iterate's
+    theta-range within a row fits exp's f32 range — plain SSY operands);
+    "lse": per-axis log-sum-exp shifts; "auto" picks "fast".
+
+    The returned ``T`` carries ``T.twin`` (the eager evaluator of the same
+    math, :func:`..operators.two_phase.make_eager_two_phase_T`) and
+    ``T.mode``.  Its forward-mode derivative (``torch.func.jvp``) is the
+    twin's tangent at the same point.
+    """
+    if dtype != torch.float32:
+        raise ValueError("the streamed kernels are the float32 tier")
+    if not streamed_supported(ops):
+        raise NotImplementedError(
+            "operand set not covered by the streamed kernels (batched "
+            "factors, baseline corrections, or blocks beyond shared "
+            f"memory at shapes {ops.shapes}); see ROADMAP queue B")
+    if mode == "auto":
+        mode = "fast"
+    _check_mode(mode)
+    dev = resolve_device(device)
+    L, K, I, J = ops.shapes
+    R, C = L * K, I * J
+    theta, beta = float(ops.theta), float(ops.beta)
+    cast = lambda a: torch.as_tensor(np.ascontiguousarray(
+        a, np.float64)).to(device=dev, dtype=dtype)
+    W_c1 = cast(ops.W_c1)
+    W_c2t = cast(np.asarray(ops.W_c2).T)
+    W_r1, W_r2 = cast(ops.W_r1), cast(ops.W_r2)
+    add_row = cast(ops.add_row)
+    add_col = cast(np.asarray(ops.add_col).reshape(C))
+    twin = make_eager_two_phase_T(ops, dtype, device=dev)
+
+    def primal(ell):
+        e = ell.to(dtype).reshape(R, I, J).contiguous()
+        if mode == "fast":
+            mid, s = pass_b(e, W_c1, W_c2t, theta, "fast")
+            S = torch.amax(s).reshape(1)
+            scale = torch.exp(s - S)
+            out = pass_c(mid.reshape(R, C), scale, S, W_r1, W_r2, add_row,
+                         add_col, theta, beta, "fast")
+        else:
+            mid = pass_b(e, W_c1, W_c2t, theta, "lse")
+            out = pass_c(mid.reshape(R, C), None, None, W_r1, W_r2,
+                         add_row, add_col, theta, beta, "lse")
+        return out.reshape(ops.shapes)
+
+    class _StreamedT(torch.autograd.Function):
+        @staticmethod
+        def forward(ell):
+            return primal(ell)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_forward(inputs[0])
+
+        @staticmethod
+        def jvp(ctx, dell):
+            (ell,) = ctx.saved_tensors
+            return torch.func.jvp(twin, (ell,), (dell,))[1]
+
+    def T(ell):
+        return _StreamedT.apply(ell)
+
+    T.twin = twin
+    T.mode = mode
+    return T

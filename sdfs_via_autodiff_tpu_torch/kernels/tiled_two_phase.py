@@ -1,0 +1,69 @@
+"""Tiled fast tier of the two-phase log-space operators.
+
+PyTorch port of the dispatch in
+``sdfs_via_autodiff_tpu/kernels/tiled_two_phase.py``: ``make_tiled_T_log``
+runs an operand set through the streamed kernels
+(:mod:`.streamed_two_phase`).  The JAX package's strip tier, which covers
+the operand sets the streamed kernels decline under the TPU compiler's
+layout rules, is not ported (ROADMAP queue B item 9): an uncovered
+operand set raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..operators.two_phase import TwoPhaseOperands, two_phase_operands_ssy
+from .streamed_two_phase import make_streamed_T_log, streamed_supported
+
+__all__ = ["TPU_ONLY_OPTIONS", "reject_tpu_options", "make_tiled_T_log",
+           "make_tiled_T_log_ssy"]
+
+# Options of the JAX tiled tier that exist only for the TPU (bf16 "3x"
+# contraction splits, software transcendentals, VMEM budgets, tier
+# selection, interpret mode).  ROADMAP "Do not port" lists why.
+TPU_ONLY_OPTIONS = ("precision", "transcendentals", "strip_bytes",
+                    "lazy_bytes", "engine", "twin_precision", "interpret")
+
+
+def reject_tpu_options(options: dict) -> None:
+    """Raise on any keyword argument of the tiled tier the port lacks."""
+    tpu = sorted(k for k in options if k in TPU_ONLY_OPTIONS)
+    if tpu:
+        raise ValueError(
+            f"{', '.join(tpu)}: TPU-only option(s) of the JAX tiled tier, "
+            "not ported (ROADMAP 'Do not port'); the CUDA kernels run full "
+            "FP32 contractions with CUDA's expf/logf")
+    if options:
+        raise TypeError(f"unexpected keyword argument(s): "
+                        f"{', '.join(sorted(options))}")
+
+
+def make_tiled_T_log(ops: TwoPhaseOperands,
+                     dtype: torch.dtype = torch.float32,
+                     mode: str = "auto", *, device,
+                     **tpu_options) -> Callable:
+    """Tiled two-pass operator from a two-phase operand set: the streamed
+    kernels when they cover ``ops``, else ``NotImplementedError``."""
+    reject_tpu_options(tpu_options)
+    if dtype != torch.float32:
+        raise ValueError("the tiled kernels are the float32 tier; use the "
+                         "eager operators for float64")
+    if not streamed_supported(ops):
+        raise NotImplementedError(
+            f"operand set with shapes {ops.shapes} is not covered by the "
+            "streamed kernels, and the strip tier is not ported (ROADMAP "
+            "queue B item 9)")
+    return make_streamed_T_log(ops, dtype, mode, device=device)
+
+
+def make_tiled_T_log_ssy(model, disc, baseline=None,
+                         dtype: torch.dtype = torch.float32,
+                         mode: str = "auto", *, device,
+                         **tpu_options) -> Callable:
+    """Tiled two-pass log-space T for the discrete SSY operator."""
+    reject_tpu_options(tpu_options)
+    return make_tiled_T_log(two_phase_operands_ssy(model, disc, baseline),
+                            dtype, mode, device=device)

@@ -1,0 +1,171 @@
+"""Successive approximation and Newton–Kantorovich fixed-point solvers.
+
+PyTorch port of ``solvers/fixed_point.py``.  The JAX package runs each
+solve as one device ``lax.while_loop``.  Here the loop is Python, and it
+reads its stop condition on the host once every
+:data:`~.krylov.SYNC_EVERY` iterations; inside a chunk each iteration
+evaluates the condition on the device and ``torch.where`` freezes the
+state once it fails, so the returned iterate, iteration count and
+residual equal those of a check after every iteration.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+
+from .krylov import SYNC_EVERY, bicgstab_mixed
+from .result import SolveResult
+
+DEFAULT_TOL = 1e-7
+DEFAULT_MAX_ITER = 1_000_000
+
+__all__ = ["successive_approx", "newton_solver", "DEFAULT_TOL",
+           "DEFAULT_MAX_ITER"]
+
+
+STALL_ITERS = 200     # consecutive non-improving iterations before giving up
+STALL_RTOL = 1e-5     # relative residual decrease that counts as progress
+
+
+def _sup(v):
+    return torch.amax(torch.abs(v))
+
+
+def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
+             stall_iters: int = STALL_ITERS,
+             final_residual: Optional[Callable] = None) -> SolveResult:
+    """Run ``x <- step(x, running)`` until sup-norm convergence.
+
+    ``running`` is a 0-d device bool: False for the iterations a chunk
+    runs after the stop condition failed, whose results are discarded —
+    a step may use it to skip work.  The loop stops on convergence, at
+    ``max_iter``, on a NON-FINITE step (keeping the last finite iterate
+    and its error), and on a residual plateau: ``stall_iters``
+    consecutive iterations without a relative improvement of at least
+    ``STALL_RTOL`` over the best residual seen.  ``final_residual``
+    replaces the step size as the reported residual (Newton: the true
+    fixed-point residual).
+    """
+    dtype, dev = x0.dtype, x0.device
+    big = torch.tensor(math.inf, dtype=dtype, device=dev)
+    tol_t = torch.tensor(tol, dtype=dtype, device=dev)
+    x, err, best = x0, big, big
+    it = torch.zeros((), dtype=torch.int64, device=dev)
+    since = torch.zeros((), dtype=torch.int64, device=dev)
+    alive = torch.ones((), dtype=torch.bool, device=dev)
+
+    def cond():
+        return ((err > tol_t) & (it < max_iter) & alive
+                & (since < stall_iters))
+
+    while bool(cond()):                        # one host read per chunk
+        if verbose:
+            print(f"iter = {int(it)}, error = {float(err)}")
+        for _ in range(SYNC_EVERY):
+            run = cond()
+            x_new = step(x, run)
+            err_new = _sup(x_new - x)
+            ok = torch.isfinite(err_new)
+            improved = err_new < best * (1.0 - STALL_RTOL)
+            keep = run & ok
+            x = torch.where(keep, x_new, x)
+            err = torch.where(keep, err_new, err)
+            since = torch.where(run, torch.where(ok & improved, 0, since + 1),
+                                since)
+            best = torch.where(keep, torch.minimum(best, err_new), best)
+            alive = torch.where(run, ok, alive)
+            it = it + run.to(torch.int64)
+    if final_residual is not None:
+        # The loop's error is the STEP size; for composite steps (Newton)
+        # a degenerate inner solve can return a zero step far from the
+        # solution, so report the actual fixed-point residual instead.
+        err = final_residual(x)
+    converged = bool((err <= tol_t) & ~torch.isnan(err))
+    return SolveResult(x=x, iterations=int(it), residual=float(err),
+                       converged=converged)
+
+
+def successive_approx(T: Callable,
+                      x0,
+                      tol: float = DEFAULT_TOL,
+                      max_iter: int = DEFAULT_MAX_ITER,
+                      *,
+                      verbose: bool = False,
+                      stall_iters: int = STALL_ITERS) -> SolveResult:
+    """Successive approximation x <- T(x) to a sup-norm fixed point, with
+    the residual plateau guard (see :func:`_iterate`)."""
+    return _iterate(lambda x, running: T(x), x0, tol, max_iter,
+                    verbose=verbose, stall_iters=stall_iters)
+
+
+def newton_solver(T: Callable,
+                  x0,
+                  tol: float = DEFAULT_TOL,
+                  max_iter: int = DEFAULT_MAX_ITER,
+                  *,
+                  inner: str = "bicgstab",
+                  inner_tol: float = 1e-4,
+                  inner_maxiter: Optional[int] = 50,
+                  safeguard: bool = True,
+                  verbose: bool = False,
+                  stall_iters: int = 30) -> SolveResult:
+    """Newton–Kantorovich iteration for a fixed point of T.
+
+    Iterates ``q(x) = x - J(x)^{-1} g(x)`` for ``g(x) = T(x) - x``; the
+    Jacobian is never materialized.  ``g(x)`` comes from ``T`` (the
+    kernels, for the tiled tier); the inner matvecs ``v -> J(x) v`` come
+    from a linearization of ``T.twin`` when ``T`` has one (the eager
+    evaluator of the same math — what the JAX package's custom JVP
+    routes ``jax.linearize`` to), else of ``T``, through
+    ``torch.func.jvp``, and are solved by :func:`.krylov.bicgstab_mixed`.
+
+    The inner tolerance is *relative* to ||g(x)|| (an inexact-Newton
+    forcing term): with an absolute tolerance, any iterate with ||g(x)||
+    below it makes the zero vector an acceptable Krylov solution and the
+    outer loop reports convergence at a spurious point.
+    ``inner_maxiter=None`` means ``10 * x0.numel()``.
+
+    ``safeguard=True`` rejects a Newton candidate whose residual is
+    non-finite or grew by more than 10x in favour of a plain fixed-point
+    step T(x) (free — g(x) is already computed).  With
+    ``safeguard=False`` a non-finite candidate poisons the iterate so the
+    outer NaN guard stops with ``converged=False``.
+    """
+    if inner != "bicgstab":
+        raise NotImplementedError(
+            f"inner={inner!r}: only 'bicgstab' is ported; 'gmres' and "
+            "'dense' come with the rest of ROADMAP queue A item 3")
+    g = lambda x: T(x) - x
+    lin = getattr(T, "twin", T)
+    maxiter = (inner_maxiter if inner_maxiter is not None
+               else 10 * x0.numel())
+    inf = torch.tensor(math.inf, dtype=torch.float64, device=x0.device)
+
+    def q(x, running):
+        gx = g(x)
+        # A jvp per matvec, not torch.func.linearize: linearize traces the
+        # chain with make_fx on every Newton step, a host cost larger
+        # than the primal it saves (PERF.md, "Newton's tangent").
+        jac_prod = lambda v: torch.func.jvp(lambda y: lin(y) - y,
+                                            (x,), (v,))[1]
+        # A frozen step (after the stop condition failed inside a chunk)
+        # skips the Krylov solve: atol = inf stops it before any matvec.
+        atol = torch.where(running, (inner_tol * torch.linalg.vector_norm(
+            gx.reshape(-1))).to(torch.float64), inf)
+        b, _ = bicgstab_mixed(jac_prod, gx, atol=atol, maxiter=maxiter)
+        x_new = x - b.to(x.dtype)
+        bad = ~torch.all(torch.isfinite(gx)) | ~torch.all(
+            torch.isfinite(x_new))
+        if safeguard:
+            g_cand = g(x_new)
+            grew = _sup(g_cand) > 10.0 * _sup(gx)
+            bad = bad | ~torch.all(torch.isfinite(g_cand)) | grew
+            return torch.where(bad, x + gx, x_new)
+        return torch.where(bad, torch.full_like(x_new, math.nan), x_new)
+
+    return _iterate(q, x0, tol, max_iter, verbose=verbose,
+                    stall_iters=stall_iters,
+                    final_residual=lambda x: _sup(g(x)))

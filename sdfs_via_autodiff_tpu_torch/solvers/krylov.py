@@ -1,0 +1,119 @@
+"""Matrix-free BiCGStab with float64 reductions (port of ``solvers/krylov.py``).
+
+Every VECTOR stays in the iterate dtype (float32 matvecs and state — the
+expensive part) while every REDUCTION and recurrence scalar is float64: at
+10^7-point grids a float32 dot product carries O(sqrt(N) * eps) ~ 1e-4
+relative noise, which BiCGStab's scalar ratios amplify until rho/omega
+collapse and the inner solve returns a zero step.
+
+The JAX loop is one device ``lax.while_loop``.  Here the loop is Python,
+and it reads its stop condition on the host once every
+:data:`SYNC_EVERY` iterations: inside a chunk each iteration evaluates
+the condition on the device and, once it fails, ``torch.where`` freezes
+the state, so the result and the iteration count equal those of a check
+after every iteration.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+__all__ = ["SYNC_EVERY", "bicgstab_mixed"]
+
+# Iterations between host reads of a solver loop's stop condition (also
+# used by ``fixed_point._iterate``).
+SYNC_EVERY = 8
+
+
+def _dot64(a, b):
+    """<a, b> accumulated in float64."""
+    return torch.dot(a.to(torch.float64), b.to(torch.float64))
+
+
+def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
+                   maxiter: Optional[int] = 50,
+                   x0=None) -> Tuple[torch.Tensor, int]:
+    """Solve ``A x = b`` (A = ``matvec``) by BiCGStab with float64
+    recurrence scalars over iterate-dtype vectors.
+
+    Returns ``(x, iterations)``.  ``atol`` (a float or a 0-d tensor, which
+    may be ``inf`` to skip the solve) is the absolute target on
+    ||b - A x||_2, evaluated on the recursive residual.  ``maxiter`` must
+    bound the loop (None is rejected).
+    """
+    if maxiter is None:
+        raise ValueError("bicgstab_mixed requires an explicit maxiter")
+    vdtype = b.dtype
+    shape = b.shape
+    dev = b.device
+    f64 = torch.float64
+    down = lambda s: s.to(vdtype)
+
+    bf = b.reshape(-1)
+    if x0 is None:
+        x = torch.zeros_like(bf)
+        r = bf
+    else:
+        x = x0.to(vdtype).reshape(-1)
+        r = bf - matvec(x0).reshape(-1)
+    r_hat = r                                  # shadow residual (fixed)
+    one = torch.ones((), dtype=f64, device=dev)
+    atol2 = torch.as_tensor(atol, dtype=f64, device=dev) ** 2
+    # Breakdown floors, relative to the initial residual scale.
+    rho0 = _dot64(r, r)
+    tiny = torch.clamp(rho0, min=1.0) * 1e-28
+
+    def cond(state):
+        _, r, _, _, _, _, _, it, ok = state
+        rnorm2 = _dot64(r, r)
+        return ((rnorm2 > atol2) & (it < maxiter) & ok
+                & torch.isfinite(rnorm2))
+
+    def body(state):
+        x, r, p, v, rho, alpha, omega, it, ok = state
+        rho_new = _dot64(r_hat, r)
+        beta = (rho_new / rho) * (alpha / omega)
+        p_new = r + down(beta) * (p - down(omega) * v)
+        v_new = matvec(p_new.reshape(shape)).reshape(-1)
+        rv = _dot64(r_hat, v_new)
+        alpha_new = rho_new / rv
+        s = r - down(alpha_new) * v_new
+        x_half = x + down(alpha_new) * p_new
+        t = matvec(s.reshape(shape)).reshape(-1)
+        tt = _dot64(t, t)
+        omega_new = _dot64(t, s) / tt
+        x_full = x_half + down(omega_new) * s
+        r_full = s - down(omega_new) * t
+        # Three-way outcome, in priority order:
+        # (1) the alpha scalars are degenerate -> freeze at the pre-step
+        #     state and stop;
+        # (2) the half step already converged, or the omega scalars are
+        #     degenerate -> take the half step, whose residual s is
+        #     well-defined, and stop;
+        # (3) healthy -> full BiCGStab update.
+        bad_a = ((rho_new.abs() <= tiny) | (rv.abs() <= tiny)
+                 | ~torch.isfinite(beta) | ~torch.isfinite(alpha_new))
+        half = ((_dot64(s, s) <= atol2) | (tt <= tiny)
+                | ~torch.isfinite(omega_new))
+
+        def pick(full_, half_, old):
+            return torch.where(bad_a, old, torch.where(half, half_, full_))
+        return (pick(x_full, x_half, x), pick(r_full, s, r),
+                pick(p_new, p_new, p), pick(v_new, v_new, v),
+                pick(rho_new, rho_new, rho),
+                pick(alpha_new, alpha_new, alpha),
+                pick(omega_new, omega, omega),
+                it + 1, ~(bad_a | half))
+
+    z = torch.zeros_like(bf)
+    state = (x, r, z, z, one, one, one,
+             torch.zeros((), dtype=torch.int64, device=dev),
+             torch.ones((), dtype=torch.bool, device=dev))
+    while bool(cond(state)):                   # one host read per chunk
+        for _ in range(SYNC_EVERY):
+            run = cond(state)
+            state = tuple(torch.where(run, new, old)
+                          for new, old in zip(body(state), state))
+    return state[0].reshape(shape), int(state[7])

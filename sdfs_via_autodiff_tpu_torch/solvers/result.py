@@ -1,0 +1,36 @@
+"""Solver result structure (port of ``solvers/result.py``).
+
+Every solver returns a :class:`SolveResult` carrying the solution, the
+iteration count, the final residual and a convergence flag.  The loop
+has synchronised with the host by the time it returns, so the scalars
+are plain Python numbers; the iterate stays on its device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class SolveResult:
+    """Outcome of a fixed-point solve.
+
+    Attributes
+    ----------
+    x:          the final iterate (a tensor on the solve's device)
+    iterations: number of operator applications of the *outer* loop
+    residual:   final sup-norm error
+    converged:  residual <= tol and no NaN/divergence guard tripped
+    """
+
+    x: torch.Tensor
+    iterations: int
+    residual: float
+    converged: bool
+
+    def __repr__(self) -> str:
+        return (f"SolveResult(iterations={self.iterations}, "
+                f"residual={self.residual:.3e}, "
+                f"converged={self.converged})")

@@ -1,0 +1,84 @@
+"""PyTorch port: copied modules, no JAX at runtime, interop, device policy."""
+
+import dataclasses
+import filecmp
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import sdfs_via_autodiff_tpu as J
+import sdfs_via_autodiff_tpu_torch as P
+from sdfs_via_autodiff_tpu.operators.two_phase import (
+    two_phase_operands_ssy as jax_operands_ssy)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "sdfs_via_autodiff_tpu_torch"
+
+
+@pytest.mark.parametrize("rel", ["models/ssy.py", "ops/rouwenhorst.py",
+                                 "ops/tauchen.py"])
+def test_numpy_modules_are_identical_copies(rel):
+    assert filecmp.cmp(ROOT / "sdfs_via_autodiff_tpu" / rel, PORT / rel,
+                       shallow=False)
+
+
+def test_no_module_imports_jax():
+    offenders = [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
+                 if any(line.strip().startswith(("import jax", "from jax"))
+                        for line in p.read_text().splitlines())]
+    assert offenders == []
+
+
+def test_imports_and_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sdfs_via_autodiff_tpu'] = None\n"
+        "import torch, sdfs_via_autodiff_tpu_torch as p\n"
+        "m = p.SSY()\n"
+        "d = p.discretize_ssy(m, (3, 3, 3, 4))\n"
+        "T = p.T_ssy_factory(m, d, space='log', device='cpu')\n"
+        "out = T(torch.full((3, 3, 3, 4), 6.0, dtype=torch.float64))\n"
+        "assert bool(torch.isfinite(out).all())\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_model_from_fields_round_trip():
+    jm = J.SSY(beta=0.998, gamma=9.5)
+    pm = P.model_from_fields(dataclasses.asdict(jm))
+    assert dataclasses.asdict(pm) == dataclasses.asdict(jm)
+    assert pm.theta == jm.theta
+    with pytest.raises(ValueError, match="no field"):
+        P.model_from_fields({"beta": 0.9, "kappa": 1.0})
+
+
+def test_operands_from_numpy_round_trip():
+    jm = J.SSY()
+    jops = jax_operands_ssy(jm, J.discretize_ssy(jm, (3, 4, 5, 6)))
+    pops = P.operands_from_numpy(dataclasses.asdict(jops))
+    assert pops.shapes == jops.shapes and pops.is_plain
+    for f in dataclasses.fields(jops):
+        a, b = getattr(jops, f.name), getattr(pops, f.name)
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b
+
+
+def test_cuda_request_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    m = P.SSY()
+    d = P.discretize_ssy(m, (3, 3, 3, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        P.T_ssy_factory(m, d, space="log", device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        P.wc_ratio_discrete(m, (3, 3, 3, 4), device="cuda")

@@ -1,0 +1,61 @@
+"""The port's main path end to end on the CPU, against the JAX package.
+
+``wc_ratio_discrete(SSY(), (4,8,6,64), kernel="tiled", device="cpu")``
+runs the float32 streamed operator (its plain PyTorch versions on CPU
+tensors) under Newton and must reach the JAX float64 fixed point to
+2e-4 on log w — the bound of the JAX package's own
+``test_solve_through_streamed``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import sdfs_via_autodiff_tpu as J
+import sdfs_via_autodiff_tpu_torch as P
+
+SHAPES = (4, 8, 6, 64)
+
+
+def test_tiled_newton_slice_matches_jax_f64():
+    got = P.wc_ratio_discrete(P.SSY(), SHAPES, kernel="tiled", tol=2e-5,
+                              device="cpu")
+    assert got.converged
+    assert got.w_star.dtype == torch.float32
+    assert got.result.residual <= 2e-5
+    want = J.wc_ratio_discrete(J.SSY(), SHAPES, tol=1e-11)
+    np.testing.assert_allclose(torch.log(got.w_star).double().numpy(),
+                               np.log(np.asarray(want.w_star)),
+                               rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"polish": True}, "polish"),
+    ({"baseline": "loglinear"}, "baseline"),
+    ({"checkpoint_path": "w.npz"}, "checkpoint_path"),
+])
+def test_later_slices_raise_not_implemented(kwargs, match):
+    with pytest.raises(NotImplementedError, match=match):
+        P.wc_ratio_discrete(P.SSY(), SHAPES, kernel="tiled", device="cpu",
+                            **kwargs)
+
+
+def test_unsupported_model_and_options():
+    with pytest.raises(NotImplementedError, match="GCY"):
+        P.wc_ratio_discrete(J.GCY(), SHAPES, device="cpu")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        P.wc_ratio_discrete(P.SSY(), SHAPES, kernel="fused", device="cpu")
+    with pytest.raises(ValueError, match="log space"):
+        P.wc_ratio_discrete(P.SSY(), SHAPES, kernel="tiled", space="w",
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="inner"):
+        P.wc_ratio_discrete(P.SSY(), (3, 3, 3, 4), inner="gmres",
+                            device="cpu")
+
+
+def test_f32_tol_floor_matches_jax_and_warns():
+    for theta in (None, -16.0, -36.0, P.SSY().theta):
+        assert P.f32_tol_floor(theta) == J.drivers.f32_tol_floor(theta)
+    with pytest.warns(UserWarning, match="float32 iteration floor"):
+        P.wc_ratio_discrete(P.SSY(), (3, 3, 3, 4), kernel="tiled",
+                            tol=1e-6, max_iter=1, device="cpu")
