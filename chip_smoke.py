@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's two paths once on one NVIDIA GPU and check them.
 
 Run from the repository root on a machine with a CUDA GPU, ``nvcc`` and
 PyTorch built for CUDA:
@@ -10,18 +10,31 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device facts (name, power limit, toolchain); full-FP32 matmuls;
 2. build the CUDA kernels from ``kernels/csrc/streamed_two_phase.cu``;
-3. each kernel against its plain PyTorch version on the card, both modes,
-   at (4,8,6,64), (56,56,56,64) Rouwenhorst and (32,32,32,384) Tauchen;
-4. one operator application against the float64 operator on the card;
-5. the main path: a float32 Newton solve through the kernels at the
+3. SSY: pass B and pass C against their plain PyTorch versions on the
+   card, both modes, at (4,8,6,64), (56,56,56,64) Rouwenhorst and
+   (32,32,32,384) Tauchen;
+4. SSY: one operator application against the float64 operator on the
+   card;
+5. the SSY path: a float32 Newton solve through the kernels at the
    12.6M-point (32,32,32,384) Tauchen grid, checked against the float64
    operator, with the kernels' launch counts;
-6. a second (warm) solve's seconds, and ms per application, kernels vs
-   the plain eager twin (CUDA events);
-7. a JSON line of per-kernel facts, then the result line
-   ``{"ok": true, "device": {...}}``.
+6. SSY: a second (warm) solve's seconds, and ms per application,
+   kernels vs the plain eager twin (CUDA events);
+7. GCY: the deferred pass B and pass C against their plain versions at
+   a ragged view (2,4,56,258) and at the 25.2M-point grid's
+   (12,16,512,256); one application of the GCY operator at
+   (32,16,16,12,16,16) Tauchen against the float64 operator;
+8. the GCY path: a float32 Newton solve through the deferred kernels at
+   (32,16,16,12,16,16) Tauchen from the log-linear warm start, checked
+   against the float64 operator, with the launch counts, the outer and
+   BiCGStab iterations and the seconds;
+9. GCY: ms per application, kernels vs the eager twin, ms per tangent
+   matvec, and each deferred kernel vs its plain version;
+10. a JSON line of per-kernel facts, then the result line
+    ``{"ok": true, "device": {...}}``.
 
-The port never imports JAX, and neither does this script.
+Each path runs with every launch count set to 0 just before it and read
+just after.  The port never imports JAX, and neither does this script.
 """
 
 from __future__ import annotations
@@ -49,9 +62,18 @@ KERNEL_RTOL_LINEAR = 5e-6
 OPERATOR_ATOL = 5e-6        # one application vs float64
 MAIN_TOL = 2e-5             # f32 Newton tolerance (above f32_tol_floor)
 MAIN_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
+# GCY: the NORTHSTAR gcy_discrete_tauchen grid (25,165,824 states, view
+# (12,16,512,256)) and a ragged view (2,4,56,258) for the kernel checks.
+GCY_SHAPES, GCY_METHOD = (32, 16, 16, 12, 16, 16), "tauchen"
+GCY_RAGGED = (7, 8, 43, 2, 6, 4)
+GCY_F64_RESIDUAL = 5e-5     # max |T64(ell*) - ell*|
 SOURCE = "sdfs_via_autodiff_tpu_torch/kernels/csrc/streamed_two_phase.cu"
-REPLACES = {"pass_b": "sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py:324",
-            "pass_c": "sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py:446"}
+_JAX_KERNELS = "sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py"
+REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
+            "pass_c": f"{_JAX_KERNELS}:446",            # _c_kernel
+            "pass_b_deferred": f"{_JAX_KERNELS}:384",   # _b_kernel_deferred
+            "pass_c_deferred": f"{_JAX_KERNELS}:446"}   # _c_kernel, c2_deferred
+KERNELS = tuple(REPLACES)
 
 
 def fail(msg: str) -> None:
@@ -86,6 +108,130 @@ def time_ms(torch, fn, x, n=50, runs=3):
         stop.synchronize()
         times.append(start.elapsed_time(stop) / n)
     return statistics.median(times)
+
+
+def f32_cast(torch, dev):
+    return lambda a: torch.as_tensor(np.ascontiguousarray(
+        a, np.float64)).to(device=dev, dtype=torch.float32)
+
+
+def gcy_phases(torch, port, st, dev, smi):
+    """Phases 7-9 (GCY).  Returns the kernels' max abs errors vs plain,
+    the path's launch counts and (kernel ms, plain ms) per kernel."""
+    model = port.GCY()
+    cast = f32_cast(torch, dev)
+    eps32 = float(np.finfo(np.float32).eps)
+    max_err = {"pass_b_deferred": 0.0, "pass_c_deferred": 0.0}
+
+    # 7. Deferred kernels vs plain versions, and one application vs f64.
+    for shapes in (GCY_RAGGED, GCY_SHAPES):
+        disc = port.discretize_gcy(model, shapes, method=GCY_METHOD)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ops = port.two_phase_operands_gcy(model, disc)
+        for w in caught:
+            print(f"warning at GCY {shapes}: {w.message}")
+        L, K, I, J = ops.shapes
+        R, C = L * K, I * J
+        th, be = float(ops.theta), float(ops.beta)
+        W_c1t = cast(np.asarray(ops.W_c1).T)
+        c_args = (cast(np.asarray(ops.W_c2).T), cast(ops.W_r1),
+                  cast(ops.W_r2), cast(ops.add_row),
+                  cast(ops.add_col.reshape(C)), th, be)
+        ell = cast(noise_field((R, I, J), SEED))
+        got_b = st.pass_b_deferred(ell, W_c1t, th)
+        want_b = st.pass_b_deferred_plain(ell, W_c1t, th)
+        err_b = float((got_b - want_b).abs().max())
+        # Midway values near theta*log(800) ~ -241 (one ulp 1.5e-5): one
+        # float32 rounding of the value beside the 5e-6.
+        lim = KERNEL_ATOL + eps32 * want_b.abs()
+        check(bool(((got_b - want_b).abs() <= lim).all()),
+              f"pass_b_deferred {ops.shapes}: max abs err {err_b:.3e}")
+        mid = want_b.reshape(R, C)
+        got_c = st.pass_c_deferred(mid, *c_args)
+        want_c = st.pass_c_deferred_plain(mid, *c_args)
+        err_c = float((got_c - want_c).abs().max())
+        check(bool(torch.isfinite(got_c).all()) and err_c <= KERNEL_ATOL,
+              f"pass_c_deferred {ops.shapes}: max abs err {err_c:.3e}")
+        torch.cuda.synchronize()
+        print(f"pass_b_deferred {ops.shapes}: max abs err mid {err_b:.3e}; "
+              f"pass_c_deferred: max abs err out {err_c:.3e}")
+        max_err["pass_b_deferred"] = max(max_err["pass_b_deferred"], err_b)
+        max_err["pass_c_deferred"] = max(max_err["pass_c_deferred"], err_c)
+        del ell, got_b, want_b, mid, got_c, want_c
+    T = port.make_tiled_T_log_gcy(model, disc, device=dev)
+    check(T.engine == "streamed-deferred" and T.mode == "lse",
+          f"GCY {GCY_SHAPES} runs {T.engine}/{T.mode}, not the deferred "
+          "lse configuration")
+    T64 = port.T_gcy_factory(model, disc, space="log", device=dev)
+    ell64 = torch.as_tensor(noise_field(GCY_SHAPES, SEED), device=dev)
+    err = float((T(ell64.float()).double() - T64(ell64)).abs().max())
+    check(err <= OPERATOR_ATOL, f"GCY operator vs f64: {err:.3e}")
+    print(f"operator GCY {GCY_SHAPES} {GCY_METHOD}: one application vs f64 "
+          f"max abs err {err:.3e}")
+    del ell64
+
+    # 8. The GCY path.
+    tol = 1.2 * port.f32_tol_floor(model.theta)
+    torch.cuda.synchronize()
+    for k in st.LAUNCHES:
+        st.LAUNCHES[k] = 0
+    inner = []
+    t0 = time.perf_counter()
+    sol = port.wc_ratio_discrete(model, GCY_SHAPES, kernel="tiled",
+                                 discretization=GCY_METHOD,
+                                 algorithm="newton", tol=tol, device=dev,
+                                 inner_iterations=inner)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = dict(st.LAUNCHES)
+    res = sol.result
+    print(f"GCY path {GCY_SHAPES} {GCY_METHOD} newton tol {tol:.3e}: {res}, "
+          f"{solve_s:.3f} s ({smi}); BiCGStab iterations per step {inner} "
+          f"= {sum(inner)}; launches {launches}")
+    check(res.converged, f"GCY path did not converge: {res}")
+    check(all(launches[k] > 0 for k in ("pass_b_deferred",
+                                         "pass_c_deferred")),
+          f"a deferred kernel of the GCY path never launched: {launches}")
+    ell_star = torch.log(sol.w_star.double())
+    check(bool(torch.isfinite(ell_star).all())
+          and tuple(ell_star.shape) == GCY_SHAPES, "GCY w* not finite/shaped")
+    r64 = float((T64(ell_star) - ell_star).abs().max())
+    w = sol.w_star.double()
+    print(f"GCY path f64 residual max|T64(l*) - l*| = {r64:.3e}; "
+          f"w* in [{float(w.min()):.3f}, {float(w.max()):.3f}]")
+    check(r64 <= GCY_F64_RESIDUAL, f"GCY f64 residual {r64:.3e}")
+    del T64, sol, w, ell_star
+    torch.cuda.empty_cache()
+
+    # 9. Timing.
+    x = torch.as_tensor(noise_field(GCY_SHAPES, SEED), device=dev).float()
+    ms_k = time_ms(torch, T, x)
+    ms_p = time_ms(torch, T.twin, x)
+    ms_k2 = time_ms(torch, T, x)
+    ms_view = time_ms(torch, T.view_T, T.to_view(x).reshape(ops.shapes))
+    v = 0.01 * x
+    ms_jvp = time_ms(torch, lambda y: torch.func.jvp(
+        lambda z: T.twin(z) - z, (y,), (v,))[1], x, n=10)
+    print(f"timing GCY {GCY_SHAPES}: kernels {ms_k:.4f} / {ms_k2:.4f} ms per "
+          f"application (view layout {ms_view:.4f}), plain eager twin "
+          f"{ms_p:.4f} ms, tangent matvec (jvp of the twin) {ms_jvp:.4f} ms "
+          f"({smi})")
+    e = T.to_view(x).reshape(R, I, J).contiguous()
+    mid = st.pass_b_deferred_plain(e, W_c1t, th).reshape(R, C)
+    kernels_ms = {
+        "pass_b_deferred": (
+            time_ms(torch, lambda y: st.pass_b_deferred(y, W_c1t, th), e),
+            time_ms(torch, lambda y: st.pass_b_deferred_plain(y, W_c1t, th),
+                    e)),
+        "pass_c_deferred": (
+            time_ms(torch, lambda y: st.pass_c_deferred(y, *c_args), mid),
+            time_ms(torch, lambda y: st.pass_c_deferred_plain(y, *c_args),
+                    mid))}
+    for name, (k_ms, p_ms) in kernels_ms.items():
+        print(f"timing {name} {ops.shapes}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms")
+    return max_err, launches, kernels_ms
 
 
 def main() -> None:
@@ -146,8 +292,7 @@ def main() -> None:
             ops = port.two_phase_operands_ssy(model, disc)
         for w in caught:
             print(f"warning at {shapes} {method}: {w.message}")
-        cast = lambda a: torch.as_tensor(np.ascontiguousarray(
-            a, np.float64)).to(device=dev, dtype=torch.float32)
+        cast = f32_cast(torch, dev)
         W_c1, W_c2t = cast(ops.W_c1), cast(np.asarray(ops.W_c2).T)
         W_r1, W_r2 = cast(ops.W_r1), cast(ops.W_r2)
         add_row, add_col = cast(ops.add_row), cast(ops.add_col.reshape(C))
@@ -218,8 +363,8 @@ def main() -> None:
     print(f"main path {MAIN_SHAPES} {MAIN_METHOD} newton: {res}, "
           f"{solve_s:.3f} s, launches {launches}")
     check(res.converged, f"main path did not converge: {res}")
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
+    check(launches["pass_b"] > 0 and launches["pass_c"] > 0,
+          f"a kernel of the SSY path never launched: {launches}")
     disc = port.discretize_ssy(model, MAIN_SHAPES, method=MAIN_METHOD)
     T64 = port.T_ssy_factory(model, disc, space="log", device=dev)
     ell_star = torch.log(sol.w_star.double())
@@ -261,8 +406,7 @@ def main() -> None:
         if shapes == MAIN_SHAPES:
             L, K, I, J = shapes
             ops = port.two_phase_operands_ssy(model, disc)
-            cast = lambda a: torch.as_tensor(np.ascontiguousarray(
-                a, np.float64)).to(device=dev, dtype=torch.float32)
+            cast = f32_cast(torch, dev)
             W_c1, W_c2t = cast(ops.W_c1), cast(np.asarray(ops.W_c2).T)
             W_r1, W_r2 = cast(ops.W_r1), cast(ops.W_r2)
             add_row = cast(ops.add_row)
@@ -285,13 +429,22 @@ def main() -> None:
                 print(f"timing {name} fast {shapes}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms")
 
-    # 7. Result.
+    # 7-9. GCY.
+    del T
+    torch.cuda.empty_cache()
+    gcy_err, gcy_launches, gcy_ms = gcy_phases(torch, port, st, dev, smi)
+    max_err.update(gcy_err)
+    launches = {"pass_b": launches["pass_b"], "pass_c": launches["pass_c"],
+                **{k: gcy_launches[k] for k in gcy_err}}
+    kernels_ms.update(gcy_ms)
+
+    # 10. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": max_err[name], "ms": kernels_ms[name][0],
-         "plain_ms": kernels_ms[name][1]} for name in ("pass_b", "pass_c")]}))
+         "plain_ms": kernels_ms[name][1]} for name in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

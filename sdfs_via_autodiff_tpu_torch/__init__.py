@@ -10,16 +10,19 @@ CUDA kernels for the fast tier) or on the CPU (their plain PyTorch
 versions).  The JAX package ``sdfs_via_autodiff_tpu`` is the reference
 each part is tested against; this package never imports it or JAX.
 
-Ported so far: the discrete SSY main path,
-``wc_ratio_discrete(SSY(), shapes, kernel="tiled", device=...)``.
+Ported so far: the discrete SSY and GCY paths,
+``wc_ratio_discrete(SSY() or GCY(), shapes, kernel="tiled", device=...)``.
 """
 
-from .models import SSY, ssy_loglinear_factory
+from .models import SSY, ssy_loglinear_factory, GCY, gcy_loglinear_factory
 from .operators import (SSYDiscretization, discretize_ssy, T_ssy_factory,
-                        dense_H_ssy, TwoPhaseOperands, two_phase_operands_ssy,
-                        make_eager_two_phase_T)
+                        dense_H_ssy, GCYDiscretization, discretize_gcy,
+                        T_gcy_factory, dense_H_gcy, gcy_loglinear_parts,
+                        TwoPhaseOperands, two_phase_operands_ssy,
+                        two_phase_operands_gcy, make_eager_two_phase_T)
 from .kernels import (LAUNCHES, make_streamed_T_log, make_tiled_T_log,
-                      make_tiled_T_log_ssy, streamed_supported)
+                      make_tiled_T_log_ssy, make_tiled_T_log_gcy,
+                      streamed_config, streamed_supported)
 from .solvers import (SolveResult, solve, solver, successive_approx,
                       newton_solver, bicgstab_mixed)
 from .drivers import WCSolution, wc_ratio_discrete, f32_tol_floor

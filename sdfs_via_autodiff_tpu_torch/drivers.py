@@ -1,7 +1,7 @@
 """High-level driver: model -> grids -> operator -> solver.
 
-PyTorch port of ``drivers.wc_ratio_discrete`` for the SSY model.  The
-iterate defaults to log space (ell = log w), which keeps w > 0 and every
+PyTorch port of ``drivers.wc_ratio_discrete`` for the SSY and GCY models.
+The iterate defaults to log space (ell = log w), which keeps w > 0 and every
 intermediate in float32 range.  ``kernel="xla"`` runs the eager per-axis
 operator (float64 by default); ``kernel="tiled"`` runs the float32
 streamed CUDA kernels (their plain PyTorch versions on a CPU device).
@@ -16,9 +16,13 @@ from typing import Optional, Sequence
 import torch
 
 from .config import resolve_device
-from .kernels.tiled_two_phase import (TPU_ONLY_OPTIONS, make_tiled_T_log_ssy,
+from .kernels.tiled_two_phase import (TPU_ONLY_OPTIONS, make_tiled_T_log_gcy,
+                                      make_tiled_T_log_ssy,
                                       reject_tpu_options)
+from .models.gcy import GCY
 from .models.ssy import SSY
+from .operators.discrete_gcy import (T_gcy_factory, discretize_gcy,
+                                     gcy_loglinear_parts)
 from .operators.discrete_ssy import T_ssy_factory, discretize_ssy
 from .solvers import SolveResult, solve
 
@@ -89,28 +93,29 @@ def wc_ratio_discrete(model,
                       checkpoint_path: Optional[str] = None,
                       device,
                       **solver_opts) -> WCSolution:
-    """Solve the discretized SSY model on ``device``.
+    """Solve the discretized SSY or GCY model on ``device``.
 
     ``kernel="xla"``: the eager per-axis operator in ``dtype`` (float64
     when None), log space by default, ``space="w"`` for strict reference
     semantics.  ``kernel="tiled"``: the float32 streamed kernels, log
-    space only.  ``discretization`` is "rouwenhorst" or "tauchen" (whose
-    grid spans a fixed +-3 unconditional std at any point count, making
-    fine float32 grids range-safe).  Extra keyword arguments go to the
-    solver; the TPU-only options of the JAX tiled tier are rejected.
+    space only; for GCY they iterate from the log-linear solution
+    (``gcy_loglinear_parts(...)["ell0"]``) when ``w_init`` is None.
+    ``discretization`` is "rouwenhorst" or "tauchen" (whose grid spans a
+    fixed +-3 unconditional std at any point count, making fine float32
+    grids range-safe).  Extra keyword arguments go to the solver; the
+    TPU-only options of the JAX tiled tier are rejected.  A model that is
+    neither SSY nor GCY raises ``TypeError``.
 
-    Not ported yet, each raising ``NotImplementedError``: GCY (ROADMAP
-    queue A item 5), ``baseline="loglinear"`` (items 2 and 4),
+    Not ported yet, each raising ``NotImplementedError``:
+    ``baseline="loglinear"`` (ROADMAP queue A items 2, 4 and 5),
     ``polish`` (item 4) and ``checkpoint_path`` (item 10).
     """
     space = space or "log"
     if kernel not in ("xla", "tiled"):
         raise ValueError(f"unknown kernel {kernel!r}")
-    if not isinstance(model, SSY):
-        raise NotImplementedError(
-            f"{type(model).__name__}: only the SSY model is ported; GCY "
-            "lands with ROADMAP queue A item 5")
-    for name, value, item in (("baseline", baseline, "items 2 and 4"),
+    if not isinstance(model, (SSY, GCY)):
+        raise TypeError(f"unsupported model {type(model).__name__}")
+    for name, value, item in (("baseline", baseline, "items 2, 4 and 5"),
                               ("polish", polish, "item 4"),
                               ("checkpoint_path", checkpoint_path,
                                "item 10")):
@@ -119,17 +124,29 @@ def wc_ratio_discrete(model,
                 f"{name}={value!r} is not ported yet; it lands with "
                 f"ROADMAP queue A {item}")
     dev = resolve_device(device)
-    disc = discretize_ssy(model, tuple(shapes), method=discretization)
+    gcy = isinstance(model, GCY)
+    disc = (discretize_gcy if gcy else discretize_ssy)(
+        model, tuple(shapes), method=discretization)
     if kernel == "tiled":
         if space != "log":
             raise ValueError("tiled kernels iterate in log space")
         tpu_opts = {k: solver_opts.pop(k) for k in TPU_ONLY_OPTIONS
                     if k in solver_opts}
         reject_tpu_options(tpu_opts)
-        T = make_tiled_T_log_ssy(model, disc, device=dev)
+        if gcy:
+            T = make_tiled_T_log_gcy(model, disc, device=dev)
+            if w_init is None:
+                # Log-linear warm start: beta = 0.9987 makes cold starts
+                # crawl.
+                w_init = torch.exp(torch.as_tensor(
+                    gcy_loglinear_parts(model, disc)["ell0"],
+                    dtype=torch.float32))
+        else:
+            T = make_tiled_T_log_ssy(model, disc, device=dev)
         wdtype = torch.float32
     else:
-        T = T_ssy_factory(model, disc, space=space, dtype=dtype, device=dev)
+        factory = T_gcy_factory if gcy else T_ssy_factory
+        T = factory(model, disc, space=space, dtype=dtype, device=dev)
         wdtype = dtype or torch.float64
     w0 = (torch.full(tuple(shapes), DEFAULT_INIT_W, dtype=wdtype, device=dev)
           if w_init is None

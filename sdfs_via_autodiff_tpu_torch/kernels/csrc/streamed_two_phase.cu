@@ -1,8 +1,9 @@
 // Streamed two-phase operator kernels for NVIDIA Hopper (sm_90a).
 //
-// The discrete SSY operator log T(w) on a field ell[r, c] with rows
-// r = (h_lam, h_c) = (l, k) and columns c = (h_z, z) = (i, j) runs as two
-// passes over the field:
+// The two-phase operator log T(w) (discrete SSY; discrete GCY through its
+// Kronecker grouping, see pass_b_deferred further down) on a field
+// ell[r, c] with rows r = (h_lam, h_c) = (l, k) and columns
+// c = (h_z, z) = (i, j) runs as two passes over the field:
 //
 //   pass B (column phase), one block per field row r:
 //     a = theta * ell[r] (I, J); contract i' with W_c1, then j' with W_c2.
@@ -12,7 +13,7 @@
 //     holding all R = L*K rows: contract l' with W_r1, then k' with W_r2,
 //     add add_row[l, k] + add_col[c], epilogue log1p(beta*exp(lh/theta)).
 //     Replaces streamed_two_phase.py:446 (_c_kernel) without batched or
-//     deferred c2.
+//     deferred c2 (the deferred branch is pass_c_deferred, further down).
 //
 // mode 0 ("fast"): pass B takes one shift per field row, s_r = max a, and
 // emits the linear midway field W_c1 exp(a - s_r) W_c2^T with s; pass C
@@ -134,8 +135,16 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
 __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // out[i, j] = sum_m u[i, m] * w[m, j] for one field row (i < I, j < J):
@@ -394,6 +403,378 @@ pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
       });
 }
 
+// ------------------------------------------------- deferred-c2 passes
+//
+// Column groups too large for one block's (I, J) row slice (the GCY
+// Kronecker grouping's 512 x 256 at the 25.2M-point grid) split the
+// column phase: pass B contracts c1 only, and the shared c2 contraction
+// moves into pass C, in front of its row phase.
+//
+//   pass_b_deferred, one block per (field row r, tile of kDefBN columns
+//     j): a = theta * ell[r, :, j-tile] (I, kDefBN) in shared memory,
+//     per-column shift m[j] = max over all I rows, then
+//     out[r, i, j] = m[j] + log(sum_m W_c1[i, m] exp(a[m, j] - m[j])).
+//     Replaces streamed_two_phase.py:384 (_b_kernel_deferred).
+//   pass_c_deferred, one block per (c1 slice i, tile of TC columns j of
+//     the slice) holding all R rows: per-(row, slice) shift m1 over the
+//     slice's J values, the c2 contraction exp(w - m1) W_c2^T into an
+//     (R, TC) accumulator, then the linear-carry row phase with the
+//     shifts M2 = max_l m1 and M3 = max_k M2, log + M3, add_row + add_col
+//     and the epilogue.  Replaces the c2_deferred branch of
+//     streamed_two_phase.py:446 (_c_kernel, lines 474-480 and 506-524).
+//
+// What bounds them on an H100: FP32 FMA.  At (12, 16, 512, 256) pass B
+// is 2*R*I*I*J = 25.8 GFLOP and pass C 2*R*I*J*J = 12.9 GFLOP against
+// 100 MB fields.  W_c1 (I*I*4 = 1 MiB) does not fit a block, so pass B
+// streams its transpose from L2 in kDefBK-row K-tiles (cp.async, double
+// buffered) while the exponentiated (I, kDefBN) strip stays resident;
+// each thread owns an 8 x 8 output tile, so four float4 shared-memory
+// loads feed 64 FMAs (the balance point of the SM's shared-memory
+// wavefronts and its FMA rate).  Pass C cannot hold
+// a whole slice (R*J*4 = 196 KB) next to its accumulator, so it streams
+// the slice in JK-column chunks (cp.async copies, the next chunk's
+// overlapping the current chunk's FMAs; exponentiated into a transposed
+// copy for float4 row loads) against JK x TC chunks of W_c2^T; the
+// blocks of one slice are adjacent in the grid, so the slice is read
+// from HBM once and from L2 by the others.  Ragged I, J
+// and partial tiles are clamped and masked.
+
+constexpr int kDefThreads = 256;
+constexpr int kDefBN = 32;   // pass-B-deferred columns per block
+constexpr int kDefBK = 8;    // W_c1^T rows per pass-B-deferred K-tile
+constexpr int kDefParts = kDefThreads / kDefBN;  // partial column maxima
+constexpr int kDefBT = 8;    // pass-B-deferred thread tile: 8 rows x 8 columns
+constexpr int kDefTM = 8;    // pass-C-deferred c2 tile: rows per thread
+constexpr int kDefTN = 4;    //   and columns per thread
+
+// Shared-memory floats of pass_b_deferred: the (I, kDefBN) strip, two
+// K-tiles of kDefBK rows of Ip = round_up4(I), partial column maxima and
+// the shifts.
+__host__ __device__ inline int pass_b_deferred_smem_floats(int I) {
+  return I * kDefBN + 2 * kDefBK * round_up4(I) + kDefParts * kDefBN +
+         kDefBN;
+}
+
+// Row stride of pass_c_deferred's transposed chunk (rows r); the +4
+// spreads the transposing stores over banks, the rounding keeps float4
+// loads aligned.
+__host__ __device__ inline int pass_c_deferred_rstride(int R) {
+  return round_up4(R) + 4;
+}
+
+// Floats of pass_c_deferred's region that holds the transposed
+// exponentiated chunk (JK rows) during the c2 contraction and the r1
+// result (R, TC) after it.
+__host__ __device__ inline int pass_c_deferred_et_floats(int R, int TC,
+                                                         int JK) {
+  const int et = JK * pass_c_deferred_rstride(R);
+  return et > R * TC ? et : R * TC;
+}
+
+// Shared-memory floats of pass_c_deferred: the accumulator (R, TC), the
+// et / r1 region, the raw input chunk (R, JK), the W_c2^T chunk
+// (JK, TC), m1 (R), M2 (K) and M3.
+__host__ __device__ inline int pass_c_deferred_smem_floats(int L, int K,
+                                                           int TC, int JK) {
+  const int R = L * K;
+  return R * TC + pass_c_deferred_et_floats(R, TC, JK) + R * JK + JK * TC +
+         round_up4(R) + round_up4(K) + 4;
+}
+
+__global__ void __launch_bounds__(kDefThreads)
+pass_b_deferred_kernel(const float* __restrict__ ell,
+                       const float* __restrict__ w_c1t,
+                       float* __restrict__ out, int I, int J, float theta) {
+  extern __shared__ float smem[];     // 16-byte aligned base
+  const int Ip = round_up4(I);
+  float* e = smem;                        // (I, kDefBN)
+  float* stage = e + I * kDefBN;          // 2 x (kDefBK, Ip)
+  float* part = stage + 2 * kDefBK * Ip;  // (kDefParts, kDefBN)
+  float* shift = part + kDefParts * kDefBN;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int j0 = blockIdx.x * kDefBN;
+  const int jw = min(kDefBN, J - j0);
+  const size_t IJ = (size_t)I * J;
+  const float* ell_r = ell + blockIdx.y * IJ;
+  float* out_r = out + blockIdx.y * IJ;
+
+  // a = theta * ell on the strip; columns past J hold 0 (never stored).
+  // Unrolled so that several loads are in flight per thread.
+#pragma unroll 8
+  for (int x = tid; x < I * kDefBN; x += nt) {
+    const int m = x / kDefBN, jj = x % kDefBN;
+    e[x] = (jj < jw) ? theta * ell_r[(size_t)m * J + j0 + jj] : 0.f;
+  }
+  __syncthreads();
+  {
+    const int jj = tid % kDefBN, p = tid / kDefBN;
+    float mx = -INFINITY;
+#pragma unroll 8
+    for (int m = p; m < I; m += kDefParts) mx = fmaxf(mx, e[m * kDefBN + jj]);
+    part[p * kDefBN + jj] = mx;
+  }
+  __syncthreads();
+  if (tid < kDefBN) {
+    float mx = part[tid];
+    for (int p = 1; p < kDefParts; ++p) mx = fmaxf(mx, part[p * kDefBN + tid]);
+    shift[tid] = mx;
+  }
+  __syncthreads();
+#pragma unroll 8
+  for (int x = tid; x < I * kDefBN; x += nt)
+    e[x] = expf(e[x] - shift[x % kDefBN]);
+
+  // c1: out[i, j] = shift[j] + log(sum_m W_c1t[m, i] e[m, j]).  Thread
+  // (rg, cg) owns the kDefBT x kDefBT tile of rows kDefBT*rg.. and
+  // columns kDefBT*cg..: per m, two float4 loads of the K-tile and two of
+  // the strip feed 64 FMAs.  The sum runs in order of m.
+  constexpr int kColGroups = kDefBN / kDefBT;
+  const int n_items = ((I + kDefBT - 1) / kDefBT) * kColGroups;
+  const int n_tiles = (I + kDefBK - 1) / kDefBK;
+  // 16-byte copies when the rows of W_c1t are 16-byte aligned (measured
+  // at (12, 16, 512, 256) on an H100: 4-byte copies 1.49 ms per launch,
+  // 16-byte 0.98).
+  auto load_tile = [&](int t) {
+    float* dst = stage + (t & 1) * kDefBK * Ip;
+    const int m0 = t * kDefBK, rows = min(kDefBK, I - m0);
+    const float* src = w_c1t + (size_t)m0 * I;
+    if (I % 4 == 0) {
+      const int q = I / 4;
+      for (int x = threadIdx.x; x < rows * q; x += blockDim.x)
+        cp_async16(dst + (x / q) * Ip + 4 * (x % q), src + 4 * x);
+    } else {
+      for (int x = threadIdx.x; x < rows * I; x += blockDim.x)
+        cp_async4(dst + (x / I) * Ip + x % I, src + x);
+    }
+    cp_async_commit();
+  };
+  for (int base = 0; base < n_items; base += nt) {
+    const int item = base + tid;
+    const bool active = item < n_items;
+    const int c0 = (item % kColGroups) * kDefBT;
+    const int i0 = (item / kColGroups) * kDefBT;
+    float acc[kDefBT][kDefBT];
+#pragma unroll
+    for (int t = 0; t < kDefBT; ++t)
+#pragma unroll
+      for (int q = 0; q < kDefBT; ++q) acc[t][q] = 0.f;
+    __syncthreads();                   // e ready; stage free
+    load_tile(0);
+    for (int tile = 0; tile < n_tiles; ++tile) {
+      if (tile + 1 < n_tiles) {
+        load_tile(tile + 1);
+      } else {
+        cp_async_commit();             // empty group keeps the count
+      }
+      cp_async_wait_prev();
+      __syncthreads();
+      if (active) {
+        const float* wt = stage + (tile & 1) * kDefBK * Ip;
+        const int m0 = tile * kDefBK;
+        const int kmax = min(kDefBK, I - m0);
+#pragma unroll 8
+        for (int k = 0; k < kmax; ++k) {
+          const float* eb = e + (m0 + k) * kDefBN + c0;
+          const float* wa = wt + k * Ip + i0;
+          const float4 b0 = *reinterpret_cast<const float4*>(eb);
+          const float4 b1 = *reinterpret_cast<const float4*>(eb + 4);
+          const float4 a0 = *reinterpret_cast<const float4*>(wa);
+          const float4 a1 = *reinterpret_cast<const float4*>(wa + 4);
+          const float bv[kDefBT] = {b0.x, b0.y, b0.z, b0.w,
+                                    b1.x, b1.y, b1.z, b1.w};
+          const float av[kDefBT] = {a0.x, a0.y, a0.z, a0.w,
+                                    a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+          for (int t = 0; t < kDefBT; ++t)
+#pragma unroll
+            for (int q = 0; q < kDefBT; ++q)
+              acc[t][q] = fmaf(av[t], bv[q], acc[t][q]);
+        }
+      }
+      __syncthreads();                 // done with `tile` before reuse
+    }
+    if (active) {
+#pragma unroll
+      for (int t = 0; t < kDefBT; ++t) {
+        const int i = i0 + t;
+        if (i >= I) continue;
+#pragma unroll
+        for (int q = 0; q < kDefBT; ++q) {
+          const int jj = c0 + q;
+          if (jj < jw)
+            out_r[(size_t)i * J + j0 + jj] = shift[jj] + logf(acc[t][q]);
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kDefThreads)
+pass_c_deferred_kernel(const float* __restrict__ mid,
+                       const float* __restrict__ w_c2t,
+                       const float* __restrict__ w_r1,
+                       const float* __restrict__ w_r2,
+                       const float* __restrict__ add_row,
+                       const float* __restrict__ add_col,
+                       float* __restrict__ out, int L, int K, int J, int TC,
+                       int JK, float theta, float beta) {
+  extern __shared__ float smem[];
+  const int R = L * K, KT = K * TC, Rs = pass_c_deferred_rstride(R);
+  float* acc = smem;                 // (R, TC): c2 result, then carried
+  float* et = acc + R * TC;          // (JK, Rs): exp(w - m1), transposed
+  float* y = et;                     // (R, TC): after the l' contraction
+  float* raw = et + pass_c_deferred_et_floats(R, TC, JK);  // (R, JK) chunk
+  float* wc = raw + R * JK;          // (JK, TC): W_c2^T chunk
+  float* m1 = wc + JK * TC;          // (R): per-(row, slice) shift
+  float* M2 = m1 + round_up4(R);     // (K): max over l of m1
+  float* M3 = M2 + round_up4(K);     // (1): max over k of M2
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+  const int j0 = blockIdx.x * TC, tcw = min(TC, J - j0);
+  const size_t C = (size_t)gridDim.y * J;
+  const size_t col0 = (size_t)blockIdx.y * J;   // first column of slice i
+  const float* in = mid + col0;
+
+  // The first chunk's copy starts now and lands during the shifts.  A
+  // chunk is R rows of kw <= JK contiguous values; 16-byte copies when J
+  // % 4 == 0 keeps every row of every chunk 16-byte aligned.
+  auto load_raw = [&](int c0) {
+    const int kw = min(JK, J - c0);
+    if (J % 4 == 0) {
+      const int q = kw / 4;
+      for (int x = tid; x < R * q; x += nt) {
+        const int r = x / q, k = 4 * (x % q);
+        cp_async16(raw + r * JK + k, in + r * C + c0 + k);
+      }
+    } else {
+      for (int x = tid; x < R * kw; x += nt) {
+        const int r = x / kw, k = x % kw;
+        cp_async4(raw + r * JK + k, in + r * C + c0 + k);
+      }
+    }
+    cp_async_commit();
+  };
+  load_raw(0);
+
+  // Shifts: m1[r] over the slice's J values (a warp takes 4 rows at a
+  // time and unrolls, so many independent loads are in flight per lane),
+  // then M2[k], M3.
+  for (int r0 = 4 * warp; r0 < R; r0 += 4 * nw) {
+    float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll 8
+    for (int j = lane; j < J; j += 32)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (r0 + u < R) m[u] = fmaxf(m[u], in[(r0 + u) * C + j]);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float mu = warp_max(m[u]);
+      if (lane == 0 && r0 + u < R) m1[r0 + u] = mu;
+    }
+  }
+  __syncthreads();
+  for (int k = tid; k < K; k += nt) {
+    float m = -INFINITY;
+    for (int l = 0; l < L; ++l) m = fmaxf(m, m1[l * K + k]);
+    M2[k] = m;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float m = -INFINITY;
+    for (int k = 0; k < K; ++k) m = fmaxf(m, M2[k]);
+    M3[0] = m;
+  }
+
+  // c2: acc[r, t] = sum_j' exp(w[r, j'] - m1[r]) W_c2t[j', j0 + t], in
+  // chunks of JK rows j'; the sum runs in order of j'.  The next chunk's
+  // copy overlaps this chunk's contraction.
+  const int nq = TC / kDefTN;
+  const int n_items = ((R + kDefTM - 1) / kDefTM) * nq;
+  for (int c0 = 0; c0 < J; c0 += JK) {
+    const int kw = min(JK, J - c0);
+    cp_async_wait_all();
+    __syncthreads();          // chunk landed; previous contraction done
+    for (int x = tid; x < R * JK; x += nt) {
+      const int r = x / JK, k = x % JK;
+      et[k * Rs + r] = (k < kw) ? expf(raw[x] - m1[r]) : 0.f;
+    }
+    for (int x = tid; x < JK * TC; x += nt) {
+      const int k = x / TC, t = x % TC;
+      wc[x] = (k < kw && t < tcw) ? __ldg(w_c2t + (size_t)(c0 + k) * J + j0 + t)
+                                  : 0.f;
+    }
+    __syncthreads();          // et, wc ready; raw free
+    if (c0 + JK < J) load_raw(c0 + JK);
+    for (int item = tid; item < n_items; item += nt) {
+      const int tq = item % nq, r0 = (item / nq) * kDefTM;
+      float a4[kDefTM][kDefTN];
+#pragma unroll
+      for (int u = 0; u < kDefTM; ++u)
+#pragma unroll
+        for (int q = 0; q < kDefTN; ++q)
+          a4[u][q] = (c0 == 0 || r0 + u >= R)
+                         ? 0.f : acc[(r0 + u) * TC + kDefTN * tq + q];
+      for (int k = 0; k < kw; ++k) {
+        const float4 b = *reinterpret_cast<const float4*>(
+            wc + k * TC + kDefTN * tq);
+        const float4 e0 = *reinterpret_cast<const float4*>(et + k * Rs + r0);
+        const float4 e1 =
+            *reinterpret_cast<const float4*>(et + k * Rs + r0 + 4);
+        const float ev[kDefTM] = {e0.x, e0.y, e0.z, e0.w,
+                                  e1.x, e1.y, e1.z, e1.w};
+#pragma unroll
+        for (int u = 0; u < kDefTM; ++u) {
+          a4[u][0] = fmaf(ev[u], b.x, a4[u][0]);
+          a4[u][1] = fmaf(ev[u], b.y, a4[u][1]);
+          a4[u][2] = fmaf(ev[u], b.z, a4[u][2]);
+          a4[u][3] = fmaf(ev[u], b.w, a4[u][3]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDefTM; ++u)
+        if (r0 + u < R)
+#pragma unroll
+          for (int q = 0; q < kDefTN; ++q)
+            acc[(r0 + u) * TC + kDefTN * tq + q] = a4[u][q];
+    }
+  }
+  __syncthreads();
+
+  // Linear carry: rescale row r = (l, k) by exp(m1[r] - M2[k]) (one exp
+  // per row, kept in m1), and the r1 result by exp(M2[k] - M3) (one per
+  // k, kept in M2).
+  const float m3 = M3[0];
+  for (int r = tid; r < R; r += nt) m1[r] = expf(m1[r] - M2[r % K]);
+  __syncthreads();
+  for (int k = tid; k < K; k += nt) M2[k] = expf(M2[k] - m3);
+  for (int x = tid; x < R * TC; x += nt) acc[x] *= m1[x / TC];
+  __syncthreads();
+
+  // r1: y[l, k, t] = sum_m W_r1[l, m] acc[m, k, t], rescaled.
+  block_matmul(
+      L, KT, L,
+      [&](int l, int m) { return __ldg(w_r1 + l * L + m); },
+      [&](int m, int col) { return acc[m * KT + col]; },
+      [&](int l, int col, float v) { y[l * KT + col] = v * M2[col / TC]; });
+  __syncthreads();
+
+  // r2 + epilogue: z[l, k, t] = sum_m W_r2[k, m] y[l, m, t], columns
+  // n = l * TC + t.
+  block_matmul(
+      K, L * TC, K,
+      [&](int k, int m) { return __ldg(w_r2 + k * K + m); },
+      [&](int m, int n) { return y[(n / TC) * KT + m * TC + n % TC]; },
+      [&](int k, int n, float v) {
+        const int l = n / TC, t = n % TC;
+        if (t >= tcw) return;
+        const int r = l * K + k;
+        const size_t c = col0 + j0 + t;
+        const float lh = logf(v) + m3 + __ldg(add_row + r) +
+                         __ldg(add_col + c);
+        out[r * C + c] = log1pf(beta * expf(lh / theta));
+      });
+}
+
 template <class Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem_bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -455,6 +836,44 @@ int sdfs_pass_c(const float* mid, const float* scale, const float* S,
   } else {
     return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
+}
+
+// Deferred-c2 pass B over R field rows of ell (R, I, J): c1 only.
+// w_c1t (I, I) = W_c1 transposed; out (R, I, J) log domain.
+int sdfs_pass_b_deferred(const float* ell, const float* w_c1t, float* out,
+                         int R, int I, int J, float theta, void* stream) {
+  const size_t smem =
+      sizeof(float) * (size_t)pass_b_deferred_smem_floats(I);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((J + kDefBN - 1) / kDefBN, R);
+  const cudaError_t err = prepare(pass_b_deferred_kernel, smem);
+  if (err != cudaSuccess) return err;
+  pass_b_deferred_kernel<<<grid, kDefThreads, smem, st>>>(ell, w_c1t, out, I,
+                                                          J, theta);
+  return cudaGetLastError();
+}
+
+// Deferred-c2 pass C over mid (R = L*K, I*J) log domain: c2 with
+// w_c2t (J, J) = W_c2 transposed, then the row phase and the epilogue,
+// in blocks of TC columns (TC % 4 == 0) of one slice, streaming the
+// slice in chunks of JK columns.  add_row (L*K,), add_col (I*J,);
+// out (R, I*J).
+int sdfs_pass_c_deferred(const float* mid, const float* w_c2t,
+                         const float* w_r1, const float* w_r2,
+                         const float* add_row, const float* add_col,
+                         float* out, int L, int K, int I, int J, int TC,
+                         int JK, float theta, float beta, void* stream) {
+  if (TC % kDefTN != 0 || TC <= 0 || JK <= 0) return cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * (size_t)pass_c_deferred_smem_floats(L, K, TC, JK);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((J + TC - 1) / TC, I);
+  const cudaError_t err = prepare(pass_c_deferred_kernel, smem);
+  if (err != cudaSuccess) return err;
+  pass_c_deferred_kernel<<<grid, kDefThreads, smem, st>>>(
+      mid, w_c2t, w_r1, w_r2, add_row, add_col, out, L, K, J, TC, JK, theta,
+      beta);
   return cudaGetLastError();
 }
 

@@ -1,28 +1,37 @@
 """Streamed two-pass operator: hand-written CUDA pass-B / pass-C kernels.
 
 PyTorch port of ``sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py``
-for the "full" configuration with a shared c2 factor (plain discrete SSY
-operand sets).  One application of log T(w) is two passes over the field:
+for plain operand sets with shared factors (discrete SSY, discrete GCY).
+One application of log T(w) is two passes over the field, with R = n_r1 *
+n_r2 rows and C = I * J columns, in one of two configurations:
+
+"full" (pass B holds a field row's whole (I, J) column group):
 
     pass B (column phase):  ell (R, I, J) -> midway field (R, I, J)
     pass C (row phase):     midway field (R, C) -> log T(w) (R, C)
 
-with R = n_r1 * n_r2 rows and C = I * J columns.  Mode "fast" takes one
-shift per field row in pass B and carries the midway field linearly, with
-the rescale ``exp(s - max s)`` computed on the device between the
-passes; mode "lse" shifts per axis at every contraction.
+Mode "fast" takes one shift per field row in pass B and carries the
+midway field linearly, with the rescale ``exp(s - max s)`` computed on
+the device between the passes; mode "lse" shifts per axis at every
+contraction.
 
-Each pass has a plain PyTorch version (``pass_b_plain``, ``pass_c_plain``)
-and a dispatcher (``pass_b``, ``pass_c``): a CPU tensor goes to the plain
-version, a CUDA tensor to the kernel in ``csrc/streamed_two_phase.cu``
-(built from source at first use) or to an error.  ``LAUNCHES`` counts the
-kernel launches.
+"deferred" (column groups too large for one block, e.g. the GCY
+Kronecker grouping's 512 x 256), per-axis LSE only:
+
+    pass B deferred:  ell (R, I, J) -> c1 contracted (R, I, J)
+    pass C deferred:  c2 contraction, row phase, epilogue -> (R, C)
+
+Each pass has a plain PyTorch version (``pass_b_plain``, ...) and a
+dispatcher (``pass_b``, ...): a CPU tensor goes to the plain version, a
+CUDA tensor to the kernel in ``csrc/streamed_two_phase.cu`` (built from
+source at first use) or to an error.  ``LAUNCHES`` counts the kernel
+launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,24 +41,41 @@ from ..operators.two_phase import TwoPhaseOperands, make_eager_two_phase_T
 from . import _build
 
 __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
-           "pass_c_tile", "streamed_supported", "make_streamed_T_log"]
+           "pass_b_deferred", "pass_b_deferred_plain", "pass_c_deferred",
+           "pass_c_deferred_plain", "pass_c_tile", "pass_c_deferred_tiles",
+           "streamed_config", "streamed_supported", "make_streamed_T_log"]
 
 # Kernel launches per pass since the last reset (the wrappers add one per
 # launch; the plain versions never count).
-LAUNCHES = {"pass_b": 0, "pass_c": 0}
+LAUNCHES = {"pass_b": 0, "pass_c": 0, "pass_b_deferred": 0,
+            "pass_c_deferred": 0}
 
 _MODES = {"fast": 0, "lse": 1}
 # Shared memory one block may use on sm_90 (227 KB).
 SMEM_LIMIT = 232_448
 _PASS_C_TILES = (32, 16, 8, 4, 2, 1)
+# Shared memory of one SM (228 KB), of which each resident block reserves
+# 1 KB.
+_SM_SMEM, _BLOCK_RESERVED = 233_472, 1_024
+# The deferred kernels' tiles (mirroring the .cu): pass B's columns per
+# block and W_c1^T rows per K-tile; pass C's column tiles (multiples of
+# 4) and input chunks.
+_DEF_BN, _DEF_BK, _DEF_PARTS = 32, 8, 8
+_PASS_C_DEFERRED_TILES = (64, 32, 16, 8, 4)
+_PASS_C_DEFERRED_CHUNKS = (32, 16, 8, 4)
+# CUDA's limit on a grid's y dimension (rows in pass B, slices in pass C).
+_GRID_Y_MAX = 65_535
+
+
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
 
 
 def pass_b_smem_bytes(I: int, J: int) -> int:
     """Shared memory of one pass-B block (mirrors the .cu layout: the
     first buffer also holds two 16-row K-tiles of W_c2, the second pads
     its rows to a multiple of 4)."""
-    up4 = lambda n: -(-n // 4) * 4
-    return 4 * (up4(max(I * J, 32 * J)) + I * up4(J) + max(I, J) + 32)
+    return 4 * (_up4(max(I * J, 32 * J)) + I * _up4(J) + max(I, J) + 32)
 
 
 def pass_c_tile(R: int, K: int) -> Optional[int]:
@@ -62,13 +88,61 @@ def pass_c_tile(R: int, K: int) -> Optional[int]:
     return None
 
 
+def pass_b_deferred_smem_bytes(I: int) -> int:
+    """Shared memory of one deferred pass-B block (mirrors the .cu: the
+    exponentiated (I, 32) strip, two 8-row K-tiles of W_c1^T with rows
+    padded to a multiple of 4, partial column maxima and shifts)."""
+    return 4 * (I * _DEF_BN + 2 * _DEF_BK * _up4(I)
+                + _DEF_PARTS * _DEF_BN + _DEF_BN)
+
+
+def _pass_c_deferred_smem_bytes(L: int, K: int, TC: int, JK: int) -> int:
+    """Shared memory of one deferred pass-C block (mirrors the .cu: the
+    (R, TC) accumulator, a region holding the transposed chunk or the r1
+    result, the raw (R, JK) chunk, the W_c2^T chunk and the shifts)."""
+    R = L * K
+    return 4 * (R * TC + max(JK * (_up4(R) + 4), R * TC) + R * JK
+                + JK * TC + _up4(R) + _up4(K) + 4)
+
+
+def pass_c_deferred_tiles(L: int, K: int) -> Optional[Tuple[int, int]]:
+    """(TC, JK) of a deferred pass-C block: the widest column tile, then
+    the widest input chunk, that leave room for two blocks per SM, else
+    that fit one block; None when none fits.  (Each slice's TC-column
+    blocks re-read and re-exponentiate it, so wide tiles pay; measured at
+    (12, 16, 512, 256) on an H100: (64, 16) two per SM 1.53 ms, (32, 32)
+    two per SM 1.70 ms, (64, 32) one per SM 2.03 ms.)"""
+    for limit in (_SM_SMEM // 2 - _BLOCK_RESERVED, SMEM_LIMIT):
+        for tc in _PASS_C_DEFERRED_TILES:
+            for jk in _PASS_C_DEFERRED_CHUNKS:
+                if _pass_c_deferred_smem_bytes(L, K, tc, jk) <= limit:
+                    return tc, jk
+    return None
+
+
+def streamed_config(ops: TwoPhaseOperands) -> Optional[str]:
+    """The kernels' configuration for this operand set: "full" when a
+    field row's (I, J) column group fits a pass-B block and the pass-C
+    tile fits, else "deferred" when the deferred passes' blocks fit, else
+    None (batched factors, baseline corrections, or blocks beyond shared
+    memory: not covered)."""
+    L, K, I, J = ops.shapes
+    if not ops.is_plain:
+        return None
+    if (pass_b_smem_bytes(I, J) <= SMEM_LIMIT
+            and pass_c_tile(L * K, K) is not None):
+        return "full"
+    if (pass_b_deferred_smem_bytes(I) <= SMEM_LIMIT
+            and pass_c_deferred_tiles(L, K) is not None
+            and max(L * K, I) <= _GRID_Y_MAX):
+        return "deferred"
+    return None
+
+
 def streamed_supported(ops: TwoPhaseOperands) -> bool:
-    """True when the kernels cover this operand set: shared factors, no
-    baseline corrections, and both passes' blocks fit shared memory."""
-    n_r1, n_r2, n_c1, n_c2 = ops.shapes
-    return (ops.is_plain
-            and pass_b_smem_bytes(n_c1, n_c2) <= SMEM_LIMIT
-            and pass_c_tile(n_r1 * n_r2, n_r2) is not None)
+    """True when the kernels cover this operand set (either
+    configuration, see :func:`streamed_config`)."""
+    return streamed_config(ops) is not None
 
 
 def _check_mode(mode: str) -> None:
@@ -107,6 +181,11 @@ def _lib():
         lib.sdfs_pass_c.argtypes = [p, p, p, p, p, p, p, p,
                                     i, i, i, i, f, f, i, p]
         lib.sdfs_pass_c.restype = i
+        lib.sdfs_pass_b_deferred.argtypes = [p, p, p, i, i, i, f, p]
+        lib.sdfs_pass_b_deferred.restype = i
+        lib.sdfs_pass_c_deferred.argtypes = [p, p, p, p, p, p, p,
+                                             i, i, i, i, i, i, f, f, p]
+        lib.sdfs_pass_c_deferred.restype = i
         lib.sdfs_error_string.argtypes = [i]
         lib.sdfs_error_string.restype = ctypes.c_char_p
         lib._sdfs_typed = True
@@ -247,49 +326,190 @@ def pass_c(mid, scale, S, W_r1, W_r2, add_row, add_col, theta: float,
     raise ValueError(f"no pass-C kernel for device {mid.device}")
 
 
+# ------------------------------------------------------ pass B deferred
+
+def pass_b_deferred_plain(ell, W_c1t, theta: float):
+    """Deferred column phase of ``ell`` (R, I, J): contract i' only, with
+    ``W_c1t`` (I', I) = W_c1 transposed, under a per-(row, column) shift
+    m = max over I' of a = theta*ell.  Returns the log-domain
+    m + log(W_c1 exp(a - m)), (R, I, J)."""
+    a = theta * ell
+    m = torch.amax(a, dim=1, keepdim=True)
+    return m + torch.log(torch.matmul(W_c1t.mT, torch.exp(a - m)))
+
+
+def _pass_b_deferred_cuda(ell, W_c1t, theta):
+    R, I, J = ell.shape
+    dev = ell.device
+    _check("ell", ell, dev, (R, I, J))
+    _check("W_c1t", W_c1t, dev, (I, I))
+    if pass_b_deferred_smem_bytes(I) > SMEM_LIMIT or R > _GRID_Y_MAX:
+        raise ValueError(f"deferred pass B with I = {I}, R = {R} exceeds "
+                         "shared memory or the grid")
+    out = torch.empty_like(ell)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdfs_pass_b_deferred(_ptr(ell), _ptr(W_c1t), _ptr(out),
+                                      R, I, J, float(theta),
+                                      ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "deferred pass B")
+    LAUNCHES["pass_b_deferred"] += 1
+    return out
+
+
+def pass_b_deferred(ell, W_c1t, theta: float):
+    """Deferred pass B on the tensors' device: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (same arguments and result
+    as :func:`pass_b_deferred_plain`)."""
+    if ell.device.type == "cpu":
+        return pass_b_deferred_plain(ell, W_c1t, theta)
+    if ell.device.type == "cuda":
+        return _pass_b_deferred_cuda(ell, W_c1t, theta)
+    raise ValueError(f"no deferred pass-B kernel for device {ell.device}")
+
+
+# ------------------------------------------------------ pass C deferred
+
+def pass_c_deferred_plain(mid, W_c2t, W_r1, W_r2, add_row, add_col,
+                          theta: float, beta: float):
+    """Deferred row phase of the log-domain ``mid`` (R, C), R = L*K,
+    C = I*J: contract each slice's j' with ``W_c2t`` (J', J) = W_c2
+    transposed, then l' with ``W_r1`` (L, L) and k' with ``W_r2`` (K, K),
+    add ``add_row`` (L, K) and ``add_col`` (C,), and apply the epilogue
+    log1p(beta*exp(lh/theta)).
+
+    The shifts sit where the TPU kernel puts them (its exactness argument
+    rests on the placement): m1 per (row, slice) over the slice's J
+    values before the c2 contraction; then a linear carry with M2 = max
+    over l of m1 before the l' contraction and M3 = max over k of M2
+    before the k' contraction; M3 is added back after the log.
+    """
+    L, K, J = W_r1.shape[0], W_r2.shape[0], W_c2t.shape[0]
+    R, C = mid.shape
+    I = C // J
+    w = mid.reshape(L, K, I, J)
+    m1 = torch.amax(w, dim=3, keepdim=True)                  # (L, K, I, 1)
+    u = torch.matmul(torch.exp(w - m1), W_c2t)               # linear
+    M2 = torch.amax(m1, dim=0, keepdim=True)                 # (1, K, I, 1)
+    u = u * torch.exp(m1 - M2)
+    u = torch.matmul(W_r1, u.reshape(L, K * C)).reshape(L, K, I, J)
+    M3 = torch.amax(M2, dim=1, keepdim=True)                 # (1, 1, I, 1)
+    u = u * torch.exp(M2 - M3)
+    u = torch.matmul(W_r2, u.reshape(L, K, C))               # (L, K, C)
+    lh = (torch.log(u).reshape(L, K, I, J) + M3
+          + add_row[:, :, None, None] + add_col.reshape(1, 1, I, J))
+    return torch.log1p(beta * torch.exp(lh / theta)).reshape(R, C)
+
+
+def _pass_c_deferred_cuda(mid, W_c2t, W_r1, W_r2, add_row, add_col, theta,
+                          beta):
+    R, C = mid.shape
+    L, K, J = W_r1.shape[0], W_r2.shape[0], W_c2t.shape[0]
+    dev = mid.device
+    _check("mid", mid, dev, (R, C))
+    _check("W_c2t", W_c2t, dev, (J, J))
+    _check("W_r1", W_r1, dev, (L, L))
+    _check("W_r2", W_r2, dev, (K, K))
+    _check("add_row", add_row, dev, (L, K))
+    _check("add_col", add_col, dev, (C,))
+    if L * K != R or C % J:
+        raise ValueError(f"mid {tuple(mid.shape)} does not match W_r1/W_r2 "
+                         f"({L}*{K} rows) and W_c2t ({J}-column slices)")
+    I = C // J
+    tiles = pass_c_deferred_tiles(L, K)
+    if tiles is None or I > _GRID_Y_MAX:
+        raise ValueError(f"deferred pass C with {R} rows, {I} slices "
+                         "exceeds shared memory or the grid")
+    TC, JK = tiles
+    out = torch.empty_like(mid)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdfs_pass_c_deferred(
+            _ptr(mid), _ptr(W_c2t), _ptr(W_r1), _ptr(W_r2), _ptr(add_row),
+            _ptr(add_col), _ptr(out), L, K, I, J, TC, JK, float(theta),
+            float(beta), ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "deferred pass C")
+    LAUNCHES["pass_c_deferred"] += 1
+    return out
+
+
+def pass_c_deferred(mid, W_c2t, W_r1, W_r2, add_row, add_col, theta: float,
+                    beta: float):
+    """Deferred pass C on the tensors' device: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (same arguments and result
+    as :func:`pass_c_deferred_plain`)."""
+    if mid.device.type == "cpu":
+        return pass_c_deferred_plain(mid, W_c2t, W_r1, W_r2, add_row,
+                                     add_col, theta, beta)
+    if mid.device.type == "cuda":
+        return _pass_c_deferred_cuda(mid, W_c2t, W_r1, W_r2, add_row,
+                                     add_col, theta, beta)
+    raise ValueError(f"no deferred pass-C kernel for device {mid.device}")
+
+
 # ------------------------------------------------------------- operator
 
 def make_streamed_T_log(ops: TwoPhaseOperands,
                         dtype: torch.dtype = torch.float32,
                         mode: str = "auto", *, device) -> Callable:
     """Streamed two-pass operator ell (4-D field) -> log T(w) from a plain
-    two-phase operand set.
+    two-phase operand set, in the configuration :func:`streamed_config`
+    picks.
 
     mode "fast": one shift per field row (exact whenever the iterate's
     theta-range within a row fits exp's f32 range — plain SSY operands);
-    "lse": per-axis log-sum-exp shifts; "auto" picks "fast".
+    "lse": per-axis log-sum-exp shifts; "auto" picks "fast" for the full
+    configuration and "lse" for the deferred one, which runs per-axis LSE
+    only (the single-shift fast mode is unsafe at its column-group spans:
+    ``mode="fast"`` raises ``ValueError`` there).
 
     The returned ``T`` carries ``T.twin`` (the eager evaluator of the same
-    math, :func:`..operators.two_phase.make_eager_two_phase_T`) and
-    ``T.mode``.  Its forward-mode derivative (``torch.func.jvp``) is the
-    twin's tangent at the same point.
+    math, :func:`..operators.two_phase.make_eager_two_phase_T`), ``T.mode``
+    and ``T.engine`` ("streamed" or "streamed-deferred", the JAX
+    package's names).  Its forward-mode derivative (``torch.func.jvp``)
+    is the twin's tangent at the same point.
     """
     if dtype != torch.float32:
         raise ValueError("the streamed kernels are the float32 tier")
-    if not streamed_supported(ops):
+    config = streamed_config(ops)
+    if config is None:
         raise NotImplementedError(
             "operand set not covered by the streamed kernels (batched "
             "factors, baseline corrections, or blocks beyond shared "
             f"memory at shapes {ops.shapes}); see ROADMAP queue B")
+    deferred = config == "deferred"
     if mode == "auto":
-        mode = "fast"
+        mode = "lse" if deferred else "fast"
     _check_mode(mode)
+    if deferred and mode == "fast":
+        raise ValueError(
+            "deferred-c2 operand sets run per-axis LSE only (the "
+            "single-shift fast mode is unsafe at their column-group spans)")
     dev = resolve_device(device)
     L, K, I, J = ops.shapes
     R, C = L * K, I * J
     theta, beta = float(ops.theta), float(ops.beta)
     cast = lambda a: torch.as_tensor(np.ascontiguousarray(
         a, np.float64)).to(device=dev, dtype=dtype)
-    W_c1 = cast(ops.W_c1)
     W_c2t = cast(np.asarray(ops.W_c2).T)
     W_r1, W_r2 = cast(ops.W_r1), cast(ops.W_r2)
     add_row = cast(ops.add_row)
     add_col = cast(np.asarray(ops.add_col).reshape(C))
     twin = make_eager_two_phase_T(ops, dtype, device=dev)
+    if deferred:
+        W_c1t = cast(np.asarray(ops.W_c1).T)
+    else:
+        W_c1 = cast(ops.W_c1)
 
     def primal(ell):
         e = ell.to(dtype).reshape(R, I, J).contiguous()
-        if mode == "fast":
+        if deferred:
+            mid = pass_b_deferred(e, W_c1t, theta)
+            out = pass_c_deferred(mid.reshape(R, C), W_c2t, W_r1, W_r2,
+                                  add_row, add_col, theta, beta)
+        elif mode == "fast":
             mid, s = pass_b(e, W_c1, W_c2t, theta, "fast")
             S = torch.amax(s).reshape(1)
             scale = torch.exp(s - S)
@@ -320,4 +540,5 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
 
     T.twin = twin
     T.mode = mode
+    T.engine = "streamed-deferred" if deferred else "streamed"
     return T

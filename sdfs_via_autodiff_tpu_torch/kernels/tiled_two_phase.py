@@ -11,15 +11,16 @@ operand set raises ``NotImplementedError``.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
-from ..operators.two_phase import TwoPhaseOperands, two_phase_operands_ssy
+from ..operators.two_phase import (TwoPhaseOperands, two_phase_operands_gcy,
+                                   two_phase_operands_ssy)
 from .streamed_two_phase import make_streamed_T_log, streamed_supported
 
 __all__ = ["TPU_ONLY_OPTIONS", "reject_tpu_options", "make_tiled_T_log",
-           "make_tiled_T_log_ssy"]
+           "make_tiled_T_log_ssy", "make_tiled_T_log_gcy"]
 
 # Options of the JAX tiled tier that exist only for the TPU (bf16 "3x"
 # contraction splits, software transcendentals, VMEM budgets, tier
@@ -67,3 +68,48 @@ def make_tiled_T_log_ssy(model, disc, baseline=None,
     reject_tpu_options(tpu_options)
     return make_tiled_T_log(two_phase_operands_ssy(model, disc, baseline),
                             dtype, mode, device=device)
+
+
+def make_tiled_T_log_gcy(model, disc, dtype: torch.dtype = torch.float32,
+                         mode: str = "auto", *, device,
+                         baseline: Optional[str] = None,
+                         **tpu_options) -> Callable:
+    """Tiled two-pass log-space T for the discrete six-state GCY operator
+    via Kronecker grouping (``operators/two_phase.two_phase_operands_gcy``):
+    rows (h_c, h_lam), columns (z (x) z_pi, h_z (x) h_zpi).
+
+    The returned T maps the natural 6-D field ``ell[z, z_pi, h_z, h_c,
+    h_zpi, h_lam]`` -> log T(w) through ``T.to_view`` (one permute), the
+    view operator ``T.view_T`` on the 4-D view and ``T.from_view``;
+    ``T.twin`` is the eager twin in the natural layout (Newton's
+    tangent).  GCY's theta = -36 gives the plain operator a wide dynamic
+    range, so "auto" mode resolves to "lse".  Column groups too large for
+    the full configuration (e.g. 512 x 256 at the 25.2M-point grid) run
+    the deferred one.
+    """
+    reject_tpu_options(tpu_options)
+    ops = two_phase_operands_gcy(model, disc, baseline)
+    if mode == "auto":
+        mode = "lse"
+    view_T = make_tiled_T_log(ops, dtype, mode, device=device)
+    perm, inv_perm = ops.perm, ops.inv_perm
+    view_shapes = tuple(ops.state_shapes[p] for p in perm)
+
+    def to_view(ell):
+        return ell.permute(perm)
+
+    def from_view(ell_v):
+        return ell_v.permute(inv_perm)
+
+    def natural(op):
+        return lambda ell: from_view(op(to_view(ell).reshape(ops.shapes))
+                                     .reshape(view_shapes)).contiguous()
+
+    T = natural(view_T)
+    T.view_T = view_T
+    T.to_view = to_view
+    T.from_view = from_view
+    T.twin = natural(view_T.twin)
+    T.mode = view_T.mode
+    T.engine = view_T.engine
+    return T

@@ -1,7 +1,13 @@
+from .discrete_gcy import (GCYDiscretization, discretize_gcy, T_gcy_factory,
+                           dense_H_gcy, gcy_loglinear_parts)
 from .discrete_ssy import SSYDiscretization, discretize_ssy, T_ssy_factory, dense_H_ssy
-from .two_phase import TwoPhaseOperands, two_phase_operands_ssy, make_eager_two_phase_T
+from .two_phase import (TwoPhaseOperands, two_phase_operands_ssy,
+                        two_phase_operands_gcy, make_eager_two_phase_T)
 
 __all__ = [
     "SSYDiscretization", "discretize_ssy", "T_ssy_factory", "dense_H_ssy",
-    "TwoPhaseOperands", "two_phase_operands_ssy", "make_eager_two_phase_T",
+    "GCYDiscretization", "discretize_gcy", "T_gcy_factory", "dense_H_gcy",
+    "gcy_loglinear_parts",
+    "TwoPhaseOperands", "two_phase_operands_ssy", "two_phase_operands_gcy",
+    "make_eager_two_phase_T",
 ]

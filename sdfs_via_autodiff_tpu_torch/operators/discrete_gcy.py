@@ -1,0 +1,257 @@
+"""Discrete (tensor-grid Markov chain) Koopmans operator for the GCY model.
+
+PyTorch port of ``sdfs_via_autodiff_tpu/operators/discrete_gcy.py``, the
+six-state analogue of :mod:`.discrete_ssy`: ``H w^theta`` is a chain of
+six per-axis contractions.
+
+State order in w:
+
+    w[i_z, i_z_pi, i_h_z, i_h_c, i_h_zpi, i_h_lam]
+
+Discretization structure:
+
+* independent chains for h_z, h_c, h_zpi, h_lam;
+* z_pi chains conditional on h_zpi: z_pi_states[i_h_zpi, i_z_pi];
+* z chains conditional on (z_pi, h_z, h_zpi) including the mean shift
+  rho_pi * z_pi: z_states[i_z_pi, i_h_z, i_h_zpi, i_z].
+
+All conditional chains share persistence, hence share one transition
+matrix each (``z_pi_P``, ``z_P``); only the state ladders are scaled or
+shifted.  The discretization is host float64; the factories cast to the
+working dtype on the requested device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import resolve_device
+from ..models.gcy import GCY
+from ..ops.contract import lse_matmul
+from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
+from ..ops.tauchen import tauchen, tauchen_P, tauchen_ladder
+
+__all__ = ["GCYDiscretization", "discretize_gcy", "T_gcy_factory",
+           "dense_H_gcy", "gcy_loglinear_parts"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GCYDiscretization:
+    """Discrete representation of the GCY state space (host float64)."""
+
+    shapes: Tuple[int, int, int, int, int, int]   # (n_z, n_z_pi, n_h_z, n_h_c, n_h_zpi, n_h_lam)
+    h_z_states: torch.Tensor
+    h_z_Q: torch.Tensor
+    h_c_states: torch.Tensor
+    h_c_Q: torch.Tensor
+    h_zpi_states: torch.Tensor
+    h_zpi_Q: torch.Tensor
+    h_lam_states: torch.Tensor
+    h_lam_Q: torch.Tensor
+    z_pi_states: torch.Tensor   # (n_h_zpi, n_z_pi)
+    z_pi_P: torch.Tensor        # (n_z_pi, n_z_pi), shared over i_h_zpi
+    z_states: torch.Tensor      # (n_z_pi, n_h_z, n_h_zpi, n_z)
+    z_P: torch.Tensor           # (n_z, n_z), shared over conditioning states
+    sigma_z_states: torch.Tensor
+    sigma_c_states: torch.Tensor
+    sigma_zpi_states: torch.Tensor
+
+    @property
+    def z_pi_Q(self) -> torch.Tensor:
+        """(n_h_zpi, n_z_pi, n_z_pi) family (the reference's layout)."""
+        return self.z_pi_P.expand((self.shapes[4],) + tuple(self.z_pi_P.shape))
+
+    @property
+    def z_Q(self) -> torch.Tensor:
+        """(n_z_pi, n_h_z, n_h_zpi, n_z, n_z) family (the reference's
+        layout)."""
+        n_z, n_z_pi, n_h_z, _, n_h_zpi, _ = self.shapes
+        return self.z_P.expand((n_z_pi, n_h_z, n_h_zpi)
+                               + tuple(self.z_P.shape))
+
+
+def discretize_gcy(model: GCY, shapes: Tuple[int, ...],
+                   method: str = "rouwenhorst") -> GCYDiscretization:
+    """Discretization of the six GCY states, host float64.
+
+    method="rouwenhorst" or "tauchen" (the same shared-matrix structure,
+    Tauchen's construction)."""
+    n_z, n_z_pi, n_h_z, n_h_c, n_h_zpi, n_h_lam = shapes
+    m = model
+    if method == "rouwenhorst":
+        chain, chain_P, chain_ladder = rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
+    elif method == "tauchen":
+        chain, chain_P, chain_ladder = tauchen, tauchen_P, tauchen_ladder
+    else:
+        raise ValueError(f"unknown discretization method {method!r}")
+
+    h_z_states, h_z_Q = chain(n_h_z, m.rho_z, m.s_z)
+    h_c_states, h_c_Q = chain(n_h_c, m.rho_c, m.s_c)
+    h_zpi_states, h_zpi_Q = chain(n_h_zpi, m.rho_zpi, m.s_zpi)
+    h_lam_states, h_lam_Q = chain(n_h_lam, m.rho_lam, m.s_lam)
+
+    sigma_z_states = m.phi_z * np.exp(h_z_states)
+    sigma_c_states = m.phi_c * np.exp(h_c_states)
+    sigma_zpi_states = m.phi_zpi * np.exp(h_zpi_states)
+
+    # z_pi' = rho_pipi*z_pi + sigma_zpi*eta: ladder scaled per h_zpi state.
+    zpi_ladder = chain_ladder(n_z_pi, m.rho_pipi)
+    z_pi_states = sigma_zpi_states[:, None] * zpi_ladder[None, :]
+    z_pi_P = chain_P(n_z_pi, m.rho_pipi)
+
+    # z' = rho*z + rho_pi*z_pi + sigma_z*eta: ladder scaled by sigma_z[i_h_z]
+    # and mean-shifted by rho_pi*z_pi/(1-rho) per (i_h_zpi, i_z_pi).
+    z_ladder = chain_ladder(n_z, m.rho)
+    centers = (m.rho_pi / (1.0 - m.rho)) * z_pi_states      # (n_h_zpi, n_z_pi)
+    spread = sigma_z_states[:, None] * z_ladder[None, :]    # (n_h_z, n_z)
+    # target layout: (i_z_pi, i_h_z, i_h_zpi, i_z)
+    z_states = (centers.T[:, None, :, None] + spread[None, :, None, :])
+    z_P = chain_P(n_z, m.rho)
+
+    cast = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    return GCYDiscretization(
+        shapes=tuple(shapes),
+        h_z_states=cast(h_z_states), h_z_Q=cast(h_z_Q),
+        h_c_states=cast(h_c_states), h_c_Q=cast(h_c_Q),
+        h_zpi_states=cast(h_zpi_states), h_zpi_Q=cast(h_zpi_Q),
+        h_lam_states=cast(h_lam_states), h_lam_Q=cast(h_lam_Q),
+        z_pi_states=cast(z_pi_states), z_pi_P=cast(z_pi_P),
+        z_states=cast(z_states), z_P=cast(z_P),
+        sigma_z_states=cast(sigma_z_states),
+        sigma_c_states=cast(sigma_c_states),
+        sigma_zpi_states=cast(sigma_zpi_states),
+    )
+
+
+def _gcy_factors(model: GCY, disc: GCYDiscretization):
+    """Per-axis factors of H (host float64): B_lam (the h_lam transition
+    with the payoff folded), A2 over current h_c, A3 over current
+    (z, z_pi, h_z, h_zpi)."""
+    theta, gamma = model.theta, model.gamma
+    # B_lam[i_h_lam, j_h_lam] = Q_lam * exp(theta * h_lam')
+    B_lam = disc.h_lam_Q * torch.exp(theta * disc.h_lam_states)[None, :]
+    A2 = torch.exp(0.5 * ((1 - gamma) * disc.sigma_c_states) ** 2)
+    # z_states has layout (i_z_pi, i_h_z, i_h_zpi, i_z) -> i_z first.
+    A3 = torch.exp((1 - gamma) * (model.mu_c
+                                  + disc.z_states.permute(3, 0, 1, 2)))
+    return B_lam, A2, A3
+
+
+# Axis labels: a=z, b=z_pi, c=h_z, d=h_c, e=h_zpi, l=h_lam; capital =
+# next-period index.  (subscripts, contracted axis of the field) in
+# chain order.
+_CHAIN = (("lL,ABCDEL->ABCDEl", 5), ("dD,ABCDEl->ABCdEl", 3),
+          ("cC,ABCdEl->ABcdEl", 2), ("eE,ABcdEl->ABcdel", 4),
+          ("bB,ABcdel->Abcdel", 1), ("aA,Abcdel->abcdel", 0))
+
+
+def T_gcy_factory(model: GCY,
+                  disc: GCYDiscretization,
+                  *,
+                  space: str = "w",
+                  baseline: Optional[str] = None,
+                  dtype: Optional[torch.dtype] = None,
+                  device) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Koopmans operator T for the discretized GCY model as a chain of six
+    per-axis contractions.
+
+    space="w":   T maps w -> T(w)                  (float64 parity path)
+    space="log": T maps log w -> log T(w)          (float32-safe path)
+
+    ``dtype=None`` keeps float64.  ``device`` is where the operator's
+    arrays live and where its input must live.
+    """
+    if space not in ("w", "log"):
+        raise ValueError(f"unknown space {space!r}")
+    if baseline not in (None, "loglinear"):
+        raise ValueError(f"unknown baseline {baseline!r}")
+    if baseline and space != "log":
+        raise ValueError("baseline normalization requires space='log'")
+    if baseline:
+        raise NotImplementedError(
+            "baseline='loglinear' (the normalized GCY tier) is not ported "
+            "yet; it lands with ROADMAP queue A item 5")
+    dev = resolve_device(device)
+    dtype = dtype or torch.float64
+    beta, theta = model.beta, model.theta
+    B_lam, A2, A3 = _gcy_factors(model, disc)
+    cast = lambda a: a.to(device=dev, dtype=dtype)
+    factors = tuple(map(cast, (B_lam, disc.h_c_Q, disc.h_z_Q, disc.h_zpi_Q,
+                               disc.z_pi_P, disc.z_P)))
+    A2, A3 = cast(A2), cast(A3)
+
+    if space == "w":
+        def T(w):
+            u = w ** theta
+            for M, (subs, _) in zip(factors, _CHAIN):
+                u = torch.einsum(subs, M, u)
+            hwt = (A2[None, None, None, :, None, None]
+                   * A3[:, :, :, None, :, None] * u)
+            return 1.0 + beta * hwt ** (1.0 / theta)
+        return T
+
+    log_A2 = torch.log(A2)
+    log_A3 = torch.log(A3)
+
+    def T(ell):
+        # Per-axis log-sum-exp contractions (float32-safe at any range).
+        a = theta * ell
+        for M, (subs, axis) in zip(factors, _CHAIN):
+            a = lse_matmul(M, a, subs, axis)
+        log_hwt = (a + log_A2[None, None, None, :, None, None]
+                   + log_A3[:, :, :, None, :, None])
+        return torch.log1p(beta * torch.exp(log_hwt / theta))
+    return T
+
+
+def dense_H_gcy(model: GCY, disc: GCYDiscretization, *,
+                device) -> torch.Tensor:
+    """Dense (N, N) single-index H, float64, for tiny grids (cross-check
+    path)."""
+    dev = resolve_device(device)
+    B_lam, A2, A3 = _gcy_factors(model, disc)
+    H12 = torch.einsum("aA,bB,cC,dD,eE,lL,d,abce->abcdelABCDEL",
+                       disc.z_P, disc.z_pi_P, disc.h_z_Q, disc.h_c_Q,
+                       disc.h_zpi_Q, B_lam, A2, A3)
+    n = int(np.prod(disc.shapes))
+    return H12.reshape(n, n).to(dev)
+
+
+def gcy_loglinear_parts(model: GCY, disc: GCYDiscretization) -> dict:
+    """Separable components of the GCY log-linear closed form evaluated on
+    the discretized grid (host float64 numpy); ``ell0`` is the full 6-D
+    field, the standard warm start."""
+    from ..models.gcy import gcy_loglinear_factory
+
+    m = model
+    co = gcy_loglinear_factory(model).coefficients
+    h_lam = disc.h_lam_states.numpy()
+    h_c = disc.h_c_states.numpy()
+    h_z = disc.h_z_states.numpy()
+    h_zpi = disc.h_zpi_states.numpy()
+    zpi = disc.z_pi_states.numpy()                      # (e, b)
+    # z_states layout (b, c, e, a) = (i_z_pi, i_h_z, i_h_zpi, i_z)
+    zst = disc.z_states.numpy()
+
+    phi_l = co["A_hlam"] * h_lam
+    phi_d = co["A_hc"] * (h_c * 2 * m.phi_c**2 + m.phi_c**2)
+    phi_c_ = co["A_hz"] * (h_z * 2 * m.phi_z**2 + m.phi_z**2)
+    phi_e = co["A_hzpi"] * (h_zpi * 2 * m.phi_zpi**2 + m.phi_zpi**2)
+    psi_pi = co["A_zpi"] * zpi                          # (e, b)
+    psi_z = co["A_z"] * zst                             # (b, c, e, a)
+
+    # ell0 on the (a, b, c, d, e, l) grid.
+    ell0 = (co["A0"]
+            + psi_z.transpose(3, 0, 1, 2)[:, :, :, None, :, None]
+            + psi_pi.T[None, :, None, None, :, None]
+            + phi_c_[None, None, :, None, None, None]
+            + phi_d[None, None, None, :, None, None]
+            + phi_e[None, None, None, None, :, None]
+            + phi_l[None, None, None, None, None, :])
+    return dict(co=co, h_lam=h_lam, h_c=h_c, h_z=h_z, h_zpi=h_zpi,
+                phi_l=phi_l, phi_d=phi_d, phi_c_=phi_c_, phi_e=phi_e,
+                psi_pi=psi_pi, psi_z=psi_z, ell0=ell0)

@@ -1,14 +1,15 @@
 """Two-phase (column-group / row-group) form of the 4-D log-space operators.
 
 PyTorch port of ``sdfs_via_autodiff_tpu/operators/two_phase.py`` for the
-plain discrete SSY operand set.  Grouping the four state axes as rows
-(h_lam, h_c) and columns (h_z, z) splits the per-axis chain into
+plain discrete SSY and GCY operand sets.  Grouping the four SSY state axes
+as rows (h_lam, h_c) and columns (h_z, z) splits the per-axis chain into
 
     column phase:  contract next-h_z, then next-z      (touches only columns)
     row phase:     contract next-h_lam, then next-h_c  (touches only rows)
 
 with the epilogue's additive terms separable into a row part and a
-column part.  The streamed kernels (``kernels/streamed_two_phase.py``)
+column part.  The six GCY axes fold into the same form by Kronecker
+grouping (:func:`two_phase_operands_gcy`).  The streamed kernels (``kernels/streamed_two_phase.py``)
 run each phase as one pass over the field; :func:`make_eager_two_phase_T`
 is the plain eager evaluator of the same math — the kernels' tangent
 (Newton's inner matvecs) and their agreement oracle.
@@ -25,7 +26,7 @@ import torch
 from ..config import resolve_device
 
 __all__ = ["TwoPhaseOperands", "two_phase_operands_ssy",
-           "make_eager_two_phase_T"]
+           "two_phase_operands_gcy", "make_eager_two_phase_T"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +45,11 @@ class TwoPhaseOperands:
 
     The fields match the JAX package's operand set one for one, so
     ``dataclasses.asdict`` of either converts to the other
-    (``interop.operands_from_numpy``).  The optional fields belong to the
-    baseline-normalized sets, which later slices port; the evaluators
-    here reject them.
+    (``interop.operands_from_numpy``); ``perm``, ``inv_perm`` and
+    ``state_shapes``, which the JAX package sets as attributes of its GCY
+    sets, are fields here.  ``sub_row``, ``sub_col``, ``baseline_log_w``
+    and ``mid_col`` belong to the baseline-normalized sets, which later
+    slices port; the evaluators here reject them.
     """
 
     shapes: Tuple[int, int, int, int]
@@ -62,6 +65,11 @@ class TwoPhaseOperands:
     sub_col: Optional[np.ndarray] = None
     baseline_log_w: Optional[np.ndarray] = None
     mid_col: Optional[np.ndarray] = None
+    # Six-state sets: natural layout -> view layout (d, l, a, b, c, e),
+    # its inverse, and the natural shapes.
+    perm: Optional[Tuple[int, ...]] = None
+    inv_perm: Optional[Tuple[int, ...]] = None
+    state_shapes: Optional[Tuple[int, ...]] = None
 
     @property
     def c1_batched(self) -> bool:
@@ -140,6 +148,74 @@ def two_phase_operands_ssy(model, disc, baseline: Optional[str] = None
         W_c2=disc.z_P.numpy(),
         add_row=add_row, add_col=add_col,
         theta=float(model.theta), beta=float(model.beta))
+
+
+def _kron(X, Y):
+    """Dense Kronecker product (row-major pairing) in float64."""
+    X, Y = np.asarray(X, np.float64), np.asarray(Y, np.float64)
+    return np.einsum("aA,bB->abAB", X, Y).reshape(
+        X.shape[0] * Y.shape[0], X.shape[1] * Y.shape[1])
+
+
+def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None
+                           ) -> TwoPhaseOperands:
+    """Two-phase operands for the discrete six-state GCY operator via
+    Kronecker grouping.
+
+    The discrete GCY transitions all use shared per-axis matrices (the
+    conditioning of the z_pi and z chains lives in the state ladders), so
+    the six-axis chain folds exactly into a 4-D two-phase operand set:
+
+        rows:    r1 = h_c               W_r1 = Qc
+                 r2 = h_lam             W_r2 = B_lam (payoff folded)
+        columns: c1 = (z (x) z_pi)      W_c1 = zP (x) zpiP
+                 c2 = (h_z (x) h_zpi)   W_c2 = Qhz (x) Qhzpi
+
+    log_A3 depends on (z, z_pi, h_z, h_zpi), a general (c1, c2) matrix,
+    and log_A2 on h_c only.  The field view is ``ell[d, l, a, b, c, e]``
+    (h_c, h_lam leading); ``perm`` / ``inv_perm`` carry the transposition
+    from the natural ``(z, z_pi, h_z, h_c, h_zpi, h_lam)`` layout.
+    """
+    from .discrete_gcy import _gcy_factors, gcy_loglinear_parts
+
+    if baseline is not None:
+        if baseline != "loglinear":
+            raise ValueError(f"unknown baseline {baseline!r}")
+        raise NotImplementedError(
+            "baseline='loglinear' operand sets (the normalized GCY tier) "
+            "are not ported yet; they land with ROADMAP queue A item 5")
+    n_a, n_b, n_c, n_d, n_e, n_l = disc.shapes
+    B_lam, A2, A3 = (t.numpy() for t in _gcy_factors(model, disc))
+    # log_A2 over d -> rows; log_A3 over current (a, b, c, e) -> columns.
+    add_row = np.broadcast_to(np.log(A2)[:, None], (n_d, n_l)).copy()
+    add_col = np.log(A3).reshape(n_a * n_b, n_c * n_e)
+    # f32 range guard: the column phase shifts over the joint (z, z_pi)
+    # and (h_z, h_zpi) groups; if theta * (log-linear ell span within a
+    # column group) exceeds exp's f32 range, entire Kronecker rows
+    # underflow to exact zero -> -inf/NaN.
+    import warnings
+    ell0 = gcy_loglinear_parts(model, disc)["ell0"]
+    span = float((ell0.max(axis=(0, 1, 2, 4))
+                  - ell0.min(axis=(0, 1, 2, 4))).max())
+    if abs(model.theta) * span > 85.0:
+        warnings.warn(
+            f"theta * (within-column-group log-w span) ~ "
+            f"{abs(model.theta) * span:.0f} exceeds float32's exp range "
+            "(~85): the f32 tiled GCY operator will produce -inf/NaN on "
+            "this grid. Shrink the z / h_z axes (Rouwenhorst spans grow "
+            "like sqrt(n)), use discretization='tauchen', or the float64 "
+            "operator (kernel='xla').", stacklevel=2)
+    return TwoPhaseOperands(
+        shapes=(n_d, n_l, n_a * n_b, n_c * n_e),
+        W_r1=disc.h_c_Q.numpy(),
+        W_r2=B_lam,
+        W_c1=_kron(disc.z_P, disc.z_pi_P),
+        W_c2=_kron(disc.h_z_Q, disc.h_zpi_Q),
+        add_row=add_row, add_col=add_col,
+        theta=float(model.theta), beta=float(model.beta),
+        # Natural layout (a, b, c, d, e, l) -> view layout (d, l, a, b, c, e).
+        perm=(3, 5, 0, 1, 2, 4), inv_perm=(2, 3, 4, 0, 5, 1),
+        state_shapes=tuple(disc.shapes))
 
 
 def make_eager_two_phase_T(ops: TwoPhaseOperands,

@@ -111,7 +111,8 @@ def newton_solver(T: Callable,
                   inner_maxiter: Optional[int] = 50,
                   safeguard: bool = True,
                   verbose: bool = False,
-                  stall_iters: int = 30) -> SolveResult:
+                  stall_iters: int = 30,
+                  inner_iterations: Optional[list] = None) -> SolveResult:
     """Newton–Kantorovich iteration for a fixed point of T.
 
     Iterates ``q(x) = x - J(x)^{-1} g(x)`` for ``g(x) = T(x) - x``; the
@@ -133,6 +134,10 @@ def newton_solver(T: Callable,
     step T(x) (free — g(x) is already computed).  With
     ``safeguard=False`` a non-finite candidate poisons the iterate so the
     outer NaN guard stops with ``converged=False``.
+
+    ``inner_iterations``, when a list, receives each step's BiCGStab
+    iteration count (0 for the frozen steps that end a chunk after the
+    stop condition failed).
     """
     if inner != "bicgstab":
         raise NotImplementedError(
@@ -155,7 +160,10 @@ def newton_solver(T: Callable,
         # skips the Krylov solve: atol = inf stops it before any matvec.
         atol = torch.where(running, (inner_tol * torch.linalg.vector_norm(
             gx.reshape(-1))).to(torch.float64), inf)
-        b, _ = bicgstab_mixed(jac_prod, gx, atol=atol, maxiter=maxiter)
+        b, n_inner = bicgstab_mixed(jac_prod, gx, atol=atol,
+                                    maxiter=maxiter)
+        if inner_iterations is not None:
+            inner_iterations.append(n_inner)
         x_new = x - b.to(x.dtype)
         bad = ~torch.all(torch.isfinite(gx)) | ~torch.all(
             torch.isfinite(x_new))

@@ -19,8 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "sdfs_via_autodiff_tpu_torch"
 
 
-@pytest.mark.parametrize("rel", ["models/ssy.py", "ops/rouwenhorst.py",
-                                 "ops/tauchen.py"])
+@pytest.mark.parametrize("rel", ["models/ssy.py", "models/gcy.py",
+                                 "ops/rouwenhorst.py", "ops/tauchen.py"])
 def test_numpy_modules_are_identical_copies(rel):
     assert filecmp.cmp(ROOT / "sdfs_via_autodiff_tpu" / rel, PORT / rel,
                        shallow=False)

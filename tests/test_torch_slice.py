@@ -29,20 +29,25 @@ def test_tiled_newton_slice_matches_jax_f64():
                                rtol=0, atol=2e-4)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"polish": True}, "polish"),
-    ({"baseline": "loglinear"}, "baseline"),
-    ({"checkpoint_path": "w.npz"}, "checkpoint_path"),
+@pytest.mark.parametrize("model,kwargs,match", [
+    (P.SSY(), {"polish": True}, "polish"),
+    (P.SSY(), {"baseline": "loglinear"}, "baseline"),
+    (P.SSY(), {"checkpoint_path": "w.npz"}, "checkpoint_path"),
+    (P.GCY(), {"baseline": "loglinear"}, "baseline"),
 ])
-def test_later_slices_raise_not_implemented(kwargs, match):
+def test_later_slices_raise_not_implemented(model, kwargs, match):
+    shapes = SHAPES if isinstance(model, P.SSY) else (4, 3, 3, 2, 3, 2)
     with pytest.raises(NotImplementedError, match=match):
-        P.wc_ratio_discrete(P.SSY(), SHAPES, kernel="tiled", device="cpu",
+        P.wc_ratio_discrete(model, shapes, kernel="tiled", device="cpu",
                             **kwargs)
 
 
 def test_unsupported_model_and_options():
-    with pytest.raises(NotImplementedError, match="GCY"):
-        P.wc_ratio_discrete(J.GCY(), SHAPES, device="cpu")
+    class Other:
+        theta = -10.0
+
+    with pytest.raises(TypeError, match="unsupported model Other"):
+        P.wc_ratio_discrete(Other(), SHAPES, device="cpu")
     with pytest.raises(ValueError, match="unknown kernel"):
         P.wc_ratio_discrete(P.SSY(), SHAPES, kernel="fused", device="cpu")
     with pytest.raises(ValueError, match="log space"):

@@ -165,13 +165,19 @@ def test_cpu_tensors_run_the_plain_versions(operands):
 def test_coverage_and_uncovered_sets(operands):
     _, pops = operands
     assert P.streamed_supported(pops)
-    # A (64, 512) column group needs 262 KB of pass-B shared memory.
+    # A (64, 512) column group needs 262 KB of pass-B shared memory: the
+    # deferred configuration covers it.
     m = P.SSY()
     big = P.two_phase_operands_ssy(m, P.discretize_ssy(
         m, (2, 2, 64, 512), method="tauchen"))
-    assert not P.streamed_supported(big)
+    assert P.streamed_config(big) == "deferred"
+    # (2048, 64) fits neither pass B's (I, J) block nor the deferred
+    # pass B's (I, 32) strip.
+    wide = P.two_phase_operands_ssy(m, P.discretize_ssy(
+        m, (2, 2, 2048, 64), method="tauchen"))
+    assert not P.streamed_supported(wide)
     with pytest.raises(NotImplementedError, match="strip tier"):
-        P.make_tiled_T_log(big, device="cpu")
+        P.make_tiled_T_log(wide, device="cpu")
     normalized = dataclasses.replace(pops, sub_row=pops.add_row,
                                      sub_col=pops.add_col)
     assert not P.streamed_supported(normalized)
