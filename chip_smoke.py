@@ -30,15 +30,34 @@ Phases, in order; any failure exits non-zero before the result line:
    BiCGStab iterations and the seconds;
 9. GCY: ms per application, kernels vs the eager twin, ms per tangent
    matvec, and each deferred kernel vs its plain version;
-10. a JSON line of per-kernel facts, then the result line
-    ``{"ok": true, "device": {...}}``.
+10. the fused kernels (one application, the SA loop, the Anderson loop,
+    ``kernels/csrc/fused_two_matmul.cu``) against their plain versions
+    at four two-matmul operand sets: continuous SSY (5,5,5,6), discrete
+    SSY (8,8,6,6), discrete GCY (4,3,3,3,3,3) and continuous SSY 20^4
+    (the Anderson loop iterate by iterate over 20 steps, its fall back
+    to T(x), and at tol 1e-5 in a tenth of the SA loop's iterations);
+11. one fused application at the 20^4 continuous grid against the
+    float64 factored operator;
+12. the continuous-SSY path at 20^4: ``wc_ratio_continuous`` with
+    ``algorithm="fused_anderson"`` and ``"fused_sa"`` (tol 1e-5, from
+    w = 1) and a float32 Newton solve through the fused operator (tol
+    2e-5), each with its launch counts, float64 residual, distance to
+    the float64 Newton solution and cold/warm seconds;
+13. timing: us per iteration of the SA kernel over 20,000 iterations,
+    each fused kernel vs its plain version (the loops over the same
+    200 iterations); the Anderson loops' iteration counts at tol 2e-6;
+14. a JSON line of per-kernel facts (with each kernel's bound: the
+    larger of its FP32 operations over 67 TFLOP/s and its bytes over
+    3.35 TB/s, from this run's shapes and iteration counts), then the
+    result line ``{"ok": true, "device": {...}}``.
 
-Each path runs with every launch count set to 0 just before it and read
-just after.  The port never imports JAX, and neither does this script.
+The kernels build in parallel (one nvcc per source).  Each path runs
+with every launch count set to 0 just before it and read just after.  The port never imports JAX, and neither does this script.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -67,13 +86,53 @@ MAIN_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
 GCY_SHAPES, GCY_METHOD = (32, 16, 16, 12, 16, 16), "tauchen"
 GCY_RAGGED = (7, 8, 43, 2, 6, 4)
 GCY_F64_RESIDUAL = 5e-5     # max |T64(ell*) - ell*|
-SOURCE = "sdfs_via_autodiff_tpu_torch/kernels/csrc/streamed_two_phase.cu"
+# The continuous-SSY fused tier: the JAX suite's
+# ssy_continuous_fused_kernel_20^4_f32_20k_iters cell
+# (benchmarks/suite.py:128-140), quadrature degree 5, interp "pre".
+FUSED_SIZES = (20, 20, 20, 20)
+FUSED_TOL = 1e-5            # fused SA / Anderson tolerance
+FUSED_NEWTON_TOL = 2e-5     # f32 Newton through the fused operator
+FUSED_F64_RESIDUAL = 5e-5   # max |T64(ell*) - ell*|
+FUSED_CELL_ITERS = 20_000   # the suite cell's iteration count
+B6_CAP_ATOL = 1e-4          # 50 SA steps of ~1e-6 rounding each
+# Anderson iterate by iterate: 20 steps (mixes at steps 6, 8, ..., 18)
+# with ridge 0.1 (times tr/m).  The default ridge 1e-6 leaves the early
+# normal equations so ill-conditioned that a 1e-7 change of the start
+# moves the 10th iterate by ~4e-3; at 0.1 rounding moves it by ~2e-5
+# while mixing still moves it by 2e-2..2 away from SA's iterate.
+B7_CHECK_RIDGE, B7_CHECK_ITERS, B7_ITER_ATOL = 0.1, 20, 1e-4
+B7_ITER_SHARE = 0.1         # AA iterations at tol 1e-5 / SA's, at most
+FUSED_TIMED_ITERS = 200     # fixed count of the kernel-vs-plain timings
+FLOOR_TOL, FLOOR_MAX_ITER = 2e-6, 5000   # Anderson near the f32 floor
+PEAK_FP32 = 67e12           # H100 SXM FP32 (non-tensor) FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+_CSRC = "sdfs_via_autodiff_tpu_torch/kernels/csrc/"
+SOURCES = {"streamed_two_phase": _CSRC + "streamed_two_phase.cu",
+           "fused_two_matmul": _CSRC + "fused_two_matmul.cu"}
 _JAX_KERNELS = "sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py"
 REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "pass_c": f"{_JAX_KERNELS}:446",            # _c_kernel
             "pass_b_deferred": f"{_JAX_KERNELS}:384",   # _b_kernel_deferred
-            "pass_c_deferred": f"{_JAX_KERNELS}:446"}   # _c_kernel, c2_deferred
+            "pass_c_deferred": f"{_JAX_KERNELS}:446",   # _c_kernel, c2_deferred
+            "fused_T": "sdfs_via_autodiff_tpu/kernels/fused_discrete.py:72",
+            "fused_sa": "sdfs_via_autodiff_tpu/kernels/solver_kernel.py:41",
+            "fused_anderson":
+                "sdfs_via_autodiff_tpu/kernels/anderson_kernel.py:36"}
 KERNELS = tuple(REPLACES)
+SOURCE_OF = {k: SOURCES["fused_two_matmul" if k.startswith("fused")
+                        else "streamed_two_phase"] for k in KERNELS}
+# (FP32 FLOP, bytes) of each kernel's timed call, filled by the phases.
+WORK = {}
+
+
+def bound(name: str):
+    """(bound_ms, bound_by) of a kernel's timed call: the larger of its
+    FP32 operations over the peak rate and its bytes (each input read
+    once, each output written once) over the memory rate."""
+    flop, nbytes = WORK[name]
+    t_ops, t_bytes = flop / PEAK_FP32, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def fail(msg: str) -> None:
@@ -228,9 +287,281 @@ def gcy_phases(torch, port, st, dev, smi):
             time_ms(torch, lambda y: st.pass_c_deferred(y, *c_args), mid),
             time_ms(torch, lambda y: st.pass_c_deferred_plain(y, *c_args),
                     mid))}
+    # Contractions: c1 over I' per (row, column) in pass B; c2 over J'
+    # and the two row contractions in pass C.  Each pass reads and writes
+    # one f32 field (plus its small factors).
+    field = 4 * R * C
+    WORK["pass_b_deferred"] = (2 * R * I * I * J, 2 * field + 4 * I * I)
+    WORK["pass_c_deferred"] = (2 * R * I * J * J + 2 * C * R * (L + K),
+                               2 * field + 4 * (J * J + L * L + K * K + R + C))
     for name, (k_ms, p_ms) in kernels_ms.items():
         print(f"timing {name} {ops.shapes}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms")
+    return max_err, launches, kernels_ms
+
+
+def fused_sets(torch, port, fd):
+    """The four two-matmul operand sets of the fused kernel checks
+    (float64 CPU tensors)."""
+    ssy, gcy = port.SSY(), port.GCY()
+    f64 = torch.float64
+    return [
+        ("continuous (5,5,5,6)", ssy, fd.kron_operands_ssy_continuous(
+            ssy, port.build_grid_ssy(ssy, 5, 5, 5, 6), 5, f64)),
+        ("discrete SSY (8,8,6,6)", ssy, fd.kron_operands_ssy(
+            ssy, port.discretize_ssy(ssy, (8, 8, 6, 6)), f64)),
+        ("discrete GCY (4,3,3,3,3,3)", gcy, fd.kron_operands_gcy(
+            gcy, port.discretize_gcy(gcy, (4, 3, 3, 3, 3, 3)), f64)),
+        ("continuous 20^4", ssy, fd.kron_operands_ssy_continuous(
+            ssy, port.build_grid_ssy(ssy, *FUSED_SIZES), 5, f64))]
+
+
+def events_ms(torch, fn):
+    """(result, ms) of one call of ``fn`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def fused_phases(torch, port, dev, smi):
+    """Phases 10-13 (the fused tier).  Returns the kernels' max abs
+    errors vs plain, the path's launch counts and (kernel ms, plain ms)
+    per kernel."""
+    from sdfs_via_autodiff_tpu_torch.kernels import anderson_kernel as ak
+    from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
+    from sdfs_via_autodiff_tpu_torch.kernels import solver_kernel as sk
+    from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
+
+    cast = f32_cast(torch, dev)
+    max_err = {"fused_T": 0.0, "fused_sa": 0.0, "fused_anderson": 0.0}
+
+    # 10. Each fused kernel vs its plain version at four operand sets.
+    for label, model, ops64 in fused_sets(torch, port, fd):
+        ops = tuple(cast(a.numpy()) for a in ops64)
+        R, C = ops[2].shape
+        th, be = model.theta, model.beta
+        ell = cast(noise_field((R, C), SEED))
+        got = fd.fused_T(ell, *ops, None, th, be)
+        err_t = float((got - fd.fused_T_plain(ell, *ops, None, th,
+                                              be)).abs().max())
+        check(bool(torch.isfinite(got).all()) and err_t <= KERNEL_ATOL,
+              f"fused_T {label}: max abs err {err_t:.3e}")
+        e_k, i_k, _ = sk.fused_sa(ell, *ops, None, th, be, 0.0, 50)
+        e_p, i_p, _ = sk.fused_sa_plain(ell, *ops, None, th, be, 0.0, 50)
+        err_s = float((e_k - e_p).abs().max())
+        check(int(i_k) == int(i_p) == 50 and err_s <= B6_CAP_ATOL,
+              f"fused_sa {label}: {int(i_k)}/{int(i_p)} iterations, max abs "
+              f"err {err_s:.3e}")
+        # Anderson from w = 1 (continuous) or w = 800 (discrete).
+        x0 = (torch.zeros_like(ell) if label.startswith("continuous")
+              else torch.full_like(ell, float(np.log(800.0))))
+        # Iterate by iterate at a fixed count (tol -1): the Gram sums,
+        # the Gauss-Jordan solve and the combination against plain.
+        n = B7_CHECK_ITERS
+        a_k, j_k, _ = ak.fused_anderson(x0, *ops, None, th, be, -1.0, n,
+                                        ridge=B7_CHECK_RIDGE)
+        a_p, j_p, _ = ak.fused_anderson_plain(x0, *ops, None, th, be, -1.0,
+                                              n, ridge=B7_CHECK_RIDGE)
+        err_a = float((a_k - a_p).abs().max())
+        check(int(j_k) == int(j_p) == n and err_a <= B7_ITER_ATOL,
+              f"fused_anderson {label}: {int(j_k)}/{int(j_p)} iterations at "
+              f"ridge {B7_CHECK_RIDGE:g}, max abs err {err_a:.3e}")
+        # The fall back to T(x): a NaN ridge makes every combination NaN,
+        # so the loop is plain SA.
+        f_k, _, _ = ak.fused_anderson(x0, *ops, None, th, be, -1.0, n,
+                                      ridge=float("nan"))
+        s_p, _, _ = sk.fused_sa_plain(x0, *ops, None, th, be, -1.0, n)
+        err_f = float((f_k - s_p).abs().max())
+        check(err_f <= B7_ITER_ATOL,
+              f"fused_anderson {label}: NaN-ridge fall back vs SA {err_f:.3e}")
+        # At tol 1e-5 with the default ridge: both converge, in a tenth of
+        # SA's iterations from the same start.  Their end states lie
+        # within tol*beta/(1-beta) of the fixed point (the stop rule), so
+        # within twice that of each other; the kernel's end state is a
+        # fixed point of the plain operator to FUSED_F64_RESIDUAL.
+        b_k, i_k, q_k = ak.fused_anderson(x0, *ops, None, th, be, FUSED_TOL,
+                                          20_000)
+        b_p, i_p, q_p = ak.fused_anderson_plain(x0, *ops, None, th, be,
+                                                FUSED_TOL, 20_000)
+        _, i_sa, _ = sk.fused_sa(x0, *ops, None, th, be, FUSED_TOL, 20_000)
+        end = float((b_k - b_p).abs().max())
+        band = 2 * FUSED_TOL * be / (1 - be)
+        res_k = float((fd.fused_T_plain(b_k, *ops, None, th, be)
+                       - b_k).abs().max())
+        check(float(q_k) <= FUSED_TOL and float(q_p) <= FUSED_TOL,
+              f"fused_anderson {label}: kernel err {float(q_k):.3e}, plain "
+              f"{float(q_p):.3e} > tol")
+        check(int(i_k) <= B7_ITER_SHARE * int(i_sa),
+              f"fused_anderson {label}: {int(i_k)} iterations against "
+              f"fused_sa's {int(i_sa)}")
+        check(end <= band and res_k <= FUSED_F64_RESIDUAL,
+              f"fused_anderson {label}: end states {end:.3e} apart "
+              f"(band {band:.3e}), kernel residual {res_k:.3e}")
+        torch.cuda.synchronize()
+        tiles = -(-R // 32) * -(-C // 32)
+        print(f"fused {label} ({R}x{C}, {tiles} tiles of 32x32): "
+              f"fused_T max abs err {err_t:.3e}; fused_sa 50 steps max abs "
+              f"err {err_s:.3e}; fused_anderson {n} steps at ridge "
+              f"{B7_CHECK_RIDGE:g} max abs err {err_a:.3e}, NaN-ridge fall "
+              f"back vs SA {err_f:.3e}; tol {FUSED_TOL:g}: kernel "
+              f"{int(i_k)} iterations, plain {int(i_p)}, fused_sa "
+              f"{int(i_sa)}, end states {end:.3e} apart (band {band:.3e}), "
+              f"kernel residual under the plain operator {res_k:.3e}")
+        max_err["fused_T"] = max(max_err["fused_T"], err_t)
+        max_err["fused_sa"] = max(max_err["fused_sa"], err_s)
+        max_err["fused_anderson"] = max(max_err["fused_anderson"], err_a,
+                                        err_f)
+
+    # 11. One application at 20^4 vs the float64 factored operator.
+    model = port.SSY()
+    grids64 = port.build_grid_ssy(model, *FUSED_SIZES)
+    T = port.make_fused_T_log_ssy_continuous(model, grids64, device=dev)
+    T64 = port.T_ssy_continuous_factory(model, grids64, space="log",
+                                        device=dev)
+    ell64 = torch.as_tensor(noise_field(FUSED_SIZES, SEED), device=dev)
+    err = float((T(ell64.float()).double() - T64(ell64)).abs().max())
+    check(err <= OPERATOR_ATOL, f"fused operator 20^4 vs f64: {err:.3e}")
+    print(f"operator fused continuous {FUSED_SIZES}: one application vs "
+          f"f64 max abs err {err:.3e}")
+
+    # 12. The path, on the float32 grids wc_ratio_continuous builds for
+    # the fused algorithms.
+    grids32 = port.build_grid_ssy(model, *FUSED_SIZES, dtype=torch.float32)
+    T64 = port.T_ssy_continuous_factory(
+        model, tuple(g.double() for g in grids32), space="log", device=dev)
+    zeros64 = torch.zeros(FUSED_SIZES, dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    ref = port.solve(T64, zeros64, method="newton", tol=1e-10)
+    torch.cuda.synchronize()
+    check(ref.converged, f"f64 Newton reference did not converge: {ref}")
+    print(f"f64 Newton reference {FUSED_SIZES} (same grids): {ref}, "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    def run_fused(algorithm):
+        sol = port.wc_ratio_continuous(model, FUSED_SIZES,
+                                       algorithm=algorithm, tol=FUSED_TOL,
+                                       device=dev)
+        return torch.log(sol.w_star), sol.result
+
+    def run_newton():
+        T_f = port.make_fused_T_log_ssy_continuous(model, grids32,
+                                                   device=dev)
+        res = port.solve(T_f, torch.zeros(FUSED_SIZES, device=dev),
+                         method="newton", tol=FUSED_NEWTON_TOL)
+        return res.x, res
+
+    launches = {}
+    counts = (st.LAUNCHES, fd.LAUNCHES)
+    for kernel, label, run in (
+            ("fused_anderson", "wc_ratio_continuous fused_anderson",
+             lambda: run_fused("fused_anderson")),
+            ("fused_sa", "wc_ratio_continuous fused_sa",
+             lambda: run_fused("fused_sa")),
+            ("fused_T", "newton through the fused operator", run_newton)):
+        torch.cuda.synchronize()
+        for c in counts:
+            for k in c:
+                c[k] = 0
+        t0 = time.perf_counter()
+        ell_star, res = run()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        now = {**st.LAUNCHES, **fd.LAUNCHES}
+        launches[kernel] = now[kernel]
+        check(now[kernel] > 0,
+              f"{kernel} never launched on the {label} path: {now}")
+        check(res.converged, f"{label} did not converge: {res}")
+        ell_star = ell_star.double()
+        check(bool(torch.isfinite(ell_star).all())
+              and tuple(ell_star.shape) == FUSED_SIZES,
+              f"{label}: w* not finite/shaped")
+        r64 = float((T64(ell_star) - ell_star).abs().max())
+        dist = float((ell_star - ref.x).abs().max())
+        w = torch.exp(ell_star)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        print(f"path {label} {FUSED_SIZES}: {res}; launches "
+              f"{ {k: v for k, v in now.items() if v} }; f64 residual "
+              f"{r64:.3e}; max|l* - l*_f64 Newton| {dist:.3e}; w* in "
+              f"[{float(w.min()):.3f}, {float(w.max()):.3f}]; {cold:.3f} s "
+              f"cold, {warm:.3f} s warm ({smi})")
+        check(r64 <= FUSED_F64_RESIDUAL, f"{label}: f64 residual {r64:.3e}")
+
+    # 13. Timing at 20^4: the suite cell, each kernel vs its plain
+    # version.
+    ops = tuple(cast(a.numpy()) for a in fd.kron_operands_ssy_continuous(
+        model, grids32, 5, torch.float64))
+    R, C = ops[2].shape
+    th, be = model.theta, model.beta
+    # The cell runs a fixed count from w = 800: tol -1 never stops it
+    # (with tol 0 an iterate that T maps exactly onto itself would).
+    x800 = torch.full((R, C), float(np.log(800.0)), device=dev)
+    sk.fused_sa(x800, *ops, None, th, be, -1.0, 100)
+    (_, iters, _), ms = events_ms(torch, lambda: sk.fused_sa(
+        x800, *ops, None, th, be, -1.0, FUSED_CELL_ITERS))
+    check(int(iters) == FUSED_CELL_ITERS, f"SA cell ran {int(iters)}")
+    app_flop = 2 * R * R * C + 2 * R * C * C
+    print(f"timing fused_sa cell {FUSED_SIZES}, {FUSED_CELL_ITERS} "
+          f"iterations: {ms:.3f} ms, {1e3 * ms / FUSED_CELL_ITERS:.3f} us "
+          f"per iteration (bound {1e6 * app_flop / PEAK_FP32:.3f} us) ({smi})")
+    ell = cast(noise_field((R, C), SEED))
+    ms_k = time_ms(torch, lambda y: fd.fused_T(y, *ops, None, th, be), ell)
+    ms_p = time_ms(torch, lambda y: fd.fused_T_plain(y, *ops, None, th, be),
+                   ell)
+    T_f = port.make_fused_T_log_ssy_continuous(model, grids32, device=dev)
+    x4 = ell.reshape(FUSED_SIZES)
+    ms_T, ms_twin = time_ms(torch, T_f, x4), time_ms(torch, T_f.twin, x4)
+    kernels_ms = {"fused_T": (ms_k, ms_p)}
+    x0 = torch.zeros((R, C), device=dev)
+    field_bytes = 4 * (3 * R * C + R * R + C * C)
+    WORK["fused_T"] = (app_flop, field_bytes)
+    n = FUSED_TIMED_ITERS
+    for name, kern, plain in (("fused_sa", sk.fused_sa, sk.fused_sa_plain),
+                              ("fused_anderson", ak.fused_anderson,
+                               ak.fused_anderson_plain)):
+        # One solve at tol 1e-5, then kernel vs plain over the same fixed
+        # count from the same start (tol -1).
+        kern(x0, *ops, None, th, be, FUSED_TOL, 20_000)
+        (_, it_s, _), s_ms = events_ms(torch, lambda: kern(
+            x0, *ops, None, th, be, FUSED_TOL, 20_000))
+        (_, it_k, _), k_ms = events_ms(torch, lambda: kern(
+            x0, *ops, None, th, be, -1.0, n))
+        (_, it_p, _), p_ms = events_ms(torch, lambda: plain(
+            x0, *ops, None, th, be, -1.0, n))
+        check(int(it_k) == int(it_p) == n,
+              f"{name} timing ran {int(it_k)}/{int(it_p)} iterations")
+        kernels_ms[name] = (k_ms, p_ms)
+        flop = n * app_flop
+        if name == "fused_anderson":
+            m = 5                                # history; mixing every 2nd
+            mixes = sum(1 for i in range(m, n) if i % 2 == 0)
+            flop += mixes * (2 * m * (m + 1) // 2 + 4 * m) * R * C
+        WORK[name] = (flop, field_bytes)
+        print(f"timing {name} {FUSED_SIZES} from w = 1: tol {FUSED_TOL:g} "
+              f"solve {s_ms:.3f} ms ({int(it_s)} iterations); {n} "
+              f"iterations: kernel {k_ms:.3f} ms "
+              f"({1e3 * k_ms / n:.3f} us per iteration), plain loop "
+              f"{p_ms:.3f} ms ({1e3 * p_ms / n:.3f} us per iteration) "
+              f"({smi})")
+    # Near the float32 floor the two Anderson loops' iteration counts
+    # part; printed, not checked.
+    _, it_k, q_k = ak.fused_anderson(x0, *ops, None, th, be, FLOOR_TOL,
+                                     FLOOR_MAX_ITER)
+    _, it_p, q_p = ak.fused_anderson_plain(x0, *ops, None, th, be, FLOOR_TOL,
+                                           FLOOR_MAX_ITER)
+    print(f"fused_anderson {FUSED_SIZES} from w = 1 at tol {FLOOR_TOL:g}: "
+          f"kernel {int(it_k)} iterations (err {float(q_k):.3e}), plain "
+          f"{int(it_p)} (err {float(q_p):.3e}), cap {FLOOR_MAX_ITER}")
+    print(f"timing fused_T {FUSED_SIZES}: kernel {ms_k:.4f} ms, plain "
+          f"{ms_p:.4f} ms; operator T {ms_T:.4f} ms vs its twin "
+          f"{ms_twin:.4f} ms per application ({smi})")
     return max_err, launches, kernels_ms
 
 
@@ -241,6 +572,7 @@ def main() -> None:
 
     import sdfs_via_autodiff_tpu_torch as port
     from sdfs_via_autodiff_tpu_torch.kernels import _build
+    from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
     from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
 
     dev = torch.device("cuda", 0)
@@ -273,12 +605,16 @@ def main() -> None:
           and not torch.backends.cuda.matmul.allow_tf32,
           "could not set full-FP32 matmuls")
 
-    # 2. Build.
+    # 2. Build, one nvcc per source, all started together.
     t0 = time.perf_counter()
-    lib_path = _build.build("streamed_two_phase")
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        paths = list(pool.map(_build.build, SOURCES))
     st._lib()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}")
-    print(lib_path.with_suffix(".log").read_text().strip())
+    fd._lib()
+    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+          f"{', '.join(p.name for p in paths)}")
+    for lib_path in paths:
+        print(lib_path.with_suffix(".log").read_text().strip())
 
     # 3. Kernels vs plain versions, and 4. operator vs float64.
     max_err = {"pass_b": 0.0, "pass_c": 0.0}
@@ -425,6 +761,12 @@ def main() -> None:
             kernels_ms["pass_c"] = (
                 time_ms(torch, lambda y: st.pass_c(y, *c_args), mid2),
                 time_ms(torch, lambda y: st.pass_c_plain(y, *c_args), mid2))
+            R, C = L * K, I * J
+            field = 4 * R * C
+            WORK["pass_b"] = (2 * R * (I * I * J + I * J * J),
+                              2 * field + 4 * (I * I + J * J + R))
+            WORK["pass_c"] = (2 * C * R * (L + K),
+                              2 * field + 4 * (L * L + K * K + 2 * R + C + 1))
             for name, (k_ms, p_ms) in kernels_ms.items():
                 print(f"timing {name} fast {shapes}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms")
@@ -438,13 +780,25 @@ def main() -> None:
                 **{k: gcy_launches[k] for k in gcy_err}}
     kernels_ms.update(gcy_ms)
 
-    # 10. Result.
+    # 10-13. The continuous-SSY fused tier.
+    torch.cuda.empty_cache()
+    fused_err, fused_launches, fused_ms = fused_phases(torch, port, dev, smi)
+    max_err.update(fused_err)
+    launches.update(fused_launches)
+    kernels_ms.update(fused_ms)
+
+    # 14. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": max_err[name], "ms": kernels_ms[name][0],
-         "plain_ms": kernels_ms[name][1]} for name in KERNELS]}))
+    rows = []
+    for name in KERNELS:
+        bound_ms, bound_by = bound(name)
+        rows.append({"name": name, "route": "cuda",
+                     "source": SOURCE_OF[name], "replaces": REPLACES[name],
+                     "launches": launches[name],
+                     "max_abs_err": max_err[name], "ms": kernels_ms[name][0],
+                     "plain_ms": kernels_ms[name][1], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

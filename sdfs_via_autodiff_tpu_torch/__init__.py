@@ -11,7 +11,12 @@ versions).  The JAX package ``sdfs_via_autodiff_tpu`` is the reference
 each part is tested against; this package never imports it or JAX.
 
 Ported so far: the discrete SSY and GCY paths,
-``wc_ratio_discrete(SSY() or GCY(), shapes, kernel="tiled", device=...)``.
+``wc_ratio_discrete(SSY() or GCY(), shapes, kernel="tiled")``, and the
+continuous SSY path (quadrature, pre-power interpolation),
+``wc_ratio_continuous(SSY(), sizes)`` with the float64 factored operator
+or the whole-solve kernels (``algorithm="fused_sa"``/``"fused_anderson"``).
+Every entry point runs on the card unless the caller passes
+``device="cpu"``.
 """
 
 from .models import SSY, ssy_loglinear_factory, GCY, gcy_loglinear_factory
@@ -20,12 +25,26 @@ from .operators import (SSYDiscretization, discretize_ssy, T_ssy_factory,
                         T_gcy_factory, dense_H_gcy, gcy_loglinear_parts,
                         TwoPhaseOperands, two_phase_operands_ssy,
                         two_phase_operands_gcy, make_eager_two_phase_T)
-from .kernels import (LAUNCHES, make_streamed_T_log, make_tiled_T_log,
-                      make_tiled_T_log_ssy, make_tiled_T_log_gcy,
-                      streamed_config, streamed_supported)
+from .operators.continuous_ssy import T_ssy_continuous_factory
+from .ops.grids import build_grid_ssy, build_grid_gcy
+from .kernels import (LAUNCHES, FUSED_LAUNCHES, make_streamed_T_log,
+                      make_tiled_T_log, make_tiled_T_log_ssy,
+                      make_tiled_T_log_gcy, streamed_config,
+                      streamed_supported, kron_operands_ssy,
+                      kron_operands_ssy_continuous, kron_operands_gcy,
+                      make_xla_T_from_operands, make_fused_T_from_operands,
+                      make_fused_T_log_ssy, make_fused_T_log_ssy_continuous,
+                      make_fused_T_log_gcy, make_fused_solver_from_operands,
+                      make_fused_solver_ssy, make_fused_solver_ssy_continuous,
+                      make_fused_solver_gcy,
+                      make_fused_anderson_from_operands,
+                      make_fused_anderson_ssy,
+                      make_fused_anderson_ssy_continuous)
 from .solvers import (SolveResult, solve, solver, successive_approx,
-                      newton_solver, bicgstab_mixed)
-from .drivers import WCSolution, wc_ratio_discrete, f32_tol_floor
-from .interop import model_from_fields, operands_from_numpy
+                      newton_solver, bicgstab_mixed, anderson_solver)
+from .drivers import (WCSolution, wc_ratio_discrete, wc_ratio_continuous,
+                      f32_tol_floor)
+from .interop import (model_from_fields, operands_from_numpy,
+                      kron_operands_from_numpy, grids_from_numpy)
 
 __version__ = "0.1.0"

@@ -1,0 +1,1 @@
+"""Measurement scripts of the port; each runs on a CUDA card only."""

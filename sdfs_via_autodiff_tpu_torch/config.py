@@ -1,9 +1,10 @@
 """Device policy of the PyTorch port.
 
 The JAX package's ``config.py`` picks a backend for the caller.  The
-port never does: every factory and driver takes an explicit ``device``,
-a request for CUDA on a machine without a card raises, and nothing falls
-back to the CPU.
+port never does: every factory and ``wc_ratio_*`` entry point takes
+``device="cuda"`` by default and runs on the card unless the caller asks
+for the CPU (``device="cpu"``, as the tests do); a request for CUDA on a
+machine without a card raises, and nothing falls back to the CPU.
 """
 
 from __future__ import annotations

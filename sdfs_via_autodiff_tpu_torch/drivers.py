@@ -1,18 +1,25 @@
 """High-level driver: model -> grids -> operator -> solver.
 
-PyTorch port of ``drivers.wc_ratio_discrete`` for the SSY and GCY models.
-The iterate defaults to log space (ell = log w), which keeps w > 0 and every
-intermediate in float32 range.  ``kernel="xla"`` runs the eager per-axis
-operator (float64 by default); ``kernel="tiled"`` runs the float32
-streamed CUDA kernels (their plain PyTorch versions on a CPU device).
+PyTorch port of ``drivers.wc_ratio_discrete`` (SSY and GCY) and of
+``drivers.wc_ratio_continuous`` (SSY, quadrature + pre-power
+interpolation).  The iterate defaults to log space (ell = log w), which
+keeps w > 0 and every intermediate in float32 range.  ``kernel="xla"``
+runs the eager per-axis operator (float64 by default); the discrete
+``kernel="tiled"`` runs the float32 streamed CUDA kernels, and the
+continuous ``algorithm="fused_sa"``/``"fused_anderson"`` the whole-solve
+CUDA kernels (their plain PyTorch versions on a CPU device).  Every
+``wc_ratio_*`` call runs on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .config import resolve_device
@@ -23,10 +30,13 @@ from .models.gcy import GCY
 from .models.ssy import SSY
 from .operators.discrete_gcy import (T_gcy_factory, discretize_gcy,
                                      gcy_loglinear_parts)
+from .operators.continuous_ssy import T_ssy_continuous_factory
 from .operators.discrete_ssy import T_ssy_factory, discretize_ssy
+from .ops.grids import build_grid_ssy
 from .solvers import SolveResult, solve
 
-__all__ = ["WCSolution", "wc_ratio_discrete", "f32_tol_floor"]
+__all__ = ["WCSolution", "wc_ratio_discrete", "wc_ratio_continuous",
+           "f32_tol_floor"]
 
 DEFAULT_INIT_W = 800.0   # reference w_init
 
@@ -91,9 +101,10 @@ def wc_ratio_discrete(model,
                       discretization: str = "rouwenhorst",
                       polish=False,
                       checkpoint_path: Optional[str] = None,
-                      device,
+                      device="cuda",
                       **solver_opts) -> WCSolution:
-    """Solve the discretized SSY or GCY model on ``device``.
+    """Solve the discretized SSY or GCY model on ``device`` (the card
+    unless the caller asks for the CPU).
 
     ``kernel="xla"``: the eager per-axis operator in ``dtype`` (float64
     when None), log space by default, ``space="w"`` for strict reference
@@ -153,3 +164,142 @@ def wc_ratio_discrete(model,
           else torch.as_tensor(w_init).to(device=dev, dtype=wdtype))
     return _run_solver(T, w0, space, algorithm, tol, solver_opts,
                        theta=model.theta)
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet; it lands with "
+                               f"ROADMAP queue A {item}")
+
+
+def wc_ratio_continuous(model,
+                        grid_sizes: Sequence[int],
+                        *,
+                        num_std_devs: float = 3.2,
+                        method: str = "quadrature",
+                        interp: str = "pre",
+                        quad_degree: int = 5,
+                        algorithm: str = "newton",
+                        tol: float = 1e-7,
+                        space: Optional[str] = None,
+                        w_init=None,
+                        baseline=None,
+                        dtype: Optional[torch.dtype] = None,
+                        kernel: str = "xla",
+                        polish=False,
+                        checkpoint_path: Optional[str] = None,
+                        device="cuda",
+                        **solver_opts) -> WCSolution:
+    """Solve the continuous-state SSY model on interpolation grids, on
+    ``device`` (the card unless the caller asks for the CPU).
+
+    Grid bounds via ``num_std_devs`` stationary standard deviations,
+    Gauss-Hermite degree ``quad_degree`` per dimension, initial guess
+    all-ones unless ``w_init`` is given (or the folded baseline's w).
+
+    ``kernel="xla"`` with ``algorithm`` "newton" (the default), "sa" or
+    "anderson" iterates the factored operator
+    (:func:`..operators.continuous_ssy.T_ssy_continuous_factory`) in
+    ``dtype`` (float64 when None); ``baseline`` ("loglinear" or
+    ``(const, profiles)``) folds a separable baseline into it.
+    ``algorithm="fused_sa"`` / ``"fused_anderson"`` runs the whole solve
+    as one launch of the float32 CUDA kernel (successive approximation /
+    Anderson acceleration over the fused two-matmul operator, at most
+    ``max_iter`` = 20,000 iterations; extra keyword arguments go to
+    :func:`..kernels.anderson_kernel.make_fused_anderson_ssy_continuous`),
+    on grids built in float32.  As in the JAX package, the fused SSY path
+    takes no baseline: ``baseline`` is ignored there.
+
+    Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+    item: ``kernel="tiled"`` (items 6-8), ``method="monte_carlo"`` and
+    ``interp`` "post"/"loglin" (item 8), ``baseline="coarse"``,
+    ``polish`` and ``checkpoint_path`` (items 6 and 10), and the GCY model
+    (item 7).  The JAX driver's ``mc_draw_size``, ``seed``,
+    ``batch_size`` and ``engine`` serve those paths and come with them.
+    """
+    space = space or "log"
+    if kernel not in ("tiled", "xla"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if not isinstance(model, (SSY, GCY)):
+        raise TypeError(f"unsupported model {type(model).__name__}")
+    if isinstance(model, GCY):
+        raise _not_ported("the continuous GCY model", "item 7")
+    if kernel == "tiled":
+        raise _not_ported("kernel='tiled' for the continuous operators",
+                          "items 6 (SSY pre), 7 (GCY) and 8 (post/loglin)")
+    for name, value, item in (("polish", polish, "item 6"),
+                              ("checkpoint_path", checkpoint_path,
+                               "item 10")):
+        if value:
+            raise _not_ported(f"{name}={value!r}", item)
+    if isinstance(baseline, str) and baseline == "coarse":
+        raise _not_ported("baseline='coarse' (_coarse_additive_baseline)",
+                          "item 6")
+    if method == "monte_carlo":
+        raise _not_ported("method='monte_carlo'", "item 8")
+    if interp in ("post", "loglin"):
+        raise _not_ported(f"interp={interp!r}", "item 8")
+    dev = resolve_device(device)
+    if algorithm in ("fused_anderson", "fused_sa"):
+        return _wc_ratio_continuous_fused(
+            model, grid_sizes, algorithm=algorithm, tol=tol,
+            num_std_devs=num_std_devs, method=method, interp=interp,
+            quad_degree=quad_degree, w_init=w_init, device=dev,
+            **solver_opts)
+    gdtype = dtype or torch.float64
+    grids = build_grid_ssy(model, *grid_sizes, num_std_devs=num_std_devs,
+                           dtype=gdtype)
+    T = T_ssy_continuous_factory(
+        model, grids, method=method, interp=interp, space=space,
+        quad_degree=quad_degree, baseline=baseline, dtype=dtype, device=dev)
+    shape = tuple(len(g) for g in grids)
+    if w_init is None:
+        w0 = (torch.exp(T.baseline_log_w) if hasattr(T, "baseline_log_w")
+              else torch.ones(shape, dtype=gdtype, device=dev))
+    else:
+        w0 = torch.as_tensor(w_init).to(device=dev)
+    sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
+                      theta=model.theta)
+    return dataclasses.replace(sol, grids=tuple(grids))
+
+
+def _wc_ratio_continuous_fused(model, grid_sizes, *, algorithm, tol,
+                               num_std_devs, method, interp, quad_degree,
+                               w_init, device, max_iter: int = 20_000,
+                               **solver_opts) -> WCSolution:
+    """Whole-solve kernel path (float32, SSY, quadrature + pre-interp).
+
+    algorithm="fused_anderson" runs the Anderson kernel, "fused_sa" the
+    successive-approximation kernel: the entire solve is one launch.
+    """
+    from .kernels.anderson_kernel import make_fused_anderson_ssy_continuous
+    from .kernels.solver_kernel import make_fused_solver_ssy_continuous
+
+    if tol < 2e-6:
+        warnings.warn(
+            f"tol={tol:g} is below the fused kernels' float32 iteration "
+            "floor (~1e-5..2e-6 on the log iterate, depending on grid "
+            "size); the solve will stop at max_iter with the floor "
+            "residual. Use the float64 Newton path for tighter "
+            "tolerances.", stacklevel=3)
+    if method != "quadrature" or interp != "pre":
+        raise ValueError(
+            "fused kernels implement the quadrature + pre-interp operator")
+    grids = build_grid_ssy(model, *grid_sizes, num_std_devs=num_std_devs,
+                           dtype=torch.float32)
+    if algorithm == "fused_anderson":
+        fsolve = make_fused_anderson_ssy_continuous(
+            model, grids, degree=quad_degree, device=device, **solver_opts)
+    else:
+        fsolve = make_fused_solver_ssy_continuous(
+            model, grids, degree=quad_degree, device=device, **solver_opts)
+    shape = tuple(len(g) for g in grids)
+    w0 = (torch.ones(shape, dtype=torch.float32, device=device)
+          if w_init is None
+          else torch.as_tensor(w_init).to(device=device, dtype=torch.float32))
+    ell, iters, err = fsolve(torch.log(w0), tol, max_iter)
+    err = float(err)
+    result = SolveResult(x=ell, iterations=int(iters), residual=err,
+                         converged=bool(err <= float(np.float32(tol))
+                                        and not math.isnan(err)))
+    return WCSolution(w_star=torch.exp(ell), grids=tuple(grids),
+                      result=result, space="log")

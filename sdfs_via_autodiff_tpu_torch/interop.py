@@ -1,9 +1,11 @@
-"""Carry a model's parameters and a two-phase operand set across packages.
+"""Carry a model's parameters and operand sets across packages.
 
-The model dataclass fields and the ``TwoPhaseOperands`` arrays play the
-role of weights here.  Both take plain dictionaries — ``dataclasses.asdict``
-of the JAX package's objects with arrays as numpy float64 — so a test can
-hand both packages the same numbers without this package importing JAX.
+The model dataclass fields, the ``TwoPhaseOperands`` arrays, the
+two-matmul operands ``(M1, M2T, log_kap[, sub])`` of the fused tier and
+the continuous grids play the role of weights here.  All take plain
+containers — ``dataclasses.asdict`` of the JAX package's objects, or its
+arrays — as numpy float64, so a test can hand both packages the same
+numbers without this package importing JAX.
 """
 
 from __future__ import annotations
@@ -11,12 +13,14 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .models.gcy import GCY
 from .models.ssy import SSY
 from .operators.two_phase import TwoPhaseOperands
 
-__all__ = ["model_from_fields", "operands_from_numpy"]
+__all__ = ["model_from_fields", "operands_from_numpy",
+           "kron_operands_from_numpy", "grids_from_numpy"]
 
 _MODELS = (SSY, GCY)
 # Operand fields that are integer tuples (the JAX package sets the last
@@ -58,3 +62,19 @@ def operands_from_numpy(d: dict) -> TwoPhaseOperands:
         else:
             kw[k] = np.asarray(v, np.float64)
     return TwoPhaseOperands(**kw)
+
+
+def kron_operands_from_numpy(operands) -> tuple:
+    """The fused tier's two-matmul operands ``(M1, M2T, log_kap)`` or
+    ``(M1, M2T, log_kap, sub)`` (e.g. the JAX package's
+    ``kron_operands_*`` results) as float64 CPU tensors, in the same
+    order; a ``None`` entry stays None."""
+    return tuple(None if a is None
+                 else torch.as_tensor(np.array(a, np.float64))
+                 for a in operands)
+
+
+def grids_from_numpy(grids) -> tuple:
+    """Continuous state grids (1-D arrays, e.g. the JAX package's
+    ``build_grid_ssy`` result) as float64 CPU tensors."""
+    return tuple(torch.as_tensor(np.array(g, np.float64)) for g in grids)

@@ -453,7 +453,8 @@ def pass_c_deferred(mid, W_c2t, W_r1, W_r2, add_row, add_col, theta: float,
 
 def make_streamed_T_log(ops: TwoPhaseOperands,
                         dtype: torch.dtype = torch.float32,
-                        mode: str = "auto", *, device) -> Callable:
+                        mode: str = "auto", *,
+                        device="cuda") -> Callable:
     """Streamed two-pass operator ell (4-D field) -> log T(w) from a plain
     two-phase operand set, in the configuration :func:`streamed_config`
     picks.

@@ -44,7 +44,7 @@ def reject_tpu_options(options: dict) -> None:
 
 def make_tiled_T_log(ops: TwoPhaseOperands,
                      dtype: torch.dtype = torch.float32,
-                     mode: str = "auto", *, device,
+                     mode: str = "auto", *, device="cuda",
                      **tpu_options) -> Callable:
     """Tiled two-pass operator from a two-phase operand set: the streamed
     kernels when they cover ``ops``, else ``NotImplementedError``."""
@@ -62,7 +62,7 @@ def make_tiled_T_log(ops: TwoPhaseOperands,
 
 def make_tiled_T_log_ssy(model, disc, baseline=None,
                          dtype: torch.dtype = torch.float32,
-                         mode: str = "auto", *, device,
+                         mode: str = "auto", *, device="cuda",
                          **tpu_options) -> Callable:
     """Tiled two-pass log-space T for the discrete SSY operator."""
     reject_tpu_options(tpu_options)
@@ -71,7 +71,7 @@ def make_tiled_T_log_ssy(model, disc, baseline=None,
 
 
 def make_tiled_T_log_gcy(model, disc, dtype: torch.dtype = torch.float32,
-                         mode: str = "auto", *, device,
+                         mode: str = "auto", *, device="cuda",
                          baseline: Optional[str] = None,
                          **tpu_options) -> Callable:
     """Tiled two-pass log-space T for the discrete six-state GCY operator

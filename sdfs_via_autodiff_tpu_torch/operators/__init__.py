@@ -1,6 +1,10 @@
 from .discrete_gcy import (GCYDiscretization, discretize_gcy, T_gcy_factory,
                            dense_H_gcy, gcy_loglinear_parts)
 from .discrete_ssy import SSYDiscretization, discretize_ssy, T_ssy_factory, dense_H_ssy
+from .continuous_common import (hat_basis, expectation_matrix,
+                                normalize_expectation_matrix,
+                                additive_profiles, warn_if_f32_range_unsafe)
+from .continuous_ssy import next_state_ssy, T_ssy_continuous_factory
 from .two_phase import (TwoPhaseOperands, two_phase_operands_ssy,
                         two_phase_operands_gcy, make_eager_two_phase_T)
 
@@ -9,5 +13,7 @@ __all__ = [
     "GCYDiscretization", "discretize_gcy", "T_gcy_factory", "dense_H_gcy",
     "gcy_loglinear_parts",
     "TwoPhaseOperands", "two_phase_operands_ssy", "two_phase_operands_gcy",
-    "make_eager_two_phase_T",
+    "make_eager_two_phase_T", "hat_basis", "expectation_matrix",
+    "normalize_expectation_matrix", "additive_profiles",
+    "warn_if_f32_range_unsafe", "next_state_ssy", "T_ssy_continuous_factory",
 ]

@@ -155,7 +155,7 @@ def T_gcy_factory(model: GCY,
                   space: str = "w",
                   baseline: Optional[str] = None,
                   dtype: Optional[torch.dtype] = None,
-                  device) -> Callable[[torch.Tensor], torch.Tensor]:
+                  device="cuda") -> Callable[[torch.Tensor], torch.Tensor]:
     """Koopmans operator T for the discretized GCY model as a chain of six
     per-axis contractions.
 
@@ -209,7 +209,7 @@ def T_gcy_factory(model: GCY,
 
 
 def dense_H_gcy(model: GCY, disc: GCYDiscretization, *,
-                device) -> torch.Tensor:
+                device="cuda") -> torch.Tensor:
     """Dense (N, N) single-index H, float64, for tiny grids (cross-check
     path)."""
     dev = resolve_device(device)

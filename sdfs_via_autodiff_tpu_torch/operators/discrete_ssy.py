@@ -130,7 +130,7 @@ def T_ssy_factory(model: SSY,
                   space: str = "w",
                   baseline: Optional[str] = None,
                   dtype: Optional[torch.dtype] = None,
-                  device) -> Callable[[torch.Tensor], torch.Tensor]:
+                  device="cuda") -> Callable[[torch.Tensor], torch.Tensor]:
     """Build the Koopmans operator T for the discretized SSY model.
 
     T(w) = 1 + beta * (H w^theta)^(1/theta) on the (l, k, i, j) tensor
@@ -183,7 +183,7 @@ def T_ssy_factory(model: SSY,
 
 
 def dense_H_ssy(model: SSY, disc: SSYDiscretization, *,
-                device) -> torch.Tensor:
+                device="cuda") -> torch.Tensor:
     """Materialize H as a dense (N, N) float64 matrix.
 
     Only for small grids: validates the factored contraction against a

@@ -220,7 +220,7 @@ def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None
 
 def make_eager_two_phase_T(ops: TwoPhaseOperands,
                            dtype: torch.dtype = torch.float32, *,
-                           device) -> Callable:
+                           device="cuda") -> Callable:
     """Plain eager evaluator of a plain two-phase operand set.
 
     The same math as the streamed kernels with per-axis shifts at every

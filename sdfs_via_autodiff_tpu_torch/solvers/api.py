@@ -10,6 +10,7 @@ from __future__ import annotations
 import warnings
 from typing import Callable
 
+from .anderson import anderson_solver
 from .fixed_point import newton_solver, successive_approx
 from .result import SolveResult
 
@@ -19,11 +20,11 @@ SOLVERS = {
     "successive_approx": successive_approx,
     "sa": successive_approx,               # short alias
     "newton": newton_solver,
+    "anderson": anderson_solver,
 }
 
 # Methods of the JAX package that later slices port.
-_NOT_PORTED = {"anderson": "ROADMAP queue A item 3 (anderson_solver)",
-               "gd": "ROADMAP queue A item 3 (gradient_solver)"}
+_NOT_PORTED = {"gd": "ROADMAP queue A item 3 (gradient_solver)"}
 
 
 def _lookup(method: str) -> Callable:

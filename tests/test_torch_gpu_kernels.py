@@ -4,8 +4,8 @@ Marked ``gpu``: every test skips without a CUDA device.  This file
 imports neither JAX nor the JAX package, so on a GPU machine without JAX
 it runs with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu_kernels.py``.  Tolerances as in
-``test_torch_streamed_two_phase.py`` and
-``test_torch_deferred_two_phase.py``.
+``test_torch_streamed_two_phase.py``, ``test_torch_deferred_two_phase.py``
+and ``test_torch_fused.py``.
 """
 
 import numpy as np
@@ -13,6 +13,9 @@ import pytest
 import torch
 
 import sdfs_via_autodiff_tpu_torch as P
+from sdfs_via_autodiff_tpu_torch.kernels import anderson_kernel as ak
+from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
+from sdfs_via_autodiff_tpu_torch.kernels import solver_kernel as sk
 from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
 
 pytestmark = pytest.mark.gpu
@@ -192,3 +195,119 @@ def test_kernel_wrappers_validate_arguments(cuda):
                   "lse")
     with pytest.raises(ValueError, match="is on"):
         st.pass_b(ell, W_c1.cpu(), W_c2t, float(ops.theta), "fast")
+
+
+# Fused two-matmul operand sets (rows x columns): continuous SSY 25 x 30
+# (one ragged tile), discrete SSY 64 x 36, discrete GCY 36 x 27 and
+# continuous SSY 20^4, 400 x 400 (169 tiles).
+FUSED_CASES = ["continuous-5556", "ssy-8866", "gcy-433333",
+               "continuous-20"]
+
+
+def _fused_setup(name, dev):
+    kind, size = name.split("-")
+    if kind == "continuous":
+        m = P.SSY()
+        sizes = (5, 5, 5, 6) if size == "5556" else (20, 20, 20, 20)
+        ops = fd.kron_operands_ssy_continuous(
+            m, P.build_grid_ssy(m, *sizes), 5, torch.float64)
+    elif kind == "ssy":
+        m = P.SSY()
+        ops = fd.kron_operands_ssy(m, P.discretize_ssy(m, (8, 8, 6, 6)),
+                                   torch.float64)
+    else:
+        m = P.GCY()
+        ops = fd.kron_operands_gcy(m, P.discretize_gcy(m, (4, 3, 3, 3, 3, 3)),
+                                   torch.float64)
+    M1, M2T, kap = (a.to(device=dev, dtype=torch.float32).contiguous()
+                    for a in ops)
+    rng = np.random.default_rng(0)
+    ell = torch.as_tensor(np.log(800.0) + 0.05 * rng.standard_normal(
+        tuple(kap.shape)), dtype=torch.float32, device=dev)
+    return m, (M1, M2T, kap), ell
+
+
+@pytest.mark.parametrize("name", FUSED_CASES)
+def test_fused_T_kernel_matches_plain(cuda, name):
+    m, ops, ell = _fused_setup(name, cuda)
+    before = fd.LAUNCHES["fused_T"]
+    got = fd.fused_T(ell, *ops, None, m.theta, m.beta)
+    assert fd.LAUNCHES["fused_T"] == before + 1
+    want = fd.fused_T_plain(ell, *ops, None, m.theta, m.beta)
+    assert float((got - want).abs().max()) <= ATOL
+    # With a baseline subtraction operand.
+    sub = 0.01 * m.theta * torch.ones_like(ell)
+    got = fd.fused_T(ell, *ops, sub, m.theta, m.beta)
+    want = fd.fused_T_plain(ell, *ops, sub, m.theta, m.beta)
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("name", FUSED_CASES)
+def test_fused_sa_kernel_matches_plain(cuda, name):
+    m, ops, ell = _fused_setup(name, cuda)
+    before = fd.LAUNCHES["fused_sa"]
+    e_k, i_k, r_k = sk.fused_sa(ell, *ops, None, m.theta, m.beta, 0.0, 50)
+    assert fd.LAUNCHES["fused_sa"] == before + 1
+    e_p, i_p, r_p = sk.fused_sa_plain(ell, *ops, None, m.theta, m.beta, 0.0,
+                                      50)
+    assert int(i_k) == int(i_p) == 50
+    assert float((e_k - e_p).abs().max()) <= 1e-4
+    # max_iter = 0 returns the input and an infinite error.
+    e0, i0, r0 = sk.fused_sa(ell, *ops, None, m.theta, m.beta, 1e-5, 0)
+    assert int(i0) == 0 and float(r0) == float("inf")
+    torch.testing.assert_close(e0, ell, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", FUSED_CASES)
+def test_fused_anderson_kernel_matches_plain(cuda, name):
+    m, ops, ell = _fused_setup(name, cuda)
+    x0 = torch.zeros_like(ell) if name.startswith("continuous") else ell
+    # Iterate by iterate: 20 steps (7 mixes), ridge 0.1 so that rounding
+    # is not amplified by the normal equations (at 1e-6 a 1e-7 change of
+    # the start moves the 10th iterate by ~4e-3), within 1e-4.
+    before = fd.LAUNCHES["fused_anderson"]
+    a_k, j_k, _ = ak.fused_anderson(x0, *ops, None, m.theta, m.beta, -1.0,
+                                    20, ridge=0.1)
+    assert fd.LAUNCHES["fused_anderson"] == before + 1
+    a_p, j_p, _ = ak.fused_anderson_plain(x0, *ops, None, m.theta, m.beta,
+                                          -1.0, 20, ridge=0.1)
+    assert int(j_k) == int(j_p) == 20
+    assert float((a_k - a_p).abs().max()) <= 1e-4
+    # At tol 1e-5 with the default ridge: both converge, the kernel in at
+    # most a tenth of the SA kernel's iterations from the same start.
+    tol = 1e-5
+    e_k, i_k, r_k = ak.fused_anderson(x0, *ops, None, m.theta, m.beta, tol,
+                                      20_000)
+    e_p, i_p, r_p = ak.fused_anderson_plain(x0, *ops, None, m.theta, m.beta,
+                                            tol, 20_000)
+    _, i_sa, _ = sk.fused_sa(x0, *ops, None, m.theta, m.beta, tol, 20_000)
+    assert float(r_k) <= tol and float(r_p) <= tol
+    assert int(i_k) <= 0.1 * int(i_sa)
+    # End states: each within tol * beta / (1 - beta) of the fixed point.
+    assert float((e_k - e_p).abs().max()) <= 2 * tol * m.beta / (1 - m.beta)
+    # The kernel's end state is a fixed point of the plain operator.
+    res = fd.fused_T_plain(e_k, *ops, None, m.theta, m.beta) - e_k
+    assert float(res.abs().max()) <= 5e-5
+
+
+@pytest.mark.parametrize("name", FUSED_CASES)
+def test_fused_anderson_kernel_falls_back_to_T(cuda, name):
+    # A NaN ridge makes every combination NaN: each step falls back to
+    # T(x), so the Anderson kernel runs plain SA.
+    m, ops, ell = _fused_setup(name, cuda)
+    e_k, i_k, _ = ak.fused_anderson(ell, *ops, None, m.theta, m.beta, -1.0,
+                                    20, ridge=float("nan"))
+    e_p, _, _ = sk.fused_sa_plain(ell, *ops, None, m.theta, m.beta, -1.0, 20)
+    assert int(i_k) == 20
+    assert float((e_k - e_p).abs().max()) <= 1e-4
+
+
+def test_fused_continuous_T_matches_f64(cuda):
+    m = P.SSY()
+    grids = P.build_grid_ssy(m, 20, 20, 20, 20)
+    T = P.make_fused_T_log_ssy_continuous(m, grids, device=cuda)
+    T64 = P.T_ssy_continuous_factory(m, grids, space="log", device=cuda)
+    rng = np.random.default_rng(1)
+    ell = torch.as_tensor(np.log(700.0) + 0.05 * rng.standard_normal(
+        (20, 20, 20, 20)), device=cuda)
+    assert float((T(ell.float()).double() - T64(ell)).abs().max()) <= ATOL

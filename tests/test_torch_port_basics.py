@@ -20,7 +20,8 @@ PORT = ROOT / "sdfs_via_autodiff_tpu_torch"
 
 
 @pytest.mark.parametrize("rel", ["models/ssy.py", "models/gcy.py",
-                                 "ops/rouwenhorst.py", "ops/tauchen.py"])
+                                 "ops/rouwenhorst.py", "ops/tauchen.py",
+                                 "ops/quadrature.py"])
 def test_numpy_modules_are_identical_copies(rel):
     assert filecmp.cmp(ROOT / "sdfs_via_autodiff_tpu" / rel, PORT / rel,
                        shallow=False)
@@ -82,3 +83,26 @@ def test_cuda_request_without_card_raises():
         P.T_ssy_factory(m, d, space="log", device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         P.wc_ratio_discrete(m, (3, 3, 3, 4), device="cuda")
+
+
+def test_entry_points_default_to_cuda():
+    # Called without ``device``, a factory and a ``wc_ratio_*`` call ask
+    # for the card (and so raise on a machine without one): nothing falls
+    # back.
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    m = P.SSY()
+    d = P.discretize_ssy(m, (3, 3, 3, 4))
+    grids = P.build_grid_ssy(m, 3, 3, 3, 4)
+    calls = [lambda: P.T_ssy_factory(m, d, space="log"),
+             lambda: P.make_tiled_T_log_ssy(m, d),
+             lambda: P.make_fused_T_log_ssy(m, d),
+             lambda: P.make_fused_solver_ssy_continuous(m, grids),
+             lambda: P.T_ssy_continuous_factory(m, grids),
+             lambda: P.wc_ratio_discrete(m, (3, 3, 3, 4)),
+             lambda: P.wc_ratio_continuous(m, (3, 3, 3, 4)),
+             lambda: P.wc_ratio_continuous(m, (3, 3, 3, 4),
+                                           algorithm="fused_anderson")]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -1,7 +1,8 @@
 """PyTorch port's solvers vs the JAX package's, in float64 on the CPU.
 
-Newton and successive approximation through ``wc_ratio_discrete`` reach
-the JAX fixed point to 1e-10 on log w; BiCGStab and the chunked-sync
+Newton, successive approximation and Anderson acceleration through
+``wc_ratio_discrete`` reach the JAX fixed point to 1e-10 on log w;
+BiCGStab and the chunked-sync
 ``_iterate`` loop reproduce JAX's iterates and iteration counts.
 """
 
@@ -19,6 +20,16 @@ from sdfs_via_autodiff_tpu_torch.solvers import fixed_point as fp
 from sdfs_via_autodiff_tpu_torch.solvers.krylov import SYNC_EVERY
 
 SHAPES = (10, 10, 10, 10)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Solver loops run thousands of small ops: one intra-op thread keeps
+    them fast when test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_newton_matches_jax_fixed_point():
@@ -42,6 +53,18 @@ def test_successive_approx_matches_jax_fixed_point():
                               tol=1e-12, device="cpu")
     assert got.converged and bool(want.converged)
     assert got.result.iterations == int(want.result.iterations)
+    np.testing.assert_allclose(torch.log(got.w_star).numpy(),
+                               np.log(np.asarray(want.w_star)),
+                               rtol=0, atol=1e-10)
+
+
+def test_anderson_matches_jax_fixed_point():
+    # Both reach the float64 fixed point; AA trajectories differ at the
+    # rounding level, so the iteration counts may differ.
+    want = J.wc_ratio_discrete(J.SSY(), SHAPES, tol=1e-12)
+    got = P.wc_ratio_discrete(P.SSY(), SHAPES, algorithm="anderson",
+                              tol=1e-13, device="cpu")
+    assert got.converged and got.result.residual <= 1e-13
     np.testing.assert_allclose(torch.log(got.w_star).numpy(),
                                np.log(np.asarray(want.w_star)),
                                rtol=0, atol=1e-10)
@@ -103,9 +126,11 @@ def test_solver_api():
     assert P.solve(T, x0, method="sa", tol=1e-12).converged
     np.testing.assert_allclose(P.solver(T, x0, algorithm="newton",
                                         verbose=False).numpy(), 2.0)
-    for method in ("anderson", "gd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.solve(T, x0, method=method)
+    res = P.solve(T, x0, method="anderson", tol=1e-12)
+    assert res.converged
+    np.testing.assert_allclose(res.x.numpy(), 2.0, rtol=0, atol=1e-11)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        P.solve(T, x0, method="gd")
     with pytest.raises(ValueError, match="unknown method"):
         P.solve(T, x0, method="bfgs")
     with pytest.warns(UserWarning, match="Falling back"):
