@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU and check them.
 
 Run from the repository root on a machine with a CUDA GPU, ``nvcc`` and
 PyTorch built for CUDA:
@@ -46,7 +46,27 @@ Phases, in order; any failure exits non-zero before the result line:
 13. timing: us per iteration of the SA kernel over 20,000 iterations,
     each fused kernel vs its plain version (the loops over the same
     200 iterations); the Anderson loops' iteration counts at tol 2e-6;
-14. a JSON line of per-kernel facts (with each kernel's bound: the
+14. continuous GCY: the deferred pass B with the folded baseline and the
+    pair pass C against their plain versions at (8,3,2,4,128,2)
+    (log-linear baseline), a ragged (5,3,3,2,40,3), the 4.2M-point
+    (8,8,8,8,128,8) and the 18.9M-point (16,8,12,12,128,8) grids (coarse
+    baseline); one application at 18.9M against the float64 factored
+    operator with the same baseline;
+15. the continuous-GCY path at 18.9M: ``wc_ratio_continuous(GCY(),
+    (16,8,12,12,128,8), kernel="tiled", baseline="coarse", tol=3.04e-5,
+    max_iter=2000)`` (SA; Anderson continues from SA's iterate if SA's
+    stall guard stops it above tol), cold then warm, with the coarse
+    baseline's seconds, the iterations, the launch counts and the float64
+    residual;
+16. continuous GCY timing at 4.2M and 18.9M: ms per application, kernels
+    vs the eager twin, and each new kernel vs its plain version; at
+    18.9M the SA loop's seconds on the prebuilt operator and 64 of its
+    iterations under torch.profiler (device time by kernel, busy share);
+17. the fused tier on continuous GCY at 6^6: ``fused_sa`` and
+    ``fused_anderson`` with the coarse baseline (tol 3.04e-5, float64
+    residual), and the fused application against its plain version at
+    that operand set;
+18. a JSON line of per-kernel facts (with each kernel's bound: the
     larger of its FP32 operations over 67 TFLOP/s and its bytes over
     3.35 TB/s, from this run's shapes and iteration counts), then the
     result line ``{"ok": true, "device": {...}}``.
@@ -104,6 +124,17 @@ B7_CHECK_RIDGE, B7_CHECK_ITERS, B7_ITER_ATOL = 0.1, 20, 1e-4
 B7_ITER_SHARE = 0.1         # AA iterations at tol 1e-5 / SA's, at most
 FUSED_TIMED_ITERS = 200     # fixed count of the kernel-vs-plain timings
 FLOOR_TOL, FLOOR_MAX_ITER = 2e-6, 5000   # Anderson near the f32 floor
+# Continuous GCY: the JAX NORTHSTAR gcy_continuous_quadpre_pair grid
+# (benchmarks/northstar.py:442-536; 18,874,368 states, view
+# (8,16,144,1024)), the JAX suite's gcy_continuous_pair_4.2M_f32 grid
+# (benchmarks/suite.py:357-391) and two small sets for the kernel checks.
+GCYC_SHAPES = (16, 8, 12, 12, 128, 8)
+GCYC_SUITE = (8, 8, 8, 8, 128, 8)
+GCYC_SMALL = (8, 3, 2, 4, 128, 2)
+GCYC_RAGGED = (5, 3, 3, 2, 40, 3)
+GCYC_MAX_ITER = 2000
+GCYC_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
+FUSED_GCY_SIZES = (6,) * 6
 PEAK_FP32 = 67e12           # H100 SXM FP32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 _CSRC = "sdfs_via_autodiff_tpu_torch/kernels/csrc/"
@@ -114,6 +145,7 @@ REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "pass_c": f"{_JAX_KERNELS}:446",            # _c_kernel
             "pass_b_deferred": f"{_JAX_KERNELS}:384",   # _b_kernel_deferred
             "pass_c_deferred": f"{_JAX_KERNELS}:446",   # _c_kernel, c2_deferred
+            "pass_c_pair": f"{_JAX_KERNELS}:673",       # _c_kernel_pair
             "fused_T": "sdfs_via_autodiff_tpu/kernels/fused_discrete.py:72",
             "fused_sa": "sdfs_via_autodiff_tpu/kernels/solver_kernel.py:41",
             "fused_anderson":
@@ -565,6 +597,291 @@ def fused_phases(torch, port, dev, smi):
     return max_err, launches, kernels_ms
 
 
+def pair_kernel_check(torch, st, ops, dev, seed):
+    """Pass B deferred (with the folded baseline) and pass C pair vs
+    their plain versions on one operand set.  Returns (err_b, err_c,
+    ell, b_args, c_args, mid): the view field and arguments for timing."""
+    cast = f32_cast(torch, dev)
+    L, K, I, J = ops.shapes
+    R, C = L * K, I * J
+    th, be = float(ops.theta), float(ops.beta)
+    rng = np.random.default_rng(seed)
+    ell = cast(ops.baseline_log_w
+               + 0.05 * rng.standard_normal(ops.shapes)).reshape(R, I, J)
+    b_args = (cast(np.asarray(ops.W_c1).T), th,
+              cast(np.asarray(ops.sub_row).reshape(R)), cast(ops.sub_col))
+    got_b = st.pass_b_deferred(ell, *b_args)
+    want_b = st.pass_b_deferred_plain(ell, *b_args)
+    err_b = float((got_b - want_b).abs().max())
+    lim = KERNEL_ATOL + float(np.finfo(np.float32).eps) * want_b.abs()
+    check(bool(((got_b - want_b).abs() <= lim).all()),
+          f"pass_b_deferred with sub {ops.shapes}: max abs err {err_b:.3e}")
+    mid = want_b.reshape(R, C)
+    del got_b, want_b
+    P_zpi, PzT = st.pair_device_operands(ops, device=dev)
+    c_args = (P_zpi, PzT, cast(ops.W_r1), cast(ops.W_r2), cast(ops.add_row),
+              cast(np.asarray(ops.add_col).reshape(C)), th, be)
+    got_c = st.pass_c_pair(mid, *c_args)
+    want_c = st.pass_c_pair_plain(mid, *c_args)
+    err_c = float((got_c - want_c).abs().max())
+    check(bool(torch.isfinite(got_c).all()) and err_c <= KERNEL_ATOL,
+          f"pass_c_pair {ops.shapes}: max abs err {err_c:.3e}")
+    torch.cuda.synchronize()
+    return err_b, err_c, ell, b_args, c_args, mid
+
+
+def gcy_continuous_phases(torch, port, st, dev, smi):
+    """Phases 14-16 (continuous GCY).  Returns the kernels' max abs
+    errors vs plain, the path's launch counts and (kernel ms, plain ms)
+    of pass_c_pair at 18.9M."""
+    from sdfs_via_autodiff_tpu_torch import drivers
+
+    model = port.GCY()
+    max_err = {"pass_b_deferred": 0.0, "pass_c_pair": 0.0}
+    tol = 1.2 * port.f32_tol_floor(model.theta)
+
+    # 14. Kernels vs plain at four sets; one application vs f64.
+    coarse_s = {}
+    timing_sets = {}
+    for sizes in (GCYC_SMALL, GCYC_RAGGED, GCYC_SUITE, GCYC_SHAPES):
+        if sizes in (GCYC_SMALL, GCYC_RAGGED):
+            baseline, label = "loglinear", "log-linear"
+        else:
+            t0 = time.perf_counter()
+            baseline = drivers._coarse_additive_baseline(
+                model, sizes, num_std_devs=3.2, quad_degree=5,
+                dtype=torch.float64, device=dev)
+            coarse_s[sizes] = time.perf_counter() - t0
+            label = f"coarse ({coarse_s[sizes]:.2f} s)"
+        grids = port.build_grid_gcy(model, *sizes)
+        ops = port.two_phase_operands_gcy_continuous(model, grids, 5,
+                                                     baseline)
+        check(port.streamed_config(ops) == "pair",
+              f"continuous GCY {sizes}: not the pair configuration")
+        err_b, err_c, ell, b_args, c_args, mid = pair_kernel_check(
+            torch, st, ops, dev, SEED)
+        print(f"continuous GCY {sizes} view {ops.shapes}, {label} baseline: "
+              f"pass_b_deferred with sub max abs err mid {err_b:.3e}; "
+              f"pass_c_pair max abs err out {err_c:.3e}")
+        max_err["pass_b_deferred"] = max(max_err["pass_b_deferred"], err_b)
+        max_err["pass_c_pair"] = max(max_err["pass_c_pair"], err_c)
+        if sizes in (GCYC_SUITE, GCYC_SHAPES):
+            timing_sets[sizes] = (grids, baseline, ops, ell, b_args, c_args,
+                                  mid)
+        else:
+            del ell, b_args, c_args, mid
+    grids, base18 = timing_sets[GCYC_SHAPES][:2]
+    T = port.make_tiled_T_log_gcy_continuous(model, grids, baseline=base18,
+                                             device=dev)
+    check(T.engine == "streamed-pair" and T.mode == "lse",
+          f"continuous GCY runs {T.engine}/{T.mode}")
+    T64 = port.T_gcy_continuous_factory(model, grids, space="log",
+                                        baseline=base18, device=dev)
+    rng = np.random.default_rng(SEED)
+    ell64 = T.baseline_log_w.double() + 0.05 * torch.as_tensor(
+        rng.standard_normal(GCYC_SHAPES), device=dev)
+    err = float((T(ell64.float()).double() - T64(ell64)).abs().max())
+    check(err <= OPERATOR_ATOL, f"continuous GCY operator vs f64: {err:.3e}")
+    print(f"operator continuous GCY {GCYC_SHAPES}, coarse baseline: one "
+          f"application vs f64 max abs err {err:.3e}")
+    del ell64
+    torch.cuda.empty_cache()
+
+    # 15. The path, cold then warm.
+    algorithm = drivers._default_algorithm(model, "tiled")
+    launches = None
+    for run in ("cold", "warm"):
+        torch.cuda.synchronize()
+        for k in st.LAUNCHES:
+            st.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        sol = port.wc_ratio_continuous(
+            model, GCYC_SHAPES, kernel="tiled", baseline="coarse", tol=tol,
+            max_iter=GCYC_MAX_ITER, device=dev)
+        res, how = sol.result, algorithm
+        if not res.converged:
+            # The NORTHSTAR recipe: Anderson from SA's iterate.
+            sa = res
+            res = port.solve(T, res.x, method="anderson", tol=tol,
+                             max_iter=GCYC_MAX_ITER)
+            how = (f"{algorithm} stopped ({sa.iterations} iterations, "
+                   f"residual {sa.residual:.3e}), then anderson")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if launches is None:
+            launches = dict(st.LAUNCHES)
+        print(f"continuous GCY path {GCYC_SHAPES} tiled, coarse baseline "
+              f"(~{coarse_s[GCYC_SHAPES]:.2f} s of it), tol {tol:.3e}, "
+              f"{run}: {how}: {res}; launches "
+              f"{ {k: v for k, v in st.LAUNCHES.items() if v} }; "
+              f"{secs:.3f} s ({smi})")
+        check(res.converged, f"continuous GCY path ({run}) did not "
+              f"converge: {res}")
+    check(launches["pass_b_deferred"] > 0 and launches["pass_c_pair"] > 0,
+          f"a kernel of the continuous GCY path never launched: {launches}")
+    ell_star = res.x.double()
+    check(bool(torch.isfinite(ell_star).all())
+          and tuple(ell_star.shape) == GCYC_SHAPES,
+          "continuous GCY w* not finite/shaped")
+    r64 = float((T64(ell_star) - ell_star).abs().max())
+    w = torch.exp(ell_star)
+    print(f"continuous GCY path f64 residual max|T64(l*) - l*| = {r64:.3e}; "
+          f"w* in [{float(w.min()):.3f}, {float(w.max()):.3f}]")
+    check(r64 <= GCYC_F64_RESIDUAL, f"continuous GCY f64 residual {r64:.3e}")
+    del T64, sol, res, ell_star, w
+    torch.cuda.empty_cache()
+
+    # 16. Timing at 4.2M and 18.9M.
+    kernels_ms = {}
+    for sizes in (GCYC_SUITE, GCYC_SHAPES):
+        grids, baseline, ops, ell, b_args, c_args, mid = timing_sets.pop(
+            sizes)
+        t0 = time.perf_counter()
+        T = port.make_tiled_T_log_gcy_continuous(model, grids,
+                                                 baseline=baseline,
+                                                 device=dev)
+        torch.cuda.synchronize()
+        print(f"continuous GCY {sizes}: operator build (host float64 "
+              f"operands, copies to the card) {time.perf_counter() - t0:.3f} "
+              "s")
+        x = T.from_view(ell.reshape(T.to_view(T.baseline_log_w).shape))
+        x = x.contiguous()
+        ms_k = time_ms(torch, T, x)
+        ms_p = time_ms(torch, T.twin, x)
+        ms_view = time_ms(torch, T.view_T, ell.reshape(ops.shapes))
+        b_k = time_ms(torch, lambda y: st.pass_b_deferred(y, *b_args), ell)
+        b_p = time_ms(torch, lambda y: st.pass_b_deferred_plain(y, *b_args),
+                      ell)
+        c_k = time_ms(torch, lambda y: st.pass_c_pair(y, *c_args), mid)
+        c_p = time_ms(torch, lambda y: st.pass_c_pair_plain(y, *c_args), mid)
+        L, K, I, J = ops.shapes
+        n_i, n_y, n_b, n_j = ops.pair_shapes
+        R, C = L * K, I * J
+        field = 4 * R * C
+        # Pass B: c1 over I' per (row, column).  Pass C: z_pi' and z'
+        # per slice, then the two row contractions; each pass reads and
+        # writes one f32 field plus its operands.
+        b_work = (2 * R * I * I * J, 2 * field + 4 * (I * I + R + C))
+        c_work = (2 * R * I * n_b * n_j * (n_j + n_b) + 2 * C * R * (L + K),
+                  2 * field + 4 * (n_i * n_b * n_j * n_j + n_y * n_b * n_b
+                                   + L * L + K * K + R + C))
+        WORK["pass_c_pair"] = c_work
+        kernels_ms["pass_c_pair"] = (c_k, c_p)
+        bounds = []
+        for flop, nbytes in (b_work, c_work):
+            t_o, t_b = flop / PEAK_FP32, nbytes / HBM_BYTES_PER_S
+            bounds.append(f"{1e3 * max(t_o, t_b):.4f} ms "
+                          f"({'operations' if t_o >= t_b else 'bytes'}, "
+                          f"{flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        print(f"timing continuous GCY {sizes} view {ops.shapes}: kernels "
+              f"{ms_k:.4f} ms per application (view layout {ms_view:.4f}), "
+              f"plain eager twin {ms_p:.4f} ms; pass_b_deferred with sub: "
+              f"kernel {b_k:.4f} ms, plain {b_p:.4f} ms, bound {bounds[0]}; "
+              f"pass_c_pair: kernel {c_k:.4f} ms, plain {c_p:.4f} ms, bound "
+              f"{bounds[1]} ({smi})")
+        if sizes == GCYC_SHAPES:
+            sa_split(torch, port, T, tol, smi)
+        del T, x, ell, b_args, c_args, mid
+        torch.cuda.empty_cache()
+    return max_err, launches, kernels_ms
+
+
+def sa_split(torch, port, T, tol, smi):
+    """Where the continuous-GCY SA loop's time goes: its seconds on the
+    prebuilt operator, then 64 iterations under torch.profiler (device
+    time by kernel and the device's busy share of the window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x0 = T.baseline_log_w
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = port.solve(T, x0, method="sa", tol=tol, max_iter=GCYC_MAX_ITER)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"continuous GCY SA on the prebuilt operator: {res}, {secs:.3f} s, "
+          f"{1e3 * secs / max(res.iterations, 1):.3f} ms per iteration "
+          f"({smi})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        port.solve(T, x0, method="sa", tol=0.0, max_iter=64)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Device-side events only: an operator's entry also carries the time
+    # of the kernels it launched.
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(((e.key, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type == cuda and e.self_device_time_total > 0),
+                  key=lambda kv: -kv[1])
+    busy = sum(t for _, t in rows)
+    if busy == 0:
+        print("torch.profiler recorded no device time for the SA loop")
+        return
+    top = "; ".join(f"{k[:40]} {t / 1e3:.2f} ms ({100 * t / busy:.1f}%)"
+                    for k, t in rows[:6])
+    print(f"continuous GCY SA, 64 iterations under torch.profiler: wall "
+          f"{1e3 * wall:.2f} ms, device busy {busy / 1e3:.2f} ms "
+          f"({100 * busy / 1e6 / wall:.1f}%); by kernel: {top}")
+
+
+def fused_gcy_phase(torch, port, dev, smi):
+    """Phase 17: the fused tier on continuous GCY at 6^6.  Returns the
+    fused application's max abs error vs plain."""
+    from sdfs_via_autodiff_tpu_torch import drivers
+    from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
+
+    model = port.GCY()
+    tol = 1.2 * port.f32_tol_floor(model.theta)
+    for algorithm in ("fused_sa", "fused_anderson"):
+        torch.cuda.synchronize()
+        for k in fd.LAUNCHES:
+            fd.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        sol = port.wc_ratio_continuous(model, FUSED_GCY_SIZES,
+                                       algorithm=algorithm,
+                                       baseline="coarse", tol=tol,
+                                       device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        now = dict(fd.LAUNCHES)
+        check(now[algorithm] > 0, f"{algorithm} never launched on the "
+              f"continuous GCY fused path: {now}")
+        check(sol.converged, f"fused GCY {algorithm} did not converge: "
+              f"{sol.result}")
+        ell = torch.log(sol.w_star.double())
+        T64 = port.T_gcy_continuous_factory(
+            model, tuple(g.double() for g in sol.grids), space="log",
+            device=dev)
+        r64 = float((T64(ell) - ell).abs().max())
+        print(f"path continuous GCY {FUSED_GCY_SIZES} {algorithm}, coarse "
+              f"baseline, tol {tol:.3e}: {sol.result}; launches "
+              f"{ {k: v for k, v in now.items() if v} }; f64 residual "
+              f"{r64:.3e}; {secs:.3f} s with the coarse solve ({smi})")
+        check(r64 <= GCYC_F64_RESIDUAL,
+              f"fused GCY {algorithm}: f64 residual {r64:.3e}")
+    grids32 = port.build_grid_gcy(model, *FUSED_GCY_SIZES,
+                                  dtype=torch.float32)
+    base = drivers._coarse_additive_baseline(
+        model, FUSED_GCY_SIZES, num_std_devs=3.2, quad_degree=5,
+        dtype=torch.float64, device=dev)
+    M1, M2T, kap, shapes, rows, cols, sub = fd.kron_operands_gcy_continuous(
+        model, grids32, 5, base, torch.float64)
+    ops = tuple(a.to(device=dev, dtype=torch.float32).contiguous()
+                for a in (M1, M2T, kap, sub))
+    rng = np.random.default_rng(SEED)
+    ell = (ops[3] / model.theta + 0.05 * torch.as_tensor(
+        rng.standard_normal((rows, cols)), dtype=torch.float32, device=dev))
+    th, be = model.theta, model.beta
+    got = fd.fused_T(ell, *ops, th, be)
+    err = float((got - fd.fused_T_plain(ell, *ops, th, be)).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= KERNEL_ATOL,
+          f"fused_T continuous GCY {FUSED_GCY_SIZES}: max abs err {err:.3e}")
+    print(f"fused continuous GCY {FUSED_GCY_SIZES} ({rows}x{cols}, with "
+          f"sub): fused_T max abs err {err:.3e}")
+    return err
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -787,7 +1104,22 @@ def main() -> None:
     launches.update(fused_launches)
     kernels_ms.update(fused_ms)
 
-    # 14. Result.
+    # 14-16. Continuous GCY.
+    torch.cuda.empty_cache()
+    gcyc_err, gcyc_launches, gcyc_ms = gcy_continuous_phases(
+        torch, port, st, dev, smi)
+    max_err["pass_b_deferred"] = max(max_err["pass_b_deferred"],
+                                     gcyc_err["pass_b_deferred"])
+    max_err["pass_c_pair"] = gcyc_err["pass_c_pair"]
+    launches["pass_c_pair"] = gcyc_launches["pass_c_pair"]
+    kernels_ms.update(gcyc_ms)
+
+    # 17. The fused tier on continuous GCY.
+    torch.cuda.empty_cache()
+    max_err["fused_T"] = max(max_err["fused_T"],
+                             fused_gcy_phase(torch, port, dev, smi))
+
+    # 18. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:

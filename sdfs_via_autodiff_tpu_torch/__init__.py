@@ -12,9 +12,11 @@ each part is tested against; this package never imports it or JAX.
 
 Ported so far: the discrete SSY and GCY paths,
 ``wc_ratio_discrete(SSY() or GCY(), shapes, kernel="tiled")``, and the
-continuous SSY path (quadrature, pre-power interpolation),
-``wc_ratio_continuous(SSY(), sizes)`` with the float64 factored operator
-or the whole-solve kernels (``algorithm="fused_sa"``/``"fused_anderson"``).
+continuous SSY and GCY paths (quadrature, pre-power interpolation),
+``wc_ratio_continuous(SSY() or GCY(), sizes)`` with the float64 factored
+operator or the whole-solve kernels
+(``algorithm="fused_sa"``/``"fused_anderson"``), and for GCY the
+streamed pair kernels (``kernel="tiled", baseline="coarse"``).
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``.
 """
@@ -24,22 +26,28 @@ from .operators import (SSYDiscretization, discretize_ssy, T_ssy_factory,
                         dense_H_ssy, GCYDiscretization, discretize_gcy,
                         T_gcy_factory, dense_H_gcy, gcy_loglinear_parts,
                         TwoPhaseOperands, two_phase_operands_ssy,
-                        two_phase_operands_gcy, make_eager_two_phase_T)
+                        two_phase_operands_gcy,
+                        two_phase_operands_gcy_continuous,
+                        make_eager_two_phase_T, T_gcy_continuous_factory)
 from .operators.continuous_ssy import T_ssy_continuous_factory
 from .ops.grids import build_grid_ssy, build_grid_gcy
 from .kernels import (LAUNCHES, FUSED_LAUNCHES, make_streamed_T_log,
                       make_tiled_T_log, make_tiled_T_log_ssy,
-                      make_tiled_T_log_gcy, streamed_config,
-                      streamed_supported, kron_operands_ssy,
+                      make_tiled_T_log_gcy, make_tiled_T_log_gcy_continuous,
+                      streamed_config, streamed_supported, kron_operands_ssy,
                       kron_operands_ssy_continuous, kron_operands_gcy,
+                      kron_operands_gcy_continuous,
                       make_xla_T_from_operands, make_fused_T_from_operands,
                       make_fused_T_log_ssy, make_fused_T_log_ssy_continuous,
-                      make_fused_T_log_gcy, make_fused_solver_from_operands,
+                      make_fused_T_log_gcy, make_fused_T_log_gcy_continuous,
+                      make_fused_solver_from_operands,
                       make_fused_solver_ssy, make_fused_solver_ssy_continuous,
                       make_fused_solver_gcy,
+                      make_fused_solver_gcy_continuous,
                       make_fused_anderson_from_operands,
                       make_fused_anderson_ssy,
-                      make_fused_anderson_ssy_continuous)
+                      make_fused_anderson_ssy_continuous,
+                      make_fused_anderson_gcy_continuous)
 from .solvers import (SolveResult, solve, solver, successive_approx,
                       newton_solver, bicgstab_mixed, anderson_solver)
 from .drivers import (WCSolution, wc_ratio_discrete, wc_ratio_continuous,

@@ -1,15 +1,15 @@
 """High-level driver: model -> grids -> operator -> solver.
 
 PyTorch port of ``drivers.wc_ratio_discrete`` (SSY and GCY) and of
-``drivers.wc_ratio_continuous`` (SSY, quadrature + pre-power
+``drivers.wc_ratio_continuous`` (SSY and GCY, quadrature + pre-power
 interpolation).  The iterate defaults to log space (ell = log w), which
 keeps w > 0 and every intermediate in float32 range.  ``kernel="xla"``
-runs the eager per-axis operator (float64 by default); the discrete
-``kernel="tiled"`` runs the float32 streamed CUDA kernels, and the
-continuous ``algorithm="fused_sa"``/``"fused_anderson"`` the whole-solve
-CUDA kernels (their plain PyTorch versions on a CPU device).  Every
-``wc_ratio_*`` call runs on the card unless the caller passes
-``device="cpu"``.
+runs the eager per-axis operator (float64 by default); ``kernel="tiled"``
+runs the float32 streamed CUDA kernels (discrete SSY and GCY, continuous
+GCY), and the continuous ``algorithm="fused_sa"``/``"fused_anderson"``
+the whole-solve CUDA kernels (their plain PyTorch versions on a CPU
+device).  Every ``wc_ratio_*`` call runs on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -24,15 +24,18 @@ import torch
 
 from .config import resolve_device
 from .kernels.tiled_two_phase import (TPU_ONLY_OPTIONS, make_tiled_T_log_gcy,
+                                      make_tiled_T_log_gcy_continuous,
                                       make_tiled_T_log_ssy,
                                       reject_tpu_options)
 from .models.gcy import GCY
 from .models.ssy import SSY
+from .operators.continuous_common import additive_profiles
+from .operators.continuous_gcy import T_gcy_continuous_factory
+from .operators.continuous_ssy import T_ssy_continuous_factory
 from .operators.discrete_gcy import (T_gcy_factory, discretize_gcy,
                                      gcy_loglinear_parts)
-from .operators.continuous_ssy import T_ssy_continuous_factory
 from .operators.discrete_ssy import T_ssy_factory, discretize_ssy
-from .ops.grids import build_grid_ssy
+from .ops.grids import build_grid_gcy, build_grid_ssy
 from .solvers import SolveResult, solve
 
 __all__ = ["WCSolution", "wc_ratio_discrete", "wc_ratio_continuous",
@@ -67,6 +70,15 @@ def f32_tol_floor(theta: Optional[float]) -> float:
     if theta is None:
         return 5e-6
     return 5e-6 * max(1.0, (abs(float(theta)) / 16.0) ** 2)
+
+
+def _default_algorithm(model, kernel: str) -> str:
+    """Per-path solver default: SA for the continuous-GCY pair tier
+    (``kernel="tiled"``), whose solve the JAX package runs by SA (its
+    Newton tangent through the pair twin under-resolves at bounded inner
+    iterations), Newton everywhere else."""
+    return ("sa" if (kernel == "tiled" and not isinstance(model, SSY))
+            else "newton")
 
 
 def _run_solver(T, w0, space, algorithm, tol, solver_opts,
@@ -178,7 +190,7 @@ def wc_ratio_continuous(model,
                         method: str = "quadrature",
                         interp: str = "pre",
                         quad_degree: int = 5,
-                        algorithm: str = "newton",
+                        algorithm: Optional[str] = None,
                         tol: float = 1e-7,
                         space: Optional[str] = None,
                         w_init=None,
@@ -189,68 +201,111 @@ def wc_ratio_continuous(model,
                         checkpoint_path: Optional[str] = None,
                         device="cuda",
                         **solver_opts) -> WCSolution:
-    """Solve the continuous-state SSY model on interpolation grids, on
-    ``device`` (the card unless the caller asks for the CPU).
+    """Solve the continuous-state SSY or GCY model on interpolation
+    grids, on ``device`` (the card unless the caller asks for the CPU).
 
     Grid bounds via ``num_std_devs`` stationary standard deviations,
     Gauss-Hermite degree ``quad_degree`` per dimension, initial guess
     all-ones unless ``w_init`` is given (or the folded baseline's w).
 
-    ``kernel="xla"`` with ``algorithm`` "newton" (the default), "sa" or
-    "anderson" iterates the factored operator
-    (:func:`..operators.continuous_ssy.T_ssy_continuous_factory`) in
-    ``dtype`` (float64 when None); ``baseline`` ("loglinear" or
-    ``(const, profiles)``) folds a separable baseline into it.
+    ``kernel="xla"`` with ``algorithm`` "newton", "sa" or "anderson"
+    iterates the factored operator
+    (:func:`..operators.continuous_ssy.T_ssy_continuous_factory`,
+    :func:`..operators.continuous_gcy.T_gcy_continuous_factory`) in
+    ``dtype`` (float64 when None).  ``kernel="tiled"`` (GCY) iterates the
+    float32 streamed-pair operator
+    (:func:`..kernels.tiled_two_phase.make_tiled_T_log_gcy_continuous`:
+    hand-written CUDA for the deferred pass B with the folded baseline
+    and the pair pass C).  ``algorithm=None`` resolves to "sa" for GCY
+    with ``kernel="tiled"`` and to "newton" elsewhere.
     ``algorithm="fused_sa"`` / ``"fused_anderson"`` runs the whole solve
     as one launch of the float32 CUDA kernel (successive approximation /
     Anderson acceleration over the fused two-matmul operator, at most
-    ``max_iter`` = 20,000 iterations; extra keyword arguments go to
-    :func:`..kernels.anderson_kernel.make_fused_anderson_ssy_continuous`),
-    on grids built in float32.  As in the JAX package, the fused SSY path
-    takes no baseline: ``baseline`` is ignored there.
+    ``max_iter`` = 20,000 iterations; extra keyword arguments go to the
+    ``make_fused_*`` factory), on grids built in float32.  As in the JAX
+    package, the fused SSY path takes no baseline (``baseline`` is
+    ignored there), and the fused GCY path folds "loglinear" unless a
+    baseline is given.
+
+    ``baseline`` folds a separable baseline into the log-space operator:
+    "loglinear" (the closed form), a ``(const, profiles)`` pair, or
+    "coarse" — solve the model at ``min(size, 5)`` points per axis by
+    float64 Newton on ``device``, fit its additive (ANOVA main-effects)
+    profiles and interpolate them onto the grids: the float32 recipe for
+    GCY, whose log-linear closed form is ~4 log units off at the grid
+    corners.  The solve starts from the baseline's w when ``w_init`` is
+    None.
 
     Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``kernel="tiled"`` (items 6-8), ``method="monte_carlo"`` and
-    ``interp`` "post"/"loglin" (item 8), ``baseline="coarse"``,
-    ``polish`` and ``checkpoint_path`` (items 6 and 10), and the GCY model
-    (item 7).  The JAX driver's ``mc_draw_size``, ``seed``,
-    ``batch_size`` and ``engine`` serve those paths and come with them.
+    item: ``kernel="tiled"`` for SSY (items 6 and 8),
+    ``method="monte_carlo"`` and ``interp`` "post"/"loglin" (item 8),
+    ``polish`` and ``checkpoint_path`` (items 6 and 10).  The JAX
+    driver's ``mc_draw_size``, ``seed``, ``batch_size`` and ``engine``
+    serve those paths and come with them.
     """
     space = space or "log"
     if kernel not in ("tiled", "xla"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if not isinstance(model, (SSY, GCY)):
         raise TypeError(f"unsupported model {type(model).__name__}")
-    if isinstance(model, GCY):
-        raise _not_ported("the continuous GCY model", "item 7")
-    if kernel == "tiled":
-        raise _not_ported("kernel='tiled' for the continuous operators",
-                          "items 6 (SSY pre), 7 (GCY) and 8 (post/loglin)")
+    gcy = isinstance(model, GCY)
+    if kernel == "tiled" and not gcy:
+        raise _not_ported("kernel='tiled' for the continuous SSY operator",
+                          "items 6 (pre) and 8 (post/loglin)")
     for name, value, item in (("polish", polish, "item 6"),
                               ("checkpoint_path", checkpoint_path,
                                "item 10")):
         if value:
             raise _not_ported(f"{name}={value!r}", item)
-    if isinstance(baseline, str) and baseline == "coarse":
-        raise _not_ported("baseline='coarse' (_coarse_additive_baseline)",
-                          "item 6")
     if method == "monte_carlo":
         raise _not_ported("method='monte_carlo'", "item 8")
     if interp in ("post", "loglin"):
         raise _not_ported(f"interp={interp!r}", "item 8")
+    if kernel == "tiled" and (method != "quadrature" or space != "log"
+                              or interp != "pre"):
+        raise ValueError("the tiled kernels implement the quadrature + "
+                         "interp='pre' operator in log space")
+    if algorithm is None:
+        algorithm = _default_algorithm(model, kernel)
     dev = resolve_device(device)
+    gdtype = dtype or torch.float64
+    baseline_spec = baseline
+    if isinstance(baseline, str) and baseline == "coarse":
+        baseline_spec = _coarse_additive_baseline(
+            model, grid_sizes, num_std_devs=num_std_devs,
+            quad_degree=quad_degree, dtype=gdtype, device=dev)
     if algorithm in ("fused_anderson", "fused_sa"):
         return _wc_ratio_continuous_fused(
             model, grid_sizes, algorithm=algorithm, tol=tol,
             num_std_devs=num_std_devs, method=method, interp=interp,
             quad_degree=quad_degree, w_init=w_init, device=dev,
-            **solver_opts)
-    gdtype = dtype or torch.float64
-    grids = build_grid_ssy(model, *grid_sizes, num_std_devs=num_std_devs,
-                           dtype=gdtype)
-    T = T_ssy_continuous_factory(
-        model, grids, method=method, interp=interp, space=space,
-        quad_degree=quad_degree, baseline=baseline, dtype=dtype, device=dev)
+            baseline_spec=baseline_spec, **solver_opts)
+    if kernel == "tiled":
+        tpu_opts = {k: solver_opts.pop(k) for k in TPU_ONLY_OPTIONS
+                    if k in solver_opts}
+        reject_tpu_options(tpu_opts)
+        grids = build_grid_gcy(model, *grid_sizes, num_std_devs=num_std_devs)
+        T = make_tiled_T_log_gcy_continuous(model, grids, degree=quad_degree,
+                                            baseline=baseline_spec,
+                                            device=dev)
+        shape = tuple(len(g) for g in grids)
+        if w_init is not None:
+            w0 = torch.as_tensor(w_init).to(device=dev, dtype=torch.float32)
+        elif hasattr(T, "baseline_log_w"):
+            w0 = torch.exp(T.baseline_log_w)
+        else:
+            w0 = torch.ones(shape, dtype=torch.float32, device=dev)
+        sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
+                          theta=model.theta)
+        return dataclasses.replace(
+            sol, grids=tuple(g.to(torch.float32) for g in grids))
+    make_grids, factory = ((build_grid_gcy, T_gcy_continuous_factory) if gcy
+                           else (build_grid_ssy, T_ssy_continuous_factory))
+    grids = make_grids(model, *grid_sizes, num_std_devs=num_std_devs,
+                       dtype=gdtype)
+    T = factory(model, grids, method=method, interp=interp, space=space,
+                quad_degree=quad_degree, baseline=baseline_spec, dtype=dtype,
+                device=dev)
     shape = tuple(len(g) for g in grids)
     if w_init is None:
         w0 = (torch.exp(T.baseline_log_w) if hasattr(T, "baseline_log_w")
@@ -262,17 +317,42 @@ def wc_ratio_continuous(model,
     return dataclasses.replace(sol, grids=tuple(grids))
 
 
+def _coarse_additive_baseline(model, grid_sizes, *, num_std_devs,
+                              quad_degree, dtype, device,
+                              coarse_size: int = 5,
+                              coarse_tol: float = 1e-9):
+    """Solve a small float64 model on ``device`` and fit an additive
+    baseline on the target grids: ``(const, profiles)``, the profiles
+    interpolated axis by axis (numpy float64)."""
+    make_grids = build_grid_gcy if isinstance(model, GCY) else build_grid_ssy
+    coarse_sizes = tuple(min(int(s), coarse_size) for s in grid_sizes)
+    sol = wc_ratio_continuous(model, coarse_sizes, algorithm="newton",
+                              tol=coarse_tol, interp="pre", space="log",
+                              quad_degree=quad_degree,
+                              num_std_devs=num_std_devs, device=device)
+    const, profiles = additive_profiles(torch.log(sol.w_star))
+    fine_grids = make_grids(model, *grid_sizes, num_std_devs=num_std_devs,
+                            dtype=dtype)
+    profs = [np.interp(fg.double().numpy(), cg.double().cpu().numpy(), p)
+             for fg, cg, p in zip(fine_grids, sol.grids, profiles)]
+    return const, profs
+
+
 def _wc_ratio_continuous_fused(model, grid_sizes, *, algorithm, tol,
                                num_std_devs, method, interp, quad_degree,
-                               w_init, device, max_iter: int = 20_000,
+                               w_init, device, baseline_spec=None,
+                               max_iter: int = 20_000,
                                **solver_opts) -> WCSolution:
-    """Whole-solve kernel path (float32, SSY, quadrature + pre-interp).
+    """Whole-solve kernel path (float32, quadrature + pre-interp).
 
     algorithm="fused_anderson" runs the Anderson kernel, "fused_sa" the
-    successive-approximation kernel: the entire solve is one launch.
+    successive-approximation kernel: the entire solve is one launch.  GCY
+    operands are baseline-normalized by construction ("loglinear" unless
+    ``baseline_spec`` is given): theta * log-w range ~ 200 on these grids
+    overflows raw float32.
     """
-    from .kernels.anderson_kernel import make_fused_anderson_ssy_continuous
-    from .kernels.solver_kernel import make_fused_solver_ssy_continuous
+    from .kernels import anderson_kernel as ak
+    from .kernels import solver_kernel as sk
 
     if tol < 2e-6:
         warnings.warn(
@@ -284,18 +364,30 @@ def _wc_ratio_continuous_fused(model, grid_sizes, *, algorithm, tol,
     if method != "quadrature" or interp != "pre":
         raise ValueError(
             "fused kernels implement the quadrature + pre-interp operator")
-    grids = build_grid_ssy(model, *grid_sizes, num_std_devs=num_std_devs,
-                           dtype=torch.float32)
-    if algorithm == "fused_anderson":
-        fsolve = make_fused_anderson_ssy_continuous(
-            model, grids, degree=quad_degree, device=device, **solver_opts)
+    anderson = algorithm == "fused_anderson"
+    if isinstance(model, GCY):
+        grids = build_grid_gcy(model, *grid_sizes, num_std_devs=num_std_devs,
+                               dtype=torch.float32)
+        make = (ak.make_fused_anderson_gcy_continuous if anderson
+                else sk.make_fused_solver_gcy_continuous)
+        fsolve = make(model, grids, degree=quad_degree,
+                      baseline=("loglinear" if baseline_spec is None
+                                else baseline_spec),
+                      device=device, **solver_opts)
     else:
-        fsolve = make_fused_solver_ssy_continuous(
-            model, grids, degree=quad_degree, device=device, **solver_opts)
+        grids = build_grid_ssy(model, *grid_sizes, num_std_devs=num_std_devs,
+                               dtype=torch.float32)
+        make = (ak.make_fused_anderson_ssy_continuous if anderson
+                else sk.make_fused_solver_ssy_continuous)
+        fsolve = make(model, grids, degree=quad_degree, device=device,
+                      **solver_opts)
     shape = tuple(len(g) for g in grids)
-    w0 = (torch.ones(shape, dtype=torch.float32, device=device)
-          if w_init is None
-          else torch.as_tensor(w_init).to(device=device, dtype=torch.float32))
+    if w_init is not None:
+        w0 = torch.as_tensor(w_init).to(device=device, dtype=torch.float32)
+    elif hasattr(fsolve, "baseline_log_w"):
+        w0 = torch.exp(fsolve.baseline_log_w)
+    else:
+        w0 = torch.ones(shape, dtype=torch.float32, device=device)
     ell, iters, err = fsolve(torch.log(w0), tol, max_iter)
     err = float(err)
     result = SolveResult(x=ell, iterations=int(iters), residual=err,

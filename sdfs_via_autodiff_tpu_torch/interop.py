@@ -23,9 +23,9 @@ __all__ = ["model_from_fields", "operands_from_numpy",
            "kron_operands_from_numpy", "grids_from_numpy"]
 
 _MODELS = (SSY, GCY)
-# Operand fields that are integer tuples (the JAX package sets the last
-# three as attributes of its GCY sets, outside ``dataclasses.asdict``).
-_TUPLES = ("shapes", "perm", "inv_perm", "state_shapes")
+# Operand fields that are integer tuples (the JAX package sets all but
+# ``shapes`` as attributes of its GCY sets, outside ``dataclasses.asdict``).
+_TUPLES = ("shapes", "perm", "inv_perm", "state_shapes", "pair_shapes")
 
 
 def _check_fields(cls, d: dict) -> None:
@@ -49,7 +49,10 @@ def model_from_fields(d: dict):
 def operands_from_numpy(d: dict) -> TwoPhaseOperands:
     """A :class:`TwoPhaseOperands` from its field dictionary (arrays as
     numpy float64, optional fields None or absent; for a JAX GCY set add
-    its ``perm``, ``inv_perm`` and ``state_shapes`` attributes)."""
+    its ``perm``, ``inv_perm`` and ``state_shapes`` attributes, and for a
+    continuous-GCY set its ``pair_c2`` and ``pair_shapes``: the set's
+    ``W_c2`` is then the JAX package's broadcast placeholder and is
+    dropped, the port keeps None)."""
     _check_fields(TwoPhaseOperands, d)
     kw = {}
     for k, v in d.items():
@@ -59,19 +62,31 @@ def operands_from_numpy(d: dict) -> TwoPhaseOperands:
             kw[k] = tuple(int(n) for n in v)
         elif k in ("theta", "beta"):
             kw[k] = float(v)
+        elif k == "pair_c2":
+            kw[k] = tuple(np.asarray(a, np.float64) for a in v)
         else:
             kw[k] = np.asarray(v, np.float64)
+    if kw.get("pair_c2") is not None:
+        kw["W_c2"] = None
     return TwoPhaseOperands(**kw)
 
 
 def kron_operands_from_numpy(operands) -> tuple:
-    """The fused tier's two-matmul operands ``(M1, M2T, log_kap)`` or
-    ``(M1, M2T, log_kap, sub)`` (e.g. the JAX package's
-    ``kron_operands_*`` results) as float64 CPU tensors, in the same
-    order; a ``None`` entry stays None."""
-    return tuple(None if a is None
-                 else torch.as_tensor(np.array(a, np.float64))
-                 for a in operands)
+    """The fused tier's two-matmul operands ``(M1, M2T, log_kap)``,
+    ``(M1, M2T, log_kap, sub)`` or the continuous-GCY seven-tuple
+    ``(M1, M2T, log_kap, shapes, rows, cols, sub)`` (e.g. the JAX
+    package's ``kron_operands_*`` results) in the same order: arrays as
+    float64 CPU tensors, integers and shape tuples as Python ints; a
+    ``None`` entry stays None."""
+    def convert(a):
+        if a is None:
+            return None
+        if isinstance(a, (int, np.integer)):
+            return int(a)
+        if isinstance(a, tuple):
+            return tuple(int(n) for n in a)
+        return torch.as_tensor(np.array(a, np.float64))
+    return tuple(convert(a) for a in operands)
 
 
 def grids_from_numpy(grids) -> tuple:

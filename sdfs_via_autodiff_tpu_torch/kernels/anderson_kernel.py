@@ -35,11 +35,12 @@ from .fused_discrete import (ALGO_AA, LAUNCHES, MAX_HISTORY,
                              _device_operands, check_working_set,
                              fused_T_plain, kron_operands_ssy,
                              kron_operands_ssy_continuous, launch)
-from .solver_kernel import _f32
+from .solver_kernel import _f32, _fused_gcy_continuous
 
 __all__ = ["fused_anderson", "fused_anderson_plain",
            "make_fused_anderson_from_operands", "make_fused_anderson_ssy",
-           "make_fused_anderson_ssy_continuous"]
+           "make_fused_anderson_ssy_continuous",
+           "make_fused_anderson_gcy_continuous"]
 
 
 def _aa_weights(X, F, m: int, ridge: float) -> np.ndarray:
@@ -187,3 +188,14 @@ def make_fused_anderson_ssy_continuous(model: SSY, grids, degree: int = 5,
     return make_fused_anderson_from_operands(
         M1, M2T, log_kap, model.theta, model.beta, shapes,
         n_l * n_k, n_i * n_j, device=device, **kw)
+
+
+def make_fused_anderson_gcy_continuous(model, grids, degree: int = 5,
+                                       baseline="loglinear", *,
+                                       device="cuda", **kw) -> Callable:
+    """In-kernel Anderson solve for the *continuous* GCY factored
+    operator (baseline-normalized by default, as
+    :func:`.solver_kernel.make_fused_solver_gcy_continuous`)."""
+    return _fused_gcy_continuous(make_fused_anderson_from_operands, model,
+                                 grids, degree, baseline, device=device,
+                                 **kw)

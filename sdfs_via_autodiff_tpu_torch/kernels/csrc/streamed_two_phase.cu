@@ -1,7 +1,8 @@
 // Streamed two-phase operator kernels for NVIDIA Hopper (sm_90a).
 //
 // The two-phase operator log T(w) (discrete SSY; discrete GCY through its
-// Kronecker grouping, see pass_b_deferred further down) on a field
+// Kronecker grouping, see pass_b_deferred further down; continuous GCY,
+// see pass_c_pair at the end) on a field
 // ell[r, c] with rows r = (h_lam, h_c) = (l, k) and columns
 // c = (h_z, z) = (i, j) runs as two passes over the field:
 //
@@ -155,7 +156,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Jp = round_up4(J), zero-padded) is read as float4 broadcasts along m,
 // W tiles as conflict-free rows.  Tile rows past J are zero-filled so
 // the padded m add exact zeros.  The sum runs in order of m.
-template <int TI, int TJ, class Store>
+//
+// VEC16 (pass_c_pair, J % 4 == 0 and w 16-byte aligned) copies the tiles
+// in 16-byte pieces; pass B keeps its 4-byte copies.
+template <int TI, int TJ, bool VEC16 = false, class Store>
 __device__ __forceinline__ void rows_times_w(int I, int J, int Jp,
                                              const float* u,
                                              const float* __restrict__ w,
@@ -167,8 +171,13 @@ __device__ __forceinline__ void rows_times_w(int I, int J, int Jp,
     float* dst = stage + (t & 1) * kBK * J;
     const int rows = min(kBK, J - t * kBK);
     const float* src = w + (size_t)t * kBK * J;
-    for (int x = threadIdx.x; x < rows * J; x += blockDim.x)
-      cp_async4(dst + x, src + x);
+    if (VEC16) {
+      for (int x = threadIdx.x; x < rows * J / 4; x += blockDim.x)
+        cp_async16(dst + 4 * x, src + 4 * x);
+    } else {
+      for (int x = threadIdx.x; x < rows * J; x += blockDim.x)
+        cp_async4(dst + x, src + x);
+    }
     for (int x = rows * J + threadIdx.x; x < round_up4(rows) * J;
          x += blockDim.x)
       dst[x] = 0.f;
@@ -412,9 +421,11 @@ pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
 //
 //   pass_b_deferred, one block per (field row r, tile of kDefBN columns
 //     j): a = theta * ell[r, :, j-tile] (I, kDefBN) in shared memory,
-//     per-column shift m[j] = max over all I rows, then
+//     less the folded baseline sub_row[r] + sub_col[i, j] when one is
+//     given, per-column shift m[j] = max over all I rows, then
 //     out[r, i, j] = m[j] + log(sum_m W_c1[i, m] exp(a[m, j] - m[j])).
-//     Replaces streamed_two_phase.py:384 (_b_kernel_deferred).
+//     Replaces streamed_two_phase.py:384 (_b_kernel_deferred), both
+//     branches of has_sub.
 //   pass_c_deferred, one block per (c1 slice i, tile of TC columns j of
 //     the slice) holding all R rows: per-(row, slice) shift m1 over the
 //     slice's J values, the c2 contraction exp(w - m1) W_c2^T into an
@@ -481,9 +492,12 @@ __host__ __device__ inline int pass_c_deferred_smem_floats(int L, int K,
          round_up4(R) + round_up4(K) + 4;
 }
 
+template <bool HAS_SUB>
 __global__ void __launch_bounds__(kDefThreads)
 pass_b_deferred_kernel(const float* __restrict__ ell,
                        const float* __restrict__ w_c1t,
+                       const float* __restrict__ sub_row,
+                       const float* __restrict__ sub_col,
                        float* __restrict__ out, int I, int J, float theta) {
   extern __shared__ float smem[];     // 16-byte aligned base
   const int Ip = round_up4(I);
@@ -498,12 +512,23 @@ pass_b_deferred_kernel(const float* __restrict__ ell,
   const float* ell_r = ell + blockIdx.y * IJ;
   float* out_r = out + blockIdx.y * IJ;
 
-  // a = theta * ell on the strip; columns past J hold 0 (never stored).
-  // Unrolled so that several loads are in flight per thread.
+  // a = theta * ell, or fma(theta, ell, -sub_row[r]) - sub_col[m, j]
+  // with a folded baseline (one rounding before the cancellation down to
+  // O(1), as the plain version computes it), on the strip; columns past
+  // J hold 0 (never stored).  Unrolled so that several loads are in
+  // flight per thread.
+  const float sr = HAS_SUB ? __ldg(sub_row + blockIdx.y) : 0.f;
 #pragma unroll 8
   for (int x = tid; x < I * kDefBN; x += nt) {
     const int m = x / kDefBN, jj = x % kDefBN;
-    e[x] = (jj < jw) ? theta * ell_r[(size_t)m * J + j0 + jj] : 0.f;
+    float v = 0.f;
+    if (jj < jw) {
+      const size_t at = (size_t)m * J + j0 + jj;
+      v = HAS_SUB ? __fsub_rn(__fmaf_rn(theta, ell_r[at], -sr),
+                              __ldg(sub_col + at))
+                  : theta * ell_r[at];
+    }
+    e[x] = v;
   }
   __syncthreads();
   {
@@ -775,6 +800,214 @@ pass_c_deferred_kernel(const float* __restrict__ mid,
       });
 }
 
+// ------------------------------------------------------ pair pass C
+//
+// Continuous GCY: the column factor c2 = (z_pi, z) of a c1 slice
+// q = (i, y) (current h_z, h_zpi) is the conditioned pair
+// P_zpi[y, b, B'] * P_z[i, j, b, J'], contracted per axis.  Pass B is
+// pass_b_deferred (with the folded baseline); pass_c_pair runs one block
+// per (slice q, current z_pi index b), holding all R = L*K rows of the
+// block's n_j output columns (b, j):
+//
+//   1. m1[r] = max of mid[r] over the slice's whole (B', J') group;
+//   2. acc[r, J'] = sum_B' P_zpi[y, b, B'] exp(mid[r, (B', J')] - m1 + 25);
+//   3. u[r, j] = sum_J' acc[r, J'] P_z[i, j, b, J'] (one (R, n_j) by
+//      (n_j, n_j) product; the port's layout pzt[i, b, J', j], see
+//      pair_device_operands in streamed_two_phase.py, streams the
+//      (i, b) block from L2 in 16-row K-tiles by cp.async);
+//   4. the linear-carry row phase: u * exp(m1 - M2 + 25), M2 = max over
+//      l of m1; contract l' with W_r1; * exp(M2 - M3 + 25), M3 = max
+//      over k of M2; contract k' with W_r2;
+//   5. lh = log(v) + M3 - 75 + add_row[r] + add_col[c]; out =
+//      log1p(beta * exp(lh / theta)).
+//
+// Replaces streamed_two_phase.py:673 (_c_kernel_pair).  The e^25 bias
+// per exp stage is float32 range arithmetic: the chain from the first
+// exp to the last log runs un-logged, and without the bias a whole
+// output group of the 18.9M-point SA solve underflowed to 0 (the field
+// turned inf; the JAX docstring, streamed_two_phase.py:709-719).
+//
+// What bounds it on an H100: FP32 FMA.  At view (8, 16, 144, 1024) the
+// z' products are 2 * R * IY * C2 * n_j = 4.83 GFLOP, the z_pi'
+// contraction 0.30 and the row carry 0.91, against 75.5 MB fields.  A
+// slice's (R, C2) field (512 KB) does not fit a block, so each of a
+// slice's n_b blocks (adjacent in the grid) reads the slice twice from
+// L2 (the max, then the exps): the slice is exponentiated n_b times.
+// The (R, n_j) accumulator, the product and the K-tiles stay in shared
+// memory (148 KB at R = n_j = 128, one block of 512 threads per SM).
+
+constexpr int kPairThreads = 512;
+constexpr float kPairBias = 25.f;
+
+// Shared-memory floats of pass_c_pair: acc (R rows of Jp =
+// round_up4(n_j), later the l' result), u (R, n_j), the two K-tiles of
+// P_z, m1 (R), M2 (K), M3 and the n_b weights P_zpi[y, b, :].
+__host__ __device__ inline int pass_c_pair_smem_floats(int R, int K, int n_b,
+                                                       int n_j) {
+  return R * round_up4(n_j) + R * n_j + 2 * kBK * n_j + round_up4(R) +
+         round_up4(K) + 4 + round_up4(n_b);
+}
+
+__global__ void __launch_bounds__(kPairThreads)
+pass_c_pair_kernel(const float* __restrict__ mid,
+                   const float* __restrict__ p_zpi,
+                   const float* __restrict__ pzt,
+                   const float* __restrict__ w_r1,
+                   const float* __restrict__ w_r2,
+                   const float* __restrict__ add_row,
+                   const float* __restrict__ add_col,
+                   float* __restrict__ out, int L, int K, int n_i, int n_y,
+                   int n_b, int n_j, float theta, float beta) {
+  extern __shared__ float smem[];     // 16-byte aligned base
+  const int R = L * K, Jp = round_up4(n_j), C2 = n_b * n_j;
+  float* acc = smem;                  // (R, Jp); later z (L, K, n_j)
+  float* u = acc + R * Jp;            // (R, n_j)
+  float* stage = u + R * n_j;         // 2 x (kBK, n_j)
+  float* m1 = stage + 2 * kBK * n_j;  // (R)
+  float* M2 = m1 + round_up4(R);      // (K)
+  float* M3 = M2 + round_up4(K);      // (1)
+  float* wz = M3 + 4;                 // (n_b): P_zpi[y, b, :]
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+  const int b = blockIdx.x, q = blockIdx.y;
+  const int i = q / n_y, y = q % n_y;
+  const size_t C = (size_t)n_i * n_y * C2;
+  const size_t col0 = (size_t)q * C2;            // first column of slice q
+  const float* in = mid + col0;
+
+  for (int x = tid; x < n_b; x += nt)
+    wz[x] = __ldg(p_zpi + ((size_t)y * n_b + b) * n_b + x);
+
+  // 1. m1[r] over the slice (a warp takes 4 rows at a time so that many
+  // independent loads are in flight per lane; float4 loads when every
+  // row of the slice is 16-byte aligned).
+  const bool vec = (C2 % 4 == 0);
+  for (int r0 = 4 * warp; r0 < R; r0 += 4 * nw) {
+    float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+    if (vec) {
+#pragma unroll 4
+      for (int x = lane; x < C2 / 4; x += 32)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (r0 + v < R) {
+            const float4 a = __ldg(
+                reinterpret_cast<const float4*>(in + (r0 + v) * C) + x);
+            m[v] = fmaxf(m[v], fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w)));
+          }
+    } else {
+#pragma unroll 4
+      for (int x = lane; x < C2; x += 32)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (r0 + v < R) m[v] = fmaxf(m[v], __ldg(in + (r0 + v) * C + x));
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float mv = warp_max(m[v]);
+      if (lane == 0 && r0 + v < R) m1[r0 + v] = mv;
+    }
+  }
+  __syncthreads();
+
+  // 2. acc[r, J'] = sum_B' wz[B'] exp(mid[r, B', J'] - m1[r] + 25), the
+  // sum in order of B'; padding columns J' >= n_j hold 0.  A thread takes
+  // four consecutive J' (float4 loads when n_j % 4 == 0) and unrolls
+  // over B', so that several independent L2 loads are in flight.
+  if (n_j % 4 == 0) {
+    const int q4 = n_j / 4;
+    for (int x = tid; x < R * q4; x += nt) {
+      const int r = x / q4, j4 = 4 * (x % q4);
+      const float4* src = reinterpret_cast<const float4*>(in + r * C + j4);
+      const float m = m1[r];
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+      for (int B = 0; B < n_b; ++B) {
+        const float4 v = __ldg(src + B * q4);
+        const float w = wz[B];
+        a.x = fmaf(w, expf(v.x - m + kPairBias), a.x);
+        a.y = fmaf(w, expf(v.y - m + kPairBias), a.y);
+        a.z = fmaf(w, expf(v.z - m + kPairBias), a.z);
+        a.w = fmaf(w, expf(v.w - m + kPairBias), a.w);
+      }
+      *reinterpret_cast<float4*>(acc + r * Jp + j4) = a;
+    }
+  } else {
+    for (int x = tid; x < R * Jp; x += nt) {
+      const int r = x / Jp, jj = x % Jp;
+      float a = 0.f;
+      if (jj < n_j) {
+        const float* src = in + r * C + jj;
+        const float m = m1[r];
+#pragma unroll 8
+        for (int B = 0; B < n_b; ++B)
+          a = fmaf(wz[B], expf(__ldg(src + B * n_j) - m + kPairBias), a);
+      }
+      acc[x] = a;
+    }
+  }
+  __syncthreads();
+
+  // 3. u[r, j] = sum_J' acc[r, J'] P_z[i, j, b, J'] with the (i, b)
+  // block of pzt (J', j) streamed in K-tiles; the sum in order of J'.
+  const float* w = pzt + ((size_t)i * n_b + b) * n_j * n_j;
+  auto store_u = [&](int r, int j, float v) { u[r * n_j + j] = v; };
+  if (n_j % 4 == 0) {
+    rows_times_w<8, 4, true>(R, n_j, Jp, acc, w, stage, store_u);
+  } else {
+    rows_times_w<8, 4, false>(R, n_j, Jp, acc, w, stage, store_u);
+  }
+  __syncthreads();
+
+  // 4. Linear carry.  Row r = (l, k) is rescaled by exp(m1 - M2[k] + 25)
+  // (kept in m1), the l' result by exp(M2[k] - M3 + 25) (kept in M2).
+  for (int k = tid; k < K; k += nt) {
+    float m = -INFINITY;
+    for (int l = 0; l < L; ++l) m = fmaxf(m, m1[l * K + k]);
+    M2[k] = m;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float m = -INFINITY;
+    for (int k = 0; k < K; ++k) m = fmaxf(m, M2[k]);
+    M3[0] = m;
+  }
+  __syncthreads();
+  const float m3 = M3[0];
+  for (int r = tid; r < R; r += nt)
+    m1[r] = expf(m1[r] - M2[r % K] + kPairBias);
+  __syncthreads();
+  for (int k = tid; k < K; k += nt) M2[k] = expf(M2[k] - m3 + kPairBias);
+  for (int x = tid; x < R * n_j; x += nt) u[x] *= m1[x / n_j];
+  __syncthreads();
+
+  // l': z[l, k, j] = sum_m W_r1[l, m] u[m, k, j], rescaled; columns
+  // col = k * n_j + j.
+  const int KJ = K * n_j;
+  float* z = acc;
+  block_matmul(
+      L, KJ, L,
+      [&](int l, int m) { return __ldg(w_r1 + l * L + m); },
+      [&](int m, int col) { return u[m * KJ + col]; },
+      [&](int l, int col, float v) { z[l * KJ + col] = v * M2[col / n_j]; });
+  __syncthreads();
+
+  // k' + epilogue: v[l, k, j] = sum_m W_r2[k, m] z[l, m, j], columns
+  // n = l * n_j + j.
+  const size_t c0 = col0 + (size_t)b * n_j;
+  block_matmul(
+      K, L * n_j, K,
+      [&](int k, int m) { return __ldg(w_r2 + k * K + m); },
+      [&](int m, int n) { return z[(n / n_j) * KJ + m * n_j + n % n_j]; },
+      [&](int k, int n, float v) {
+        const int l = n / n_j, j = n % n_j;
+        const int r = l * K + k;
+        const size_t c = c0 + j;
+        const float lh = logf(v) + (m3 - 3.f * kPairBias) +
+                         __ldg(add_row + r) + __ldg(add_col + c);
+        out[r * C + c] = log1pf(beta * expf(lh / theta));
+      });
+}
+
 template <class Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem_bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -840,17 +1073,31 @@ int sdfs_pass_c(const float* mid, const float* scale, const float* S,
 }
 
 // Deferred-c2 pass B over R field rows of ell (R, I, J): c1 only.
-// w_c1t (I, I) = W_c1 transposed; out (R, I, J) log domain.
-int sdfs_pass_b_deferred(const float* ell, const float* w_c1t, float* out,
-                         int R, int I, int J, float theta, void* stream) {
+// w_c1t (I, I) = W_c1 transposed; sub_row (R,) and sub_col (I, J) both
+// given (a = theta*ell - sub_row[r] - sub_col[i, j]) or both null;
+// out (R, I, J) log domain.
+int sdfs_pass_b_deferred(const float* ell, const float* w_c1t,
+                         const float* sub_row, const float* sub_col,
+                         float* out, int R, int I, int J, float theta,
+                         void* stream) {
+  if ((sub_row == nullptr) != (sub_col == nullptr))
+    return cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (size_t)pass_b_deferred_smem_floats(I);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((J + kDefBN - 1) / kDefBN, R);
-  const cudaError_t err = prepare(pass_b_deferred_kernel, smem);
-  if (err != cudaSuccess) return err;
-  pass_b_deferred_kernel<<<grid, kDefThreads, smem, st>>>(ell, w_c1t, out, I,
-                                                          J, theta);
+  cudaError_t err;
+  if (sub_row != nullptr) {
+    err = prepare(pass_b_deferred_kernel<true>, smem);
+    if (err != cudaSuccess) return err;
+    pass_b_deferred_kernel<true><<<grid, kDefThreads, smem, st>>>(
+        ell, w_c1t, sub_row, sub_col, out, I, J, theta);
+  } else {
+    err = prepare(pass_b_deferred_kernel<false>, smem);
+    if (err != cudaSuccess) return err;
+    pass_b_deferred_kernel<false><<<grid, kDefThreads, smem, st>>>(
+        ell, w_c1t, nullptr, nullptr, out, I, J, theta);
+  }
   return cudaGetLastError();
 }
 
@@ -874,6 +1121,28 @@ int sdfs_pass_c_deferred(const float* mid, const float* w_c2t,
   pass_c_deferred_kernel<<<grid, kDefThreads, smem, st>>>(
       mid, w_c2t, w_r1, w_r2, add_row, add_col, out, L, K, J, TC, JK, theta,
       beta);
+  return cudaGetLastError();
+}
+
+// Pair pass C over mid (R = L*K, n_i*n_y*n_b*n_j) log domain: per c1
+// slice, the conditioned (z_pi, z) contraction with p_zpi (n_y, n_b, n_b)
+// and pzt (n_i, n_b, n_j, n_j) = P_z[i, j, b, J] as [i, b, J, j], then
+// the row phase and the epilogue.  add_row (L*K,), add_col (C,);
+// out (R, C).
+int sdfs_pass_c_pair(const float* mid, const float* p_zpi, const float* pzt,
+                     const float* w_r1, const float* w_r2,
+                     const float* add_row, const float* add_col, float* out,
+                     int L, int K, int n_i, int n_y, int n_b, int n_j,
+                     float theta, float beta, void* stream) {
+  const size_t smem =
+      sizeof(float) * (size_t)pass_c_pair_smem_floats(L * K, K, n_b, n_j);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_b, n_i * n_y);
+  const cudaError_t err = prepare(pass_c_pair_kernel, smem);
+  if (err != cudaSuccess) return err;
+  pass_c_pair_kernel<<<grid, kPairThreads, smem, st>>>(
+      mid, p_zpi, pzt, w_r1, w_r2, add_row, add_col, out, L, K, n_i, n_y,
+      n_b, n_j, theta, beta);
   return cudaGetLastError();
 }
 

@@ -9,7 +9,8 @@ contractions of the (rows, cols) field,
 
 (discrete SSY: M1 = kron(B_lam, Q_c), M2 = kron(Q_hz, z_P); continuous
 SSY: M2 composes the h_z and conditional-z expectation matrices;
-discrete GCY: triple Kronecker products per group), with per-step
+discrete GCY: triple Kronecker products per group; continuous GCY: M2
+composes the four conditioned column axes), with per-step
 log-sum-exp shifts around both products:
 
     p = theta*ell - sub;  sh1 = max over rows of p (per column)
@@ -48,9 +49,10 @@ from . import _build
 
 __all__ = ["LAUNCHES", "L2_BYTES_H100", "fused_T", "fused_T_plain",
            "kron_operands_ssy", "kron_operands_ssy_continuous",
-           "kron_operands_gcy", "make_fused_T_from_operands",
-           "make_xla_T_from_operands", "make_fused_T_log_ssy",
-           "make_fused_T_log_ssy_continuous", "make_fused_T_log_gcy"]
+           "kron_operands_gcy", "kron_operands_gcy_continuous",
+           "make_fused_T_from_operands", "make_xla_T_from_operands",
+           "make_fused_T_log_ssy", "make_fused_T_log_ssy_continuous",
+           "make_fused_T_log_gcy", "make_fused_T_log_gcy_continuous"]
 
 # Kernel launches since the last reset (the wrappers add one per launch;
 # the plain versions never count).
@@ -142,6 +144,65 @@ def kron_operands_gcy(model, disc, dtype: torch.dtype = _F32):
                                                   n_d * n_e * n_l)
     return (M1.to(dtype), M2.T.contiguous().to(dtype),
             log_kap.contiguous().to(dtype))
+
+
+def kron_operands_gcy_continuous(model, grids, degree: int = 5,
+                                 baseline=None, dtype: torch.dtype = _F32):
+    """(M1, M2T, log_kappa, shapes, rows, cols, sub) for the *continuous*
+    GCY factored operator (quadrature, pre-power interpolation) in
+    two-matmul form, computed in float64 from the grids' values; the
+    matrices are ``dtype`` CPU tensors.
+
+    Grid order (l, k, i, y, j, b) = (h_lam, h_c, h_z, h_zpi, z, z_pi):
+    rows group (l, k); the column group holds all four conditioned axes —
+    z' conditions on (h_z, z, z_pi) and z_pi' on (h_zpi, z_pi) — so the
+    column operand is the dense composition
+
+        D[(i,y,j,b), (I,Y,J,B)] =
+            P_hz[i,I] P_hzpi[y,Y] P_zpi[y,b,B] P_z[i,j,b,J],
+
+    O((n_i n_y n_j n_b)^2) memory: a small-grid form (~6-7 points per
+    axis).  ``baseline`` ("loglinear" or ``(const, profiles)``; strongly
+    recommended for float32, where theta * log-w range is ~200 on these
+    grids) folds a separable baseline into the P matrices before
+    composing; ``sub`` is then theta * ell0 as a (rows, cols) operand and
+    log_kappa carries + theta * ell0 (else ``sub`` is None).
+    """
+    from ..operators.continuous_gcy import (_factored_arrays_gcy,
+                                            _log_kappa_gcy)
+
+    m = model
+    theta = m.theta
+    arrs = _factored_arrays_gcy(m, grids, degree, baseline)
+    n_l, n_k, n_i, n_y, n_j, n_b = (len(g) for g in grids)
+    shapes = (n_l, n_k, n_i, n_y, n_j, n_b)
+    rows, cols = n_l * n_k, n_i * n_y * n_j * n_b
+    D = torch.einsum("iI,yY,ybB,ijbJ->iyjbIYJB", arrs["P_hz"],
+                     arrs["P_hzpi"], arrs["P_zpi"],
+                     arrs["P_z"]).reshape(cols, cols)
+    M1 = torch.kron(arrs["P_lam"], arrs["P_c"])
+    # log kappa(h_c, z) is additively separable: the row part carries its
+    # h_c-dependence relative to h_c = 0, the column part the rest.
+    _, h_c_g, _, _, z_g, _ = _host_grids(grids)
+    zero = torch.zeros((), dtype=torch.float64)
+    log_A2 = _log_kappa_gcy(m, h_c_g, zero) - _log_kappa_gcy(m, zero, zero)
+    log_A3 = _log_kappa_gcy(m, zero, z_g)
+    kap = ((torch.zeros((n_l, 1), dtype=torch.float64)
+            + log_A2[None, :]).reshape(rows, 1)
+           + log_A3[None, None, :, None].expand(n_i, n_y, n_j, n_b)
+           .reshape(1, cols))
+    sub = None
+    if arrs["ell0_parts"] is not None:
+        const0, phi_l, phi_k, phi_i, phi_y, phi_j, phi_b = arrs["ell0_parts"]
+        row0 = phi_l[:, None] + phi_k[None, :]
+        col0 = (const0 + phi_i[:, None, None, None]
+                + phi_y[None, :, None, None] + phi_j[None, None, :, None]
+                + phi_b[None, None, None, :])
+        sub = torch.as_tensor(theta * (row0.reshape(rows, 1)
+                                       + col0.reshape(1, cols)))
+        kap = kap + sub
+    cast = lambda a: None if a is None else a.contiguous().to(dtype)
+    return (cast(M1), cast(D.T), cast(kap), shapes, rows, cols, cast(sub))
 
 
 # ------------------------------------------------------- size guard
@@ -399,3 +460,26 @@ def make_fused_T_log_gcy(model, disc, dtype: torch.dtype = _F32, *,
     return make_fused_T_from_operands(
         M1, M2T, log_kap, model.theta, model.beta, disc.shapes,
         n_a * n_b * n_c, n_d * n_e * n_l, dtype=dtype, device=device)
+
+
+def make_fused_T_log_gcy_continuous(model, grids, degree: int = 5,
+                                    baseline="loglinear",
+                                    dtype: torch.dtype = _F32, *,
+                                    device="cuda") -> Callable:
+    """Fused log-space T for the *continuous* GCY factored operator
+    (quadrature, pre-power interpolation): the two-matmul form with the
+    four conditioned column axes composed into one dense operand.
+    Baseline normalization defaults on ("loglinear"): theta * (log-w
+    range) ~ 200 on these grids exceeds float32's exponential range
+    without it.  With a baseline, ``T.baseline_log_w`` is ell0 (float32,
+    on ``device``)."""
+    (M1, M2T, kap, shapes, rows, cols,
+     sub) = kron_operands_gcy_continuous(model, grids, degree, baseline,
+                                         torch.float64)
+    T = make_fused_T_from_operands(M1, M2T, kap, model.theta, model.beta,
+                                   shapes, rows, cols, dtype=dtype, sub=sub,
+                                   device=device)
+    if sub is not None:
+        T.baseline_log_w = (sub / model.theta).reshape(shapes).to(
+            device=resolve_device(device), dtype=dtype)
+    return T

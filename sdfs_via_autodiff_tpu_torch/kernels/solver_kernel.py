@@ -28,12 +28,13 @@ from ..models.ssy import SSY
 from ..operators.discrete_ssy import SSYDiscretization
 from .fused_discrete import (ALGO_SA, LAUNCHES, _device_operands,
                              check_working_set, fused_T_plain,
-                             kron_operands_gcy, kron_operands_ssy,
-                             kron_operands_ssy_continuous, launch)
+                             kron_operands_gcy, kron_operands_gcy_continuous,
+                             kron_operands_ssy, kron_operands_ssy_continuous,
+                             launch)
 
 __all__ = ["fused_sa", "fused_sa_plain", "make_fused_solver_from_operands",
            "make_fused_solver_ssy", "make_fused_solver_ssy_continuous",
-           "make_fused_solver_gcy"]
+           "make_fused_solver_gcy", "make_fused_solver_gcy_continuous"]
 
 
 def _f32(x: float) -> float:
@@ -126,3 +127,31 @@ def make_fused_solver_gcy(model, disc, *, device="cuda") -> Callable:
     return make_fused_solver_from_operands(
         M1, M2T, log_kap, model.theta, model.beta, disc.shapes,
         n_a * n_b * n_c, n_d * n_e * n_l, device=device)
+
+
+def _fused_gcy_continuous(make, model, grids, degree, baseline, *,
+                          device, **kw) -> Callable:
+    """A whole-solve factory ``make`` (SA or Anderson, from operands) over
+    the continuous-GCY two-matmul operands, carrying
+    ``solve.baseline_log_w`` (ell0, float32 on ``device``) when a
+    baseline is folded."""
+    (M1, M2T, kap, shapes, rows, cols,
+     sub) = kron_operands_gcy_continuous(model, grids, degree, baseline,
+                                         torch.float64)
+    fsolve = make(M1, M2T, kap, model.theta, model.beta, shapes, rows, cols,
+                  sub=sub, device=device, **kw)
+    if sub is not None:
+        fsolve.baseline_log_w = (sub / model.theta).reshape(shapes).to(
+            device=resolve_device(device), dtype=torch.float32)
+    return fsolve
+
+
+def make_fused_solver_gcy_continuous(model, grids, degree: int = 5,
+                                     baseline="loglinear", *,
+                                     device="cuda") -> Callable:
+    """Whole-solve SA kernel for the *continuous* GCY factored operator
+    (quadrature, pre-power interpolation).  Baseline normalization
+    defaults on: without it theta*(log-w range) ~ 200 overflows float32
+    on these grids."""
+    return _fused_gcy_continuous(make_fused_solver_from_operands, model,
+                                 grids, degree, baseline, device=device)

@@ -21,6 +21,14 @@ Kronecker grouping's 512 x 256), per-axis LSE only:
     pass B deferred:  ell (R, I, J) -> c1 contracted (R, I, J)
     pass C deferred:  c2 contraction, row phase, epilogue -> (R, C)
 
+"pair" (continuous GCY, whose c2 factor is the conditioned pair
+P_zpi[y, b, B] P_z[i, j, b, J] of the c1 slice (i, y)), per-axis LSE
+only, with the folded baseline subtracted in pass B:
+
+    pass B deferred:  theta*ell - sub_row - sub_col -> c1 contracted
+    pass C pair:      z_pi' then z' contraction per slice, row phase,
+                      epilogue -> (R, C)
+
 Each pass has a plain PyTorch version (``pass_b_plain``, ...) and a
 dispatcher (``pass_b``, ...): a CPU tensor goes to the plain version, a
 CUDA tensor to the kernel in ``csrc/streamed_two_phase.cu`` (built from
@@ -42,13 +50,14 @@ from . import _build
 
 __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
            "pass_b_deferred", "pass_b_deferred_plain", "pass_c_deferred",
-           "pass_c_deferred_plain", "pass_c_tile", "pass_c_deferred_tiles",
+           "pass_c_deferred_plain", "pass_c_pair", "pass_c_pair_plain",
+           "pair_device_operands", "pass_c_tile", "pass_c_deferred_tiles",
            "streamed_config", "streamed_supported", "make_streamed_T_log"]
 
 # Kernel launches per pass since the last reset (the wrappers add one per
 # launch; the plain versions never count).
 LAUNCHES = {"pass_b": 0, "pass_c": 0, "pass_b_deferred": 0,
-            "pass_c_deferred": 0}
+            "pass_c_deferred": 0, "pass_c_pair": 0}
 
 _MODES = {"fast": 0, "lse": 1}
 # Shared memory one block may use on sm_90 (227 KB).
@@ -65,6 +74,9 @@ _PASS_C_DEFERRED_TILES = (64, 32, 16, 8, 4)
 _PASS_C_DEFERRED_CHUNKS = (32, 16, 8, 4)
 # CUDA's limit on a grid's y dimension (rows in pass B, slices in pass C).
 _GRID_Y_MAX = 65_535
+# Rows of P_z per K-tile of the pair kernel (the .cu's kBK) and the
+# exponent bias of its exp stages.
+_PAIR_BK, PAIR_BIAS = 16, 25.0
 
 
 def _up4(n: int) -> int:
@@ -120,13 +132,31 @@ def pass_c_deferred_tiles(L: int, K: int) -> Optional[Tuple[int, int]]:
     return None
 
 
+def pass_c_pair_smem_bytes(R: int, K: int, n_b: int, n_j: int) -> int:
+    """Shared memory of one pair pass-C block (mirrors the .cu: the
+    (R, n_j) accumulator with rows padded to a multiple of 4, the (R,
+    n_j) product, two 16-row K-tiles of P_z, the shifts and the n_b
+    P_zpi weights)."""
+    return 4 * (R * _up4(n_j) + R * n_j + 2 * _PAIR_BK * n_j + _up4(R)
+                + _up4(K) + 4 + _up4(n_b))
+
+
 def streamed_config(ops: TwoPhaseOperands) -> Optional[str]:
-    """The kernels' configuration for this operand set: "full" when a
-    field row's (I, J) column group fits a pass-B block and the pass-C
-    tile fits, else "deferred" when the deferred passes' blocks fit, else
-    None (batched factors, baseline corrections, or blocks beyond shared
-    memory: not covered)."""
+    """The kernels' configuration for this operand set: "pair" for a
+    continuous-GCY set whose blocks fit (with or without a folded
+    baseline); for a plain set "full" when a field row's (I, J) column
+    group fits a pass-B block and the pass-C tile fits, else "deferred"
+    when the deferred passes' blocks fit; else None (batched factors,
+    baseline corrections outside pair sets, or blocks beyond shared
+    memory or the grid: not covered)."""
     L, K, I, J = ops.shapes
+    if ops.is_pair:
+        n_i, n_y, n_b, n_j = ops.pair_shapes
+        if (not ops.has_mid and pass_b_deferred_smem_bytes(I) <= SMEM_LIMIT
+                and pass_c_pair_smem_bytes(L * K, K, n_b, n_j) <= SMEM_LIMIT
+                and max(L * K, I) <= _GRID_Y_MAX):
+            return "pair"
+        return None
     if not ops.is_plain:
         return None
     if (pass_b_smem_bytes(I, J) <= SMEM_LIMIT
@@ -181,11 +211,14 @@ def _lib():
         lib.sdfs_pass_c.argtypes = [p, p, p, p, p, p, p, p,
                                     i, i, i, i, f, f, i, p]
         lib.sdfs_pass_c.restype = i
-        lib.sdfs_pass_b_deferred.argtypes = [p, p, p, i, i, i, f, p]
+        lib.sdfs_pass_b_deferred.argtypes = [p, p, p, p, p, i, i, i, f, p]
         lib.sdfs_pass_b_deferred.restype = i
         lib.sdfs_pass_c_deferred.argtypes = [p, p, p, p, p, p, p,
                                              i, i, i, i, i, i, f, f, p]
         lib.sdfs_pass_c_deferred.restype = i
+        lib.sdfs_pass_c_pair.argtypes = [p, p, p, p, p, p, p, p,
+                                         i, i, i, i, i, i, f, f, p]
+        lib.sdfs_pass_c_pair.restype = i
         lib.sdfs_error_string.argtypes = [i]
         lib.sdfs_error_string.restype = ctypes.c_char_p
         lib._sdfs_typed = True
@@ -328,21 +361,44 @@ def pass_c(mid, scale, S, W_r1, W_r2, add_row, add_col, theta: float,
 
 # ------------------------------------------------------ pass B deferred
 
-def pass_b_deferred_plain(ell, W_c1t, theta: float):
+def _check_sub(sub_row, sub_col) -> None:
+    if (sub_row is None) != (sub_col is None):
+        raise ValueError("give both sub_row and sub_col, or neither")
+
+
+def pass_b_deferred_plain(ell, W_c1t, theta: float, sub_row=None,
+                          sub_col=None):
     """Deferred column phase of ``ell`` (R, I, J): contract i' only, with
     ``W_c1t`` (I', I) = W_c1 transposed, under a per-(row, column) shift
-    m = max over I' of a = theta*ell.  Returns the log-domain
-    m + log(W_c1 exp(a - m)), (R, I, J)."""
-    a = theta * ell
+    m = max over I' of a = theta*ell - sub_row[r] - sub_col[i, j] (the
+    folded baseline, ``sub_row`` (R,) and ``sub_col`` (I, J), both or
+    neither).  Returns the log-domain m + log(W_c1 exp(a - m)),
+    (R, I, J).
+
+    theta*ell - sub_row is one fused multiply-add (a single rounding, as
+    the kernel and the TPU kernel's compiler compute it): the baseline
+    cancels theta*ell ~ -240 down to O(1), where a separate rounding of
+    the product would be 1e-5 of error."""
+    _check_sub(sub_row, sub_col)
+    if sub_row is None:
+        a = theta * ell
+    else:
+        # float32 theta times float32 ell is exact in float64.
+        th = float(torch.tensor(theta, dtype=ell.dtype))
+        a = (th * ell.double() - sub_row.double()[:, None, None]).to(
+            ell.dtype) - sub_col[None, :, :]
     m = torch.amax(a, dim=1, keepdim=True)
     return m + torch.log(torch.matmul(W_c1t.mT, torch.exp(a - m)))
 
 
-def _pass_b_deferred_cuda(ell, W_c1t, theta):
+def _pass_b_deferred_cuda(ell, W_c1t, theta, sub_row, sub_col):
     R, I, J = ell.shape
     dev = ell.device
     _check("ell", ell, dev, (R, I, J))
     _check("W_c1t", W_c1t, dev, (I, I))
+    if sub_row is not None:
+        _check("sub_row", sub_row, dev, (R,))
+        _check("sub_col", sub_col, dev, (I, J))
     if pass_b_deferred_smem_bytes(I) > SMEM_LIMIT or R > _GRID_Y_MAX:
         raise ValueError(f"deferred pass B with I = {I}, R = {R} exceeds "
                          "shared memory or the grid")
@@ -350,22 +406,23 @@ def _pass_b_deferred_cuda(ell, W_c1t, theta):
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sdfs_pass_b_deferred(_ptr(ell), _ptr(W_c1t), _ptr(out),
-                                      R, I, J, float(theta),
-                                      ctypes.c_void_p(stream))
+        rc = lib.sdfs_pass_b_deferred(_ptr(ell), _ptr(W_c1t), _ptr(sub_row),
+                                      _ptr(sub_col), _ptr(out), R, I, J,
+                                      float(theta), ctypes.c_void_p(stream))
     _raise_on(lib, rc, "deferred pass B")
     LAUNCHES["pass_b_deferred"] += 1
     return out
 
 
-def pass_b_deferred(ell, W_c1t, theta: float):
+def pass_b_deferred(ell, W_c1t, theta: float, sub_row=None, sub_col=None):
     """Deferred pass B on the tensors' device: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (same arguments and result
     as :func:`pass_b_deferred_plain`)."""
+    _check_sub(sub_row, sub_col)
     if ell.device.type == "cpu":
-        return pass_b_deferred_plain(ell, W_c1t, theta)
+        return pass_b_deferred_plain(ell, W_c1t, theta, sub_row, sub_col)
     if ell.device.type == "cuda":
-        return _pass_b_deferred_cuda(ell, W_c1t, theta)
+        return _pass_b_deferred_cuda(ell, W_c1t, theta, sub_row, sub_col)
     raise ValueError(f"no deferred pass-B kernel for device {ell.device}")
 
 
@@ -449,28 +506,135 @@ def pass_c_deferred(mid, W_c2t, W_r1, W_r2, add_row, add_col, theta: float,
     raise ValueError(f"no deferred pass-C kernel for device {mid.device}")
 
 
+# ----------------------------------------------------------- pair pass C
+
+def pair_device_operands(ops: TwoPhaseOperands, dtype=torch.float32, *,
+                         device="cuda"):
+    """The pair kernel's c2 operands of a continuous-GCY set, in the one
+    layout that both :func:`pass_c_pair` and :func:`pass_c_pair_plain`
+    take: ``P_zpi`` (n_y, n_b, n_b) as [y, b, B] and ``PzT``
+    (n_i, n_b, n_j, n_j) = P_z[i, j, b, J] as [i, b, J, j], so that the
+    (i, b) block is the right-hand (J', j) factor of one slice's z'
+    product with contiguous rows."""
+    dev = resolve_device(device)
+    P_z, P_zpi = ops.pair_c2
+    cast = lambda a: torch.as_tensor(np.ascontiguousarray(
+        a, np.float64)).to(device=dev, dtype=dtype)
+    return (cast(P_zpi),
+            cast(np.asarray(P_z, np.float64).transpose(0, 2, 3, 1)))
+
+
+def pass_c_pair_plain(mid, P_zpi, PzT, W_r1, W_r2, add_row, add_col,
+                      theta: float, beta: float):
+    """Pair row phase of the log-domain ``mid`` (R, C), R = L*K,
+    C = (n_i*n_y) * (n_b*n_j), c1 slices q = (i, y) of columns (b, j):
+    per slice and row one shift m1 over the whole (B', J') group, the
+    z_pi' contraction with ``P_zpi[y]`` and the z' contraction with
+    ``PzT[i, b]`` (the layout of :func:`pair_device_operands`), then the
+    linear-carry row phase with M2 = max over l of m1 and M3 = max over k
+    of M2, add_row (L, K), add_col (C,) and the epilogue
+    log1p(beta*exp(lh/theta)).
+
+    Each exp stage is biased by e^25 and 75 is taken off after the log,
+    as the TPU kernel does: the chain from the first exp to the last log
+    runs un-logged, and the bias widens its float32 window."""
+    n_y, n_b = P_zpi.shape[0], P_zpi.shape[1]
+    n_i, n_j = PzT.shape[0], PzT.shape[2]
+    L, K = W_r1.shape[0], W_r2.shape[0]
+    R, C = mid.shape
+    IY, C2 = n_i * n_y, n_b * n_j
+    B = PAIR_BIAS
+    w = mid.reshape(R, IY, C2)
+    m1 = torch.amax(w, dim=2, keepdim=True)                  # (R, IY, 1)
+    e = torch.exp(w - m1 + B).reshape(R, n_i, n_y, n_b, n_j)
+    acc = torch.einsum("ybB,riyBJ->riybJ", P_zpi, e)
+    u = torch.einsum("ibJj,riybJ->riybj", PzT, acc).reshape(L, K, IY, C2)
+    sh = m1.reshape(L, K, IY, 1)
+    M2 = torch.amax(sh, dim=0, keepdim=True)                 # (1, K, IY, 1)
+    u = u * torch.exp(sh - M2 + B)
+    u = torch.matmul(W_r1, u.reshape(L, K * C)).reshape(L, K, IY, C2)
+    M3 = torch.amax(M2, dim=1, keepdim=True)                 # (1, 1, IY, 1)
+    u = u * torch.exp(M2 - M3 + B)
+    u = torch.matmul(W_r2, u.reshape(L, K, C)).reshape(L, K, IY, C2)
+    lh = (torch.log(u) + (M3 - 3.0 * B) + add_row[:, :, None, None]
+          + add_col.reshape(1, 1, IY, C2))
+    return torch.log1p(beta * torch.exp(lh / theta)).reshape(R, C)
+
+
+def _pass_c_pair_cuda(mid, P_zpi, PzT, W_r1, W_r2, add_row, add_col, theta,
+                      beta):
+    R, C = mid.shape
+    n_y, n_b = P_zpi.shape[0], P_zpi.shape[1]
+    n_i, n_j = PzT.shape[0], PzT.shape[2]
+    L, K = W_r1.shape[0], W_r2.shape[0]
+    dev = mid.device
+    _check("mid", mid, dev, (R, C))
+    _check("P_zpi", P_zpi, dev, (n_y, n_b, n_b))
+    _check("PzT", PzT, dev, (n_i, n_b, n_j, n_j))
+    _check("W_r1", W_r1, dev, (L, L))
+    _check("W_r2", W_r2, dev, (K, K))
+    _check("add_row", add_row, dev, (L, K))
+    _check("add_col", add_col, dev, (C,))
+    if L * K != R or n_i * n_y * n_b * n_j != C:
+        raise ValueError(f"mid {tuple(mid.shape)} does not match W_r1/W_r2 "
+                         f"({L}*{K} rows) and P_zpi/PzT ({n_i}*{n_y} slices "
+                         f"of {n_b}*{n_j} columns)")
+    if (pass_c_pair_smem_bytes(R, K, n_b, n_j) > SMEM_LIMIT
+            or n_i * n_y > _GRID_Y_MAX):
+        raise ValueError(f"pair pass C with {R} rows, {n_j} z points, "
+                         f"{n_i * n_y} slices exceeds shared memory or the "
+                         "grid")
+    out = torch.empty_like(mid)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdfs_pass_c_pair(
+            _ptr(mid), _ptr(P_zpi), _ptr(PzT), _ptr(W_r1), _ptr(W_r2),
+            _ptr(add_row), _ptr(add_col), _ptr(out), L, K, n_i, n_y, n_b,
+            n_j, float(theta), float(beta), ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "pair pass C")
+    LAUNCHES["pass_c_pair"] += 1
+    return out
+
+
+def pass_c_pair(mid, P_zpi, PzT, W_r1, W_r2, add_row, add_col, theta: float,
+                beta: float):
+    """Pair pass C on the tensors' device: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (same arguments and result
+    as :func:`pass_c_pair_plain`)."""
+    if mid.device.type == "cpu":
+        return pass_c_pair_plain(mid, P_zpi, PzT, W_r1, W_r2, add_row,
+                                 add_col, theta, beta)
+    if mid.device.type == "cuda":
+        return _pass_c_pair_cuda(mid, P_zpi, PzT, W_r1, W_r2, add_row,
+                                 add_col, theta, beta)
+    raise ValueError(f"no pair pass-C kernel for device {mid.device}")
+
+
 # ------------------------------------------------------------- operator
 
 def make_streamed_T_log(ops: TwoPhaseOperands,
                         dtype: torch.dtype = torch.float32,
                         mode: str = "auto", *,
                         device="cuda") -> Callable:
-    """Streamed two-pass operator ell (4-D field) -> log T(w) from a plain
+    """Streamed two-pass operator ell (4-D field) -> log T(w) from a
     two-phase operand set, in the configuration :func:`streamed_config`
     picks.
 
     mode "fast": one shift per field row (exact whenever the iterate's
     theta-range within a row fits exp's f32 range — plain SSY operands);
     "lse": per-axis log-sum-exp shifts; "auto" picks "fast" for the full
-    configuration and "lse" for the deferred one, which runs per-axis LSE
-    only (the single-shift fast mode is unsafe at its column-group spans:
-    ``mode="fast"`` raises ``ValueError`` there).
+    configuration and "lse" for the deferred and pair ones, which run
+    per-axis LSE only (the single-shift fast mode is unsafe at their
+    column-group spans: ``mode="fast"`` raises ``ValueError`` there).
 
     The returned ``T`` carries ``T.twin`` (the eager evaluator of the same
     math, :func:`..operators.two_phase.make_eager_two_phase_T`), ``T.mode``
-    and ``T.engine`` ("streamed" or "streamed-deferred", the JAX
-    package's names).  Its forward-mode derivative (``torch.func.jvp``)
-    is the twin's tangent at the same point.
+    and ``T.engine`` ("streamed", "streamed-deferred" or "streamed-pair",
+    the JAX package's names), and for a set with a folded baseline
+    ``T.baseline_log_w`` (ell0 on the view, float32 on ``device``).  Its
+    forward-mode derivative (``torch.func.jvp``) is the twin's tangent at
+    the same point.
     """
     if dtype != torch.float32:
         raise ValueError("the streamed kernels are the float32 tier")
@@ -480,13 +644,13 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
             "operand set not covered by the streamed kernels (batched "
             "factors, baseline corrections, or blocks beyond shared "
             f"memory at shapes {ops.shapes}); see ROADMAP queue B")
-    deferred = config == "deferred"
+    deferred, pair = config == "deferred", config == "pair"
     if mode == "auto":
-        mode = "lse" if deferred else "fast"
+        mode = "lse" if (deferred or pair) else "fast"
     _check_mode(mode)
-    if deferred and mode == "fast":
+    if (deferred or pair) and mode == "fast":
         raise ValueError(
-            "deferred-c2 operand sets run per-axis LSE only (the "
+            "deferred-c2 and pair operand sets run per-axis LSE only (the "
             "single-shift fast mode is unsafe at their column-group spans)")
     dev = resolve_device(device)
     L, K, I, J = ops.shapes
@@ -494,19 +658,30 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
     theta, beta = float(ops.theta), float(ops.beta)
     cast = lambda a: torch.as_tensor(np.ascontiguousarray(
         a, np.float64)).to(device=dev, dtype=dtype)
-    W_c2t = cast(np.asarray(ops.W_c2).T)
     W_r1, W_r2 = cast(ops.W_r1), cast(ops.W_r2)
     add_row = cast(ops.add_row)
     add_col = cast(np.asarray(ops.add_col).reshape(C))
     twin = make_eager_two_phase_T(ops, dtype, device=dev)
-    if deferred:
+    if pair:
+        P_zpi, PzT = pair_device_operands(ops, dtype, device=dev)
+        sub_row = sub_col = None
+        if ops.has_sub:
+            sub_row = cast(np.asarray(ops.sub_row).reshape(R))
+            sub_col = cast(ops.sub_col)
+    else:
+        W_c2t = cast(np.asarray(ops.W_c2).T)
+    if deferred or pair:
         W_c1t = cast(np.asarray(ops.W_c1).T)
     else:
         W_c1 = cast(ops.W_c1)
 
     def primal(ell):
         e = ell.to(dtype).reshape(R, I, J).contiguous()
-        if deferred:
+        if pair:
+            mid = pass_b_deferred(e, W_c1t, theta, sub_row, sub_col)
+            out = pass_c_pair(mid.reshape(R, C), P_zpi, PzT, W_r1, W_r2,
+                              add_row, add_col, theta, beta)
+        elif deferred:
             mid = pass_b_deferred(e, W_c1t, theta)
             out = pass_c_deferred(mid.reshape(R, C), W_c2t, W_r1, W_r2,
                                   add_row, add_col, theta, beta)
@@ -541,5 +716,8 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
 
     T.twin = twin
     T.mode = mode
-    T.engine = "streamed-deferred" if deferred else "streamed"
+    T.engine = ("streamed-pair" if pair else
+                "streamed-deferred" if deferred else "streamed")
+    if ops.baseline_log_w is not None:
+        T.baseline_log_w = cast(ops.baseline_log_w)
     return T

@@ -3,10 +3,13 @@
 PyTorch port of the dispatch in
 ``sdfs_via_autodiff_tpu/kernels/tiled_two_phase.py``: ``make_tiled_T_log``
 runs an operand set through the streamed kernels
-(:mod:`.streamed_two_phase`).  The JAX package's strip tier, which covers
-the operand sets the streamed kernels decline under the TPU compiler's
-layout rules, is not ported (ROADMAP queue B item 9): an uncovered
-operand set raises ``NotImplementedError``.
+(:mod:`.streamed_two_phase`); ``make_tiled_T_log_ssy``,
+``make_tiled_T_log_gcy`` and ``make_tiled_T_log_gcy_continuous`` build
+the operand sets of discrete SSY, discrete GCY and continuous GCY.  The
+JAX package's strip tier, which covers the operand sets the streamed
+kernels decline under the TPU compiler's layout rules, is not ported
+(ROADMAP queue B item 9): an uncovered operand set raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,11 +19,13 @@ from typing import Callable, Optional
 import torch
 
 from ..operators.two_phase import (TwoPhaseOperands, two_phase_operands_gcy,
+                                   two_phase_operands_gcy_continuous,
                                    two_phase_operands_ssy)
 from .streamed_two_phase import make_streamed_T_log, streamed_supported
 
 __all__ = ["TPU_ONLY_OPTIONS", "reject_tpu_options", "make_tiled_T_log",
-           "make_tiled_T_log_ssy", "make_tiled_T_log_gcy"]
+           "make_tiled_T_log_ssy", "make_tiled_T_log_gcy",
+           "make_tiled_T_log_gcy_continuous"]
 
 # Options of the JAX tiled tier that exist only for the TPU (bf16 "3x"
 # contraction splits, software transcendentals, VMEM budgets, tier
@@ -91,7 +96,50 @@ def make_tiled_T_log_gcy(model, disc, dtype: torch.dtype = torch.float32,
     ops = two_phase_operands_gcy(model, disc, baseline)
     if mode == "auto":
         mode = "lse"
-    view_T = make_tiled_T_log(ops, dtype, mode, device=device)
+    return _natural_layout(ops, make_tiled_T_log(ops, dtype, mode,
+                                                 device=device))
+
+
+def make_tiled_T_log_gcy_continuous(model, grids, degree: int = 5,
+                                    baseline=None,
+                                    dtype: torch.dtype = torch.float32,
+                                    mode: str = "auto", *, device="cuda",
+                                    **tpu_options) -> Callable:
+    """Streamed-pair log-space T for the continuous factored-quadrature
+    six-state GCY operator (interp="pre").
+
+    The conditioned z / z_pi expectation matrices (P_z on the current h_z
+    and z_pi, P_zpi on the current h_zpi) do not conjugate into shared
+    factors, so this family runs the streamed kernels' pair
+    configuration: the (h_z (x) h_zpi) Kronecker factor contracts in the
+    deferred pass B (with the folded baseline), the conditioned pair per
+    slice in pass C.  ``baseline`` ("loglinear" or a ``(const,
+    profiles)`` pair; the coarse-solve profiles in production) is
+    effectively required: GCY's theta = -36 puts the plain iterate far
+    outside float32's exp range, and a warning says so when none is
+    given.
+
+    The returned T maps the natural 6-D field ``ell[h_lam, h_c, h_z,
+    h_zpi, z, z_pi]`` -> log T(w) through ``T.to_view``, the view
+    operator ``T.view_T`` on ``(h_c, h_lam, (h_z, h_zpi), (z_pi, z))``
+    and ``T.from_view``; ``T.twin`` is the eager twin in the natural
+    layout (the tangent), ``T.baseline_log_w`` the folded baseline in
+    the natural layout.
+    """
+    reject_tpu_options(tpu_options)
+    if baseline is None:
+        from ..models.gcy import gcy_loglinear_factory
+        from ..operators.continuous_common import warn_if_f32_range_unsafe
+        warn_if_f32_range_unsafe(model, grids, gcy_loglinear_factory,
+                                 dtype)
+    ops = two_phase_operands_gcy_continuous(model, grids, degree, baseline)
+    return _natural_layout(ops, make_tiled_T_log(ops, dtype, mode,
+                                                 device=device))
+
+
+def _natural_layout(ops: TwoPhaseOperands, view_T) -> Callable:
+    """The six-state natural-layout operator around the view operator
+    ``view_T`` of ``ops`` (one permute in, one out)."""
     perm, inv_perm = ops.perm, ops.inv_perm
     view_shapes = tuple(ops.state_shapes[p] for p in perm)
 
@@ -112,4 +160,7 @@ def make_tiled_T_log_gcy(model, disc, dtype: torch.dtype = torch.float32,
     T.twin = natural(view_T.twin)
     T.mode = view_T.mode
     T.engine = view_T.engine
+    if getattr(view_T, "baseline_log_w", None) is not None:
+        T.baseline_log_w = from_view(
+            view_T.baseline_log_w.reshape(view_shapes)).contiguous()
     return T

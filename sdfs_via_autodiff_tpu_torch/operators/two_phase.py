@@ -1,7 +1,8 @@
 """Two-phase (column-group / row-group) form of the 4-D log-space operators.
 
 PyTorch port of ``sdfs_via_autodiff_tpu/operators/two_phase.py`` for the
-plain discrete SSY and GCY operand sets.  Grouping the four SSY state axes
+plain discrete SSY and GCY operand sets and the baseline-folded
+continuous-GCY pair sets.  Grouping the four SSY state axes
 as rows (h_lam, h_c) and columns (h_z, z) splits the per-axis chain into
 
     column phase:  contract next-h_z, then next-z      (touches only columns)
@@ -9,7 +10,8 @@ as rows (h_lam, h_c) and columns (h_z, z) splits the per-axis chain into
 
 with the epilogue's additive terms separable into a row part and a
 column part.  The six GCY axes fold into the same form by Kronecker
-grouping (:func:`two_phase_operands_gcy`).  The streamed kernels (``kernels/streamed_two_phase.py``)
+grouping (:func:`two_phase_operands_gcy`, discrete;
+:func:`two_phase_operands_gcy_continuous`, continuous).  The streamed kernels (``kernels/streamed_two_phase.py``)
 run each phase as one pass over the field; :func:`make_eager_two_phase_T`
 is the plain eager evaluator of the same math — the kernels' tangent
 (Newton's inner matvecs) and their agreement oracle.
@@ -26,7 +28,8 @@ import torch
 from ..config import resolve_device
 
 __all__ = ["TwoPhaseOperands", "two_phase_operands_ssy",
-           "two_phase_operands_gcy", "make_eager_two_phase_T"]
+           "two_phase_operands_gcy", "two_phase_operands_gcy_continuous",
+           "make_eager_two_phase_T"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,11 +48,18 @@ class TwoPhaseOperands:
 
     The fields match the JAX package's operand set one for one, so
     ``dataclasses.asdict`` of either converts to the other
-    (``interop.operands_from_numpy``); ``perm``, ``inv_perm`` and
-    ``state_shapes``, which the JAX package sets as attributes of its GCY
-    sets, are fields here.  ``sub_row``, ``sub_col``, ``baseline_log_w``
-    and ``mid_col`` belong to the baseline-normalized sets, which later
-    slices port; the evaluators here reject them.
+    (``interop.operands_from_numpy``); ``perm``, ``inv_perm``,
+    ``state_shapes``, ``pair_c2`` and ``pair_shapes``, which the JAX
+    package sets as attributes of its six-state sets, are fields here.
+    ``sub_row``/``sub_col`` (the folded baseline theta*ell0 split over
+    rows and columns) and ``baseline_log_w`` (ell0 itself) belong to the
+    baseline-normalized sets; ``mid_col`` to the conjugated-shared ones,
+    which a later slice ports (the evaluators here reject it).
+
+    Continuous-GCY sets carry their column factor c2 = (z_pi, z) as the
+    per-axis pair ``pair_c2 = (P_z (i, j, b, J), P_zpi (y, b, B))`` with
+    ``pair_shapes = (n_i, n_y, n_b, n_j)``; their ``W_c2`` is None (the
+    joint factor, batched over the current c1 slice, is never built).
     """
 
     shapes: Tuple[int, int, int, int]
@@ -70,14 +80,24 @@ class TwoPhaseOperands:
     perm: Optional[Tuple[int, ...]] = None
     inv_perm: Optional[Tuple[int, ...]] = None
     state_shapes: Optional[Tuple[int, ...]] = None
+    # Continuous-GCY sets: (P_z, P_zpi) and (n_i, n_y, n_b, n_j).
+    pair_c2: Optional[Tuple[np.ndarray, np.ndarray]] = None
+    pair_shapes: Optional[Tuple[int, int, int, int]] = None
 
     @property
     def c1_batched(self) -> bool:
         return self.W_c1.ndim == 3
 
     @property
+    def is_pair(self) -> bool:
+        return self.pair_c2 is not None
+
+    @property
     def c2_batched(self) -> bool:
-        return self.W_c2.ndim == 3
+        """True when the c2 factor depends on the current c1 index (a
+        batched ``W_c2``, or a pair set, whose P_z and P_zpi condition on
+        the c1 slice's (h_z, h_zpi))."""
+        return self.is_pair or self.W_c2.ndim == 3
 
     @property
     def has_sub(self) -> bool:
@@ -89,8 +109,7 @@ class TwoPhaseOperands:
 
     @property
     def is_plain(self) -> bool:
-        """Shared factors and no baseline corrections: the only operand
-        kind this slice evaluates."""
+        """Shared factors and no baseline corrections."""
         return not (self.c1_batched or self.c2_batched or self.has_sub
                     or self.has_mid)
 
@@ -218,32 +237,127 @@ def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None
         state_shapes=tuple(disc.shapes))
 
 
+def two_phase_operands_gcy_continuous(model, grids, degree: int = 5,
+                                      baseline=None) -> TwoPhaseOperands:
+    """Two-phase operands for the continuous six-state GCY
+    factored-quadrature operator (interp="pre").
+
+    Grouping (view layout ``ell[k, l, (i, y), (b, j)]``, natural order
+    (l, k, i, y, j, b) carried by ``perm``/``inv_perm``):
+
+        rows:    r1 = h_c  (k)          W_r1 = P_c
+                 r2 = h_lam (l)         W_r2 = P_lam (payoff folded)
+        columns: c1 = (h_z (x) h_zpi)   W_c1 = P_hz (x) P_hzpi  (shared)
+                 c2 = (z_pi, z), z minor
+
+    The continuous z/z_pi expectation matrices are truly conditioned:
+    P_zpi on the current h_zpi (y), P_z on the current h_z (i) and z_pi
+    (b).  The joint c2 factor batched over the current c1 slice,
+
+        W_c2[(i, y)][(b, j), (B, J)] = P_zpi[y, b, B] * P_z[i, j, b, J],
+
+    is exact (P_z's z_pi conditioning is on the current b, a row index of
+    the joint matrix) but never built: ``pair_c2 = (P_z, P_zpi)`` and
+    ``pair_shapes`` carry the per-axis factors, which pass C's pair
+    kernel and the eager twin contract per axis; ``W_c2`` is None.
+
+    ``baseline`` is "loglinear" or a ``(const, profiles)`` pair from a
+    coarse solve (``operators.continuous_common.additive_profiles``):
+    effectively required for float32 (GCY's theta = -36 puts
+    theta*(log-w range) ~ 200 on reference-style grids).  The fold is
+    separable, so sub/add split into rows and columns exactly.
+    """
+    from .continuous_gcy import _factored_arrays_gcy
+
+    n_l, n_k, n_i, n_y, n_j, n_b = (len(g) for g in grids)
+    IY, C2 = n_i * n_y, n_b * n_j
+    theta, beta = float(model.theta), float(model.beta)
+    arrs = _factored_arrays_gcy(model, grids, degree, baseline)
+    f64 = lambda a: np.asarray(a, np.float64)
+    W_c1 = _kron(f64(arrs["P_hz"]), f64(arrs["P_hzpi"]))
+    P_z = f64(arrs["P_z"])                           # (i, j, b, J)
+    P_zpi = f64(arrs["P_zpi"])                       # (y, b, B)
+    # Row-normalize P_zpi, moving log(rowsum) into the per-column add.
+    # The raw rows carry folded payoff factors that sum to ~e^38 on
+    # reference calibrations, which would waste most of pass C's linear
+    # chain's float32 window on a constant scale.  A per-(y, b) scale
+    # rides the b lane through the row contractions (they contract rows,
+    # never columns), so the move is exact.
+    zpi_scale = P_zpi.sum(axis=2)                    # (y, b)
+    P_zpi = P_zpi / np.where(zpi_scale == 0.0, 1.0, zpi_scale)[:, :, None]
+    with np.errstate(divide="ignore"):               # 0-mass row -> -inf
+        log_zpi_scale = np.log(zpi_scale)
+    log_A2, log_A3 = f64(arrs["log_A2"]), f64(arrs["log_A3"])
+    add_row = np.broadcast_to(log_A2[:, None], (n_k, n_l)).copy()
+    colpart = np.broadcast_to(log_A3[None, :], (n_b, n_j)).reshape(C2)
+    add_col = np.broadcast_to(colpart[None, :], (IY, C2)).copy()
+    add_col += np.tile(
+        np.broadcast_to(log_zpi_scale[:, :, None],
+                        (n_y, n_b, n_j)).reshape(n_y, C2), (n_i, 1))
+    sub_row = sub_col = ell0 = None
+    if arrs["ell0_parts"] is not None:
+        const0, phi_l, phi_k, phi_i, phi_y, phi_j, phi_b = (
+            np.asarray(p, np.float64) if not np.isscalar(p) else p
+            for p in arrs["ell0_parts"])
+        phi_iy = (phi_i[:, None] + phi_y[None, :]).reshape(IY)
+        phi_bj = (phi_b[:, None] + phi_j[None, :]).reshape(C2)
+        sub_row = theta * (phi_k[:, None] + phi_l[None, :])
+        sub_col = theta * (const0 + phi_iy[:, None] + phi_bj[None, :])
+        add_row = add_row + sub_row
+        add_col = add_col + sub_col
+        ell0 = (const0 + phi_k[:, None, None, None]
+                + phi_l[None, :, None, None]
+                + phi_iy[None, None, :, None] + phi_bj[None, None, None, :])
+    return TwoPhaseOperands(
+        shapes=(n_k, n_l, IY, C2),
+        W_r1=f64(arrs["P_c"]), W_r2=f64(arrs["P_lam"]), W_c1=W_c1, W_c2=None,
+        add_row=add_row, add_col=add_col, theta=theta, beta=beta,
+        sub_row=sub_row, sub_col=sub_col, baseline_log_w=ell0,
+        # Natural (l, k, i, y, j, b) -> view (k, l, i, y, b, j); self-inverse.
+        perm=(1, 0, 2, 3, 5, 4), inv_perm=(1, 0, 2, 3, 5, 4),
+        state_shapes=(n_l, n_k, n_i, n_y, n_j, n_b),
+        pair_c2=(P_z, P_zpi), pair_shapes=(n_i, n_y, n_b, n_j))
+
+
 def make_eager_two_phase_T(ops: TwoPhaseOperands,
                            dtype: torch.dtype = torch.float32, *,
                            device="cuda") -> Callable:
-    """Plain eager evaluator of a plain two-phase operand set.
+    """Plain eager evaluator of a two-phase operand set with shared
+    factors (plain, or with a folded baseline ``sub_row``/``sub_col``) or
+    a continuous-GCY pair set.
 
     The same math as the streamed kernels with per-axis shifts at every
     contraction: their agreement oracle and their tangent (it is
-    differentiable by ``torch.func``).  float32 contractions run in full
-    FP32: on a CUDA device it raises while TF32 matmuls are allowed
+    differentiable by ``torch.func``).  A pair set's c2 step takes one
+    shift over the whole (B', J') slice, then contracts next-z_pi with
+    P_zpi and next-z with P_z, as the JAX package's XLA twin does.
+    float32 contractions run in full FP32: on a CUDA device it raises
+    while TF32 matmuls are allowed
     (``torch.backends.cuda.matmul.allow_tf32``, off by default), whose
     10-bit mantissa misses the operator's 1e-6-class accuracy.
     """
-    if not ops.is_plain:
+    if ops.c1_batched or ops.has_mid or (ops.c2_batched and not ops.is_pair):
         raise NotImplementedError(
-            "batched factors and baseline corrections (normalized and "
-            "continuous operand sets) are not ported yet; see ROADMAP "
-            "queue A")
+            "batched factors and mid_col corrections (normalized discrete "
+            "and continuous-SSY operand sets) are not ported yet; see "
+            "ROADMAP queue A")
     dev = resolve_device(device)
     n_r1, n_r2, n_c1, n_c2 = ops.shapes
     R, C = n_r1 * n_r2, n_c1 * n_c2
     cast = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
         device=dev, dtype=dtype)
-    W_r1, W_r2, W_c1, W_c2 = map(cast, (ops.W_r1, ops.W_r2, ops.W_c1,
-                                        ops.W_c2))
+    W_r1, W_r2, W_c1 = map(cast, (ops.W_r1, ops.W_r2, ops.W_c1))
+    if ops.is_pair:
+        P_z, P_zpi = map(cast, ops.pair_c2)      # (i, j, b, J), (y, b, B)
+        n_i, n_y, n_b, n_j = ops.pair_shapes
+    else:
+        W_c2 = cast(ops.W_c2)
     add = cast(ops.add_row[:, :, None]
                + np.asarray(ops.add_col).reshape(-1)[None, None, :])
+    sub = None
+    if ops.has_sub:
+        sub = cast(np.asarray(ops.sub_row).reshape(-1)[:, None, None]
+                   + np.asarray(ops.sub_col)[None, :, :])    # (R, c1, c2)
     theta, beta = float(ops.theta), float(ops.beta)
 
     def T(ell):
@@ -252,12 +366,20 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
                                "matmuls; set torch.backends.cuda.matmul."
                                "allow_tf32 = False")
         a = theta * ell.to(dtype).reshape(R, n_c1, n_c2)
+        if sub is not None:
+            a = a - sub
         m = torch.amax(a, dim=1, keepdim=True)
         a = m + torch.log(torch.einsum("im,tmj->tij", W_c1,
                                        torch.exp(a - m)))
         m = torch.amax(a, dim=2, keepdim=True)
-        a = m + torch.log(torch.einsum("jm,tim->tij", W_c2,
-                                       torch.exp(a - m)))
+        if ops.is_pair:
+            e = torch.exp(a - m).reshape(R, n_i, n_y, n_b, n_j)
+            v = torch.einsum("ybB,tiyBJ->tiybJ", P_zpi, e)
+            u = torch.einsum("ijbJ,tiybJ->tiybj", P_z, v)
+            a = m + torch.log(u.reshape(R, n_c1, n_c2))
+        else:
+            a = m + torch.log(torch.einsum("jm,tim->tij", W_c2,
+                                           torch.exp(a - m)))
         b = a.reshape(n_r1, n_r2, C)
         m = torch.amax(b, dim=0, keepdim=True)
         b = m + torch.log(torch.einsum("lm,mkt->lkt", W_r1,

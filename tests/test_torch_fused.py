@@ -302,3 +302,88 @@ def test_interop_operands_drive_the_port():
     with pytest.raises(ValueError, match="float32 tier"):
         P.make_fused_T_from_operands(*pops, jm.theta, jm.beta, (R, C), R, C,
                                      dtype=torch.float64, device="cpu")
+
+
+# ------------------------------------------------- continuous GCY, fused
+
+GCY_CONT_SIZES = (4, 3, 3, 3, 4, 3)
+
+
+def _gcy_cont_grids():
+    from sdfs_via_autodiff_tpu.ops.grids import build_grid_gcy
+    jg = build_grid_gcy(J.GCY(), *GCY_CONT_SIZES)
+    return jg, P.grids_from_numpy([np.asarray(g) for g in jg])
+
+
+@pytest.mark.parametrize("baseline", [None, "loglinear"])
+def test_kron_operands_gcy_continuous_match_jax(baseline):
+    jg, pg = _gcy_cont_grids()
+    want = jfd.kron_operands_gcy_continuous(J.GCY(), jg, 5, baseline,
+                                            dtype=jnp.float64)
+    got = P.kron_operands_gcy_continuous(P.GCY(), pg, 5, baseline,
+                                         dtype=torch.float64)
+    assert len(got) == len(want) == 7
+    assert got[3:6] == (tuple(want[3]), want[4], want[5])
+    assert (got[6] is None) == (want[6] is None) == (baseline is None)
+    for g, w in zip(got[:3] + got[6:], want[:3] + want[6:]):
+        if w is None:
+            continue
+        assert g.dtype == torch.float64 and g.is_contiguous()
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12,
+                                   atol=1e-12)
+    # The JAX seven-tuple crosses over as the port's.
+    crossed = P.kron_operands_from_numpy(want)
+    assert crossed[3:6] == got[3:6]
+    torch.testing.assert_close(crossed[0], got[0], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("algorithm", ["sa", "anderson"])
+def test_fused_gcy_continuous_solvers_converge_with_coarse_baseline(
+        algorithm):
+    # JAX tests/test_kernels.py's recipe: the additive profiles of the
+    # float64 Newton solution fold into the operands; SA and Anderson then
+    # converge at tol 1e-6 from the baseline.
+    _, pg = _gcy_cont_grids()
+    m = P.GCY()
+    T64 = P.T_gcy_continuous_factory(m, pg, space="log", device="cpu")
+    ref = P.solve(T64, torch.full(GCY_CONT_SIZES, float(np.log(500.0)),
+                                  dtype=torch.float64),
+                  method="newton", tol=1e-11)
+    baseline = P.operators.additive_profiles(ref.x)
+    make = (P.make_fused_solver_gcy_continuous if algorithm == "sa"
+            else P.make_fused_anderson_gcy_continuous)
+    before = dict(P.FUSED_LAUNCHES)
+    fsolve = make(m, pg, degree=5, baseline=baseline, device="cpu")
+    ell, iters, err = fsolve(fsolve.baseline_log_w, 1e-6, 100_000)
+    assert P.FUSED_LAUNCHES == before          # plain version on the CPU
+    assert float(err) <= 1e-6 and bool(torch.isfinite(ell).all())
+    w_diff = float((torch.exp(ell.double()) - torch.exp(ref.x)).abs().max())
+    assert w_diff < 2.0
+
+
+@pytest.mark.parametrize("algorithm", ["fused_sa", "fused_anderson"])
+def test_wc_ratio_continuous_fused_gcy_coarse(algorithm):
+    sizes = (4, 3, 3, 3, 4, 3)
+    got = P.wc_ratio_continuous(P.GCY(), sizes, algorithm=algorithm,
+                                baseline="coarse", tol=3.04e-5, device="cpu")
+    assert got.converged and got.w_star.dtype == torch.float32
+    T64 = P.T_gcy_continuous_factory(
+        P.GCY(), tuple(g.double() for g in got.grids), space="log",
+        device="cpu")
+    ell = torch.log(got.w_star.double())
+    assert float((T64(ell) - ell).abs().max()) <= 5e-5
+
+
+def test_fused_T_gcy_continuous_matches_f64():
+    jg, pg = _gcy_cont_grids()
+    m = P.GCY()
+    T = P.make_fused_T_log_gcy_continuous(m, pg, device="cpu")
+    T64 = P.T_gcy_continuous_factory(m, pg, space="log",
+                                     baseline="loglinear", device="cpu")
+    rng = np.random.default_rng(9)
+    ell = T.baseline_log_w + 0.05 * torch.as_tensor(
+        rng.standard_normal(GCY_CONT_SIZES), dtype=torch.float32)
+    got = T(ell)
+    assert tuple(got.shape) == GCY_CONT_SIZES
+    np.testing.assert_allclose(got.double().numpy(),
+                               T64(ell.double()).numpy(), rtol=0, atol=5e-6)

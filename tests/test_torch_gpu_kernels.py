@@ -4,8 +4,8 @@ Marked ``gpu``: every test skips without a CUDA device.  This file
 imports neither JAX nor the JAX package, so on a GPU machine without JAX
 it runs with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu_kernels.py``.  Tolerances as in
-``test_torch_streamed_two_phase.py``, ``test_torch_deferred_two_phase.py``
-and ``test_torch_fused.py``.
+``test_torch_streamed_two_phase.py``, ``test_torch_deferred_two_phase.py``,
+``test_torch_pair_two_phase.py`` and ``test_torch_fused.py``.
 """
 
 import numpy as np
@@ -153,6 +153,80 @@ def test_gcy_deferred_operator_matches_f64(cuda):
     ell = torch.as_tensor(np.log(800.0) + 0.05 * rng.standard_normal(shapes),
                           device=cuda)
     want = P.T_gcy_factory(m, d, space="log", device=cuda)(ell)
+    assert float((T(ell.float()).double() - want).abs().max()) <= ATOL
+
+
+# Continuous-GCY pair sets, log-linear baseline: the JAX test's
+# (8, 3, 2, 4, 128, 2), a ragged (5, 3, 3, 2, 40, 3) (n_j = 40: 16-byte
+# copies, R = 15 rows), an odd (4, 5, 3, 3, 33, 2) (n_j = 33: the scalar
+# loads and 4-byte copies) and the 4.2M-point (8, 8, 8, 8, 128, 8).
+PAIR_CASES = [(8, 3, 2, 4, 128, 2), (5, 3, 3, 2, 40, 3),
+              (4, 5, 3, 3, 33, 2), (8, 8, 8, 8, 128, 8)]
+
+
+def _pair_setup(sizes, dev):
+    m = P.GCY()
+    ops = P.two_phase_operands_gcy_continuous(
+        m, P.build_grid_gcy(m, *sizes), 5, "loglinear")
+    L, K, I, J = ops.shapes
+    cast = lambda a: torch.as_tensor(np.ascontiguousarray(
+        a, np.float64)).to(device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    ell = cast(ops.baseline_log_w
+               + 0.05 * rng.standard_normal(ops.shapes)).reshape(L * K, I, J)
+    return ops, ell, cast
+
+
+@pytest.mark.parametrize("sizes", PAIR_CASES)
+@pytest.mark.parametrize("with_sub", [True, False])
+def test_pass_b_deferred_sub_kernel_matches_plain(cuda, sizes, with_sub):
+    ops, ell, cast = _pair_setup(sizes, cuda)
+    L, K, I, J = ops.shapes
+    sub = ((cast(np.asarray(ops.sub_row).reshape(L * K)), cast(ops.sub_col))
+           if with_sub else (None, None))
+    args = (cast(np.asarray(ops.W_c1).T), float(ops.theta)) + sub
+    before = st.LAUNCHES["pass_b_deferred"]
+    got = st.pass_b_deferred(ell, *args)
+    assert st.LAUNCHES["pass_b_deferred"] == before + 1
+    want = st.pass_b_deferred_plain(ell, *args)
+    lim = ATOL + EPS32 * want.abs()
+    assert bool(((got - want).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("sizes", PAIR_CASES)
+def test_pass_c_pair_kernel_matches_plain(cuda, sizes):
+    ops, ell, cast = _pair_setup(sizes, cuda)
+    L, K, I, J = ops.shapes
+    R, C = L * K, I * J
+    mid = st.pass_b_deferred_plain(
+        ell, cast(np.asarray(ops.W_c1).T), float(ops.theta),
+        cast(np.asarray(ops.sub_row).reshape(R)),
+        cast(ops.sub_col)).reshape(R, C)
+    P_zpi, PzT = st.pair_device_operands(ops, device=cuda)
+    args = (mid, P_zpi, PzT, cast(ops.W_r1), cast(ops.W_r2),
+            cast(ops.add_row), cast(ops.add_col.reshape(C)),
+            float(ops.theta), float(ops.beta))
+    before = st.LAUNCHES["pass_c_pair"]
+    got = st.pass_c_pair(*args)
+    assert st.LAUNCHES["pass_c_pair"] == before + 1
+    want = st.pass_c_pair_plain(*args)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATOL
+
+
+def test_gcy_continuous_pair_operator_matches_f64(cuda):
+    m = P.GCY()
+    sizes = (8, 3, 2, 4, 128, 2)
+    grids = P.build_grid_gcy(m, *sizes)
+    T = P.make_tiled_T_log_gcy_continuous(m, grids, baseline="loglinear",
+                                          device=cuda)
+    assert T.engine == "streamed-pair"
+    rng = np.random.default_rng(6)
+    ell = T.baseline_log_w.double() + 0.05 * torch.as_tensor(
+        rng.standard_normal(sizes), device=cuda)
+    want = P.T_gcy_continuous_factory(m, grids, space="log",
+                                      baseline="loglinear",
+                                      device=cuda)(ell)
     assert float((T(ell.float()).double() - want).abs().max()) <= ATOL
 
 

@@ -45,6 +45,15 @@ def test_imports_and_runs_with_jax_blocked():
         "T = p.T_ssy_factory(m, d, space='log', device='cpu')\n"
         "out = T(torch.full((3, 3, 3, 4), 6.0, dtype=torch.float64))\n"
         "assert bool(torch.isfinite(out).all())\n"
+        "g = p.GCY()\n"
+        "grids = p.build_grid_gcy(g, 3, 3, 2, 2, 8, 2)\n"
+        "base = (6.5, [torch.zeros(len(x)).numpy() for x in grids])\n"
+        "T = p.make_tiled_T_log_gcy_continuous(g, grids, baseline=base,\n"
+        "                                      device='cpu')\n"
+        "assert bool(torch.isfinite(T(T.baseline_log_w)).all())\n"
+        "F = p.make_fused_T_log_gcy_continuous(g, grids, baseline=base,\n"
+        "                                      device='cpu')\n"
+        "assert bool(torch.isfinite(F(F.baseline_log_w)).all())\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -103,6 +112,18 @@ def test_entry_points_default_to_cuda():
              lambda: P.wc_ratio_continuous(m, (3, 3, 3, 4)),
              lambda: P.wc_ratio_continuous(m, (3, 3, 3, 4),
                                            algorithm="fused_anderson")]
+    g = P.GCY()
+    g_grids = P.build_grid_gcy(g, 3, 3, 2, 2, 8, 2)
+    calls += [lambda: P.T_gcy_continuous_factory(g, g_grids),
+              lambda: P.make_tiled_T_log_gcy_continuous(g, g_grids),
+              lambda: P.make_fused_T_log_gcy_continuous(g, g_grids),
+              lambda: P.make_fused_solver_gcy_continuous(g, g_grids),
+              lambda: P.make_fused_anderson_gcy_continuous(g, g_grids),
+              lambda: P.wc_ratio_continuous(g, (3, 3, 2, 2, 8, 2)),
+              lambda: P.wc_ratio_continuous(g, (3, 3, 2, 2, 8, 2),
+                                            kernel="tiled"),
+              lambda: P.wc_ratio_continuous(g, (3, 3, 2, 2, 8, 2),
+                                            algorithm="fused_sa")]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
