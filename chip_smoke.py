@@ -66,7 +66,25 @@ Phases, in order; any failure exits non-zero before the result line:
     ``fused_anderson`` with the coarse baseline (tol 3.04e-5, float64
     residual), and the fused application against its plain version at
     that operand set;
-18. a JSON line of per-kernel facts (with each kernel's bound: the
+18. the post-interp kernel (``kernels/csrc/post_interp.cu``) against its
+    plain version at 15^4 and 20^4, "post" and "loglin", on the arguments
+    the operator hands it (``T.kernel_args``), with both timed, and one
+    application at 20^4 against the float64 node chain;
+19. the continuous-SSY post-interp path at 20^4:
+    ``wc_ratio_continuous(SSY(), (20,)*4, kernel="tiled", interp="post")``
+    and again with ``"loglin"`` (Newton, tol 2e-5, from w = 1), cold then
+    warm, with the launch counts, the iterations and the float64 residual
+    through the float64 node chain;
+20. the reference's published one-step moment anchors at 15^4, degree
+    5: a float64 Newton solve (tol 1e-9, ``interp="pre"`` and
+    ``"loglin"``, 3.2 and 2.5 standard deviations), then
+    ``construct_wstar_callable`` and ``one_step_w_moments`` with 10^6
+    draws, each within 1e-3 on the mean and 5e-3 on the std;
+21. the Monte Carlo node chains of the JAX suite: SSY 20^4 and GCY
+    (8,8,8,8,6,6) with 2,000 draws, "post", float32, ms per application
+    over 5 applications (GCY: throughput only, as in the JAX suite: its
+    float32 span warning is expected);
+22. a JSON line of per-kernel facts (with each kernel's bound: the
     larger of its FP32 operations over 67 TFLOP/s and its bytes over
     3.35 TB/s, from this run's shapes and iteration counts), then the
     result line ``{"ok": true, "device": {...}}``.
@@ -135,11 +153,32 @@ GCYC_RAGGED = (5, 3, 3, 2, 40, 3)
 GCYC_MAX_ITER = 2000
 GCYC_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
 FUSED_GCY_SIZES = (6,) * 6
+# The continuous-SSY post-interp path: the reference's largest recorded
+# post-interp grid (test_newton.md:219), degree 5, and a second check set.
+POST_SIZES = (20, 20, 20, 20)
+POST_CHECK_SIZES = (15, 15, 15, 15)
+POST_DEGREE = 5
+POST_TOL = 2e-5             # f32 Newton tolerance
+POST_F64_ATOL = 2e-5        # one application vs the float64 node chain
+POST_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
+# The anchors (JAX tests/test_reference_anchors.py): sizes, degree and
+# (interp, num_std_devs, mean, std).
+ANCHOR_SIZES, ANCHOR_DEGREE, ANCHOR_DRAWS = (15, 15, 15, 15), 5, 1_000_000
+ANCHORS = (("pre", 3.2, 670.75128139, 6.60051464),
+           ("pre", 2.5, 983.28449407, 8.76520362),
+           ("loglin", 3.2, 865.00929848, 8.35713019),
+           ("loglin", 2.5, 1077.95676508, 9.61219993))
+ANCHOR_MEAN_RTOL, ANCHOR_STD_RTOL = 1e-3, 5e-3
+# The JAX suite's Monte Carlo node-chain cells (benchmarks/suite.py:
+# 315-355).
+MC_SSY_SIZES, MC_GCY_SIZES, MC_DRAWS, MC_APPS = (
+    (20, 20, 20, 20), (8, 8, 8, 8, 6, 6), 2000, 5)
 PEAK_FP32 = 67e12           # H100 SXM FP32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 _CSRC = "sdfs_via_autodiff_tpu_torch/kernels/csrc/"
 SOURCES = {"streamed_two_phase": _CSRC + "streamed_two_phase.cu",
-           "fused_two_matmul": _CSRC + "fused_two_matmul.cu"}
+           "fused_two_matmul": _CSRC + "fused_two_matmul.cu",
+           "post_interp": _CSRC + "post_interp.cu"}
 _JAX_KERNELS = "sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py"
 REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "pass_c": f"{_JAX_KERNELS}:446",            # _c_kernel
@@ -149,10 +188,13 @@ REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "fused_T": "sdfs_via_autodiff_tpu/kernels/fused_discrete.py:72",
             "fused_sa": "sdfs_via_autodiff_tpu/kernels/solver_kernel.py:41",
             "fused_anderson":
-                "sdfs_via_autodiff_tpu/kernels/anderson_kernel.py:36"}
+                "sdfs_via_autodiff_tpu/kernels/anderson_kernel.py:36",
+            "post_interp":
+                "sdfs_via_autodiff_tpu/kernels/post_interp_kernel.py:58"}
 KERNELS = tuple(REPLACES)
 SOURCE_OF = {k: SOURCES["fused_two_matmul" if k.startswith("fused")
-                        else "streamed_two_phase"] for k in KERNELS}
+                        else k if k in SOURCES else "streamed_two_phase"]
+             for k in KERNELS}
 # (FP32 FLOP, bytes) of each kernel's timed call, filled by the phases.
 WORK = {}
 
@@ -882,6 +924,209 @@ def fused_gcy_phase(torch, port, dev, smi):
     return err
 
 
+def post_interp_work(sizes, degree):
+    """(FP32 FLOP, bytes) the post-interp function needs for one
+    application: the per-axis node chain, which contracts the field along
+    each of the four axes at each of the d^4 joint nodes (2 * d^4 * N *
+    (n_l + n_k + n_i + n_j) FLOP; transcendentals not counted), reading
+    the field, the per-axis bases (the z basis conditioned on h_z), the
+    payoff, the per-axis log-weights and the kappa parts once and writing
+    the output once."""
+    n_l, n_k, n_i, n_j = sizes
+    N = n_l * n_k * n_i * n_j
+    flop = 2 * degree ** 4 * N * (n_l + n_k + n_i + n_j)
+    nbytes = 4 * (2 * N + degree * (n_l ** 2 + n_k ** 2 + n_i ** 2
+                                    + n_i * n_j ** 2 + n_l + 4)
+                  + n_k + n_j)
+    return flop, nbytes
+
+
+def post_interp_phases(torch, port, dev, smi):
+    """Phases 18-19 (the post-interp kernel and its path).  Returns the
+    kernel's max abs error vs plain, its launches on the post path and
+    (kernel ms, plain ms) at 20^4 "post"."""
+    from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
+    from sdfs_via_autodiff_tpu_torch.operators import post_interp as ppi
+
+    model = port.SSY()
+    max_err = 0.0
+    kernels_ms = None
+    nodes, logw = ppi.ssy_quadrature_nodes(POST_DEGREE)
+    # 18. Kernel vs plain at two grids, both interpolation spaces, on the
+    # arguments the operator hands the kernel; timed.  At 20^4 also one
+    # application of the operator vs the float64 node chain.
+    for sizes in (POST_CHECK_SIZES, POST_SIZES):
+        grids = port.build_grid_ssy(model, *sizes)
+        ell64 = torch.as_tensor(noise_field(sizes, SEED), device=dev)
+        for interp in ("post", "loglin"):
+            T = pk.make_post_interp_kernel_T_ssy(model, grids, POST_DEGREE,
+                                                 interp, device=dev)
+            args = T.kernel_args(ell64.float())
+            got = pk.post_interp(*args)
+            want = pk.post_interp_plain(*args)
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= KERNEL_ATOL,
+                  f"post_interp {interp} {sizes}: max abs err {err:.3e}")
+            max_err = max(max_err, err)
+            ms_k = time_ms(torch, lambda y: pk.post_interp(*args), None,
+                           n=20)
+            ms_p = time_ms(torch, lambda y: pk.post_interp_plain(*args),
+                           None, n=20)
+            print(f"post_interp {interp} {sizes} (R = C = "
+                  f"{args[0].shape[0]}, {args[4].numel()} node pairs): max "
+                  f"abs err {err:.3e}; kernel {ms_k:.4f} ms, plain "
+                  f"{ms_p:.4f} ms ({smi})")
+            del got, want, args
+            if sizes == POST_SIZES:
+                if interp == "post":
+                    kernels_ms = (ms_k, ms_p)
+                    WORK["post_interp"] = post_interp_work(sizes,
+                                                           POST_DEGREE)
+                T64 = ppi.make_node_chain_T_ssy(model, grids, nodes, logw,
+                                                interp=interp, device=dev)
+                err = float((T(ell64.float()).double()
+                             - T64(ell64)).abs().max())
+                check(err <= POST_F64_ATOL,
+                      f"post-interp operator {interp} vs f64: {err:.3e}")
+                print(f"operator post-interp {interp} {sizes}: one "
+                      f"application vs the f64 node chain max abs err "
+                      f"{err:.3e}")
+                del T64
+            del T
+        del ell64
+    torch.cuda.empty_cache()
+
+    # 19. The path, "post" then "loglin", cold then warm.
+    grids = port.build_grid_ssy(model, *POST_SIZES)
+    launches = None
+    for interp in ("post", "loglin"):
+        T64 = port.T_ssy_continuous_factory(model, grids, interp=interp,
+                                            space="log",
+                                            quad_degree=POST_DEGREE,
+                                            device=dev)
+        for run in ("cold", "warm"):
+            torch.cuda.synchronize()
+            pk.LAUNCHES["post_interp"] = 0
+            t0 = time.perf_counter()
+            sol = port.wc_ratio_continuous(model, POST_SIZES, kernel="tiled",
+                                           interp=interp, tol=POST_TOL,
+                                           quad_degree=POST_DEGREE,
+                                           device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = pk.LAUNCHES["post_interp"]
+            if interp == "post" and run == "cold":
+                launches = n
+            check(n > 0, f"post_interp never launched on the {interp} path")
+            check(sol.converged, f"post-interp path {interp} ({run}) did "
+                  f"not converge: {sol.result}")
+            ell = torch.log(sol.w_star.double())
+            check(bool(torch.isfinite(ell).all())
+                  and tuple(ell.shape) == POST_SIZES,
+                  f"post-interp path {interp}: w* not finite/shaped")
+            r64 = float((T64(ell) - ell).abs().max())
+            w = sol.w_star.double()
+            print(f"post-interp path {POST_SIZES} {interp} newton tol "
+                  f"{POST_TOL:g}, {run}: {sol.result}; post_interp launches "
+                  f"{n}; f64 residual {r64:.3e}; w* in "
+                  f"[{float(w.min()):.3f}, {float(w.max()):.3f}]; "
+                  f"{secs:.3f} s ({smi})")
+            check(r64 <= POST_F64_RESIDUAL,
+                  f"post-interp path {interp}: f64 residual {r64:.3e}")
+        del T64, sol, ell, w
+        torch.cuda.empty_cache()
+    # Where a Newton step's time goes: the primal through the kernel, the
+    # twin, and the tangent matvec (jvp of the float32 node-chain twin).
+    T = pk.make_post_interp_kernel_T_ssy(model, grids, POST_DEGREE, "post",
+                                         device=dev)
+    x = torch.as_tensor(noise_field(POST_SIZES, SEED), device=dev).float()
+    v = 0.01 * x
+    ms_T = time_ms(torch, T, x, n=10)
+    ms_twin = time_ms(torch, T.twin, x, n=10)
+    ms_jvp = time_ms(torch, lambda y: torch.func.jvp(T.twin, (y,), (v,))[1],
+                     x, n=5)
+    print(f"timing post-interp {POST_SIZES}: operator T {ms_T:.3f} ms, its "
+          f"node-chain twin {ms_twin:.3f} ms, tangent matvec (jvp of the "
+          f"twin) {ms_jvp:.3f} ms ({smi})")
+    del T, x, v
+    return max_err, launches, kernels_ms
+
+
+def anchor_phase(torch, port, dev, smi):
+    """Phase 20: the reference's one-step moment anchors on the card."""
+    model = port.SSY()
+    for interp, std, mean_ref, std_ref in ANCHORS:
+        t0 = time.perf_counter()
+        sol = port.wc_ratio_continuous(model, ANCHOR_SIZES,
+                                       algorithm="newton", tol=1e-9,
+                                       interp=interp,
+                                       quad_degree=ANCHOR_DEGREE,
+                                       num_std_devs=std, device=dev)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        check(sol.converged, f"anchor solve {interp} {std}: {sol.result}")
+        t0 = time.perf_counter()
+        f = port.construct_wstar_callable(sol.w_star, sol.grids, device=dev)
+        mean, sd = port.one_step_w_moments(model, f, num_draws=ANCHOR_DRAWS,
+                                           device=dev)
+        mom_s = time.perf_counter() - t0
+        rm, rs = (mean - mean_ref) / mean_ref, (sd - std_ref) / std_ref
+        print(f"anchor {ANCHOR_SIZES} d={ANCHOR_DEGREE} interp={interp} "
+              f"{std} sd: {sol.result} in {solve_s:.3f} s; E[w] = "
+              f"{mean:.5f} (anchor {mean_ref:.5f}, rel {rm:+.2e}), sd[w] = "
+              f"{sd:.5f} (anchor {std_ref:.5f}, rel {rs:+.2e}); moments "
+              f"{mom_s:.3f} s ({smi})")
+        check(abs(rm) < ANCHOR_MEAN_RTOL and abs(rs) < ANCHOR_STD_RTOL,
+              f"anchor {interp} {std}: E[w] {mean:.5f} / sd {sd:.5f} vs "
+              f"{mean_ref} / {std_ref}")
+    torch.cuda.empty_cache()
+
+
+def mc_phase(torch, port, dev, smi):
+    """Phase 21: the JAX suite's Monte Carlo node chains, ms per
+    application over MC_APPS applications (CUDA events)."""
+    f32 = torch.float32
+    ssy, gcy = port.SSY(), port.GCY()
+    cases = []
+    grids = port.build_grid_ssy(ssy, *MC_SSY_SIZES)
+    T = port.T_ssy_continuous_factory(ssy, grids, method="monte_carlo",
+                                      interp="post", space="log",
+                                      mc_draw_size=MC_DRAWS, dtype=f32,
+                                      device=dev)
+    cases.append(("SSY", MC_SSY_SIZES, T, torch.full(
+        MC_SSY_SIZES, float(np.log(800.0)), dtype=f32, device=dev), ""))
+    grids = port.build_grid_gcy(gcy, *MC_GCY_SIZES)
+    x0 = port.T_gcy_continuous_factory(
+        gcy, grids, space="log", baseline="loglinear", dtype=f32,
+        device=dev).baseline_log_w
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        T = port.T_gcy_continuous_factory(gcy, grids, method="monte_carlo",
+                                          interp="post", space="log",
+                                          mc_draw_size=MC_DRAWS, dtype=f32,
+                                          device=dev)
+    note = ("; throughput only, f32 span warning: " + "; ".join(
+        str(w.message)[:60] for w in caught)) if caught else ""
+    cases.append(("GCY", MC_GCY_SIZES, T, x0, note))
+    for label, sizes, T, x0, note in cases:
+        def apps():
+            x = x0
+            for _ in range(MC_APPS):
+                x = T(x)
+            return x
+        apps()
+        out, ms = events_ms(torch, apps)
+        finite = bool(torch.isfinite(out).all())
+        if not note:
+            check(finite, f"MC node chain {label}: non-finite output")
+        print(f"MC node chain {label} {sizes} ({int(np.prod(sizes))} states, "
+              f"{MC_DRAWS} draws, post, f32): {ms / MC_APPS:.3f} ms per "
+              f"application over {MC_APPS}; output finite {finite}{note} "
+              f"({smi})")
+        del T, x0, out
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -890,6 +1135,7 @@ def main() -> None:
     import sdfs_via_autodiff_tpu_torch as port
     from sdfs_via_autodiff_tpu_torch.kernels import _build
     from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
+    from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
     from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
 
     dev = torch.device("cuda", 0)
@@ -928,6 +1174,7 @@ def main() -> None:
         paths = list(pool.map(_build.build, SOURCES))
     st._lib()
     fd._lib()
+    pk._lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(p.name for p in paths)}")
     for lib_path in paths:
@@ -1119,7 +1366,16 @@ def main() -> None:
     max_err["fused_T"] = max(max_err["fused_T"],
                              fused_gcy_phase(torch, port, dev, smi))
 
-    # 18. Result.
+    # 18-19. The post-interp kernel and the continuous-SSY post path.
+    torch.cuda.empty_cache()
+    (max_err["post_interp"], launches["post_interp"],
+     kernels_ms["post_interp"]) = post_interp_phases(torch, port, dev, smi)
+
+    # 20. The reference's moment anchors; 21. the Monte Carlo node chains.
+    anchor_phase(torch, port, dev, smi)
+    mc_phase(torch, port, dev, smi)
+
+    # 22. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:

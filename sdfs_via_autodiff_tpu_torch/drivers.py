@@ -1,13 +1,15 @@
 """High-level driver: model -> grids -> operator -> solver.
 
 PyTorch port of ``drivers.wc_ratio_discrete`` (SSY and GCY) and of
-``drivers.wc_ratio_continuous`` (SSY and GCY, quadrature + pre-power
-interpolation).  The iterate defaults to log space (ell = log w), which
-keeps w > 0 and every intermediate in float32 range.  ``kernel="xla"``
-runs the eager per-axis operator (float64 by default); ``kernel="tiled"``
-runs the float32 streamed CUDA kernels (discrete SSY and GCY, continuous
-GCY), and the continuous ``algorithm="fused_sa"``/``"fused_anderson"``
-the whole-solve CUDA kernels (their plain PyTorch versions on a CPU
+``drivers.wc_ratio_continuous`` (SSY and GCY; quadrature or Monte Carlo
+expectations; pre-, post- and log-interpolation).  The iterate defaults
+to log space (ell = log w), which keeps w > 0 and every intermediate in
+float32 range.  ``kernel="xla"`` runs the eager operators (float64 by
+default); ``kernel="tiled"`` runs float32 CUDA kernels (the streamed
+kernels for discrete SSY and GCY and for continuous GCY, the
+post-interp kernel for continuous SSY with interp "post"/"loglin"), and
+the continuous ``algorithm="fused_sa"``/``"fused_anderson"`` the
+whole-solve CUDA kernels (their plain PyTorch versions on a CPU
 device).  Every ``wc_ratio_*`` call runs on the card unless the caller
 passes ``device="cpu"``.
 """
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from .config import resolve_device
+from .kernels.post_interp_kernel import make_post_interp_kernel_T_ssy
 from .kernels.tiled_two_phase import (TPU_ONLY_OPTIONS, make_tiled_T_log_gcy,
                                       make_tiled_T_log_gcy_continuous,
                                       make_tiled_T_log_ssy,
@@ -73,10 +76,11 @@ def f32_tol_floor(theta: Optional[float]) -> float:
 
 
 def _default_algorithm(model, kernel: str) -> str:
-    """Per-path solver default: SA for the continuous-GCY pair tier
-    (``kernel="tiled"``), whose solve the JAX package runs by SA (its
+    """Per-path solver default, as the JAX package's: SA for the
+    continuous-GCY pair tier (``kernel="tiled"`` with a GCY model), whose
     Newton tangent through the pair twin under-resolves at bounded inner
-    iterations), Newton everywhere else."""
+    iterations; Newton everywhere else (the SSY post-interp kernel
+    included)."""
     return ("sa" if (kernel == "tiled" and not isinstance(model, SSY))
             else "newton")
 
@@ -183,6 +187,42 @@ def _not_ported(what: str, item: str):
                                f"ROADMAP queue A {item}")
 
 
+def _check_kernel_path(model, kernel, method, interp, space, baseline):
+    """Reject a kernel/method/interp combination before any solve work
+    (the coarse baseline is a whole float64 solve)."""
+    if kernel not in ("tiled", "xla"):
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if kernel != "tiled":
+        return
+    if method != "quadrature" or space != "log":
+        raise ValueError("tiled kernels implement the quadrature operators "
+                         "in log space")
+    if isinstance(model, GCY) and interp != "pre":
+        raise ValueError(
+            "the continuous-GCY pair kernel covers interp='pre' (factored "
+            "quadrature); use kernel='xla' for the post/loglin node-chain "
+            "engines")
+    if interp in ("post", "loglin") and baseline is not None:
+        raise ValueError("the post-interp kernel has no baseline fold; use "
+                         "interp='pre' for normalized operators")
+    if interp not in ("pre", "post", "loglin"):
+        raise ValueError(f"unknown interp {interp!r}")
+    if isinstance(model, SSY) and interp == "pre":
+        raise _not_ported("kernel='tiled' for the continuous SSY operator "
+                          "with interp='pre'",
+                          "items 6 (its operand set) and B2 (batched c2)")
+
+
+def _w0(T, w_init, shape, dtype, dev):
+    """The solve's start: ``w_init``, else the folded baseline's w, else
+    ones."""
+    if w_init is not None:
+        return torch.as_tensor(w_init).to(device=dev, dtype=dtype)
+    if hasattr(T, "baseline_log_w"):
+        return torch.exp(T.baseline_log_w)
+    return torch.ones(shape, dtype=dtype, device=dev)
+
+
 def wc_ratio_continuous(model,
                         grid_sizes: Sequence[int],
                         *,
@@ -190,13 +230,17 @@ def wc_ratio_continuous(model,
                         method: str = "quadrature",
                         interp: str = "pre",
                         quad_degree: int = 5,
+                        mc_draw_size: int = 2000,
+                        seed: int = 1234,
                         algorithm: Optional[str] = None,
                         tol: float = 1e-7,
                         space: Optional[str] = None,
                         w_init=None,
+                        batch_size: Optional[int] = None,
                         baseline=None,
                         dtype: Optional[torch.dtype] = None,
                         kernel: str = "xla",
+                        engine: str = "auto",
                         polish=False,
                         checkpoint_path: Optional[str] = None,
                         device="cuda",
@@ -205,66 +249,63 @@ def wc_ratio_continuous(model,
     grids, on ``device`` (the card unless the caller asks for the CPU).
 
     Grid bounds via ``num_std_devs`` stationary standard deviations,
-    Gauss-Hermite degree ``quad_degree`` per dimension, initial guess
-    all-ones unless ``w_init`` is given (or the folded baseline's w).
+    Gauss-Hermite degree ``quad_degree`` per dimension
+    (``method="quadrature"``) or ``mc_draw_size`` joint Monte Carlo draws
+    of a generator seeded with ``seed`` (``method="monte_carlo"``),
+    initial guess all-ones unless ``w_init`` is given (or the folded
+    baseline's w).
+
+    ``interp`` is the interpolation space: "pre" interpolates w^theta
+    (the factored operator), "post" interpolates w and then takes the
+    power (the reference's semantics), "loglin" interpolates log w.
 
     ``kernel="xla"`` with ``algorithm`` "newton", "sa" or "anderson"
-    iterates the factored operator
+    iterates the eager operator
     (:func:`..operators.continuous_ssy.T_ssy_continuous_factory`,
     :func:`..operators.continuous_gcy.T_gcy_continuous_factory`) in
-    ``dtype`` (float64 when None).  ``kernel="tiled"`` (GCY) iterates the
-    float32 streamed-pair operator
-    (:func:`..kernels.tiled_two_phase.make_tiled_T_log_gcy_continuous`:
-    hand-written CUDA for the deferred pass B with the folded baseline
-    and the pair pass C).  ``algorithm=None`` resolves to "sa" for GCY
-    with ``kernel="tiled"`` and to "newton" elsewhere.
-    ``algorithm="fused_sa"`` / ``"fused_anderson"`` runs the whole solve
-    as one launch of the float32 CUDA kernel (successive approximation /
-    Anderson acceleration over the fused two-matmul operator, at most
-    ``max_iter`` = 20,000 iterations; extra keyword arguments go to the
-    ``make_fused_*`` factory), on grids built in float32.  As in the JAX
-    package, the fused SSY path takes no baseline (``baseline`` is
-    ignored there), and the fused GCY path folds "loglinear" unless a
-    baseline is given.
+    ``dtype`` (float64 when None): the factored chain for quadrature +
+    "pre", the node chain for "post"/"loglin" in log space, the pointwise
+    gather (``engine="gather"``, over batches of ``batch_size`` states)
+    otherwise.  ``kernel="tiled"`` iterates float32 CUDA kernels: for SSY
+    with interp "post"/"loglin" the post-interp kernel
+    (:func:`..kernels.post_interp_kernel.make_post_interp_kernel_T_ssy`,
+    no baseline fold), for GCY with "pre" the streamed-pair operator
+    (:func:`..kernels.tiled_two_phase.make_tiled_T_log_gcy_continuous`).
+    ``algorithm=None`` resolves to "sa" for GCY with ``kernel="tiled"``
+    and to "newton" elsewhere.  ``algorithm="fused_sa"`` /
+    ``"fused_anderson"`` runs the whole solve as one launch of the
+    float32 CUDA kernel (successive approximation / Anderson acceleration
+    over the fused two-matmul operator, at most ``max_iter`` = 20,000
+    iterations; extra keyword arguments go to the ``make_fused_*``
+    factory), on grids built in float32.  As in the JAX package, the
+    fused SSY path takes no baseline (``baseline`` is ignored there), and
+    the fused GCY path folds "loglinear" unless a baseline is given.
 
-    ``baseline`` folds a separable baseline into the log-space operator:
-    "loglinear" (the closed form), a ``(const, profiles)`` pair, or
-    "coarse" — solve the model at ``min(size, 5)`` points per axis by
-    float64 Newton on ``device``, fit its additive (ANOVA main-effects)
-    profiles and interpolate them onto the grids: the float32 recipe for
-    GCY, whose log-linear closed form is ~4 log units off at the grid
-    corners.  The solve starts from the baseline's w when ``w_init`` is
-    None.
+    ``baseline`` folds a separable baseline into the log-space "pre"
+    operator: "loglinear" (the closed form), a ``(const, profiles)``
+    pair, or "coarse" — solve the model at ``min(size, 5)`` points per
+    axis by float64 Newton on ``device``, fit its additive (ANOVA
+    main-effects) profiles and interpolate them onto the grids: the
+    float32 recipe for GCY, whose log-linear closed form is ~4 log units
+    off at the grid corners.  The solve starts from the baseline's w
+    when ``w_init`` is None.
 
-    Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-    item: ``kernel="tiled"`` for SSY (items 6 and 8),
-    ``method="monte_carlo"`` and ``interp`` "post"/"loglin" (item 8),
-    ``polish`` and ``checkpoint_path`` (items 6 and 10).  The JAX
-    driver's ``mc_draw_size``, ``seed``, ``batch_size`` and ``engine``
-    serve those paths and come with them.
+    ``engine`` reaches both factories (the JAX driver passes it to the
+    SSY factory only).  Not ported yet, each raising
+    ``NotImplementedError`` with its ROADMAP item: ``kernel="tiled"``
+    for SSY with interp="pre" (item 6), ``polish`` (item 6) and
+    ``checkpoint_path`` (item 10).
     """
     space = space or "log"
-    if kernel not in ("tiled", "xla"):
-        raise ValueError(f"unknown kernel {kernel!r}")
     if not isinstance(model, (SSY, GCY)):
         raise TypeError(f"unsupported model {type(model).__name__}")
     gcy = isinstance(model, GCY)
-    if kernel == "tiled" and not gcy:
-        raise _not_ported("kernel='tiled' for the continuous SSY operator",
-                          "items 6 (pre) and 8 (post/loglin)")
     for name, value, item in (("polish", polish, "item 6"),
                               ("checkpoint_path", checkpoint_path,
                                "item 10")):
         if value:
             raise _not_ported(f"{name}={value!r}", item)
-    if method == "monte_carlo":
-        raise _not_ported("method='monte_carlo'", "item 8")
-    if interp in ("post", "loglin"):
-        raise _not_ported(f"interp={interp!r}", "item 8")
-    if kernel == "tiled" and (method != "quadrature" or space != "log"
-                              or interp != "pre"):
-        raise ValueError("the tiled kernels implement the quadrature + "
-                         "interp='pre' operator in log space")
+    _check_kernel_path(model, kernel, method, interp, space, baseline)
     if algorithm is None:
         algorithm = _default_algorithm(model, kernel)
     dev = resolve_device(device)
@@ -274,44 +315,44 @@ def wc_ratio_continuous(model,
         baseline_spec = _coarse_additive_baseline(
             model, grid_sizes, num_std_devs=num_std_devs,
             quad_degree=quad_degree, dtype=gdtype, device=dev)
+    if kernel == "tiled":
+        tpu_opts = {k: solver_opts.pop(k) for k in TPU_ONLY_OPTIONS
+                    if k in solver_opts}
+        reject_tpu_options(tpu_opts)
+        if gcy:
+            grids = build_grid_gcy(model, *grid_sizes,
+                                   num_std_devs=num_std_devs)
+            T = make_tiled_T_log_gcy_continuous(
+                model, grids, degree=quad_degree, baseline=baseline_spec,
+                device=dev)
+        else:
+            grids = build_grid_ssy(model, *grid_sizes,
+                                   num_std_devs=num_std_devs)
+            T = make_post_interp_kernel_T_ssy(model, grids,
+                                              quad_degree=quad_degree,
+                                              interp=interp, device=dev)
+        shape = tuple(len(g) for g in grids)
+        w0 = _w0(T, w_init, shape, torch.float32, dev)
+        sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
+                          theta=model.theta)
+        return dataclasses.replace(
+            sol, grids=tuple(g.to(torch.float32) for g in grids))
     if algorithm in ("fused_anderson", "fused_sa"):
         return _wc_ratio_continuous_fused(
             model, grid_sizes, algorithm=algorithm, tol=tol,
             num_std_devs=num_std_devs, method=method, interp=interp,
             quad_degree=quad_degree, w_init=w_init, device=dev,
             baseline_spec=baseline_spec, **solver_opts)
-    if kernel == "tiled":
-        tpu_opts = {k: solver_opts.pop(k) for k in TPU_ONLY_OPTIONS
-                    if k in solver_opts}
-        reject_tpu_options(tpu_opts)
-        grids = build_grid_gcy(model, *grid_sizes, num_std_devs=num_std_devs)
-        T = make_tiled_T_log_gcy_continuous(model, grids, degree=quad_degree,
-                                            baseline=baseline_spec,
-                                            device=dev)
-        shape = tuple(len(g) for g in grids)
-        if w_init is not None:
-            w0 = torch.as_tensor(w_init).to(device=dev, dtype=torch.float32)
-        elif hasattr(T, "baseline_log_w"):
-            w0 = torch.exp(T.baseline_log_w)
-        else:
-            w0 = torch.ones(shape, dtype=torch.float32, device=dev)
-        sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
-                          theta=model.theta)
-        return dataclasses.replace(
-            sol, grids=tuple(g.to(torch.float32) for g in grids))
     make_grids, factory = ((build_grid_gcy, T_gcy_continuous_factory) if gcy
                            else (build_grid_ssy, T_ssy_continuous_factory))
     grids = make_grids(model, *grid_sizes, num_std_devs=num_std_devs,
                        dtype=gdtype)
     T = factory(model, grids, method=method, interp=interp, space=space,
-                quad_degree=quad_degree, baseline=baseline_spec, dtype=dtype,
-                device=dev)
+                quad_degree=quad_degree, mc_draw_size=mc_draw_size,
+                seed=seed, batch_size=batch_size, baseline=baseline_spec,
+                dtype=dtype, engine=engine, device=dev)
     shape = tuple(len(g) for g in grids)
-    if w_init is None:
-        w0 = (torch.exp(T.baseline_log_w) if hasattr(T, "baseline_log_w")
-              else torch.ones(shape, dtype=gdtype, device=dev))
-    else:
-        w0 = torch.as_tensor(w_init).to(device=dev)
+    w0 = _w0(T, w_init, shape, gdtype, dev)
     sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
                       theta=model.theta)
     return dataclasses.replace(sol, grids=tuple(grids))

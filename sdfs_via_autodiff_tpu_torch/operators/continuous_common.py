@@ -15,8 +15,10 @@ factorizes into per-dimension *expectation matrices*
 
 so E_x[interp(g)(x')] is a chain of per-axis contractions of g against
 the P_d, the same structure as the discrete operator.  The pointwise
-gather operator (``make_gather_T``, the oracle of the post/loglin
-semantics) is not ported yet (ROADMAP queue A item 6).
+gather operator :func:`make_gather_T` evaluates every interpolation
+space the reference's way (a 2^d-corner gather per state and node): it
+is the oracle the node-chain operators (:mod:`.post_interp`) are held
+to.
 """
 
 from __future__ import annotations
@@ -27,10 +29,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..ops.grids import flatten_mesh
+from ..ops.interp import lin_interp
 
-__all__ = ["hat_basis", "expectation_matrix", "warn_if_f32_range_unsafe",
-           "normalize_expectation_matrix", "additive_profiles"]
+__all__ = ["hat_basis", "expectation_matrix", "make_gather_T", "mc_draws",
+           "warn_if_f32_range_unsafe", "normalize_expectation_matrix",
+           "additive_profiles"]
 
 
 def additive_profiles(ell_field):
@@ -91,6 +96,15 @@ def warn_if_f32_range_unsafe(model, grids, loglinear_factory, dtype) -> None:
             "or a smaller num_std_devs.", stacklevel=3)
 
 
+def mc_draws(dim: int, size: int, seed: int) -> torch.Tensor:
+    """``size`` joint N(0, 1) shock draws (dim, size), float64 on the CPU
+    from a ``torch.Generator`` seeded with ``seed``: the same draws on
+    every device.  (Not the JAX package's PRNG stream: the two packages'
+    Monte Carlo operators agree in distribution, not draw by draw.)"""
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.randn((dim, size), generator=gen, dtype=torch.float64)
+
+
 def hat_basis(grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Multilinear ("hat") basis weights of ``points`` on a uniform grid.
 
@@ -135,3 +149,111 @@ def expectation_matrix(grid: torch.Tensor,
     if payoff is not None:
         B = B * payoff(x_next)[..., None]
     return torch.einsum("q,...qk->...k", weights, B)
+
+
+def make_gather_T(next_state: Callable,
+                  log_kappa: Callable,
+                  grids,
+                  shocks,
+                  weights,
+                  interp: str,
+                  space: str,
+                  batch_size,
+                  beta: float,
+                  theta: float,
+                  *,
+                  device="cuda") -> Callable:
+    """Pointwise (corner-gather) continuous operator, model-agnostic.
+
+    ``next_state(x, shocks)``: successor states of ``x`` (dim, B, 1) under
+    ``shocks`` (dim, 1, Q), shape (dim, B, Q), with dimension 0 = h_lam
+    (whose successor carries the exp(theta*h') payoff in both SSY and
+    GCY).  ``log_kappa(x)``: log of the state-dependent constant at ``x``
+    (dim, B).  ``weights`` None means equal Monte Carlo weights.  The
+    operator runs on ``device`` in the grids' dtype, over batches of
+    ``batch_size`` states (all at once when None; the state count must be
+    a multiple of it).
+
+    interp: "post" (reference semantics — interpolate w, then power),
+    "pre" (interpolate w^theta), "loglin" (interpolate log w).
+    space: "w" iterates on w; "log" iterates on ell = log w with
+    shift-stabilized expectations.
+    """
+    if interp not in ("post", "pre", "loglin"):
+        raise ValueError(f"unknown interp {interp!r}")
+    if space not in ("w", "log"):
+        raise ValueError(f"unknown space {space!r}")
+    dev = resolve_device(device)
+    grids = tuple(torch.as_tensor(g).to(dev) for g in grids)
+    dtype = grids[0].dtype
+    dim = len(grids)
+    shape = tuple(len(g) for g in grids)
+    x_flat = flatten_mesh(grids)                              # (n, dim)
+    n = x_flat.shape[0]
+    if batch_size is None or batch_size >= n:
+        batch_size = n
+    elif n % batch_size:
+        raise ValueError(f"state-space size {n} not divisible by "
+                         f"batch_size {batch_size}")
+    batches = x_flat.reshape(n // batch_size, batch_size, dim)
+    shocks = torch.as_tensor(shocks).to(device=dev, dtype=dtype)
+    if weights is not None:
+        weights = torch.as_tensor(weights).to(device=dev, dtype=dtype)
+
+    def reduce_rule(vals):                    # (B, Q) -> (B,)
+        return vals.mean(dim=1) if weights is None else vals @ weights
+
+    def successors(xb, field):
+        """(next x' (dim, B, Q), interp of ``field`` at x' (B, Q))."""
+        nxt = next_state(xb.T[:, :, None], shocks[:, None, :])
+        vals = lin_interp(nxt.reshape(dim, -1), field, grids)
+        return nxt, vals.reshape(nxt.shape[1:])
+
+    if space == "w":
+        def T(w):
+            # The field transform (w^theta / log w) happens once, not per
+            # batch.
+            field = (w if interp == "post"
+                     else w ** theta if interp == "pre" else torch.log(w))
+            out = []
+            for xb in batches:
+                nxt, vals = successors(xb, field)
+                if interp == "post":
+                    vals = vals ** theta
+                elif interp == "loglin":
+                    vals = torch.exp(theta * vals)
+                pf = torch.exp(theta * nxt[0])
+                out.append(torch.exp(log_kappa(xb.T).to(dtype))
+                           * reduce_rule(vals * pf))
+            kg = torch.cat(out).reshape(shape)
+            return 1.0 + beta * kg ** (1.0 / theta)
+        return T
+
+    log_kappa_flat = torch.cat([log_kappa(xb.T) for xb in batches]
+                               ).reshape(shape).to(dtype)
+
+    def log_expect(a_vals):                   # (B, Q) -> (B,)
+        mx = torch.amax(a_vals, dim=1, keepdim=True)
+        return mx[:, 0] + torch.log(reduce_rule(torch.exp(a_vals - mx)))
+
+    def T(ell):
+        if interp == "pre":
+            mx = torch.amax(theta * ell)
+            field, shift = torch.exp(theta * ell - mx), mx
+        elif interp == "post":
+            field, shift = torch.exp(ell), 0.0
+        else:
+            field, shift = ell, 0.0
+        out = []
+        for xb in batches:
+            nxt, vals = successors(xb, field)
+            pf = theta * nxt[0]
+            if interp == "post":
+                out.append(log_expect(theta * torch.log(vals) + pf))
+            elif interp == "loglin":
+                out.append(log_expect(theta * vals + pf))
+            else:
+                out.append(torch.log(reduce_rule(vals * torch.exp(pf))))
+        log_kg = torch.cat(out).reshape(shape) + shift + log_kappa_flat
+        return torch.log1p(beta * torch.exp(log_kg / theta))
+    return T

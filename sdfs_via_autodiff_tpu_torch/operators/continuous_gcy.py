@@ -10,10 +10,10 @@ continuous layer's axis order.
 
 ``space="w"`` iterates on w (float64 parity path); ``space="log"`` on
 log w through per-axis log-sum-exp contractions, optionally with a
-separable baseline folded into the matrices.  The other interpolation
-spaces ("post", "loglin"), Monte Carlo nodes and the pointwise gather
-engine are not ported yet and raise ``NotImplementedError`` (ROADMAP
-queue A items 6 and 8).
+separable baseline folded into the matrices.  "post" and "loglin" in log
+space run the node chain (:func:`.post_interp.make_node_chain_T_gcy`);
+the pointwise corner gather (``engine="gather"``) serves every
+combination, as in the SSY factory.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ from ..config import resolve_device
 from ..models.gcy import GCY, gcy_loglinear_factory
 from ..ops.contract import lse_matmul
 from ..ops.grids import build_grid_gcy
-from .continuous_common import (expectation_matrix,
+from ..ops.quadrature import tensor_quadrature_normal
+from .continuous_common import (expectation_matrix, make_gather_T, mc_draws,
                                 normalize_expectation_matrix,
                                 warn_if_f32_range_unsafe)
 from .continuous_ssy import _gauss_hermite, _host_grids
@@ -246,16 +247,19 @@ def T_gcy_continuous_factory(model: GCY,
                              dtype: Optional[torch.dtype] = None,
                              engine: str = "auto",
                              device="cuda") -> Callable:
-    """Build the continuous-state GCY operator T on ``device``.
+    """Build the continuous-state GCY operator T on ``device`` (see the
+    SSY factory for the method/interp/space/engine semantics).
 
     quadrature + interp="pre" (degree-``quad_degree`` Gauss-Hermite per
     dimension) dispatches to the factored contraction path, in ``dtype``
-    (float64 when None), the only path ported so far: interp
-    "post"/"loglin" (the node-chain engine), method="monte_carlo" and the
-    pointwise ``engine="gather"`` raise ``NotImplementedError``
-    (``mc_draw_size``, ``seed`` and ``batch_size`` serve those paths).
-    ``baseline`` ("loglinear" or ``(const, profiles)``) folds a separable
-    baseline into the log-space operator, which then carries
+    (float64 when None); post/loglin in log space to the node chain
+    (:func:`.post_interp.make_node_chain_T_gcy`) unless
+    ``engine="gather"``; the pointwise gather serves the rest.  At six
+    states a d-degree tensor quadrature has d^6 joint nodes, so Monte
+    Carlo draws (``mc_draw_size`` of a generator seeded with ``seed``)
+    are the practical expectation for post/loglin.  ``baseline``
+    ("loglinear" or ``(const, profiles)``) folds a separable baseline
+    into the factored log-space operator, which then carries
     ``T.baseline_log_w``; it is effectively required for float32
     (theta*(log-w range) ~ 200 on these grids).
     """
@@ -281,15 +285,26 @@ def T_gcy_continuous_factory(model: GCY,
     if method == "quadrature" and interp == "pre" and engine == "auto":
         return _factored_T(model, grids, quad_degree, space, dtype, baseline,
                            device=device)
-    if engine == "node_chain" and not (interp in ("post", "loglin")
-                                       and space == "log"):
+    if interp in ("post", "loglin") and space == "log" and engine != "gather":
+        from .post_interp import gcy_quadrature_nodes, make_node_chain_T_gcy
+        if method == "quadrature":
+            nodes, logw = gcy_quadrature_nodes(quad_degree)
+        else:
+            nodes = mc_draws(6, mc_draw_size, seed).numpy()
+            logw = np.full(mc_draw_size, -np.log(float(mc_draw_size)))
+        return make_node_chain_T_gcy(model, grids, nodes, logw,
+                                     interp=interp, dtype=dtype,
+                                     device=device)
+    if engine == "node_chain":
         raise ValueError("engine='node_chain' requires interp='post' or "
                          "'loglin' with space='log'")
-    if interp in ("post", "loglin") and space == "log" and engine != "gather":
-        raise NotImplementedError(
-            f"the node-chain operator (interp={interp!r}, method={method!r}) "
-            "is not ported yet; it lands with ROADMAP queue A item 8")
-    raise NotImplementedError(
-        f"the pointwise gather operator (method={method!r}, "
-        f"interp={interp!r}, space={space!r}, engine={engine!r}) is not "
-        "ported yet; it lands with ROADMAP queue A items 6 and 8")
+    if method == "quadrature":
+        nodes, weights = tensor_quadrature_normal([quad_degree] * 6)
+        shocks, weights = torch.as_tensor(nodes), torch.as_tensor(weights)
+    else:
+        shocks, weights = mc_draws(6, mc_draw_size, seed), None
+    return make_gather_T(
+        lambda x, s: next_state_gcy(model, x, s),
+        lambda x: _log_kappa_gcy(model, x[1], x[4]),
+        grids, shocks, weights, interp, space, batch_size, model.beta,
+        model.theta, device=device)

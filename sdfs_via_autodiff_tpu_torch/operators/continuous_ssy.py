@@ -8,10 +8,14 @@ factorizes into per-axis contraction matrices (see
 
 ``space="w"`` iterates on w (float64 parity path); ``space="log"`` on
 log w through per-axis log-sum-exp contractions, optionally with a
-separable baseline folded into the matrices.  The other interpolation
-spaces ("post", "loglin"), Monte Carlo nodes and the pointwise gather
-engine are not ported yet and raise ``NotImplementedError`` (ROADMAP
-queue A items 6 and 8).
+separable baseline folded into the matrices.
+
+Interpolation spaces (``interp``): "pre" interpolates g = w^theta (the
+factored path above); "post" interpolates w, then raises it to theta (the
+reference's semantics); "loglin" interpolates log w.  "post" and
+"loglin" in log space run the node chain (:mod:`.post_interp`); the
+pointwise corner gather (``engine="gather"``,
+:func:`.continuous_common.make_gather_T`) serves every combination.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ from ..config import resolve_device
 from ..models.ssy import SSY, ssy_loglinear_factory
 from ..ops.contract import lse_matmul
 from ..ops.grids import build_grid_ssy
-from ..ops.quadrature import gauss_hermite_normal
-from .continuous_common import (expectation_matrix,
+from ..ops.quadrature import gauss_hermite_normal, tensor_quadrature_normal
+from .continuous_common import (expectation_matrix, make_gather_T, mc_draws,
                                 normalize_expectation_matrix,
                                 warn_if_f32_range_unsafe)
 
@@ -213,14 +217,18 @@ def T_ssy_continuous_factory(model: SSY,
     """Build the continuous-state SSY operator T on ``device``.
 
     method="quadrature" uses degree-``quad_degree`` Gauss-Hermite per
-    dimension.  quadrature + interp="pre" dispatches to the factored
-    contraction path, in ``dtype`` (float64 when None), the only path
-    ported so far: interp "post"/"loglin" (the node-chain engine),
-    method="monte_carlo" and the pointwise ``engine="gather"`` raise
-    ``NotImplementedError`` (``mc_draw_size``, ``seed`` and
-    ``batch_size`` serve those paths).  ``baseline`` ("loglinear" or
-    ``(const, profiles)``) folds a separable baseline into the log-space
-    operator, which then carries ``T.baseline_log_w``.
+    dimension; "monte_carlo" uses ``mc_draw_size`` joint draws of a
+    ``torch.Generator`` seeded with ``seed`` (:func:`.continuous_common.
+    mc_draws`).  quadrature + interp="pre" dispatches to the factored
+    contraction path, in ``dtype`` (float64 when None); post/loglin in
+    log space dispatch to the node chain (per-node basis matmuls and a
+    streaming log-sum-exp, :func:`.post_interp.make_node_chain_T_ssy`)
+    unless ``engine="gather"`` forces the pointwise corner gather, which
+    also serves the remaining combinations, over batches of
+    ``batch_size`` states, in the grids' dtype.  ``baseline``
+    ("loglinear" or ``(const, profiles)``) folds a separable baseline
+    into the factored log-space operator, which then carries
+    ``T.baseline_log_w``.
     """
     if space not in ("w", "log"):
         raise ValueError(f"unknown space {space!r}")
@@ -244,15 +252,26 @@ def T_ssy_continuous_factory(model: SSY,
     if method == "quadrature" and interp == "pre" and engine == "auto":
         return _factored_T(model, grids, quad_degree, space, dtype, baseline,
                            device=device)
-    if engine == "node_chain" and not (interp in ("post", "loglin")
-                                       and space == "log"):
+    if interp in ("post", "loglin") and space == "log" and engine != "gather":
+        from .post_interp import make_node_chain_T_ssy, ssy_quadrature_nodes
+        if method == "quadrature":
+            nodes, logw = ssy_quadrature_nodes(quad_degree)
+        else:
+            nodes = mc_draws(4, mc_draw_size, seed).numpy()
+            logw = np.full(mc_draw_size, -np.log(float(mc_draw_size)))
+        return make_node_chain_T_ssy(model, grids, nodes, logw,
+                                     interp=interp, dtype=dtype,
+                                     device=device)
+    if engine == "node_chain":
         raise ValueError("engine='node_chain' requires interp='post' or "
                          "'loglin' with space='log'")
-    if interp in ("post", "loglin") and space == "log" and engine != "gather":
-        raise NotImplementedError(
-            f"the node-chain operator (interp={interp!r}, method={method!r}) "
-            "is not ported yet; it lands with ROADMAP queue A item 8")
-    raise NotImplementedError(
-        f"the pointwise gather operator (method={method!r}, "
-        f"interp={interp!r}, space={space!r}, engine={engine!r}) is not "
-        "ported yet; it lands with ROADMAP queue A items 6 and 8")
+    if method == "quadrature":
+        nodes, weights = tensor_quadrature_normal([quad_degree] * 4)
+        shocks, weights = torch.as_tensor(nodes), torch.as_tensor(weights)
+    else:
+        shocks, weights = mc_draws(4, mc_draw_size, seed), None
+    return make_gather_T(
+        lambda x, s: next_state_ssy(model, x, s),
+        lambda x: _log_kappa_ssy(model, x[1], x[3]),
+        grids, shocks, weights, interp, space, batch_size, model.beta,
+        model.theta, device=device)

@@ -201,20 +201,15 @@ def test_wc_ratio_continuous_gcy_newton_matches_jax():
     np.testing.assert_allclose(got.w_star.numpy(), w, rtol=1e-10, atol=0)
 
 
-@pytest.mark.parametrize("kwargs", [{"method": "monte_carlo"},
-                                    {"interp": "post"}, {"interp": "loglin"},
-                                    {"kernel": "tiled", "interp": "post"}])
-def test_node_chain_and_mc_raise_item_8(kwargs):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        P.wc_ratio_continuous(P.GCY(), (3,) * 6, device="cpu", **kwargs)
-
-
 def test_factory_rejects_unported_engines():
     _, pg = _grids(SIZES[0])
-    for kw, exc, match in ((dict(engine="gather"), NotImplementedError,
-                            "gather"),
-                           (dict(interp="loglin", space="log"),
-                            NotImplementedError, "item 8"),
+    # The node chain, Monte Carlo and the gather are ported
+    # (test_torch_post_interp.py); invalid combinations still raise.
+    for kw, exc, match in ((dict(engine="node_chain"), ValueError,
+                            "requires interp"),
+                           (dict(interp="loglin", space="log",
+                                 baseline="loglinear"),
+                            ValueError, "requires quadrature"),
                            (dict(baseline="x", space="log"), ValueError,
                             "unknown baseline"),
                            (dict(baseline="loglinear", space="w"),

@@ -195,9 +195,6 @@ def test_wc_ratio_continuous_newton_matches_jax():
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"kernel": "tiled"}, "items 6"),
-    ({"method": "monte_carlo"}, "item 8"),
-    ({"interp": "post"}, "item 8"),
-    ({"interp": "loglin"}, "item 8"),
     # baseline="coarse" is ported; an unported option beside it raises
     # before its coarse float64 solve runs.
     ({"baseline": "coarse", "polish": True}, "item 6"),
@@ -210,23 +207,24 @@ def test_later_slices_raise_not_implemented(kwargs, match):
 
 
 def test_continuous_gcy_and_other_paths_raise():
-    # Continuous GCY is ported; its Monte Carlo and node-chain paths are
-    # not (tests/test_torch_continuous_gcy.py covers the rest).
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # Continuous GCY, its Monte Carlo and node-chain paths are ported
+    # (tests/test_torch_continuous_gcy.py and test_torch_post_interp.py);
+    # polish is not.
+    with pytest.raises(NotImplementedError, match="item 6"):
         P.wc_ratio_continuous(P.GCY(), (3,) * 6, method="monte_carlo",
-                              device="cpu")
+                              polish=True, device="cpu")
     with pytest.raises(TypeError, match="unsupported model"):
         P.wc_ratio_continuous(object(), (3, 3, 3, 4), device="cpu")
     with pytest.raises(ValueError, match="unknown kernel"):
         P.wc_ratio_continuous(P.SSY(), (3, 3, 3, 4), kernel="fused",
                               device="cpu")
     g = P.build_grid_ssy(P.SSY(), 3, 3, 3, 4)
-    for kw, exc, match in ((dict(engine="gather"), NotImplementedError,
-                            "gather"),
-                           (dict(interp="post", space="log"),
-                            NotImplementedError, "node-chain"),
-                           (dict(method="monte_carlo"), NotImplementedError,
-                            "gather"),
+    for kw, exc, match in ((dict(engine="node_chain"), ValueError,
+                            "requires interp"),
+                           (dict(interp="post", space="log",
+                                 baseline="loglinear"),
+                            ValueError, "requires quadrature"),
+                           (dict(method="mc"), ValueError, "unknown method"),
                            (dict(space="v"), ValueError, "unknown space"),
                            (dict(baseline="x"), ValueError,
                             "unknown baseline"),

@@ -37,6 +37,21 @@ ATOL = 5e-6
 EPS32 = float(np.finfo(np.float32).eps)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the whole module, its module-scoped
+    fixtures included.  With torch's CPU worker threads, pass B's plain
+    version now and then returned one worker's share of the field rows
+    (four of 32) up to 10 ulps off, from one process to the next; on one
+    thread it agrees with the Pallas interpreter within one ulp every
+    time (ROADMAP C).  One thread also keeps the operator tests fast when
+    test workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ell(shapes, seed=0, scale=0.05):
     rng = np.random.default_rng(seed)
     return np.log(800.0) + scale * rng.standard_normal(shapes)
@@ -91,6 +106,11 @@ def test_both_packages_choose_the_deferred_configuration(operands):
 
 
 def test_pass_b_deferred_plain_matches_pallas_kernel(midway):
+    """Both packages compute out = m + log(s), s = sum over I' of
+    W_c1[i, i'] exp(a[i'] - m), a = theta*ell, in float32, each within
+    one ulp of the exact value (measured: JAX 1.0004 ulps at worst, the
+    port on one thread 1.0), inside 5e-6 plus one float32 rounding
+    (EPS32 |out|, two ulps) of the values ~ -240."""
     got, want = midway
     assert got.shape == want.shape
     lim = ATOL + EPS32 * np.abs(want)

@@ -5,7 +5,8 @@ imports neither JAX nor the JAX package, so on a GPU machine without JAX
 it runs with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu_kernels.py``.  Tolerances as in
 ``test_torch_streamed_two_phase.py``, ``test_torch_deferred_two_phase.py``,
-``test_torch_pair_two_phase.py`` and ``test_torch_fused.py``.
+``test_torch_pair_two_phase.py``, ``test_torch_fused.py`` and
+``test_torch_post_interp.py``.
 """
 
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 import sdfs_via_autodiff_tpu_torch as P
 from sdfs_via_autodiff_tpu_torch.kernels import anderson_kernel as ak
 from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
+from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
 from sdfs_via_autodiff_tpu_torch.kernels import solver_kernel as sk
 from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
 
@@ -385,3 +387,60 @@ def test_fused_continuous_T_matches_f64(cuda):
     ell = torch.as_tensor(np.log(700.0) + 0.05 * rng.standard_normal(
         (20, 20, 20, 20)), device=cuda)
     assert float((T(ell.float()).double() - T64(ell)).abs().max()) <= ATOL
+
+
+# The post-interp kernel (B8): ragged tiles (R, C not multiples of 64),
+# degrees 2-5, both interpolation spaces.
+POST_CASES = [((4, 5, 4, 5), 4), ((9, 7, 11, 13), 3), ((15, 15, 15, 15), 5),
+              ((3, 3, 3, 4), 2)]
+
+
+def _post_args(sizes, degree, interp, dev):
+    # The arguments the operator hands the kernel on a noisy field.
+    m = P.SSY()
+    T = P.make_post_interp_kernel_T_ssy(m, P.build_grid_ssy(m, *sizes),
+                                        degree, interp, device=dev)
+    rng = np.random.default_rng(2)
+    ell = torch.as_tensor(np.log(700.0) + 0.05 * rng.standard_normal(sizes),
+                          device=dev).float()
+    return T.kernel_args(ell)
+
+
+@pytest.mark.parametrize("interp", ["post", "loglin"])
+@pytest.mark.parametrize("sizes,degree", POST_CASES)
+def test_post_interp_kernel_matches_plain(cuda, sizes, degree, interp):
+    args = _post_args(sizes, degree, interp, cuda)
+    before = pk.LAUNCHES["post_interp"]
+    got = pk.post_interp(*args)
+    assert pk.LAUNCHES["post_interp"] == before + 1
+    want = pk.post_interp_plain(*args)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("interp", ["post", "loglin"])
+def test_post_interp_operator_matches_f64_node_chain(cuda, interp):
+    m = P.SSY()
+    sizes = (12, 12, 12, 12)
+    grids = P.build_grid_ssy(m, *sizes)
+    T = P.make_post_interp_kernel_T_ssy(m, grids, interp=interp, device=cuda)
+    T64 = P.make_node_chain_T_ssy(m, grids, *P.ssy_quadrature_nodes(5),
+                                  interp=interp, device=cuda)
+    rng = np.random.default_rng(3)
+    ell = torch.as_tensor(np.log(700.0) + 0.05 * rng.standard_normal(sizes),
+                          device=cuda)
+    assert float((T(ell.float()).double() - T64(ell)).abs().max()) <= 2e-5
+    v = 0.01 * ell.float()
+    _, dk = torch.func.jvp(T, (ell.float(),), (v,))
+    _, d64 = torch.func.jvp(T64, (ell,), (v.double(),))
+    assert float((dk.double() - d64).abs().max()) <= 2e-5
+
+
+def test_post_interp_wrapper_validates_arguments(cuda):
+    args = list(_post_args((4, 5, 4, 5), 3, "post", cuda))
+    with pytest.raises(ValueError, match="shape"):
+        pk.post_interp(args[0][:, :10].contiguous(), *args[1:])
+    with pytest.raises(TypeError, match="float32"):
+        pk.post_interp(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        pk.post_interp(args[0].T, *args[1:])

@@ -54,6 +54,13 @@ def test_imports_and_runs_with_jax_blocked():
         "F = p.make_fused_T_log_gcy_continuous(g, grids, baseline=base,\n"
         "                                      device='cpu')\n"
         "assert bool(torch.isfinite(F(F.baseline_log_w)).all())\n"
+        "sg = p.build_grid_ssy(m, 3, 3, 3, 4)\n"
+        "K = p.make_post_interp_kernel_T_ssy(m, sg, quad_degree=2,\n"
+        "                                    device='cpu')\n"
+        "f = p.construct_wstar_callable(torch.exp(K(torch.zeros(3, 3, 3, 4))),\n"
+        "                               sg, device='cpu')\n"
+        "assert all(v > 0 for v in p.one_step_w_moments(\n"
+        "    m, f, num_draws=100, device='cpu'))\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
@@ -124,6 +131,31 @@ def test_entry_points_default_to_cuda():
                                             kernel="tiled"),
               lambda: P.wc_ratio_continuous(g, (3, 3, 2, 2, 8, 2),
                                             algorithm="fused_sa")]
+    # The node-chain, gather and post-interp operators and the SDF
+    # pipeline.
+    nodes, logw = P.ssy_quadrature_nodes(2)
+    g_nodes, g_logw = P.gcy_quadrature_nodes(2)
+    w = torch.ones(3, 3, 3, 4, dtype=torch.float64)
+    step = P.operators.next_state_ssy
+    calls += [lambda: P.make_node_chain_T_ssy(m, grids, nodes, logw),
+              lambda: P.make_node_chain_T_gcy(g, g_grids, g_nodes, g_logw),
+              lambda: P.make_gather_T(lambda x, s: step(m, x, s),
+                                      lambda x: x[1], grids, nodes, None,
+                                      "post", "log", None, m.beta, m.theta),
+              lambda: P.make_post_interp_kernel_T_ssy(m, grids),
+              lambda: P.T_ssy_continuous_factory(m, grids, interp="post",
+                                                 space="log"),
+              lambda: P.T_gcy_continuous_factory(g, g_grids,
+                                                 method="monte_carlo",
+                                                 interp="post", space="log"),
+              lambda: P.wc_ratio_continuous(m, (3, 3, 3, 4), kernel="tiled",
+                                            interp="post"),
+              lambda: P.wc_ratio_continuous(m, (3, 3, 3, 4),
+                                            method="monte_carlo"),
+              lambda: P.construct_wstar_callable(w, grids),
+              lambda: P.simulate_states(m, 10),
+              lambda: P.one_step_w_moments(m, lambda x: x[0], num_draws=10),
+              lambda: P.simulated_w_moments(m, lambda x: x[0], num_steps=10)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
