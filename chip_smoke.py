@@ -84,7 +84,27 @@ Phases, in order; any failure exits non-zero before the result line:
     (8,8,8,8,6,6) with 2,000 draws, "post", float32, ms per application
     over 5 applications (GCY: throughput only, as in the JAX suite: its
     float32 span warning is expected);
-22. a JSON line of per-kernel facts (with each kernel's bound: the
+22. tiled continuous SSY (``interp="pre"``, the batched configuration):
+    pass B's c1-only branch (with and without the log-linear fold) and
+    the batched pass C against their plain versions, both modes, at
+    (4,8,6,64), (3,5,7,40), 20^4 and the 11.2M-point (56,56,56,64) cell;
+    pass B's folded-baseline branch with a shared c2 on discrete SSY sets
+    with a synthetic fold;
+23. one application at the cell against the float64 factored operator,
+    (a) plain and (b) with the log-linear fold, both modes;
+24. the continuous-SSY tiled path at the cell, cold then warm:
+    (a) ``wc_ratio_continuous(SSY(), (56,56,56,64), kernel="tiled",
+    tol=2e-5)`` (fast mode) from the log-linear solution on the grid, and
+    (b) the same with ``baseline="loglinear"`` (lse mode) from the
+    baseline, with the launch counts, Newton and BiCGStab iterations and
+    the float64 residual;
+25. timing at the cell: ms per application (kernels vs the eager twin),
+    each new kernel vs its plain version, ms per tangent matvec;
+26. the reference's 20^4 anchor (degree 8, 2.5 standard deviations)
+    solved through the tiled float32 path, then
+    ``construct_wstar_callable`` and ``one_step_w_moments`` with 10^6
+    draws, within 1e-3 on the mean and 5e-3 on the std;
+27. a JSON line of per-kernel facts (with each kernel's bound: the
     larger of its FP32 operations over 67 TFLOP/s and its bytes over
     3.35 TB/s, from this run's shapes and iteration counts), then the
     result line ``{"ok": true, "device": {...}}``.
@@ -173,6 +193,16 @@ ANCHOR_MEAN_RTOL, ANCHOR_STD_RTOL = 1e-3, 5e-3
 # 315-355).
 MC_SSY_SIZES, MC_GCY_SIZES, MC_DRAWS, MC_APPS = (
     (20, 20, 20, 20), (8, 8, 8, 8, 6, 6), 2000, 5)
+# Tiled continuous SSY: the JAX NORTHSTAR ssy_continuous_quadrature_pre
+# cell (benchmarks/northstar.py:42,49,59-64,196-203; 11,239,424 states,
+# view R = 3,136 rows by C = 3,584 columns), degree 5, 3.2 std, Newton at
+# tol 2e-5; three smaller sets for the kernel checks; the reference's
+# 20^4 degree-8 anchor (JAX tests/test_reference_anchors.py:22-23).
+SSYC_SHAPES = (56, 56, 56, 64)
+SSYC_CHECKS = ((4, 8, 6, 64), (3, 5, 7, 40), (20, 20, 20, 20), SSYC_SHAPES)
+SSYC_TOL = 2e-5
+SSYC_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
+ANCHOR20 = ((20, 20, 20, 20), 8, 2.5, 976.43571268, 8.62554633)
 PEAK_FP32 = 67e12           # H100 SXM FP32 (non-tensor) FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 _CSRC = "sdfs_via_autodiff_tpu_torch/kernels/csrc/"
@@ -185,6 +215,10 @@ REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "pass_b_deferred": f"{_JAX_KERNELS}:384",   # _b_kernel_deferred
             "pass_c_deferred": f"{_JAX_KERNELS}:446",   # _c_kernel, c2_deferred
             "pass_c_pair": f"{_JAX_KERNELS}:673",       # _c_kernel_pair
+            "pass_b_c1": f"{_JAX_KERNELS}:324",         # _b_kernel, c1 only
+            "pass_b_c1_sub": f"{_JAX_KERNELS}:324",     # ... with has_sub
+            "pass_c_batched": f"{_JAX_KERNELS}:446",    # _c_kernel, batched
+            "pass_c_batched_lse": f"{_JAX_KERNELS}:446",
             "fused_T": "sdfs_via_autodiff_tpu/kernels/fused_discrete.py:72",
             "fused_sa": "sdfs_via_autodiff_tpu/kernels/solver_kernel.py:41",
             "fused_anderson":
@@ -1127,6 +1161,276 @@ def mc_phase(torch, port, dev, smi):
         torch.cuda.empty_cache()
 
 
+def loglinear_start(port, model, grids):
+    """log w of the log-linear solution on the grids (float64 numpy), as
+    the JAX northstar's loglinear_warm_start evaluates it."""
+    ll = port.ssy_loglinear_factory(model)
+    x = port.ops.grids.flatten_mesh([g.cpu() for g in grids]).numpy()
+    return ll(x.T).reshape(tuple(len(g) for g in grids))
+
+
+def batched_kernel_check(torch, st, ops, dev, mode):
+    """Pass B's c1-only branch (with the set's folded baseline, if any)
+    and the batched pass C vs their plain versions on one operand set, in
+    one mode.  Returns (err_b, err_c, b_args, c_args, ell, mid): the view
+    field, pass C's input and the arguments, for timing."""
+    cast = f32_cast(torch, dev)
+    L, K, I, J = ops.shapes
+    R, C = L * K, I * J
+    th, be = float(ops.theta), float(ops.beta)
+    rng = np.random.default_rng(SEED)
+    base = (np.log(800.0) if ops.baseline_log_w is None
+            else ops.baseline_log_w)
+    ell = cast(base + 0.02 * rng.standard_normal(ops.shapes)).reshape(R, I, J)
+    sub = ((cast(np.asarray(ops.sub_row).reshape(R)), cast(ops.sub_col))
+           if ops.has_sub else (None, None))
+    b_args = (cast(ops.W_c1), None, th, mode) + sub
+    got_b = st.pass_b(ell, *b_args)
+    want_b = st.pass_b_plain(ell, *b_args)
+    scale = S = None
+    if mode == "fast":
+        (got_b, _), (want_b, s) = got_b, want_b
+        rel = (got_b - want_b).abs() / want_b.abs()
+        err_b = float(rel.max())
+        check(err_b <= KERNEL_RTOL_LINEAR,
+              f"pass_b c1 fast {ops.shapes}: max rel err {err_b:.3e}")
+        S = s.max().reshape(1)
+        scale = torch.exp(s - S)
+    else:
+        err_b = float((got_b - want_b).abs().max())
+        lim = KERNEL_ATOL + float(np.finfo(np.float32).eps) * want_b.abs()
+        check(bool(((got_b - want_b).abs() <= lim).all()),
+              f"pass_b c1 lse {ops.shapes}: max abs err {err_b:.3e}")
+    mid = want_b.reshape(R, C)
+    del got_b, want_b
+    c_args = (scale, S, cast(np.swapaxes(ops.W_c2, 1, 2)), cast(ops.W_r1),
+              cast(ops.W_r2), cast(ops.add_row),
+              cast(np.asarray(ops.add_col).reshape(C)), th, be, mode)
+    got_c = st.pass_c_batched(mid, *c_args)
+    want_c = st.pass_c_batched_plain(mid, *c_args)
+    err_c = float((got_c - want_c).abs().max())
+    check(bool(torch.isfinite(got_c).all()) and err_c <= KERNEL_ATOL,
+          f"pass_c_batched {mode} {ops.shapes}: max abs err {err_c:.3e}")
+    torch.cuda.synchronize()
+    return err_b, err_c, b_args, c_args, ell, mid
+
+
+def ssy_continuous_phases(torch, port, st, dev, smi):
+    """Phases 22-26 (tiled continuous SSY).  Returns the new kernels' max
+    errors vs plain (and pass B's folded-baseline branch with a shared
+    c2, for the pass_b row), the paths' launch counts and (kernel ms,
+    plain ms) per new kernel at the cell."""
+    model = port.SSY()
+    cast = f32_cast(torch, dev)
+    max_err = {"pass_b": 0.0, "pass_b_c1": 0.0, "pass_b_c1_sub": 0.0,
+               "pass_c_batched": 0.0, "pass_c_batched_lse": 0.0}
+    names = {(None, "fast"): ("pass_b_c1", "pass_c_batched"),
+             (None, "lse"): ("pass_b_c1", "pass_c_batched_lse"),
+             ("loglinear", "fast"): ("pass_b_c1_sub", "pass_c_batched"),
+             ("loglinear", "lse"): ("pass_b_c1_sub", "pass_c_batched_lse")}
+    timing = {}
+
+    # 22. The new branches vs their plain versions.
+    for sizes in SSYC_CHECKS:
+        grids = port.build_grid_ssy(model, *sizes)
+        for baseline in (None, "loglinear"):
+            ops = port.two_phase_operands_ssy_continuous(model, grids, 5,
+                                                         baseline)
+            check(port.streamed_config(ops) == "batched",
+                  f"continuous SSY {sizes}: not the batched configuration")
+            for mode in ("fast", "lse"):
+                err_b, err_c, *rest = batched_kernel_check(
+                    torch, st, ops, dev, mode)
+                kb, kc = names[(baseline, mode)]
+                max_err[kb] = max(max_err[kb], err_b)
+                max_err[kc] = max(max_err[kc], err_c)
+                print(f"continuous SSY {sizes} baseline {baseline} {mode}: "
+                      f"{kb} max {'rel' if mode == 'fast' else 'abs'} err "
+                      f"mid {err_b:.3e}; {kc} max abs err out {err_c:.3e}")
+                if sizes == SSYC_SHAPES and (baseline, mode) in (
+                        (None, "fast"), ("loglinear", "lse")):
+                    timing[(kb, kc)] = rest
+                del rest
+    for shapes, method in SHAPES[::2]:
+        # Pass B's folded-baseline branch with a shared c2 (discrete SSY
+        # with a synthetic fold near theta*log(800)).
+        L, K, I, J = shapes
+        ops = port.two_phase_operands_ssy(
+            model, port.discretize_ssy(model, shapes, method=method))
+        rng = np.random.default_rng(SEED)
+        th = float(ops.theta)
+        ell = cast(noise_field((L * K, I, J), SEED))
+        sub = (cast(th * (3.0 + 0.1 * rng.standard_normal(L * K))),
+               cast(th * (np.log(800.0) - 3.0
+                          + 0.1 * rng.standard_normal((I, J)))))
+        for mode in ("fast", "lse"):
+            args = (cast(ops.W_c1), cast(np.asarray(ops.W_c2).T), th,
+                    mode) + sub
+            got, want = st.pass_b(ell, *args), st.pass_b_plain(ell, *args)
+            if mode == "fast":
+                err = float(((got[0] - want[0]).abs()
+                             / want[0].abs()).max())
+                ok = err <= KERNEL_RTOL_LINEAR
+            else:
+                err = float((got - want).abs().max())
+                lim = (KERNEL_ATOL
+                       + float(np.finfo(np.float32).eps) * want.abs())
+                ok = bool(((got - want).abs() <= lim).all())
+            check(ok, f"pass_b with sub {mode} {shapes}: err {err:.3e}")
+            if mode == "lse":
+                max_err["pass_b"] = max(max_err["pass_b"], err)
+            print(f"pass_b shared c2 with sub {mode} {shapes}: max "
+                  f"{'rel' if mode == 'fast' else 'abs'} err {err:.3e}")
+        del ell, got, want
+    torch.cuda.empty_cache()
+
+    # 23. One application at the cell vs the float64 factored operator.
+    grids = port.build_grid_ssy(model, *SSYC_SHAPES)
+    ell0 = loglinear_start(port, model, grids)
+    rng = np.random.default_rng(SEED)
+    ell64 = torch.as_tensor(ell0 + 0.02 * rng.standard_normal(SSYC_SHAPES),
+                            device=dev)
+    T64 = port.T_ssy_continuous_factory(model, grids, space="log",
+                                        device=dev)
+    ref = T64(ell64)
+    for baseline in (None, "loglinear"):
+        for mode in ("fast", "lse"):
+            T = port.make_tiled_T_log_ssy_continuous(
+                model, grids, baseline=baseline, mode=mode, device=dev)
+            err = float((T(ell64.float()).double() - ref).abs().max())
+            check(err <= OPERATOR_ATOL, f"continuous SSY operator {baseline} "
+                  f"{mode} vs f64: {err:.3e}")
+            print(f"operator continuous SSY {SSYC_SHAPES} baseline "
+                  f"{baseline} {mode}: one application vs f64 max abs err "
+                  f"{err:.3e}")
+            del T
+    del ref
+    torch.cuda.empty_cache()
+
+    # 24. The paths (a) and (b), cold then warm.
+    launches = {}
+    runs = (("a", None, torch.exp(torch.as_tensor(ell0, device=dev))),
+            ("b", "loglinear", None))
+    for label, baseline, w_init in runs:
+        for run in ("cold", "warm"):
+            torch.cuda.synchronize()
+            for k in st.LAUNCHES:
+                st.LAUNCHES[k] = 0
+            inner = []
+            t0 = time.perf_counter()
+            sol = port.wc_ratio_continuous(
+                model, SSYC_SHAPES, kernel="tiled", baseline=baseline,
+                w_init=w_init, tol=SSYC_TOL, device=dev,
+                inner_iterations=inner)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            now = {k: v for k, v in st.LAUNCHES.items() if v}
+            res = sol.result
+            print(f"continuous SSY path ({label}) {SSYC_SHAPES} tiled, "
+                  f"baseline {baseline}, newton tol {SSYC_TOL:g}, {run}: "
+                  f"{res}; BiCGStab iterations per step {inner} = "
+                  f"{sum(inner)}; launches {now}; {secs:.3f} s ({smi})")
+            check(res.converged, f"continuous SSY path ({label}, {run}) did "
+                  f"not converge: {res}")
+            if run == "cold":
+                launches.update(now)
+        kb, kc = names[(baseline, "fast" if baseline is None else "lse")]
+        check(launches.get(kb, 0) > 0 and launches.get(kc, 0) > 0,
+              f"a kernel of continuous SSY path ({label}) never launched: "
+              f"{launches}")
+        ell_star = torch.log(sol.w_star.double())
+        check(bool(torch.isfinite(ell_star).all())
+              and tuple(ell_star.shape) == SSYC_SHAPES,
+              f"continuous SSY path ({label}): w* not finite/shaped")
+        r64 = float((T64(ell_star) - ell_star).abs().max())
+        w = sol.w_star.double()
+        print(f"continuous SSY path ({label}) f64 residual max|T64(l*) - "
+              f"l*| = {r64:.3e}; w* in [{float(w.min()):.3f}, "
+              f"{float(w.max()):.3f}]")
+        check(r64 <= SSYC_F64_RESIDUAL,
+              f"continuous SSY path ({label}): f64 residual {r64:.3e}")
+        del sol, ell_star, w
+    del T64, ell64
+    torch.cuda.empty_cache()
+
+    # 25. Timing at the cell.
+    kernels_ms = {}
+    x = torch.as_tensor(ell0, device=dev).float()
+    for baseline in (None, "loglinear"):
+        T = port.make_tiled_T_log_ssy_continuous(model, grids,
+                                                 baseline=baseline,
+                                                 device=dev)
+        v = 0.01 * x
+        ms_k, ms_p = time_ms(torch, T, x), time_ms(torch, T.twin, x)
+        ms_jvp = time_ms(torch, lambda y: torch.func.jvp(
+            T.twin, (y,), (v,))[1], x, n=10)
+        print(f"timing continuous SSY {SSYC_SHAPES} baseline {baseline} "
+              f"({T.mode}): kernels {ms_k:.4f} ms per application, plain "
+              f"eager twin {ms_p:.4f} ms, tangent matvec (jvp of the twin) "
+              f"{ms_jvp:.4f} ms ({smi})")
+        del T
+    L, K, I, J = SSYC_SHAPES
+    R, C = L * K, I * J
+    field = 4 * R * C
+    for (kb, kc), (b_args, c_args, ell, mid) in timing.items():
+        kernels_ms[kb] = (
+            time_ms(torch, lambda y: st.pass_b(y, *b_args), ell),
+            time_ms(torch, lambda y: st.pass_b_plain(y, *b_args), ell))
+        kernels_ms[kc] = (
+            time_ms(torch, lambda y: st.pass_c_batched(y, *c_args), mid),
+            time_ms(torch, lambda y: st.pass_c_batched_plain(y, *c_args),
+                    mid))
+        # Pass B: c1 over I' per (row, column), reading the field (and the
+        # fold's R + C values) and writing it.  Pass C: each slice's c2
+        # over J', then the two row contractions; it reads the midway
+        # field, P_z and the small operands and writes the output.
+        sub_bytes = 4 * (R + C) if kb.endswith("_sub") else 0
+        WORK[kb] = (2 * R * I * I * J,
+                    2 * field + 4 * (I * I + R) + sub_bytes)
+        WORK[kc] = (2 * R * I * J * J + 2 * C * R * (L + K),
+                    2 * field + 4 * (I * J * J + L * L + K * K + 2 * R + C
+                                     + 1))
+        for name in (kb, kc):
+            bms, by = bound(name)
+            print(f"timing {name} {SSYC_SHAPES}: kernel "
+                  f"{kernels_ms[name][0]:.4f} ms, plain "
+                  f"{kernels_ms[name][1]:.4f} ms, bound {bms:.4f} ms ({by}, "
+                  f"{WORK[name][0] / 1e9:.3f} GFLOP, "
+                  f"{WORK[name][1] / 1e6:.1f} MB) ({smi})")
+    del timing, x
+    torch.cuda.empty_cache()
+
+    # 26. The reference's 20^4 degree-8 anchor through the tiled path.
+    sizes, degree, std, mean_ref, std_ref = ANCHOR20
+    for k in st.LAUNCHES:
+        st.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    sol = port.wc_ratio_continuous(model, sizes, kernel="tiled",
+                                   quad_degree=degree, num_std_devs=std,
+                                   tol=SSYC_TOL, device=dev)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    check(sol.converged, f"20^4 anchor solve: {sol.result}")
+    grids64 = port.build_grid_ssy(model, *sizes, num_std_devs=std)
+    t0 = time.perf_counter()
+    f = port.construct_wstar_callable(sol.w_star.double(), grids64,
+                                      device=dev)
+    mean, sd = port.one_step_w_moments(model, f, num_draws=ANCHOR_DRAWS,
+                                       device=dev)
+    mom_s = time.perf_counter() - t0
+    rm, rs = (mean - mean_ref) / mean_ref, (sd - std_ref) / std_ref
+    print(f"anchor {sizes} d={degree} interp=pre {std} sd, tiled float32: "
+          f"{sol.result} in {solve_s:.3f} s, launches "
+          f"{ {k: v for k, v in st.LAUNCHES.items() if v} }; E[w] = "
+          f"{mean:.5f} (anchor {mean_ref:.5f}, rel {rm:+.2e}), sd[w] = "
+          f"{sd:.5f} (anchor {std_ref:.5f}, rel {rs:+.2e}); moments "
+          f"{mom_s:.3f} s ({smi})")
+    check(abs(rm) < ANCHOR_MEAN_RTOL and abs(rs) < ANCHOR_STD_RTOL,
+          f"20^4 anchor: E[w] {mean:.5f} / sd {sd:.5f} vs {mean_ref} / "
+          f"{std_ref}")
+    return max_err, launches, kernels_ms
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1375,7 +1679,16 @@ def main() -> None:
     anchor_phase(torch, port, dev, smi)
     mc_phase(torch, port, dev, smi)
 
-    # 22. Result.
+    # 22-26. Tiled continuous SSY.
+    torch.cuda.empty_cache()
+    ssyc_err, ssyc_launches, ssyc_ms = ssy_continuous_phases(
+        torch, port, st, dev, smi)
+    max_err["pass_b"] = max(max_err["pass_b"], ssyc_err.pop("pass_b"))
+    max_err.update(ssyc_err)
+    launches.update({k: ssyc_launches[k] for k in ssyc_err})
+    kernels_ms.update(ssyc_ms)
+
+    # 27. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:

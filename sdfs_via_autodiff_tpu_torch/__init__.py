@@ -30,6 +30,7 @@ from .operators import (SSYDiscretization, discretize_ssy, T_ssy_factory,
                         dense_H_ssy, GCYDiscretization, discretize_gcy,
                         T_gcy_factory, dense_H_gcy, gcy_loglinear_parts,
                         TwoPhaseOperands, two_phase_operands_ssy,
+                        two_phase_operands_ssy_continuous,
                         two_phase_operands_gcy,
                         two_phase_operands_gcy_continuous,
                         make_eager_two_phase_T, T_gcy_continuous_factory)
@@ -42,7 +43,8 @@ from .operators.post_interp import (ssy_quadrature_nodes, node_basis_ssy,
 from .ops.grids import build_grid_ssy, build_grid_gcy
 from .kernels import (LAUNCHES, FUSED_LAUNCHES, make_streamed_T_log,
                       make_tiled_T_log, make_tiled_T_log_ssy,
-                      make_tiled_T_log_gcy, make_tiled_T_log_gcy_continuous,
+                      make_tiled_T_log_ssy_continuous, make_tiled_T_log_gcy,
+                      make_tiled_T_log_gcy_continuous,
                       streamed_config, streamed_supported, kron_operands_ssy,
                       kron_operands_ssy_continuous, kron_operands_gcy,
                       kron_operands_gcy_continuous,
@@ -65,7 +67,7 @@ from .sdf import (construct_wstar_callable, simulate_states,
 from .solvers import (SolveResult, solve, solver, successive_approx,
                       newton_solver, bicgstab_mixed, anderson_solver)
 from .drivers import (WCSolution, wc_ratio_discrete, wc_ratio_continuous,
-                      f32_tol_floor)
+                      wc_ratio_continuation, prolong_w, f32_tol_floor)
 from .interop import (model_from_fields, operands_from_numpy,
                       kron_operands_from_numpy, grids_from_numpy,
                       node_set_from_numpy, post_interp_operands_from_numpy,

@@ -6,8 +6,9 @@ expectations; pre-, post- and log-interpolation).  The iterate defaults
 to log space (ell = log w), which keeps w > 0 and every intermediate in
 float32 range.  ``kernel="xla"`` runs the eager operators (float64 by
 default); ``kernel="tiled"`` runs float32 CUDA kernels (the streamed
-kernels for discrete SSY and GCY and for continuous GCY, the
-post-interp kernel for continuous SSY with interp "post"/"loglin"), and
+kernels for discrete SSY and GCY and for continuous SSY with interp
+"pre" and continuous GCY, the post-interp kernel for continuous SSY
+with interp "post"/"loglin"), and
 the continuous ``algorithm="fused_sa"``/``"fused_anderson"`` the
 whole-solve CUDA kernels (their plain PyTorch versions on a CPU
 device).  Every ``wc_ratio_*`` call runs on the card unless the caller
@@ -29,6 +30,7 @@ from .kernels.post_interp_kernel import make_post_interp_kernel_T_ssy
 from .kernels.tiled_two_phase import (TPU_ONLY_OPTIONS, make_tiled_T_log_gcy,
                                       make_tiled_T_log_gcy_continuous,
                                       make_tiled_T_log_ssy,
+                                      make_tiled_T_log_ssy_continuous,
                                       reject_tpu_options)
 from .models.gcy import GCY
 from .models.ssy import SSY
@@ -38,11 +40,12 @@ from .operators.continuous_ssy import T_ssy_continuous_factory
 from .operators.discrete_gcy import (T_gcy_factory, discretize_gcy,
                                      gcy_loglinear_parts)
 from .operators.discrete_ssy import T_ssy_factory, discretize_ssy
-from .ops.grids import build_grid_gcy, build_grid_ssy
+from .ops.grids import build_grid_gcy, build_grid_ssy, flatten_mesh
+from .ops.interp import lin_interp
 from .solvers import SolveResult, solve
 
 __all__ = ["WCSolution", "wc_ratio_discrete", "wc_ratio_continuous",
-           "f32_tol_floor"]
+           "wc_ratio_continuation", "prolong_w", "f32_tol_floor"]
 
 DEFAULT_INIT_W = 800.0   # reference w_init
 
@@ -207,10 +210,6 @@ def _check_kernel_path(model, kernel, method, interp, space, baseline):
                          "interp='pre' for normalized operators")
     if interp not in ("pre", "post", "loglin"):
         raise ValueError(f"unknown interp {interp!r}")
-    if isinstance(model, SSY) and interp == "pre":
-        raise _not_ported("kernel='tiled' for the continuous SSY operator "
-                          "with interp='pre'",
-                          "items 6 (its operand set) and B2 (batched c2)")
 
 
 def _w0(T, w_init, shape, dtype, dev):
@@ -267,7 +266,10 @@ def wc_ratio_continuous(model,
     "pre", the node chain for "post"/"loglin" in log space, the pointwise
     gather (``engine="gather"``, over batches of ``batch_size`` states)
     otherwise.  ``kernel="tiled"`` iterates float32 CUDA kernels: for SSY
-    with interp "post"/"loglin" the post-interp kernel
+    with interp "pre" the streamed operator in its batched configuration
+    (:func:`..kernels.tiled_two_phase.make_tiled_T_log_ssy_continuous`,
+    fast mode, or lse with a baseline), with "post"/"loglin" the
+    post-interp kernel
     (:func:`..kernels.post_interp_kernel.make_post_interp_kernel_T_ssy`,
     no baseline fold), for GCY with "pre" the streamed-pair operator
     (:func:`..kernels.tiled_two_phase.make_tiled_T_log_gcy_continuous`).
@@ -292,9 +294,8 @@ def wc_ratio_continuous(model,
 
     ``engine`` reaches both factories (the JAX driver passes it to the
     SSY factory only).  Not ported yet, each raising
-    ``NotImplementedError`` with its ROADMAP item: ``kernel="tiled"``
-    for SSY with interp="pre" (item 6), ``polish`` (item 6) and
-    ``checkpoint_path`` (item 10).
+    ``NotImplementedError`` with its ROADMAP item: ``polish`` (item 6)
+    and ``checkpoint_path`` (item 10).
     """
     space = space or "log"
     if not isinstance(model, (SSY, GCY)):
@@ -328,9 +329,14 @@ def wc_ratio_continuous(model,
         else:
             grids = build_grid_ssy(model, *grid_sizes,
                                    num_std_devs=num_std_devs)
-            T = make_post_interp_kernel_T_ssy(model, grids,
-                                              quad_degree=quad_degree,
-                                              interp=interp, device=dev)
+            if interp == "pre":
+                T = make_tiled_T_log_ssy_continuous(
+                    model, grids, degree=quad_degree, baseline=baseline_spec,
+                    device=dev)
+            else:
+                T = make_post_interp_kernel_T_ssy(model, grids,
+                                                  quad_degree=quad_degree,
+                                                  interp=interp, device=dev)
         shape = tuple(len(g) for g in grids)
         w0 = _w0(T, w_init, shape, torch.float32, dev)
         sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
@@ -356,6 +362,65 @@ def wc_ratio_continuous(model,
     sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
                       theta=model.theta)
     return dataclasses.replace(sol, grids=tuple(grids))
+
+
+def prolong_w(w_coarse, grids_coarse, grids_fine) -> torch.Tensor:
+    """Prolongate a solved w field from coarse grids to finer grids by
+    multilinear interpolation of log w (which keeps w positive), on the
+    fine grids' device and in their dtype.
+
+    The workhorse of grid continuation: beta ~ 1 makes cold starts pay
+    thousands of contraction-rate iterations to move the level; a coarse
+    solve captures the level for the cost of a tiny grid, and the fine
+    solve then runs a few Newton steps on the shape.
+    """
+    grids_fine = tuple(torch.as_tensor(g) for g in grids_fine)
+    dev, dtype = grids_fine[0].device, grids_fine[0].dtype
+    grids_coarse = tuple(torch.as_tensor(g).to(device=dev, dtype=dtype)
+                         for g in grids_coarse)
+    ell_c = torch.log(torch.as_tensor(w_coarse).to(device=dev, dtype=dtype))
+    ell_f = lin_interp(flatten_mesh(grids_fine).T, ell_c, grids_coarse)
+    return torch.exp(ell_f).reshape(tuple(len(g) for g in grids_fine))
+
+
+def wc_ratio_continuation(model,
+                          grid_schedule: Sequence[Sequence[int]],
+                          *,
+                          algorithm: str = "newton",
+                          tol: float = 1e-7,
+                          coarse_tol: Optional[float] = None,
+                          device="cuda",
+                          **kwargs) -> WCSolution:
+    """Continuation solve over a schedule of grid sizes.
+
+    Solves the continuous model on ``grid_schedule[0]`` with
+    :func:`wc_ratio_continuous`, prolongates each solution
+    (:func:`prolong_w`) as the next level's start, and returns the finest
+    level's :class:`WCSolution`.  ``coarse_tol`` (default min(1e-4,
+    100 tol)) applies to every level but the last; other keyword
+    arguments go to every level.
+    """
+    if not grid_schedule:
+        raise ValueError("empty grid schedule")
+    coarse_tol = coarse_tol if coarse_tol is not None else min(1e-4,
+                                                               tol * 100)
+    dev = resolve_device(device)
+    builder = build_grid_ssy if isinstance(model, SSY) else build_grid_gcy
+    sol = None
+    for level, sizes in enumerate(grid_schedule):
+        last = level == len(grid_schedule) - 1
+        w_init = None
+        if sol is not None:
+            grids_fine = builder(model, *sizes,
+                                 num_std_devs=kwargs.get("num_std_devs", 3.2),
+                                 dtype=kwargs.get("dtype") or torch.float64)
+            w_init = prolong_w(sol.w_star, sol.grids,
+                               tuple(g.to(dev) for g in grids_fine))
+        sol = wc_ratio_continuous(
+            model, sizes, algorithm=algorithm,
+            tol=tol if last else coarse_tol, w_init=w_init, device=dev,
+            **kwargs)
+    return sol
 
 
 def _coarse_additive_baseline(model, grid_sizes, *, num_std_devs,

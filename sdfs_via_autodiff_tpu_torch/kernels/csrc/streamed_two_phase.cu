@@ -1,15 +1,20 @@
 // Streamed two-phase operator kernels for NVIDIA Hopper (sm_90a).
 //
-// The two-phase operator log T(w) (discrete SSY; discrete GCY through its
-// Kronecker grouping, see pass_b_deferred further down; continuous GCY,
-// see pass_c_pair at the end) on a field
+// The two-phase operator log T(w) (discrete SSY; continuous SSY, whose c2
+// factor P_z[i] is batched over the current c1 index, see pass_c_batched
+// further down; discrete GCY through its Kronecker grouping, see
+// pass_b_deferred; continuous GCY, see pass_c_pair at the end) on a field
 // ell[r, c] with rows r = (h_lam, h_c) = (l, k) and columns
 // c = (h_z, z) = (i, j) runs as two passes over the field:
 //
 //   pass B (column phase), one block per field row r:
-//     a = theta * ell[r] (I, J); contract i' with W_c1, then j' with W_c2.
-//     Replaces sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py:324
-//     (_b_kernel) for shared factors without sub/mid corrections.
+//     a = theta * ell[r] (I, J), or with a folded baseline
+//     a = fma(theta, ell, -sub_row[r]) - sub_col[i, j]; contract i' with
+//     W_c1, then j' with a shared W_c2 (C2_HERE) or not at all (a batched
+//     c2 contracts in pass_c_batched).  Replaces
+//     sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py:324 (_b_kernel)
+//     without the mid_col correction: c2_here both ways, has_sub both
+//     ways.
 //   pass C (row phase), one block per tile of TC consecutive columns
 //     holding all R = L*K rows: contract l' with W_r1, then k' with W_r2,
 //     add add_row[l, k] + add_col[c], epilogue log1p(beta*exp(lh/theta)).
@@ -262,10 +267,15 @@ __host__ __device__ inline int pass_c_smem_floats(int L, int K, int TC) {
   return 2 * L * K * TC + K * TC + TC;
 }
 
-template <int MODE>
+// HAS_SUB: subtract the folded baseline first.  C2_HERE: contract j' with
+// the shared W_c2 after i'; without it the block writes the c1 result
+// (linear in fast mode, log domain in lse mode) and stops.
+template <int MODE, bool HAS_SUB, bool C2_HERE>
 __global__ void __launch_bounds__(kPassBThreads)
 pass_b_kernel(const float* __restrict__ ell, const float* __restrict__ w_c1,
-              const float* __restrict__ w_c2t, float* __restrict__ mid,
+              const float* __restrict__ w_c2t,
+              const float* __restrict__ sub_row,
+              const float* __restrict__ sub_col, float* __restrict__ mid,
               float* __restrict__ s_out, int I, int J, float theta) {
   extern __shared__ float smem[];     // 16-byte aligned base
   const int IJ = I * J, Jp = round_up4(J);
@@ -278,9 +288,16 @@ pass_b_kernel(const float* __restrict__ ell, const float* __restrict__ w_c1,
   const float* ell_r = ell + r * IJ;
   float* mid_r = mid + r * IJ;
 
-  for (int x = tid; x < IJ; x += nt) a[x] = theta * ell_r[x];
-  for (int x = tid; x < I * (Jp - J); x += nt)        // zero u's padding
-    u[(x / (Jp - J)) * Jp + J + x % (Jp - J)] = 0.f;
+  // With a folded baseline, one rounding before the cancellation down to
+  // O(1), as pass_b_deferred_kernel<true> and the plain version compute it.
+  const float sr = HAS_SUB ? __ldg(sub_row + r) : 0.f;
+  for (int x = tid; x < IJ; x += nt)
+    a[x] = HAS_SUB ? __fsub_rn(__fmaf_rn(theta, ell_r[x], -sr),
+                               __ldg(sub_col + x))
+                   : theta * ell_r[x];
+  if (C2_HERE)
+    for (int x = tid; x < I * (Jp - J); x += nt)      // zero u's padding
+      u[(x / (Jp - J)) * Jp + J + x % (Jp - J)] = 0.f;
   __syncthreads();
 
   if (MODE == kModeFast) {
@@ -300,14 +317,20 @@ pass_b_kernel(const float* __restrict__ ell, const float* __restrict__ w_c1,
   }
   __syncthreads();
 
-  // c1: u[i, j] = sum_m W_c1[i, m] a[m, j].
+  // c1: u[i, j] = sum_m W_c1[i, m] a[m, j] (to mid without C2_HERE).
   block_matmul(
       I, J, I,
       [&](int i, int m) { return __ldg(w_c1 + i * I + m); },
       [&](int m, int j) { return a[m * J + j]; },
       [&](int i, int j, float v) {
-        u[i * Jp + j] = (MODE == kModeFast) ? v : shift[j] + logf(v);
+        const float o = (MODE == kModeFast) ? v : shift[j] + logf(v);
+        if (C2_HERE) {
+          u[i * Jp + j] = o;
+        } else {
+          mid_r[i * J + j] = o;
+        }
       });
+  if constexpr (!C2_HERE) return;
   __syncthreads();
 
   if (MODE == kModeLse) {
@@ -433,6 +456,25 @@ pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
 //     shifts M2 = max_l m1 and M3 = max_k M2, log + M3, add_row + add_col
 //     and the epilogue.  Replaces the c2_deferred branch of
 //     streamed_two_phase.py:446 (_c_kernel, lines 474-480 and 506-524).
+//   pass_c_batched (continuous SSY): the same kernel with each slice i
+//     contracted against its own factor P_z[i] (W_c2^T of slice i at
+//     w_c2t + i * J * J, indexed directly: no block-diagonal maps), after
+//     pass_b_kernel's c1-only branch.  In lse mode exactly the deferred
+//     recipe; in fast mode the input is pass B's linear c1 result, row r
+//     scaled by scale[r] = exp(s_r - S), no shifts and no carries, and S
+//     is added back after the log.  Replaces the c2_batched branch of
+//     _c_kernel (lines 474-485, 525-539), which JAX feeds block-diagonal
+//     (TC, TC) maps (blockdiag_z, :832) so that a block's TC/J slices
+//     contract as one MXU dot.  At continuous SSY's (56, 56, 56, 64) one
+//     slice's (R, J) field is 803 KB, 3.5x what a block may hold, and the
+//     (R, TC) accumulator leaves room for TC = JK = 4 only: each slice is
+//     streamed through 16 blocks (read once from HBM, 15 times from L2),
+//     each block alone on its SM, so it runs 512 threads in the SPREAD
+//     layout (below).
+//     Its c2 products are 2*R*I*J*J = 1.44 GFLOP and the row phase 2.52
+//     against 90 MB of fields: FP32 FMA bounds it, as the deferred pass.
+//     Pass B's c1-only branch there is 1.26 GFLOP against the same 90 MB:
+//     HBM bounds that one.
 //
 // What bounds them on an H100: FP32 FMA.  At (12, 16, 512, 256) pass B
 // is 2*R*I*I*J = 25.8 GFLOP and pass C 2*R*I*J*J = 12.9 GFLOP against
@@ -457,6 +499,10 @@ constexpr int kDefParts = kDefThreads / kDefBN;  // partial column maxima
 constexpr int kDefBT = 8;    // pass-B-deferred thread tile: 8 rows x 8 columns
 constexpr int kDefTM = 8;    // pass-C-deferred c2 tile: rows per thread
 constexpr int kDefTN = 4;    //   and columns per thread
+constexpr int kSpreadThreads = 512;  // pass C, a block alone on its SM
+// Shared memory above which a slice pass-C block is alone on its SM
+// (228 KB per SM, 1 KB of it reserved per resident block).
+constexpr size_t kHalfSmBytes = 233472 / 2 - 1024;
 
 // Shared-memory floats of pass_b_deferred: the (I, kDefBN) strip, two
 // K-tiles of kDefBK rows of Ip = round_up4(I), partial column maxima and
@@ -634,9 +680,19 @@ pass_b_deferred_kernel(const float* __restrict__ ell,
   }
 }
 
-__global__ void __launch_bounds__(kDefThreads)
+// FAST (the batched pass C's fast mode): mid is linear, scaled per row by
+// scale, no shifts; S is added back after the log.  SPREAD: the layout
+// of a block alone on its SM (the narrow tiles that shared memory leaves
+// at thousands of rows, e.g. TC = 4 at R = 3,136): 512 threads, and the
+// c2 items' rows spread so that neighbouring threads take neighbouring
+// rows (see the c2 loop).  c2_stride: floats between consecutive slices'
+// factors in w_c2t (0: one shared W_c2^T).
+template <bool FAST, bool SPREAD>
+__global__ void __launch_bounds__(SPREAD ? kSpreadThreads : kDefThreads)
 pass_c_deferred_kernel(const float* __restrict__ mid,
-                       const float* __restrict__ w_c2t,
+                       const float* __restrict__ scale,
+                       const float* __restrict__ S,
+                       const float* __restrict__ w_c2t, size_t c2_stride,
                        const float* __restrict__ w_r1,
                        const float* __restrict__ w_r2,
                        const float* __restrict__ add_row,
@@ -650,7 +706,7 @@ pass_c_deferred_kernel(const float* __restrict__ mid,
   float* y = et;                     // (R, TC): after the l' contraction
   float* raw = et + pass_c_deferred_et_floats(R, TC, JK);  // (R, JK) chunk
   float* wc = raw + R * JK;          // (JK, TC): W_c2^T chunk
-  float* m1 = wc + JK * TC;          // (R): per-(row, slice) shift
+  float* m1 = wc + JK * TC;          // (R): per-(row, slice) shift (fast: scale)
   float* M2 = m1 + round_up4(R);     // (K): max over l of m1
   float* M3 = M2 + round_up4(K);     // (1): max over k of M2
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -659,6 +715,7 @@ pass_c_deferred_kernel(const float* __restrict__ mid,
   const size_t C = (size_t)gridDim.y * J;
   const size_t col0 = (size_t)blockIdx.y * J;   // first column of slice i
   const float* in = mid + col0;
+  const float* wz = w_c2t + blockIdx.y * c2_stride;   // slice i's W_c2^T
 
   // The first chunk's copy starts now and lands during the shifts.  A
   // chunk is R rows of kw <= JK contiguous values; 16-byte copies when J
@@ -683,104 +740,143 @@ pass_c_deferred_kernel(const float* __restrict__ mid,
 
   // Shifts: m1[r] over the slice's J values (a warp takes 4 rows at a
   // time and unrolls, so many independent loads are in flight per lane),
-  // then M2[k], M3.
-  for (int r0 = 4 * warp; r0 < R; r0 += 4 * nw) {
-    float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  // then M2[k], M3.  In fast mode m1 holds the row scales instead.
+  if constexpr (FAST) {
+    for (int r = tid; r < R; r += nt) m1[r] = __ldg(scale + r);
+  } else {
+    for (int r0 = 4 * warp; r0 < R; r0 += 4 * nw) {
+      float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+      if (J % 4 == 0) {              // float4 loads: rows 16-byte aligned
+#pragma unroll 4
+        for (int x = lane; x < J / 4; x += 32)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (r0 + u < R) {
+              const float4 a = __ldg(
+                  reinterpret_cast<const float4*>(in + (r0 + u) * C) + x);
+              m[u] = fmaxf(m[u], fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w)));
+            }
+      } else {
 #pragma unroll 8
-    for (int j = lane; j < J; j += 32)
+        for (int j = lane; j < J; j += 32)
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (r0 + u < R) m[u] = fmaxf(m[u], in[(r0 + u) * C + j]);
+          for (int u = 0; u < 4; ++u)
+            if (r0 + u < R) m[u] = fmaxf(m[u], in[(r0 + u) * C + j]);
+      }
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float mu = warp_max(m[u]);
-      if (lane == 0 && r0 + u < R) m1[r0 + u] = mu;
+      for (int u = 0; u < 4; ++u) {
+        const float mu = warp_max(m[u]);
+        if (lane == 0 && r0 + u < R) m1[r0 + u] = mu;
+      }
+    }
+    __syncthreads();
+    for (int k = tid; k < K; k += nt) {
+      float m = -INFINITY;
+      for (int l = 0; l < L; ++l) m = fmaxf(m, m1[l * K + k]);
+      M2[k] = m;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float m = -INFINITY;
+      for (int k = 0; k < K; ++k) m = fmaxf(m, M2[k]);
+      M3[0] = m;
     }
   }
-  __syncthreads();
-  for (int k = tid; k < K; k += nt) {
-    float m = -INFINITY;
-    for (int l = 0; l < L; ++l) m = fmaxf(m, m1[l * K + k]);
-    M2[k] = m;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float m = -INFINITY;
-    for (int k = 0; k < K; ++k) m = fmaxf(m, M2[k]);
-    M3[0] = m;
-  }
 
-  // c2: acc[r, t] = sum_j' exp(w[r, j'] - m1[r]) W_c2t[j', j0 + t], in
+  // c2: acc[r, t] = sum_j' exp(w[r, j'] - m1[r]) W_c2t[j', j0 + t] (fast:
+  // w[r, j'] * scale[r] in place of the exp), in
   // chunks of JK rows j'; the sum runs in order of j'.  The next chunk's
-  // copy overlaps this chunk's contraction.
+  // copy overlaps this chunk's contraction.  Item (tq, rb) owns columns
+  // kDefTN*tq.. of kDefTM rows: rows kDefTM*rb + u, read from et as two
+  // float4, or with SPREAD rows rb + u * n_rb, so that neighbouring
+  // threads take neighbouring rows and the accumulator's float4 accesses
+  // meet no bank conflicts at a narrow tile (the compact rows put threads
+  // kDefTM*TC floats apart in one bank: 32-way at TC = 4; chip_smoke.py at
+  // the continuous-SSY cell on an H100, fast mode: 2.57 ms compact with
+  // 256 threads, 1.10 ms in the SPREAD layout).
   const int nq = TC / kDefTN;
-  const int n_items = ((R + kDefTM - 1) / kDefTM) * nq;
+  const int n_rb = (R + kDefTM - 1) / kDefTM;
+  const int n_items = n_rb * nq;
   for (int c0 = 0; c0 < J; c0 += JK) {
     const int kw = min(JK, J - c0);
     cp_async_wait_all();
     __syncthreads();          // chunk landed; previous contraction done
     for (int x = tid; x < R * JK; x += nt) {
       const int r = x / JK, k = x % JK;
-      et[k * Rs + r] = (k < kw) ? expf(raw[x] - m1[r]) : 0.f;
+      et[k * Rs + r] = (k >= kw) ? 0.f
+                       : FAST    ? raw[x] * m1[r]
+                                 : expf(raw[x] - m1[r]);
     }
     for (int x = tid; x < JK * TC; x += nt) {
       const int k = x / TC, t = x % TC;
-      wc[x] = (k < kw && t < tcw) ? __ldg(w_c2t + (size_t)(c0 + k) * J + j0 + t)
+      wc[x] = (k < kw && t < tcw) ? __ldg(wz + (size_t)(c0 + k) * J + j0 + t)
                                   : 0.f;
     }
     __syncthreads();          // et, wc ready; raw free
     if (c0 + JK < J) load_raw(c0 + JK);
     for (int item = tid; item < n_items; item += nt) {
-      const int tq = item % nq, r0 = (item / nq) * kDefTM;
-      float a4[kDefTM][kDefTN];
+      const int tq = item % nq, rb = item / nq;
+      int rr[kDefTM];
 #pragma unroll
       for (int u = 0; u < kDefTM; ++u)
+        rr[u] = SPREAD ? rb + u * n_rb : kDefTM * rb + u;
+      float4 a4[kDefTM];
 #pragma unroll
-        for (int q = 0; q < kDefTN; ++q)
-          a4[u][q] = (c0 == 0 || r0 + u >= R)
-                         ? 0.f : acc[(r0 + u) * TC + kDefTN * tq + q];
+      for (int u = 0; u < kDefTM; ++u)
+        a4[u] = (c0 == 0 || rr[u] >= R)
+                    ? make_float4(0.f, 0.f, 0.f, 0.f)
+                    : *reinterpret_cast<const float4*>(acc + rr[u] * TC +
+                                                       kDefTN * tq);
       for (int k = 0; k < kw; ++k) {
         const float4 b = *reinterpret_cast<const float4*>(
             wc + k * TC + kDefTN * tq);
-        const float4 e0 = *reinterpret_cast<const float4*>(et + k * Rs + r0);
-        const float4 e1 =
-            *reinterpret_cast<const float4*>(et + k * Rs + r0 + 4);
-        const float ev[kDefTM] = {e0.x, e0.y, e0.z, e0.w,
-                                  e1.x, e1.y, e1.z, e1.w};
+        const float* ek = et + k * Rs;
+        float ev[kDefTM];
+        if constexpr (SPREAD) {
+#pragma unroll
+          for (int u = 0; u < kDefTM; ++u) ev[u] = ek[min(rr[u], R - 1)];
+        } else {
+          const float4 e0 = *reinterpret_cast<const float4*>(ek + rr[0]);
+          const float4 e1 = *reinterpret_cast<const float4*>(ek + rr[0] + 4);
+          ev[0] = e0.x; ev[1] = e0.y; ev[2] = e0.z; ev[3] = e0.w;
+          ev[4] = e1.x; ev[5] = e1.y; ev[6] = e1.z; ev[7] = e1.w;
+        }
 #pragma unroll
         for (int u = 0; u < kDefTM; ++u) {
-          a4[u][0] = fmaf(ev[u], b.x, a4[u][0]);
-          a4[u][1] = fmaf(ev[u], b.y, a4[u][1]);
-          a4[u][2] = fmaf(ev[u], b.z, a4[u][2]);
-          a4[u][3] = fmaf(ev[u], b.w, a4[u][3]);
+          a4[u].x = fmaf(ev[u], b.x, a4[u].x);
+          a4[u].y = fmaf(ev[u], b.y, a4[u].y);
+          a4[u].z = fmaf(ev[u], b.z, a4[u].z);
+          a4[u].w = fmaf(ev[u], b.w, a4[u].w);
         }
       }
 #pragma unroll
       for (int u = 0; u < kDefTM; ++u)
-        if (r0 + u < R)
-#pragma unroll
-          for (int q = 0; q < kDefTN; ++q)
-            acc[(r0 + u) * TC + kDefTN * tq + q] = a4[u][q];
+        if (rr[u] < R)
+          *reinterpret_cast<float4*>(acc + rr[u] * TC + kDefTN * tq) = a4[u];
     }
   }
   __syncthreads();
 
   // Linear carry: rescale row r = (l, k) by exp(m1[r] - M2[k]) (one exp
   // per row, kept in m1), and the r1 result by exp(M2[k] - M3) (one per
-  // k, kept in M2).
-  const float m3 = M3[0];
-  for (int r = tid; r < R; r += nt) m1[r] = expf(m1[r] - M2[r % K]);
-  __syncthreads();
-  for (int k = tid; k < K; k += nt) M2[k] = expf(M2[k] - m3);
-  for (int x = tid; x < R * TC; x += nt) acc[x] *= m1[x / TC];
-  __syncthreads();
+  // k, kept in M2).  Fast mode carries unshifted and adds S back.
+  const float m3 = FAST ? __ldg(S) : M3[0];
+  if constexpr (!FAST) {
+    for (int r = tid; r < R; r += nt) m1[r] = expf(m1[r] - M2[r % K]);
+    __syncthreads();
+    for (int k = tid; k < K; k += nt) M2[k] = expf(M2[k] - m3);
+    for (int x = tid; x < R * TC; x += nt) acc[x] *= m1[x / TC];
+    __syncthreads();
+  }
 
   // r1: y[l, k, t] = sum_m W_r1[l, m] acc[m, k, t], rescaled.
   block_matmul(
       L, KT, L,
       [&](int l, int m) { return __ldg(w_r1 + l * L + m); },
       [&](int m, int col) { return acc[m * KT + col]; },
-      [&](int l, int col, float v) { y[l * KT + col] = v * M2[col / TC]; });
+      [&](int l, int col, float v) {
+        y[l * KT + col] = FAST ? v : v * M2[col / TC];
+      });
   __syncthreads();
 
   // r2 + epilogue: z[l, k, t] = sum_m W_r2[k, m] y[l, m, t], columns
@@ -1015,32 +1111,88 @@ cudaError_t prepare(Kernel kernel, size_t smem_bytes) {
                               (int)smem_bytes);
 }
 
+template <int MODE, bool HAS_SUB, bool C2_HERE>
+cudaError_t launch_pass_b(const float* ell, const float* w_c1,
+                          const float* w_c2t, const float* sub_row,
+                          const float* sub_col, float* mid, float* s, int R,
+                          int I, int J, float theta, cudaStream_t st) {
+  const size_t smem = sizeof(float) * (size_t)pass_b_smem_floats(I, J);
+  const auto kernel = pass_b_kernel<MODE, HAS_SUB, C2_HERE>;
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<R, kPassBThreads, smem, st>>>(ell, w_c1, w_c2t, sub_row, sub_col,
+                                         mid, s, I, J, theta);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t dispatch_pass_b(const float* ell, const float* w_c1,
+                            const float* w_c2t, const float* sub_row,
+                            const float* sub_col, float* mid, float* s,
+                            int R, int I, int J, float theta,
+                            cudaStream_t st) {
+  const bool sub = sub_row != nullptr, c2 = w_c2t != nullptr;
+  if (sub && c2)
+    return launch_pass_b<MODE, true, true>(ell, w_c1, w_c2t, sub_row,
+                                           sub_col, mid, s, R, I, J, theta,
+                                           st);
+  if (sub)
+    return launch_pass_b<MODE, true, false>(ell, w_c1, w_c2t, sub_row,
+                                            sub_col, mid, s, R, I, J, theta,
+                                            st);
+  if (c2)
+    return launch_pass_b<MODE, false, true>(ell, w_c1, w_c2t, sub_row,
+                                            sub_col, mid, s, R, I, J, theta,
+                                            st);
+  return launch_pass_b<MODE, false, false>(ell, w_c1, w_c2t, sub_row, sub_col,
+                                           mid, s, R, I, J, theta, st);
+}
+
+template <bool FAST>
+cudaError_t launch_pass_c_slices(const float* mid, const float* scale,
+                                 const float* S, const float* w_c2t,
+                                 size_t c2_stride, const float* w_r1,
+                                 const float* w_r2, const float* add_row,
+                                 const float* add_col, float* out, int L,
+                                 int K, int I, int J, int TC, int JK,
+                                 float theta, float beta, void* stream) {
+  const size_t smem =
+      sizeof(float) * (size_t)pass_c_deferred_smem_floats(L, K, TC, JK);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((J + TC - 1) / TC, I);
+  const bool spread = smem > kHalfSmBytes;     // one block per SM
+  const auto kernel = spread ? pass_c_deferred_kernel<FAST, true>
+                             : pass_c_deferred_kernel<FAST, false>;
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, spread ? kSpreadThreads : kDefThreads, smem, st>>>(
+      mid, scale, S, w_c2t, c2_stride, w_r1, w_r2, add_row, add_col, out, L,
+      K, J, TC, JK, theta, beta);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Pass B over R field rows of ell (R, I, J).  w_c1 (I, I), w_c2t (J, J)
-// = W_c2 transposed; mid (R, I, J); s (R,) written in fast mode only.
+// Pass B over R field rows of ell (R, I, J).  w_c1 (I, I); w_c2t (J, J)
+// = W_c2 transposed, or null for c1 only; sub_row (R,) and sub_col (I, J)
+// both given (the folded baseline) or both null; mid (R, I, J); s (R,)
+// written in fast mode only.
 int sdfs_pass_b(const float* ell, const float* w_c1, const float* w_c2t,
-                float* mid, float* s, int R, int I, int J, float theta,
-                int mode, void* stream) {
-  const size_t smem = sizeof(float) * (size_t)pass_b_smem_floats(I, J);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (mode == kModeFast) {
-    err = prepare(pass_b_kernel<kModeFast>, smem);
-    if (err != cudaSuccess) return err;
-    pass_b_kernel<kModeFast><<<R, kPassBThreads, smem, st>>>(
-        ell, w_c1, w_c2t, mid, s, I, J, theta);
-  } else if (mode == kModeLse) {
-    err = prepare(pass_b_kernel<kModeLse>, smem);
-    if (err != cudaSuccess) return err;
-    pass_b_kernel<kModeLse><<<R, kPassBThreads, smem, st>>>(
-        ell, w_c1, w_c2t, mid, s, I, J, theta);
-  } else {
+                const float* sub_row, const float* sub_col, float* mid,
+                float* s, int R, int I, int J, float theta, int mode,
+                void* stream) {
+  if ((sub_row == nullptr) != (sub_col == nullptr))
     return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == kModeFast)
+    return dispatch_pass_b<kModeFast>(ell, w_c1, w_c2t, sub_row, sub_col,
+                                      mid, s, R, I, J, theta, st);
+  if (mode == kModeLse)
+    return dispatch_pass_b<kModeLse>(ell, w_c1, w_c2t, sub_row, sub_col, mid,
+                                     s, R, I, J, theta, st);
+  return cudaErrorInvalidValue;
 }
 
 // Pass C over mid (R = L*K, C) in tiles of TC columns.  scale (R,) and
@@ -1112,16 +1264,31 @@ int sdfs_pass_c_deferred(const float* mid, const float* w_c2t,
                          float* out, int L, int K, int I, int J, int TC,
                          int JK, float theta, float beta, void* stream) {
   if (TC % kDefTN != 0 || TC <= 0 || JK <= 0) return cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * (size_t)pass_c_deferred_smem_floats(L, K, TC, JK);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((J + TC - 1) / TC, I);
-  const cudaError_t err = prepare(pass_c_deferred_kernel, smem);
-  if (err != cudaSuccess) return err;
-  pass_c_deferred_kernel<<<grid, kDefThreads, smem, st>>>(
-      mid, w_c2t, w_r1, w_r2, add_row, add_col, out, L, K, J, TC, JK, theta,
-      beta);
-  return cudaGetLastError();
+  return launch_pass_c_slices<false>(mid, nullptr, nullptr, w_c2t, 0, w_r1,
+                                     w_r2, add_row, add_col, out, L, K, I, J,
+                                     TC, JK, theta, beta, stream);
+}
+
+// Batched pass C over mid (R = L*K, I*J): linear (mode fast; scale (R,),
+// S (1,)) or log domain (mode lse; scale and S unused).  w_c2t (I, J, J)
+// = P_z[i] transposed per slice; otherwise as sdfs_pass_c_deferred.
+int sdfs_pass_c_batched(const float* mid, const float* scale, const float* S,
+                        const float* w_c2t, const float* w_r1,
+                        const float* w_r2, const float* add_row,
+                        const float* add_col, float* out, int L, int K,
+                        int I, int J, int TC, int JK, float theta,
+                        float beta, int mode, void* stream) {
+  if (TC % kDefTN != 0 || TC <= 0 || JK <= 0) return cudaErrorInvalidValue;
+  const size_t stride = (size_t)J * J;
+  if (mode == kModeFast)
+    return launch_pass_c_slices<true>(mid, scale, S, w_c2t, stride, w_r1,
+                                      w_r2, add_row, add_col, out, L, K, I,
+                                      J, TC, JK, theta, beta, stream);
+  if (mode == kModeLse)
+    return launch_pass_c_slices<false>(mid, nullptr, nullptr, w_c2t, stride,
+                                       w_r1, w_r2, add_row, add_col, out, L,
+                                       K, I, J, TC, JK, theta, beta, stream);
+  return cudaErrorInvalidValue;
 }
 
 // Pair pass C over mid (R = L*K, n_i*n_y*n_b*n_j) log domain: per c1

@@ -1,11 +1,13 @@
 """Streamed two-pass operator: hand-written CUDA pass-B / pass-C kernels.
 
 PyTorch port of ``sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py``
-for plain operand sets with shared factors (discrete SSY, discrete GCY).
-One application of log T(w) is two passes over the field, with R = n_r1 *
-n_r2 rows and C = I * J columns, in one of two configurations:
+for operand sets with a shared c1 factor (discrete SSY, discrete GCY,
+continuous SSY and GCY).  One application of log T(w) is two passes over
+the field, with R = n_r1 * n_r2 rows and C = I * J columns, in one of
+four configurations.  A folded baseline (``sub_row``/``sub_col``) is
+subtracted in pass B in each of them but the deferred one.
 
-"full" (pass B holds a field row's whole (I, J) column group):
+"full" (shared c2; pass B holds a field row's whole (I, J) column group):
 
     pass B (column phase):  ell (R, I, J) -> midway field (R, I, J)
     pass C (row phase):     midway field (R, C) -> log T(w) (R, C)
@@ -14,6 +16,13 @@ Mode "fast" takes one shift per field row in pass B and carries the
 midway field linearly, with the rescale ``exp(s - max s)`` computed on
 the device between the passes; mode "lse" shifts per axis at every
 contraction.
+
+"batched" (continuous SSY, whose c2 factor P_z[i] depends on the current
+c1 index i), fast or lse:
+
+    pass B, c1 only:  ell (R, I, J) -> c1 contracted (R, I, J)
+    pass C batched:   per slice i the c2 contraction with P_z[i], then
+                      the row phase and the epilogue -> (R, C)
 
 "deferred" (column groups too large for one block, e.g. the GCY
 Kronecker grouping's 512 x 256), per-axis LSE only:
@@ -49,15 +58,20 @@ from ..operators.two_phase import TwoPhaseOperands, make_eager_two_phase_T
 from . import _build
 
 __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
-           "pass_b_deferred", "pass_b_deferred_plain", "pass_c_deferred",
+           "pass_c_batched", "pass_c_batched_plain", "pass_b_deferred",
+           "pass_b_deferred_plain", "pass_c_deferred",
            "pass_c_deferred_plain", "pass_c_pair", "pass_c_pair_plain",
            "pair_device_operands", "pass_c_tile", "pass_c_deferred_tiles",
            "streamed_config", "streamed_supported", "make_streamed_T_log"]
 
 # Kernel launches per pass since the last reset (the wrappers add one per
-# launch; the plain versions never count).
-LAUNCHES = {"pass_b": 0, "pass_c": 0, "pass_b_deferred": 0,
-            "pass_c_deferred": 0, "pass_c_pair": 0}
+# launch; the plain versions never count).  Pass B counts its c1-only
+# branch apart, with and without a folded baseline ("pass_b_c1",
+# "pass_b_c1_sub"), and the batched pass C its two modes ("pass_c_batched"
+# fast, "pass_c_batched_lse").
+LAUNCHES = {"pass_b": 0, "pass_b_c1": 0, "pass_b_c1_sub": 0, "pass_c": 0,
+            "pass_c_batched": 0, "pass_c_batched_lse": 0,
+            "pass_b_deferred": 0, "pass_c_deferred": 0, "pass_c_pair": 0}
 
 _MODES = {"fast": 0, "lse": 1}
 # Shared memory one block may use on sm_90 (227 KB).
@@ -142,27 +156,35 @@ def pass_c_pair_smem_bytes(R: int, K: int, n_b: int, n_j: int) -> int:
 
 
 def streamed_config(ops: TwoPhaseOperands) -> Optional[str]:
-    """The kernels' configuration for this operand set: "pair" for a
-    continuous-GCY set whose blocks fit (with or without a folded
-    baseline); for a plain set "full" when a field row's (I, J) column
-    group fits a pass-B block and the pass-C tile fits, else "deferred"
-    when the deferred passes' blocks fit; else None (batched factors,
-    baseline corrections outside pair sets, or blocks beyond shared
-    memory or the grid: not covered)."""
+    """The kernels' configuration for this operand set, with or without
+    a folded baseline: "pair" for a continuous-GCY set whose blocks fit;
+    "batched" for a set whose c2 factor is batched over the current c1
+    index (continuous SSY) when a field row's (I, J) group fits a pass-B
+    block and the deferred pass-C tiles fit; for shared factors "full"
+    when the (I, J) group fits a pass-B block and the pass-C tile fits,
+    else, without a baseline, "deferred" when the deferred passes' blocks
+    fit; else None (batched c1 factors, mid_col corrections, a baseline
+    on a deferred set, or blocks beyond shared memory or the grid: not
+    covered)."""
     L, K, I, J = ops.shapes
+    if ops.c1_batched or ops.has_mid:
+        return None
     if ops.is_pair:
         n_i, n_y, n_b, n_j = ops.pair_shapes
-        if (not ops.has_mid and pass_b_deferred_smem_bytes(I) <= SMEM_LIMIT
+        if (pass_b_deferred_smem_bytes(I) <= SMEM_LIMIT
                 and pass_c_pair_smem_bytes(L * K, K, n_b, n_j) <= SMEM_LIMIT
                 and max(L * K, I) <= _GRID_Y_MAX):
             return "pair"
         return None
-    if not ops.is_plain:
+    row_block = pass_b_smem_bytes(I, J) <= SMEM_LIMIT
+    if ops.c2_batched:
+        if (row_block and pass_c_deferred_tiles(L, K) is not None
+                and I <= _GRID_Y_MAX):
+            return "batched"
         return None
-    if (pass_b_smem_bytes(I, J) <= SMEM_LIMIT
-            and pass_c_tile(L * K, K) is not None):
+    if row_block and pass_c_tile(L * K, K) is not None:
         return "full"
-    if (pass_b_deferred_smem_bytes(I) <= SMEM_LIMIT
+    if (not ops.has_sub and pass_b_deferred_smem_bytes(I) <= SMEM_LIMIT
             and pass_c_deferred_tiles(L, K) is not None
             and max(L * K, I) <= _GRID_Y_MAX):
         return "deferred"
@@ -182,22 +204,53 @@ def _check_mode(mode: str) -> None:
 
 # --------------------------------------------------------------- pass B
 
-def pass_b_plain(ell, W_c1, W_c2t, theta: float, mode: str):
-    """Column phase of ``ell`` (R, I, J): contract i' with ``W_c1`` (I, I),
-    then j' with ``W_c2t`` (J', J) = W_c2 transposed.
+def _check_sub(sub_row, sub_col) -> None:
+    if (sub_row is None) != (sub_col is None):
+        raise ValueError("give both sub_row and sub_col, or neither")
+
+
+def _folded(ell, theta: float, sub_row, sub_col):
+    """a = theta*ell, or with a folded baseline (``sub_row`` (R,),
+    ``sub_col`` (I, J)) a = theta*ell - sub_row[r] - sub_col[i, j].
+
+    theta*ell - sub_row is one fused multiply-add (a single rounding, as
+    the kernels and the TPU kernel's compiler compute it): the baseline
+    cancels theta*ell (~ -107 for SSY, ~ -240 for GCY) down to O(1),
+    where a separate rounding of the product would be 1e-5 of error."""
+    if sub_row is None:
+        return theta * ell
+    # float32 theta times float32 ell is exact in float64.
+    th = float(torch.tensor(theta, dtype=ell.dtype))
+    return (th * ell.double() - sub_row.double()[:, None, None]).to(
+        ell.dtype) - sub_col[None, :, :]
+
+
+def pass_b_plain(ell, W_c1, W_c2t, theta: float, mode: str, sub_row=None,
+                 sub_col=None):
+    """Column phase of ``ell`` (R, I, J): a = theta*ell (less the folded
+    baseline ``sub_row`` (R,), ``sub_col`` (I, J), both or neither, see
+    :func:`_folded`); contract i' with ``W_c1`` (I, I), then j' with
+    ``W_c2t`` (J', J) = W_c2 transposed, or not at all when ``W_c2t`` is
+    None (a c2 factor batched over i contracts in
+    :func:`pass_c_batched`).
 
     fast: returns (mid, s) with s (R, 1) = max over the row's (I, J) of
-    a = theta*ell and mid = W_c1 exp(a - s) W_c2^T (linear).
+    a and mid = W_c1 exp(a - s) [W_c2^T] (linear).
     lse:  returns the log-domain mid with per-axis shifts.
     """
     _check_mode(mode)
-    a = theta * ell
+    _check_sub(sub_row, sub_col)
+    a = _folded(ell, theta, sub_row, sub_col)
     if mode == "fast":
         s = torch.amax(a, dim=(1, 2), keepdim=True)
         u = torch.matmul(W_c1, torch.exp(a - s))
-        return torch.matmul(u, W_c2t), s.reshape(-1, 1)
+        if W_c2t is not None:
+            u = torch.matmul(u, W_c2t)
+        return u, s.reshape(-1, 1)
     m = torch.amax(a, dim=1, keepdim=True)
     a = m + torch.log(torch.matmul(W_c1, torch.exp(a - m)))
+    if W_c2t is None:
+        return a
     m = torch.amax(a, dim=2, keepdim=True)
     return m + torch.log(torch.matmul(torch.exp(a - m), W_c2t))
 
@@ -206,11 +259,14 @@ def _lib():
     lib = _build.load("streamed_two_phase")
     if not getattr(lib, "_sdfs_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sdfs_pass_b.argtypes = [p, p, p, p, p, i, i, i, f, i, p]
+        lib.sdfs_pass_b.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, p]
         lib.sdfs_pass_b.restype = i
         lib.sdfs_pass_c.argtypes = [p, p, p, p, p, p, p, p,
                                     i, i, i, i, f, f, i, p]
         lib.sdfs_pass_c.restype = i
+        lib.sdfs_pass_c_batched.argtypes = [p, p, p, p, p, p, p, p, p,
+                                            i, i, i, i, i, i, f, f, i, p]
+        lib.sdfs_pass_c_batched.restype = i
         lib.sdfs_pass_b_deferred.argtypes = [p, p, p, p, p, i, i, i, f, p]
         lib.sdfs_pass_b_deferred.restype = i
         lib.sdfs_pass_c_deferred.argtypes = [p, p, p, p, p, p, p,
@@ -247,12 +303,16 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _pass_b_cuda(ell, W_c1, W_c2t, theta, mode):
+def _pass_b_cuda(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col):
     R, I, J = ell.shape
     dev = ell.device
     _check("ell", ell, dev, (R, I, J))
     _check("W_c1", W_c1, dev, (I, I))
-    _check("W_c2t", W_c2t, dev, (J, J))
+    if W_c2t is not None:
+        _check("W_c2t", W_c2t, dev, (J, J))
+    if sub_row is not None:
+        _check("sub_row", sub_row, dev, (R,))
+        _check("sub_col", sub_col, dev, (I, J))
     if pass_b_smem_bytes(I, J) > SMEM_LIMIT:
         raise ValueError(f"pass B block (I, J) = ({I}, {J}) exceeds "
                          "shared memory")
@@ -262,23 +322,29 @@ def _pass_b_cuda(ell, W_c1, W_c2t, theta, mode):
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sdfs_pass_b(_ptr(ell), _ptr(W_c1), _ptr(W_c2t), _ptr(mid),
+        rc = lib.sdfs_pass_b(_ptr(ell), _ptr(W_c1), _ptr(W_c2t),
+                             _ptr(sub_row), _ptr(sub_col), _ptr(mid),
                              _ptr(s), R, I, J, float(theta), _MODES[mode],
                              ctypes.c_void_p(stream))
     _raise_on(lib, rc, "pass B")
-    LAUNCHES["pass_b"] += 1
+    if W_c2t is not None:
+        LAUNCHES["pass_b"] += 1
+    else:
+        LAUNCHES["pass_b_c1" if sub_row is None else "pass_b_c1_sub"] += 1
     return (mid, s) if mode == "fast" else mid
 
 
-def pass_b(ell, W_c1, W_c2t, theta: float, mode: str):
+def pass_b(ell, W_c1, W_c2t, theta: float, mode: str, sub_row=None,
+           sub_col=None):
     """Pass B on the tensors' device: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (same arguments and results as
     :func:`pass_b_plain`)."""
     _check_mode(mode)
+    _check_sub(sub_row, sub_col)
     if ell.device.type == "cpu":
-        return pass_b_plain(ell, W_c1, W_c2t, theta, mode)
+        return pass_b_plain(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col)
     if ell.device.type == "cuda":
-        return _pass_b_cuda(ell, W_c1, W_c2t, theta, mode)
+        return _pass_b_cuda(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col)
     raise ValueError(f"no pass-B kernel for device {ell.device}")
 
 
@@ -359,12 +425,109 @@ def pass_c(mid, scale, S, W_r1, W_r2, add_row, add_col, theta: float,
     raise ValueError(f"no pass-C kernel for device {mid.device}")
 
 
+# ------------------------------------------------------ pass C batched
+
+def pass_c_batched_plain(mid, scale, S, W_c2t, W_r1, W_r2, add_row,
+                         add_col, theta: float, beta: float, mode: str):
+    """Batched row phase of ``mid`` (R, C), R = L*K, C = I*J: contract
+    each slice i's j' with its own ``W_c2t[i]`` (J', J) = W_c2[i]
+    transposed (``W_c2t`` (I, J', J); a shared (J', J) serves
+    :func:`pass_c_deferred_plain`), then l' with ``W_r1`` (L, L) and k'
+    with ``W_r2`` (K, K), add ``add_row`` (L, K) and ``add_col`` (C,),
+    and apply the epilogue log1p(beta*exp(lh/theta)).
+
+    fast: ``mid`` is pass B's linear c1-only field; row r is rescaled by
+    ``scale`` (R, 1) = exp(s - S) first, the chain runs unshifted and
+    ``S`` (1,) is added back after the log.
+    lse: ``mid`` is log-domain (``scale`` and ``S`` None); the shifts sit
+    where the TPU kernel puts them (its exactness argument rests on the
+    placement): m1 per (row, slice) over the slice's J values before the
+    c2 contraction; then a linear carry with M2 = max over l of m1 before
+    the l' contraction and M3 = max over k of M2 before the k'
+    contraction; M3 is added back after the log.
+    """
+    _check_mode(mode)
+    L, K, J = W_r1.shape[0], W_r2.shape[0], W_c2t.shape[-2]
+    R, C = mid.shape
+    I = C // J
+    if W_c2t.dim() == 2:
+        c2 = lambda e: torch.matmul(e, W_c2t)
+    else:
+        c2 = lambda e: torch.einsum("lkim,imj->lkij", e, W_c2t)
+    if mode == "fast":
+        u = c2((mid * scale).reshape(L, K, I, J))
+        u = torch.matmul(W_r1, u.reshape(L, K * C))
+        u = torch.matmul(W_r2, u.reshape(L, K, C))
+        lh = torch.log(u).reshape(L, K, I, J) + S
+    else:
+        w = mid.reshape(L, K, I, J)
+        m1 = torch.amax(w, dim=3, keepdim=True)              # (L, K, I, 1)
+        u = c2(torch.exp(w - m1))                            # linear
+        M2 = torch.amax(m1, dim=0, keepdim=True)             # (1, K, I, 1)
+        u = u * torch.exp(m1 - M2)
+        u = torch.matmul(W_r1, u.reshape(L, K * C)).reshape(L, K, I, J)
+        M3 = torch.amax(M2, dim=1, keepdim=True)             # (1, 1, I, 1)
+        u = u * torch.exp(M2 - M3)
+        u = torch.matmul(W_r2, u.reshape(L, K, C))           # (L, K, C)
+        lh = torch.log(u).reshape(L, K, I, J) + M3
+    lh = lh + add_row[:, :, None, None] + add_col.reshape(1, 1, I, J)
+    return torch.log1p(beta * torch.exp(lh / theta)).reshape(R, C)
+
+
+def _pass_c_batched_cuda(mid, scale, S, W_c2t, W_r1, W_r2, add_row, add_col,
+                         theta, beta, mode):
+    R, C = mid.shape
+    I, J = W_c2t.shape[0], W_c2t.shape[1]
+    L, K = W_r1.shape[0], W_r2.shape[0]
+    dev = mid.device
+    _check("mid", mid, dev, (R, C))
+    _check("W_c2t", W_c2t, dev, (I, J, J))
+    _check("W_r1", W_r1, dev, (L, L))
+    _check("W_r2", W_r2, dev, (K, K))
+    _check("add_row", add_row, dev, (L, K))
+    _check("add_col", add_col, dev, (C,))
+    if mode == "fast":
+        _check("scale", scale, dev, (R, 1))
+        _check("S", S, dev, (1,))
+    if L * K != R or I * J != C:
+        raise ValueError(f"mid {tuple(mid.shape)} does not match W_r1/W_r2 "
+                         f"({L}*{K} rows) and W_c2t ({I} slices of {J})")
+    tiles = pass_c_deferred_tiles(L, K)
+    if tiles is None or I > _GRID_Y_MAX:
+        raise ValueError(f"batched pass C with {R} rows, {I} slices "
+                         "exceeds shared memory or the grid")
+    TC, JK = tiles
+    out = torch.empty_like(mid)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdfs_pass_c_batched(
+            _ptr(mid), _ptr(scale), _ptr(S), _ptr(W_c2t), _ptr(W_r1),
+            _ptr(W_r2), _ptr(add_row), _ptr(add_col), _ptr(out), L, K, I, J,
+            TC, JK, float(theta), float(beta), _MODES[mode],
+            ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "batched pass C")
+    LAUNCHES["pass_c_batched" if mode == "fast"
+             else "pass_c_batched_lse"] += 1
+    return out
+
+
+def pass_c_batched(mid, scale, S, W_c2t, W_r1, W_r2, add_row, add_col,
+                   theta: float, beta: float, mode: str):
+    """Batched pass C on the tensors' device: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (same arguments and result
+    as :func:`pass_c_batched_plain`)."""
+    _check_mode(mode)
+    if mid.device.type == "cpu":
+        return pass_c_batched_plain(mid, scale, S, W_c2t, W_r1, W_r2,
+                                    add_row, add_col, theta, beta, mode)
+    if mid.device.type == "cuda":
+        return _pass_c_batched_cuda(mid, scale, S, W_c2t, W_r1, W_r2,
+                                    add_row, add_col, theta, beta, mode)
+    raise ValueError(f"no batched pass-C kernel for device {mid.device}")
+
+
 # ------------------------------------------------------ pass B deferred
-
-def _check_sub(sub_row, sub_col) -> None:
-    if (sub_row is None) != (sub_col is None):
-        raise ValueError("give both sub_row and sub_col, or neither")
-
 
 def pass_b_deferred_plain(ell, W_c1t, theta: float, sub_row=None,
                           sub_col=None):
@@ -372,21 +535,10 @@ def pass_b_deferred_plain(ell, W_c1t, theta: float, sub_row=None,
     ``W_c1t`` (I', I) = W_c1 transposed, under a per-(row, column) shift
     m = max over I' of a = theta*ell - sub_row[r] - sub_col[i, j] (the
     folded baseline, ``sub_row`` (R,) and ``sub_col`` (I, J), both or
-    neither).  Returns the log-domain m + log(W_c1 exp(a - m)),
-    (R, I, J).
-
-    theta*ell - sub_row is one fused multiply-add (a single rounding, as
-    the kernel and the TPU kernel's compiler compute it): the baseline
-    cancels theta*ell ~ -240 down to O(1), where a separate rounding of
-    the product would be 1e-5 of error."""
+    neither; one fused multiply-add, see :func:`_folded`).  Returns the
+    log-domain m + log(W_c1 exp(a - m)), (R, I, J)."""
     _check_sub(sub_row, sub_col)
-    if sub_row is None:
-        a = theta * ell
-    else:
-        # float32 theta times float32 ell is exact in float64.
-        th = float(torch.tensor(theta, dtype=ell.dtype))
-        a = (th * ell.double() - sub_row.double()[:, None, None]).to(
-            ell.dtype) - sub_col[None, :, :]
+    a = _folded(ell, theta, sub_row, sub_col)
     m = torch.amax(a, dim=1, keepdim=True)
     return m + torch.log(torch.matmul(W_c1t.mT, torch.exp(a - m)))
 
@@ -434,29 +586,11 @@ def pass_c_deferred_plain(mid, W_c2t, W_r1, W_r2, add_row, add_col,
     C = I*J: contract each slice's j' with ``W_c2t`` (J', J) = W_c2
     transposed, then l' with ``W_r1`` (L, L) and k' with ``W_r2`` (K, K),
     add ``add_row`` (L, K) and ``add_col`` (C,), and apply the epilogue
-    log1p(beta*exp(lh/theta)).
-
-    The shifts sit where the TPU kernel puts them (its exactness argument
-    rests on the placement): m1 per (row, slice) over the slice's J
-    values before the c2 contraction; then a linear carry with M2 = max
-    over l of m1 before the l' contraction and M3 = max over k of M2
-    before the k' contraction; M3 is added back after the log.
+    log1p(beta*exp(lh/theta)), with the lse shifts of
+    :func:`pass_c_batched_plain`.
     """
-    L, K, J = W_r1.shape[0], W_r2.shape[0], W_c2t.shape[0]
-    R, C = mid.shape
-    I = C // J
-    w = mid.reshape(L, K, I, J)
-    m1 = torch.amax(w, dim=3, keepdim=True)                  # (L, K, I, 1)
-    u = torch.matmul(torch.exp(w - m1), W_c2t)               # linear
-    M2 = torch.amax(m1, dim=0, keepdim=True)                 # (1, K, I, 1)
-    u = u * torch.exp(m1 - M2)
-    u = torch.matmul(W_r1, u.reshape(L, K * C)).reshape(L, K, I, J)
-    M3 = torch.amax(M2, dim=1, keepdim=True)                 # (1, 1, I, 1)
-    u = u * torch.exp(M2 - M3)
-    u = torch.matmul(W_r2, u.reshape(L, K, C))               # (L, K, C)
-    lh = (torch.log(u).reshape(L, K, I, J) + M3
-          + add_row[:, :, None, None] + add_col.reshape(1, 1, I, J))
-    return torch.log1p(beta * torch.exp(lh / theta)).reshape(R, C)
+    return pass_c_batched_plain(mid, None, None, W_c2t, W_r1, W_r2, add_row,
+                                add_col, theta, beta, "lse")
 
 
 def _pass_c_deferred_cuda(mid, W_c2t, W_r1, W_r2, add_row, add_col, theta,
@@ -623,15 +757,18 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
 
     mode "fast": one shift per field row (exact whenever the iterate's
     theta-range within a row fits exp's f32 range — plain SSY operands);
-    "lse": per-axis log-sum-exp shifts; "auto" picks "fast" for the full
-    configuration and "lse" for the deferred and pair ones, which run
-    per-axis LSE only (the single-shift fast mode is unsafe at their
-    column-group spans: ``mode="fast"`` raises ``ValueError`` there).
+    "lse": per-axis log-sum-exp shifts; "auto" picks "lse" for a set with
+    a folded baseline (whose LSE steps renormalize the folded factors)
+    and for the deferred and pair configurations, "fast" otherwise.  The
+    deferred and pair configurations run per-axis LSE only (the
+    single-shift fast mode is unsafe at their column-group spans:
+    ``mode="fast"`` raises ``ValueError`` there).
 
     The returned ``T`` carries ``T.twin`` (the eager evaluator of the same
     math, :func:`..operators.two_phase.make_eager_two_phase_T`), ``T.mode``
-    and ``T.engine`` ("streamed", "streamed-deferred" or "streamed-pair",
-    the JAX package's names), and for a set with a folded baseline
+    and ``T.engine`` ("streamed" for the full and batched configurations,
+    "streamed-deferred" or "streamed-pair": the JAX package's names), and
+    for a set with a folded baseline
     ``T.baseline_log_w`` (ell0 on the view, float32 on ``device``).  Its
     forward-mode derivative (``torch.func.jvp``) is the twin's tangent at
     the same point.
@@ -641,12 +778,12 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
     config = streamed_config(ops)
     if config is None:
         raise NotImplementedError(
-            "operand set not covered by the streamed kernels (batched "
-            "factors, baseline corrections, or blocks beyond shared "
-            f"memory at shapes {ops.shapes}); see ROADMAP queue B")
+            "operand set not covered by the streamed kernels (batched c1 "
+            "factors, mid_col corrections, or blocks beyond shared memory "
+            f"at shapes {ops.shapes}); see ROADMAP A3 and queue B")
     deferred, pair = config == "deferred", config == "pair"
     if mode == "auto":
-        mode = "lse" if (deferred or pair) else "fast"
+        mode = "lse" if (deferred or pair or ops.has_sub) else "fast"
     _check_mode(mode)
     if (deferred or pair) and mode == "fast":
         raise ValueError(
@@ -662,14 +799,15 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
     add_row = cast(ops.add_row)
     add_col = cast(np.asarray(ops.add_col).reshape(C))
     twin = make_eager_two_phase_T(ops, dtype, device=dev)
+    sub_row = sub_col = None
+    if ops.has_sub:
+        sub_row = cast(np.asarray(ops.sub_row).reshape(R))
+        sub_col = cast(ops.sub_col)
     if pair:
         P_zpi, PzT = pair_device_operands(ops, dtype, device=dev)
-        sub_row = sub_col = None
-        if ops.has_sub:
-            sub_row = cast(np.asarray(ops.sub_row).reshape(R))
-            sub_col = cast(ops.sub_col)
     else:
-        W_c2t = cast(np.asarray(ops.W_c2).T)
+        # (J', J), or (I, J', J) for a c2 factor batched over i.
+        W_c2t = cast(np.swapaxes(ops.W_c2, -1, -2))
     if deferred or pair:
         W_c1t = cast(np.asarray(ops.W_c1).T)
     else:
@@ -685,16 +823,22 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
             mid = pass_b_deferred(e, W_c1t, theta)
             out = pass_c_deferred(mid.reshape(R, C), W_c2t, W_r1, W_r2,
                                   add_row, add_col, theta, beta)
-        elif mode == "fast":
-            mid, s = pass_b(e, W_c1, W_c2t, theta, "fast")
-            S = torch.amax(s).reshape(1)
-            scale = torch.exp(s - S)
-            out = pass_c(mid.reshape(R, C), scale, S, W_r1, W_r2, add_row,
-                         add_col, theta, beta, "fast")
         else:
-            mid = pass_b(e, W_c1, W_c2t, theta, "lse")
-            out = pass_c(mid.reshape(R, C), None, None, W_r1, W_r2,
-                         add_row, add_col, theta, beta, "lse")
+            batched = config == "batched"
+            b = pass_b(e, W_c1, None if batched else W_c2t, theta, mode,
+                       sub_row, sub_col)
+            scale = S = None
+            if mode == "fast":
+                b, s = b
+                S = torch.amax(s).reshape(1)
+                scale = torch.exp(s - S)
+            if batched:
+                out = pass_c_batched(b.reshape(R, C), scale, S, W_c2t, W_r1,
+                                     W_r2, add_row, add_col, theta, beta,
+                                     mode)
+            else:
+                out = pass_c(b.reshape(R, C), scale, S, W_r1, W_r2, add_row,
+                             add_col, theta, beta, mode)
         return out.reshape(ops.shapes)
 
     class _StreamedT(torch.autograd.Function):

@@ -4,8 +4,9 @@ PyTorch port of the dispatch in
 ``sdfs_via_autodiff_tpu/kernels/tiled_two_phase.py``: ``make_tiled_T_log``
 runs an operand set through the streamed kernels
 (:mod:`.streamed_two_phase`); ``make_tiled_T_log_ssy``,
-``make_tiled_T_log_gcy`` and ``make_tiled_T_log_gcy_continuous`` build
-the operand sets of discrete SSY, discrete GCY and continuous GCY.  The
+``make_tiled_T_log_ssy_continuous``, ``make_tiled_T_log_gcy`` and
+``make_tiled_T_log_gcy_continuous`` build the operand sets of discrete
+SSY, continuous SSY, discrete GCY and continuous GCY.  The
 JAX package's strip tier, which covers the operand sets the streamed
 kernels decline under the TPU compiler's layout rules, is not ported
 (ROADMAP queue B item 9): an uncovered operand set raises
@@ -20,12 +21,13 @@ import torch
 
 from ..operators.two_phase import (TwoPhaseOperands, two_phase_operands_gcy,
                                    two_phase_operands_gcy_continuous,
-                                   two_phase_operands_ssy)
+                                   two_phase_operands_ssy,
+                                   two_phase_operands_ssy_continuous)
 from .streamed_two_phase import make_streamed_T_log, streamed_supported
 
 __all__ = ["TPU_ONLY_OPTIONS", "reject_tpu_options", "make_tiled_T_log",
-           "make_tiled_T_log_ssy", "make_tiled_T_log_gcy",
-           "make_tiled_T_log_gcy_continuous"]
+           "make_tiled_T_log_ssy", "make_tiled_T_log_ssy_continuous",
+           "make_tiled_T_log_gcy", "make_tiled_T_log_gcy_continuous"]
 
 # Options of the JAX tiled tier that exist only for the TPU (bf16 "3x"
 # contraction splits, software transcendentals, VMEM budgets, tier
@@ -73,6 +75,28 @@ def make_tiled_T_log_ssy(model, disc, baseline=None,
     reject_tpu_options(tpu_options)
     return make_tiled_T_log(two_phase_operands_ssy(model, disc, baseline),
                             dtype, mode, device=device)
+
+
+def make_tiled_T_log_ssy_continuous(model, grids, degree: int = 5,
+                                    baseline=None,
+                                    dtype: torch.dtype = torch.float32,
+                                    mode: str = "auto", *, device="cuda",
+                                    **tpu_options) -> Callable:
+    """Tiled two-pass log-space T for the continuous factored-quadrature
+    SSY operator (interp="pre"), on the field ``ell[h_lam, h_c, h_z, z]``.
+
+    Its z expectation matrix P_z is conditioned on the current h_z (a c2
+    factor batched over the c1 index), so this family runs the streamed
+    kernels' batched configuration: pass B contracts h_z' only, pass C
+    each h_z slice's z' with its own P_z[i] before the row phase.
+    ``baseline`` ("loglinear" or a ``(const, profiles)`` pair) folds a
+    separable baseline (``T.baseline_log_w``); "auto" mode is then "lse",
+    and "fast" without one.
+    """
+    reject_tpu_options(tpu_options)
+    return make_tiled_T_log(
+        two_phase_operands_ssy_continuous(model, grids, degree, baseline),
+        dtype, mode, device=device)
 
 
 def make_tiled_T_log_gcy(model, disc, dtype: torch.dtype = torch.float32,

@@ -1,8 +1,9 @@
 """Two-phase (column-group / row-group) form of the 4-D log-space operators.
 
 PyTorch port of ``sdfs_via_autodiff_tpu/operators/two_phase.py`` for the
-plain discrete SSY and GCY operand sets and the baseline-folded
-continuous-GCY pair sets.  Grouping the four SSY state axes
+plain discrete SSY and GCY operand sets, the continuous-SSY sets (c2
+batched over the current c1 index, with or without a folded baseline)
+and the continuous-GCY pair sets.  Grouping the four SSY state axes
 as rows (h_lam, h_c) and columns (h_z, z) splits the per-axis chain into
 
     column phase:  contract next-h_z, then next-z      (touches only columns)
@@ -28,8 +29,8 @@ import torch
 from ..config import resolve_device
 
 __all__ = ["TwoPhaseOperands", "two_phase_operands_ssy",
-           "two_phase_operands_gcy", "two_phase_operands_gcy_continuous",
-           "make_eager_two_phase_T"]
+           "two_phase_operands_ssy_continuous", "two_phase_operands_gcy",
+           "two_phase_operands_gcy_continuous", "make_eager_two_phase_T"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +52,12 @@ class TwoPhaseOperands:
     (``interop.operands_from_numpy``); ``perm``, ``inv_perm``,
     ``state_shapes``, ``pair_c2`` and ``pair_shapes``, which the JAX
     package sets as attributes of its six-state sets, are fields here.
-    ``sub_row``/``sub_col`` (the folded baseline theta*ell0 split over
-    rows and columns) and ``baseline_log_w`` (ell0 itself) belong to the
-    baseline-normalized sets; ``mid_col`` to the conjugated-shared ones,
-    which a later slice ports (the evaluators here reject it).
+    ``W_c2`` is (n_c2, n_c2), or (n_c1, n_c2, n_c2) batched over the
+    current c1 index (continuous SSY's P_z).  ``sub_row``/``sub_col`` (the
+    folded baseline theta*ell0 split over rows and columns) and
+    ``baseline_log_w`` (ell0 itself) belong to the baseline-normalized
+    sets; ``mid_col`` to the conjugated-shared ones, which a later slice
+    ports (the evaluators here reject it).
 
     Continuous-GCY sets carry their column factor c2 = (z_pi, z) as the
     per-axis pair ``pair_c2 = (P_z (i, j, b, J), P_zpi (y, b, B))`` with
@@ -167,6 +170,52 @@ def two_phase_operands_ssy(model, disc, baseline: Optional[str] = None
         W_c2=disc.z_P.numpy(),
         add_row=add_row, add_col=add_col,
         theta=float(model.theta), beta=float(model.beta))
+
+
+def two_phase_operands_ssy_continuous(model, grids, degree: int = 5,
+                                      baseline=None) -> TwoPhaseOperands:
+    """Two-phase operands for the continuous factored-quadrature SSY
+    operator (interp="pre"):
+
+        rows:    r1 = h_lam (l)   W_r1 = P_lam (payoff folded)
+                 r2 = h_c   (k)   W_r2 = P_c
+        columns: c1 = h_z   (i)   W_c1 = P_hz (shared)
+                 c2 = z     (j)   W_c2 = P_z (i, j, j'), batched over the
+                                  current h_z index (z' = rho z +
+                                  sigma_z(h_z) eta)
+
+    log kappa(h_c, z) splits into ``add_row`` (h_c) and ``add_col`` (z).
+    ``baseline`` ("loglinear" or a ``(const, profiles)`` pair, see
+    ``continuous_ssy._factored_arrays_ssy``) folds a separable baseline:
+    ``sub_row``/``sub_col`` split theta*ell0 over rows and columns,
+    ``add_*`` restore it, ``baseline_log_w`` is ell0.
+    """
+    from .continuous_ssy import _factored_arrays_ssy
+
+    shapes = tuple(len(g) for g in grids)
+    n_l, n_k, n_i, n_j = shapes
+    theta, beta = float(model.theta), float(model.beta)
+    arrs = _factored_arrays_ssy(model, grids, degree, baseline)
+    f64 = lambda a: np.asarray(a, np.float64)
+    log_A2, log_A3 = f64(arrs["log_A2"]), f64(arrs["log_A3"])
+    add_row = np.broadcast_to(log_A2[None, :], (n_l, n_k)).copy()
+    add_col = np.broadcast_to(log_A3[None, :], (n_i, n_j)).copy()
+    sub_row = sub_col = ell0 = None
+    if arrs["ell0_parts"] is not None:
+        const0, phi_l, phi_k, phi_i, phi_j = (
+            f64(p) for p in arrs["ell0_parts"])
+        sub_row = theta * (phi_l[:, None] + phi_k[None, :])
+        sub_col = theta * (const0 + phi_i[:, None] + phi_j[None, :])
+        add_row = add_row + sub_row
+        add_col = add_col + sub_col
+        ell0 = (const0 + phi_l[:, None, None, None]
+                + phi_k[None, :, None, None]
+                + phi_i[None, None, :, None] + phi_j[None, None, None, :])
+    return TwoPhaseOperands(
+        shapes=shapes, W_r1=f64(arrs["P_lam"]), W_r2=f64(arrs["P_c"]),
+        W_c1=f64(arrs["P_hz"]), W_c2=f64(arrs["P_z"]),
+        add_row=add_row, add_col=add_col, theta=theta, beta=beta,
+        sub_row=sub_row, sub_col=sub_col, baseline_log_w=ell0)
 
 
 def _kron(X, Y):
@@ -322,13 +371,15 @@ def two_phase_operands_gcy_continuous(model, grids, degree: int = 5,
 def make_eager_two_phase_T(ops: TwoPhaseOperands,
                            dtype: torch.dtype = torch.float32, *,
                            device="cuda") -> Callable:
-    """Plain eager evaluator of a two-phase operand set with shared
-    factors (plain, or with a folded baseline ``sub_row``/``sub_col``) or
-    a continuous-GCY pair set.
+    """Plain eager evaluator of a two-phase operand set with a shared c1
+    factor and a shared or batched c2 factor (plain, or with a folded
+    baseline ``sub_row``/``sub_col``) or a continuous-GCY pair set.
 
     The same math as the streamed kernels with per-axis shifts at every
     contraction: their agreement oracle and their tangent (it is
-    differentiable by ``torch.func``).  A pair set's c2 step takes one
+    differentiable by ``torch.func``).  A batched c2 step contracts each
+    c1 slice with its own factor, ``einsum("ijm,tim->tij")`` as in the
+    JAX package's XLA twin.  A pair set's c2 step takes one
     shift over the whole (B', J') slice, then contracts next-z_pi with
     P_zpi and next-z with P_z, as the JAX package's XLA twin does.
     float32 contractions run in full FP32: on a CUDA device it raises
@@ -336,11 +387,10 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
     (``torch.backends.cuda.matmul.allow_tf32``, off by default), whose
     10-bit mantissa misses the operator's 1e-6-class accuracy.
     """
-    if ops.c1_batched or ops.has_mid or (ops.c2_batched and not ops.is_pair):
+    if ops.c1_batched or ops.has_mid:
         raise NotImplementedError(
-            "batched factors and mid_col corrections (normalized discrete "
-            "and continuous-SSY operand sets) are not ported yet; see "
-            "ROADMAP queue A")
+            "batched c1 factors and mid_col corrections (the normalized "
+            "discrete operand sets) are not ported yet; see ROADMAP A3")
     dev = resolve_device(device)
     n_r1, n_r2, n_c1, n_c2 = ops.shapes
     R, C = n_r1 * n_r2, n_c1 * n_c2
@@ -352,6 +402,7 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
         n_i, n_y, n_b, n_j = ops.pair_shapes
     else:
         W_c2 = cast(ops.W_c2)
+        c2_sub = "ijm,tim->tij" if ops.c2_batched else "jm,tim->tij"
     add = cast(ops.add_row[:, :, None]
                + np.asarray(ops.add_col).reshape(-1)[None, None, :])
     sub = None
@@ -378,8 +429,7 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
             u = torch.einsum("ijbJ,tiybJ->tiybj", P_z, v)
             a = m + torch.log(u.reshape(R, n_c1, n_c2))
         else:
-            a = m + torch.log(torch.einsum("jm,tim->tij", W_c2,
-                                           torch.exp(a - m)))
+            a = m + torch.log(torch.einsum(c2_sub, W_c2, torch.exp(a - m)))
         b = a.reshape(n_r1, n_r2, C)
         m = torch.amax(b, dim=0, keepdim=True)
         b = m + torch.log(torch.einsum("lm,mkt->lkt", W_r1,

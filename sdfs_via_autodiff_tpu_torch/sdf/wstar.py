@@ -25,16 +25,17 @@ def construct_wstar_callable(w_star_vals=None,
     dtype.  ``x`` has shape (dim,) or (dim, N) (a tensor or an array);
     the result is a 0-d or (N,) tensor.
 
-    Reading a checkpoint (``datafile``) comes with the checkpoint module
-    and raises ``NotImplementedError`` until then.
+    As in the JAX package, ``datafile`` is read only when the arrays are
+    missing; reading a checkpoint comes with the checkpoint module and
+    raises ``NotImplementedError`` until then.
     """
-    if datafile is not None:
+    if w_star_vals is None or grids is None:
+        if datafile is None:
+            raise ValueError("provide (w_star_vals, grids) or datafile")
         raise NotImplementedError(
             "construct_wstar_callable(datafile=...) reads a checkpoint, "
             "which is not ported yet; it lands with ROADMAP queue A item 10 "
-            "(utils/checkpoint.py)")
-    if w_star_vals is None or grids is None:
-        raise ValueError("provide (w_star_vals, grids) or datafile")
+            "(A5, utils/checkpoint.py)")
     dev = resolve_device(device)
     w = torch.as_tensor(w_star_vals).to(dev)
     grids = tuple(torch.as_tensor(g).to(device=dev, dtype=w.dtype)

@@ -194,7 +194,9 @@ def test_wc_ratio_continuous_newton_matches_jax():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"kernel": "tiled"}, "items 6"),
+    # kernel="tiled" is ported for every interp; an unported option beside
+    # it still raises.
+    ({"kernel": "tiled", "polish": True}, "item 6"),
     # baseline="coarse" is ported; an unported option beside it raises
     # before its coarse float64 solve runs.
     ({"baseline": "coarse", "polish": True}, "item 6"),

@@ -5,8 +5,8 @@ imports neither JAX nor the JAX package, so on a GPU machine without JAX
 it runs with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu_kernels.py``.  Tolerances as in
 ``test_torch_streamed_two_phase.py``, ``test_torch_deferred_two_phase.py``,
-``test_torch_pair_two_phase.py``, ``test_torch_fused.py`` and
-``test_torch_post_interp.py``.
+``test_torch_pair_two_phase.py``, ``test_torch_batched_two_phase.py``,
+``test_torch_fused.py`` and ``test_torch_post_interp.py``.
 """
 
 import numpy as np
@@ -230,6 +230,119 @@ def test_gcy_continuous_pair_operator_matches_f64(cuda):
                                       baseline="loglinear",
                                       device=cuda)(ell)
     assert float((T(ell.float()).double() - want).abs().max()) <= ATOL
+
+
+# Continuous-SSY sets (c2 batched over the current h_z): the JAX test's
+# (4, 8, 6, 64), a ragged (3, 5, 7, 40) and (20, 20, 20, 20), with and
+# without the log-linear baseline.
+BATCHED_CASES = [(4, 8, 6, 64), (3, 5, 7, 40), (20, 20, 20, 20)]
+
+
+def _batched_setup(sizes, baseline, dev):
+    m = P.SSY()
+    ops = P.two_phase_operands_ssy_continuous(
+        m, P.build_grid_ssy(m, *sizes), 5, baseline)
+    L, K, I, J = sizes
+    cast = lambda a: torch.as_tensor(np.ascontiguousarray(
+        a, np.float64)).to(device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    ell = (np.log(800.0) + 0.05 * rng.standard_normal(sizes)
+           if baseline is None
+           else ops.baseline_log_w + 0.02 * rng.standard_normal(sizes))
+    sub = ((cast(np.asarray(ops.sub_row).reshape(L * K)), cast(ops.sub_col))
+           if baseline else (None, None))
+    return ops, cast(ell).reshape(L * K, I, J), cast, sub
+
+
+@pytest.mark.parametrize("mode", ["fast", "lse"])
+@pytest.mark.parametrize("baseline", [None, "loglinear"])
+@pytest.mark.parametrize("sizes", BATCHED_CASES)
+def test_pass_b_c1_kernel_matches_plain(cuda, sizes, baseline, mode):
+    ops, ell, cast, sub = _batched_setup(sizes, baseline, cuda)
+    args = (cast(ops.W_c1), None, float(ops.theta), mode) + sub
+    key = "pass_b_c1" if baseline is None else "pass_b_c1_sub"
+    before = st.LAUNCHES[key]
+    got = st.pass_b(ell, *args)
+    assert st.LAUNCHES[key] == before + 1
+    want = st.pass_b_plain(ell, *args)
+    if mode == "fast":
+        rel = ((got[0] - want[0]).abs() / want[0].abs()).max()
+        assert float(rel) <= 5e-6
+        assert float((got[1] - want[1]).abs().max()) <= ATOL
+    else:
+        lim = ATOL + EPS32 * want.abs()
+        assert bool(((got - want).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("mode", ["fast", "lse"])
+@pytest.mark.parametrize("shapes,method", CASES[:2])
+def test_pass_b_shared_c2_with_sub_matches_plain(cuda, shapes, method,
+                                                 mode):
+    ops, ell, cast = _setup(shapes, method, cuda)
+    L, K, I, J = shapes
+    rng = np.random.default_rng(1)
+    th = float(ops.theta)
+    sub = (cast(th * (3.0 + 0.1 * rng.standard_normal(L * K))),
+           cast(th * (np.log(800.0) - 3.0
+                      + 0.1 * rng.standard_normal((I, J)))))
+    args = (cast(ops.W_c1), cast(np.asarray(ops.W_c2).T), th, mode) + sub
+    before = st.LAUNCHES["pass_b"]
+    got = st.pass_b(ell, *args)
+    assert st.LAUNCHES["pass_b"] == before + 1
+    want = st.pass_b_plain(ell, *args)
+    if mode == "fast":
+        rel = ((got[0] - want[0]).abs() / want[0].abs()).max()
+        assert float(rel) <= 5e-6
+        assert float((got[1] - want[1]).abs().max()) <= ATOL
+    else:
+        lim = ATOL + EPS32 * want.abs()
+        assert bool(((got - want).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("mode", ["fast", "lse"])
+@pytest.mark.parametrize("baseline", [None, "loglinear"])
+@pytest.mark.parametrize("sizes", BATCHED_CASES)
+def test_pass_c_batched_kernel_matches_plain(cuda, sizes, baseline, mode):
+    ops, ell, cast, sub = _batched_setup(sizes, baseline, cuda)
+    L, K, I, J = sizes
+    R, C = L * K, I * J
+    b = st.pass_b_plain(ell, cast(ops.W_c1), None, float(ops.theta), mode,
+                        *sub)
+    scale = S = None
+    if mode == "fast":
+        b, s = b
+        S = s.max().reshape(1)
+        scale = torch.exp(s - S)
+    args = (b.reshape(R, C), scale, S, cast(np.swapaxes(ops.W_c2, 1, 2)),
+            cast(ops.W_r1), cast(ops.W_r2), cast(ops.add_row),
+            cast(ops.add_col.reshape(C)), float(ops.theta), float(ops.beta),
+            mode)
+    key = "pass_c_batched" if mode == "fast" else "pass_c_batched_lse"
+    before = st.LAUNCHES[key]
+    got = st.pass_c_batched(*args)
+    assert st.LAUNCHES[key] == before + 1
+    want = st.pass_c_batched_plain(*args)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("baseline", [None, "loglinear"])
+def test_ssy_continuous_tiled_operator_matches_f64(cuda, baseline):
+    m = P.SSY()
+    sizes = (4, 8, 6, 64)
+    grids = P.build_grid_ssy(m, *sizes)
+    T64 = P.T_ssy_continuous_factory(m, grids, space="log",
+                                     baseline=baseline, device=cuda)
+    rng = np.random.default_rng(6)
+    ell = (np.log(800.0) if baseline is None
+           else T64.baseline_log_w.cpu().numpy()) + 0.02 * (
+        rng.standard_normal(sizes))
+    ell = torch.as_tensor(ell, device=cuda)
+    for mode in ("fast", "lse"):
+        T = P.make_tiled_T_log_ssy_continuous(m, grids, baseline=baseline,
+                                              mode=mode, device=cuda)
+        assert T.engine == "streamed"
+        assert float((T(ell.float()).double() - T64(ell)).abs().max()) <= ATOL
 
 
 def test_uncovered_sets_raise_on_the_card(cuda):

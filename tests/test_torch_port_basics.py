@@ -112,6 +112,7 @@ def test_entry_points_default_to_cuda():
     grids = P.build_grid_ssy(m, 3, 3, 3, 4)
     calls = [lambda: P.T_ssy_factory(m, d, space="log"),
              lambda: P.make_tiled_T_log_ssy(m, d),
+             lambda: P.make_tiled_T_log_ssy_continuous(m, grids),
              lambda: P.make_fused_T_log_ssy(m, d),
              lambda: P.make_fused_solver_ssy_continuous(m, grids),
              lambda: P.T_ssy_continuous_factory(m, grids),
@@ -150,6 +151,8 @@ def test_entry_points_default_to_cuda():
                                                  interp="post", space="log"),
               lambda: P.wc_ratio_continuous(m, (3, 3, 3, 4), kernel="tiled",
                                             interp="post"),
+              lambda: P.wc_ratio_continuous(m, (3, 3, 3, 4), kernel="tiled"),
+              lambda: P.wc_ratio_continuation(m, [(3, 3, 3, 4)]),
               lambda: P.wc_ratio_continuous(m, (3, 3, 3, 4),
                                             method="monte_carlo"),
               lambda: P.construct_wstar_callable(w, grids),

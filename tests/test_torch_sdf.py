@@ -73,6 +73,20 @@ def test_wstar_callable_matches_jax(solved):
         P.construct_wstar_callable(w, None, device="cpu")
 
 
+def test_wstar_callable_ignores_datafile_beside_the_arrays(solved, tmp_path):
+    # As in the JAX package, a datafile given beside the arrays is not
+    # read: both return the arrays' interpolant.
+    sol, w, grids = solved
+    path = str(tmp_path / "absent.npz")
+    fj = J.construct_wstar_callable(sol.w_star, sol.grids, datafile=path)
+    fp = P.construct_wstar_callable(w, grids, datafile=path, device="cpu")
+    xs = np.random.default_rng(3).uniform(-0.5, 0.5, (4, 100)) * np.asarray(
+        [float(g[-1]) for g in sol.grids])[:, None]
+    _close(fp(torch.as_tensor(xs)), fj(jnp.asarray(xs)))
+    _close(fp(torch.as_tensor(xs)),
+           P.construct_wstar_callable(w, grids, device="cpu")(xs))
+
+
 def test_one_step_moments_match_jax_on_the_same_states(solved):
     sol, w, grids = solved
     n = 20_000

@@ -178,9 +178,19 @@ def test_coverage_and_uncovered_sets(operands):
     assert not P.streamed_supported(wide)
     with pytest.raises(NotImplementedError, match="strip tier"):
         P.make_tiled_T_log(wide, device="cpu")
+    # A folded baseline on shared factors runs the full configuration;
+    # a mid_col correction or a batched c1 factor (the normalized discrete
+    # sets, ROADMAP A3) is not covered.
     normalized = dataclasses.replace(pops, sub_row=pops.add_row,
                                      sub_col=pops.add_col)
-    assert not P.streamed_supported(normalized)
+    assert P.streamed_config(normalized) == "full"
+    with_mid = dataclasses.replace(normalized, mid_col=pops.add_col)
+    c1_batched = dataclasses.replace(pops, W_c1=np.broadcast_to(
+        pops.W_c1, (SHAPES[3],) + pops.W_c1.shape))
+    for ops in (with_mid, c1_batched):
+        assert not P.streamed_supported(ops)
+        with pytest.raises(NotImplementedError, match="not covered"):
+            P.make_tiled_T_log(ops, device="cpu")
 
 
 @pytest.mark.parametrize("option", [{"precision": "3x"},
