@@ -9,7 +9,7 @@ PyTorch built for CUDA:
 Phases, in order; any failure exits non-zero before the result line:
 
 1. device facts (name, power limit, toolchain); full-FP32 matmuls;
-2. build the CUDA kernels from ``kernels/csrc/streamed_two_phase.cu``;
+2. build the CUDA kernels from the four sources in ``kernels/csrc/``;
 3. SSY: pass B and pass C against their plain PyTorch versions on the
    card, both modes, at (4,8,6,64), (56,56,56,64) Rouwenhorst and
    (32,32,32,384) Tauchen;
@@ -72,9 +72,9 @@ Phases, in order; any failure exits non-zero before the result line:
     application at 20^4 against the float64 node chain;
 19. the continuous-SSY post-interp path at 20^4:
     ``wc_ratio_continuous(SSY(), (20,)*4, kernel="tiled", interp="post")``
-    and again with ``"loglin"`` (Newton, tol 2e-5, from w = 1), cold then
-    warm, with the launch counts, the iterations and the float64 residual
-    through the float64 node chain;
+    (cold only) and again with ``"loglin"`` (cold then warm; Newton, tol
+    2e-5, from w = 1), with the launch counts, the iterations and the
+    float64 residual through the float64 node chain;
 20. the reference's published one-step moment anchors at 15^4, degree
     5: a float64 Newton solve (tol 1e-9, ``interp="pre"`` and
     ``"loglin"``, 3.2 and 2.5 standard deviations), then
@@ -104,7 +104,33 @@ Phases, in order; any failure exits non-zero before the result line:
     solved through the tiled float32 path, then
     ``construct_wstar_callable`` and ``one_step_w_moments`` with 10^6
     draws, within 1e-3 on the mean and 5e-3 on the std;
-27. a JSON line of per-kernel facts (with each kernel's bound: the
+27. the strip tier (``kernels/csrc/tiled_two_phase.cu``): its column and
+    row phases against their plain versions, both modes, with shared,
+    dense-batched and lazy (rank 1 and 2) factors, with and without the
+    fold, at SSY (4,5,6,7), (6,5,6,16) with every batched factor lazy,
+    the GCY (6,5,4,3,4,3) view, and both cells (plain and normalized);
+    pass B's mid_col branch against its plain version at (4,8,6,64) and
+    (32,32,32,384) on a conjugated normalized SSY set with a seeded
+    non-separable mid_col, and one application of that set against its
+    float64 twin;
+28. one application at each cell against the float64 chain, timed:
+    normalized SSY 12.6M auto (the streamed full configuration with the
+    fold) and strip, plain SSY strip (fast), normalized GCY 25.2M auto
+    (the deferred configuration with the fold) and strip (rank-2 lazy),
+    plain GCY strip (lse);
+29. the paths, cold then warm: (a) ``wc_ratio_discrete(SSY(),
+    (32,32,32,384), kernel="tiled", baseline="loglinear",
+    discretization="tauchen", tol=2e-5)``, (b) Newton through
+    ``make_tiled_T_log_ssy(..., baseline="loglinear", engine="strip")``
+    from its baseline, (c) ``wc_ratio_discrete(GCY(), (32,16,16,12,16,16),
+    kernel="tiled", baseline="loglinear", ...)`` at tol 3.04e-5; then,
+    cold only, (d) Newton through the plain SSY strip tier (fast mode)
+    and (e) Newton through the mid_col set at the SSY cell; each with its
+    launch counts, iterations, seconds, float64 residual and distance to
+    the plain solve of the same grid;
+30. timing of the new kernels against their plain versions at the SSY
+    cell (the sets the paths ran them on);
+31. a JSON line of per-kernel facts (with each kernel's bound: the
     larger of its FP32 operations over 67 TFLOP/s and its bytes over
     3.35 TB/s, from this run's shapes and iteration counts), then the
     result line ``{"ok": true, "device": {...}}``.
@@ -208,8 +234,22 @@ HBM_BYTES_PER_S = 3.35e12
 _CSRC = "sdfs_via_autodiff_tpu_torch/kernels/csrc/"
 SOURCES = {"streamed_two_phase": _CSRC + "streamed_two_phase.cu",
            "fused_two_matmul": _CSRC + "fused_two_matmul.cu",
-           "post_interp": _CSRC + "post_interp.cu"}
+           "post_interp": _CSRC + "post_interp.cu",
+           "tiled_two_phase": _CSRC + "tiled_two_phase.cu"}
 _JAX_KERNELS = "sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py"
+_JAX_STRIP = "sdfs_via_autodiff_tpu/kernels/tiled_two_phase.py"
+# The normalized tiers (baseline="loglinear") and the strip tier: the
+# strip kernels vs their plain versions at these operand sets (name,
+# model, shapes, method, baseline, lazy_bytes; lazy_bytes 0 runs every
+# batched factor in its lazy form), then at the two cells.
+STRIP_CHECKS = (("ssy", (4, 5, 6, 7), "rouwenhorst", None, None),
+                ("ssy", (4, 5, 6, 7), "rouwenhorst", "loglinear", None),
+                ("ssy", (6, 5, 6, 16), "rouwenhorst", "loglinear", 0),
+                ("gcy", (6, 5, 4, 3, 4, 3), "rouwenhorst", None, None),
+                ("gcy", (6, 5, 4, 3, 4, 3), "rouwenhorst", "loglinear", None),
+                ("gcy", (6, 5, 4, 3, 4, 3), "rouwenhorst", "loglinear", 0))
+MID_CHECKS = ((4, 8, 6, 64), (32, 32, 32, 384))
+MID_SCALE = 0.05            # seeded non-separable mid_col, log units
 REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "pass_c": f"{_JAX_KERNELS}:446",            # _c_kernel
             "pass_b_deferred": f"{_JAX_KERNELS}:384",   # _b_kernel_deferred
@@ -224,9 +264,15 @@ REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "fused_anderson":
                 "sdfs_via_autodiff_tpu/kernels/anderson_kernel.py:36",
             "post_interp":
-                "sdfs_via_autodiff_tpu/kernels/post_interp_kernel.py:58"}
+                "sdfs_via_autodiff_tpu/kernels/post_interp_kernel.py:58",
+            "pass_b_mid": f"{_JAX_KERNELS}:324",        # _b_kernel, has_mid
+            "strip_col": f"{_JAX_STRIP}:170",           # _col_phase_kernel
+            "strip_row": f"{_JAX_STRIP}:195",           # _row_phase_kernel
+            "strip_col_fast": f"{_JAX_STRIP}:226",      # _col_phase_fast_kernel
+            "strip_row_fast": f"{_JAX_STRIP}:259"}      # _row_phase_fast_kernel
 KERNELS = tuple(REPLACES)
 SOURCE_OF = {k: SOURCES["fused_two_matmul" if k.startswith("fused")
+                        else "tiled_two_phase" if k.startswith("strip")
                         else k if k in SOURCES else "streamed_two_phase"]
              for k in KERNELS}
 # (FP32 FLOP, bytes) of each kernel's timed call, filled by the phases.
@@ -284,7 +330,8 @@ def f32_cast(torch, dev):
 
 def gcy_phases(torch, port, st, dev, smi):
     """Phases 7-9 (GCY).  Returns the kernels' max abs errors vs plain,
-    the path's launch counts and (kernel ms, plain ms) per kernel."""
+    the path's launch counts, (kernel ms, plain ms) per kernel and the
+    path's solution (float32 log w*)."""
     model = port.GCY()
     cast = f32_cast(torch, dev)
     eps32 = float(np.finfo(np.float32).eps)
@@ -368,6 +415,7 @@ def gcy_phases(torch, port, st, dev, smi):
     print(f"GCY path f64 residual max|T64(l*) - l*| = {r64:.3e}; "
           f"w* in [{float(w.min()):.3f}, {float(w.max()):.3f}]")
     check(r64 <= GCY_F64_RESIDUAL, f"GCY f64 residual {r64:.3e}")
+    star = ell_star.float()
     del T64, sol, w, ell_star
     torch.cuda.empty_cache()
 
@@ -405,7 +453,7 @@ def gcy_phases(torch, port, st, dev, smi):
     for name, (k_ms, p_ms) in kernels_ms.items():
         print(f"timing {name} {ops.shapes}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms")
-    return max_err, launches, kernels_ms
+    return max_err, launches, kernels_ms, star
 
 
 def fused_sets(torch, port, fd):
@@ -1030,7 +1078,8 @@ def post_interp_phases(torch, port, dev, smi):
         del ell64
     torch.cuda.empty_cache()
 
-    # 19. The path, "post" then "loglin", cold then warm.
+    # 19. The path, "post" (cold only: its 45 Newton iterations take
+    # 67-90 s) then "loglin", cold then warm.
     grids = port.build_grid_ssy(model, *POST_SIZES)
     launches = None
     for interp in ("post", "loglin"):
@@ -1038,7 +1087,7 @@ def post_interp_phases(torch, port, dev, smi):
                                             space="log",
                                             quad_degree=POST_DEGREE,
                                             device=dev)
-        for run in ("cold", "warm"):
+        for run in ("cold",) if interp == "post" else ("cold", "warm"):
             torch.cuda.synchronize()
             pk.LAUNCHES["post_interp"] = 0
             t0 = time.perf_counter()
@@ -1431,6 +1480,359 @@ def ssy_continuous_phases(torch, port, st, dev, smi):
     return max_err, launches, kernels_ms
 
 
+def _operand_set(port, name, shapes, method, baseline, dense=True):
+    """(model, disc, two-phase operand set) of a discrete SSY or GCY grid."""
+    if name == "ssy":
+        model = port.SSY()
+        disc = port.discretize_ssy(model, shapes, method=method)
+        return model, disc, port.two_phase_operands_ssy(model, disc, baseline)
+    model = port.GCY()
+    disc = port.discretize_gcy(model, shapes, method=method)
+    return model, disc, port.two_phase_operands_gcy(model, disc, baseline,
+                                                    dense=dense)
+
+
+def strip_kernel_check(torch, tt, ops, dev, mode, lazy_bytes):
+    """The strip column and row phases vs their plain versions on one
+    operand set, in one mode.  Returns (err_col, err_row, col_args,
+    row_args, ell, mid) for timing."""
+    cast = f32_cast(torch, dev)
+    L, K, n1, n2 = ops.shapes
+    R, C = L * K, n1 * n2
+    th, be = float(ops.theta), float(ops.beta)
+    d = tt.strip_device_operands(
+        ops, tt.LAZY_BYTES if lazy_bytes is None else lazy_bytes, device=dev)
+    rng = np.random.default_rng(SEED)
+    base = (np.log(800.0) if ops.baseline_log_w is None
+            else ops.baseline_log_w)
+    ell = cast(base + 0.02 * rng.standard_normal(ops.shapes)).reshape(
+        R, n1, n2)
+    col_args = (d["W_c1"], d["W_c2"], th, mode, d["sub_row"], d["sub_col"])
+    got = tt.strip_col(ell, *col_args)
+    want = tt.strip_col_plain(ell, *col_args)
+    scale = S = None
+    if mode == "fast":
+        (got, s_k), (want, s) = got, want
+        err_col = float(((got - want).abs() / want.abs()).max())
+        s_err = float((s_k - s).abs().max())
+        check(err_col <= KERNEL_RTOL_LINEAR and s_err <= KERNEL_ATOL,
+              f"strip_col fast {ops.shapes}: max rel err {err_col:.3e}, "
+              f"s {s_err:.3e}")
+        S = s.max().reshape(1)
+        scale = torch.exp(s - S)
+    else:
+        err_col = float((got - want).abs().max())
+        lim = KERNEL_ATOL + float(np.finfo(np.float32).eps) * want.abs()
+        check(bool(((got - want).abs() <= lim).all()),
+              f"strip_col lse {ops.shapes}: max abs err {err_col:.3e}")
+    mid = want.reshape(R, C)
+    del got, want
+    row_args = (scale, S, d["W_r1"], d["W_r2"], d["add_row"], d["add_col"],
+                th, be, mode)
+    got_r = tt.strip_row(mid, *row_args)
+    want_r = tt.strip_row_plain(mid, *row_args)
+    err_row = float((got_r - want_r).abs().max())
+    check(bool(torch.isfinite(got_r).all()) and err_row <= KERNEL_ATOL,
+          f"strip_row {mode} {ops.shapes}: max abs err {err_row:.3e}")
+    torch.cuda.synchronize()
+    return err_col, err_row, col_args, row_args, ell, mid
+
+
+def mid_set(port, shapes):
+    """The conjugated normalized SSY set at ``shapes`` (Tauchen) with a
+    seeded mid_col that is not separable (a random field)."""
+    import dataclasses
+    model = port.SSY()
+    disc = port.discretize_ssy(model, shapes, method="tauchen")
+    conj = port.conjugate_to_shared(
+        port.two_phase_operands_ssy(model, disc, "loglinear"))
+    rng = np.random.default_rng(SEED + 1)
+    return dataclasses.replace(
+        conj, mid_col=MID_SCALE * rng.standard_normal(shapes[2:]))
+
+
+def solve_path(torch, counters, run):
+    """Run ``run()`` (a solve ending in a WCSolution or SolveResult) with
+    every launch count set to 0 just before it; returns (result, seconds,
+    launches)."""
+    torch.cuda.synchronize()
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {}
+    for c in counters:
+        launches.update(c)
+    return out, secs, launches
+
+
+def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
+    """Phases 27-31: the normalized tiers and the strip tier.  Returns the
+    new kernels' max abs errors vs plain, their launch counts on the
+    paths and (kernel ms, plain ms) per kernel; ``plain_star`` holds the
+    plain SSY and GCY solutions (float32 log w*) for comparison."""
+    cast = f32_cast(torch, dev)
+    eps32 = float(np.finfo(np.float32).eps)
+    max_err = {k: 0.0 for k in ("strip_col", "strip_row", "strip_col_fast",
+                                "strip_row_fast", "pass_b_mid")}
+    counters = (st.LAUNCHES, tt.LAUNCHES)
+
+    # 27. The strip kernels vs plain: small sets, then both cells.
+    cells = ((("ssy",) + SHAPES[2] + (None, None)),
+             (("ssy",) + SHAPES[2] + ("loglinear", None)),
+             ("gcy", GCY_SHAPES, GCY_METHOD, None, None),
+             ("gcy", GCY_SHAPES, GCY_METHOD, "loglinear", None))
+    for name, shapes, method, baseline, lazy_bytes in STRIP_CHECKS + cells:
+        _, _, ops = _operand_set(port, name, shapes, method, baseline)
+        small = shapes in (c[1] for c in STRIP_CHECKS)
+        # Fast mode only inside its envelope (the JAX package's rule): a
+        # plain GCY row spans more than float32's exp range (theta = -36;
+        # "auto" is "lse" there), so its single-shift linear field sinks
+        # into subnormals; a normalized set at a cell overflows the linear
+        # chain (its folded factors need the LSE steps).
+        fast_ok = (name == "ssy" or baseline is not None) and (
+            small or baseline is None)
+        modes = ("lse", "fast") if fast_ok else ("lse",)
+        for mode in modes:
+            err_c, err_r, *_ = strip_kernel_check(torch, tt, ops, dev, mode,
+                                                  lazy_bytes)
+            suffix = "_fast" if mode == "fast" else ""
+            max_err["strip_col" + suffix] = max(max_err["strip_col" + suffix],
+                                                err_c)
+            max_err["strip_row" + suffix] = max(max_err["strip_row" + suffix],
+                                                err_r)
+            print(f"strip {name} {shapes} {baseline} lazy_bytes={lazy_bytes} "
+                  f"{mode}: col max {'rel' if mode == 'fast' else 'abs'} err "
+                  f"{err_c:.3e}, row max abs err {err_r:.3e}")
+        del ops
+        torch.cuda.empty_cache()
+
+    # 27b. Pass B's mid_col branch vs plain, and one application of a
+    # mid_col set against its float64 twin.
+    for shapes in MID_CHECKS:
+        ops = mid_set(port, shapes)
+        L, K, I, J = shapes
+        R = L * K
+        rng = np.random.default_rng(SEED)
+        ell = cast(ops.baseline_log_w + 0.02 * rng.standard_normal(shapes))
+        b_args = (cast(ops.W_c1), cast(np.asarray(ops.W_c2).T),
+                  float(ops.theta), "lse",
+                  cast(np.asarray(ops.sub_row).reshape(R)),
+                  cast(ops.sub_col), cast(ops.mid_col))
+        e = ell.reshape(R, I, J)
+        got = st.pass_b(e, *b_args)
+        want = st.pass_b_plain(e, *b_args)
+        err = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= KERNEL_ATOL
+                    + eps32 * want.abs()).all()),
+              f"pass_b mid {shapes}: max abs err {err:.3e}")
+        max_err["pass_b_mid"] = max(max_err["pass_b_mid"], err)
+        T = port.make_tiled_T_log(ops, device=dev)
+        T64 = port.make_eager_two_phase_T(ops, torch.float64, device=dev)
+        app = float((T(ell).double() - T64(ell.double())).abs().max())
+        check(T.engine == "streamed" and T.mode == "lse"
+              and app <= OPERATOR_ATOL,
+              f"mid_col set {shapes}: {T.engine}/{T.mode}, one application "
+              f"vs f64 {app:.3e}")
+        print(f"pass_b mid {shapes}: max abs err {err:.3e}; one application "
+              f"({T.engine}, {T.mode}) vs the float64 twin {app:.3e}")
+        del ops, ell, e, got, want, T, T64
+    torch.cuda.empty_cache()
+
+    # 28. One application at each cell vs the float64 chain, timed.
+    apps_ms = {}
+    model_s, disc_s, _ = _operand_set(port, "ssy", MAIN_SHAPES, MAIN_METHOD,
+                                      None)
+    model_g, disc_g, _ = _operand_set(port, "gcy", GCY_SHAPES, GCY_METHOD,
+                                      None)
+    for label, model, disc, baseline, engine, want_engine in (
+            ("ssy normalized", model_s, disc_s, "loglinear", "auto",
+             "streamed"),
+            ("ssy normalized", model_s, disc_s, "loglinear", "strip",
+             "strip"),
+            ("ssy plain", model_s, disc_s, None, "strip", "strip"),
+            ("gcy normalized", model_g, disc_g, "loglinear", "auto",
+             "streamed-deferred"),
+            ("gcy normalized", model_g, disc_g, "loglinear", "strip",
+             "strip"),
+            ("gcy plain", model_g, disc_g, None, "strip", "strip")):
+        gcy = isinstance(model, port.GCY)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            T = (port.make_tiled_T_log_gcy if gcy
+                 else port.make_tiled_T_log_ssy)(model, disc,
+                                                 baseline=baseline,
+                                                 engine=engine, device=dev)
+            build_s = time.perf_counter() - t0
+        for w in caught:
+            print(f"warning at {label} {engine}: {w.message}")
+        T64 = (port.T_gcy_factory if gcy else port.T_ssy_factory)(
+            model, disc, space="log", baseline=baseline, device=dev)
+        shapes = GCY_SHAPES if gcy else MAIN_SHAPES
+        base = (T64.baseline_log_w if baseline
+                else torch.full(shapes, np.log(800.0), device=dev,
+                                dtype=torch.float64))
+        ell64 = base + torch.as_tensor(
+            noise_field(shapes, SEED) - np.log(800.0), device=dev)
+        x = ell64.float()
+        err = float((T(x).double() - T64(ell64)).abs().max())
+        check(T.engine == want_engine,
+              f"{label} engine={engine} runs {T.engine}, not {want_engine}")
+        check(err <= OPERATOR_ATOL,
+              f"{label} {T.engine} one application vs f64: {err:.3e}")
+        del T64, ell64, base
+        ms_k = time_ms(torch, T, x, n=10)
+        ms_p = time_ms(torch, T.twin, x, n=10)
+        apps_ms[(label, engine)] = (ms_k, ms_p)
+        print(f"operator {label} {shapes} {T.engine}/{T.mode}"
+              f"{' lazy ' + str(T.lazy) if T.engine == 'strip' else ''}: "
+              f"one application vs f64 max abs err {err:.3e}; {ms_k:.4f} ms "
+              f"per application, eager twin {ms_p:.4f} ms; built in "
+              f"{build_s:.2f} s ({smi})")
+        del T, x
+        torch.cuda.empty_cache()
+
+    # 29. The paths, each with every launch count set to 0 just before it.
+    launches = {}
+    tol_g = 1.2 * port.f32_tol_floor(model_g.theta)
+    T64_s = port.T_ssy_factory(model_s, disc_s, space="log", device=dev)
+
+    def report(label, res, secs, got, T64, star, plain, want):
+        ell = star.double()
+        r64 = float((T64(ell) - ell).abs().max())
+        dist = ("" if plain is None else "; max|l*_normalized - l*_plain| "
+                f"{float((star.float() - plain).abs().max()):.3e}")
+        print(f"{label}: {res}, {secs:.3f} s ({smi}); launches {got}; f64 "
+              f"residual {r64:.3e}{dist}")
+        check(res.converged, f"{label} did not converge: {res}")
+        check(bool(torch.isfinite(ell).all()), f"{label}: l* not finite")
+        check(r64 <= MAIN_F64_RESIDUAL, f"{label} f64 residual {r64:.3e}")
+        check(all(got[k] > 0 for k in want),
+              f"{label}: a kernel of the path never launched: {got}")
+        for k in want:
+            launches[k] = got[k]
+
+    for run in ("cold", "warm"):
+        # (a) Normalized SSY, auto: the streamed full configuration with
+        # the fold (B1 has_sub, B2 lse).
+        sol, secs, got = solve_path(torch, counters, lambda: (
+            port.wc_ratio_discrete(model_s, MAIN_SHAPES, kernel="tiled",
+                                   baseline="loglinear",
+                                   discretization=MAIN_METHOD, tol=MAIN_TOL,
+                                   device=dev)))
+        check(got["strip_col"] == 0, "normalized SSY auto ran the strips")
+        report(f"path normalized SSY {MAIN_SHAPES} auto, {run}", sol.result,
+               secs, got, T64_s, torch.log(sol.w_star), plain_star["ssy"],
+               ("pass_b", "pass_c"))
+        del sol
+        # (b) Normalized SSY on the strip tier (B9 lse) end to end.
+        T = port.make_tiled_T_log_ssy(model_s, disc_s, baseline="loglinear",
+                                      engine="strip", device=dev)
+        check(T.engine == "strip", f"strip SSY runs {T.engine}")
+        res, secs, got = solve_path(torch, counters, lambda: port.solve(
+            T, T.baseline_log_w, method="newton", tol=MAIN_TOL))
+        report(f"path normalized SSY {MAIN_SHAPES} strip {T.mode} lazy "
+               f"{T.lazy}, {run}", res, secs, got, T64_s, res.x,
+               plain_star["ssy"], ("strip_col", "strip_row"))
+        del T, res
+        torch.cuda.empty_cache()
+        # (c) Normalized GCY, auto: the deferred configuration with the
+        # fold (B3 <true>, B2 deferred).
+        T64_g = port.T_gcy_factory(model_g, disc_g, space="log", device=dev)
+        sol, secs, got = solve_path(torch, counters, lambda: (
+            port.wc_ratio_discrete(model_g, GCY_SHAPES, kernel="tiled",
+                                   baseline="loglinear",
+                                   discretization=GCY_METHOD, tol=tol_g,
+                                   device=dev)))
+        check(got["strip_col"] == 0, "normalized GCY auto ran the strips")
+        report(f"path normalized GCY {GCY_SHAPES} auto tol {tol_g:.3e}, "
+               f"{run}", sol.result, secs, got, T64_g, torch.log(sol.w_star),
+               plain_star["gcy"], ("pass_b_deferred", "pass_c_deferred"))
+        del sol, T64_g
+        torch.cuda.empty_cache()
+
+    # (d) Plain SSY on the strip tier, fast mode (B9 fast), cold.
+    T = port.make_tiled_T_log_ssy(model_s, disc_s, engine="strip",
+                                  device=dev)
+    check(T.engine == "strip" and T.mode == "fast",
+          f"plain strip SSY runs {T.engine}/{T.mode}")
+    x0 = torch.full(MAIN_SHAPES, np.log(800.0), device=dev)
+    res, secs, got = solve_path(torch, counters, lambda: port.solve(
+        T, x0, method="newton", tol=MAIN_TOL))
+    report(f"path plain SSY {MAIN_SHAPES} strip fast", res, secs, got, T64_s,
+           res.x, plain_star["ssy"], ("strip_col_fast", "strip_row_fast"))
+    del T, res
+    # (e) A conjugated normalized SSY set with a non-separable mid_col at
+    # the cell (B1 mid), cold; checked against its own float64 twin.
+    ops = mid_set(port, MAIN_SHAPES)
+    T = port.make_tiled_T_log(ops, device=dev)
+    T64_m = port.make_eager_two_phase_T(ops, torch.float64, device=dev)
+    res, secs, got = solve_path(torch, counters, lambda: port.solve(
+        T, T.baseline_log_w, method="newton", tol=MAIN_TOL))
+    report(f"path mid_col set {MAIN_SHAPES} ({T.engine}, {T.mode})", res,
+           secs, got, T64_m, res.x, None, ("pass_b_mid",))
+    del T, T64_m, res, T64_s
+    torch.cuda.empty_cache()
+
+    # 30. Timing: each new kernel vs its plain version at the cell the
+    # paths above ran it at.
+    kernels_ms = {}
+    L, K, I, J = MAIN_SHAPES
+    R, C = L * K, I * J
+    field = 4 * R * C
+    _, _, ops_n = _operand_set(port, "ssy", MAIN_SHAPES, MAIN_METHOD,
+                               "loglinear")
+    _, _, ops_p = _operand_set(port, "ssy", MAIN_SHAPES, MAIN_METHOD, None)
+
+    def factor_bytes(W):
+        return 4 * sum(a.numel() for a in (W if isinstance(W, tuple)
+                                           else (W,)))
+
+    for ops, mode in ((ops_n, "lse"), (ops_p, "fast")):
+        _, _, col_args, row_args, ell, mid = strip_kernel_check(
+            torch, tt, ops, dev, mode, None)
+        suffix = "_fast" if mode == "fast" else ""
+        kernels_ms["strip_col" + suffix] = (
+            time_ms(torch, lambda y: tt.strip_col(y, *col_args), ell, n=20),
+            time_ms(torch, lambda y: tt.strip_col_plain(y, *col_args), ell,
+                    n=20))
+        kernels_ms["strip_row" + suffix] = (
+            time_ms(torch, lambda y: tt.strip_row(y, *row_args), mid, n=20),
+            time_ms(torch, lambda y: tt.strip_row_plain(y, *row_args), mid,
+                    n=20))
+        sub_bytes = 4 * (R + C) if ops.has_sub else 0
+        WORK["strip_col" + suffix] = (
+            2 * R * I * J * (I + J),
+            2 * field + factor_bytes(col_args[0]) + factor_bytes(col_args[1])
+            + sub_bytes)
+        WORK["strip_row" + suffix] = (
+            2 * C * R * (L + K),
+            2 * field + 4 * (L * L + K * K + R + C)
+            + (4 * (R + 1) if mode == "fast" else 0))
+        del col_args, row_args, ell, mid
+    ops = mid_set(port, MAIN_SHAPES)
+    rng = np.random.default_rng(SEED)
+    e = cast(ops.baseline_log_w + 0.02 * rng.standard_normal(
+        MAIN_SHAPES)).reshape(R, I, J)
+    b_args = (cast(ops.W_c1), cast(np.asarray(ops.W_c2).T), float(ops.theta),
+              "lse", cast(np.asarray(ops.sub_row).reshape(R)),
+              cast(ops.sub_col), cast(ops.mid_col))
+    kernels_ms["pass_b_mid"] = (
+        time_ms(torch, lambda y: st.pass_b(y, *b_args), e),
+        time_ms(torch, lambda y: st.pass_b_plain(y, *b_args), e))
+    WORK["pass_b_mid"] = (2 * R * (I * I * J + I * J * J),
+                          2 * field + 4 * (I * I + J * J + R + 2 * I * J))
+    for name in max_err:
+        k_ms, p_ms = kernels_ms[name]
+        print(f"timing {name} {MAIN_SHAPES}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms ({smi})")
+    return max_err, launches, kernels_ms
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1441,6 +1843,7 @@ def main() -> None:
     from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
     from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
     from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
+    from sdfs_via_autodiff_tpu_torch.kernels import tiled_two_phase as tt
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -1479,6 +1882,7 @@ def main() -> None:
     st._lib()
     fd._lib()
     pk._lib()
+    tt._lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(p.name for p in paths)}")
     for lib_path in paths:
@@ -1579,6 +1983,7 @@ def main() -> None:
     print(f"main path f64 residual max|T64(l*) - l*| = {r64:.3e}; "
           f"w* in [{float(w.min()):.3f}, {float(w.max()):.3f}]")
     check(r64 <= MAIN_F64_RESIDUAL, f"f64 residual {r64:.3e}")
+    plain_star = {"ssy": ell_star.float()}
     del T64, sol, w, ell_star
 
     # 6. Timing.  The solve above was the process's first: it carries
@@ -1642,7 +2047,8 @@ def main() -> None:
     # 7-9. GCY.
     del T
     torch.cuda.empty_cache()
-    gcy_err, gcy_launches, gcy_ms = gcy_phases(torch, port, st, dev, smi)
+    gcy_err, gcy_launches, gcy_ms, plain_star["gcy"] = gcy_phases(
+        torch, port, st, dev, smi)
     max_err.update(gcy_err)
     launches = {"pass_b": launches["pass_b"], "pass_c": launches["pass_c"],
                 **{k: gcy_launches[k] for k in gcy_err}}
@@ -1688,7 +2094,16 @@ def main() -> None:
     launches.update({k: ssyc_launches[k] for k in ssyc_err})
     kernels_ms.update(ssyc_ms)
 
-    # 27. Result.
+    # 27-31. The normalized tiers and the strip tier.
+    torch.cuda.empty_cache()
+    norm_err, norm_launches, norm_ms = normalized_phases(
+        torch, port, st, tt, dev, smi, plain_star)
+    max_err.update(norm_err)
+    launches.update({k: norm_launches[k] for k in norm_err})
+    kernels_ms.update(norm_ms)
+    del plain_star
+
+    # 32. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:

@@ -11,7 +11,9 @@ versions).  The JAX package ``sdfs_via_autodiff_tpu`` is the reference
 each part is tested against; this package never imports it or JAX.
 
 Ported so far: the discrete SSY and GCY paths,
-``wc_ratio_discrete(SSY() or GCY(), shapes, kernel="tiled")``; the
+``wc_ratio_discrete(SSY() or GCY(), shapes, kernel="tiled")``, plain or
+baseline-normalized (``baseline="loglinear"``), on the streamed or the
+strip kernels (``make_tiled_T_log(..., engine=...)``); the
 continuous SSY and GCY paths, ``wc_ratio_continuous(SSY() or GCY(),
 sizes)``, with the float64 factored operator (quadrature, pre-power
 interpolation), the node chain (the reference's post-power ``"post"``
@@ -33,7 +35,8 @@ from .operators import (SSYDiscretization, discretize_ssy, T_ssy_factory,
                         two_phase_operands_ssy_continuous,
                         two_phase_operands_gcy,
                         two_phase_operands_gcy_continuous,
-                        make_eager_two_phase_T, T_gcy_continuous_factory)
+                        conjugate_to_shared, make_eager_two_phase_T,
+                        T_gcy_continuous_factory)
 from .operators.continuous_ssy import T_ssy_continuous_factory
 from .operators.continuous_common import make_gather_T
 from .operators.post_interp import (ssy_quadrature_nodes, node_basis_ssy,
@@ -41,7 +44,8 @@ from .operators.post_interp import (ssy_quadrature_nodes, node_basis_ssy,
                                     gcy_quadrature_nodes, node_basis_gcy,
                                     make_node_chain_T_gcy)
 from .ops.grids import build_grid_ssy, build_grid_gcy
-from .kernels import (LAUNCHES, FUSED_LAUNCHES, make_streamed_T_log,
+from .kernels import (LAUNCHES, FUSED_LAUNCHES, STRIP_LAUNCHES,
+                      make_streamed_T_log, streamed_coverable, tiled_engine,
                       make_tiled_T_log, make_tiled_T_log_ssy,
                       make_tiled_T_log_ssy_continuous, make_tiled_T_log_gcy,
                       make_tiled_T_log_gcy_continuous,

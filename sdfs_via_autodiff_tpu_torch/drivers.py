@@ -132,21 +132,26 @@ def wc_ratio_discrete(model,
     (``gcy_loglinear_parts(...)["ell0"]``) when ``w_init`` is None.
     ``discretization`` is "rouwenhorst" or "tauchen" (whose grid spans a
     fixed +-3 unconditional std at any point count, making fine float32
-    grids range-safe).  Extra keyword arguments go to the solver; the
-    TPU-only options of the JAX tiled tier are rejected.  A model that is
-    neither SSY nor GCY raises ``TypeError``.
+    grids range-safe).  ``baseline="loglinear"`` runs the normalized
+    operators: the per-axis chain with the log-linear solution folded in
+    (``kernel="xla"``), or the normalized operand sets on the tiled tier
+    (streamed kernels through the conjugated-shared form where they
+    cover it, else the strip kernels); the tiled GCY start is then the
+    operator's own ``T.baseline_log_w``.  Extra keyword arguments go to
+    the solver; the TPU-only options of the JAX tiled tier are rejected.
+    A model that is neither SSY nor GCY raises ``TypeError``.
 
-    Not ported yet, each raising ``NotImplementedError``:
-    ``baseline="loglinear"`` (ROADMAP queue A items 2, 4 and 5),
-    ``polish`` (item 4) and ``checkpoint_path`` (item 10).
+    Not ported yet, each raising ``NotImplementedError``: ``polish``
+    (ROADMAP queue A item 4) and ``checkpoint_path`` (item 10).
     """
     space = space or "log"
     if kernel not in ("xla", "tiled"):
         raise ValueError(f"unknown kernel {kernel!r}")
     if not isinstance(model, (SSY, GCY)):
         raise TypeError(f"unsupported model {type(model).__name__}")
-    for name, value, item in (("baseline", baseline, "items 2, 4 and 5"),
-                              ("polish", polish, "item 4"),
+    if baseline not in (None, "loglinear"):
+        raise ValueError(f"unknown baseline {baseline!r}")
+    for name, value, item in (("polish", polish, "item 4"),
                               ("checkpoint_path", checkpoint_path,
                                "item 10")):
         if value:
@@ -164,19 +169,25 @@ def wc_ratio_discrete(model,
                     if k in solver_opts}
         reject_tpu_options(tpu_opts)
         if gcy:
-            T = make_tiled_T_log_gcy(model, disc, device=dev)
+            T = make_tiled_T_log_gcy(model, disc, baseline=baseline,
+                                     device=dev)
             if w_init is None:
                 # Log-linear warm start: beta = 0.9987 makes cold starts
-                # crawl.
-                w_init = torch.exp(torch.as_tensor(
-                    gcy_loglinear_parts(model, disc)["ell0"],
-                    dtype=torch.float32))
+                # crawl.  The normalized operator already holds it.
+                ell0 = getattr(T, "baseline_log_w", None)
+                if ell0 is None:
+                    ell0 = torch.as_tensor(
+                        gcy_loglinear_parts(model, disc)["ell0"],
+                        dtype=torch.float32)
+                w_init = torch.exp(ell0)
         else:
-            T = make_tiled_T_log_ssy(model, disc, device=dev)
+            T = make_tiled_T_log_ssy(model, disc, baseline=baseline,
+                                     device=dev)
         wdtype = torch.float32
     else:
         factory = T_gcy_factory if gcy else T_ssy_factory
-        T = factory(model, disc, space=space, dtype=dtype, device=dev)
+        T = factory(model, disc, space=space, dtype=dtype,
+                    baseline=baseline, device=dev)
         wdtype = dtype or torch.float64
     w0 = (torch.full(tuple(shapes), DEFAULT_INIT_W, dtype=wdtype, device=dev)
           if w_init is None

@@ -56,10 +56,12 @@ def model_from_fields(d: dict):
 def operands_from_numpy(d: dict) -> TwoPhaseOperands:
     """A :class:`TwoPhaseOperands` from its field dictionary (arrays as
     numpy float64, optional fields None or absent; for a JAX GCY set add
-    its ``perm``, ``inv_perm`` and ``state_shapes`` attributes, and for a
-    continuous-GCY set its ``pair_c2`` and ``pair_shapes``: the set's
-    ``W_c2`` is then the JAX package's broadcast placeholder and is
-    dropped, the port keeps None)."""
+    its ``perm``, ``inv_perm`` and ``state_shapes`` attributes, for a
+    normalized discrete set its ``lazy_c1``, ``lazy_c2`` and
+    ``dense_placeholder``, and for a continuous-GCY set its ``pair_c2``
+    and ``pair_shapes``: the set's ``W_c2`` is then the JAX package's
+    broadcast placeholder and is dropped, the port keeps None).
+    ``mid_col`` is a field of both packages' sets."""
     _check_fields(TwoPhaseOperands, d)
     kw = {}
     for k, v in d.items():
@@ -69,8 +71,10 @@ def operands_from_numpy(d: dict) -> TwoPhaseOperands:
             kw[k] = tuple(int(n) for n in v)
         elif k in ("theta", "beta"):
             kw[k] = float(v)
-        elif k == "pair_c2":
+        elif k in ("pair_c2", "lazy_c1", "lazy_c2"):
             kw[k] = tuple(np.asarray(a, np.float64) for a in v)
+        elif k == "dense_placeholder":
+            kw[k] = bool(v)
         else:
             kw[k] = np.asarray(v, np.float64)
     if kw.get("pair_c2") is not None:

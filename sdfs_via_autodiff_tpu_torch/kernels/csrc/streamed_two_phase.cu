@@ -10,11 +10,11 @@
 //   pass B (column phase), one block per field row r:
 //     a = theta * ell[r] (I, J), or with a folded baseline
 //     a = fma(theta, ell, -sub_row[r]) - sub_col[i, j]; contract i' with
-//     W_c1, then j' with a shared W_c2 (C2_HERE) or not at all (a batched
-//     c2 contracts in pass_c_batched).  Replaces
-//     sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py:324 (_b_kernel)
-//     without the mid_col correction: c2_here both ways, has_sub both
-//     ways.
+//     W_c1, add the conjugated-shared correction mid_col[i, j] (HAS_MID,
+//     lse mode only), then contract j' with a shared W_c2 (C2_HERE) or
+//     not at all (a batched c2 contracts in pass_c_batched).  Replaces
+//     sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py:324 (_b_kernel):
+//     c2_here, has_sub and has_mid both ways.
 //   pass C (row phase), one block per tile of TC consecutive columns
 //     holding all R = L*K rows: contract l' with W_r1, then k' with W_r2,
 //     add add_row[l, k] + add_col[c], epilogue log1p(beta*exp(lh/theta)).
@@ -267,16 +267,20 @@ __host__ __device__ inline int pass_c_smem_floats(int L, int K, int TC) {
   return 2 * L * K * TC + K * TC + TC;
 }
 
-// HAS_SUB: subtract the folded baseline first.  C2_HERE: contract j' with
-// the shared W_c2 after i'; without it the block writes the c1 result
-// (linear in fast mode, log domain in lse mode) and stops.
-template <int MODE, bool HAS_SUB, bool C2_HERE>
+// HAS_SUB: subtract the folded baseline first.  HAS_MID (lse mode): add
+// mid_col[i, j] to the log-domain c1 result, (shift + log) + mid as the
+// TPU kernel rounds it.  C2_HERE: contract j' with the shared W_c2 after
+// i'; without it the block writes the c1 result (linear in fast mode,
+// log domain in lse mode) and stops.
+template <int MODE, bool HAS_SUB, bool C2_HERE, bool HAS_MID>
 __global__ void __launch_bounds__(kPassBThreads)
 pass_b_kernel(const float* __restrict__ ell, const float* __restrict__ w_c1,
               const float* __restrict__ w_c2t,
               const float* __restrict__ sub_row,
-              const float* __restrict__ sub_col, float* __restrict__ mid,
+              const float* __restrict__ sub_col,
+              const float* __restrict__ mid_col, float* __restrict__ mid,
               float* __restrict__ s_out, int I, int J, float theta) {
+  static_assert(!HAS_MID || MODE == kModeLse, "mid_col needs lse mode");
   extern __shared__ float smem[];     // 16-byte aligned base
   const int IJ = I * J, Jp = round_up4(J);
   float* a = smem;                   // (I, J): theta*ell, then exp(a - shift)
@@ -323,7 +327,8 @@ pass_b_kernel(const float* __restrict__ ell, const float* __restrict__ w_c1,
       [&](int i, int m) { return __ldg(w_c1 + i * I + m); },
       [&](int m, int j) { return a[m * J + j]; },
       [&](int i, int j, float v) {
-        const float o = (MODE == kModeFast) ? v : shift[j] + logf(v);
+        float o = (MODE == kModeFast) ? v : shift[j] + logf(v);
+        if (HAS_MID) o += __ldg(mid_col + i * J + j);
         if (C2_HERE) {
           u[i * Jp + j] = o;
         } else {
@@ -1111,41 +1116,34 @@ cudaError_t prepare(Kernel kernel, size_t smem_bytes) {
                               (int)smem_bytes);
 }
 
-template <int MODE, bool HAS_SUB, bool C2_HERE>
-cudaError_t launch_pass_b(const float* ell, const float* w_c1,
-                          const float* w_c2t, const float* sub_row,
-                          const float* sub_col, float* mid, float* s, int R,
-                          int I, int J, float theta, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (size_t)pass_b_smem_floats(I, J);
-  const auto kernel = pass_b_kernel<MODE, HAS_SUB, C2_HERE>;
+// The arguments of one pass-B launch.
+struct PassBArgs {
+  const float *ell, *w_c1, *w_c2t, *sub_row, *sub_col, *mid_col;
+  float *mid, *s;
+  int R, I, J;
+  float theta;
+  cudaStream_t st;
+};
+
+template <int MODE, bool HAS_SUB, bool C2_HERE, bool HAS_MID>
+cudaError_t launch_pass_b(const PassBArgs& a) {
+  const size_t smem = sizeof(float) * (size_t)pass_b_smem_floats(a.I, a.J);
+  const auto kernel = pass_b_kernel<MODE, HAS_SUB, C2_HERE, HAS_MID>;
   const cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<R, kPassBThreads, smem, st>>>(ell, w_c1, w_c2t, sub_row, sub_col,
-                                         mid, s, I, J, theta);
+  kernel<<<a.R, kPassBThreads, smem, a.st>>>(a.ell, a.w_c1, a.w_c2t,
+                                             a.sub_row, a.sub_col, a.mid_col,
+                                             a.mid, a.s, a.I, a.J, a.theta);
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t dispatch_pass_b(const float* ell, const float* w_c1,
-                            const float* w_c2t, const float* sub_row,
-                            const float* sub_col, float* mid, float* s,
-                            int R, int I, int J, float theta,
-                            cudaStream_t st) {
-  const bool sub = sub_row != nullptr, c2 = w_c2t != nullptr;
-  if (sub && c2)
-    return launch_pass_b<MODE, true, true>(ell, w_c1, w_c2t, sub_row,
-                                           sub_col, mid, s, R, I, J, theta,
-                                           st);
-  if (sub)
-    return launch_pass_b<MODE, true, false>(ell, w_c1, w_c2t, sub_row,
-                                            sub_col, mid, s, R, I, J, theta,
-                                            st);
-  if (c2)
-    return launch_pass_b<MODE, false, true>(ell, w_c1, w_c2t, sub_row,
-                                            sub_col, mid, s, R, I, J, theta,
-                                            st);
-  return launch_pass_b<MODE, false, false>(ell, w_c1, w_c2t, sub_row, sub_col,
-                                           mid, s, R, I, J, theta, st);
+template <int MODE, bool HAS_MID>
+cudaError_t dispatch_pass_b(const PassBArgs& a) {
+  const bool sub = a.sub_row != nullptr, c2 = a.w_c2t != nullptr;
+  if (sub && c2) return launch_pass_b<MODE, true, true, HAS_MID>(a);
+  if (sub) return launch_pass_b<MODE, true, false, HAS_MID>(a);
+  if (c2) return launch_pass_b<MODE, false, true, HAS_MID>(a);
+  return launch_pass_b<MODE, false, false, HAS_MID>(a);
 }
 
 template <bool FAST>
@@ -1177,21 +1175,21 @@ extern "C" {
 
 // Pass B over R field rows of ell (R, I, J).  w_c1 (I, I); w_c2t (J, J)
 // = W_c2 transposed, or null for c1 only; sub_row (R,) and sub_col (I, J)
-// both given (the folded baseline) or both null; mid (R, I, J); s (R,)
-// written in fast mode only.
+// both given (the folded baseline) or both null; mid_col (I, J) or null
+// (lse mode only); mid (R, I, J); s (R,) written in fast mode only.
 int sdfs_pass_b(const float* ell, const float* w_c1, const float* w_c2t,
-                const float* sub_row, const float* sub_col, float* mid,
-                float* s, int R, int I, int J, float theta, int mode,
-                void* stream) {
+                const float* sub_row, const float* sub_col,
+                const float* mid_col, float* mid, float* s, int R, int I,
+                int J, float theta, int mode, void* stream) {
   if ((sub_row == nullptr) != (sub_col == nullptr))
     return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == kModeFast)
-    return dispatch_pass_b<kModeFast>(ell, w_c1, w_c2t, sub_row, sub_col,
-                                      mid, s, R, I, J, theta, st);
+  const PassBArgs a{ell, w_c1, w_c2t, sub_row, sub_col, mid_col, mid, s,
+                    R, I, J, theta, static_cast<cudaStream_t>(stream)};
+  if (mode == kModeFast && mid_col == nullptr)
+    return dispatch_pass_b<kModeFast, false>(a);
   if (mode == kModeLse)
-    return dispatch_pass_b<kModeLse>(ell, w_c1, w_c2t, sub_row, sub_col, mid,
-                                     s, R, I, J, theta, st);
+    return mid_col == nullptr ? dispatch_pass_b<kModeLse, false>(a)
+                              : dispatch_pass_b<kModeLse, true>(a);
   return cudaErrorInvalidValue;
 }
 

@@ -12,6 +12,10 @@ subtracted in pass B in each of them but the deferred one.
     pass B (column phase):  ell (R, I, J) -> midway field (R, I, J)
     pass C (row phase):     midway field (R, C) -> log T(w) (R, C)
 
+A conjugated-shared set's ``mid_col`` (:func:`..operators.two_phase.
+conjugate_to_shared`) is added in pass B between its c1 and c2
+contractions, in lse mode ("full" and "batched" configurations).
+
 Mode "fast" takes one shift per field row in pass B and carries the
 midway field linearly, with the rescale ``exp(s - max s)`` computed on
 the device between the passes; mode "lse" shifts per axis at every
@@ -43,6 +47,9 @@ dispatcher (``pass_b``, ...): a CPU tensor goes to the plain version, a
 CUDA tensor to the kernel in ``csrc/streamed_two_phase.cu`` (built from
 source at first use) or to an error.  ``LAUNCHES`` counts the kernel
 launches.
+
+A batched operand set (the baseline-normalized discrete sets) runs here
+when its conjugated-shared form is covered (:func:`streamed_coverable`).
 """
 
 from __future__ import annotations
@@ -54,10 +61,12 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..operators.two_phase import TwoPhaseOperands, make_eager_two_phase_T
+from ..operators.two_phase import (TwoPhaseOperands, conjugate_to_shared,
+                                   make_eager_two_phase_T)
 from . import _build
 
 __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
+           "streamed_coverable", "streamed_accepts", "streamed_mode",
            "pass_c_batched", "pass_c_batched_plain", "pass_b_deferred",
            "pass_b_deferred_plain", "pass_c_deferred",
            "pass_c_deferred_plain", "pass_c_pair", "pass_c_pair_plain",
@@ -67,10 +76,10 @@ __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
 # Kernel launches per pass since the last reset (the wrappers add one per
 # launch; the plain versions never count).  Pass B counts its c1-only
 # branch apart, with and without a folded baseline ("pass_b_c1",
-# "pass_b_c1_sub"), and the batched pass C its two modes ("pass_c_batched"
-# fast, "pass_c_batched_lse").
-LAUNCHES = {"pass_b": 0, "pass_b_c1": 0, "pass_b_c1_sub": 0, "pass_c": 0,
-            "pass_c_batched": 0, "pass_c_batched_lse": 0,
+# "pass_b_c1_sub"), and its mid_col branch ("pass_b_mid"); the batched
+# pass C its two modes ("pass_c_batched" fast, "pass_c_batched_lse").
+LAUNCHES = {"pass_b": 0, "pass_b_c1": 0, "pass_b_c1_sub": 0, "pass_b_mid": 0,
+            "pass_c": 0, "pass_c_batched": 0, "pass_c_batched_lse": 0,
             "pass_b_deferred": 0, "pass_c_deferred": 0, "pass_c_pair": 0}
 
 _MODES = {"fast": 0, "lse": 1}
@@ -162,12 +171,13 @@ def streamed_config(ops: TwoPhaseOperands) -> Optional[str]:
     index (continuous SSY) when a field row's (I, J) group fits a pass-B
     block and the deferred pass-C tiles fit; for shared factors "full"
     when the (I, J) group fits a pass-B block and the pass-C tile fits,
-    else, without a baseline, "deferred" when the deferred passes' blocks
-    fit; else None (batched c1 factors, mid_col corrections, a baseline
-    on a deferred set, or blocks beyond shared memory or the grid: not
-    covered)."""
+    else "deferred" when the deferred passes' blocks fit; else None
+    (batched c1 factors, mid_col corrections on a pair or deferred set,
+    or blocks beyond shared memory or the grid: not covered).  A
+    batched set may still be covered through its conjugated-shared form
+    (:func:`streamed_coverable`)."""
     L, K, I, J = ops.shapes
-    if ops.c1_batched or ops.has_mid:
+    if ops.c1_batched or (ops.has_mid and ops.is_pair):
         return None
     if ops.is_pair:
         n_i, n_y, n_b, n_j = ops.pair_shapes
@@ -184,7 +194,7 @@ def streamed_config(ops: TwoPhaseOperands) -> Optional[str]:
         return None
     if row_block and pass_c_tile(L * K, K) is not None:
         return "full"
-    if (not ops.has_sub and pass_b_deferred_smem_bytes(I) <= SMEM_LIMIT
+    if (not ops.has_mid and pass_b_deferred_smem_bytes(I) <= SMEM_LIMIT
             and pass_c_deferred_tiles(L, K) is not None
             and max(L * K, I) <= _GRID_Y_MAX):
         return "deferred"
@@ -197,9 +207,81 @@ def streamed_supported(ops: TwoPhaseOperands) -> bool:
     return streamed_config(ops) is not None
 
 
+def streamed_coverable(ops: TwoPhaseOperands) -> Optional[TwoPhaseOperands]:
+    """The operand set the streamed kernels would run for ``ops``: ``ops``
+    itself, its conjugated-shared form when that lifts a batched factor
+    into coverage, or None."""
+    if streamed_supported(ops):
+        return ops
+    if ops.c1_batched or ops.c2_batched:
+        conj = conjugate_to_shared(ops)
+        if conj is not None and conj is not ops and streamed_supported(conj):
+            return conj
+    return None
+
+
+def _warn_conjugated_f32_floor(conj: TwoPhaseOperands,
+                               floor: float = -150.0) -> None:
+    """Accuracy-envelope warning for conjugated-shared operand sets.
+
+    The shared column factors are float32 linear-space matrices, so
+    entries whose log lies below float32's floor flush to zero; the
+    conjugation's sub/add corrections (hundreds of log units on
+    wide-Rouwenhorst GCY grids) can make those entries significant again.
+    The JAX package measured the one-application sup error against
+    float64 at 1.3e-6 for a factor log-range of -144, 1.8e-4 at -182 and
+    0.22 at -221: warn past -150."""
+    import warnings
+    lo = 0.0
+    for W in (conj.W_c1, conj.W_c2):
+        W = np.asarray(W, np.float64)
+        pos = W[W > 0]
+        if pos.size:
+            lo = min(lo, float(np.log(pos.min())))
+    if lo < floor:
+        warnings.warn(
+            f"conjugated-shared factors span e^{lo:.0f}..e^0: entries "
+            "below float32's representable floor flush to zero, and the "
+            "conjugation corrections can make them significant — f32 "
+            "accuracy degrades on this grid (measured: ~1e-6 sup error "
+            "at factor log-range -144, 1.8e-4 at -182, 0.22 at -221). "
+            "Use the per-axis normalized chain (kernel='xla', "
+            "baseline='loglinear'), discretization='tauchen', or "
+            "float64.", stacklevel=3)
+
+
 def _check_mode(mode: str) -> None:
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r} (choose 'fast' or 'lse')")
+
+
+def _lse_only(ops: TwoPhaseOperands) -> bool:
+    """The deferred and pair configurations and a set with ``mid_col``
+    run per-axis LSE only (the single-shift fast mode is unsafe at their
+    column-group spans)."""
+    return streamed_config(ops) in ("deferred", "pair") or ops.has_mid
+
+
+def streamed_accepts(ops: TwoPhaseOperands, mode: str) -> bool:
+    """False when ``mode`` is "fast" and the covered set runs per-axis LSE
+    only."""
+    return not (mode == "fast" and _lse_only(ops))
+
+
+def streamed_mode(ops: TwoPhaseOperands, mode: str) -> str:
+    """The mode the streamed kernels run a covered set in: "auto" is
+    "lse" for a set with a folded baseline or ``mid_col`` and for the
+    deferred and pair configurations, "fast" otherwise.  Raises
+    ``ValueError`` for "fast" where only "lse" is safe."""
+    if mode == "auto":
+        return "lse" if (_lse_only(ops) or ops.has_sub) else "fast"
+    _check_mode(mode)
+    if not streamed_accepts(ops, mode):
+        raise ValueError(
+            "deferred-c2 and pair operand sets and mid_col corrections run "
+            "per-axis LSE only (the single-shift fast mode is unsafe at "
+            "their column-group spans)")
+    return mode
 
 
 # --------------------------------------------------------------- pass B
@@ -225,14 +307,20 @@ def _folded(ell, theta: float, sub_row, sub_col):
         ell.dtype) - sub_col[None, :, :]
 
 
+def _check_mid(mode: str, mid_col) -> None:
+    if mid_col is not None and mode != "lse":
+        raise ValueError("mid_col (conjugated-shared) operands need the lse "
+                         "mode")
+
+
 def pass_b_plain(ell, W_c1, W_c2t, theta: float, mode: str, sub_row=None,
-                 sub_col=None):
+                 sub_col=None, mid_col=None):
     """Column phase of ``ell`` (R, I, J): a = theta*ell (less the folded
     baseline ``sub_row`` (R,), ``sub_col`` (I, J), both or neither, see
-    :func:`_folded`); contract i' with ``W_c1`` (I, I), then j' with
-    ``W_c2t`` (J', J) = W_c2 transposed, or not at all when ``W_c2t`` is
-    None (a c2 factor batched over i contracts in
-    :func:`pass_c_batched`).
+    :func:`_folded`); contract i' with ``W_c1`` (I, I), add ``mid_col``
+    (I, J) when given (lse mode only), then contract j' with ``W_c2t``
+    (J', J) = W_c2 transposed, or not at all when ``W_c2t`` is None (a c2
+    factor batched over i contracts in :func:`pass_c_batched`).
 
     fast: returns (mid, s) with s (R, 1) = max over the row's (I, J) of
     a and mid = W_c1 exp(a - s) [W_c2^T] (linear).
@@ -240,6 +328,7 @@ def pass_b_plain(ell, W_c1, W_c2t, theta: float, mode: str, sub_row=None,
     """
     _check_mode(mode)
     _check_sub(sub_row, sub_col)
+    _check_mid(mode, mid_col)
     a = _folded(ell, theta, sub_row, sub_col)
     if mode == "fast":
         s = torch.amax(a, dim=(1, 2), keepdim=True)
@@ -249,6 +338,8 @@ def pass_b_plain(ell, W_c1, W_c2t, theta: float, mode: str, sub_row=None,
         return u, s.reshape(-1, 1)
     m = torch.amax(a, dim=1, keepdim=True)
     a = m + torch.log(torch.matmul(W_c1, torch.exp(a - m)))
+    if mid_col is not None:
+        a = a + mid_col
     if W_c2t is None:
         return a
     m = torch.amax(a, dim=2, keepdim=True)
@@ -259,7 +350,8 @@ def _lib():
     lib = _build.load("streamed_two_phase")
     if not getattr(lib, "_sdfs_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sdfs_pass_b.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, p]
+        lib.sdfs_pass_b.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i,
+                                    p]
         lib.sdfs_pass_b.restype = i
         lib.sdfs_pass_c.argtypes = [p, p, p, p, p, p, p, p,
                                     i, i, i, i, f, f, i, p]
@@ -303,7 +395,7 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _pass_b_cuda(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col):
+def _pass_b_cuda(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col, mid_col):
     R, I, J = ell.shape
     dev = ell.device
     _check("ell", ell, dev, (R, I, J))
@@ -313,6 +405,8 @@ def _pass_b_cuda(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col):
     if sub_row is not None:
         _check("sub_row", sub_row, dev, (R,))
         _check("sub_col", sub_col, dev, (I, J))
+    if mid_col is not None:
+        _check("mid_col", mid_col, dev, (I, J))
     if pass_b_smem_bytes(I, J) > SMEM_LIMIT:
         raise ValueError(f"pass B block (I, J) = ({I}, {J}) exceeds "
                          "shared memory")
@@ -323,11 +417,13 @@ def _pass_b_cuda(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdfs_pass_b(_ptr(ell), _ptr(W_c1), _ptr(W_c2t),
-                             _ptr(sub_row), _ptr(sub_col), _ptr(mid),
-                             _ptr(s), R, I, J, float(theta), _MODES[mode],
-                             ctypes.c_void_p(stream))
+                             _ptr(sub_row), _ptr(sub_col), _ptr(mid_col),
+                             _ptr(mid), _ptr(s), R, I, J, float(theta),
+                             _MODES[mode], ctypes.c_void_p(stream))
     _raise_on(lib, rc, "pass B")
-    if W_c2t is not None:
+    if mid_col is not None:
+        LAUNCHES["pass_b_mid"] += 1
+    elif W_c2t is not None:
         LAUNCHES["pass_b"] += 1
     else:
         LAUNCHES["pass_b_c1" if sub_row is None else "pass_b_c1_sub"] += 1
@@ -335,16 +431,19 @@ def _pass_b_cuda(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col):
 
 
 def pass_b(ell, W_c1, W_c2t, theta: float, mode: str, sub_row=None,
-           sub_col=None):
+           sub_col=None, mid_col=None):
     """Pass B on the tensors' device: the plain version for CPU tensors,
     the CUDA kernel for CUDA tensors (same arguments and results as
     :func:`pass_b_plain`)."""
     _check_mode(mode)
     _check_sub(sub_row, sub_col)
+    _check_mid(mode, mid_col)
     if ell.device.type == "cpu":
-        return pass_b_plain(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col)
+        return pass_b_plain(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col,
+                            mid_col)
     if ell.device.type == "cuda":
-        return _pass_b_cuda(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col)
+        return _pass_b_cuda(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col,
+                            mid_col)
     raise ValueError(f"no pass-B kernel for device {ell.device}")
 
 
@@ -750,22 +849,29 @@ def pass_c_pair(mid, P_zpi, PzT, W_r1, W_r2, add_row, add_col, theta: float,
 def make_streamed_T_log(ops: TwoPhaseOperands,
                         dtype: torch.dtype = torch.float32,
                         mode: str = "auto", *,
-                        device="cuda") -> Callable:
+                        device="cuda",
+                        covered: Optional[TwoPhaseOperands] = None
+                        ) -> Callable:
     """Streamed two-pass operator ell (4-D field) -> log T(w) from a
     two-phase operand set, in the configuration :func:`streamed_config`
-    picks.
+    picks for the set or, for a batched set, for its conjugated-shared
+    form (:func:`streamed_coverable`; a warning when that form's factors
+    reach below float32's floor).  An uncovered set raises
+    ``ValueError``.  ``covered`` passes a coverable set already computed
+    for ``ops`` (the conjugation is host work worth doing once).
 
     mode "fast": one shift per field row (exact whenever the iterate's
     theta-range within a row fits exp's f32 range — plain SSY operands);
     "lse": per-axis log-sum-exp shifts; "auto" picks "lse" for a set with
     a folded baseline (whose LSE steps renormalize the folded factors)
     and for the deferred and pair configurations, "fast" otherwise.  The
-    deferred and pair configurations run per-axis LSE only (the
-    single-shift fast mode is unsafe at their column-group spans:
-    ``mode="fast"`` raises ``ValueError`` there).
+    deferred and pair configurations, and a set with ``mid_col``, run
+    per-axis LSE only (``mode="fast"`` raises ``ValueError`` there).
 
     The returned ``T`` carries ``T.twin`` (the eager evaluator of the same
-    math, :func:`..operators.two_phase.make_eager_two_phase_T`), ``T.mode``
+    math, of the conjugated set when one runs, so that the tangent keeps
+    shared factors: :func:`..operators.two_phase.make_eager_two_phase_T`),
+    ``T.mode``
     and ``T.engine`` ("streamed" for the full and batched configurations,
     "streamed-deferred" or "streamed-pair": the JAX package's names), and
     for a set with a folded baseline
@@ -775,20 +881,20 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
     """
     if dtype != torch.float32:
         raise ValueError("the streamed kernels are the float32 tier")
-    config = streamed_config(ops)
-    if config is None:
-        raise NotImplementedError(
-            "operand set not covered by the streamed kernels (batched c1 "
-            "factors, mid_col corrections, or blocks beyond shared memory "
-            f"at shapes {ops.shapes}); see ROADMAP A3 and queue B")
-    deferred, pair = config == "deferred", config == "pair"
-    if mode == "auto":
-        mode = "lse" if (deferred or pair or ops.has_sub) else "fast"
-    _check_mode(mode)
-    if (deferred or pair) and mode == "fast":
+    if covered is None:
+        covered = streamed_coverable(ops)
+    if covered is None:
         raise ValueError(
-            "deferred-c2 and pair operand sets run per-axis LSE only (the "
-            "single-shift fast mode is unsafe at their column-group spans)")
+            "operand set not covered by the streamed kernels (batched "
+            "factors without a conjugated-shared form, mid_col on a pair "
+            f"or deferred set, or blocks beyond shared memory at shapes "
+            f"{ops.shapes}); use make_tiled_T_log")
+    mode = streamed_mode(covered, mode)
+    if covered is not ops:
+        _warn_conjugated_f32_floor(covered)
+    ops = covered
+    config = streamed_config(ops)
+    deferred, pair = config == "deferred", config == "pair"
     dev = resolve_device(device)
     L, K, I, J = ops.shapes
     R, C = L * K, I * J
@@ -803,6 +909,7 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
     if ops.has_sub:
         sub_row = cast(np.asarray(ops.sub_row).reshape(R))
         sub_col = cast(ops.sub_col)
+    mid_col = cast(ops.mid_col) if ops.has_mid else None
     if pair:
         P_zpi, PzT = pair_device_operands(ops, dtype, device=dev)
     else:
@@ -820,13 +927,13 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
             out = pass_c_pair(mid.reshape(R, C), P_zpi, PzT, W_r1, W_r2,
                               add_row, add_col, theta, beta)
         elif deferred:
-            mid = pass_b_deferred(e, W_c1t, theta)
+            mid = pass_b_deferred(e, W_c1t, theta, sub_row, sub_col)
             out = pass_c_deferred(mid.reshape(R, C), W_c2t, W_r1, W_r2,
                                   add_row, add_col, theta, beta)
         else:
             batched = config == "batched"
             b = pass_b(e, W_c1, None if batched else W_c2t, theta, mode,
-                       sub_row, sub_col)
+                       sub_row, sub_col, mid_col)
             scale = S = None
             if mode == "fast":
                 b, s = b

@@ -1,39 +1,86 @@
 """Tiled fast tier of the two-phase log-space operators.
 
-PyTorch port of the dispatch in
-``sdfs_via_autodiff_tpu/kernels/tiled_two_phase.py``: ``make_tiled_T_log``
-runs an operand set through the streamed kernels
-(:mod:`.streamed_two_phase`); ``make_tiled_T_log_ssy``,
+PyTorch port of ``sdfs_via_autodiff_tpu/kernels/tiled_two_phase.py``: the
+strip tier (hand-written CUDA in ``csrc/tiled_two_phase.cu``) and the
+dispatch between it and the streamed kernels (:mod:`.streamed_two_phase`).
+``make_tiled_T_log`` runs an operand set through the streamed kernels when
+they cover it or its conjugated-shared form and the mode asked for, else
+through the strip kernels; ``make_tiled_T_log_ssy``,
 ``make_tiled_T_log_ssy_continuous``, ``make_tiled_T_log_gcy`` and
 ``make_tiled_T_log_gcy_continuous`` build the operand sets of discrete
-SSY, continuous SSY, discrete GCY and continuous GCY.  The
-JAX package's strip tier, which covers the operand sets the streamed
-kernels decline under the TPU compiler's layout rules, is not ported
-(ROADMAP queue B item 9): an uncovered operand set raises
-``NotImplementedError``.
+SSY, continuous SSY, discrete GCY and continuous GCY.
+
+The strip tier, one application in two phases:
+
+    column phase (``strip_col``): ell (R, n1, n2) -> midway field: c1 then
+        c2 contracted, each factor shared or batched (W_c1 over the next
+        c2 index, W_c2 over the current c1 index), dense or lazy
+        (``W[b] = exp(logW0 + sum_k t[k, b] D[k])``);
+    row phase (``strip_row``): midway field (R, C) -> log T(w): r1 then r2
+        contracted, the additive terms and the epilogue.
+
+Mode "lse" shifts per axis at every contraction; "fast" takes one shift
+per field row in the column phase (emitting it), carries the field
+linearly and rescales rows by ``exp(s - max s)`` in the row phase.  Each
+phase has a plain PyTorch version (``strip_col_plain``,
+``strip_row_plain``) and a dispatcher: a CPU tensor goes to the plain
+version, a CUDA tensor to the kernels (built from source at first use) or
+to an error.  ``LAUNCHES`` counts the kernel launches per phase (the
+column phase is one shift reduction and one contraction per column axis,
+counted once).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import ctypes
+from typing import Callable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
-from ..operators.two_phase import (TwoPhaseOperands, two_phase_operands_gcy,
+from ..config import resolve_device
+from ..operators.two_phase import (TwoPhaseOperands, make_eager_two_phase_T,
+                                   two_phase_operands_gcy,
                                    two_phase_operands_gcy_continuous,
                                    two_phase_operands_ssy,
                                    two_phase_operands_ssy_continuous)
-from .streamed_two_phase import make_streamed_T_log, streamed_supported
+from . import _build
+from .streamed_two_phase import (_GRID_Y_MAX, _SM_SMEM, _BLOCK_RESERVED,
+                                 SMEM_LIMIT, _check, _check_mode, _check_sub,
+                                 _folded, _ptr, make_streamed_T_log,
+                                 streamed_accepts, streamed_coverable,
+                                 streamed_mode)
 
-__all__ = ["TPU_ONLY_OPTIONS", "reject_tpu_options", "make_tiled_T_log",
+__all__ = ["TPU_ONLY_OPTIONS", "reject_tpu_options", "LAUNCHES",
+           "strip_col", "strip_col_plain", "strip_row", "strip_row_plain",
+           "strip_row_tile", "strip_device_operands", "tiled_engine",
+           "make_tiled_T_log",
            "make_tiled_T_log_ssy", "make_tiled_T_log_ssy_continuous",
            "make_tiled_T_log_gcy", "make_tiled_T_log_gcy_continuous"]
 
 # Options of the JAX tiled tier that exist only for the TPU (bf16 "3x"
-# contraction splits, software transcendentals, VMEM budgets, tier
-# selection, interpret mode).  ROADMAP "Do not port" lists why.
+# contraction splits, software transcendentals, VMEM budgets, interpret
+# mode).  ROADMAP "Do not port" lists why.
 TPU_ONLY_OPTIONS = ("precision", "transcendentals", "strip_bytes",
-                    "lazy_bytes", "engine", "twin_precision", "interpret")
+                    "twin_precision", "interpret")
+
+# Kernel launches per strip phase since the last reset (the wrappers add
+# one per phase; the plain versions never count).
+LAUNCHES = {"strip_col": 0, "strip_col_fast": 0, "strip_row": 0,
+            "strip_row_fast": 0}
+
+_MODES = {"fast": 0, "lse": 1}
+# Batched column factors above this many float32 bytes run in their lazy
+# form when the set has one (the JAX package's default).
+LAZY_BYTES = 6 * 1024 * 1024
+_STRIP_ROW_TILES = (64, 32, 16, 8, 4, 2, 1)
+# Field rows per column-phase block (the .cu's kBQ).
+_STRIP_COL_ROWS = 32
+_CONTRACT_IN = {"fold_exp": 0, "exp": 1, "linear": 2}
+
+# A column factor: a (n, n) or (B, n, n) tensor, or the lazy triple
+# (logW0 (n, n), D (K, n, n), t (K, B)).
+Factor = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
 def reject_tpu_options(options: dict) -> None:
@@ -49,38 +96,456 @@ def reject_tpu_options(options: dict) -> None:
                         f"{', '.join(sorted(options))}")
 
 
+# ------------------------------------------------------- plain versions
+
+def _slices(W: Factor) -> torch.Tensor:
+    """A factor as one dense tensor: itself, or every slice of a lazy
+    triple, ``exp(logW0 + t[0, b] D[0] + t[1, b] D[1] + ...)`` in that
+    order (the JAX kernel's ``_slice_W``)."""
+    if not isinstance(W, tuple):
+        return W
+    log0, D, t = W
+    a = log0[None]
+    for k in range(D.shape[0]):
+        a = a + t[k][:, None, None] * D[k][None]
+    return torch.exp(a)
+
+
+def strip_col_plain(ell, W_c1: Factor, W_c2: Factor, theta: float,
+                    mode: str, sub_row=None, sub_col=None):
+    """Column phase of ``ell`` (R, n1, n2): a = theta*ell (less the folded
+    baseline ``sub_row`` (R,), ``sub_col`` (n1, n2), both or neither, one
+    fused multiply-add as in pass B); contract i' with ``W_c1`` ((n1, n1)
+    shared, (n2, n1, n1) batched over the next j, or its lazy triple),
+    then j' with ``W_c2`` ((n2, n2), (n1, n2, n2) batched over the current
+    i, or lazy).
+
+    fast: returns (mid, s), s (R, 1) the max of a over the row and mid the
+    linear c2(c1(exp(a - s))).
+    lse:  returns the log-domain mid with per-axis shifts (max over i'
+    before c1, max over j' before c2).
+    """
+    _check_mode(mode)
+    _check_sub(sub_row, sub_col)
+    W1, W2 = _slices(W_c1), _slices(W_c2)
+    c1 = "im,tmj->tij" if W1.dim() == 2 else "jim,tmj->tij"
+    c2 = "jm,tim->tij" if W2.dim() == 2 else "ijm,tim->tij"
+    a = _folded(ell, theta, sub_row, sub_col)
+    if mode == "fast":
+        s = torch.amax(a, dim=(1, 2), keepdim=True)
+        u = torch.einsum(c1, W1, torch.exp(a - s))
+        return torch.einsum(c2, W2, u), s.reshape(-1, 1)
+    m = torch.amax(a, dim=1, keepdim=True)
+    a = m + torch.log(torch.einsum(c1, W1, torch.exp(a - m)))
+    m = torch.amax(a, dim=2, keepdim=True)
+    return m + torch.log(torch.einsum(c2, W2, torch.exp(a - m)))
+
+
+def strip_row_plain(mid, scale, S, W_r1, W_r2, add_row, add_col,
+                    theta: float, beta: float, mode: str):
+    """Row phase of ``mid`` (R, C), R = L*K: contract l' with ``W_r1``
+    (L, L), then k' with ``W_r2`` (K, K), add ``add_row`` (L, K) and
+    ``add_col`` (C,), and apply the epilogue log1p(beta*exp(lh/theta)).
+
+    fast: ``mid`` is linear; row r is rescaled by ``scale`` (R, 1) =
+    exp(s - S) first and ``S`` (1,) is added back after the log.
+    lse:  ``mid`` is log-domain; shift m1 = max over l before the l'
+    contraction, log, then m2 = max over k before the k' contraction
+    (``scale`` and ``S`` unused).
+    """
+    _check_mode(mode)
+    L, K = W_r1.shape[0], W_r2.shape[0]
+    R, C = mid.shape
+    if mode == "fast":
+        y = torch.matmul(W_r1, (mid * scale).reshape(L, K * C))
+        z = torch.matmul(W_r2, y.reshape(L, K, C))
+        lh = S + torch.log(z)
+    else:
+        x = mid.reshape(L, K, C)
+        m1 = torch.amax(x, dim=0, keepdim=True)               # (1, K, C)
+        y = m1 + torch.log(torch.matmul(
+            W_r1, torch.exp(x - m1).reshape(L, K * C)).reshape(L, K, C))
+        m2 = torch.amax(y, dim=1, keepdim=True)               # (L, 1, C)
+        lh = m2 + torch.log(torch.matmul(W_r2, torch.exp(y - m2)))
+    lh = lh + add_row[:, :, None] + add_col[None, None, :]
+    return torch.log1p(beta * torch.exp(lh / theta)).reshape(R, C)
+
+
+# ---------------------------------------------------------- CUDA kernels
+
+def _lib():
+    lib = _build.load("tiled_two_phase")
+    if not getattr(lib, "_sdfs_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        ll = ctypes.c_longlong
+        lib.sdfs_strip_midmax.argtypes = [p, p, p, f, p, i, i, i, p]
+        lib.sdfs_strip_midmax.restype = i
+        lib.sdfs_strip_rowmax.argtypes = [p, p, p, f, i, p, i, i, p]
+        lib.sdfs_strip_rowmax.restype = i
+        lib.sdfs_strip_contract.argtypes = [
+            p, ll, ll, ll, p, p, f, p, ll, ll, p, ll, p, p, p, i, p, ll, ll,
+            ll, i, i, i, i, i, i, p]
+        lib.sdfs_strip_contract.restype = i
+        lib.sdfs_strip_row.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                       f, f, i, p]
+        lib.sdfs_strip_row.restype = i
+        lib.sdfs_strip_error_string.argtypes = [i]
+        lib.sdfs_strip_error_string.restype = ctypes.c_char_p
+        lib._sdfs_typed = True
+    return lib
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.sdfs_strip_error_string(rc).decode()} "
+                           f"({rc})")
+
+
+def _check_factor(name: str, W: Factor, dev, n: int, B: int):
+    """Validate a column factor for the kernels; returns (dense tensor or
+    None, batch stride, lazy triple or None)."""
+    if isinstance(W, tuple):
+        log0, D, t = W
+        K = D.shape[0] if D.dim() == 3 else -1
+        _check(f"{name} logW0", log0, dev, (n, n))
+        _check(f"{name} D", D, dev, (K, n, n))
+        _check(f"{name} t", t, dev, (K, B))
+        return None, 0, W
+    if W.dim() == 2:
+        _check(name, W, dev, (n, n))
+        return W, 0, None
+    _check(name, W, dev, (B, n, n))
+    return W, n * n, None
+
+
+def _contract(lib, stream, src, strides, fold, sh, sh_strides, factor,
+              out, out_strides, dims, in_mode: str, out_log: bool) -> None:
+    """One launch of the batched contraction kernel (see
+    ``csrc/tiled_two_phase.cu``, ``struct Contract``)."""
+    dense, fb, lazy = factor
+    sub_row, sub_col, theta = fold
+    log0, D, t = lazy if lazy is not None else (None, None, None)
+    rc = lib.sdfs_strip_contract(
+        _ptr(src), *strides, _ptr(sub_row), _ptr(sub_col), float(theta),
+        _ptr(sh), *sh_strides, _ptr(dense), fb, _ptr(log0), _ptr(D), _ptr(t),
+        0 if D is None else D.shape[0], _ptr(out), *out_strides, *dims,
+        _CONTRACT_IN[in_mode], int(out_log), stream)
+    _raise_on(lib, rc, "strip column-phase contraction")
+
+
+def _strip_col_cuda(ell, W_c1, W_c2, theta, mode, sub_row, sub_col):
+    R, n1, n2 = ell.shape
+    dev = ell.device
+    _check("ell", ell, dev, (R, n1, n2))
+    f1 = _check_factor("W_c1", W_c1, dev, n1, n2)
+    f2 = _check_factor("W_c2", W_c2, dev, n2, n1)
+    if sub_row is not None:
+        _check("sub_row", sub_row, dev, (R,))
+        _check("sub_col", sub_col, dev, (n1, n2))
+    if R > _GRID_Y_MAX:
+        raise ValueError(f"strip column phase with {R} rows exceeds the grid")
+    lib = _lib()
+    f32 = dict(dtype=torch.float32, device=dev)
+    a2 = torch.empty_like(ell)
+    out = torch.empty_like(ell)
+    row, plane = n1 * n2, n2
+    fast = mode == "fast"
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if fast:
+            sh1 = torch.empty((R,), **f32)
+            rc = lib.sdfs_strip_rowmax(_ptr(ell), _ptr(sub_row),
+                                       _ptr(sub_col), float(theta), 1,
+                                       _ptr(sh1), R, row, stream)
+            sh1_strides = (0, 1)
+        else:
+            sh1 = torch.empty((R, n2), **f32)
+            rc = lib.sdfs_strip_midmax(_ptr(ell), _ptr(sub_row),
+                                       _ptr(sub_col), float(theta),
+                                       _ptr(sh1), R, n1, n2, stream)
+            sh1_strides = (1, n2)
+        _raise_on(lib, rc, "strip column-phase shift")
+        # c1: batch b = j, outputs p = i, rows q = t, contracted m = i'.
+        _contract(lib, stream, ell, (1, plane, row),
+                  (sub_row, sub_col, theta), sh1, sh1_strides, f1, a2,
+                  (1, plane, row), (n2, n1, n1, R), "fold_exp", not fast)
+        # c2: batch b = i, outputs p = j, rows q = t, contracted m = j'.
+        if fast:
+            _contract(lib, stream, a2, (plane, 1, row), (None, None, 0.0),
+                      None, (0, 0), f2, out, (plane, 1, row),
+                      (n1, n2, n2, R), "linear", False)
+        else:
+            sh2 = torch.empty((R, n1), **f32)
+            rc = lib.sdfs_strip_rowmax(_ptr(a2), None, None, 0.0, 0,
+                                       _ptr(sh2), R * n1, n2, stream)
+            _raise_on(lib, rc, "strip column-phase shift")
+            _contract(lib, stream, a2, (plane, 1, row), (None, None, 0.0),
+                      sh2, (1, n1), f2, out, (plane, 1, row),
+                      (n1, n2, n2, R), "exp", True)
+    LAUNCHES["strip_col_fast" if fast else "strip_col"] += 1
+    return (out, sh1.reshape(R, 1)) if fast else out
+
+
+def strip_col(ell, W_c1: Factor, W_c2: Factor, theta: float, mode: str,
+              sub_row=None, sub_col=None):
+    """Strip column phase on the tensors' device: the plain version for
+    CPU tensors, the CUDA kernels for CUDA tensors (same arguments and
+    results as :func:`strip_col_plain`)."""
+    _check_mode(mode)
+    _check_sub(sub_row, sub_col)
+    if ell.device.type == "cpu":
+        return strip_col_plain(ell, W_c1, W_c2, theta, mode, sub_row,
+                               sub_col)
+    if ell.device.type == "cuda":
+        return _strip_col_cuda(ell, W_c1, W_c2, theta, mode, sub_row,
+                               sub_col)
+    raise ValueError(f"no strip column-phase kernel for device {ell.device}")
+
+
+def _strip_row_smem_bytes(L: int, K: int, tc: int) -> int:
+    """Shared memory of one row-phase block (mirrors the .cu: x and y
+    (R*TC each) and the shifts over l (K*TC) and over k (L*TC))."""
+    return 4 * tc * (2 * L * K + K + L)
+
+
+def strip_row_tile(L: int, K: int) -> Optional[int]:
+    """Columns per row-phase block: the widest tile that leaves room for
+    two blocks per SM, else that fits one; None when not even one column
+    fits."""
+    for limit in (_SM_SMEM // 2 - _BLOCK_RESERVED, SMEM_LIMIT):
+        for tc in _STRIP_ROW_TILES:
+            if _strip_row_smem_bytes(L, K, tc) <= limit:
+                return tc
+    return None
+
+
+def _strip_row_cuda(mid, scale, S, W_r1, W_r2, add_row, add_col, theta,
+                    beta, mode):
+    R, C = mid.shape
+    L, K = W_r1.shape[0], W_r2.shape[0]
+    dev = mid.device
+    _check("mid", mid, dev, (R, C))
+    _check("W_r1", W_r1, dev, (L, L))
+    _check("W_r2", W_r2, dev, (K, K))
+    _check("add_row", add_row, dev, (L, K))
+    _check("add_col", add_col, dev, (C,))
+    if L * K != R:
+        raise ValueError(f"mid has {R} rows, W_r1/W_r2 give {L}*{K}")
+    if mode == "fast":
+        _check("scale", scale, dev, (R, 1))
+        _check("S", S, dev, (1,))
+    TC = strip_row_tile(L, K)
+    if TC is None:
+        raise ValueError(f"strip row phase with {R} rows exceeds shared "
+                         "memory")
+    out = torch.empty_like(mid)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdfs_strip_row(_ptr(mid), _ptr(scale), _ptr(S), _ptr(W_r1),
+                                _ptr(W_r2), _ptr(add_row), _ptr(add_col),
+                                _ptr(out), L, K, C, TC, float(theta),
+                                float(beta), _MODES[mode],
+                                ctypes.c_void_p(stream))
+    _raise_on(lib, rc, "strip row phase")
+    LAUNCHES["strip_row_fast" if mode == "fast" else "strip_row"] += 1
+    return out
+
+
+def strip_row(mid, scale, S, W_r1, W_r2, add_row, add_col, theta: float,
+              beta: float, mode: str):
+    """Strip row phase on the tensors' device: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (same arguments and result
+    as :func:`strip_row_plain`)."""
+    _check_mode(mode)
+    if mid.device.type == "cpu":
+        return strip_row_plain(mid, scale, S, W_r1, W_r2, add_row, add_col,
+                               theta, beta, mode)
+    if mid.device.type == "cuda":
+        return _strip_row_cuda(mid, scale, S, W_r1, W_r2, add_row, add_col,
+                               theta, beta, mode)
+    raise ValueError(f"no strip row-phase kernel for device {mid.device}")
+
+
+# ------------------------------------------------------------- operators
+
+def tiled_engine(ops: TwoPhaseOperands, mode: str = "auto",
+                 engine: str = "auto"):
+    """The tier that runs ``ops`` in ``mode``: ``("streamed", covered,
+    mode)`` with the set the streamed kernels run (``ops`` or its
+    conjugated-shared form) and their mode, or ``("strip", ops, mode)``.
+
+    ``engine="auto"`` takes the streamed kernels when they cover the set
+    and accept the mode (e.g. not "fast" on a deferred or pair set), else
+    the strip kernels; "streamed" and "strip" force a tier.  Raises
+    ``ValueError`` when the forced or only tier cannot run the set: a
+    pair set the streamed kernels decline, a set built with
+    ``dense=False``, or a ``mid_col`` set, on the strip tier.  A pure
+    function of its arguments, decided before anything is built.
+    """
+    if engine not in ("auto", "strip", "streamed"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine != "strip":
+        covered = streamed_coverable(ops)
+        if covered is not None and (engine == "streamed"
+                                    or ops.dense_placeholder
+                                    or streamed_accepts(covered, mode)):
+            # streamed_mode raises for a mode the kernels refuse.
+            return "streamed", covered, streamed_mode(covered, mode)
+        if covered is None and engine == "streamed":
+            raise ValueError("operand set not covered by the streamed "
+                             f"kernels at shapes {ops.shapes}")
+    if ops.is_pair:
+        raise ValueError(
+            "pair-factored operand sets (continuous GCY) run only on the "
+            "streamed kernels' pair configuration, which declines shapes "
+            f"{ops.shapes} (pair {ops.pair_shapes}); use kernel='xla'")
+    if ops.dense_placeholder:
+        raise ValueError(
+            "operand set was built with dense=False (batched column "
+            "factors not materialized): the strip tier needs them; "
+            "rebuild with dense=True")
+    if ops.has_mid:
+        raise ValueError("mid_col (conjugated-shared) operand sets run on "
+                         "the streamed kernels only")
+    if mode == "auto":
+        mode = "lse" if ops.has_sub else "fast"
+    _check_mode(mode)
+    return "strip", ops, mode
+
+
+def strip_device_operands(ops: TwoPhaseOperands, lazy_bytes: int = LAZY_BYTES,
+                          *, device="cuda") -> dict:
+    """The strip kernels' float32 operands of ``ops`` on ``device``:
+    ``W_c1``/``W_c2`` (a batched factor larger than ``lazy_bytes`` as its
+    lazy triple when the set has one), ``sub_row`` (R,) and ``sub_col``
+    (or None), ``W_r1``, ``W_r2``, ``add_row`` and ``add_col`` (C,)."""
+    dev = resolve_device(device)
+    L, K, n1, n2 = ops.shapes
+    cast = lambda a: torch.as_tensor(np.ascontiguousarray(
+        a, np.float64)).to(device=dev, dtype=torch.float32)
+
+    def factor(W, lazy):
+        if lazy is not None and W.ndim == 3 and W.size * 4 > lazy_bytes:
+            return tuple(cast(a) for a in lazy)
+        return cast(W)
+
+    return dict(
+        W_c1=factor(ops.W_c1, ops.lazy_c1), W_c2=factor(ops.W_c2, ops.lazy_c2),
+        sub_row=(cast(np.asarray(ops.sub_row).reshape(L * K))
+                 if ops.has_sub else None),
+        sub_col=cast(ops.sub_col) if ops.has_sub else None,
+        W_r1=cast(ops.W_r1), W_r2=cast(ops.W_r2), add_row=cast(ops.add_row),
+        add_col=cast(np.asarray(ops.add_col).reshape(n1 * n2)))
+
+
+def _make_strip_T_log(ops: TwoPhaseOperands, dtype, mode: str,
+                      lazy_bytes: int, dev) -> Callable:
+    L, K, n1, n2 = ops.shapes
+    R, C = L * K, n1 * n2
+    theta, beta = float(ops.theta), float(ops.beta)
+    d = strip_device_operands(ops, lazy_bytes, device=dev)
+    W_c1, W_c2, sub_row, sub_col = (d["W_c1"], d["W_c2"], d["sub_row"],
+                                    d["sub_col"])
+    W_r1, W_r2, add_row, add_col = (d["W_r1"], d["W_r2"], d["add_row"],
+                                    d["add_col"])
+    twin = make_eager_two_phase_T(ops, dtype, device=dev)
+
+    def primal(ell):
+        e = ell.to(dtype).reshape(R, n1, n2).contiguous()
+        if mode == "fast":
+            u, s = strip_col(e, W_c1, W_c2, theta, mode, sub_row, sub_col)
+            S = torch.amax(s).reshape(1)
+            out = strip_row(u.reshape(R, C), torch.exp(s - S), S, W_r1,
+                            W_r2, add_row, add_col, theta, beta, mode)
+        else:
+            mid = strip_col(e, W_c1, W_c2, theta, mode, sub_row, sub_col)
+            out = strip_row(mid.reshape(R, C), None, None, W_r1, W_r2,
+                            add_row, add_col, theta, beta, mode)
+        return out.reshape(ops.shapes)
+
+    class _StripT(torch.autograd.Function):
+        @staticmethod
+        def forward(ell):
+            return primal(ell)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_forward(inputs[0])
+
+        @staticmethod
+        def jvp(ctx, dell):
+            (ell,) = ctx.saved_tensors
+            return torch.func.jvp(twin, (ell,), (dell,))[1]
+
+    def T(ell):
+        return _StripT.apply(ell)
+
+    T.twin = twin
+    T.mode = mode
+    T.engine = "strip"
+    T.strip_sizes = (_STRIP_COL_ROWS, strip_row_tile(L, K))
+    T.lazy = (isinstance(W_c1, tuple), isinstance(W_c2, tuple))
+    if ops.baseline_log_w is not None:
+        T.baseline_log_w = torch.as_tensor(
+            np.asarray(ops.baseline_log_w, np.float64)).to(device=dev,
+                                                           dtype=dtype)
+    return T
+
+
 def make_tiled_T_log(ops: TwoPhaseOperands,
                      dtype: torch.dtype = torch.float32,
                      mode: str = "auto", *, device="cuda",
+                     engine: str = "auto", lazy_bytes: int = LAZY_BYTES,
                      **tpu_options) -> Callable:
-    """Tiled two-pass operator from a two-phase operand set: the streamed
-    kernels when they cover ``ops``, else ``NotImplementedError``."""
+    """Tiled two-pass operator from any two-phase operand set, on the tier
+    :func:`tiled_engine` picks: the streamed kernels
+    (:func:`.streamed_two_phase.make_streamed_T_log`, ``T.engine``
+    "streamed", "streamed-deferred" or "streamed-pair") or the strip
+    kernels (``T.engine == "strip"``).
+
+    On the strip tier "auto" mode is "lse" for a set with a folded
+    baseline (whose folded factors the LSE steps renormalize), "fast"
+    otherwise; a batched column factor larger than ``lazy_bytes`` runs in
+    its lazy form when the set has one (``T.lazy`` says which did).  The
+    returned ``T`` carries ``T.twin`` (the eager evaluator, the tangent of
+    ``torch.func.jvp``), ``T.mode``, ``T.engine``, ``T.strip_sizes`` (field
+    rows per column-phase block, columns per row-phase block) and, for a
+    set with a folded baseline, ``T.baseline_log_w``.
+    """
     reject_tpu_options(tpu_options)
     if dtype != torch.float32:
         raise ValueError("the tiled kernels are the float32 tier; use the "
                          "eager operators for float64")
-    if not streamed_supported(ops):
-        raise NotImplementedError(
-            f"operand set with shapes {ops.shapes} is not covered by the "
-            "streamed kernels, and the strip tier is not ported (ROADMAP "
-            "queue B item 9)")
-    return make_streamed_T_log(ops, dtype, mode, device=device)
+    tier, run_ops, run_mode = tiled_engine(ops, mode, engine)
+    if tier == "streamed":
+        return make_streamed_T_log(ops, dtype, run_mode, device=device,
+                                   covered=run_ops)
+    return _make_strip_T_log(run_ops, dtype, run_mode, lazy_bytes,
+                             resolve_device(device))
 
 
 def make_tiled_T_log_ssy(model, disc, baseline=None,
                          dtype: torch.dtype = torch.float32,
                          mode: str = "auto", *, device="cuda",
+                         engine: str = "auto", lazy_bytes: int = LAZY_BYTES,
                          **tpu_options) -> Callable:
-    """Tiled two-pass log-space T for the discrete SSY operator."""
+    """Tiled two-pass log-space T for the discrete SSY operator;
+    ``baseline="loglinear"`` runs the normalized operand set (batched
+    folded column factors: the streamed full configuration through its
+    conjugated-shared form under "auto", or the strip kernels)."""
     reject_tpu_options(tpu_options)
     return make_tiled_T_log(two_phase_operands_ssy(model, disc, baseline),
-                            dtype, mode, device=device)
+                            dtype, mode, device=device, engine=engine,
+                            lazy_bytes=lazy_bytes)
 
 
 def make_tiled_T_log_ssy_continuous(model, grids, degree: int = 5,
                                     baseline=None,
                                     dtype: torch.dtype = torch.float32,
                                     mode: str = "auto", *, device="cuda",
+                                    engine: str = "auto",
                                     **tpu_options) -> Callable:
     """Tiled two-pass log-space T for the continuous factored-quadrature
     SSY operator (interp="pre"), on the field ``ell[h_lam, h_c, h_z, z]``.
@@ -91,17 +556,19 @@ def make_tiled_T_log_ssy_continuous(model, grids, degree: int = 5,
     each h_z slice's z' with its own P_z[i] before the row phase.
     ``baseline`` ("loglinear" or a ``(const, profiles)`` pair) folds a
     separable baseline (``T.baseline_log_w``); "auto" mode is then "lse",
-    and "fast" without one.
+    and "fast" without one.  ``engine="strip"`` runs the strip kernels
+    with the dense batched P_z instead.
     """
     reject_tpu_options(tpu_options)
     return make_tiled_T_log(
         two_phase_operands_ssy_continuous(model, grids, degree, baseline),
-        dtype, mode, device=device)
+        dtype, mode, device=device, engine=engine)
 
 
 def make_tiled_T_log_gcy(model, disc, dtype: torch.dtype = torch.float32,
                          mode: str = "auto", *, device="cuda",
                          baseline: Optional[str] = None,
+                         engine: str = "auto", lazy_bytes: int = LAZY_BYTES,
                          **tpu_options) -> Callable:
     """Tiled two-pass log-space T for the discrete six-state GCY operator
     via Kronecker grouping (``operators/two_phase.two_phase_operands_gcy``):
@@ -115,13 +582,28 @@ def make_tiled_T_log_gcy(model, disc, dtype: torch.dtype = torch.float32,
     range, so "auto" mode resolves to "lse".  Column groups too large for
     the full configuration (e.g. 512 x 256 at the 25.2M-point grid) run
     the deferred one.
+
+    ``baseline="loglinear"`` runs the normalized operand set (shared row
+    factors, rank-2 lazy batched column factors) and exposes
+    ``T.baseline_log_w``, the warm start.  Its set is first built with
+    ``dense=False``; when the streamed kernels cover its conjugated-shared
+    form (which uses only the lazy triples) that is what runs, and only
+    the strip tier rebuilds it with the dense batched factors (the strip
+    twin's tangent needs them).
     """
     reject_tpu_options(tpu_options)
-    ops = two_phase_operands_gcy(model, disc, baseline)
     if mode == "auto":
         mode = "lse"
-    return _natural_layout(ops, make_tiled_T_log(ops, dtype, mode,
-                                                 device=device))
+    ops = None
+    if baseline is not None and engine != "strip":
+        probe = two_phase_operands_gcy(model, disc, baseline, dense=False)
+        if streamed_coverable(probe) is not None:
+            ops = probe
+    if ops is None:
+        ops = two_phase_operands_gcy(model, disc, baseline)
+    return _natural_layout(ops, make_tiled_T_log(
+        ops, dtype, mode, device=device, engine=engine,
+        lazy_bytes=lazy_bytes))
 
 
 def make_tiled_T_log_gcy_continuous(model, grids, degree: int = 5,
@@ -184,6 +666,9 @@ def _natural_layout(ops: TwoPhaseOperands, view_T) -> Callable:
     T.twin = natural(view_T.twin)
     T.mode = view_T.mode
     T.engine = view_T.engine
+    for attr in ("strip_sizes", "lazy"):
+        if hasattr(view_T, attr):
+            setattr(T, attr, getattr(view_T, attr))
     if getattr(view_T, "baseline_log_w", None) is not None:
         T.baseline_log_w = from_view(
             view_T.baseline_log_w.reshape(view_shapes)).contiguous()

@@ -10,7 +10,7 @@ from .two_phase import (TwoPhaseOperands, two_phase_operands_ssy,
                         two_phase_operands_ssy_continuous,
                         two_phase_operands_gcy,
                         two_phase_operands_gcy_continuous,
-                        make_eager_two_phase_T)
+                        conjugate_to_shared, make_eager_two_phase_T)
 
 __all__ = [
     "SSYDiscretization", "discretize_ssy", "T_ssy_factory", "dense_H_ssy",
@@ -18,7 +18,8 @@ __all__ = [
     "gcy_loglinear_parts",
     "TwoPhaseOperands", "two_phase_operands_ssy",
     "two_phase_operands_ssy_continuous", "two_phase_operands_gcy",
-    "two_phase_operands_gcy_continuous", "make_eager_two_phase_T", "hat_basis", "expectation_matrix",
+    "two_phase_operands_gcy_continuous", "conjugate_to_shared",
+    "make_eager_two_phase_T", "hat_basis", "expectation_matrix",
     "normalize_expectation_matrix", "additive_profiles", "make_gather_T",
     "warn_if_f32_range_unsafe", "next_state_ssy", "T_ssy_continuous_factory",
     "next_state_gcy", "T_gcy_continuous_factory",

@@ -31,7 +31,7 @@ import torch
 
 from ..config import resolve_device
 from ..models.gcy import GCY
-from ..ops.contract import lse_matmul
+from ..ops.contract import lse_matmul, normalize_rows_log
 from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
 from ..ops.tauchen import tauchen, tauchen_P, tauchen_ladder
 
@@ -162,6 +162,9 @@ def T_gcy_factory(model: GCY,
     space="w":   T maps w -> T(w)                  (float64 parity path)
     space="log": T maps log w -> log T(w)          (float32-safe path)
 
+    baseline="loglinear" (log space only): the baseline-normalized
+    variant, see :func:`_T_gcy_normalized`.
+
     ``dtype=None`` keeps float64.  ``device`` is where the operator's
     arrays live and where its input must live.
     """
@@ -171,11 +174,9 @@ def T_gcy_factory(model: GCY,
         raise ValueError(f"unknown baseline {baseline!r}")
     if baseline and space != "log":
         raise ValueError("baseline normalization requires space='log'")
-    if baseline:
-        raise NotImplementedError(
-            "baseline='loglinear' (the normalized GCY tier) is not ported "
-            "yet; it lands with ROADMAP queue A item 5")
     dev = resolve_device(device)
+    if baseline:
+        return _T_gcy_normalized(model, disc, dtype=dtype, device=dev)
     dtype = dtype or torch.float64
     beta, theta = model.beta, model.theta
     B_lam, A2, A3 = _gcy_factors(model, disc)
@@ -255,3 +256,100 @@ def gcy_loglinear_parts(model: GCY, disc: GCYDiscretization) -> dict:
     return dict(co=co, h_lam=h_lam, h_c=h_c, h_z=h_z, h_zpi=h_zpi,
                 phi_l=phi_l, phi_d=phi_d, phi_c_=phi_c_, phi_e=phi_e,
                 psi_pi=psi_pi, psi_z=psi_z, ell0=ell0)
+
+
+# Per-axis chain of the normalized GCY operator (labels as in _CHAIN; the
+# coupled baseline terms ride the z_pi and z contractions as conditioning
+# batch axes).
+_NORMALIZED_GCY_CHAIN = (
+    ("lL,ABCDEL->ABCDEl", 5), ("dD,ABCDEl->ABCdEl", 3),
+    ("ABEcC,ABCdEl->ABcdEl", 2), ("ABceE,ABcdEl->ABcdel", 4),
+    ("AcebB,ABcdel->Abcdel", 1), ("bceaA,Abcdel->abcdel", 0))
+
+
+def _T_gcy_normalized(model: GCY, disc: GCYDiscretization, *, dtype=None,
+                      device):
+    """Log-space GCY operator with the log-linear baseline folded in.
+
+    The six-state analogue of ``discrete_ssy._T_ssy_normalized``: the
+    separable log-linear approximation ell0 distributes into the
+    per-axis factors with exact telescoping across the coupled terms
+    (z_pi couples (h_zpi, z_pi); z couples (z_pi, h_z, h_zpi, z)).  The
+    factors are assembled in log space in host float64 and row-normalized
+    before the only exp; float32 runs the deep windows (W = 80, three
+    passes).
+    """
+    dtype = dtype or torch.float64
+    deep = 80.0 if dtype == torch.float32 else 0.0
+    theta, beta, gamma = model.theta, model.beta, model.gamma
+    t = theta
+    parts = gcy_loglinear_parts(model, disc)
+    h_lam = parts["h_lam"]
+    phi_l, phi_d, phi_c_, phi_e = (parts["phi_l"], parts["phi_d"],
+                                   parts["phi_c_"], parts["phi_e"])
+    psi_pi, psi_z = parts["psi_pi"], parts["psi_z"]
+    zst = disc.z_states.numpy()                         # (b, c, e, a)
+
+    with np.errstate(divide="ignore"):
+        lQlam, lQc, lQhz, lQhzpi, lzpiP, lzP = (
+            np.log(P.numpy()) for P in (disc.h_lam_Q, disc.h_c_Q,
+                                        disc.h_z_Q, disc.h_zpi_Q,
+                                        disc.z_pi_P, disc.z_P))
+
+    logM1 = lQlam + t * (h_lam + phi_l)[None, :] - t * phi_l[:, None]
+    logM2 = lQc + t * (phi_d[None, :] - phi_d[:, None])
+    # M3[A,B,E,c,C]: contract next-h_z at fixed (A,B,E); psi_z's
+    # C-dependence folds here, rescaled by the current-c slice.
+    psz_ABEC = psi_z.transpose(3, 0, 2, 1)              # (A, B, E, C)
+    logM3 = (lQhz[None, None, None, :, :]
+             + t * (phi_c_[None, None, None, None, :]
+                    - phi_c_[None, None, None, :, None]
+                    + psz_ABEC[:, :, :, None, :]
+                    - psz_ABEC[:, :, :, :, None]))
+    # M4[A,B,c,e,E]: contract next-h_zpi; folds phi_e and the
+    # E-dependence of psi_pi and psi_z.
+    psz_ABCE = psi_z.transpose(3, 0, 1, 2)              # (A, B, C, E)
+    psipi_BE = psi_pi.T                                  # (B, E)
+    logM4 = (lQhzpi[None, None, None, :, :]
+             + t * (phi_e[None, None, None, None, :]
+                    - phi_e[None, None, None, :, None]
+                    + psipi_BE[None, :, None, None, :]
+                    - psipi_BE[None, :, None, :, None]
+                    + psz_ABCE[:, :, :, None, :]
+                    - psz_ABCE[:, :, :, :, None]))
+    # M5[A,c,e,b,B]: contract next-z_pi; folds the B-dependence of psi_pi
+    # and psi_z.
+    psz_ACEB = psi_z.transpose(3, 1, 2, 0)              # (A, C, E, B)
+    logM5 = (lzpiP[None, None, None, :, :]
+             + t * (psipi_BE.T[None, None, :, None, :]
+                    - psipi_BE.T[None, None, :, :, None]
+                    + psz_ACEB[:, :, :, None, :]
+                    - psz_ACEB[:, :, :, :, None]))
+    # M6[b,c,e,a,A]: contract next-z; folds psi_z's A-dependence.
+    logM6 = (lzP[None, None, None, :, :]
+             + t * (psi_z[:, :, :, None, :] - psi_z[:, :, :, :, None]))
+
+    cast = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
+        device=device, dtype=dtype)
+    steps = []
+    for logM, (subs, ax) in zip((logM1, logM2, logM3, logM4, logM5, logM6),
+                                _NORMALIZED_GCY_CHAIN):
+        Mn, ls = normalize_rows_log(logM, subs, ax)
+        steps.append((cast(Mn), cast(ls), subs, ax))
+    A2 = np.exp(0.5 * ((1 - gamma) * disc.sigma_c_states.numpy()) ** 2)
+    log_A2 = cast(np.log(A2))[None, None, None, :, None, None]
+    log_A3 = cast((1 - gamma) * (model.mu_c + zst.transpose(3, 0, 1, 2))
+                  )[:, :, :, None, :, None]              # (a, b, c, e)
+    ell0_t = cast(parts["ell0"])
+    t_c = torch.tensor(theta, dtype=dtype, device=device)
+
+    def T(ell):
+        a = t_c * (ell - ell0_t)
+        for M, ls, subs, ax in steps:
+            a = lse_matmul(M, a, subs, ax, deep_window=deep,
+                           deep_passes=3) + ls
+        log_hwt = t_c * ell0_t + a + log_A2 + log_A3
+        return torch.log1p(beta * torch.exp(log_hwt / t_c))
+
+    T.baseline_log_w = ell0_t
+    return T

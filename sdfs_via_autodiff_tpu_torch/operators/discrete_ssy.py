@@ -10,7 +10,9 @@ Two operator spaces:
 * ``space="w"``: iterate on w directly (needs float64: w^theta ~ 1e-47
   underflows float32 at theta ~ -16).
 * ``space="log"``: iterate on l = log(w) through per-axis log-sum-exp
-  contractions (:func:`..ops.contract.lse_matmul`).
+  contractions (:func:`..ops.contract.lse_matmul`); ``baseline=
+  "loglinear"`` folds the log-linear solution into the factors
+  (:func:`_T_ssy_normalized`).
 
 The discretization is host float64; the factories cast to the working
 dtype on the requested device.
@@ -26,7 +28,7 @@ import torch
 
 from ..config import resolve_device
 from ..models.ssy import SSY
-from ..ops.contract import lse_matmul
+from ..ops.contract import lse_matmul, normalize_rows_log
 from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
 from ..ops.tauchen import tauchen, tauchen_P, tauchen_ladder
 
@@ -139,6 +141,11 @@ def T_ssy_factory(model: SSY,
     space="w":   T maps w -> T(w)                  (float64 parity path)
     space="log": T maps log w -> log T(w)          (float32-safe path)
 
+    baseline="loglinear" (log space only) folds the separable log-linear
+    approximation ell0 into the transition factors so the contraction
+    runs on the residual theta*(ell - ell0) (:func:`_T_ssy_normalized`);
+    the returned T exposes ``T.baseline_log_w``.
+
     ``dtype=None`` keeps float64.  ``device`` is where the operator's
     arrays live and where its input must live.
     """
@@ -146,11 +153,11 @@ def T_ssy_factory(model: SSY,
         raise ValueError(f"unknown space {space!r}")
     if baseline not in (None, "loglinear"):
         raise ValueError(f"unknown baseline {baseline!r}")
-    if baseline:
-        raise NotImplementedError(
-            "baseline='loglinear' (the normalized tier) is not ported yet; "
-            "it lands with ROADMAP queue A item 2")
+    if baseline and space != "log":
+        raise ValueError("baseline normalization requires space='log'")
     dev = resolve_device(device)
+    if baseline:
+        return _T_ssy_normalized(model, disc, dtype=dtype, device=dev)
     dtype = dtype or torch.float64
     beta, theta = model.beta, model.theta
     B_lam, A2, A3 = _ssy_factors(model, disc)
@@ -195,3 +202,109 @@ def dense_H_ssy(model: SSY, disc: SSYDiscretization, *,
                       B_lam, disc.h_c_Q, disc.h_z_Q, disc.z_P, A2, A3)
     n = int(np.prod(disc.shapes))
     return H8.reshape(n, n).to(dev)
+
+
+def _log_probs(P) -> np.ndarray:
+    """log of a transition matrix in host float64; corner probabilities
+    that underflowed are -inf (exp restores an exact 0)."""
+    with np.errstate(divide="ignore"):
+        return np.log(np.asarray(P, np.float64))
+
+
+def _ssy_normalized_arrays(model: SSY, disc: SSYDiscretization) -> dict:
+    """Host-float64 assembly of the baseline-normalized operator factors.
+
+    Shared by the normalized operator (:func:`_T_ssy_normalized`) and the
+    two-phase operand set (``operators/two_phase.py``).  Returns numpy
+    arrays: folded transition factors M1 (l), M2 (k), M3 (j', i, i'),
+    M4 (i, j, j') and their logs, the kappa terms log_A2 (k) and
+    log_A3 (i, j), and the separable baseline components
+    (A0, phi_l, phi_k, phi_i, psi_ij, A_z) with
+    ell0 = A0 + phi_l + phi_k + (phi_i + psi_ij).
+    """
+    from ..models.ssy import ssy_loglinear_factory
+
+    theta, gamma = model.theta, model.gamma
+    co = ssy_loglinear_factory(model).coefficients
+    h_lam, h_c, h_z, z_states = (np.asarray(a, np.float64) for a in (
+        disc.h_lam_states, disc.h_c_states, disc.h_z_states,
+        disc.z_states))
+
+    phi_l = co["A_hlam"] * h_lam
+    phi_k = co["A_hc"] * (h_c * 2 * model.phi_c**2 + model.phi_c**2)
+    phi_i = co["A_hz"] * (h_z * 2 * model.phi_z**2 + model.phi_z**2)
+    psi_ij = co["A_z"] * z_states                       # (i, j)
+
+    B_log = _log_probs(disc.h_lam_Q) + theta * h_lam[None, :]   # A1 folded
+    logM1 = B_log + theta * (phi_l[None, :] - phi_l[:, None])
+    logM2 = (_log_probs(disc.h_c_Q)
+             + theta * (phi_k[None, :] - phi_k[:, None]))
+    # M3[j, i, ip] = Qhz[i, ip] * exp(theta*(phi_i[ip] - phi_i[i]
+    #                                + psi[ip, j] - psi[i, j]))
+    logM3 = (_log_probs(disc.h_z_Q)[None, :, :]
+             + theta * (phi_i[None, None, :] - phi_i[None, :, None]
+                        + psi_ij.T[:, None, :] - psi_ij.T[:, :, None]))
+    # M4[i, j, jp] = zP[j, jp] * exp(theta*(psi[i, jp] - psi[i, j]))
+    logM4 = (_log_probs(disc.z_P)[None, :, :]
+             + theta * (psi_ij[:, None, :] - psi_ij[:, :, None]))
+
+    A2 = np.exp(0.5 * ((1 - gamma)
+                       * np.asarray(disc.sigma_c_states, np.float64)) ** 2)
+    return dict(M1=np.exp(logM1), M2=np.exp(logM2), M3=np.exp(logM3),
+                M4=np.exp(logM4), log_A2=np.log(A2),
+                log_A3=(1 - gamma) * (model.mu_c + z_states),
+                logM1=logM1, logM2=logM2, logM3=logM3, logM4=logM4,
+                A0=float(co["A0"]), phi_l=phi_l, phi_k=phi_k, phi_i=phi_i,
+                psi_ij=psi_ij, A_z=float(co["A_z"]))
+
+
+# Per-axis chain of the normalized SSY operator: subscripts and the
+# contracted axis of the field.
+_NORMALIZED_SSY_CHAIN = (("lm,mkij->lkij", 0), ("km,lmij->lkij", 1),
+                         ("jim,lkmj->lkij", 2), ("ijm,lkim->lkij", 3))
+
+
+def _T_ssy_normalized(model: SSY, disc: SSYDiscretization, *, dtype=None,
+                      device):
+    """Log-space operator with the log-linear baseline folded in.
+
+    With ell0 the separable log-linear approximation of log w*, the
+    folded kernel H~(x, x') = H(x, x') exp(theta (ell0(x') - ell0(x)))
+    satisfies sum_x' H~(x, x') e^{theta delta(x')} = e^{-theta ell0(x)}
+    (H w^theta)(x) for delta = ell - ell0: exact, only reconditioned, so
+    every intermediate is O(e^{theta delta}).  The factors are assembled
+    in log space in host float64 and row-normalized before the only exp
+    (:func:`..ops.contract.normalize_rows_log`); float32 runs the deep
+    windows (W = 80, three passes) for ladder-corner rows whose whole
+    mass sits below the single window.
+    """
+    dtype = dtype or torch.float64
+    deep = 80.0 if dtype == torch.float32 else 0.0
+    theta, beta = model.theta, model.beta
+    arrs = _ssy_normalized_arrays(model, disc)
+    ell0 = (arrs["A0"] + arrs["phi_l"][:, None, None, None]
+            + arrs["phi_k"][None, :, None, None]
+            + arrs["phi_i"][None, None, :, None]
+            + arrs["psi_ij"][None, None, :, :])
+    cast = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
+        device=device, dtype=dtype)
+    steps = []
+    for key, (subs, ax) in zip(("logM1", "logM2", "logM3", "logM4"),
+                               _NORMALIZED_SSY_CHAIN):
+        Mn, ls = normalize_rows_log(arrs[key], subs, ax)
+        steps.append((cast(Mn), cast(ls), subs, ax))
+    ell0_t = cast(ell0)
+    log_A2 = cast(arrs["log_A2"])[None, :, None, None]
+    log_A3 = cast(arrs["log_A3"])[None, None, :, :]
+    theta_c = torch.tensor(theta, dtype=dtype, device=device)
+
+    def T(ell):
+        a = theta_c * (ell - ell0_t)
+        for M, ls, subs, ax in steps:
+            a = lse_matmul(M, a, subs, ax, deep_window=deep,
+                           deep_passes=3) + ls
+        log_hwt = theta_c * ell0_t + a + log_A2 + log_A3
+        return torch.log1p(beta * torch.exp(log_hwt / theta_c))
+
+    T.baseline_log_w = ell0_t
+    return T

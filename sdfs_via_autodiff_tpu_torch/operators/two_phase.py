@@ -1,9 +1,11 @@
 """Two-phase (column-group / row-group) form of the 4-D log-space operators.
 
-PyTorch port of ``sdfs_via_autodiff_tpu/operators/two_phase.py`` for the
-plain discrete SSY and GCY operand sets, the continuous-SSY sets (c2
-batched over the current c1 index, with or without a folded baseline)
-and the continuous-GCY pair sets.  Grouping the four SSY state axes
+PyTorch port of ``sdfs_via_autodiff_tpu/operators/two_phase.py``: the
+discrete SSY and GCY operand sets, plain and baseline-normalized (batched
+column factors with lazy forms, and their conjugated-shared form,
+:func:`conjugate_to_shared`), the continuous-SSY sets (c2 batched over
+the current c1 index, with or without a folded baseline) and the
+continuous-GCY pair sets.  Grouping the four SSY state axes
 as rows (h_lam, h_c) and columns (h_z, z) splits the per-axis chain into
 
     column phase:  contract next-h_z, then next-z      (touches only columns)
@@ -30,7 +32,8 @@ from ..config import resolve_device
 
 __all__ = ["TwoPhaseOperands", "two_phase_operands_ssy",
            "two_phase_operands_ssy_continuous", "two_phase_operands_gcy",
-           "two_phase_operands_gcy_continuous", "make_eager_two_phase_T"]
+           "two_phase_operands_gcy_continuous", "conjugate_to_shared",
+           "make_eager_two_phase_T"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +45,7 @@ class TwoPhaseOperands:
 
         a   = theta*ell - sub_row ⊕ sub_col                (sub_* optional)
         a   = LSE-contract axis c1 with W_c1               (column phase)
+        a   = a + mid_col                                  (optional)
         a   = LSE-contract axis c2 with W_c2
         a   = LSE-contract axis r1 with W_r1               (row phase)
         a   = LSE-contract axis r2 with W_r2
@@ -50,14 +54,26 @@ class TwoPhaseOperands:
     The fields match the JAX package's operand set one for one, so
     ``dataclasses.asdict`` of either converts to the other
     (``interop.operands_from_numpy``); ``perm``, ``inv_perm``,
-    ``state_shapes``, ``pair_c2`` and ``pair_shapes``, which the JAX
-    package sets as attributes of its six-state sets, are fields here.
-    ``W_c2`` is (n_c2, n_c2), or (n_c1, n_c2, n_c2) batched over the
-    current c1 index (continuous SSY's P_z).  ``sub_row``/``sub_col`` (the
-    folded baseline theta*ell0 split over rows and columns) and
-    ``baseline_log_w`` (ell0 itself) belong to the baseline-normalized
-    sets; ``mid_col`` to the conjugated-shared ones, which a later slice
-    ports (the evaluators here reject it).
+    ``state_shapes``, ``pair_c2``, ``pair_shapes``, ``lazy_c1``,
+    ``lazy_c2`` and ``dense_placeholder``, which the JAX package sets as
+    attributes, are fields here.  ``W_c1`` is (n_c1, n_c1), or
+    (n_c2, n_c1, n_c1) batched over the *next* c2 index (it applies
+    before c2 is contracted); ``W_c2`` is (n_c2, n_c2), or
+    (n_c1, n_c2, n_c2) batched over the current c1 index (continuous
+    SSY's P_z, the normalized sets' folded factors).  ``sub_row``/
+    ``sub_col`` (the folded baseline theta*ell0 split over rows and
+    columns) and ``baseline_log_w`` (ell0 itself) belong to the
+    baseline-normalized sets; ``mid_col`` (n_c1, n_c2), added between the
+    two column contractions, to conjugated-shared ones
+    (:func:`conjugate_to_shared`).
+
+    ``lazy_c1``/``lazy_c2`` are the lazy forms of batched column factors,
+    ``(logW0 (n, n), D (K, n, n), t (K, B))`` with
+    ``W[b] = exp(logW0 + sum_k t[k, b] D[k])`` (rank 1 for SSY, 2 for
+    GCY); the strip kernels build slices from them instead of reading a
+    dense (B, n, n) tensor.  ``dense_placeholder`` marks a set built with
+    ``dense=False``, whose batched ``W_c1``/``W_c2`` are broadcast
+    placeholders carrying only the shape.
 
     Continuous-GCY sets carry their column factor c2 = (z_pi, z) as the
     per-axis pair ``pair_c2 = (P_z (i, j, b, J), P_zpi (y, b, B))`` with
@@ -86,6 +102,10 @@ class TwoPhaseOperands:
     # Continuous-GCY sets: (P_z, P_zpi) and (n_i, n_y, n_b, n_j).
     pair_c2: Optional[Tuple[np.ndarray, np.ndarray]] = None
     pair_shapes: Optional[Tuple[int, int, int, int]] = None
+    # Normalized discrete sets: lazy forms of the batched column factors.
+    lazy_c1: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+    lazy_c2: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
+    dense_placeholder: bool = False
 
     @property
     def c1_batched(self) -> bool:
@@ -146,30 +166,82 @@ def _warn_ssy_f32_envelope(model, disc) -> None:
 
 def two_phase_operands_ssy(model, disc, baseline: Optional[str] = None
                            ) -> TwoPhaseOperands:
-    """Two-phase operands for the discrete SSY operator: the plain
-    factors (B_lam, Q_c | Q_hz, z_P)."""
-    from .discrete_ssy import _ssy_factors
+    """Two-phase operands for the discrete SSY operator.
 
-    if baseline is not None:
-        raise NotImplementedError(
-            "baseline='loglinear' operand sets (the normalized tier) are "
-            "not ported yet; they land with ROADMAP queue A item 4")
+    ``baseline=None`` groups the plain factors (B_lam, Q_c | Q_hz, z_P);
+    ``baseline="loglinear"`` groups the folded factors M1..M4 of the
+    normalized operator (``discrete_ssy._ssy_normalized_arrays``): W_c1
+    batched over the next z index, W_c2 over the current h_z index, with
+    their rank-1 lazy forms.
+    """
+    from .discrete_ssy import _log_probs, _ssy_factors, _ssy_normalized_arrays
+
     n_l, n_k, n_i, n_j = disc.shapes
-    B_lam, A2, A3 = (t.numpy() for t in _ssy_factors(model, disc))
-    add_row = np.broadcast_to(np.log(A2)[None, :], (n_l, n_k)).copy()
-    add_col = np.log(A3)
-    # f32 range guard: the column phase shifts over the joint (h_z, z)
-    # group, so if theta * (log-w span within a column group) exceeds
-    # exp's f32 range, whole rows underflow to exact zero.
-    _warn_ssy_f32_envelope(model, disc)
+    theta, beta = float(model.theta), float(model.beta)
+    if baseline is None:
+        B_lam, A2, A3 = (t.numpy() for t in _ssy_factors(model, disc))
+        add_row = np.broadcast_to(np.log(A2)[None, :], (n_l, n_k)).copy()
+        add_col = np.log(A3)
+        # f32 range guard: the column phase shifts over the joint (h_z, z)
+        # group, so if theta * (log-w span within a column group) exceeds
+        # exp's f32 range, whole rows underflow to exact zero.
+        _warn_ssy_f32_envelope(model, disc)
+        return TwoPhaseOperands(
+            shapes=tuple(disc.shapes),
+            W_r1=B_lam,
+            W_r2=disc.h_c_Q.numpy(),
+            W_c1=disc.h_z_Q.numpy(),
+            W_c2=disc.z_P.numpy(),
+            add_row=add_row, add_col=add_col, theta=theta, beta=beta)
+    if baseline != "loglinear":
+        raise ValueError(f"unknown baseline {baseline!r}")
+    arrs = _ssy_normalized_arrays(model, disc)
+    # f32 range guard for the normalized operator: large positive entries
+    # of the folded factors M3/M4 eat the exp-range headroom the LSE
+    # accumulations and the iterate's residual theta*(ell - ell0) need
+    # (the JAX package measured log max(M3) ~ 69 on a grid that gives NaN,
+    # <= ~22 on good wide grids): warn above 45.
+    import warnings
+    fac_max = max(float(np.log(arrs["M3"].max())),
+                  float(np.log(arrs["M4"].max())))
+    if fac_max > 45.0:
+        warnings.warn(
+            f"normalized-operator folded factors reach e^{fac_max:.0f}, "
+            "leaving too little float32 exp-range headroom for the "
+            "iterate's residual: the f32 tiled SSY operator is likely to "
+            "produce inf/NaN on this grid. Shrink the z / h_z axes "
+            "(Rouwenhorst ladders span ±sqrt(n-1) sigma), use "
+            "discretization='tauchen' (fixed ±3 sigma span at any point "
+            "count), or the float64 eager chain.", stacklevel=2)
+    sub_row = theta * (arrs["phi_l"][:, None] + arrs["phi_k"][None, :])
+    sub_col = theta * (arrs["A0"] + arrs["phi_i"][:, None] + arrs["psi_ij"])
+    ell0 = (arrs["A0"] + arrs["phi_l"][:, None, None, None]
+            + arrs["phi_k"][None, :, None, None]
+            + arrs["phi_i"][None, None, :, None]
+            + arrs["psi_ij"][None, None, :, :])
+    # Lazy form of the batched column factors: z_states = sigma_z[i] *
+    # ladder[j], so psi_ij = A_z sigma_i lambda_j and both folded factors
+    # are shared matrices with a scalar-scaled exponent correction,
+    #     W[b] = exp(logW0 + t[b] * D)      (rank 1).
+    sigma = disc.sigma_z_states.numpy()
+    lam = disc.z_states.numpy()[0] / sigma[0]
+    phi_i = arrs["phi_i"]
+    Az_theta = theta * arrs["A_z"]
+    lazy_c1 = (_log_probs(disc.h_z_Q)
+               + theta * (phi_i[None, :] - phi_i[:, None]),
+               (Az_theta * (sigma[None, :] - sigma[:, None]))[None],
+               lam[None])
+    lazy_c2 = (_log_probs(disc.z_P),
+               (Az_theta * (lam[None, :] - lam[:, None]))[None],
+               sigma[None])
     return TwoPhaseOperands(
         shapes=tuple(disc.shapes),
-        W_r1=B_lam,
-        W_r2=disc.h_c_Q.numpy(),
-        W_c1=disc.h_z_Q.numpy(),
-        W_c2=disc.z_P.numpy(),
-        add_row=add_row, add_col=add_col,
-        theta=float(model.theta), beta=float(model.beta))
+        W_r1=arrs["M1"], W_r2=arrs["M2"], W_c1=arrs["M3"], W_c2=arrs["M4"],
+        add_row=sub_row + arrs["log_A2"][None, :],
+        add_col=sub_col + arrs["log_A3"],
+        theta=theta, beta=beta,
+        sub_row=sub_row, sub_col=sub_col, baseline_log_w=ell0,
+        lazy_c1=lazy_c1, lazy_c2=lazy_c2)
 
 
 def two_phase_operands_ssy_continuous(model, grids, degree: int = 5,
@@ -225,8 +297,8 @@ def _kron(X, Y):
         X.shape[0] * Y.shape[0], X.shape[1] * Y.shape[1])
 
 
-def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None
-                           ) -> TwoPhaseOperands:
+def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None,
+                           dense: bool = True) -> TwoPhaseOperands:
     """Two-phase operands for the discrete six-state GCY operator via
     Kronecker grouping.
 
@@ -243,15 +315,17 @@ def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None
     and log_A2 on h_c only.  The field view is ``ell[d, l, a, b, c, e]``
     (h_c, h_lam leading); ``perm`` / ``inv_perm`` carry the transposition
     from the natural ``(z, z_pi, h_z, h_c, h_zpi, h_lam)`` layout.
+
+    ``baseline="loglinear"`` builds the normalized operand set
+    (:func:`_two_phase_operands_gcy_normalized`; ``dense`` is read only
+    there).
     """
     from .discrete_gcy import _gcy_factors, gcy_loglinear_parts
 
     if baseline is not None:
         if baseline != "loglinear":
             raise ValueError(f"unknown baseline {baseline!r}")
-        raise NotImplementedError(
-            "baseline='loglinear' operand sets (the normalized GCY tier) "
-            "are not ported yet; they land with ROADMAP queue A item 5")
+        return _two_phase_operands_gcy_normalized(model, disc, dense=dense)
     n_a, n_b, n_c, n_d, n_e, n_l = disc.shapes
     B_lam, A2, A3 = (t.numpy() for t in _gcy_factors(model, disc))
     # log_A2 over d -> rows; log_A3 over current (a, b, c, e) -> columns.
@@ -368,18 +442,254 @@ def two_phase_operands_gcy_continuous(model, grids, degree: int = 5,
         pair_c2=(P_z, P_zpi), pair_shapes=(n_i, n_y, n_b, n_j))
 
 
+def _two_phase_operands_gcy_normalized(model, disc, dense: bool = True
+                                       ) -> TwoPhaseOperands:
+    """Baseline-normalized GCY operand set: the per-axis chain of
+    ``discrete_gcy._T_gcy_normalized`` regrouped into the two-phase form.
+
+    The log-linear baseline ell0 is a sum of row-separable terms (phi_d,
+    phi_l: conjugated into the shared row factors), pure-column terms
+    (A0, phi_c, phi_e: carried by sub_col/add_col and the shared part of
+    the c2 factor) and a (c1, c2)-coupled part that is exactly rank-2
+    separable over the grouping,
+
+        g(p, q) = (A_z k_pi + A_zpi) sigma_zpi(e) ladpi(b)
+                  + A_z sigma_z(c) zlad(a),
+        p = (a, b) = (z, z_pi),  q = (c, e) = (h_z, h_zpi),
+
+    because z_states = centers(e, b) + sigma_z(c) ladder(a).  The coupled
+    part rides the column factors as diagonal conjugations, W_c1 batched
+    over the next c2 index and W_c2 over the current c1 index, with rank-2
+    lazy forms W[b] = exp(logW0 + t1[b] D1 + t2[b] D2).
+
+    ``dense=False`` skips the (B, n, n) batched factors (host time and
+    memory that grow as n_states^{4/3}, and entries that overflow float32
+    on wide-Rouwenhorst grids): ``W_c1``/``W_c2`` are then broadcast
+    placeholders and ``dense_placeholder`` is set, so only the lazy
+    triples (:func:`conjugate_to_shared`, the streamed tier's entry) may
+    be used.
+    """
+    import warnings
+
+    from .discrete_gcy import _gcy_factors, gcy_loglinear_parts
+
+    n_a, n_b, n_c, n_d, n_e, n_l = disc.shapes
+    P, Q = n_a * n_b, n_c * n_e
+    theta = float(model.theta)
+    parts = gcy_loglinear_parts(model, disc)
+    co = parts["co"]
+
+    # Rank-2 coupled column baseline from the ladder structure.
+    sigma_zpi = disc.sigma_zpi_states.numpy()                   # (e,)
+    sigma_z = disc.sigma_z_states.numpy()                       # (c,)
+    ladpi = disc.z_pi_states.numpy()[0] / sigma_zpi[0]
+    kpi = model.rho_pi / (1.0 - model.rho)
+    zst = disc.z_states.numpy()                                 # (b,c,e,a)
+    c00 = kpi * sigma_zpi[0] * ladpi[0]
+    zlad = (zst[0, 0, 0, :] - c00) / sigma_z[0]                 # (a,)
+    u1 = np.broadcast_to(ladpi[None, :], (n_a, n_b)).reshape(P)
+    u2 = np.broadcast_to(zlad[:, None], (n_a, n_b)).reshape(P)
+    t1 = np.broadcast_to(
+        ((co["A_z"] * kpi + co["A_zpi"]) * sigma_zpi)[None, :],
+        (n_c, n_e)).reshape(Q)
+    t2 = np.broadcast_to((co["A_z"] * sigma_z)[:, None],
+                         (n_c, n_e)).reshape(Q)
+    g = u1[:, None] * t1[None, :] + u2[:, None] * t2[None, :]   # (P, Q)
+    # Check against the evaluated baseline psi_z + psi_pi as (P, Q); the
+    # tolerance follows the grids' storage precision.
+    psi_z_PQ = (co["A_z"] * zst).transpose(3, 0, 1, 2).reshape(P, Q)
+    psi_pi_PQ = np.broadcast_to(
+        (co["A_zpi"] * disc.z_pi_states.numpy()).T[None, :, None, :],
+        (n_a, n_b, n_c, n_e)).reshape(P, Q)
+    target = psi_z_PQ + psi_pi_PQ
+    scale = max(1.0, float(np.max(np.abs(target))))
+    eps = float(np.finfo(zst.dtype).eps)
+    if np.max(np.abs(g - target)) > max(1e-9, 100.0 * eps) * scale:
+        raise ValueError(
+            "normalized GCY fold requires the separable z-ladder "
+            "structure (z_states = centers(e, b) + sigma_z(c) * "
+            "ladder(a)); this discretization does not match — use the "
+            "per-axis chain (T_gcy_factory baseline='loglinear')")
+
+    # Row factors: the per-axis-separable parts conjugate into the
+    # shared matrices (h_c with phi_d; B_lam/h_lam with phi_l).
+    phi_d, phi_l = parts["phi_d"], parts["phi_l"]
+    B_lam, A2, A3 = (t.numpy() for t in _gcy_factors(model, disc))
+    W_r1 = (disc.h_c_Q.numpy()
+            * np.exp(theta * (phi_d[None, :] - phi_d[:, None])))
+    W_r2 = B_lam * np.exp(theta * (phi_l[None, :] - phi_l[:, None]))
+
+    with np.errstate(divide="ignore"):
+        logWc1 = np.log(_kron(disc.z_P, disc.z_pi_P))            # (P, P')
+        logWc2 = np.log(_kron(disc.h_z_Q, disc.h_zpi_Q))         # (Q, Q')
+    phi_ce = (np.broadcast_to(parts["phi_c_"][:, None], (n_c, n_e))
+              + parts["phi_e"][None, :]).reshape(Q)
+    D1 = theta * (u1[None, :] - u1[:, None])                    # (P, P')
+    D2 = theta * (u2[None, :] - u2[:, None])
+    E1 = theta * (t1[None, :] - t1[:, None])                    # (Q, Q')
+    E2 = theta * (t2[None, :] - t2[:, None])
+    log0_c2 = logWc2 + theta * (phi_ce[None, :] - phi_ce[:, None])
+
+    if dense:
+        # One slice at a time into a preallocated buffer (the one-shot
+        # broadcast is far slower in numpy at (256, 512, 512)).
+        W_c1 = np.empty((Q, P, P), np.float64)
+        for q in range(Q):
+            np.multiply(D1, t1[q], out=W_c1[q])
+            W_c1[q] += t2[q] * D2
+            W_c1[q] += logWc1
+        fac_max = float(W_c1.max())
+        np.exp(W_c1, out=W_c1)
+        W_c2 = np.empty((P, Q, Q), np.float64)
+        for p in range(P):
+            np.multiply(E1, u1[p], out=W_c2[p])
+            W_c2[p] += u2[p] * E2
+            W_c2[p] += log0_c2
+        fac_max = max(fac_max, float(W_c2.max()))
+        np.exp(W_c2, out=W_c2)
+        if fac_max > 45.0:
+            warnings.warn(
+                f"normalized-operator folded factors reach "
+                f"e^{fac_max:.0f}, beyond float32's exp-range headroom: "
+                "the dense/lazy-batched f32 strip kernels and the f32 "
+                "eager twin will produce inf/NaN on this grid.  The "
+                "conjugated-shared streamed tier (engine='auto' routes "
+                "there when it covers the set) carries the corrections in "
+                "log space and stays finite; otherwise shrink the z / h_z "
+                "axes, use discretization='tauchen', or the float64 "
+                "eager chain.", stacklevel=3)
+    else:
+        W_c1 = np.broadcast_to(np.exp(logWc1)[None], (Q, P, P))
+        W_c2 = np.broadcast_to(np.exp(log0_c2)[None], (P, Q, Q))
+
+    # sub/add: theta * ell0 split over (rows, columns); add restores it
+    # plus the true epilogue terms.
+    E_col = co["A0"] + phi_ce[None, :] + g                      # (P, Q)
+    sub_row = theta * (phi_d[:, None] + phi_l[None, :])         # (d, l)
+    sub_col = theta * E_col
+    add_row = (np.broadcast_to(np.log(A2)[:, None], (n_d, n_l)).copy()
+               + sub_row)
+    add_col = np.log(A3).reshape(P, Q) + sub_col
+    ell0_view = np.transpose(parts["ell0"],
+                             (3, 5, 0, 1, 2, 4)).reshape(n_d, n_l, P, Q)
+    return TwoPhaseOperands(
+        shapes=(n_d, n_l, P, Q),
+        W_r1=W_r1, W_r2=W_r2, W_c1=W_c1, W_c2=W_c2,
+        add_row=add_row, add_col=add_col,
+        theta=theta, beta=float(model.beta),
+        sub_row=sub_row, sub_col=sub_col, baseline_log_w=ell0_view,
+        perm=(3, 5, 0, 1, 2, 4), inv_perm=(2, 3, 4, 0, 5, 1),
+        state_shapes=tuple(disc.shapes),
+        lazy_c1=(logWc1, np.stack([D1, D2]), np.stack([t1, t2])),
+        lazy_c2=(log0_c2, np.stack([E1, E2]), np.stack([u1, u2])),
+        dense_placeholder=not dense)
+
+
+def _difference_split(D: np.ndarray, rtol: float = 1e-12):
+    """``u`` with ``D[i, m] = u[m] - u[i]`` (any gauge: the constant
+    cancels between the pre and post corrections), or None when ``D`` is
+    not difference-separable."""
+    u = np.asarray(D, np.float64)[0, :]
+    resid = np.max(np.abs(D - (u[None, :] - u[:, None])))
+    scale = max(1.0, float(np.max(np.abs(D))))
+    return u if resid <= rtol * scale else None
+
+
+def conjugate_to_shared(ops: TwoPhaseOperands
+                        ) -> Optional[TwoPhaseOperands]:
+    """Exact shared-factor form of a batched operand set whose lazy
+    correction exponents are difference-separable.
+
+    A batched factor ``W[b] = exp(log0 + sum_k t_k[b] D_k)`` with every
+    ``D_k[x, x'] = u_k[x'] - u_k[x]`` is a diagonal conjugation of the
+    shared ``W0 = exp(log0)``:
+
+        W[b] = diag(e^{-g(., b)}) @ W0 @ diag(e^{g(., b)}),
+        g(x, b) = sum_k u_k[x] t_k[b],
+
+    so its log-space contraction is a pre-add of ``G``, the shared
+    contraction and a post-subtract of ``G`` — elementwise adds that fold
+    into ``sub_col`` (before c1), one ``mid_col`` term (between the
+    contractions) and ``add_col`` (after c2).  The separable parts of
+    ``mid_col`` move out of the stage boundary, so the normalized SSY and
+    GCY sets come out mid-free.
+
+    Returns ``ops`` itself when no factor is batched, and None when a
+    batched factor has no difference-separable lazy form (e.g. the
+    continuous-SSY quadrature P_z).
+    """
+    n_r1, n_r2, n_c1, n_c2 = ops.shapes
+    G1 = G2 = None
+    W_c1, W_c2 = ops.W_c1, ops.W_c2
+    if ops.c1_batched:
+        if ops.lazy_c1 is None:
+            return None
+        log0, D, t = ops.lazy_c1
+        G1 = np.zeros((n_c1, n_c2), np.float64)
+        for D_k, t_k in zip(np.asarray(D, np.float64),
+                            np.asarray(t, np.float64)):
+            u = _difference_split(D_k)
+            if u is None:
+                return None
+            G1 = G1 + u[:, None] * t_k[None, :]               # (c1, c2)
+        W_c1 = np.exp(np.asarray(log0, np.float64))
+    if ops.c2_batched:
+        if ops.is_pair or ops.lazy_c2 is None:
+            return None
+        log0, D, t = ops.lazy_c2
+        G2 = np.zeros((n_c1, n_c2), np.float64)
+        for D_k, t_k in zip(np.asarray(D, np.float64),
+                            np.asarray(t, np.float64)):
+            u = _difference_split(D_k)
+            if u is None:
+                return None
+            G2 = G2 + t_k[:, None] * u[None, :]               # (c1, c2)
+        W_c2 = np.exp(np.asarray(log0, np.float64))
+    if G1 is None and G2 is None:
+        return ops                      # already shared
+    zero = np.zeros((n_c1, n_c2), np.float64)
+    G1 = zero if G1 is None else G1
+    G2 = zero if G2 is None else G2
+    sub_col = (zero if ops.sub_col is None
+               else np.asarray(ops.sub_col, np.float64)) - G1
+    sub_row = (np.zeros((n_r1, n_r2), np.float64) if ops.sub_row is None
+               else ops.sub_row)
+    add_col = np.asarray(ops.add_col, np.float64) - G2
+    mid = G2 - G1
+    # A pure-c2 part h(q') of mid commutes with the c1 contraction (move
+    # it before: sub_col), a pure-c1 part f(p) with the c2 contraction
+    # (move it after: add_col).
+    h_q = mid[0, :]
+    f_p = mid[:, 0] - mid[0, 0]
+    if np.allclose(mid, f_p[:, None] + h_q[None, :],
+                   rtol=0.0, atol=1e-12 * max(1.0, np.max(np.abs(mid)))):
+        sub_col = sub_col - h_q[None, :]
+        add_col = add_col + f_p[:, None]
+        mid = None
+    elif np.max(np.abs(mid)) == 0.0:
+        mid = None
+    return dataclasses.replace(
+        ops, W_c1=W_c1, W_c2=W_c2, sub_row=sub_row, sub_col=sub_col,
+        mid_col=mid, add_col=add_col, lazy_c1=None, lazy_c2=None,
+        dense_placeholder=False)
+
+
 def make_eager_two_phase_T(ops: TwoPhaseOperands,
                            dtype: torch.dtype = torch.float32, *,
                            device="cuda") -> Callable:
-    """Plain eager evaluator of a two-phase operand set with a shared c1
-    factor and a shared or batched c2 factor (plain, or with a folded
-    baseline ``sub_row``/``sub_col``) or a continuous-GCY pair set.
+    """Plain eager evaluator of a two-phase operand set: shared or batched
+    column factors, with or without a folded baseline
+    ``sub_row``/``sub_col`` and a ``mid_col`` correction, or a
+    continuous-GCY pair set.
 
-    The same math as the streamed kernels with per-axis shifts at every
+    The same math as the kernels with per-axis shifts at every
     contraction: their agreement oracle and their tangent (it is
-    differentiable by ``torch.func``).  A batched c2 step contracts each
-    c1 slice with its own factor, ``einsum("ijm,tim->tij")`` as in the
-    JAX package's XLA twin.  A pair set's c2 step takes one
+    differentiable by ``torch.func``).  A batched c1 step contracts each
+    next-c2 slice with its own factor, ``einsum("jim,tmj->tij")``, a
+    batched c2 step each c1 slice, ``einsum("ijm,tim->tij")``, as in the
+    JAX package's XLA twin.  A set built with ``dense=False`` (broadcast
+    placeholders for its batched factors) raises ``ValueError``.  A pair
+    set's c2 step takes one
     shift over the whole (B', J') slice, then contracts next-z_pi with
     P_zpi and next-z with P_z, as the JAX package's XLA twin does.
     float32 contractions run in full FP32: on a CUDA device it raises
@@ -387,10 +697,11 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
     (``torch.backends.cuda.matmul.allow_tf32``, off by default), whose
     10-bit mantissa misses the operator's 1e-6-class accuracy.
     """
-    if ops.c1_batched or ops.has_mid:
-        raise NotImplementedError(
-            "batched c1 factors and mid_col corrections (the normalized "
-            "discrete operand sets) are not ported yet; see ROADMAP A3")
+    if ops.dense_placeholder:
+        raise ValueError(
+            "operand set was built with dense=False (batched column "
+            "factors not materialized); conjugate_to_shared it for the "
+            "streamed tier, or rebuild with dense=True")
     dev = resolve_device(device)
     n_r1, n_r2, n_c1, n_c2 = ops.shapes
     R, C = n_r1 * n_r2, n_c1 * n_c2
@@ -403,6 +714,8 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
     else:
         W_c2 = cast(ops.W_c2)
         c2_sub = "ijm,tim->tij" if ops.c2_batched else "jm,tim->tij"
+    c1_sub = "jim,tmj->tij" if ops.c1_batched else "im,tmj->tij"
+    mid = cast(ops.mid_col) if ops.has_mid else None
     add = cast(ops.add_row[:, :, None]
                + np.asarray(ops.add_col).reshape(-1)[None, None, :])
     sub = None
@@ -420,8 +733,9 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
         if sub is not None:
             a = a - sub
         m = torch.amax(a, dim=1, keepdim=True)
-        a = m + torch.log(torch.einsum("im,tmj->tij", W_c1,
-                                       torch.exp(a - m)))
+        a = m + torch.log(torch.einsum(c1_sub, W_c1, torch.exp(a - m)))
+        if mid is not None:
+            a = a + mid
         m = torch.amax(a, dim=2, keepdim=True)
         if ops.is_pair:
             e = torch.exp(a - m).reshape(R, n_i, n_y, n_b, n_j)

@@ -8,18 +8,20 @@ A single global shift overflows float32 once the iterate's dynamic range
 exceeds exp's range; the per-axis shifts here are exact and cost one
 max/exp/log per contraction step.
 
-Only the plain single-window path is ported.  The deep multi-window
-passes (``deep_window``/``deep_passes``) serve the baseline-normalized
-tier, which a later slice ports; the TPU's software transcendentals and
-bf16 "3x" splits are not ported (CUDA's ``exp``/``log`` are correctly
-rounded to ~1 ulp, and float32 contractions run in full FP32).
+The deep multi-window passes (``deep_window``/``deep_passes``) serve the
+baseline-normalized float32 tier, with the construction-time row
+normalization :func:`normalize_rows_log`.  The TPU's software
+transcendentals and bf16 "3x" splits are not ported (CUDA's ``exp``/``log``
+are correctly rounded to ~1 ulp, and float32 contractions run in full
+FP32).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["lse_matmul"]
+__all__ = ["lse_matmul", "normalize_rows_log"]
 
 
 def _contracted_dims(subscripts, axis):
@@ -33,13 +35,15 @@ def _contracted_dims(subscripts, axis):
 
 def _scale_to_output(s, ms, out, contracted):
     """Reshape a per-row scale ``s`` (M's non-contracted labels, in M
-    order) to broadcast against the einsum OUTPUT."""
+    order; a tensor or a numpy array) to broadcast against the einsum
+    OUTPUT."""
     labels = [l for l in ms if l != contracted]
     if not all(l in out for l in labels):
         raise ValueError(f"every non-contracted label of {ms!r} must "
                          f"appear in the output {out!r}")
     order = sorted(range(len(labels)), key=lambda i: out.index(labels[i]))
-    s_t = s.permute(order)
+    s_t = (np.transpose(s, order) if isinstance(s, np.ndarray)
+           else s.permute(order))
     shape, i = [], 0
     for l in out:
         if i < len(labels) and l == labels[order[i]]:
@@ -61,14 +65,111 @@ def _rowsum_align(M, subscripts, axis):
     return Mn, torch.log(_scale_to_output(s, ms, out, contracted))
 
 
+def normalize_rows_log(logM, subscripts, axis):
+    """Construction-time (host numpy, float64) log-domain row
+    normalization for an :func:`lse_matmul` operand.
+
+    Folded baseline factors reach e^{+-hundreds} on wide-Rouwenhorst
+    grids, so a float32 cast of ``exp(logM)`` would make inf and 0
+    entries.  Returns ``(Mn, log_s)`` with ``Mn = exp(logM -
+    logsumexp_row)`` (max entry per row >= 1/n) and ``log_s`` (float64)
+    reshaped to broadcast against the einsum output, to be added to the
+    contraction's result.  As in the JAX package, a row that is all -inf
+    gives NaN (its shift is 0 and its log-sum -inf).
+    """
+    ms, out, kdim, contracted = _contracted_dims(subscripts, axis)
+    mx = np.max(logM, axis=kdim, keepdims=True)
+    mx = np.where(np.isfinite(mx), mx, 0.0)
+    log_s = (np.squeeze(mx, kdim)
+             + np.log(np.sum(np.exp(logM - mx), axis=kdim)))
+    Mn = np.exp(logM - np.expand_dims(log_s, kdim))
+    return Mn, _scale_to_output(log_s, ms, out, contracted)
+
+
 def _safe_shift(log_v, axis):
     """Per-slice max shift; 0 for all--inf slices (-inf - -inf = NaN)."""
     m = torch.amax(log_v, dim=axis, keepdim=True)
     return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
 
 
+# Window-selection floor: the smallest NORMAL float32.  A subnormal
+# contraction result carries as few as 1-2 mantissa bits, so log(u) would
+# quantize in ~0.1-nat steps; such rows fall through to the deeper window.
+_MIN_NORMAL_F32 = float(np.finfo(np.float32).tiny)
+# Cap of a shifted window's exponents (e^80 < float32 max): a capped term
+# only matters for rows a shallower window serves, and the cap prevents
+# 0 * inf = NaN against exact-zero matrix entries.  As in the JAX package
+# the cap is 80 whatever the window W, so with W > 80 terms are dropped.
+_EXP_CAP = 80.0
+
+
+def _deep_passes(Mn, log_v, subscripts, axis, W, K):
+    """K-window LSE of a row-normalized ``Mn``: pass k shifts by k*W, and
+    per output element the shallowest pass whose contraction stayed
+    normal is selected."""
+    m = _safe_shift(log_v, axis)
+    d = log_v - m
+    u = torch.einsum(subscripts, Mn, torch.exp(d))
+    out = m + torch.log(u)
+    sel = u >= _MIN_NORMAL_F32
+    for k in range(1, K):
+        s = k * W
+        u_k = torch.einsum(subscripts, Mn,
+                           torch.exp(torch.clamp(d + s, max=_EXP_CAP)))
+        out = torch.where(sel, out, m - s + torch.log(u_k))
+        sel = sel | (u_k >= _MIN_NORMAL_F32)
+    return out
+
+
+class _LseMatmulDeep(torch.autograd.Function):
+    """Multi-window LSE contraction with a forward-mode derivative that
+    costs one einsum per window, not per pass of the primal.
+
+    For every window the exact derivative is the softmax average
+    ``(Mn @ (exp(v - m + s) dv)) / u_s`` for any shift s whose
+    contraction u_s stayed normal, so the tangent needs only the K-1
+    shifted windows W, 2W, ... (window W covers what the unshifted pass
+    covers), each selected per output element at the shallowest
+    non-flushed shift.  Rows deeper than the deepest window get a zero
+    tangent row.  ``torch.func.jvp`` reaches it through ``jvp``."""
+
+    @staticmethod
+    def forward(Mn, log_v, subscripts, axis, W, K):
+        return _deep_passes(Mn, log_v, subscripts, axis, W, K)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        Mn, log_v, subscripts, axis, W, K = inputs
+        ctx.save_for_forward(Mn, log_v)
+        ctx.spec = (subscripts, axis, W, K)
+
+    @staticmethod
+    def jvp(ctx, dM, dv, *_):
+        Mn, log_v = ctx.saved_tensors
+        subscripts, axis, W, K = ctx.spec
+        m = _safe_shift(log_v, axis)
+        d = log_v - m
+        dout = served = None
+        for k in range(1, max(K, 2)):
+            em = torch.exp(torch.clamp(d + k * W, max=_EXP_CAP))
+            u_k = torch.einsum(subscripts, Mn, em)
+            num = torch.zeros_like(u_k)
+            if dv is not None:
+                num = torch.einsum(subscripts, Mn, em * dv)
+            if dM is not None:
+                num = num + torch.einsum(subscripts, dM, em)
+            ok = u_k >= _MIN_NORMAL_F32
+            val = num / torch.where(ok, u_k, torch.ones_like(u_k))
+            if dout is None:
+                dout, served = torch.zeros_like(val), torch.zeros_like(ok)
+            dout = torch.where(~served & ok, val, dout)
+            served = served | ok
+        return dout
+
+
 def lse_matmul(M: torch.Tensor, log_v: torch.Tensor, subscripts: str,
-               axis: int) -> torch.Tensor:
+               axis: int, deep_window: float = 0.0,
+               deep_passes: int = 2) -> torch.Tensor:
     """log of ``einsum(subscripts, M, exp(log_v))`` with a per-slice shift
     over the contracted ``axis`` of ``log_v``.
 
@@ -77,8 +178,18 @@ def lse_matmul(M: torch.Tensor, log_v: torch.Tensor, subscripts: str,
     ``max(log_v, axis, keepdim=True)``.  All entries of ``M`` must be
     non-negative; ``M`` is row-normalized internally (see
     :func:`_rowsum_align`).
+
+    ``deep_window=W`` (float32 inputs only, e.g. 80.0) adds passes with
+    the shift lowered by W, 2W, ... (``deep_passes`` in all): a localized
+    output row, e.g. a Rouwenhorst ladder corner, can have its whole mass
+    below the single window (exp(v - m) flushes to 0), and the deeper
+    window represents it (:func:`_deep_passes`).
     """
     M, log_s = _rowsum_align(M, subscripts, axis)
+    if deep_window and log_v.dtype == torch.float32:
+        return _LseMatmulDeep.apply(M, log_v, subscripts, axis,
+                                    float(deep_window),
+                                    int(deep_passes)) + log_s
     m = _safe_shift(log_v, axis)
     u = torch.einsum(subscripts, M, torch.exp(log_v - m))
     return m + torch.log(u) + log_s

@@ -129,13 +129,18 @@ def test_eager_twin_matches_jax_xla_twin_and_f64_operator(sizes, baseline):
 
 
 def test_twin_still_rejects_batched_c1_and_mid_col(sets):
+    # Batched c1 factors and mid_col are ported (the normalized tiers,
+    # tests/test_torch_normalized_two_phase.py): a zero mid_col and a c1
+    # factor batched into identical slices leave the twin as it was.
     pops = sets[-1]
-    with pytest.raises(NotImplementedError, match="A3"):
-        P.make_eager_two_phase_T(dataclasses.replace(
-            pops, mid_col=np.zeros((6, 64))), device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        P.make_eager_two_phase_T(dataclasses.replace(
-            pops, W_c1=np.broadcast_to(pops.W_c1, (64, 6, 6))), device="cpu")
+    ell = torch.as_tensor(_ell(pops, seed=2))
+    want = P.make_eager_two_phase_T(pops, torch.float64, device="cpu")(ell)
+    for ops in (dataclasses.replace(pops, mid_col=np.zeros((6, 64))),
+                dataclasses.replace(pops, W_c1=np.broadcast_to(
+                    pops.W_c1, (64, 6, 6)))):
+        got = P.make_eager_two_phase_T(ops, torch.float64, device="cpu")(ell)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-13,
+                                   atol=0)
 
 
 # ---------------------------------------------------------------- pass B

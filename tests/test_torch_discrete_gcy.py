@@ -161,13 +161,18 @@ def test_gcy_model_and_operands_cross_whole():
 
 
 def test_normalized_gcy_tier_raises_not_implemented():
+    # Ported (tests/test_torch_normalized_two_phase.py holds it against
+    # JAX): the normalized operator is the same function as the plain
+    # one, and its operand set carries the rank-2 lazy factors.
     m = P.GCY()
     d = P.discretize_gcy(m, SHAPES[0])
-    with pytest.raises(NotImplementedError, match="normalized GCY"):
-        P.T_gcy_factory(m, d, space="log", baseline="loglinear",
+    T = P.T_gcy_factory(m, d, space="log", baseline="loglinear",
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="normalized GCY"):
-        P.two_phase_operands_gcy(m, d, baseline="loglinear")
+    x = T.baseline_log_w + 0.01
+    want = P.T_gcy_factory(m, d, space="log", device="cpu")(x)
+    assert float((T(x) - want).abs().max()) <= 1e-12
+    ops = P.two_phase_operands_gcy(m, d, baseline="loglinear")
+    assert ops.c1_batched and ops.lazy_c1[1].shape[0] == 2
 
 
 @pytest.mark.parametrize("shapes,warns", [((32, 8, 16, 2, 8, 2), False),

@@ -6,7 +6,8 @@ it runs with ``python -m pytest --noconftest -m gpu
 tests/test_torch_gpu_kernels.py``.  Tolerances as in
 ``test_torch_streamed_two_phase.py``, ``test_torch_deferred_two_phase.py``,
 ``test_torch_pair_two_phase.py``, ``test_torch_batched_two_phase.py``,
-``test_torch_fused.py`` and ``test_torch_post_interp.py``.
+``test_torch_fused.py``, ``test_torch_post_interp.py`` and
+``test_torch_strip_two_phase.py``.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
 from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
 from sdfs_via_autodiff_tpu_torch.kernels import solver_kernel as sk
 from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
+from sdfs_via_autodiff_tpu_torch.kernels import tiled_two_phase as tt
 
 pytestmark = pytest.mark.gpu
 
@@ -352,8 +354,11 @@ def test_uncovered_sets_raise_on_the_card(cuda):
         shapes=(2, 2, 2048, 64), W_r1=W(2), W_r2=W(2), W_c1=W(2048),
         W_c2=W(64), add_row=np.zeros((2, 2)), add_col=np.zeros((2048, 64)),
         theta=-36.0, beta=0.9987)
-    with pytest.raises(NotImplementedError, match="not covered"):
-        P.make_tiled_T_log(wide, device=cuda)
+    # The streamed kernels do not cover it; the strip kernels run it.
+    T = P.make_tiled_T_log(wide, device=cuda)
+    x = torch.full((2, 2, 2048, 64), np.log(800.0), device=cuda)
+    assert T.engine == "strip"
+    assert float((T(x) - T.twin(x)).abs().max()) <= ATOL
     ell = torch.zeros((4, 2048, 64), device=cuda)
     with pytest.raises(ValueError, match="exceeds shared memory"):
         st.pass_b_deferred(ell, torch.zeros((2048, 2048), device=cuda),
@@ -384,6 +389,113 @@ def test_kernel_wrappers_validate_arguments(cuda):
                   "lse")
     with pytest.raises(ValueError, match="is on"):
         st.pass_b(ell, W_c1.cpu(), W_c2t, float(ops.theta), "fast")
+
+
+# Strip tier (B9) and pass B's mid_col branch (B1): (model, shapes,
+# method, baseline, lazy_bytes, mode) as in chip_smoke.py, ragged on
+# purpose.  Plain GCY sets run lse only (their rows span beyond float32's
+# exp range, outside fast mode's envelope).
+STRIP_CASES = [
+    (n, s_, m_, b, lb, mode)
+    for n, s_, m_, b, lb in (
+        ("ssy", (4, 5, 6, 7), "rouwenhorst", None, None),
+        ("ssy", (4, 5, 6, 7), "rouwenhorst", "loglinear", None),
+        ("ssy", (6, 5, 6, 16), "rouwenhorst", "loglinear", 0),
+        ("gcy", (6, 5, 4, 3, 4, 3), "rouwenhorst", None, None),
+        ("gcy", (6, 5, 4, 3, 4, 3), "tauchen", "loglinear", 0),
+        ("ssy", (3, 4, 37, 70), "tauchen", "loglinear", 0))
+    for mode in (("fast", "lse") if n == "ssy" or b else ("lse",))]
+
+
+def _strip_set(name, shapes, method, baseline):
+    if name == "ssy":
+        m = P.SSY()
+        return P.two_phase_operands_ssy(
+            m, P.discretize_ssy(m, shapes, method=method), baseline)
+    m = P.GCY()
+    return P.two_phase_operands_gcy(
+        m, P.discretize_gcy(m, shapes, method=method), baseline)
+
+
+@pytest.mark.parametrize("name,shapes,method,baseline,lazy_bytes,mode",
+                         STRIP_CASES)
+def test_strip_kernels_match_plain(cuda, name, shapes, method, baseline,
+                                   lazy_bytes, mode):
+    ops = _strip_set(name, shapes, method, baseline)
+    d = tt.strip_device_operands(
+        ops, tt.LAZY_BYTES if lazy_bytes is None else lazy_bytes,
+        device=cuda)
+    L, K, n1, n2 = ops.shapes
+    R, C = L * K, n1 * n2
+    rng = np.random.default_rng(0)
+    base = (np.log(800.0) if ops.baseline_log_w is None
+            else ops.baseline_log_w)
+    ell = torch.as_tensor(base + 0.02 * rng.standard_normal(ops.shapes),
+                          dtype=torch.float32, device=cuda).reshape(R, n1, n2)
+    th, be = float(ops.theta), float(ops.beta)
+    col_args = (d["W_c1"], d["W_c2"], th, mode, d["sub_row"], d["sub_col"])
+    key = "strip_col" + ("_fast" if mode == "fast" else "")
+    before = tt.LAUNCHES[key]
+    got = tt.strip_col(ell, *col_args)
+    assert tt.LAUNCHES[key] == before + 1
+    want = tt.strip_col_plain(ell, *col_args)
+    scale = S = None
+    if mode == "fast":
+        (got, s_k), (want, s) = got, want
+        assert float(((got - want).abs() / want.abs()).max()) <= 5e-6
+        assert float((s_k - s).abs().max()) <= ATOL
+        S = s.max().reshape(1)
+        scale = torch.exp(s - S)
+    else:
+        assert bool(((got - want).abs()
+                     <= ATOL + EPS32 * want.abs()).all())
+    mid = want.reshape(R, C)
+    row_args = (scale, S, d["W_r1"], d["W_r2"], d["add_row"], d["add_col"],
+                th, be, mode)
+    out = tt.strip_row(mid, *row_args)
+    assert float((out - tt.strip_row_plain(mid, *row_args)).abs().max()) \
+        <= ATOL
+
+
+@pytest.mark.parametrize("c2_here", [True, False])
+@pytest.mark.parametrize("shapes", [(4, 8, 6, 64), (3, 4, 10, 30)])
+def test_pass_b_mid_kernel_matches_plain(cuda, shapes, c2_here):
+    import dataclasses
+    m = P.SSY()
+    conj = P.conjugate_to_shared(P.two_phase_operands_ssy(
+        m, P.discretize_ssy(m, shapes, method="tauchen"), "loglinear"))
+    rng = np.random.default_rng(1)
+    ops = dataclasses.replace(
+        conj, mid_col=0.05 * rng.standard_normal(shapes[2:]))
+    L, K, I, J = shapes
+    cast = lambda a: torch.as_tensor(np.ascontiguousarray(
+        a, np.float64)).to(device=cuda, dtype=torch.float32)
+    ell = cast(ops.baseline_log_w + 0.02 * rng.standard_normal(shapes))
+    args = (cast(ops.W_c1), cast(np.asarray(ops.W_c2).T) if c2_here else None,
+            float(ops.theta), "lse", cast(np.asarray(ops.sub_row).reshape(-1)),
+            cast(ops.sub_col), cast(ops.mid_col))
+    e = ell.reshape(L * K, I, J)
+    before = st.LAUNCHES["pass_b_mid"]
+    got = st.pass_b(e, *args)
+    assert st.LAUNCHES["pass_b_mid"] == before + 1
+    want = st.pass_b_plain(e, *args)
+    assert bool(((got - want).abs() <= ATOL + EPS32 * want.abs()).all())
+    T = P.make_tiled_T_log(ops, device=cuda)
+    T64 = P.make_eager_two_phase_T(ops, torch.float64, device=cuda)
+    assert float((T(ell).double() - T64(ell.double())).abs().max()) <= ATOL
+
+
+def test_strip_operator_matches_f64(cuda):
+    m = P.SSY()
+    d = P.discretize_ssy(m, (8, 16, 32, 384), method="tauchen")
+    T64 = P.T_ssy_factory(m, d, space="log", baseline="loglinear",
+                          device=cuda)
+    x = T64.baseline_log_w + 0.02
+    for engine in ("strip", "auto"):
+        T = P.make_tiled_T_log_ssy(m, d, baseline="loglinear", engine=engine,
+                                   device=cuda)
+        assert T.engine == ("strip" if engine == "strip" else "streamed")
+        assert float((T(x.float()).double() - T64(x)).abs().max()) <= ATOL
 
 
 # Fused two-matmul operand sets (rows x columns): continuous SSY 25 x 30

@@ -268,7 +268,8 @@ def test_pair_configuration_by_shared_memory(operands):
     wide = dataclasses.replace(pops, pair_shapes=(2, 4, 2, 512),
                                shapes=(16, 8, 8, 1024))
     assert P.streamed_config(wide) is None
-    with pytest.raises(NotImplementedError, match="not covered"):
+    # Pair sets have no strip form (as in JAX): the tiled tier refuses.
+    with pytest.raises(ValueError, match="pair"):
         P.make_tiled_T_log(wide, device="cpu")
     with_mid = dataclasses.replace(pops, mid_col=np.zeros((8, 256)))
     assert P.streamed_config(with_mid) is None

@@ -37,6 +37,12 @@ def test_tiled_newton_slice_matches_jax_f64():
 ])
 def test_later_slices_raise_not_implemented(model, kwargs, match):
     shapes = SHAPES if isinstance(model, P.SSY) else (4, 3, 3, 2, 3, 2)
+    if match == "baseline":
+        # Ported (the normalized tiers): the solve runs and converges.
+        sol = P.wc_ratio_discrete(model, shapes, kernel="tiled",
+                                  device="cpu", tol=3.04e-5, **kwargs)
+        assert sol.converged and bool(torch.isfinite(sol.w_star).all())
+        return
     with pytest.raises(NotImplementedError, match=match):
         P.wc_ratio_discrete(model, shapes, kernel="tiled", device="cpu",
                             **kwargs)

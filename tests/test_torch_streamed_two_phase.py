@@ -176,21 +176,21 @@ def test_coverage_and_uncovered_sets(operands):
     wide = P.two_phase_operands_ssy(m, P.discretize_ssy(
         m, (2, 2, 2048, 64), method="tauchen"))
     assert not P.streamed_supported(wide)
-    with pytest.raises(NotImplementedError, match="strip tier"):
-        P.make_tiled_T_log(wide, device="cpu")
-    # A folded baseline on shared factors runs the full configuration;
-    # a mid_col correction or a batched c1 factor (the normalized discrete
-    # sets, ROADMAP A3) is not covered.
+    assert P.make_tiled_T_log(wide, device="cpu").engine == "strip"
+    # A folded baseline on shared factors runs the full configuration, and
+    # so does a mid_col correction (lse mode); a batched c1 factor without
+    # a lazy form has no conjugated-shared form: the strip tier runs it.
     normalized = dataclasses.replace(pops, sub_row=pops.add_row,
                                      sub_col=pops.add_col)
     assert P.streamed_config(normalized) == "full"
     with_mid = dataclasses.replace(normalized, mid_col=pops.add_col)
+    assert P.streamed_config(with_mid) == "full"
+    T = P.make_tiled_T_log(with_mid, device="cpu")
+    assert (T.engine, T.mode) == ("streamed", "lse")
     c1_batched = dataclasses.replace(pops, W_c1=np.broadcast_to(
         pops.W_c1, (SHAPES[3],) + pops.W_c1.shape))
-    for ops in (with_mid, c1_batched):
-        assert not P.streamed_supported(ops)
-        with pytest.raises(NotImplementedError, match="not covered"):
-            P.make_tiled_T_log(ops, device="cpu")
+    assert not P.streamed_supported(c1_batched)
+    assert P.make_tiled_T_log(c1_batched, device="cpu").engine == "strip"
 
 
 @pytest.mark.parametrize("option", [{"precision": "3x"},
