@@ -48,7 +48,8 @@ Phases, in order; any failure exits non-zero before the result line:
     200 iterations); the Anderson loops' iteration counts at tol 2e-6;
 14. continuous GCY: the deferred pass B with the folded baseline and the
     pair pass C against their plain versions at (8,3,2,4,128,2)
-    (log-linear baseline), a ragged (5,3,3,2,40,3), the 4.2M-point
+    (log-linear baseline), a ragged (5,3,3,2,40,3), (5,3,2,2,40,12)
+    (12 z_pi points: two rounds of the 8-block cluster), the 4.2M-point
     (8,8,8,8,128,8) and the 18.9M-point (16,8,12,12,128,8) grids (coarse
     baseline); one application at 18.9M against the float64 factored
     operator with the same baseline;
@@ -66,9 +67,11 @@ Phases, in order; any failure exits non-zero before the result line:
     ``fused_anderson`` with the coarse baseline (tol 3.04e-5, float64
     residual), and the fused application against its plain version at
     that operand set;
-18. the post-interp kernel (``kernels/csrc/post_interp.cu``) against its
-    plain version at 15^4 and 20^4, "post" and "loglin", on the arguments
-    the operator hands it (``T.kernel_args``), with both timed, and one
+18. the post-interp kernel (``kernels/csrc/post_interp.cu``, a gather
+    over the per-axis hat-basis corner tables) against its plain version
+    on the same arguments and against the plain Kronecker version on the
+    dense stacks, at 15^4 and 20^4, "post" and "loglin", on the arguments
+    the operator hands it (``T.kernel_args``), all three timed, and one
     application at 20^4 against the float64 node chain;
 19. the continuous-SSY post-interp path at 20^4:
     ``wc_ratio_continuous(SSY(), (20,)*4, kernel="tiled", interp="post")``
@@ -131,12 +134,16 @@ Phases, in order; any failure exits non-zero before the result line:
 30. timing of the new kernels against their plain versions at the SSY
     cell (the sets the paths ran them on);
 31. a JSON line of per-kernel facts (with each kernel's bound: the
-    larger of its FP32 operations over 67 TFLOP/s and its bytes over
-    3.35 TB/s, from this run's shapes and iteration counts), then the
-    result line ``{"ok": true, "device": {...}}``.
+    largest of its FP32 operations over 67 TFLOP/s, its bytes over 3.35
+    TB/s and, for the post-interp kernel and the pair pass C, its
+    special-function operations (expf, logf, log1pf) over 16 per clock
+    per SM at the card's maximum SM clock, from this run's shapes and
+    iteration counts), then the result line
+    ``{"ok": true, "device": {...}}``.
 
 The kernels build in parallel (one nvcc per source).  Each path runs
-with every launch count set to 0 just before it and read just after.  The port never imports JAX, and neither does this script.
+with every launch count set to 0 just before it and read just after.
+The port never imports JAX, and neither does this script.
 """
 
 from __future__ import annotations
@@ -196,6 +203,7 @@ GCYC_SHAPES = (16, 8, 12, 12, 128, 8)
 GCYC_SUITE = (8, 8, 8, 8, 128, 8)
 GCYC_SMALL = (8, 3, 2, 4, 128, 2)
 GCYC_RAGGED = (5, 3, 3, 2, 40, 3)
+GCYC_WIDE = (5, 3, 2, 2, 40, 12)     # n_b = 12: above the cluster limit
 GCYC_MAX_ITER = 2000
 GCYC_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
 FUSED_GCY_SIZES = (6,) * 6
@@ -275,18 +283,31 @@ SOURCE_OF = {k: SOURCES["fused_two_matmul" if k.startswith("fused")
                         else "tiled_two_phase" if k.startswith("strip")
                         else k if k in SOURCES else "streamed_two_phase"]
              for k in KERNELS}
-# (FP32 FLOP, bytes) of each kernel's timed call, filled by the phases.
+# (FP32 FLOP, bytes[, special-function operations]) of each kernel's
+# timed call, filled by the phases.
 WORK = {}
+# Special-function results (expf, logf, log1pf: one each) per clock per
+# SM; main() sets SFU_PER_S from the SM count and the card's maximum SM
+# clock (nvidia-smi clocks.max.sm).
+SFU_PER_CLOCK_PER_SM = 16
+SFU_PER_S = [0.0]
+
+
+def bound_of(flop, nbytes, sfu=0):
+    """(bound_ms, bound_by, binding term) of work: the largest of FP32
+    operations over the peak rate, special-function operations over the
+    special-function rate and bytes (each input read once, each output
+    written once) over the memory rate."""
+    terms = {"FP32": flop / PEAK_FP32, "bytes": nbytes / HBM_BYTES_PER_S,
+             "special functions": sfu / SFU_PER_S[0] if sfu else 0.0}
+    term = max(terms, key=terms.get)
+    return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
+            term)
 
 
 def bound(name: str):
-    """(bound_ms, bound_by) of a kernel's timed call: the larger of its
-    FP32 operations over the peak rate and its bytes (each input read
-    once, each output written once) over the memory rate."""
-    flop, nbytes = WORK[name]
-    t_ops, t_bytes = flop / PEAK_FP32, nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+    """(bound_ms, bound_by, binding term) of a kernel's timed call."""
+    return bound_of(*WORK[name])
 
 
 def fail(msg: str) -> None:
@@ -764,11 +785,12 @@ def gcy_continuous_phases(torch, port, st, dev, smi):
     max_err = {"pass_b_deferred": 0.0, "pass_c_pair": 0.0}
     tol = 1.2 * port.f32_tol_floor(model.theta)
 
-    # 14. Kernels vs plain at four sets; one application vs f64.
+    # 14. Kernels vs plain at five sets; one application vs f64.
     coarse_s = {}
     timing_sets = {}
-    for sizes in (GCYC_SMALL, GCYC_RAGGED, GCYC_SUITE, GCYC_SHAPES):
-        if sizes in (GCYC_SMALL, GCYC_RAGGED):
+    for sizes in (GCYC_SMALL, GCYC_RAGGED, GCYC_WIDE, GCYC_SUITE,
+                  GCYC_SHAPES):
+        if sizes in (GCYC_SMALL, GCYC_RAGGED, GCYC_WIDE):
             baseline, label = "loglinear", "log-linear"
         else:
             t0 = time.perf_counter()
@@ -886,17 +908,21 @@ def gcy_continuous_phases(torch, port, st, dev, smi):
         # per slice, then the two row contractions; each pass reads and
         # writes one f32 field plus its operands.
         b_work = (2 * R * I * I * J, 2 * field + 4 * (I * I + R + C))
+        # Special functions: one exp per slice entry, the epilogue's log,
+        # exp and log1p per output, the row carry's R + K exps per
+        # output group.
         c_work = (2 * R * I * n_b * n_j * (n_j + n_b) + 2 * C * R * (L + K),
                   2 * field + 4 * (n_i * n_b * n_j * n_j + n_y * n_b * n_b
-                                   + L * L + K * K + R + C))
+                                   + L * L + K * K + R + C),
+                  4 * R * C + I * n_b * (R + K))
         WORK["pass_c_pair"] = c_work
         kernels_ms["pass_c_pair"] = (c_k, c_p)
         bounds = []
-        for flop, nbytes in (b_work, c_work):
-            t_o, t_b = flop / PEAK_FP32, nbytes / HBM_BYTES_PER_S
-            bounds.append(f"{1e3 * max(t_o, t_b):.4f} ms "
-                          f"({'operations' if t_o >= t_b else 'bytes'}, "
-                          f"{flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
+        for work in (b_work, c_work):
+            bms, _, term = bound_of(*work)
+            sfu = f", {work[2] / 1e6:.1f}M special" if len(work) > 2 else ""
+            bounds.append(f"{bms:.4f} ms ({term}, {work[0] / 1e9:.2f} GFLOP"
+                          f"{sfu}, {work[1] / 1e6:.1f} MB)")
         print(f"timing continuous GCY {sizes} view {ops.shapes}: kernels "
               f"{ms_k:.4f} ms per application (view layout {ms_view:.4f}), "
               f"plain eager twin {ms_p:.4f} ms; pass_b_deferred with sub: "
@@ -1006,21 +1032,26 @@ def fused_gcy_phase(torch, port, dev, smi):
     return err
 
 
-def post_interp_work(sizes, degree):
-    """(FP32 FLOP, bytes) the post-interp function needs for one
-    application: the per-axis node chain, which contracts the field along
-    each of the four axes at each of the d^4 joint nodes (2 * d^4 * N *
-    (n_l + n_k + n_i + n_j) FLOP; transcendentals not counted), reading
-    the field, the per-axis bases (the z basis conditioned on h_z), the
-    payoff, the per-axis log-weights and the kappa parts once and writing
-    the output once."""
+def post_interp_work(sizes, degree, interp="post"):
+    """(FP32 FLOP, bytes, special-function operations) the post-interp
+    function needs for one application on the hat basis's non-zeros (at
+    most two per row on each axis), factored per axis: the 2 x 2
+    (h_lam, h_c) corners per row pair and state (4 multiply-adds), the
+    2 x 2 (h_z, z) corners per joint node and state (4 multiply-adds),
+    the power's scale, the payoff, the log-weight and the sum (4 FLOP),
+    and the epilogue (5 FLOP); d^4 * N logs ("post") and d^4 * N exps,
+    and the epilogue's log, exp and log1p per state.  Bytes: the field,
+    the corner tables (an int32 index and a float32 weight per entry),
+    the payoff, the log-weights and the kappa parts read once, the
+    output written once."""
     n_l, n_k, n_i, n_j = sizes
     N = n_l * n_k * n_i * n_j
-    flop = 2 * degree ** 4 * N * (n_l + n_k + n_i + n_j)
-    nbytes = 4 * (2 * N + degree * (n_l ** 2 + n_k ** 2 + n_i ** 2
-                                    + n_i * n_j ** 2 + n_l + 4)
-                  + n_k + n_j)
-    return flop, nbytes
+    d2, d4 = degree ** 2, degree ** 4
+    flop = 8 * d2 * N + 12 * d4 * N + 5 * N
+    sfu = (2 if interp == "post" else 1) * d4 * N + 3 * N
+    nbytes = 4 * (2 * N + 2 * degree * (n_l + n_k + n_i + n_i * n_j)
+                  + d2 * n_l * n_k + d2 * d2 + 1 + n_l * n_k + n_i * n_j)
+    return flop, nbytes, sfu
 
 
 def post_interp_phases(torch, port, dev, smi):
@@ -1039,31 +1070,46 @@ def post_interp_phases(torch, port, dev, smi):
     # application of the operator vs the float64 node chain.
     for sizes in (POST_CHECK_SIZES, POST_SIZES):
         grids = port.build_grid_ssy(model, *sizes)
+        dense = pk.post_interp_operands_ssy(model, grids, POST_DEGREE)
         ell64 = torch.as_tensor(noise_field(sizes, SEED), device=dev)
         for interp in ("post", "loglin"):
             T = pk.make_post_interp_kernel_T_ssy(model, grids, POST_DEGREE,
                                                  interp, device=dev)
             args = T.kernel_args(ell64.float())
             got = pk.post_interp(*args)
-            want = pk.post_interp_plain(*args)
+            want = pk.post_interp_gather_plain(*args)
             err = float((got - want).abs().max())
             check(bool(torch.isfinite(got).all()) and err <= KERNEL_ATOL,
                   f"post_interp {interp} {sizes}: max abs err {err:.3e}")
             max_err = max(max_err, err)
+            # The same function on the dense Kronecker stacks (the JAX
+            # kernel's operands).
+            kron = tuple(f32_cast(torch, dev)(dense[k]) for k in ("Wr", "Wc"))
+            want_kron = pk.post_interp_plain(args[0], *kron, *args[2:])
+            err_kron = float((got - want_kron).abs().max())
+            check(err_kron <= KERNEL_ATOL, f"post_interp {interp} {sizes} vs "
+                  f"the Kronecker version: max abs err {err_kron:.3e}")
             ms_k = time_ms(torch, lambda y: pk.post_interp(*args), None,
                            n=20)
-            ms_p = time_ms(torch, lambda y: pk.post_interp_plain(*args),
-                           None, n=20)
-            print(f"post_interp {interp} {sizes} (R = C = "
-                  f"{args[0].shape[0]}, {args[4].numel()} node pairs): max "
-                  f"abs err {err:.3e}; kernel {ms_k:.4f} ms, plain "
-                  f"{ms_p:.4f} ms ({smi})")
-            del got, want, args
+            ms_p = time_ms(torch, lambda y: pk.post_interp_gather_plain(
+                *args), None, n=20)
+            ms_kron = time_ms(torch, lambda y: pk.post_interp_plain(
+                args[0], *kron, *args[2:]), None, n=20)
+            work = post_interp_work(sizes, POST_DEGREE, interp)
+            bms, _, term = bound_of(*work)
+            print(f"post_interp {interp} {sizes} ((R, C) = "
+                  f"{tuple(args[0].shape)}, {args[3].numel()} node pairs): max "
+                  f"abs err {err:.3e} vs the gather plain version, "
+                  f"{err_kron:.3e} vs the Kronecker version; kernel "
+                  f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, Kronecker plain "
+                  f"{ms_kron:.4f} ms; bound {bms:.4f} ms ({term}, "
+                  f"{work[0] / 1e9:.3f} GFLOP, {work[2] / 1e6:.1f}M special) "
+                  f"({smi})")
+            del got, want, want_kron, kron, args
             if sizes == POST_SIZES:
                 if interp == "post":
                     kernels_ms = (ms_k, ms_p)
-                    WORK["post_interp"] = post_interp_work(sizes,
-                                                           POST_DEGREE)
+                    WORK["post_interp"] = work
                 T64 = ppi.make_node_chain_T_ssy(model, grids, nodes, logw,
                                                 interp=interp, device=dev)
                 err = float((T(ell64.float()).double()
@@ -1075,7 +1121,7 @@ def post_interp_phases(torch, port, dev, smi):
                       f"{err:.3e}")
                 del T64
             del T
-        del ell64
+        del ell64, dense
     torch.cuda.empty_cache()
 
     # 19. The path, "post" (cold only: its 45 Newton iterations take
@@ -1440,7 +1486,7 @@ def ssy_continuous_phases(torch, port, st, dev, smi):
                     2 * field + 4 * (I * J * J + L * L + K * K + 2 * R + C
                                      + 1))
         for name in (kb, kc):
-            bms, by = bound(name)
+            bms, by, _ = bound(name)
             print(f"timing {name} {SSYC_SHAPES}: kernel "
                   f"{kernels_ms[name][0]:.4f} ms, plain "
                   f"{kernels_ms[name][1]:.4f} ms, bound {bms:.4f} ms ({by}, "
@@ -1644,10 +1690,12 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
 
     # 28. One application at each cell vs the float64 chain, timed.
     apps_ms = {}
-    model_s, disc_s, _ = _operand_set(port, "ssy", MAIN_SHAPES, MAIN_METHOD,
-                                      None)
-    model_g, disc_g, _ = _operand_set(port, "gcy", GCY_SHAPES, GCY_METHOD,
-                                      None)
+    model_s, disc_s, ops_s = _operand_set(port, "ssy", MAIN_SHAPES,
+                                          MAIN_METHOD, None)
+    model_g, disc_g, ops_g = _operand_set(port, "gcy", GCY_SHAPES,
+                                          GCY_METHOD, None)
+    views = {False: tuple(ops_s.shapes), True: tuple(ops_g.shapes)}
+    del ops_s, ops_g
     for label, model, disc, baseline, engine, want_engine in (
             ("ssy normalized", model_s, disc_s, "loglinear", "auto",
              "streamed"),
@@ -1688,10 +1736,18 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
         ms_k = time_ms(torch, T, x, n=10)
         ms_p = time_ms(torch, T.twin, x, n=10)
         apps_ms[(label, engine)] = (ms_k, ms_p)
+        # Bound of one application on its view (L, K, I, J): the column
+        # phase's c1 and c2 contractions and the row phase's two, each
+        # phase reading and writing one float32 field.
+        L, K, I, J = views[gcy]
+        R, C = L * K, I * J
+        bms, _, term = bound_of(2 * R * I * J * (I + J) + 2 * C * R * (L + K),
+                                16 * R * C)
         print(f"operator {label} {shapes} {T.engine}/{T.mode}"
               f"{' lazy ' + str(T.lazy) if T.engine == 'strip' else ''}: "
               f"one application vs f64 max abs err {err:.3e}; {ms_k:.4f} ms "
-              f"per application, eager twin {ms_p:.4f} ms; built in "
+              f"per application, eager twin {ms_p:.4f} ms, bound "
+              f"{bms:.4f} ms ({term}, view {views[gcy]}); built in "
               f"{build_s:.2f} s ({smi})")
         del T, x
         torch.cuda.empty_cache()
@@ -1861,7 +1917,16 @@ def main() -> None:
         has_triton = True
     except ImportError:
         has_triton = False
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "--id=0"], capture_output=True,
+        text=True, timeout=60, check=True).stdout.strip())
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    SFU_PER_S[0] = SFU_PER_CLOCK_PER_SM * n_sm * clock_mhz * 1e6
     print(f"device: {kind}")
+    print(f"special-function rate for the bounds: {SFU_PER_CLOCK_PER_SM} "
+          f"per clock per SM x {n_sm} SMs x {clock_mhz:.0f} MHz "
+          f"(clocks.max.sm) = {SFU_PER_S[0] / 1e12:.4f} T/s")
     print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}")
     print(f"nvcc: {nvcc.strip().splitlines()[-1]}")
     print(f"triton imports: {has_triton}")
@@ -2107,7 +2172,7 @@ def main() -> None:
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:
-        bound_ms, bound_by = bound(name)
+        bound_ms, bound_by, _ = bound(name)
         rows.append({"name": name, "route": "cuda",
                      "source": SOURCE_OF[name], "replaces": REPLACES[name],
                      "launches": launches[name],

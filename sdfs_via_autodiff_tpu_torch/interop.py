@@ -119,10 +119,10 @@ def node_set_from_numpy(nodes, log_weights) -> tuple:
 
 
 def post_interp_operands_from_numpy(d: dict) -> dict:
-    """The post-interp kernel's operand stacks ``Wr``, ``Wc``, ``pay``,
-    ``off_base``, ``lk_row``, ``lk_col`` (arrays, e.g. built with the JAX
-    package's node bases) as float64 CPU tensors, plus ``smax`` =
-    max(pay) + max(off_base), in the layout of
+    """The post-interp operand stacks of the plain Kronecker version
+    ``Wr``, ``Wc``, ``pay``, ``off_base``, ``lk_row``, ``lk_col`` (arrays,
+    e.g. built with the JAX package's node bases) as float64 CPU tensors,
+    plus ``smax`` = max(pay) + max(off_base), in the layout of
     :func:`.kernels.post_interp_kernel.post_interp_operands_ssy`."""
     missing = sorted(set(_POST_INTERP_KEYS) - set(d))
     if missing:

@@ -3,240 +3,246 @@
 // Replaces sdfs_via_autodiff_tpu/kernels/post_interp_kernel.py:58
 // (_kernel).  The continuous SSY operator with the reference's post-power
 // semantics, on the (R, C) = (n_l*n_k, n_i*n_j) view of the field F
-// (F = exp(ell - max ell) for "post", F = ell for "loglin"), with the
-// tensor-product Gauss-Hermite nodes grouped into d^2 row pairs p and d^2
-// column pairs q (Kronecker stacks Wr[p] (R, R) and Wc[q] (C, C)):
+// (F = exp(ell - max ell) for "post", F = ell for "loglin"):
 //
-//   G_p     = Wr[p] F                                   (phase 1)
-//   V_pq    = G_p Wc[q]^T
-//   part_p  = sum_q exp(theta * f(V_pq) + pay[p, r] + off[p, q])
-//                                                       (phase 2)
-//   out     = log1p(beta * exp((log sum_p part_p + s + lk_row[r]
-//                               + lk_col[c]) / theta)) (phase 3)
+//   V_pq[r, c] = interpolant of F at the successor of state (r, c) under
+//                joint node (p, q), p = (q1, q2) the (h_lam, h_c) node
+//                pair, q = (q3, q4) the (h_z, z) pair
+//   out = log1p(beta * exp((log sum_{p,q} exp(theta * f(V_pq) + pay[p, r]
+//                + off[p, q]) + s + lk_row[r] + lk_col[c]) / theta))
 //
 // with f = log for "post" and the identity for "loglin".  off carries the
-// node-pair log-weights and the single global shift s (the wrapper's
+// node pairs' log-weights and the single global shift s (the wrapper's
 // theta*min(ell) + max(pay) + max(off) bound; every exponent is <= 0).
 //
-// What bounds it on an H100: phase 2 is d^4 products of an (R, C) by
-// (C, C) matrix, 2 * P12 * P34 * R * C * C FLOP (83 GFLOP at 20^4, d = 5:
-// 1.24 ms at the 67 TFLOP/s FP32 rate) against ~50 MB of operands: FP32
-// FMAs, not memory.  FP32 FMA throughout (plain TF32 misses the
-// 1e-6-class one-application bar).  The design is a simple SIMT SGEMM:
-// 64x64 output tiles, 256 threads with 4x4 register tiles, 16-deep K
-// tiles staged in shared memory; each block of phase 2 owns one output
-// tile and one row pair p, loops over every column pair q and applies
-// the pointwise power, payoff and exp-accumulate in registers, so no V
-// ever reaches memory.  The cross-block sum over p is phase 3, in a fixed
-// order (deterministic).  Ragged edges are masked.  Transcendentals are
-// CUDA's expf/logf/log1pf, built without fast-math.
+// The interpolation basis is a hat basis with at most two non-zeros per
+// row on each axis, so V_pq is a 16-corner multilinear combination of F.
+// The operands are per-axis corner tables: for each 1-D node and current
+// index the lower corner index (int32) and the upper corner's weight
+// (lo_l, t_l: (d, n_l); lo_c, t_c: (d, n_k); lo_h, t_h: (d, n_i); lo_z,
+// t_z: (d, n_i, n_j), z conditioned on the current h_z index).  The
+// combination is factored per axis:
 //
-// The C entry point launches the three phases on the caller's stream,
-// allocates nothing (the wrapper passes the G and partial-sum scratch)
+//   G_p[r, :] = sum of the 2 x 2 (h_lam, h_c) corners of row r's
+//               successors, weighted                      (4 FMA per entry)
+//   V_pq[r, c] = sum of the 2 x 2 (h_z, z) corners of G_p[r, :]
+//                                                         (4 FMA per entry)
+//
+// What bounds it on an H100: the special-function work, d^4 * N logs
+// ("post") and d^4 * N exps (~48 us at 20^4, d = 5, at 16 per clock per SM
+// and 1.98 GHz), with ~12 FP32 FLOP per (state, node) beside them (a
+// dense Kronecker form spends 83 GFLOP at 20^4, over 99% of it on
+// zeros).  The field (R*C f32) stays in L2.  Design: one block per
+// (field row r, 256-column tile).  The block forms G_p[r, :] for every
+// row pair p (all C columns: the column corners of its outputs can land
+// anywhere) in shared memory as (C, P) with an odd stride, so that a
+// warp's gathers hit distinct banks, then each thread owns one output
+// (r, c): for every column pair q it loads its four column corners once
+// and runs over the row pairs p, forming V from four shared-memory loads,
+// applying the power, payoff and log-weight and accumulating exp in a
+// register.  The sum runs over nodes in a fixed order (q, then p; p in
+// chunks when G for all P row pairs would exceed kGBudget), so the result
+// is deterministic.  No G, V or partial sum reaches device memory.
+// Ragged tiles are masked.  Transcendentals are CUDA's expf/logf/log1pf,
+// built without fast-math.
+//
+// SDFS_SPLIT (compile-time, for timing the phases; 4, the default, is the
+// kernel): 1 forms G only, 2 adds the gathers and V, 3 adds the power
+// and the exp-sum; 1-3 store the raw sum and skip the epilogue.
+//
+// The C entry point launches on the caller's stream, allocates nothing
 // and returns cudaGetLastError(); the Python wrapper validates every
 // argument.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#ifndef SDFS_SPLIT
+#define SDFS_SPLIT 4
+#endif
+
 namespace {
 
-constexpr int kBM = 64;         // output rows per block
-constexpr int kBN = 64;         // output columns per block
-constexpr int kBK = 16;         // K per shared-memory tile
-constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kEpilogueThreads = 256;
+constexpr int kThreads = 256;            // output columns per block
+constexpr int kGBudget = 48 * 1024;      // bytes of G a block aims for
+constexpr int kSmemLimit = 232448;       // a block's shared memory (227 KB)
 
-// c[i][j] += sum_k A(m0 + 4*ty + i, k) * B(k, n0 + 4*tx + j) over K, with
-// A(m, k) = a[m * lda + k] and B(k, n) = b[k * ldb + n] when kBNContig,
-// else b[n * ldb + k].  Out-of-range rows, columns and k read as zero.
-template <bool kBNContig>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ a,
-                                          int lda,
-                                          const float* __restrict__ b,
-                                          int ldb, int M, int N, int K,
-                                          int m0, int n0, float (&c)[4][4],
-                                          float* As, float* Bs) {
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  const int lm = t / 4, lk = (t % 4) * 4;     // K-contiguous loads
-  const int bk = t / 16, bn = (t % 16) * 4;   // N-contiguous loads
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    {
-      const int m = m0 + lm;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int k = k0 + lk + u;
-        As[(lk + u) * kBM + lm] =
-            (m < M && k < K) ? __ldg(a + (size_t)m * lda + k) : 0.f;
-      }
-    }
-    if (kBNContig) {
-      const int k = k0 + bk;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int n = n0 + bn + u;
-        Bs[bk * kBN + bn + u] =
-            (k < K && n < N) ? __ldg(b + (size_t)k * ldb + n) : 0.f;
-      }
-    } else {
-      const int n = n0 + lm;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int k = k0 + lk + u;
-        Bs[(lk + u) * kBN + lm] =
-            (n < N && k < K) ? __ldg(b + (size_t)n * ldb + k) : 0.f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 av =
-          *reinterpret_cast<const float4*>(As + kk * kBM + ty * 4);
-      const float4 bv =
-          *reinterpret_cast<const float4*>(Bs + kk * kBN + tx * 4);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[i][j] = fmaf(ar[i], br[j], c[i][j]);
-      }
-    }
-    __syncthreads();
-  }
+struct Hat {
+  int lo, hi;
+  float w0, w1;
+};
+
+// The two corners of entry idx of a corner table on an n-point axis.
+__device__ __forceinline__ Hat hat(const int* __restrict__ lo,
+                                   const float* __restrict__ t, int idx,
+                                   int n) {
+  Hat h;
+  h.lo = __ldg(lo + idx);
+  h.hi = min(h.lo + 1, n - 1);
+  h.w1 = __ldg(t + idx);
+  h.w0 = 1.f - h.w1;
+  return h;
 }
 
-// Phase 1: g[p] = wr[p] (R, R) @ field (R, C), one block per (column
-// tile, row tile, p).
-__global__ void __launch_bounds__(kThreads)
-    post_g_kernel(const float* __restrict__ field,
-                  const float* __restrict__ wr, float* __restrict__ g, int R,
-                  int C) {
-  __shared__ __align__(16) float As[kBK * kBM];
-  __shared__ __align__(16) float Bs[kBK * kBN];
-  const int p = blockIdx.z;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  float c[4][4] = {};
-  gemm_tile<true>(wr + (size_t)p * R * R, R, field, C, R, C, R, m0, n0, c,
-                  As, Bs);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float* gp = g + (size_t)p * R * C;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-    if (r >= R) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < C) gp[(size_t)r * C + col] = c[i][j];
-    }
-  }
+// Row-pair stride of G in shared memory: odd, so that the columns a warp
+// gathers fall in distinct banks.
+__host__ __device__ inline int g_stride(int pc) { return pc | 1; }
+
+// Shared-memory floats of a block holding pc row pairs: G (C, stride),
+// pay[p, r] (pc) and off[p, :] (pc, P).
+__host__ __device__ inline size_t post_smem_floats(int C, int P, int pc) {
+  return (size_t)C * g_stride(pc) + pc + (size_t)pc * P;
 }
 
-// Phase 2: part[p] = sum_q exp(theta * f(g[p] wc[q]^T) + pay[p, r] +
-// off[p, q]), one block per (column tile, row tile, p).
 template <bool kPost>
 __global__ void __launch_bounds__(kThreads)
-    post_acc_kernel(const float* __restrict__ g,
-                    const float* __restrict__ wc,
-                    const float* __restrict__ pay,
-                    const float* __restrict__ off, float* __restrict__ part,
-                    int R, int C, int P34, float theta) {
-  __shared__ __align__(16) float As[kBK * kBM];
-  __shared__ __align__(16) float Bs[kBK * kBN];
-  const int p = blockIdx.z;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float pay_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-    pay_r[i] = r < R ? __ldg(pay + (size_t)p * R + r) : 0.f;
-  }
-  const float* gp = g + (size_t)p * R * C;
-  float acc[4][4] = {};
-  for (int q = 0; q < P34; ++q) {
-    float v[4][4] = {};
-    gemm_tile<false>(gp, C, wc + (size_t)q * C * C, C, R, C, C, m0, n0, v,
-                     As, Bs);
-    const float o = __ldg(off + (size_t)p * P34 + q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = kPost ? theta * logf(v[i][j]) : theta * v[i][j];
-        acc[i][j] += expf(e + pay_r[i] + o);
+    post_gather_kernel(const float* __restrict__ field,
+                       const int* __restrict__ lo_l,
+                       const float* __restrict__ t_l,
+                       const int* __restrict__ lo_c,
+                       const float* __restrict__ t_c,
+                       const int* __restrict__ lo_h,
+                       const float* __restrict__ t_h,
+                       const int* __restrict__ lo_z,
+                       const float* __restrict__ t_z,
+                       const float* __restrict__ pay,
+                       const float* __restrict__ off,
+                       const float* __restrict__ s,
+                       const float* __restrict__ lk_row,
+                       const float* __restrict__ lk_col,
+                       float* __restrict__ out, int n_l, int n_k, int n_i,
+                       int n_j, int d, int pc, float theta, float beta) {
+  extern __shared__ float smem[];
+  const int R = n_l * n_k, C = n_i * n_j, P = d * d, S = g_stride(pc);
+  float* g = smem;                   // G_{p0+pp}[r, col] at col * S + pp
+  float* po = g + (size_t)C * S;     // pay[p0 + pp, r]
+  float* oq = po + pc;               // off[p0 + pp, q] at pp * P + q
+  const int r = blockIdx.y, l = r / n_k, k = r % n_k;
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  const bool active = c < C;
+  const int ci = active ? c / n_j : 0, cj = active ? c % n_j : 0;
+  float acc = 0.f;
+  for (int p0 = 0; p0 < P; p0 += pc) {
+    const int np = min(pc, P - p0);
+    __syncthreads();                 // the previous chunk's readers done
+    // G_p[r, col] for the chunk's row pairs: consecutive threads read
+    // consecutive columns of the four corner rows of F.
+    for (int x = threadIdx.x; x < np * C; x += kThreads) {
+      const int pp = x / C, col = x - pp * C, p = p0 + pp;
+      const Hat a = hat(lo_l, t_l, (p / d) * n_l + l, n_l);
+      const Hat b = hat(lo_c, t_c, (p % d) * n_k + k, n_k);
+      const float* f = field + col;
+      float v = (a.w0 * b.w0) * __ldg(f + (size_t)(a.lo * n_k + b.lo) * C);
+      v = fmaf(a.w0 * b.w1, __ldg(f + (size_t)(a.lo * n_k + b.hi) * C), v);
+      v = fmaf(a.w1 * b.w0, __ldg(f + (size_t)(a.hi * n_k + b.lo) * C), v);
+      v = fmaf(a.w1 * b.w1, __ldg(f + (size_t)(a.hi * n_k + b.hi) * C), v);
+      g[(size_t)col * S + pp] = v;
+    }
+    for (int x = threadIdx.x; x < np; x += kThreads)
+      po[x] = __ldg(pay + (size_t)(p0 + x) * R + r);
+    for (int x = threadIdx.x; x < np * P; x += kThreads)
+      oq[x] = __ldg(off + (size_t)p0 * P + x);
+    __syncthreads();
+#if SDFS_SPLIT == 1
+    if (active) acc += g[(size_t)c * S];
+#else
+    if (active) {
+      for (int q = 0; q < P; ++q) {
+        const Hat hz = hat(lo_h, t_h, (q / d) * n_i + ci, n_i);
+        const Hat z = hat(lo_z, t_z, ((q % d) * n_i + ci) * n_j + cj, n_j);
+        const float w00 = hz.w0 * z.w0, w01 = hz.w0 * z.w1;
+        const float w10 = hz.w1 * z.w0, w11 = hz.w1 * z.w1;
+        const float* g00 = g + (size_t)(hz.lo * n_j + z.lo) * S;
+        const float* g01 = g + (size_t)(hz.lo * n_j + z.hi) * S;
+        const float* g10 = g + (size_t)(hz.hi * n_j + z.lo) * S;
+        const float* g11 = g + (size_t)(hz.hi * n_j + z.hi) * S;
+        const float* o = oq + q;
+        auto term = [&](int pp) {
+          float v = w00 * g00[pp];
+          v = fmaf(w01, g01[pp], v);
+          v = fmaf(w10, g10[pp], v);
+          v = fmaf(w11, g11[pp], v);
+#if SDFS_SPLIT == 2
+          return v;
+#else
+          const float e = kPost ? theta * logf(v) : theta * v;
+          return expf(e + po[pp] + o[pp * P]);
+#endif
+        };
+        // Five independent terms in flight, summed in order of p.  (The
+        // loop is unrolled by hand: nvcc 12.9's "#pragma unroll 5" on
+        // this loop gave wrong sums when np was not a multiple of 5.)
+        int pp = 0;
+        for (; pp + 5 <= np; pp += 5) {
+          const float t0 = term(pp), t1 = term(pp + 1), t2 = term(pp + 2);
+          const float t3 = term(pp + 3), t4 = term(pp + 4);
+          acc += t0;
+          acc += t1;
+          acc += t2;
+          acc += t3;
+          acc += t4;
+        }
+#pragma unroll 1
+        for (; pp < np; ++pp) acc += term(pp);
       }
     }
+#endif
   }
-  float* pp = part + (size_t)p * R * C;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-    if (r >= R) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < C) pp[(size_t)r * C + col] = acc[i][j];
-    }
-  }
-}
-
-// Phase 3: the sum over row pairs p = 0..P12-1 (in order), the log, the
-// shift, log kappa and the epilogue, one thread per element.
-__global__ void __launch_bounds__(kEpilogueThreads)
-    post_epilogue_kernel(const float* __restrict__ part,
-                         const float* __restrict__ s,
-                         const float* __restrict__ lk_row,
-                         const float* __restrict__ lk_col,
-                         float* __restrict__ out, int R, int C, int P12,
-                         float theta, float beta) {
-  const size_t n = (size_t)R * C;
-  const size_t idx = (size_t)blockIdx.x * kEpilogueThreads + threadIdx.x;
-  if (idx >= n) return;
-  const int r = (int)(idx / C), col = (int)(idx % C);
-  float acc = 0.f;
-  for (int p = 0; p < P12; ++p) acc += part[(size_t)p * n + idx];
+  if (!active) return;
+#if SDFS_SPLIT >= 4
   const float log_kg = logf(acc) + __ldg(s) + __ldg(lk_row + r) +
-                       __ldg(lk_col + col);
-  out[idx] = log1pf(beta * expf(log_kg / theta));
+                       __ldg(lk_col + c);
+  out[(size_t)r * C + c] = log1pf(beta * expf(log_kg / theta));
+#else
+  out[(size_t)r * C + c] = acc;
+#endif
 }
 
 }  // namespace
 
 extern "C" {
 
-// One application on field (R, C): wr (P12, R, R), wc (P34, C, C),
-// pay (P12, R), off (P12, P34), s (1,), lk_row (R,), lk_col (C,);
-// scratch g and part (P12, R, C) each; out (R, C).  post = 1 for "post",
-// 0 for "loglin".
-int sdfs_post_interp(const float* field, const float* wr, const float* wc,
-                     const float* pay, const float* off, const float* s,
-                     const float* lk_row, const float* lk_col, float* g,
-                     float* part, float* out, int R, int C, int P12, int P34,
-                     float theta, float beta, int post, void* stream) {
-  if (R <= 0 || C <= 0 || P12 <= 0 || P34 <= 0 || P12 > 65535)
-    return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((C + kBN - 1) / kBN, (R + kBM - 1) / kBM, P12);
-  post_g_kernel<<<grid, kThreads, 0, st>>>(field, wr, g, R, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if (post) {
-    post_acc_kernel<true><<<grid, kThreads, 0, st>>>(g, wc, pay, off, part,
-                                                     R, C, P34, theta);
-  } else {
-    post_acc_kernel<false><<<grid, kThreads, 0, st>>>(g, wc, pay, off, part,
-                                                      R, C, P34, theta);
+// Row pairs per shared-memory chunk for C columns and P = d^2 row pairs:
+// the most that keep a block within kGBudget, else the most that fit a
+// block at all; 0 when not even one fits.
+int sdfs_post_interp_chunk(int C, int P) {
+  const size_t limits[2] = {(size_t)kGBudget, (size_t)kSmemLimit};
+  for (size_t limit : limits) {
+    for (int pc = P; pc >= 1; --pc)
+      if (sizeof(float) * post_smem_floats(C, P, pc) <= limit) return pc;
   }
-  err = cudaGetLastError();
+  return 0;
+}
+
+// One application on field (R, C) = (n_l*n_k, n_i*n_j): the corner tables
+// lo_* (int32) and t_* (float32) of shapes (d, n_l), (d, n_k), (d, n_i),
+// (d, n_i, n_j); pay (d^2, R), off (d^2, d^2), s (1,), lk_row (R,),
+// lk_col (C,); out (R, C).  post = 1 for "post", 0 for "loglin".
+int sdfs_post_interp(const float* field, const int* lo_l, const float* t_l,
+                     const int* lo_c, const float* t_c, const int* lo_h,
+                     const float* t_h, const int* lo_z, const float* t_z,
+                     const float* pay, const float* off, const float* s,
+                     const float* lk_row, const float* lk_col, float* out,
+                     int n_l, int n_k, int n_i, int n_j, int d, float theta,
+                     float beta, int post, void* stream) {
+  if (n_l <= 0 || n_k <= 0 || n_i <= 0 || n_j <= 0 || d <= 0 ||
+      n_l * n_k > 65535)
+    return cudaErrorInvalidValue;
+  const int R = n_l * n_k, C = n_i * n_j, P = d * d;
+  const int pc = sdfs_post_interp_chunk(C, P);
+  if (pc == 0) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * post_smem_floats(C, P, pc);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((C + kThreads - 1) / kThreads, R);
+  const auto kernel =
+      post ? post_gather_kernel<true> : post_gather_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const size_t n = (size_t)R * C;
-  const unsigned blocks =
-      (unsigned)((n + kEpilogueThreads - 1) / kEpilogueThreads);
-  post_epilogue_kernel<<<blocks, kEpilogueThreads, 0, st>>>(
-      part, s, lk_row, lk_col, out, R, C, P12, theta, beta);
+  kernel<<<grid, kThreads, smem, st>>>(field, lo_l, t_l, lo_c, t_c, lo_h,
+                                       t_h, lo_z, t_z, pay, off, s, lk_row,
+                                       lk_col, out, n_l, n_k, n_i, n_j, d,
+                                       pc, theta, beta);
   return cudaGetLastError();
 }
 

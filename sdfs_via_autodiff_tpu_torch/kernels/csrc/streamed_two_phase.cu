@@ -48,6 +48,7 @@
 // The C entry points launch on the caller's stream, allocate nothing and
 // return cudaGetLastError(); the Python wrappers validate every argument.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -906,13 +907,14 @@ pass_c_deferred_kernel(const float* __restrict__ mid,
 // Continuous GCY: the column factor c2 = (z_pi, z) of a c1 slice
 // q = (i, y) (current h_z, h_zpi) is the conditioned pair
 // P_zpi[y, b, B'] * P_z[i, j, b, J'], contracted per axis.  Pass B is
-// pass_b_deferred (with the folded baseline); pass_c_pair runs one block
-// per (slice q, current z_pi index b), holding all R = L*K rows of the
-// block's n_j output columns (b, j):
+// pass_b_deferred (with the folded baseline); pass_c_pair computes, per
+// slice and per output group b (the current z_pi index, n_j columns
+// (b, j)), with R = L*K rows:
 //
 //   1. m1[r] = max of mid[r] over the slice's whole (B', J') group;
-//   2. acc[r, J'] = sum_B' P_zpi[y, b, B'] exp(mid[r, (B', J')] - m1 + 25);
-//   3. u[r, j] = sum_J' acc[r, J'] P_z[i, j, b, J'] (one (R, n_j) by
+//   2. acc_b[r, J'] = sum_B' P_zpi[y, b, B'] exp(mid[r, (B', J')] - m1
+//      + 25);
+//   3. u[r, j] = sum_J' acc_b[r, J'] P_z[i, j, b, J'] (one (R, n_j) by
 //      (n_j, n_j) product; the port's layout pzt[i, b, J', j], see
 //      pair_device_operands in streamed_two_phase.py, streams the
 //      (i, b) block from L2 in 16-row K-tiles by cp.async);
@@ -930,23 +932,67 @@ pass_c_deferred_kernel(const float* __restrict__ mid,
 //
 // What bounds it on an H100: FP32 FMA.  At view (8, 16, 144, 1024) the
 // z' products are 2 * R * IY * C2 * n_j = 4.83 GFLOP, the z_pi'
-// contraction 0.30 and the row carry 0.91, against 75.5 MB fields.  A
-// slice's (R, C2) field (512 KB) does not fit a block, so each of a
-// slice's n_b blocks (adjacent in the grid) reads the slice twice from
-// L2 (the max, then the exps): the slice is exponentiated n_b times.
-// The (R, n_j) accumulator, the product and the K-tiles stay in shared
-// memory (148 KB at R = n_j = 128, one block of 512 threads per SM).
+// contraction 0.30 and the row carry 0.91, with R * C = 18.9M
+// exponentials, against 75.5 MB fields.  A slice's (R, C2) field (512
+// KB) does not fit a block.  Design: the cs = min(n_b, 8) blocks of a
+// slice run as one thread-block cluster (cudaLaunchKernelEx with a
+// cluster dimension; 8 is the portable limit).  Steps 1-2 split the
+// slice by rows: cluster rank rho owns rows [rho*R/cs, (rho+1)*R/cs),
+// reads them once from device memory for their maxima (kept in L2 for
+// the second read), exponentiates each entry once and forms acc_b for
+// every group b of the round in registers, into its staging area in
+// shared memory laid out [b - b0][row - row0][J'].  After a cluster
+// barrier, the block that owns group b gathers acc_b's rows from its
+// peers' staging areas over distributed shared memory (one (R, n_j)
+// read per block: one field's worth per slice), and the full m1 from
+// its peers likewise.  After a second barrier (the staging areas are
+// then free, and alias the product's u and K-tiles) steps 3-5 run per
+// block, one group each: the z' product as before; the row phase with
+// W_r1 and W_r2 staged in the K-tile area, a thread taking one column and
+// kRowTile output rows at a time (no divisions in the inner loops).  The
+// phase split (bench/kernel_split.py) puts the maxima, the exponentials
+// and the gather, the z' product, and the row phase with the epilogue
+// at about a third of the kernel each.  Sets with n_b above the cluster
+// size run
+// in rounds of cs groups (group b belongs to rank b % cs in round
+// b / cs), steps 1-2 again in each round: the kernel covers every n_b.
+// Shared memory: 148 KB at R = n_j = 128 (one block of 512 threads per
+// SM), independent of n_b.
+//
+// SDFS_PAIR_SPLIT (compile-time, for timing the phases; 4, the default,
+// is the kernel): 1 stops after the slice maxima, 2 after the
+// exponentials, the z_pi' sums and the gather, 3 after the z' product;
+// 1-3 store that phase's result in place of the output.
+
+#ifndef SDFS_PAIR_SPLIT
+#define SDFS_PAIR_SPLIT 4
+#endif
 
 constexpr int kPairThreads = 512;
+constexpr int kPairCluster = 8;       // the portable cluster size limit
+constexpr int kRowTile = 8;           // row-phase outputs per thread and pass
 constexpr float kPairBias = 25.f;
+
+// Blocks per cluster (one slice) and the first row of cluster rank rank;
+// the row's owner inverts it.
+__host__ __device__ inline int pair_cluster_size(int n_b) {
+  return n_b < kPairCluster ? n_b : kPairCluster;
+}
+__host__ __device__ inline int pair_row0(int rank, int R, int cs) {
+  return (int)(((long long)rank * R) / cs);
+}
+__host__ __device__ inline int pair_row_owner(int r, int R, int cs) {
+  return (int)(((long long)(r + 1) * cs - 1) / R);
+}
 
 // Shared-memory floats of pass_c_pair: acc (R rows of Jp =
 // round_up4(n_j), later the l' result), u (R, n_j), the two K-tiles of
-// P_z, m1 (R), M2 (K), M3 and the n_b weights P_zpi[y, b, :].
-__host__ __device__ inline int pass_c_pair_smem_floats(int R, int K, int n_b,
+// P_z (u and the K-tiles first hold the round's staging area, cs *
+// ceil(R / cs) rows of n_j <= (R + 7) * n_j), m1 (R), M2 (K) and M3.
+__host__ __device__ inline int pass_c_pair_smem_floats(int R, int K,
                                                        int n_j) {
   return R * round_up4(n_j) + R * n_j + 2 * kBK * n_j + round_up4(R) +
-         round_up4(K) + 4 + round_up4(n_b);
+         round_up4(K) + 4;
 }
 
 __global__ void __launch_bounds__(kPairThreads)
@@ -959,6 +1005,8 @@ pass_c_pair_kernel(const float* __restrict__ mid,
                    const float* __restrict__ add_col,
                    float* __restrict__ out, int L, int K, int n_i, int n_y,
                    int n_b, int n_j, float theta, float beta) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float smem[];     // 16-byte aligned base
   const int R = L * K, Jp = round_up4(n_j), C2 = n_b * n_j;
   float* acc = smem;                  // (R, Jp); later z (L, K, n_j)
@@ -967,146 +1015,261 @@ pass_c_pair_kernel(const float* __restrict__ mid,
   float* m1 = stage + 2 * kBK * n_j;  // (R)
   float* M2 = m1 + round_up4(R);      // (K)
   float* M3 = M2 + round_up4(K);      // (1)
-  float* wz = M3 + 4;                 // (n_b): P_zpi[y, b, :]
+  float* staging = u;                 // (cs, chunk, n_j) over u and stage
   const int tid = threadIdx.x, nt = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
-  const int b = blockIdx.x, q = blockIdx.y;
-  const int i = q / n_y, y = q % n_y;
+  const int cs = gridDim.x;           // the cluster is the grid's x
+  const int rank = blockIdx.x;
+  const int q = blockIdx.y, i = q / n_y, y = q % n_y;
   const size_t C = (size_t)n_i * n_y * C2;
   const size_t col0 = (size_t)q * C2;            // first column of slice q
   const float* in = mid + col0;
+  const int r0 = pair_row0(rank, R, cs), r1 = pair_row0(rank + 1, R, cs);
+  const int chunk = (R + cs - 1) / cs;
+  const bool vec = (n_j % 4 == 0);    // then every slab row is 16-byte aligned
+  const int rounds = (n_b + cs - 1) / cs;
 
-  for (int x = tid; x < n_b; x += nt)
-    wz[x] = __ldg(p_zpi + ((size_t)y * n_b + b) * n_b + x);
+  for (int t = 0; t < rounds; ++t) {
+    const int b0 = t * cs, ng = min(cs, n_b - b0);
 
-  // 1. m1[r] over the slice (a warp takes 4 rows at a time so that many
-  // independent loads are in flight per lane; float4 loads when every
-  // row of the slice is 16-byte aligned).
-  const bool vec = (C2 % 4 == 0);
-  for (int r0 = 4 * warp; r0 < R; r0 += 4 * nw) {
-    float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-    if (vec) {
+    // 1. m1[r] over the slice for the own rows, a warp per row.
+    for (int r = r0 + warp; r < r1; r += nw) {
+      const float* row = in + r * C;
+      float m = -INFINITY;
+      if (vec) {
 #pragma unroll 4
-      for (int x = lane; x < C2 / 4; x += 32)
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          if (r0 + v < R) {
-            const float4 a = __ldg(
-                reinterpret_cast<const float4*>(in + (r0 + v) * C) + x);
-            m[v] = fmaxf(m[v], fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w)));
-          }
-    } else {
+        for (int x = lane; x < C2 / 4; x += 32) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(row) + x);
+          m = fmaxf(m, fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w)));
+        }
+      } else {
 #pragma unroll 4
-      for (int x = lane; x < C2; x += 32)
-#pragma unroll
-        for (int v = 0; v < 4; ++v)
-          if (r0 + v < R) m[v] = fmaxf(m[v], __ldg(in + (r0 + v) * C + x));
-    }
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const float mv = warp_max(m[v]);
-      if (lane == 0 && r0 + v < R) m1[r0 + v] = mv;
-    }
-  }
-  __syncthreads();
-
-  // 2. acc[r, J'] = sum_B' wz[B'] exp(mid[r, B', J'] - m1[r] + 25), the
-  // sum in order of B'; padding columns J' >= n_j hold 0.  A thread takes
-  // four consecutive J' (float4 loads when n_j % 4 == 0) and unrolls
-  // over B', so that several independent L2 loads are in flight.
-  if (n_j % 4 == 0) {
-    const int q4 = n_j / 4;
-    for (int x = tid; x < R * q4; x += nt) {
-      const int r = x / q4, j4 = 4 * (x % q4);
-      const float4* src = reinterpret_cast<const float4*>(in + r * C + j4);
-      const float m = m1[r];
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-      for (int B = 0; B < n_b; ++B) {
-        const float4 v = __ldg(src + B * q4);
-        const float w = wz[B];
-        a.x = fmaf(w, expf(v.x - m + kPairBias), a.x);
-        a.y = fmaf(w, expf(v.y - m + kPairBias), a.y);
-        a.z = fmaf(w, expf(v.z - m + kPairBias), a.z);
-        a.w = fmaf(w, expf(v.w - m + kPairBias), a.w);
+        for (int x = lane; x < C2; x += 32) m = fmaxf(m, __ldg(row + x));
       }
-      *reinterpret_cast<float4*>(acc + r * Jp + j4) = a;
+      m = warp_max(m);
+      if (lane == 0) m1[r] = m;
     }
-  } else {
-    for (int x = tid; x < R * Jp; x += nt) {
-      const int r = x / Jp, jj = x % Jp;
-      float a = 0.f;
-      if (jj < n_j) {
+    cluster.sync();                   // every rank's maxima are written
+
+    // The peers' maxima (for the row carry of step 4).
+    for (int r = tid; r < R; r += nt)
+      if (r < r0 || r >= r1)
+        m1[r] = *cluster.map_shared_rank(m1 + r,
+                                         pair_row_owner(r, R, cs));
+#if SDFS_PAIR_SPLIT == 1
+    cluster.sync();                   // the peers' maxima read
+    __syncthreads();
+    if (rank < ng) {
+      for (int x = tid; x < R * n_j; x += nt)
+        out[(x / n_j) * C + col0 + (size_t)(b0 + rank) * n_j + x % n_j] =
+            m1[x / n_j];
+    }
+    continue;
+#endif
+
+    // 2. For the own rows: acc_{b0+g}[r, J'] = sum_B' P_zpi[y, b0+g, B']
+    // exp(mid[r, (B', J')] - m1[r] + 25), each entry exponentiated once,
+    // the sum in order of B'; into staging[g][r - r0][J'].
+    const float* wz = p_zpi + ((size_t)y * n_b + b0) * n_b;  // [g][B']
+    if (vec) {
+      const int q4 = n_j / 4;
+      for (int x = tid; x < (r1 - r0) * q4; x += nt) {
+        const int rl = x / q4, j4 = 4 * (x % q4), r = r0 + rl;
+        const float4* src = reinterpret_cast<const float4*>(in + r * C + j4);
+        const float m = m1[r];
+        float4 a[kPairCluster];
+#pragma unroll
+        for (int g = 0; g < kPairCluster; ++g)
+          a[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int B = 0; B < n_b; ++B) {
+          const float4 v = __ldg(src + B * q4);
+          const float ex = expf(v.x - m + kPairBias);
+          const float ey = expf(v.y - m + kPairBias);
+          const float ez = expf(v.z - m + kPairBias);
+          const float ew = expf(v.w - m + kPairBias);
+#pragma unroll
+          for (int g = 0; g < kPairCluster; ++g) {
+            if (g < ng) {
+              const float w = __ldg(wz + g * n_b + B);
+              a[g].x = fmaf(w, ex, a[g].x);
+              a[g].y = fmaf(w, ey, a[g].y);
+              a[g].z = fmaf(w, ez, a[g].z);
+              a[g].w = fmaf(w, ew, a[g].w);
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < kPairCluster; ++g)
+          if (g < ng)
+            *reinterpret_cast<float4*>(
+                staging + ((size_t)g * chunk + rl) * n_j + j4) = a[g];
+      }
+    } else {
+      for (int x = tid; x < (r1 - r0) * n_j; x += nt) {
+        const int rl = x / n_j, jj = x % n_j, r = r0 + rl;
         const float* src = in + r * C + jj;
         const float m = m1[r];
-#pragma unroll 8
-        for (int B = 0; B < n_b; ++B)
-          a = fmaf(wz[B], expf(__ldg(src + B * n_j) - m + kPairBias), a);
+        float a[kPairCluster];
+#pragma unroll
+        for (int g = 0; g < kPairCluster; ++g) a[g] = 0.f;
+        for (int B = 0; B < n_b; ++B) {
+          const float e = expf(__ldg(src + B * n_j) - m + kPairBias);
+#pragma unroll
+          for (int g = 0; g < kPairCluster; ++g)
+            if (g < ng) a[g] = fmaf(__ldg(wz + g * n_b + B), e, a[g]);
+        }
+#pragma unroll
+        for (int g = 0; g < kPairCluster; ++g)
+          if (g < ng) staging[((size_t)g * chunk + rl) * n_j + jj] = a[g];
       }
-      acc[x] = a;
+    }
+    cluster.sync();                   // every rank's staging area is full
+
+    // Rank g < ng owns group b = b0 + g: gather acc_b[r, :] from the
+    // owner of row r; padding columns J' >= n_j hold 0.
+    const bool owns = rank < ng;
+    if (owns) {
+      if (vec) {
+        const int q4 = n_j / 4;
+        for (int x = tid; x < R * q4; x += nt) {
+          const int r = x / q4, j4 = 4 * (x % q4);
+          const int pi = pair_row_owner(r, R, cs);
+          const float* src = cluster.map_shared_rank(staging, pi) +
+                             ((size_t)rank * chunk + r - pair_row0(pi, R, cs)) *
+                                 n_j + j4;
+          *reinterpret_cast<float4*>(acc + r * Jp + j4) =
+              *reinterpret_cast<const float4*>(src);
+        }
+      } else {
+        for (int x = tid; x < R * Jp; x += nt) {
+          const int r = x / Jp, jj = x % Jp;
+          float v = 0.f;
+          if (jj < n_j) {
+            const int pi = pair_row_owner(r, R, cs);
+            v = *cluster.map_shared_rank(
+                staging + ((size_t)rank * chunk + r - pair_row0(pi, R, cs)) *
+                              n_j + jj, pi);
+          }
+          acc[x] = v;
+        }
+      }
+    }
+    cluster.sync();                   // staging areas read: u may reuse them
+    if (!owns) continue;
+    const int b = b0 + rank;
+    const size_t c0 = col0 + (size_t)b * n_j;
+#if SDFS_PAIR_SPLIT == 2
+    for (int x = tid; x < R * n_j; x += nt)
+      out[(x / n_j) * C + c0 + x % n_j] = acc[(x / n_j) * Jp + x % n_j];
+    continue;
+#endif
+
+    // 3. u[r, j] = sum_J' acc[r, J'] P_z[i, j, b, J'] with the (i, b)
+    // block of pzt (J', j) streamed in K-tiles; the sum in order of J'.
+    const float* w = pzt + ((size_t)i * n_b + b) * n_j * n_j;
+    auto store_u = [&](int r, int j, float v) { u[r * n_j + j] = v; };
+    if (vec) {
+      rows_times_w<8, 4, true>(R, n_j, Jp, acc, w, stage, store_u);
+    } else {
+      rows_times_w<8, 4, false>(R, n_j, Jp, acc, w, stage, store_u);
+    }
+    __syncthreads();
+#if SDFS_PAIR_SPLIT == 3
+    for (int x = tid; x < R * n_j; x += nt)
+      out[(x / n_j) * C + c0 + x % n_j] = u[x];
+    continue;
+#endif
+
+    // 4. Linear carry.  Row r = (l, k) is rescaled by exp(m1 - M2[k] + 25)
+    // (kept in m1), the l' result by exp(M2[k] - M3 + 25) (kept in M2).
+    for (int k = tid; k < K; k += nt) {
+      float m = -INFINITY;
+      for (int l = 0; l < L; ++l) m = fmaxf(m, m1[l * K + k]);
+      M2[k] = m;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float m = -INFINITY;
+      for (int k = 0; k < K; ++k) m = fmaxf(m, M2[k]);
+      M3[0] = m;
+    }
+    __syncthreads();
+    const float m3 = M3[0];
+    for (int r = tid; r < R; r += nt)
+      m1[r] = expf(m1[r] - M2[r % K] + kPairBias);
+    // W_r1 and W_r2 into the K-tile area (free after the z' product) when
+    // they fit there, else read through L1.
+    const float* wr1 = w_r1;
+    const float* wr2 = w_r2;
+    if (L * L + K * K <= 2 * kBK * n_j) {
+      for (int x = tid; x < L * L; x += nt) stage[x] = __ldg(w_r1 + x);
+      for (int x = tid; x < K * K; x += nt) stage[L * L + x] = __ldg(w_r2 + x);
+      wr1 = stage;
+      wr2 = stage + L * L;
+    }
+    __syncthreads();
+    for (int k = tid; k < K; k += nt) M2[k] = expf(M2[k] - m3 + kPairBias);
+    for (int r = warp; r < R; r += nw) {
+      const float sr = m1[r];
+      for (int j = lane; j < n_j; j += 32) u[r * n_j + j] *= sr;
+    }
+    __syncthreads();
+
+    // l': z[l, k, j] = (sum_m W_r1[l, m] u[m, k, j]) * M2[k].  A thread
+    // takes a column (k, j) and kRowTile output rows l at a time; the sum
+    // runs in order of m.
+    const int KJ = K * n_j;
+    float* z = acc;
+    for (int x = tid; x < KJ; x += nt) {
+      const float s2 = M2[x / n_j];
+      for (int l0 = 0; l0 < L; l0 += kRowTile) {
+        float a[kRowTile];
+#pragma unroll
+        for (int t = 0; t < kRowTile; ++t) a[t] = 0.f;
+        for (int m = 0; m < L; ++m) {
+          const float v = u[m * KJ + x];
+#pragma unroll
+          for (int t = 0; t < kRowTile; ++t)
+            if (l0 + t < L) a[t] = fmaf(wr1[(l0 + t) * L + m], v, a[t]);
+        }
+#pragma unroll
+        for (int t = 0; t < kRowTile; ++t)
+          if (l0 + t < L) z[(l0 + t) * KJ + x] = a[t] * s2;
+      }
+    }
+    __syncthreads();
+
+    // k' + epilogue: v[l, k, j] = sum_m W_r2[k, m] z[l, m, j], a thread
+    // taking a column (l, j) and kRowTile output rows k at a time; lh =
+    // log(v) + M3 - 75 + add_row + add_col, out = log1p(beta exp(lh /
+    // theta)).
+    const float bias3 = m3 - 3.f * kPairBias;
+    for (int x = tid; x < L * n_j; x += nt) {
+      const int l = x / n_j, j = x - l * n_j;
+      const float* zc = z + l * KJ + j;          // z[l, m, j] at zc[m * n_j]
+      const size_t c = c0 + j;
+      const float ac = __ldg(add_col + c);
+      for (int k0 = 0; k0 < K; k0 += kRowTile) {
+        float a[kRowTile];
+#pragma unroll
+        for (int t = 0; t < kRowTile; ++t) a[t] = 0.f;
+        for (int m = 0; m < K; ++m) {
+          const float v = zc[m * n_j];
+#pragma unroll
+          for (int t = 0; t < kRowTile; ++t)
+            if (k0 + t < K) a[t] = fmaf(wr2[(k0 + t) * K + m], v, a[t]);
+        }
+#pragma unroll
+        for (int t = 0; t < kRowTile; ++t) {
+          if (k0 + t < K) {
+            const int r = l * K + k0 + t;
+            const float lh = logf(a[t]) + bias3 + __ldg(add_row + r) + ac;
+            out[r * C + c] = log1pf(beta * expf(lh / theta));
+          }
+        }
+      }
     }
   }
-  __syncthreads();
-
-  // 3. u[r, j] = sum_J' acc[r, J'] P_z[i, j, b, J'] with the (i, b)
-  // block of pzt (J', j) streamed in K-tiles; the sum in order of J'.
-  const float* w = pzt + ((size_t)i * n_b + b) * n_j * n_j;
-  auto store_u = [&](int r, int j, float v) { u[r * n_j + j] = v; };
-  if (n_j % 4 == 0) {
-    rows_times_w<8, 4, true>(R, n_j, Jp, acc, w, stage, store_u);
-  } else {
-    rows_times_w<8, 4, false>(R, n_j, Jp, acc, w, stage, store_u);
-  }
-  __syncthreads();
-
-  // 4. Linear carry.  Row r = (l, k) is rescaled by exp(m1 - M2[k] + 25)
-  // (kept in m1), the l' result by exp(M2[k] - M3 + 25) (kept in M2).
-  for (int k = tid; k < K; k += nt) {
-    float m = -INFINITY;
-    for (int l = 0; l < L; ++l) m = fmaxf(m, m1[l * K + k]);
-    M2[k] = m;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float m = -INFINITY;
-    for (int k = 0; k < K; ++k) m = fmaxf(m, M2[k]);
-    M3[0] = m;
-  }
-  __syncthreads();
-  const float m3 = M3[0];
-  for (int r = tid; r < R; r += nt)
-    m1[r] = expf(m1[r] - M2[r % K] + kPairBias);
-  __syncthreads();
-  for (int k = tid; k < K; k += nt) M2[k] = expf(M2[k] - m3 + kPairBias);
-  for (int x = tid; x < R * n_j; x += nt) u[x] *= m1[x / n_j];
-  __syncthreads();
-
-  // l': z[l, k, j] = sum_m W_r1[l, m] u[m, k, j], rescaled; columns
-  // col = k * n_j + j.
-  const int KJ = K * n_j;
-  float* z = acc;
-  block_matmul(
-      L, KJ, L,
-      [&](int l, int m) { return __ldg(w_r1 + l * L + m); },
-      [&](int m, int col) { return u[m * KJ + col]; },
-      [&](int l, int col, float v) { z[l * KJ + col] = v * M2[col / n_j]; });
-  __syncthreads();
-
-  // k' + epilogue: v[l, k, j] = sum_m W_r2[k, m] z[l, m, j], columns
-  // n = l * n_j + j.
-  const size_t c0 = col0 + (size_t)b * n_j;
-  block_matmul(
-      K, L * n_j, K,
-      [&](int k, int m) { return __ldg(w_r2 + k * K + m); },
-      [&](int m, int n) { return z[(n / n_j) * KJ + m * n_j + n % n_j]; },
-      [&](int k, int n, float v) {
-        const int l = n / n_j, j = n % n_j;
-        const int r = l * K + k;
-        const size_t c = c0 + j;
-        const float lh = logf(v) + (m3 - 3.f * kPairBias) +
-                         __ldg(add_row + r) + __ldg(add_col + c);
-        out[r * C + c] = log1pf(beta * expf(lh / theta));
-      });
 }
 
 template <class Kernel>
@@ -1300,14 +1463,26 @@ int sdfs_pass_c_pair(const float* mid, const float* p_zpi, const float* pzt,
                      int L, int K, int n_i, int n_y, int n_b, int n_j,
                      float theta, float beta, void* stream) {
   const size_t smem =
-      sizeof(float) * (size_t)pass_c_pair_smem_floats(L * K, K, n_b, n_j);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_b, n_i * n_y);
-  const cudaError_t err = prepare(pass_c_pair_kernel, smem);
+      sizeof(float) * (size_t)pass_c_pair_smem_floats(L * K, K, n_j);
+  const int cs = pair_cluster_size(n_b);
+  cudaError_t err = prepare(pass_c_pair_kernel, smem);
   if (err != cudaSuccess) return err;
-  pass_c_pair_kernel<<<grid, kPairThreads, smem, st>>>(
-      mid, p_zpi, pzt, w_r1, w_r2, add_row, add_col, out, L, K, n_i, n_y,
-      n_b, n_j, theta, beta);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, n_i * n_y);
+  cfg.blockDim = dim3(kPairThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pass_c_pair_kernel, mid, p_zpi, pzt, w_r1,
+                           w_r2, add_row, add_col, out, L, K, n_i, n_y, n_b,
+                           n_j, theta, beta);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

@@ -265,11 +265,11 @@ def _lib():
     return lib
 
 
-def _check(name: str, t: torch.Tensor, device, shape) -> None:
+def _check(name: str, t: torch.Tensor, device, shape, dtype=_F32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != _F32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype)[6:]}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")

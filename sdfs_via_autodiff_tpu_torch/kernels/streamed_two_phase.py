@@ -70,7 +70,9 @@ __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
            "pass_c_batched", "pass_c_batched_plain", "pass_b_deferred",
            "pass_b_deferred_plain", "pass_c_deferred",
            "pass_c_deferred_plain", "pass_c_pair", "pass_c_pair_plain",
-           "pair_device_operands", "pass_c_tile", "pass_c_deferred_tiles",
+           "pair_device_operands", "pair_cluster_size", "pair_rows",
+           "pair_row_owner", "pair_groups", "pass_c_tile",
+           "pass_c_deferred_tiles",
            "streamed_config", "streamed_supported", "make_streamed_T_log"]
 
 # Kernel launches per pass since the last reset (the wrappers add one per
@@ -97,9 +99,10 @@ _PASS_C_DEFERRED_TILES = (64, 32, 16, 8, 4)
 _PASS_C_DEFERRED_CHUNKS = (32, 16, 8, 4)
 # CUDA's limit on a grid's y dimension (rows in pass B, slices in pass C).
 _GRID_Y_MAX = 65_535
-# Rows of P_z per K-tile of the pair kernel (the .cu's kBK) and the
-# exponent bias of its exp stages.
-_PAIR_BK, PAIR_BIAS = 16, 25.0
+# Rows of P_z per K-tile of the pair kernel (the .cu's kBK), the
+# exponent bias of its exp stages and its largest cluster (the portable
+# limit).
+_PAIR_BK, PAIR_BIAS, PAIR_CLUSTER = 16, 25.0, 8
 
 
 def _up4(n: int) -> int:
@@ -155,13 +158,41 @@ def pass_c_deferred_tiles(L: int, K: int) -> Optional[Tuple[int, int]]:
     return None
 
 
-def pass_c_pair_smem_bytes(R: int, K: int, n_b: int, n_j: int) -> int:
+def pass_c_pair_smem_bytes(R: int, K: int, n_j: int) -> int:
     """Shared memory of one pair pass-C block (mirrors the .cu: the
     (R, n_j) accumulator with rows padded to a multiple of 4, the (R,
-    n_j) product, two 16-row K-tiles of P_z, the shifts and the n_b
-    P_zpi weights)."""
+    n_j) product and two 16-row K-tiles of P_z (which first hold the
+    cluster's staging area, at most (R + 7) rows of n_j) and the shifts,
+    whatever the number of z_pi points)."""
     return 4 * (R * _up4(n_j) + R * n_j + 2 * _PAIR_BK * n_j + _up4(R)
-                + _up4(K) + 4 + _up4(n_b))
+                + _up4(K) + 4)
+
+
+def pair_cluster_size(n_b: int) -> int:
+    """Blocks per slice of the pair kernel, one thread-block cluster
+    (mirrors the .cu): n_b, at most the portable cluster size 8."""
+    return min(n_b, PAIR_CLUSTER)
+
+
+def pair_rows(rank: int, R: int, n_b: int) -> range:
+    """The rows whose maxima, exponentials and z_pi' sums cluster rank
+    ``rank`` computes (mirrors the .cu's pair_row0)."""
+    cs = pair_cluster_size(n_b)
+    return range(rank * R // cs, (rank + 1) * R // cs)
+
+
+def pair_row_owner(r: int, R: int, n_b: int) -> int:
+    """The cluster rank whose :func:`pair_rows` hold row r (mirrors the
+    .cu's pair_row_owner)."""
+    return ((r + 1) * pair_cluster_size(n_b) - 1) // R
+
+
+def pair_groups(rank: int, n_b: int) -> list:
+    """The output groups b (slabs of n_j columns) that cluster rank
+    ``rank`` contracts, transforms and writes: b = rank in each round of
+    cluster-size groups."""
+    cs = pair_cluster_size(n_b)
+    return list(range(rank, n_b, cs))
 
 
 def streamed_config(ops: TwoPhaseOperands) -> Optional[str]:
@@ -180,9 +211,9 @@ def streamed_config(ops: TwoPhaseOperands) -> Optional[str]:
     if ops.c1_batched or (ops.has_mid and ops.is_pair):
         return None
     if ops.is_pair:
-        n_i, n_y, n_b, n_j = ops.pair_shapes
+        n_j = ops.pair_shapes[3]
         if (pass_b_deferred_smem_bytes(I) <= SMEM_LIMIT
-                and pass_c_pair_smem_bytes(L * K, K, n_b, n_j) <= SMEM_LIMIT
+                and pass_c_pair_smem_bytes(L * K, K, n_j) <= SMEM_LIMIT
                 and max(L * K, I) <= _GRID_Y_MAX):
             return "pair"
         return None
@@ -812,7 +843,7 @@ def _pass_c_pair_cuda(mid, P_zpi, PzT, W_r1, W_r2, add_row, add_col, theta,
         raise ValueError(f"mid {tuple(mid.shape)} does not match W_r1/W_r2 "
                          f"({L}*{K} rows) and P_zpi/PzT ({n_i}*{n_y} slices "
                          f"of {n_b}*{n_j} columns)")
-    if (pass_c_pair_smem_bytes(R, K, n_b, n_j) > SMEM_LIMIT
+    if (pass_c_pair_smem_bytes(R, K, n_j) > SMEM_LIMIT
             or n_i * n_y > _GRID_Y_MAX):
         raise ValueError(f"pair pass C with {R} rows, {n_j} z points, "
                          f"{n_i * n_y} slices exceeds shared memory or the "

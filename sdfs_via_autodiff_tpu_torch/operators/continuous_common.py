@@ -33,7 +33,8 @@ from ..config import resolve_device
 from ..ops.grids import flatten_mesh
 from ..ops.interp import lin_interp
 
-__all__ = ["hat_basis", "expectation_matrix", "make_gather_T", "mc_draws",
+__all__ = ["hat_basis", "hat_corners", "hat_from_corners",
+           "expectation_matrix", "make_gather_T", "mc_draws",
            "warn_if_f32_range_unsafe", "normalize_expectation_matrix",
            "additive_profiles"]
 
@@ -105,6 +106,33 @@ def mc_draws(dim: int, size: int, seed: int) -> torch.Tensor:
     return torch.randn((dim, size), generator=gen, dtype=torch.float64)
 
 
+def hat_corners(grid: torch.Tensor, points: torch.Tensor):
+    """The non-zeros of :func:`hat_basis`: the lower corner index i0
+    (int64) and the upper corner's weight t of each point, so that
+    ``B[..., i0] = 1 - t`` and ``B[..., i0 + 1] = t``.  A one-point grid
+    gives i0 = 0, t = 0 (its single weight 1)."""
+    n = grid.shape[0]
+    if n == 1:
+        return (torch.zeros(points.shape, dtype=torch.int64,
+                            device=points.device), torch.zeros_like(points))
+    step = grid[1] - grid[0]
+    c = (points - grid[0]) / step
+    i0 = torch.clamp(torch.floor(c), 0, n - 2).to(torch.int64)
+    t = torch.clamp(c - i0, 0.0, 1.0)
+    return i0, t
+
+
+def hat_from_corners(i0: torch.Tensor, t: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """The dense hat-basis rows (``i0.shape + (n,)``) of the corners
+    :func:`hat_corners` returns, by the same arithmetic as
+    :func:`hat_basis`."""
+    k = torch.arange(n, device=i0.device)
+    lo = (k == i0[..., None]) * (1.0 - t[..., None])
+    hi = (k == (i0 + 1)[..., None]) * t[..., None]
+    return lo + hi
+
+
 def hat_basis(grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Multilinear ("hat") basis weights of ``points`` on a uniform grid.
 
@@ -116,14 +144,7 @@ def hat_basis(grid: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     if n == 1:
         return torch.ones(points.shape + (1,), dtype=points.dtype,
                           device=points.device)
-    step = grid[1] - grid[0]
-    c = (points - grid[0]) / step
-    i0 = torch.clamp(torch.floor(c), 0, n - 2).to(torch.int64)
-    t = torch.clamp(c - i0, 0.0, 1.0)
-    k = torch.arange(n, device=points.device)
-    lo = (k == i0[..., None]) * (1.0 - t[..., None])
-    hi = (k == (i0 + 1)[..., None]) * t[..., None]
-    return lo + hi
+    return hat_from_corners(*hat_corners(grid, points), n)
 
 
 def expectation_matrix(grid: torch.Tensor,

@@ -30,12 +30,13 @@ import torch
 
 from ..config import resolve_device
 from ..ops.quadrature import tensor_quadrature_normal
-from .continuous_common import hat_basis
+from .continuous_common import hat_basis, hat_corners
 from .continuous_gcy import _log_kappa_gcy
 from .continuous_ssy import _host_grids
 
-__all__ = ["node_basis_ssy", "make_node_chain_T_ssy", "ssy_quadrature_nodes",
-           "node_basis_gcy", "make_node_chain_T_gcy", "gcy_quadrature_nodes"]
+__all__ = ["node_basis_ssy", "node_corners_ssy", "make_node_chain_T_ssy",
+           "ssy_quadrature_nodes", "node_basis_gcy", "make_node_chain_T_gcy",
+           "gcy_quadrature_nodes"]
 
 _F64 = torch.float64
 # Default node-chunk size: the most nodes whose (chunk, N) intermediate
@@ -62,6 +63,22 @@ def ssy_quadrature_nodes(quad_degree: int) -> Tuple[np.ndarray, np.ndarray]:
             np.log(np.asarray(weights, np.float64)))
 
 
+def _successors_ssy(model, grids, nodes):
+    """The four axes' grids and successor points at the joint shocks
+    ``nodes`` (4, Q): h_lam' (Q, n_l), h_c' (Q, n_k), h_z' (Q, n_i) and
+    z' (Q, n_i, n_j), conditioned on the current h_z index i."""
+    m = model
+    h_lam, h_c, h_z, z = _host_grids(grids)
+    eta = torch.as_tensor(np.asarray(nodes, np.float64))         # (4, Q)
+    nl1 = m.rho_lam * h_lam[None, :] + m.s_lam * eta[0][:, None]   # (Q, n_l)
+    nc = m.rho_c * h_c[None, :] + m.s_c * eta[1][:, None]
+    nhz = m.rho_z * h_z[None, :] + m.s_z * eta[2][:, None]
+    sigma_z = m.phi_z * torch.exp(h_z)                             # (n_i,)
+    zn = (m.rho * z[None, None, :]
+          + sigma_z[None, :, None] * eta[3][:, None, None])        # (Q, i, j)
+    return (h_lam, h_c, h_z, z), (nl1, nc, nhz, zn)
+
+
 def node_basis_ssy(model, grids: Sequence, nodes) -> dict:
     """Per-node hat-basis matrices for the SSY successor maps.
 
@@ -75,19 +92,24 @@ def node_basis_ssy(model, grids: Sequence, nodes) -> dict:
     * ``pay``   (Q, n_l): theta * h_lam', the exp(theta*h_lam') payoff of
       the H kernel in log form.
     """
-    m = model
-    h_lam, h_c, h_z, z = _host_grids(grids)
-    eta = torch.as_tensor(np.asarray(nodes, np.float64))         # (4, Q)
-    nl1 = m.rho_lam * h_lam[None, :] + m.s_lam * eta[0][:, None]   # (Q, n_l)
-    B_lam = hat_basis(h_lam, nl1)
-    B_c = hat_basis(h_c, m.rho_c * h_c[None, :] + m.s_c * eta[1][:, None])
-    B_hz = hat_basis(h_z, m.rho_z * h_z[None, :] + m.s_z * eta[2][:, None])
-    sigma_z = m.phi_z * torch.exp(h_z)                             # (n_i,)
-    zn = (m.rho * z[None, None, :]
-          + sigma_z[None, :, None] * eta[3][:, None, None])        # (Q, i, j)
-    B_z = hat_basis(z, zn)
-    pay = m.theta * nl1
-    return dict(B_lam=B_lam, B_c=B_c, B_hz=B_hz, B_z=B_z, pay=pay)
+    axes, points = _successors_ssy(model, grids, nodes)
+    B_lam, B_c, B_hz, B_z = (hat_basis(g, x) for g, x in zip(axes, points))
+    return dict(B_lam=B_lam, B_c=B_c, B_hz=B_hz, B_z=B_z,
+                pay=model.theta * points[0])
+
+
+def node_corners_ssy(model, grids: Sequence, nodes) -> dict:
+    """The non-zeros of :func:`node_basis_ssy`'s four bases: for each
+    axis a in ("lam", "c", "hz", "z") the lower corner index ``lo_<a>``
+    (int64) and the upper corner's weight ``t_<a>`` (float64), shaped as
+    the basis without its last axis ((Q, n) per axis; (Q, n_i, n_j) for
+    z, conditioned on the current h_z index).  ``hat_from_corners``
+    rebuilds each basis exactly."""
+    axes, points = _successors_ssy(model, grids, nodes)
+    out = {}
+    for name, g, x in zip(("lam", "c", "hz", "z"), axes, points):
+        out[f"lo_{name}"], out[f"t_{name}"] = hat_corners(g, x)
+    return out
 
 
 def _log_kappa_parts_ssy(model, grids):

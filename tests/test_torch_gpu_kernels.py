@@ -166,6 +166,9 @@ def test_gcy_deferred_operator_matches_f64(cuda):
 # loads and 4-byte copies) and the 4.2M-point (8, 8, 8, 8, 128, 8).
 PAIR_CASES = [(8, 3, 2, 4, 128, 2), (5, 3, 3, 2, 40, 3),
               (4, 5, 3, 3, 33, 2), (8, 8, 8, 8, 128, 8)]
+# n_b = 12 z_pi points, above the cluster limit of 8: two rounds, with
+# R = 15 rows over 8 cluster ranks.
+PAIR_WIDE = (5, 3, 2, 2, 40, 12)
 
 
 def _pair_setup(sizes, dev):
@@ -197,7 +200,7 @@ def test_pass_b_deferred_sub_kernel_matches_plain(cuda, sizes, with_sub):
     assert bool(((got - want).abs() <= lim).all())
 
 
-@pytest.mark.parametrize("sizes", PAIR_CASES)
+@pytest.mark.parametrize("sizes", PAIR_CASES + [PAIR_WIDE])
 def test_pass_c_pair_kernel_matches_plain(cuda, sizes):
     ops, ell, cast = _pair_setup(sizes, cuda)
     L, K, I, J = ops.shapes
@@ -617,7 +620,8 @@ def test_fused_continuous_T_matches_f64(cuda):
 # The post-interp kernel (B8): ragged tiles (R, C not multiples of 64),
 # degrees 2-5, both interpolation spaces.
 POST_CASES = [((4, 5, 4, 5), 4), ((9, 7, 11, 13), 3), ((15, 15, 15, 15), 5),
-              ((3, 3, 3, 4), 2)]
+              ((3, 3, 3, 4), 2), ((20, 20, 20, 20), 5), ((5, 4, 6, 3), 5),
+              ((6, 5, 7, 9), 8)]
 
 
 def _post_args(sizes, degree, interp, dev):
@@ -638,9 +642,15 @@ def test_post_interp_kernel_matches_plain(cuda, sizes, degree, interp):
     before = pk.LAUNCHES["post_interp"]
     got = pk.post_interp(*args)
     assert pk.LAUNCHES["post_interp"] == before + 1
-    want = pk.post_interp_plain(*args)
+    want = pk.post_interp_gather_plain(*args)
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= ATOL
+    # The same function on the dense Kronecker stacks.
+    m = P.SSY()
+    ops = pk.post_interp_operands_ssy(m, P.build_grid_ssy(m, *sizes), degree)
+    kron = pk.post_interp_plain(args[0], ops["Wr"].float().to(cuda),
+                                ops["Wc"].float().to(cuda), *args[2:])
+    assert float((got - kron).abs().max()) <= ATOL
 
 
 @pytest.mark.parametrize("interp", ["post", "loglin"])
@@ -669,3 +679,7 @@ def test_post_interp_wrapper_validates_arguments(cuda):
         pk.post_interp(args[0].double(), *args[1:])
     with pytest.raises(ValueError, match="contiguous"):
         pk.post_interp(args[0].T, *args[1:])
+    corners = list(args[1])
+    corners[0] = corners[0].long()
+    with pytest.raises(TypeError, match="int32"):
+        pk.post_interp(args[0], tuple(corners), *args[2:])

@@ -262,9 +262,9 @@ def test_sub_arguments_come_in_pairs():
 def test_pair_configuration_by_shared_memory(operands):
     _, _, _, pops = operands
     # (R, n_j) = (128, 128): the 18.9M grid's blocks fit (148 KB).
-    assert st.pass_c_pair_smem_bytes(128, 16, 8, 128) <= st.SMEM_LIMIT
+    assert st.pass_c_pair_smem_bytes(128, 16, 128) <= st.SMEM_LIMIT
     # A z axis of 512 points at 128 rows does not.
-    assert st.pass_c_pair_smem_bytes(128, 16, 8, 512) > st.SMEM_LIMIT
+    assert st.pass_c_pair_smem_bytes(128, 16, 512) > st.SMEM_LIMIT
     wide = dataclasses.replace(pops, pair_shapes=(2, 4, 2, 512),
                                shapes=(16, 8, 8, 1024))
     assert P.streamed_config(wide) is None
@@ -273,3 +273,44 @@ def test_pair_configuration_by_shared_memory(operands):
         P.make_tiled_T_log(wide, device="cpu")
     with_mid = dataclasses.replace(pops, mid_col=np.zeros((8, 256)))
     assert P.streamed_config(with_mid) is None
+
+
+# Every continuous-GCY size the pair configuration covered before the
+# cluster kernel: the GPU tests' sets and the chip smoke script's cells
+# (its 18.9M and 4.2M grids, its small and ragged sets).  Sizes are
+# (h_lam, h_c, h_z, h_zpi, z, z_pi).
+PAIR_SIZES = [(8, 3, 2, 4, 128, 2), (5, 3, 3, 2, 40, 3), (4, 5, 3, 3, 33, 2),
+              (8, 8, 8, 8, 128, 8), (16, 8, 12, 12, 128, 8),
+              (5, 3, 2, 2, 40, 12)]
+
+
+@pytest.mark.parametrize("sizes", PAIR_SIZES)
+def test_pair_sets_stay_pair(operands, sizes):
+    # The view (h_c, h_lam, h_z*h_zpi, z_pi*z) and pair shapes of each
+    # size on the module's set (the configuration reads only those).
+    _, _, _, pops = operands
+    view = (sizes[1], sizes[0], sizes[2] * sizes[3], sizes[5] * sizes[4])
+    pair = (sizes[2], sizes[3], sizes[5], sizes[4])
+    assert P.streamed_config(dataclasses.replace(
+        pops, shapes=view, pair_shapes=pair)) == "pair"
+    if sizes == GSHAPES:
+        assert pops.shapes == view and pops.pair_shapes == pair
+
+
+@pytest.mark.parametrize("n_b", [1, 2, 3, 8, 9, 12, 16, 17, 40])
+def test_pair_cluster_gives_every_slab_and_row_one_owner(n_b):
+    cs = st.pair_cluster_size(n_b)
+    assert cs == min(n_b, 8)
+    owners = sorted(b for rank in range(cs) for b in st.pair_groups(rank, n_b))
+    assert owners == list(range(n_b))
+    for rank in range(cs):
+        # Group b is rank b % cs's, in round b // cs.
+        assert all(b % cs == rank for b in st.pair_groups(rank, n_b))
+    for R in (1, 2, 7, 15, 24, 128):
+        rows = [r for rank in range(cs) for r in st.pair_rows(rank, R, n_b)]
+        assert rows == list(range(R))
+        for r in range(R):
+            assert r in st.pair_rows(st.pair_row_owner(r, R, n_b), R, n_b)
+        # The round's staging area (cs groups of the largest row chunk)
+        # fits in the product's u and K-tiles, (R + 32) rows of n_j.
+        assert cs * -(-R // cs) <= R + 32

@@ -419,15 +419,89 @@ def test_post_interp_T_tangent_and_gradient_ride_the_twin():
 def test_post_interp_wrapper_refuses_other_devices_and_interps():
     _, pg = _grids(KSIZES)
     ops = pk.post_interp_operands_ssy(P.SSY(), pg, 2)
-    f32 = {k: v.float() for k, v in ops.items() if k != "smax"}
+    corners = pk.device_corners(pk.post_interp_corners_ssy(P.SSY(), pg, 2),
+                                "cpu")
+    f32 = {k: v.float() for k, v in ops.items() if k not in ("smax", "Wr",
+                                                             "Wc")}
     field = torch.ones(20, 20)
     off = f32["off_base"]
-    args = (f32["Wr"], f32["Wc"], f32["pay"], off, torch.zeros(1),
-            f32["lk_row"], f32["lk_col"], -20.0, 0.998)
+    args = (corners, f32["pay"], off, torch.zeros(1), f32["lk_row"],
+            f32["lk_col"], -20.0, 0.998)
     with pytest.raises(ValueError, match="unknown interp"):
         pk.post_interp(field, *args, "pre")
     with pytest.raises(ValueError, match="no post-interp kernel"):
         pk.post_interp(field.to("meta"), *args, "post")
+
+
+# The corner tables at a square and a ragged grid (every axis length
+# distinct, a one-point axis too), at two quadrature degrees.
+CORNER_CASES = [((5, 5, 5, 5), 3), ((5, 4, 6, 3), 4), ((4, 1, 3, 5), 2)]
+
+
+@pytest.mark.parametrize("sizes,degree", CORNER_CASES)
+def test_post_interp_corners_rebuild_the_dense_stacks(sizes, degree):
+    # The kernel's compressed operands hold exactly the non-zeros of the
+    # per-axis bases: rebuilt, their Kronecker stacks are the dense
+    # operands, float64, to the bit.
+    _, pg = _grids(sizes)
+    n_l, n_k, n_i, n_j = sizes
+    R, C, d = n_l * n_k, n_i * n_j, degree
+    tab = pk.post_interp_corners_ssy(P.SSY(), pg, degree)
+    for k in pk.CORNER_KEYS:
+        assert tab[k].dtype == (torch.int64 if k.startswith("lo")
+                                else torch.float64), k
+    dense = [pcc.hat_from_corners(tab[f"lo_{a}"], tab[f"t_{a}"], n)
+             for a, n in (("lam", n_l), ("c", n_k), ("hz", n_i), ("z", n_j))]
+    Wr = torch.einsum("alL,bkK->ablkLK", dense[0], dense[1]).reshape(
+        d * d, R, R)
+    Wc = torch.einsum("aiI,bijJ->abijIJ", dense[2], dense[3]).reshape(
+        d * d, C, C)
+    ops = pk.post_interp_operands_ssy(P.SSY(), pg, degree)
+    assert torch.equal(Wr, ops["Wr"]) and torch.equal(Wc, ops["Wc"])
+    # At most two non-zeros per basis row, and the tables' corners are
+    # inside the grid.
+    for a, n in (("lam", n_l), ("c", n_k), ("hz", n_i), ("z", n_j)):
+        lo = tab[f"lo_{a}"]
+        assert int(lo.min()) >= 0 and int(lo.max()) <= max(n - 2, 0)
+    assert int((ops["Wr"] != 0).sum(-1).max()) <= 4
+    assert int((ops["Wc"] != 0).sum(-1).max()) <= 4
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+@pytest.mark.parametrize("sizes", [KSIZES, (5, 4, 6, 3)])
+def test_post_interp_gather_plain_matches_kronecker_and_jax(sizes, interp):
+    # The kernel's own arguments through the plain gather arithmetic vs
+    # the Kronecker plain version on the dense stacks and the JAX Pallas
+    # kernel in interpret mode, float32 all three.
+    jg, pg = _grids(sizes)
+    ell = _ell(sizes, 19).astype(np.float32)
+    T = P.make_post_interp_kernel_T_ssy(P.SSY(), pg, quad_degree=4,
+                                        interp=interp, device="cpu")
+    args = T.kernel_args(torch.as_tensor(ell))
+    got = pk.post_interp_gather_plain(*args)
+    ops = pk.post_interp_operands_ssy(P.SSY(), pg, 4)
+    kron = pk.post_interp_plain(args[0], ops["Wr"].float(),
+                                ops["Wc"].float(), *args[2:])
+    np.testing.assert_allclose(got.numpy(), kron.numpy(), rtol=0, atol=5e-6)
+    Tj = jax_post_interp_T(J.SSY(), jg, quad_degree=4, interp=interp,
+                           interpret=True)
+    want = np.asarray(Tj(jnp.asarray(ell)))
+    np.testing.assert_allclose(got.reshape(sizes).numpy(), want, rtol=0,
+                               atol=5e-6)
+    # The dispatcher runs it for CPU tensors.
+    assert torch.equal(pk.post_interp(*args), got)
+
+
+def test_post_interp_chunk_mirrors_the_kernel_layout():
+    # G for all 25 row pairs of a 20^4 grid stays within 48 KB (odd
+    # stride 25); degree 8 takes chunks; a grid too wide for one row pair
+    # per block is refused.
+    assert pk.post_interp_chunk(400, 25) == 25
+    assert 4 * (400 * 25 + 25 + 25 * 25) <= 48 * 1024
+    pc = pk.post_interp_chunk(400, 64)
+    assert 1 <= pc < 64
+    assert 4 * (400 * (pc | 1) + pc + pc * 64) <= 48 * 1024
+    assert pk.post_interp_chunk(60_000, 25) is None
 
 
 # ------------------------------------------------------------ driver
