@@ -29,7 +29,8 @@ Phases, in order; any failure exits non-zero before the result line:
    against the float64 operator, with the launch counts, the outer and
    BiCGStab iterations and the seconds;
 9. GCY: ms per application, kernels vs the eager twin, ms per tangent
-   matvec, and each deferred kernel vs its plain version;
+   matvec, and each deferred kernel vs its plain version, the deferred
+   pass B also with a synthetic folded baseline at that view;
 10. the fused kernels (one application, the SA loop, the Anderson loop,
     ``kernels/csrc/fused_two_matmul.cu``) against their plain versions
     at four two-matmul operand sets: continuous SSY (5,5,5,6), discrete
@@ -65,8 +66,9 @@ Phases, in order; any failure exits non-zero before the result line:
     iterations under torch.profiler (device time by kernel, busy share);
 17. the fused tier on continuous GCY at 6^6: ``fused_sa`` and
     ``fused_anderson`` with the coarse baseline (tol 3.04e-5, float64
-    residual), and the fused application against its plain version at
-    that operand set;
+    residual), and at that operand set (the chunked layout) the fused
+    application, 50 SA steps, 20 Anderson steps at ridge 0.1 and its
+    NaN-ridge fall back against their plain versions;
 18. the post-interp kernel (``kernels/csrc/post_interp.cu``, a gather
     over the per-axis hat-basis corner tables) against its plain version
     on the same arguments and against the plain Kronecker version on the
@@ -135,10 +137,13 @@ Phases, in order; any failure exits non-zero before the result line:
     cell (the sets the paths ran them on);
 31. a JSON line of per-kernel facts (with each kernel's bound: the
     largest of its FP32 operations over 67 TFLOP/s, its bytes over 3.35
-    TB/s and, for the post-interp kernel and the pair pass C, its
-    special-function operations (expf, logf, log1pf) over 16 per clock
-    per SM at the card's maximum SM clock, from this run's shapes and
-    iteration counts), then the result line
+    TB/s and, for the post-interp kernel, the pair pass C and the
+    deferred pass B with the fold, its special-function operations
+    (expf, logf, log1pf) over 16 per clock per SM at the card's maximum
+    SM clock, from this run's shapes and iteration counts, and its share
+    of that bound; the deferred pass B has a row without the fold (25.2M
+    GCY view) and one with it (18.9M continuous-GCY view)), then the
+    result line
     ``{"ok": true, "device": {...}}``.
 
 The kernels build in parallel (one nvcc per source).  Each path runs
@@ -261,6 +266,8 @@ MID_SCALE = 0.05            # seeded non-separable mid_col, log units
 REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "pass_c": f"{_JAX_KERNELS}:446",            # _c_kernel
             "pass_b_deferred": f"{_JAX_KERNELS}:384",   # _b_kernel_deferred
+            # ... with the folded baseline (has_sub), at the 18.9M view
+            "pass_b_deferred_sub": f"{_JAX_KERNELS}:384",
             "pass_c_deferred": f"{_JAX_KERNELS}:446",   # _c_kernel, c2_deferred
             "pass_c_pair": f"{_JAX_KERNELS}:673",       # _c_kernel_pair
             "pass_b_c1": f"{_JAX_KERNELS}:324",         # _b_kernel, c1 only
@@ -473,7 +480,25 @@ def gcy_phases(torch, port, st, dev, smi):
                                2 * field + 4 * (J * J + L * L + K * K + R + C))
     for name, (k_ms, p_ms) in kernels_ms.items():
         print(f"timing {name} {ops.shapes}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms")
+              f"{p_ms:.4f} ms ({smi})")
+    # B3 with a folded baseline at this view (the normalized GCY cell's
+    # shape; a synthetic fold: a row baseline near theta*log(800) and a
+    # small column profile), kernel vs plain.
+    rng = np.random.default_rng(SEED)
+    sub = (cast(th * np.log(800.0) + 0.1 * rng.standard_normal(R)),
+           cast(0.05 * rng.standard_normal((I, J))))
+    got = st.pass_b_deferred(e, W_c1t, th, *sub)
+    want = st.pass_b_deferred_plain(e, W_c1t, th, *sub)
+    err_s = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= KERNEL_ATOL + eps32 * want.abs()).all()),
+          f"pass_b_deferred with a fold {ops.shapes}: max abs err {err_s:.3e}")
+    max_err["pass_b_deferred"] = max(max_err["pass_b_deferred"], err_s)
+    s_k = time_ms(torch, lambda y: st.pass_b_deferred(y, W_c1t, th, *sub), e)
+    s_p = time_ms(torch, lambda y: st.pass_b_deferred_plain(y, W_c1t, th,
+                                                            *sub), e)
+    print(f"timing pass_b_deferred with a synthetic fold {ops.shapes}: "
+          f"kernel {s_k:.4f} ms, plain {s_p:.4f} ms, max abs err "
+          f"{err_s:.3e} ({smi})")
     return max_err, launches, kernels_ms, star
 
 
@@ -580,8 +605,11 @@ def fused_phases(torch, port, dev, smi):
               f"fused_anderson {label}: end states {end:.3e} apart "
               f"(band {band:.3e}), kernel residual {res_k:.3e}")
         torch.cuda.synchronize()
-        tiles = -(-R // 32) * -(-C // 32)
-        print(f"fused {label} ({R}x{C}, {tiles} tiles of 32x32): "
+        lay = fd.fused_layout(R, C, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        print(f"fused {label} ({R}x{C}, {lay['n_tiles']} tiles of "
+              f"{lay['bm']}x32, "
+              f"{'resident' if lay['resident'] else 'chunked'}): "
               f"fused_T max abs err {err_t:.3e}; fused_sa 50 steps max abs "
               f"err {err_s:.3e}; fused_anderson {n} steps at ridge "
               f"{B7_CHECK_RIDGE:g} max abs err {err_a:.3e}, NaN-ridge fall "
@@ -907,7 +935,8 @@ def gcy_continuous_phases(torch, port, st, dev, smi):
         # Pass B: c1 over I' per (row, column).  Pass C: z_pi' and z'
         # per slice, then the two row contractions; each pass reads and
         # writes one f32 field plus its operands.
-        b_work = (2 * R * I * I * J, 2 * field + 4 * (I * I + R + C))
+        b_work = (2 * R * I * I * J, 2 * field + 4 * (I * I + R + C),
+                  2 * R * C)
         # Special functions: one exp per slice entry, the epilogue's log,
         # exp and log1p per output, the row carry's R + K exps per
         # output group.
@@ -917,6 +946,9 @@ def gcy_continuous_phases(torch, port, st, dev, smi):
                   4 * R * C + I * n_b * (R + K))
         WORK["pass_c_pair"] = c_work
         kernels_ms["pass_c_pair"] = (c_k, c_p)
+        if sizes == GCYC_SHAPES:
+            WORK["pass_b_deferred_sub"] = b_work
+            kernels_ms["pass_b_deferred_sub"] = (b_k, b_p)
         bounds = []
         for work in (b_work, c_work):
             bms, _, term = bound_of(*work)
@@ -977,9 +1009,11 @@ def sa_split(torch, port, T, tol, smi):
 
 def fused_gcy_phase(torch, port, dev, smi):
     """Phase 17: the fused tier on continuous GCY at 6^6.  Returns the
-    fused application's max abs error vs plain."""
+    fused kernels' max abs errors vs plain on the path's operands."""
     from sdfs_via_autodiff_tpu_torch import drivers
+    from sdfs_via_autodiff_tpu_torch.kernels import anderson_kernel as ak
     from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
+    from sdfs_via_autodiff_tpu_torch.kernels import solver_kernel as sk
 
     model = port.GCY()
     tol = 1.2 * port.f32_tol_floor(model.theta)
@@ -1023,13 +1057,41 @@ def fused_gcy_phase(torch, port, dev, smi):
     ell = (ops[3] / model.theta + 0.05 * torch.as_tensor(
         rng.standard_normal((rows, cols)), dtype=torch.float32, device=dev))
     th, be = model.theta, model.beta
+    label = f"continuous GCY {FUSED_GCY_SIZES}"
     got = fd.fused_T(ell, *ops, th, be)
     err = float((got - fd.fused_T_plain(ell, *ops, th, be)).abs().max())
     check(bool(torch.isfinite(got).all()) and err <= KERNEL_ATOL,
-          f"fused_T continuous GCY {FUSED_GCY_SIZES}: max abs err {err:.3e}")
-    print(f"fused continuous GCY {FUSED_GCY_SIZES} ({rows}x{cols}, with "
-          f"sub): fused_T max abs err {err:.3e}")
-    return err
+          f"fused_T {label}: max abs err {err:.3e}")
+    # The loops at this shape (the chunked layout, two row tiles): SA and
+    # Anderson at a fixed count (tol -1) against their plain versions,
+    # iterate by iterate, and Anderson's fall back to T(x).
+    e_k, i_k, _ = sk.fused_sa(ell, *ops, th, be, -1.0, 50)
+    e_p, i_p, _ = sk.fused_sa_plain(ell, *ops, th, be, -1.0, 50)
+    err_s = float((e_k - e_p).abs().max())
+    check(int(i_k) == int(i_p) == 50 and err_s <= B6_CAP_ATOL,
+          f"fused_sa {label}: {int(i_k)}/{int(i_p)} iterations, max abs err "
+          f"{err_s:.3e}")
+    n = B7_CHECK_ITERS
+    a_k, j_k, _ = ak.fused_anderson(ell, *ops, th, be, -1.0, n,
+                                    ridge=B7_CHECK_RIDGE)
+    a_p, j_p, _ = ak.fused_anderson_plain(ell, *ops, th, be, -1.0, n,
+                                          ridge=B7_CHECK_RIDGE)
+    err_a = float((a_k - a_p).abs().max())
+    check(int(j_k) == int(j_p) == n and err_a <= B7_ITER_ATOL,
+          f"fused_anderson {label}: {int(j_k)}/{int(j_p)} iterations at "
+          f"ridge {B7_CHECK_RIDGE:g}, max abs err {err_a:.3e}")
+    f_k, _, _ = ak.fused_anderson(ell, *ops, th, be, -1.0, n,
+                                  ridge=float("nan"))
+    s_p, _, _ = sk.fused_sa_plain(ell, *ops, th, be, -1.0, n)
+    err_f = float((f_k - s_p).abs().max())
+    check(err_f <= B7_ITER_ATOL,
+          f"fused_anderson {label}: NaN-ridge fall back vs SA {err_f:.3e}")
+    print(f"fused {label} ({rows}x{cols}, with sub): fused_T max abs err "
+          f"{err:.3e}; fused_sa 50 steps max abs err {err_s:.3e}; "
+          f"fused_anderson {n} steps at ridge {B7_CHECK_RIDGE:g} max abs err "
+          f"{err_a:.3e}, NaN-ridge fall back vs SA {err_f:.3e}")
+    return {"fused_T": err, "fused_sa": err_s,
+            "fused_anderson": max(err_a, err_f)}
 
 
 def post_interp_work(sizes, degree, interp="post"):
@@ -2130,16 +2192,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     gcyc_err, gcyc_launches, gcyc_ms = gcy_continuous_phases(
         torch, port, st, dev, smi)
-    max_err["pass_b_deferred"] = max(max_err["pass_b_deferred"],
-                                     gcyc_err["pass_b_deferred"])
+    max_err["pass_b_deferred_sub"] = gcyc_err["pass_b_deferred"]
     max_err["pass_c_pair"] = gcyc_err["pass_c_pair"]
     launches["pass_c_pair"] = gcyc_launches["pass_c_pair"]
+    # Every deferred pass B of the continuous-GCY path has the fold.
+    launches["pass_b_deferred_sub"] = gcyc_launches["pass_b_deferred"]
     kernels_ms.update(gcyc_ms)
 
     # 17. The fused tier on continuous GCY.
     torch.cuda.empty_cache()
-    max_err["fused_T"] = max(max_err["fused_T"],
-                             fused_gcy_phase(torch, port, dev, smi))
+    for name, err in fused_gcy_phase(torch, port, dev, smi).items():
+        max_err[name] = max(max_err[name], err)
 
     # 18-19. The post-interp kernel and the continuous-SSY post path.
     torch.cuda.empty_cache()
@@ -2178,7 +2241,9 @@ def main() -> None:
                      "launches": launches[name],
                      "max_abs_err": max_err[name], "ms": kernels_ms[name][0],
                      "plain_ms": kernels_ms[name][1], "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": None})
+                     "bound_by": bound_by,
+                     "share": bound_ms / kernels_ms[name][0],
+                     "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

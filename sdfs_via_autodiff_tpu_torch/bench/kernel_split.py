@@ -1,29 +1,38 @@
-"""Phase split and before/after timing of the post-interp kernel (B8) and
-the pair pass C (B4) on one CUDA card.
+"""Phase split and before/after timing of the port's redesigned kernels on
+one CUDA card: the post-interp kernel (B8), the pair pass C (B4), the
+deferred pass B (B3) and the fused whole-solve kernel (B5-B7).
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 -m sdfs_via_autodiff_tpu_torch.bench.kernel_split [--before DIR]
+    python3 -m sdfs_via_autodiff_tpu_torch.bench.kernel_split \
+        [--before DIR] [--kernels post_interp,pass_c_pair,pass_b_deferred,fused]
 
 Each kernel's source stops after a phase under a compile-time switch
-(``SDFS_SPLIT`` in ``csrc/post_interp.cu``: 1 forms the row-pair
-combinations G, 2 adds the gathers and V, 3 the power and exp-sum;
-``SDFS_PAIR_SPLIT`` in ``csrc/streamed_two_phase.cu``: 1 the slice
-maxima, 2 the exponentials with the z_pi' sum, 3 the z' product; 4, the
-default, is the whole kernel).  The script builds every variant with
-nvcc (one process each, all started together) and times each at the
-main paths' shapes with CUDA events: the median of 3 runs of N launches.
-Differences of consecutive stops are the phases' times.
+(``SPLITS``; 1-3 store that phase's result in place of the output):
 
-``--before DIR`` names a directory holding the previous design's two
-sources (the dense-Kronecker post-interp kernel with its G and partial
-sum scratch, entry ``sdfs_post_interp(field, Wr, Wc, pay, off, s,
-lk_row, lk_col, g, part, out, R, C, P12, P34, theta, beta, post,
-stream)``; the one-block-per-(slice, b) pair pass C, the same entry as
-now) with the same switches: its splits (the previous B8's stops are
-1: G = Wr F, 2: the Kronecker products, 3: the power and exp-sum) are
-timed too, and the whole kernels in turns (before, after, after,
-before).  Prints one line per measurement and a last JSON line.
+- ``SDFS_SPLIT`` in ``csrc/post_interp.cu``: 1 forms the row-pair
+  combinations G, 2 adds the gathers and V, 3 the power and exp-sum;
+- ``SDFS_PAIR_SPLIT`` in ``csrc/streamed_two_phase.cu`` (pass C pair): 1
+  the slice maxima, 2 the exponentials with the z_pi' sum, 3 the z'
+  product;
+- ``SDFS_DEFB_SPLIT`` in the same source (deferred pass B): 1 the fold
+  and the column maxima, 2 the exponentials, 3 the c1 product;
+- ``SDFS_FUSED_SPLIT`` in ``csrc/fused_two_matmul.cu``: 1 runs phase 1
+  and its barrier per iteration, 2 adds phase 2; and
+  ``SDFS_FUSED_BARRIER=1``, the whole loop with every grid barrier a bare
+  ``__syncthreads`` (wrong results; it times the barriers).
+
+The script builds every variant with nvcc (one process each, all
+started together) and times each at the main paths' shapes with CUDA
+events: the median of 3 runs of N launches (the fused SA and Anderson
+loops: launches of a fixed count of iterations at tol -1, reported per
+iteration).  Differences of consecutive stops are the phases' times.
+
+``--before DIR`` names a directory holding an earlier design's sources
+(``post_interp.cu``, ``streamed_two_phase.cu``, ``fused_two_matmul.cu``,
+the same C entry points) with the same switches: its splits are timed
+too, and the whole kernels in turns (before, after, after, before).
+Prints one line per measurement and a last JSON line.
 """
 
 from __future__ import annotations
@@ -44,25 +53,55 @@ import torch
 import sdfs_via_autodiff_tpu_torch as port
 from sdfs_via_autodiff_tpu_torch import drivers
 from sdfs_via_autodiff_tpu_torch.kernels import _build
+from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
 from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
 from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
 
 POST_SIZES = ((20, 20, 20, 20), (15, 15, 15, 15))
 PAIR_SIZES = ((16, 8, 12, 12, 128, 8), (8, 8, 8, 8, 128, 8))
-STOPS = (1, 2, 3, 4)
-SWITCH = {"post_interp": "SDFS_SPLIT", "streamed_two_phase": "SDFS_PAIR_SPLIT"}
+# Deferred pass B: the 18.9M continuous-GCY view (8,16,144,1024) with its
+# coarse-baseline fold, and the 25.2M GCY Tauchen view (12,16,512,256)
+# without and with a (synthetic) fold.
+DEFB_GCYC = (16, 8, 12, 12, 128, 8)
+DEFB_GCY = (32, 16, 16, 12, 16, 16)
+# The fused kernels: continuous SSY 20^4 and continuous GCY 6^6 (coarse
+# baseline); loops of FUSED_ITERS iterations at tol -1.
+FUSED_SSY, FUSED_GCY, FUSED_ITERS = (20, 20, 20, 20), (6,) * 6, 200
+# kernel: (source stem, switch, the stops before the whole kernel).
+SPLITS = {"post_interp": ("post_interp", "SDFS_SPLIT", (1, 2, 3)),
+          "pass_c_pair": ("streamed_two_phase", "SDFS_PAIR_SPLIT", (1, 2, 3)),
+          "pass_b_deferred": ("streamed_two_phase", "SDFS_DEFB_SPLIT",
+                              (1, 2, 3)),
+          "fused": ("fused_two_matmul", "SDFS_FUSED_SPLIT", (1, 2))}
+# Variants beside the stops: name -> (source stem, nvcc define).
+EXTRA = {"fused": {"nobarrier": ("fused_two_matmul",
+                                 "-DSDFS_FUSED_BARRIER=1")}}
 OUT_DIR = _build.BUILD_DIR / "split"
 
 
-def _compile(src: Path, tag: str, stop: int) -> Path:
-    out = OUT_DIR / f"{src.stem}-{tag}-{stop}.so"
+def _variants(kernels):
+    """(source stem, variant name, nvcc defines) of every build the
+    kernels need: each source whole once, then each stop and extra."""
+    out = {}
+    for k in kernels:
+        stem, switch, stops = SPLITS[k]
+        out[(stem, "whole")] = ()
+        for stop in stops:
+            out[(stem, f"{switch}={stop}")] = (f"-D{switch}={stop}",)
+        for name, (xstem, define) in EXTRA.get(k, {}).items():
+            out[(xstem, name)] = (define,)
+    return out
+
+
+def _compile(src: Path, tag: str, name: str, defines) -> Path:
+    out = OUT_DIR / f"{src.stem}-{tag}-{name.replace('=', '')}.so"
     proc = subprocess.run(
-        [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{SWITCH[src.stem]}={stop}",
-         "-o", str(out), str(src)], capture_output=True, text=True)
+        [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(out),
+         str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc {src} {tag} stop {stop}:\n{proc.stderr}")
-    if stop == 4:
-        keep = ("post_gather", "post_acc", "post_g_", "pass_c_pair")
+        raise RuntimeError(f"nvcc {src} {tag} {name}:\n{proc.stderr}")
+    if name == "whole":
+        keep = ("post_gather", "pass_c_pair", "pass_b_deferred", "fused_")
         lines = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()]
         for k, ln in enumerate(lines):
             if "Compiling entry function" in ln and any(x in ln for x in keep):
@@ -70,18 +109,22 @@ def _compile(src: Path, tag: str, stop: int) -> Path:
     return out
 
 
-def _load(path: Path, which: str, dense: bool):
-    lib = ctypes.CDLL(str(path))
+def _typed(lib):
+    """The library with its entry points typed (ctypes)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if which == "post_interp":
-        fn = lib.sdfs_post_interp
-        fn.argtypes = ([p] * 11 + [i] * 4 + [f, f, i, p] if dense
-                       else [p] * 15 + [i] * 5 + [f, f, i, p])
-    else:
-        fn = lib.sdfs_pass_c_pair
-        fn.argtypes = [p] * 8 + [i] * 6 + [f, f, p]
-    fn.restype = i
-    return fn
+    for name, args in (
+            ("sdfs_post_interp", [p] * 15 + [i] * 5 + [f, f, i, p]),
+            ("sdfs_pass_c_pair", [p] * 8 + [i] * 6 + [f, f, p]),
+            ("sdfs_pass_b_deferred", [p] * 5 + [i] * 3 + [f, p]),
+            ("sdfs_fused_solve", [i] + [p] * 10 + [i, i, f, f, f, i, i, i,
+                                                   f, f, p])):
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = args, i
+    if hasattr(lib, "sdfs_fused_work_floats"):
+        lib.sdfs_fused_work_floats.argtypes = [i] * 4
+        lib.sdfs_fused_work_floats.restype = ctypes.c_longlong
+    return lib
 
 
 def _ms(fn, n: int, runs: int = 3) -> float:
@@ -102,12 +145,21 @@ def _ms(fn, n: int, runs: int = 3) -> float:
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(dev):
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _cast(dev):
+    return lambda a: torch.as_tensor(np.ascontiguousarray(
+        a, np.float64)).to(device=dev, dtype=torch.float32)
 
 
 def _post_calls(sizes, interp, dev):
-    """(after, before) callers of one application: each takes the
-    library function and returns a launcher writing into ``out``."""
+    """(caller, out, plain) of one application: the caller takes the
+    library and returns a launcher writing into ``out``."""
     model = port.SSY()
     grids = port.build_grid_ssy(model, *sizes)
     T = pk.make_post_interp_kernel_T_ssy(model, grids, 5, interp, device=dev)
@@ -116,135 +168,275 @@ def _post_calls(sizes, interp, dev):
                           device=dev, dtype=torch.float32)
     field, corners, pay, off, s, lk_row, lk_col, th, be, _ = T.kernel_args(ell)
     n_l, n_k, n_i, n_j = sizes
-    R, C, P = n_l * n_k, n_i * n_j, 25
-    ops = pk.post_interp_operands_ssy(model, grids, 5)
-    Wr, Wc = (ops[k].to(device=dev, dtype=torch.float32).contiguous()
-              for k in ("Wr", "Wc"))
-    g = torch.empty((P, R, C), device=dev)
-    part = torch.empty_like(g)
     out = torch.empty_like(field)
     post = int(interp == "post")
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    stream = _stream(dev)
     # The launchers hold the tensors (not only their addresses), so that
     # none is freed and reused while they run.
     small = (pay, off, s, lk_row, lk_col)
 
-    def after(fn):
-        return lambda: fn(_ptr(field), *(_ptr(t) for t in corners),
-                          *(_ptr(t) for t in small), _ptr(out), n_l, n_k,
-                          n_i, n_j, 5, th, be, post, stream)
-
-    def before(fn):
-        return lambda: fn(_ptr(field), _ptr(Wr), _ptr(Wc),
-                          *(_ptr(t) for t in small), _ptr(g), _ptr(part),
-                          _ptr(out), R, C, P, P, th, be, post, stream)
+    def call(lib):
+        return lambda: lib.sdfs_post_interp(
+            _ptr(field), *(_ptr(t) for t in corners),
+            *(_ptr(t) for t in small), _ptr(out), n_l, n_k, n_i, n_j, 5, th,
+            be, post, stream)
 
     plain = pk.post_interp_gather_plain(*T.kernel_args(ell))
-    return after, before, out, plain
+    return call, out, plain
+
+
+_BASELINES = {}
+
+
+def _coarse(model, sizes, dev):
+    """The coarse additive baseline of a continuous-GCY grid (cached)."""
+    if sizes not in _BASELINES:
+        _BASELINES[sizes] = drivers._coarse_additive_baseline(
+            model, sizes, num_std_devs=3.2, quad_degree=5,
+            dtype=torch.float64, device=dev)
+    return _BASELINES[sizes]
+
+
+def _pair_ops(sizes, dev):
+    model = port.GCY()
+    grids = port.build_grid_gcy(model, *sizes)
+    ops = port.two_phase_operands_gcy_continuous(model, grids, 5,
+                                                 _coarse(model, sizes, dev))
+    cast = _cast(dev)
+    rng = np.random.default_rng(0)
+    L, K, I, J = ops.shapes
+    ell = cast(ops.baseline_log_w + 0.05 * rng.standard_normal(
+        ops.shapes)).reshape(L * K, I, J)
+    b_args = (cast(np.asarray(ops.W_c1).T),
+              cast(np.asarray(ops.sub_row).reshape(L * K)),
+              cast(ops.sub_col))
+    return ops, ell, b_args
 
 
 def _pair_calls(sizes, dev):
-    model = port.GCY()
-    base = drivers._coarse_additive_baseline(model, sizes, num_std_devs=3.2,
-                                             quad_degree=5,
-                                             dtype=torch.float64, device=dev)
-    grids = port.build_grid_gcy(model, *sizes)
-    ops = port.two_phase_operands_gcy_continuous(model, grids, 5, base)
+    ops, ell, (w_c1t, sub_row, sub_col) = _pair_ops(sizes, dev)
     L, K, I, J = ops.shapes
     n_i, n_y, n_b, n_j = ops.pair_shapes
     R, C = L * K, I * J
-    cast = lambda a: torch.as_tensor(np.ascontiguousarray(
-        a, np.float64)).to(device=dev, dtype=torch.float32)
-    rng = np.random.default_rng(0)
-    ell = cast(ops.baseline_log_w + 0.05 * rng.standard_normal(ops.shapes))
-    mid = st.pass_b_deferred_plain(
-        ell.reshape(R, I, J), cast(np.asarray(ops.W_c1).T),
-        float(ops.theta), cast(np.asarray(ops.sub_row).reshape(R)),
-        cast(ops.sub_col)).reshape(R, C).contiguous()
+    cast = _cast(dev)
+    mid = st.pass_b_deferred_plain(ell, w_c1t, float(ops.theta), sub_row,
+                                   sub_col).reshape(R, C).contiguous()
     P_zpi, PzT = st.pair_device_operands(ops, device=dev)
     args = (mid, P_zpi, PzT, cast(ops.W_r1), cast(ops.W_r2),
             cast(ops.add_row), cast(ops.add_col.reshape(C)))
     out = torch.empty_like(mid)
     th, be = float(ops.theta), float(ops.beta)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    stream = _stream(dev)
 
-    def call(fn):
-        return lambda: fn(*(_ptr(t) for t in args), _ptr(out), L, K, n_i, n_y,
-                          n_b, n_j, th, be, stream)
+    def call(lib):
+        return lambda: lib.sdfs_pass_c_pair(
+            *(_ptr(t) for t in args), _ptr(out), L, K, n_i, n_y, n_b, n_j, th,
+            be, stream)
 
     plain = st.pass_c_pair_plain(*args, th, be)
-    return call, call, out, plain, tuple(ops.shapes)
+    return call, out, plain, f"{sizes} view {tuple(ops.shapes)}"
+
+
+def _defb_sets(dev):
+    """(label, ell, w_c1t, theta, sub_row, sub_col) of the deferred pass B
+    timings."""
+    ops, ell, (w_c1t, sub_row, sub_col) = _pair_ops(DEFB_GCYC, dev)
+    yield (f"{DEFB_GCYC} view {tuple(ops.shapes)} coarse fold", ell, w_c1t,
+           float(ops.theta), sub_row, sub_col)
+    del ops, ell, w_c1t, sub_row, sub_col
+    model = port.GCY()
+    ops = port.two_phase_operands_gcy(
+        model, port.discretize_gcy(model, DEFB_GCY, method="tauchen"))
+    L, K, I, J = ops.shapes
+    cast = _cast(dev)
+    rng = np.random.default_rng(0)
+    th = float(ops.theta)
+    ell = cast(np.log(800.0) + 0.05 * rng.standard_normal((L * K, I, J)))
+    w_c1t = cast(np.asarray(ops.W_c1).T)
+    view = f"{DEFB_GCY} view {tuple(ops.shapes)}"
+    yield view, ell, w_c1t, th, None, None
+    # A synthetic fold of the normalized cell's size: a row baseline near
+    # theta * log(800) and a small column profile.
+    sub_row = cast(th * np.log(800.0) + 0.1 * rng.standard_normal(L * K))
+    sub_col = cast(0.05 * rng.standard_normal((I, J)))
+    yield f"{view} synthetic fold", ell, w_c1t, th, sub_row, sub_col
+
+
+def _defb_calls(ell, w_c1t, th, sub_row, sub_col, dev):
+    R, I, J = ell.shape
+    out = torch.empty_like(ell)
+    stream = _stream(dev)
+
+    def call(lib):
+        return lambda: lib.sdfs_pass_b_deferred(
+            _ptr(ell), _ptr(w_c1t), _ptr(sub_row), _ptr(sub_col), _ptr(out),
+            R, I, J, th, stream)
+
+    plain = st.pass_b_deferred_plain(ell, w_c1t, th, sub_row, sub_col)
+    return call, out, plain
+
+
+def _fused_sets(dev):
+    """(label, model, (M1, M2T, kap, sub), ell0) of the fused timings:
+    continuous SSY 20^4 from w = 1, continuous GCY 6^6 (coarse baseline)
+    from its baseline."""
+    cast = _cast(dev)
+    ssy = port.SSY()
+    grids = port.build_grid_ssy(ssy, *FUSED_SSY, dtype=torch.float32)
+    M1, M2T, kap = (cast(a.numpy()) for a in fd.kron_operands_ssy_continuous(
+        ssy, grids, 5, torch.float64))
+    yield (f"continuous SSY {FUSED_SSY}", ssy, (M1, M2T, kap, None),
+           torch.zeros_like(kap))
+    gcy = port.GCY()
+    grids = port.build_grid_gcy(gcy, *FUSED_GCY, dtype=torch.float32)
+    M1, M2T, kap, _, _, _, sub = fd.kron_operands_gcy_continuous(
+        gcy, grids, 5, _coarse(gcy, FUSED_GCY, dev), torch.float64)
+    ops = tuple(cast(a.numpy()) for a in (M1, M2T, kap, sub))
+    yield (f"continuous GCY {FUSED_GCY} coarse fold", gcy, ops,
+           (ops[3] / gcy.theta).contiguous())
+
+
+def _fused_calls(model, ops, ell0, algo, iters, dev):
+    """Caller of one launch of ``sdfs_fused_solve`` in mode ``algo`` (0
+    apply, 1 SA, 2 Anderson with m = 5, mixing every 2nd step) at tol -1
+    and ``iters`` iterations; the scratch is sized by each library."""
+    M1, M2T, kap, sub = ops
+    R, C = kap.shape
+    out = torch.empty_like(kap)
+    sync = torch.zeros(2, dtype=torch.int32, device=dev)
+    it = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = torch.zeros(1, dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+    m, mix, beta_aa, ridge = (5, 2, 1.0, 1e-6) if algo == 2 else (1, 1, 1.0,
+                                                                   0.0)
+
+    def call(lib):
+        work = torch.empty(int(lib.sdfs_fused_work_floats(algo, R, C, m)),
+                           dtype=torch.float32, device=dev)
+
+        def go():
+            sync.zero_()
+            return lib.sdfs_fused_solve(
+                algo, _ptr(ell0), _ptr(M1), _ptr(M2T), _ptr(kap), _ptr(sub),
+                _ptr(out), _ptr(work), _ptr(sync), _ptr(it), _ptr(err), R, C,
+                float(model.theta), float(model.beta), -1.0, iters, m, mix,
+                beta_aa, ridge, stream)
+        go.work = work
+        return go
+
+    if algo == 0:
+        plain = fd.fused_T_plain(ell0, M1, M2T, kap, sub, model.theta,
+                                 model.beta)
+    elif algo == 1:
+        from sdfs_via_autodiff_tpu_torch.kernels import solver_kernel as sk
+        plain = sk.fused_sa_plain(ell0, M1, M2T, kap, sub, model.theta,
+                                  model.beta, -1.0, iters)[0]
+    else:
+        from sdfs_via_autodiff_tpu_torch.kernels import anderson_kernel as ak
+        plain = ak.fused_anderson_plain(ell0, M1, M2T, kap, sub, model.theta,
+                                        model.beta, -1.0, iters, history=m,
+                                        mixing_frequency=mix)[0]
+    return call, out, plain
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--before", type=Path, default=None,
-                    help="directory with the previous design's post_interp.cu "
-                         "and streamed_two_phase.cu (with the switches)")
+                    help="directory with an earlier design's post_interp.cu, "
+                         "streamed_two_phase.cu and fused_two_matmul.cu "
+                         "(with the switches)")
+    ap.add_argument("--kernels", default=",".join(SPLITS),
+                    help="comma-separated subset of " + ", ".join(SPLITS))
     a = ap.parse_args()
+    kernels = [k for k in a.kernels.split(",") if k]
+    unknown = [k for k in kernels if k not in SPLITS]
+    if unknown:
+        sys.exit(f"kernel_split: unknown kernels {unknown}")
     if not torch.cuda.is_available():
         sys.exit("kernel_split: needs a CUDA device")
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip()
     print(f"device: {smi}")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = [(_build.CSRC_DIR / f"{w}.cu", "after", k)
-            for w in SWITCH for k in STOPS]
-    if a.before is not None:
-        jobs += [(a.before / f"{w}.cu", "before", k)
-                 for w in SWITCH for k in STOPS]
+    tags = ("after",) + (("before",) if a.before is not None else ())
+    src_dir = {"after": _build.CSRC_DIR, "before": a.before}
+    jobs = [(src_dir[tag] / f"{stem}.cu", tag, name, defines)
+            for tag in tags
+            for (stem, name), defines in _variants(kernels).items()]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda j: _compile(*j), jobs))
     print(f"built {len(paths)} variants in {time.perf_counter() - t0:.1f} s")
-    libs = {(j[0].stem, j[1], j[2]): _load(p, j[0].stem, j[1] == "before"
-                                           and j[0].stem == "post_interp")
+    libs = {(j[0].stem, j[1], j[2]): _typed(ctypes.CDLL(str(p)))
             for j, p in zip(jobs, paths)}
-    tags = ("after",) + (("before",) if a.before is not None else ())
     results = []
 
-    def measure(which, label, callers, out, plain, n):
-        row = {"kernel": which, "set": label}
+    def measure(kernel, label, call, out, plain, n, per=1):
+        """Whole kernels in turns, then each variant's cumulative time;
+        ``per`` divides a launch's time (iterations per launch)."""
+        stem, switch, stops = SPLITS[kernel]
+        names = ([f"{switch}={k}" for k in stops] + ["whole"]
+                 + list(EXTRA.get(kernel, {})))
+        row = {"kernel": kernel, "set": label, "per": per}
         for tag in tags:
-            fn = libs[(which, tag, 4)]
-            rc = callers[tag](fn)()
+            rc = call(libs[(stem, tag, "whole")])()
             torch.cuda.synchronize()
             if rc != 0:
-                raise RuntimeError(f"{which} {tag} {label}: error {rc}")
+                raise RuntimeError(f"{kernel} {tag} {label}: error {rc}")
             row[f"{tag}_err_vs_plain"] = float((out - plain).abs().max())
-        # The whole kernels in turns, then each variant's cumulative time.
         order = ("before", "after", "after", "before") if len(tags) == 2 \
             else ("after", "after")
         full = {t: [] for t in tags}
         for tag in order:
-            full[tag].append(_ms(callers[tag](libs[(which, tag, 4)]), n))
+            full[tag].append(_ms(call(libs[(stem, tag, "whole")]), n) / per)
         for tag in tags:
             row[f"{tag}_ms"] = full[tag]
-            row[f"{tag}_stops_ms"] = [
-                _ms(callers[tag](libs[(which, tag, k)]), n) for k in STOPS]
-        print(f"{which} {label}: " + "; ".join(
-            f"{t}: whole {', '.join(f'{x:.4f}' for x in row[f'{t}_ms'])} ms, "
-            f"stops 1-4 {', '.join(f'{x:.4f}' for x in row[f'{t}_stops_ms'])}"
-            f" ms, max abs err vs plain {row[f'{t}_err_vs_plain']:.3e}"
+            row[f"{tag}_variants_ms"] = {
+                v: _ms(call(libs[(stem, tag, v)]), n) / per for v in names}
+        unit = "ms" if per == 1 else f"ms per iteration ({per} per launch)"
+        print(f"{kernel} {label}: " + "; ".join(
+            f"{t}: whole {', '.join(f'{x:.5f}' for x in row[f'{t}_ms'])} "
+            f"{unit}; variants " + ", ".join(
+                f"{v} {x:.5f}" for v, x in row[f"{t}_variants_ms"].items())
+            + f"; max abs err vs plain {row[f'{t}_err_vs_plain']:.3e}"
             for t in tags) + f" ({smi})", flush=True)
         results.append(row)
 
-    for sizes in POST_SIZES:
-        for interp in ("post", "loglin"):
-            after, before, out, plain = _post_calls(sizes, interp, dev)
-            measure("post_interp", f"{sizes} {interp}",
-                    {"after": after, "before": before}, out, plain, 20)
-            del after, before, out, plain
+    if "post_interp" in kernels:
+        for sizes in POST_SIZES:
+            for interp in ("post", "loglin"):
+                call, out, plain = _post_calls(sizes, interp, dev)
+                measure("post_interp", f"{sizes} {interp}", call, out, plain,
+                        20)
+                del call, out, plain
+                torch.cuda.empty_cache()
+    if "pass_c_pair" in kernels:
+        for sizes in PAIR_SIZES:
+            call, out, plain, label = _pair_calls(sizes, dev)
+            measure("pass_c_pair", label, call, out, plain, 50)
+            del call, out, plain
             torch.cuda.empty_cache()
-    for sizes in PAIR_SIZES:
-        after, before, out, plain, view = _pair_calls(sizes, dev)
-        measure("streamed_two_phase", f"{sizes} view {view}",
-                {"after": after, "before": before}, out, plain, 50)
-        del after, before, out, plain
-        torch.cuda.empty_cache()
+    if "pass_b_deferred" in kernels:
+        for label, *args in _defb_sets(dev):
+            call, out, plain = _defb_calls(*args, dev)
+            measure("pass_b_deferred", label, call, out, plain, 50)
+            del call, out, plain, args
+            torch.cuda.empty_cache()
+    if "fused" in kernels:
+        for label, model, ops, ell0 in _fused_sets(dev):
+            for algo, what, iters, n in ((1, "SA", FUSED_ITERS, 5),
+                                         (0, "apply", 1, 50),
+                                         (2, "Anderson", FUSED_ITERS, 5)):
+                call, out, plain = _fused_calls(model, ops, ell0, algo,
+                                                iters, dev)
+                measure("fused", f"{label} {what}", call, out, plain, n,
+                        per=iters)
+                del call, out, plain
+            torch.cuda.empty_cache()
     print(json.dumps({"device": smi, "split": results}))
 
 

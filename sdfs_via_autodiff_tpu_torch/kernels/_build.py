@@ -2,9 +2,9 @@
 
 At first use, ``nvcc`` compiles ``csrc/<name>.cu`` into a shared library
 with a plain C interface under the package's ``_build/`` directory, keyed
-by a hash of the source and the flags, and ``ctypes`` loads it.  Importing
-a kernel module never builds: only a launch on a CUDA tensor does, so the
-CPU tests need no ``nvcc``.
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, and ``ctypes`` loads it.  Importing a kernel module never builds:
+only a launch on a CUDA tensor does, so the CPU tests need no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -44,7 +44,9 @@ def build(name: str) -> Path:
     report (``-Xptxas -v``: registers, shared memory, spills) is kept
     beside it as ``<library>.log``."""
     src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
+    key = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{key}.so"
     if lib.exists():

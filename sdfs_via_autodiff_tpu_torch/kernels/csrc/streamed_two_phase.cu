@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "occupancy.cuh"
+
 namespace {
 
 constexpr int kModeFast = 0;
@@ -498,6 +500,14 @@ pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
 // from HBM once and from L2 by the others.  Ragged I, J
 // and partial tiles are clamped and masked.
 
+// SDFS_DEFB_SPLIT (compile-time, for timing the phases of
+// pass_b_deferred; 4, the default, is the kernel): 1 stops after the fold
+// and the column maxima, 2 after the exponentials, 3 after the c1
+// product; 1-3 store that phase's result in place of the output.
+#ifndef SDFS_DEFB_SPLIT
+#define SDFS_DEFB_SPLIT 4
+#endif
+
 constexpr int kDefThreads = 256;
 constexpr int kDefBN = 32;   // pass-B-deferred columns per block
 constexpr int kDefBK = 8;    // W_c1^T rows per pass-B-deferred K-tile
@@ -597,9 +607,21 @@ pass_b_deferred_kernel(const float* __restrict__ ell,
     shift[tid] = mx;
   }
   __syncthreads();
+#if SDFS_DEFB_SPLIT == 1
+  for (int x = tid; x < I * kDefBN; x += nt)
+    if (x % kDefBN < jw)
+      out_r[(size_t)(x / kDefBN) * J + j0 + x % kDefBN] = shift[x % kDefBN];
+  return;
+#endif
 #pragma unroll 8
   for (int x = tid; x < I * kDefBN; x += nt)
     e[x] = expf(e[x] - shift[x % kDefBN]);
+#if SDFS_DEFB_SPLIT == 2
+  for (int x = tid; x < I * kDefBN; x += nt)
+    if (x % kDefBN < jw)
+      out_r[(size_t)(x / kDefBN) * J + j0 + x % kDefBN] = e[x];
+  return;
+#endif
 
   // c1: out[i, j] = shift[j] + log(sum_m W_c1t[m, i] e[m, j]).  Thread
   // (rg, cg) owns the kDefBT x kDefBT tile of rows kDefBT*rg.. and
@@ -678,11 +700,243 @@ pass_b_deferred_kernel(const float* __restrict__ ell,
 #pragma unroll
         for (int q = 0; q < kDefBT; ++q) {
           const int jj = c0 + q;
+#if SDFS_DEFB_SPLIT == 3
+          if (jj < jw) out_r[(size_t)i * J + j0 + jj] = acc[t][q];
+#else
           if (jj < jw)
             out_r[(size_t)i * J + j0 + jj] = shift[jj] + logf(acc[t][q]);
+#endif
         }
       }
     }
+  }
+}
+
+// The resident layout of the deferred pass B, for I small enough that
+// W_c1^T stays in shared memory beside two (I, BN) strips (I <= 144 at BN
+// = 128: the 18.9M-point continuous-GCY view (8,16,144,1024), 472
+// launches per solve).  The K-tiled kernel above leaves most of its
+// block idle there (72 thread tiles of 8 x 8 for 256 threads) and streams
+// the 83 KB W_c1^T through 18 K-tiles in each of 4,096 blocks.  Here a
+// persistent grid (one block per SM at I = 144) loads W_c1^T once per
+// block with cp.async and walks items (field row r, strip of BN
+// columns): every thread owns an 8 x 8 output tile (rows 8*rg.., columns
+// 4*cg.. and BN/2 + 4*cg.., so that a warp's strip loads are contiguous),
+// (BN/8) * ceil(I/8) threads cover the (I, BN) item exactly (288 at I =
+// 144, BN = 128), and the product runs over all of I with no barrier.
+// The next item's raw strip is copied (cp.async) into the second buffer
+// while the current one's maxima, exponentials and product run.  The
+// sum runs in order of m, as in the K-tiled kernel.
+constexpr int kResMaxThreads = 384;
+constexpr int kResParts = 2;          // partial column maxima per column
+constexpr int kFoldBatch = 32;        // sub_col loads in flight per thread
+constexpr size_t kSmemLimit = 232448;  // a block's shared memory (227 KB)
+
+__host__ __device__ inline int round_up8(int n) { return (n + 7) & ~7; }
+
+// Shared-memory floats of the resident layout: W_c1^T (I rows of
+// round_up8(I), zero-padded), two (I, BN) strips, the partial column
+// maxima and the shifts.
+__host__ __device__ inline int pass_b_resident_smem_floats(int I, int BN) {
+  return I * round_up8(I) + 2 * I * BN + kResParts * BN + BN;
+}
+
+__host__ __device__ inline int pass_b_resident_threads(int I, int BN) {
+  return ((BN / 8) * (round_up8(I) / 8) + 31) / 32 * 32;
+}
+
+// Columns per item of the resident layout: the narrowest of 32, 64 and
+// 128 that covers J, else the widest, among those whose footprint fits
+// a block and whose threads are at most kResMaxThreads; 0 when none fits
+// (the K-tiled layout).
+inline int pass_b_resident_bn(int I, int J) {
+  int best = 0;
+  for (int bn = 32; bn <= 128; bn *= 2) {
+    if (sizeof(float) * (size_t)pass_b_resident_smem_floats(I, bn) >
+            kSmemLimit ||
+        pass_b_resident_threads(I, bn) > kResMaxThreads)
+      continue;
+    best = bn;
+    if (bn >= J) break;
+  }
+  return best;
+}
+
+// out[i, j] = shift[j] + log(sum_m W_c1t[m, i] e[m, j]) for one
+// thread's 8 x 8 tile of a resident item (rows i0.., columns ca.. and
+// cb..; out points at column 0 of the item, row stride J): per m, two
+// float4 loads of W (a broadcast within each half-warp) and two of the
+// strip (16 consecutive float4 per half-warp) feed 64 FMAs.  The sum runs
+// in order of m.
+__device__ __forceinline__ void resident_product(
+    int I, int Ip, int lb, int jw, int i0, int ca, int cb, const float* w,
+    const float* e, const float* shift, float* out, int J) {
+  float acc[8][8];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+#pragma unroll 4
+  for (int m = 0; m < I; ++m) {
+    const float* wa = w + m * Ip + i0;
+    const float* eb = e + (m << lb);
+    const float4 a0 = *reinterpret_cast<const float4*>(wa);
+    const float4 a1 = *reinterpret_cast<const float4*>(wa + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(eb + ca);
+    const float4 b1 = *reinterpret_cast<const float4*>(eb + cb);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+  }
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int i = i0 + a;
+    if (i >= I) continue;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const int jj = b < 4 ? ca + b : cb + b - 4;
+      if (jj >= jw) continue;
+#if SDFS_DEFB_SPLIT == 3
+      out[(size_t)i * J + jj] = acc[a][b];
+#else
+      out[(size_t)i * J + jj] = shift[jj] + logf(acc[a][b]);
+#endif
+    }
+  }
+}
+
+template <bool HAS_SUB>
+__global__ void __launch_bounds__(kResMaxThreads)
+pass_b_resident_kernel(const float* __restrict__ ell,
+                       const float* __restrict__ w_c1t,
+                       const float* __restrict__ sub_row,
+                       const float* __restrict__ sub_col,
+                       float* __restrict__ out, int R, int I, int J, int BN,
+                       float theta) {
+  extern __shared__ float smem[];     // 16-byte aligned base
+  const int Ip = round_up8(I);
+  const int lb = __ffs(BN) - 1;       // BN = 1 << lb
+  float* w = smem;                    // (I, Ip)
+  float* strips = w + I * Ip;         // 2 x (I, BN)
+  float* part = strips + 2 * I * BN;  // (kResParts, BN)
+  float* shift = part + kResParts * BN;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int n_strips = (J + BN - 1) / BN;
+  const int n_items = R * n_strips;
+  const size_t IJ = (size_t)I * J;
+
+  // The raw (I, jw) strip of an item into dst (row stride BN); columns
+  // past jw are never read raw (the fold writes 0 there).
+  auto fetch = [&](int item, float* dst) {
+    const int j0 = (item % n_strips) * BN, jw = min(BN, J - j0);
+    const float* src = ell + (size_t)(item / n_strips) * IJ + j0;
+    if (J % 4 == 0) {
+      const int q = jw / 4;
+      for (int x = tid; x < I * q; x += nt)
+        cp_async16(dst + (x / q) * BN + 4 * (x % q),
+                   src + (size_t)(x / q) * J + 4 * (x % q));
+    } else {
+      for (int x = tid; x < I * jw; x += nt)
+        cp_async4(dst + (x / jw) * BN + x % jw,
+                  src + (size_t)(x / jw) * J + x % jw);
+    }
+    cp_async_commit();
+  };
+
+  if (I % 4 == 0) {
+    const int q = I / 4;
+    for (int x = tid; x < I * q; x += nt)
+      cp_async16(w + (x / q) * Ip + 4 * (x % q), w_c1t + 4 * x);
+  } else {
+    for (int x = tid; x < I * I; x += nt)
+      cp_async4(w + (x / I) * Ip + x % I, w_c1t + x);
+  }
+  if (Ip > I)
+    for (int x = tid; x < I * (Ip - I); x += nt)
+      w[(x / (Ip - I)) * Ip + I + x % (Ip - I)] = 0.f;
+  cp_async_commit();
+  if (blockIdx.x < n_items) fetch(blockIdx.x, strips);
+
+  const int n_cg = BN / 8, half = BN / 2;
+  const int cg = tid % n_cg, rg = tid / n_cg;
+  const bool active = rg < Ip / 8;
+  const int i0 = 8 * rg, ca = 4 * cg, cb = half + 4 * cg;
+  int t = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++t) {
+    float* e = strips + (t & 1) * I * BN;
+    cp_async_wait_all();
+    __syncthreads();                  // strip (and W) landed; other strip free
+    const int r = item / n_strips, j0 = (item % n_strips) * BN;
+    const int jw = min(BN, J - j0);
+    float* out_r = out + (size_t)r * IJ;
+
+    // a = theta * ell, or fma(theta, ell, -sub_row[r]) - sub_col[m, j]
+    // (one rounding before the cancellation, as the plain version);
+    // columns past jw hold 0 (never stored).
+    // The sub_col values of kFoldBatch elements are loaded before any is
+    // used (L2 latency, not the arithmetic, bounds this loop).
+    const float sr = HAS_SUB ? __ldg(sub_row + r) : 0.f;
+    for (int x0 = tid; x0 < I * BN; x0 += nt * kFoldBatch) {
+      float sc[kFoldBatch];
+#pragma unroll
+      for (int b = 0; b < kFoldBatch; ++b) {
+        const int x = x0 + b * nt, jj = x & (BN - 1);
+        sc[b] = (HAS_SUB && x < I * BN && jj < jw)
+                    ? __ldg(sub_col + (size_t)(x >> lb) * J + j0 + jj)
+                    : 0.f;
+      }
+#pragma unroll
+      for (int b = 0; b < kFoldBatch; ++b) {
+        const int x = x0 + b * nt, jj = x & (BN - 1);
+        if (x >= I * BN) break;
+        e[x] = jj >= jw ? 0.f
+               : HAS_SUB ? __fsub_rn(__fmaf_rn(theta, e[x], -sr), sc[b])
+                         : theta * e[x];
+      }
+    }
+    // The next item's strip into the other buffer (free since the top
+    // barrier), after the fold so that its copies do not queue ahead of
+    // the fold's loads; they land during the maxima, exp and product.
+    if (item + (int)gridDim.x < n_items)
+      fetch(item + gridDim.x, strips + ((t + 1) & 1) * I * BN);
+    __syncthreads();
+    for (int x = tid; x < kResParts * BN; x += nt) {
+      const int jj = x & (BN - 1);
+      float mx = -INFINITY;
+#pragma unroll 8
+      for (int m = x >> lb; m < I; m += kResParts)
+        mx = fmaxf(mx, e[(m << lb) + jj]);
+      part[x] = mx;
+    }
+    __syncthreads();
+    for (int jj = tid; jj < BN; jj += nt) {
+      float mx = part[jj];
+      for (int p = 1; p < kResParts; ++p) mx = fmaxf(mx, part[p * BN + jj]);
+      shift[jj] = mx;
+    }
+    __syncthreads();
+#if SDFS_DEFB_SPLIT == 1
+    for (int x = tid; x < I * BN; x += nt)
+      if ((x & (BN - 1)) < jw)
+        out_r[(size_t)(x >> lb) * J + j0 + (x & (BN - 1))] =
+            shift[x & (BN - 1)];
+    continue;
+#endif
+#pragma unroll 8
+    for (int x = tid; x < I * BN; x += nt)
+      e[x] = expf(e[x] - shift[x & (BN - 1)]);
+#if SDFS_DEFB_SPLIT == 2
+    for (int x = tid; x < I * BN; x += nt)
+      if ((x & (BN - 1)) < jw)
+        out_r[(size_t)(x >> lb) * J + j0 + (x & (BN - 1))] = e[x];
+    continue;
+#endif
+    __syncthreads();
+    if (active) resident_product(I, Ip, lb, jw, i0, ca, cb, w, e, shift,
+                                 out_r + j0, J);
   }
 }
 
@@ -1279,6 +1533,31 @@ cudaError_t prepare(Kernel kernel, size_t smem_bytes) {
                               (int)smem_bytes);
 }
 
+// One launch of the resident deferred pass B: a persistent grid of
+// min(items, co-resident blocks), BN columns per item.
+template <bool HAS_SUB>
+cudaError_t launch_pass_b_resident(const float* ell, const float* w_c1t,
+                                   const float* sub_row, const float* sub_col,
+                                   float* out, int R, int I, int J, int BN,
+                                   float theta, cudaStream_t st) {
+  const size_t smem =
+      sizeof(float) * (size_t)pass_b_resident_smem_floats(I, BN);
+  const int threads = pass_b_resident_threads(I, BN);
+  cudaError_t err = prepare(pass_b_resident_kernel<HAS_SUB>, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = blocks_per_sm((const void*)pass_b_resident_kernel<HAS_SUB>, threads,
+                      smem, &per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long items = (long long)R * ((J + BN - 1) / BN);
+  const long long cap = (long long)per_sm * sms;
+  const int grid = (int)(items < cap ? items : cap);
+  pass_b_resident_kernel<HAS_SUB><<<grid, threads, smem, st>>>(
+      ell, w_c1t, sub_row, sub_col, out, R, I, J, BN, theta);
+  return cudaGetLastError();
+}
+
 // The arguments of one pass-B launch.
 struct PassBArgs {
   const float *ell, *w_c1, *w_c2t, *sub_row, *sub_col, *mid_col;
@@ -1395,9 +1674,16 @@ int sdfs_pass_b_deferred(const float* ell, const float* w_c1t,
                          void* stream) {
   if ((sub_row == nullptr) != (sub_col == nullptr))
     return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bn = pass_b_resident_bn(I, J);
+  if (bn > 0)
+    return sub_row != nullptr
+               ? launch_pass_b_resident<true>(ell, w_c1t, sub_row, sub_col,
+                                              out, R, I, J, bn, theta, st)
+               : launch_pass_b_resident<false>(ell, w_c1t, nullptr, nullptr,
+                                               out, R, I, J, bn, theta, st);
   const size_t smem =
       sizeof(float) * (size_t)pass_b_deferred_smem_floats(I);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((J + kDefBN - 1) / kDefBN, R);
   cudaError_t err;
   if (sub_row != nullptr) {
@@ -1485,6 +1771,10 @@ int sdfs_pass_c_pair(const float* mid, const float* p_zpi, const float* pzt,
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
+
+// Columns per item of the deferred pass B's resident layout at (I, J),
+// 0 for the K-tiled layout (pass_b_deferred_layout mirrors it).
+int sdfs_pass_b_deferred_bn(int I, int J) { return pass_b_resident_bn(I, J); }
 
 const char* sdfs_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

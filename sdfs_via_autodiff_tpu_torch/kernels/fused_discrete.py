@@ -50,6 +50,7 @@ from . import _build
 __all__ = ["LAUNCHES", "L2_BYTES_H100", "fused_T", "fused_T_plain",
            "kron_operands_ssy", "kron_operands_ssy_continuous",
            "kron_operands_gcy", "kron_operands_gcy_continuous",
+           "fused_layout",
            "make_fused_T_from_operands", "make_xla_T_from_operands",
            "make_fused_T_log_ssy", "make_fused_T_log_ssy_continuous",
            "make_fused_T_log_gcy", "make_fused_T_log_gcy_continuous"]
@@ -64,6 +65,14 @@ L2_BYTES_H100 = 50 * 1024 * 1024
 # Kernel modes of sdfs_fused_solve (mirroring the .cu).
 ALGO_APPLY, ALGO_SA, ALGO_AA = 0, 1, 2
 MAX_HISTORY = 8
+# The kernel's tiling (mirroring the .cu): threads per block (kThreads),
+# tile columns (kBN), the tallest tile (kMaxBM), the chunked layout's tile
+# rows and K-chunk (kChunkBM, kChunkK), the tile's sums (kPartFloats),
+# the static shared memory (sizeof(Smem)), a block's shared-memory limit
+# (kSmemLimit) and the H100's SM count (what sm_count reads on the card).
+_THREADS, _TILE_COLS, _MAX_BM, _CHUNK_BM, _CHUNK_K = 256, 32, 64, 32, 256
+_PART_FLOATS, _STATIC_SMEM, _SMEM_LIMIT = 64 * 32, 3744, 232_448
+SMS_H100 = 132
 _F32 = torch.float32
 
 
@@ -232,6 +241,47 @@ def check_working_set(shapes, rows: int, cols: int, fields: int,
             "large")
 
 
+# --------------------------------------------------------- the tiling
+
+def _smem_bytes(bm: int, kc1: int, kc2: int) -> int:
+    """Dynamic shared memory of one block (mirrors the .cu's
+    fused_smem_floats): M1 rows k-major (row stride bm + 4 or bm + 8,
+    whichever is 4 mod 8), M2T columns,
+    the staged field operand and the split-K partial sums."""
+    bms = bm + 4 if (bm + 4) % 8 == 4 else bm + 8
+    return 4 * (kc1 * bms + kc2 * _TILE_COLS
+                + max(kc1 * _TILE_COLS, kc2 * bms) + _PART_FLOATS)
+
+
+def fused_layout(R: int, C: int, sms: int = SMS_H100) -> dict:
+    """The fused kernel's tiling of (R, C) fields on ``sms`` SMs, as its
+    launcher chooses (mirrors the .cu's ``tiling``): tiles of ``bm`` rows
+    by 32 columns, ``bm`` the smallest multiple of 4 (at most 64) that
+    leaves at most one tile per SM, with the block's M1 rows and M2T
+    columns resident in shared memory when they fit ("resident": one
+    block per tile, the same tile in every iteration); else 32-row tiles
+    over the grid with both operands staged in K-chunks of 256
+    ("chunked").  Keys: bm, resident, n_rt, n_ct, n_tiles, smem (dynamic
+    bytes), kc1, kc2, product_threads (4 x 2 outputs each, one fmaf
+    chain over k in order per output)."""
+    n_ct = -(-C // _TILE_COLS)
+    for bm in range(4, _MAX_BM + 1, 4):
+        n_rt = -(-R // bm)
+        if n_rt * n_ct > sms:
+            continue
+        smem = _smem_bytes(bm, R, C)
+        if smem > _SMEM_LIMIT - _STATIC_SMEM:
+            break
+        return dict(bm=bm, resident=True, n_rt=n_rt, n_ct=n_ct,
+                    n_tiles=n_rt * n_ct, smem=smem, kc1=R, kc2=C,
+                    product_threads=4 * bm)
+    n_rt = -(-R // _CHUNK_BM)
+    return dict(bm=_CHUNK_BM, resident=False, n_rt=n_rt, n_ct=n_ct,
+                n_tiles=n_rt * n_ct,
+                smem=_smem_bytes(_CHUNK_BM, _CHUNK_K, _CHUNK_K),
+                kc1=_CHUNK_K, kc2=_CHUNK_K, product_threads=4 * _CHUNK_BM)
+
+
 # --------------------------------------------------------- the kernel
 
 def fused_T_plain(ell, M1, M2T, log_kap, sub, theta: float, beta: float):
@@ -259,6 +309,8 @@ def _lib():
         lib.sdfs_fused_solve.argtypes = [i, p, p, p, p, p, p, p, p, p, p,
                                          i, i, f, f, f, i, i, i, f, f, p]
         lib.sdfs_fused_solve.restype = i
+        lib.sdfs_fused_tiling.argtypes = [i, i, p]
+        lib.sdfs_fused_tiling.restype = i
         lib.sdfs_fused_error_string.argtypes = [i]
         lib.sdfs_fused_error_string.restype = ctypes.c_char_p
         lib._sdfs_typed = True
@@ -299,8 +351,11 @@ def launch(algo: int, ell0, M1, M2T, log_kap, sub, theta: float,
     if sub is not None:
         _check("sub", sub, dev, (R, C))
     lib = _lib()
-    work = torch.empty(int(lib.sdfs_fused_work_floats(algo, R, C, history)),
-                       dtype=_F32, device=dev)
+    with torch.cuda.device(dev):
+        n_work = int(lib.sdfs_fused_work_floats(algo, R, C, history))
+    if n_work < 0:
+        raise RuntimeError("fused kernel: cannot query the device")
+    work = torch.empty(n_work, dtype=_F32, device=dev)
     sync = torch.zeros(2, dtype=torch.int32, device=dev)
     out = torch.empty_like(ell0)
     iters = torch.zeros(1, dtype=torch.int32, device=dev)

@@ -66,6 +66,7 @@ from ..operators.two_phase import (TwoPhaseOperands, conjugate_to_shared,
 from . import _build
 
 __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
+           "pass_b_deferred_layout",
            "streamed_coverable", "streamed_accepts", "streamed_mode",
            "pass_c_batched", "pass_c_batched_plain", "pass_b_deferred",
            "pass_b_deferred_plain", "pass_c_deferred",
@@ -85,15 +86,15 @@ LAUNCHES = {"pass_b": 0, "pass_b_c1": 0, "pass_b_c1_sub": 0, "pass_b_mid": 0,
             "pass_b_deferred": 0, "pass_c_deferred": 0, "pass_c_pair": 0}
 
 _MODES = {"fast": 0, "lse": 1}
-# Shared memory one block may use on sm_90 (227 KB).
+# Shared memory one block may use on sm_90 (227 KB; the .cu's kSmemLimit).
 SMEM_LIMIT = 232_448
 _PASS_C_TILES = (32, 16, 8, 4, 2, 1)
 # Shared memory of one SM (228 KB), of which each resident block reserves
 # 1 KB.
 _SM_SMEM, _BLOCK_RESERVED = 233_472, 1_024
 # The deferred kernels' tiles (mirroring the .cu): pass B's columns per
-# block and W_c1^T rows per K-tile; pass C's column tiles (multiples of
-# 4) and input chunks.
+# block, W_c1^T rows per K-tile and partial maxima (kDefBN, kDefBK,
+# kDefParts); pass C's column tiles (multiples of 4) and input chunks.
 _DEF_BN, _DEF_BK, _DEF_PARTS = 32, 8, 8
 _PASS_C_DEFERRED_TILES = (64, 32, 16, 8, 4)
 _PASS_C_DEFERRED_CHUNKS = (32, 16, 8, 4)
@@ -132,6 +133,52 @@ def pass_b_deferred_smem_bytes(I: int) -> int:
     padded to a multiple of 4, partial column maxima and shifts)."""
     return 4 * (I * _DEF_BN + 2 * _DEF_BK * _up4(I)
                 + _DEF_PARTS * _DEF_BN + _DEF_BN)
+
+
+# The deferred pass B's resident layout (mirroring the .cu): the most
+# threads of a block (kResMaxThreads), the partial column maxima per
+# column (kResParts) and the item widths pass_b_resident_bn chooses from.
+_RES_MAX_THREADS, _RES_PARTS, _RES_WIDTHS = 384, 2, (32, 64, 128)
+
+
+def _up8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def pass_b_resident_smem_bytes(I: int, BN: int) -> int:
+    """Shared memory of one resident deferred pass-B block (mirrors the
+    .cu: W_c1^T with rows padded to a multiple of 8, two (I, BN) strips,
+    the partial column maxima and the shifts)."""
+    return 4 * (I * _up8(I) + 2 * I * BN + _RES_PARTS * BN + BN)
+
+
+def pass_b_resident_threads(I: int, BN: int) -> int:
+    """Threads of one resident block: an 8 x 8 output tile each over the
+    (I, BN) item, rounded up to whole warps."""
+    return -(-(BN // 8) * (_up8(I) // 8) // 32) * 32
+
+
+def pass_b_deferred_layout(I: int, J: int) -> Tuple[str, int, int, int]:
+    """(layout, columns per block, threads, shared-memory bytes) of the
+    deferred pass B at (I, J), as its launcher chooses (mirrors the .cu):
+    "resident" (W_c1^T in shared memory, a persistent grid over items of
+    BN columns, BN the narrowest of 32, 64, 128 covering J, else the
+    widest, that fits) when it fits a block, else "ktiled" (one block of
+    256 threads per field row and 32 columns, W_c1^T streamed in K-tiles;
+    its footprint, :func:`pass_b_deferred_smem_bytes`, is the one
+    :func:`streamed_config` classifies by)."""
+    best = 0
+    for bn in _RES_WIDTHS:
+        if (pass_b_resident_smem_bytes(I, bn) > SMEM_LIMIT
+                or pass_b_resident_threads(I, bn) > _RES_MAX_THREADS):
+            continue
+        best = bn
+        if bn >= J:
+            break
+    if best:
+        return ("resident", best, pass_b_resident_threads(I, best),
+                pass_b_resident_smem_bytes(I, best))
+    return "ktiled", _DEF_BN, 256, pass_b_deferred_smem_bytes(I)
 
 
 def _pass_c_deferred_smem_bytes(L: int, K: int, TC: int, JK: int) -> int:
@@ -398,6 +445,8 @@ def _lib():
         lib.sdfs_pass_c_pair.argtypes = [p, p, p, p, p, p, p, p,
                                          i, i, i, i, i, i, f, f, p]
         lib.sdfs_pass_c_pair.restype = i
+        lib.sdfs_pass_b_deferred_bn.argtypes = [i, i]
+        lib.sdfs_pass_b_deferred_bn.restype = i
         lib.sdfs_error_string.argtypes = [i]
         lib.sdfs_error_string.restype = ctypes.c_char_p
         lib._sdfs_typed = True

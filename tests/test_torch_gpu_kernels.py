@@ -606,6 +606,84 @@ def test_fused_anderson_kernel_falls_back_to_T(cuda, name):
     assert float((e_k - e_p).abs().max()) <= 1e-4
 
 
+# The deferred pass B's two layouts on seeded synthetic operands (W_c1
+# row-stochastic, theta of the GCY calibration's size): resident at I =
+# 144 (the 18.9M-point view's) and I = 40, K-tiled at I = 512; J ragged
+# (not a multiple of the item width, not a multiple of 4).
+DEFB_SYNTH = [(3, 144, 200), (2, 144, 37), (4, 40, 70), (2, 512, 70),
+              (1, 512, 37)]
+
+
+@pytest.mark.parametrize("with_sub", [True, False])
+@pytest.mark.parametrize("R,I,J", DEFB_SYNTH)
+def test_pass_b_deferred_layouts_match_plain(cuda, R, I, J, with_sub):
+    layout, bn, _, smem = st.pass_b_deferred_layout(I, J)
+    assert st._lib().sdfs_pass_b_deferred_bn(I, J) == (
+        bn if layout == "resident" else 0)
+    assert smem <= st.SMEM_LIMIT
+    rng = np.random.default_rng(I + J)
+    W = rng.random((I, I))
+    W /= W.sum(axis=1, keepdims=True)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                    dtype=torch.float32, device=cuda)
+    theta = -36.0
+    ell = f32(np.log(800.0) + 0.05 * rng.standard_normal((R, I, J)))
+    sub = ((f32(theta * np.log(800.0) + 0.1 * rng.standard_normal(R)),
+            f32(0.05 * rng.standard_normal((I, J))))
+           if with_sub else (None, None))
+    args = (f32(W.T), theta) + sub
+    before = st.LAUNCHES["pass_b_deferred"]
+    got = st.pass_b_deferred(ell, *args)
+    assert st.LAUNCHES["pass_b_deferred"] == before + 1
+    want = st.pass_b_deferred_plain(ell, *args)
+    lim = ATOL + EPS32 * want.abs()
+    assert bool(((got - want).abs() <= lim).all())
+
+
+# The fused kernels' chunked layout: (675, 650), more tiles than SMs and
+# operands beyond a block's shared memory.
+FUSED_CHUNKED = (27, 25, 26, 25)
+
+
+@pytest.mark.parametrize("sizes", [(5, 5, 5, 6), FUSED_CHUNKED])
+def test_fused_kernels_layouts_match_plain(cuda, sizes):
+    m = P.SSY()
+    ops = tuple(a.to(device=cuda, dtype=torch.float32).contiguous()
+                for a in fd.kron_operands_ssy_continuous(
+                    m, P.build_grid_ssy(m, *sizes), 5, torch.float64))
+    R, C = ops[2].shape
+    lay = fd.fused_layout(R, C, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    tiling = np.zeros(5, dtype=np.int32)
+    assert fd._lib().sdfs_fused_tiling(R, C, tiling.ctypes.data) == 0
+    assert list(tiling[:4]) == [lay["bm"], int(lay["resident"]),
+                                lay["n_tiles"], lay["smem"]]
+    assert lay["resident"] == (sizes != FUSED_CHUNKED)
+    rng = np.random.default_rng(3)
+    ell = torch.as_tensor(np.log(800.0) + 0.05 * rng.standard_normal(
+        (R, C)), dtype=torch.float32, device=cuda)
+    th, be = m.theta, m.beta
+    got = fd.fused_T(ell, *ops, None, th, be)
+    assert float((got - fd.fused_T_plain(ell, *ops, None, th,
+                                         be)).abs().max()) <= ATOL
+    e_k, i_k, _ = sk.fused_sa(ell, *ops, None, th, be, 0.0, 50)
+    e_p, i_p, _ = sk.fused_sa_plain(ell, *ops, None, th, be, 0.0, 50)
+    assert int(i_k) == int(i_p) == 50
+    assert float((e_k - e_p).abs().max()) <= 1e-4
+    x0 = torch.zeros_like(ell)
+    a_k, j_k, _ = ak.fused_anderson(x0, *ops, None, th, be, -1.0, 20,
+                                    ridge=0.1)
+    a_p, j_p, _ = ak.fused_anderson_plain(x0, *ops, None, th, be, -1.0, 20,
+                                          ridge=0.1)
+    assert int(j_k) == int(j_p) == 20
+    assert float((a_k - a_p).abs().max()) <= 1e-4
+    # max_iter = 0: the input back and an infinite error, both loops.
+    for kern in (sk.fused_sa, ak.fused_anderson):
+        e0, i0, r0 = kern(ell, *ops, None, th, be, 1e-5, 0)
+        assert int(i0) == 0 and float(r0) == float("inf")
+        torch.testing.assert_close(e0, ell, rtol=0, atol=0)
+
+
 def test_fused_continuous_T_matches_f64(cuda):
     m = P.SSY()
     grids = P.build_grid_ssy(m, 20, 20, 20, 20)
