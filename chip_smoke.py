@@ -92,7 +92,9 @@ Phases, in order; any failure exits non-zero before the result line:
 22. tiled continuous SSY (``interp="pre"``, the batched configuration):
     pass B's c1-only branch (with and without the log-linear fold) and
     the batched pass C against their plain versions, both modes, at
-    (4,8,6,64), (3,5,7,40), 20^4 and the 11.2M-point (56,56,56,64) cell;
+    (4,8,6,64), (3,5,7,40), 20^4, the ragged (31,29,5,42) (its pass C a
+    cluster of 2) and the 11.2M-point (56,56,56,64) cell (a cluster of
+    8), each pass-C layout held against the launcher's own choice;
     pass B's folded-baseline branch with a shared c2 on discrete SSY sets
     with a synthetic fold;
 23. one application at the cell against the float64 factored operator,
@@ -154,6 +156,7 @@ The port never imports JAX, and neither does this script.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import json
 import statistics
 import subprocess
@@ -238,7 +241,9 @@ MC_SSY_SIZES, MC_GCY_SIZES, MC_DRAWS, MC_APPS = (
 # tol 2e-5; three smaller sets for the kernel checks; the reference's
 # 20^4 degree-8 anchor (JAX tests/test_reference_anchors.py:22-23).
 SSYC_SHAPES = (56, 56, 56, 64)
-SSYC_CHECKS = ((4, 8, 6, 64), (3, 5, 7, 40), (20, 20, 20, 20), SSYC_SHAPES)
+# (31, 29, 5, 42): ragged, its batched pass C a cluster of 2 blocks.
+SSYC_CHECKS = ((4, 8, 6, 64), (3, 5, 7, 40), (20, 20, 20, 20),
+               (31, 29, 5, 42), SSYC_SHAPES)
 SSYC_TOL = 2e-5
 SSYC_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
 ANCHOR20 = ((20, 20, 20, 20), 8, 2.5, 976.43571268, 8.62554633)
@@ -1395,6 +1400,16 @@ def ssy_continuous_phases(torch, port, st, dev, smi):
                                                          baseline)
             check(port.streamed_config(ops) == "batched",
                   f"continuous SSY {sizes}: not the batched configuration")
+            L, K, _, J = sizes
+            lay = st.pass_c_deferred_layout(L, K, J)
+            got = (ctypes.c_int * 5)()
+            check(lay is not None
+                  and st._lib().sdfs_pass_c_deferred_layout(L, K, J, got)
+                  and tuple(got) == lay[1:],
+                  f"pass C layout {sizes}: mirror {lay}, launcher "
+                  f"{tuple(got)}")
+            check(sizes != (31, 29, 5, 42) or lay[1] >= 2,
+                  f"{sizes}: batched pass C is not a cluster: {lay}")
             for mode in ("fast", "lse"):
                 err_b, err_c, *rest = batched_kernel_check(
                     torch, st, ops, dev, mode)

@@ -1,11 +1,13 @@
 """Phase split and before/after timing of the port's redesigned kernels on
 one CUDA card: the post-interp kernel (B8), the pair pass C (B4), the
-deferred pass B (B3) and the fused whole-solve kernel (B5-B7).
+deferred pass B (B3), the deferred and batched pass C (B2) and the fused
+whole-solve kernel (B5-B7).
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 -m sdfs_via_autodiff_tpu_torch.bench.kernel_split \
-        [--before DIR] [--kernels post_interp,pass_c_pair,pass_b_deferred,fused]
+      [--before DIR]
+      [--kernels post_interp,pass_c_pair,pass_b_deferred,pass_c_deferred,fused]
 
 Each kernel's source stops after a phase under a compile-time switch
 (``SPLITS``; 1-3 store that phase's result in place of the output):
@@ -17,6 +19,10 @@ Each kernel's source stops after a phase under a compile-time switch
   product;
 - ``SDFS_DEFB_SPLIT`` in the same source (deferred pass B): 1 the fold
   and the column maxima, 2 the exponentials, 3 the c1 product;
+- ``SDFS_PASSC_DEF_SPLIT`` in the same source (deferred and batched pass
+  C): 1 the shifts (the scales in fast mode; in the slab kernel, whose
+  shifts are running maxima, the streamed pass with its exponentials and
+  no product), 2 the c2 product, 3 the carries and the r1 contraction;
 - ``SDFS_FUSED_SPLIT`` in ``csrc/fused_two_matmul.cu``: 1 runs phase 1
   and its barrier per iteration, 2 adds phase 2; and
   ``SDFS_FUSED_BARRIER=1``, the whole loop with every grid barrier a bare
@@ -64,6 +70,11 @@ PAIR_SIZES = ((16, 8, 12, 12, 128, 8), (8, 8, 8, 8, 128, 8))
 # without and with a (synthetic) fold.
 DEFB_GCYC = (16, 8, 12, 12, 128, 8)
 DEFB_GCY = (32, 16, 16, 12, 16, 16)
+# Deferred pass C at the 25.2M GCY Tauchen view (12,16,512,256); batched
+# pass C at the 11.2M continuous-SSY cell (56,56,56,64), fast without a
+# baseline and lse with the log-linear fold (the two tiled solves' modes).
+DEFC_GCY = DEFB_GCY
+DEFC_SSYC = (56, 56, 56, 64)
 # The fused kernels: continuous SSY 20^4 and continuous GCY 6^6 (coarse
 # baseline); loops of FUSED_ITERS iterations at tol -1.
 FUSED_SSY, FUSED_GCY, FUSED_ITERS = (20, 20, 20, 20), (6,) * 6, 200
@@ -71,6 +82,8 @@ FUSED_SSY, FUSED_GCY, FUSED_ITERS = (20, 20, 20, 20), (6,) * 6, 200
 SPLITS = {"post_interp": ("post_interp", "SDFS_SPLIT", (1, 2, 3)),
           "pass_c_pair": ("streamed_two_phase", "SDFS_PAIR_SPLIT", (1, 2, 3)),
           "pass_b_deferred": ("streamed_two_phase", "SDFS_DEFB_SPLIT",
+                              (1, 2, 3)),
+          "pass_c_deferred": ("streamed_two_phase", "SDFS_PASSC_DEF_SPLIT",
                               (1, 2, 3)),
           "fused": ("fused_two_matmul", "SDFS_FUSED_SPLIT", (1, 2))}
 # Variants beside the stops: name -> (source stem, nvcc define).
@@ -101,7 +114,8 @@ def _compile(src: Path, tag: str, name: str, defines) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc {src} {tag} {name}:\n{proc.stderr}")
     if name == "whole":
-        keep = ("post_gather", "pass_c_pair", "pass_b_deferred", "fused_")
+        keep = ("post_gather", "pass_c_pair", "pass_b_deferred",
+                "pass_c_deferred", "pass_c_slab", "fused_")
         lines = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()]
         for k, ln in enumerate(lines):
             if "Compiling entry function" in ln and any(x in ln for x in keep):
@@ -276,6 +290,91 @@ def _defb_calls(ell, w_c1t, th, sub_row, sub_col, dev):
     return call, out, plain
 
 
+def _defc_sets(dev):
+    """(label, args, batched, mode) of the pass-C timings: args = (mid,
+    scale, S, w_c2t, W_r1, W_r2, add_row, add_col, theta, beta)."""
+    cast = _cast(dev)
+    model = port.GCY()
+    ops = port.two_phase_operands_gcy(
+        model, port.discretize_gcy(model, DEFC_GCY, method="tauchen"))
+    L, K, I, J = ops.shapes
+    R, C = L * K, I * J
+    rng = np.random.default_rng(0)
+    ell = cast(np.log(800.0) + 0.05 * rng.standard_normal((R, I, J)))
+    th, be = float(ops.theta), float(ops.beta)
+    mid = st.pass_b_deferred_plain(ell, cast(np.asarray(ops.W_c1).T),
+                                   th).reshape(R, C).contiguous()
+    del ell
+    yield (f"{DEFC_GCY} view {tuple(ops.shapes)}",
+           (mid, None, None, cast(np.asarray(ops.W_c2).T), cast(ops.W_r1),
+            cast(ops.W_r2), cast(ops.add_row), cast(ops.add_col.reshape(C)),
+            th, be), False, "lse")
+    del mid
+    model = port.SSY()
+    grids = port.build_grid_ssy(model, *DEFC_SSYC)
+    ll = port.ssy_loglinear_factory(model)
+    x = port.ops.grids.flatten_mesh([g.cpu() for g in grids]).numpy()
+    ell0 = ll(x.T).reshape(DEFC_SSYC)
+    L, K, I, J = DEFC_SSYC
+    R, C = L * K, I * J
+    for baseline, mode in ((None, "fast"), ("loglinear", "lse")):
+        ops = port.two_phase_operands_ssy_continuous(model, grids, 5,
+                                                     baseline)
+        ell = cast(ell0 + 0.02 * rng.standard_normal(DEFC_SSYC)).reshape(
+            R, I, J)
+        sub = ((cast(np.asarray(ops.sub_row).reshape(R)), cast(ops.sub_col))
+               if ops.has_sub else (None, None))
+        th, be = float(ops.theta), float(ops.beta)
+        b = st.pass_b_plain(ell, cast(ops.W_c1), None, th, mode, *sub)
+        scale = S = None
+        if mode == "fast":
+            b, s = b
+            S = s.max().reshape(1)
+            scale = torch.exp(s - S)
+        del ell
+        yield (f"{DEFC_SSYC} batched {mode}"
+               + (f" {baseline} fold" if baseline else ""),
+               (b.reshape(R, C).contiguous(), scale, S,
+                cast(np.swapaxes(ops.W_c2, 1, 2)), cast(ops.W_r1),
+                cast(ops.W_r2), cast(ops.add_row),
+                cast(np.asarray(ops.add_col).reshape(C)), th, be), True, mode)
+        del b
+
+
+def _defc_calls(args, batched, mode, dev):
+    """Caller of one deferred or batched pass-C launch.  A library with
+    ``sdfs_pass_c_deferred_layout`` picks its own layout; an earlier one
+    takes the (TC, JK) tiles of :func:`st.pass_c_deferred_tiles`."""
+    mid, scale, S, w_c2t, W_r1, W_r2, add_row, add_col, th, be = args
+    L, K = W_r1.shape[0], W_r2.shape[0]
+    J = w_c2t.shape[-1]
+    I = mid.shape[1] // J
+    out = torch.empty_like(mid)
+    stream = _stream(dev)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+    def call(lib):
+        tiles = () if hasattr(lib, "sdfs_pass_c_deferred_layout") else \
+            st.pass_c_deferred_tiles(L, K)
+        n = 4 + len(tiles)
+        if batched:
+            fn = lib.sdfs_pass_c_batched
+            fn.argtypes, fn.restype = [p] * 9 + [i] * n + [f, f, i, p], i
+            return lambda: fn(
+                _ptr(mid), _ptr(scale), _ptr(S), _ptr(w_c2t), _ptr(W_r1),
+                _ptr(W_r2), _ptr(add_row), _ptr(add_col), _ptr(out), L, K, I,
+                J, *tiles, th, be, st._MODES[mode], stream)
+        fn = lib.sdfs_pass_c_deferred
+        fn.argtypes, fn.restype = [p] * 7 + [i] * n + [f, f, p], i
+        return lambda: fn(
+            _ptr(mid), _ptr(w_c2t), _ptr(W_r1), _ptr(W_r2), _ptr(add_row),
+            _ptr(add_col), _ptr(out), L, K, I, J, *tiles, th, be, stream)
+
+    plain = st.pass_c_batched_plain(mid, scale, S, w_c2t, W_r1, W_r2,
+                                    add_row, add_col, th, be, mode)
+    return call, out, plain
+
+
 def _fused_sets(dev):
     """(label, model, (M1, M2T, kap, sub), ell0) of the fused timings:
     continuous SSY 20^4 from w = 1, continuous GCY 6^6 (coarse baseline)
@@ -424,6 +523,12 @@ def main() -> None:
         for label, *args in _defb_sets(dev):
             call, out, plain = _defb_calls(*args, dev)
             measure("pass_b_deferred", label, call, out, plain, 50)
+            del call, out, plain, args
+            torch.cuda.empty_cache()
+    if "pass_c_deferred" in kernels:
+        for label, args, batched, mode in _defc_sets(dev):
+            call, out, plain = _defc_calls(args, batched, mode, dev)
+            measure("pass_c_deferred", label, call, out, plain, 50)
             del call, out, plain, args
             torch.cuda.empty_cache()
     if "fused" in kernels:

@@ -457,12 +457,9 @@ pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
 //     out[r, i, j] = m[j] + log(sum_m W_c1[i, m] exp(a[m, j] - m[j])).
 //     Replaces streamed_two_phase.py:384 (_b_kernel_deferred), both
 //     branches of has_sub.
-//   pass_c_deferred, one block per (c1 slice i, tile of TC columns j of
-//     the slice) holding all R rows: per-(row, slice) shift m1 over the
-//     slice's J values, the c2 contraction exp(w - m1) W_c2^T into an
-//     (R, TC) accumulator, then the linear-carry row phase with the
-//     shifts M2 = max_l m1 and M3 = max_k M2, log + M3, add_row + add_col
-//     and the epilogue.  Replaces the c2_deferred branch of
+//   pass_c_deferred: the c2 contraction with the shared W_c2^T, then
+//     the linear-carry row phase and the epilogue (pass_c_slab_kernel,
+//     further down).  Replaces the c2_deferred branch of
 //     streamed_two_phase.py:446 (_c_kernel, lines 474-480 and 506-524).
 //   pass_c_batched (continuous SSY): the same kernel with each slice i
 //     contracted against its own factor P_z[i] (W_c2^T of slice i at
@@ -473,32 +470,17 @@ pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
 //     is added back after the log.  Replaces the c2_batched branch of
 //     _c_kernel (lines 474-485, 525-539), which JAX feeds block-diagonal
 //     (TC, TC) maps (blockdiag_z, :832) so that a block's TC/J slices
-//     contract as one MXU dot.  At continuous SSY's (56, 56, 56, 64) one
-//     slice's (R, J) field is 803 KB, 3.5x what a block may hold, and the
-//     (R, TC) accumulator leaves room for TC = JK = 4 only: each slice is
-//     streamed through 16 blocks (read once from HBM, 15 times from L2),
-//     each block alone on its SM, so it runs 512 threads in the SPREAD
-//     layout (below).
-//     Its c2 products are 2*R*I*J*J = 1.44 GFLOP and the row phase 2.52
-//     against 90 MB of fields: FP32 FMA bounds it, as the deferred pass.
-//     Pass B's c1-only branch there is 1.26 GFLOP against the same 90 MB:
-//     HBM bounds that one.
+//     contract as one MXU dot.  Pass B's c1-only branch at (56, 56, 56,
+//     64) is 1.26 GFLOP against 90 MB: HBM bounds that one.
 //
-// What bounds them on an H100: FP32 FMA.  At (12, 16, 512, 256) pass B
-// is 2*R*I*I*J = 25.8 GFLOP and pass C 2*R*I*J*J = 12.9 GFLOP against
-// 100 MB fields.  W_c1 (I*I*4 = 1 MiB) does not fit a block, so pass B
-// streams its transpose from L2 in kDefBK-row K-tiles (cp.async, double
-// buffered) while the exponentiated (I, kDefBN) strip stays resident;
-// each thread owns an 8 x 8 output tile, so four float4 shared-memory
-// loads feed 64 FMAs (the balance point of the SM's shared-memory
-// wavefronts and its FMA rate).  Pass C cannot hold
-// a whole slice (R*J*4 = 196 KB) next to its accumulator, so it streams
-// the slice in JK-column chunks (cp.async copies, the next chunk's
-// overlapping the current chunk's FMAs; exponentiated into a transposed
-// copy for float4 row loads) against JK x TC chunks of W_c2^T; the
-// blocks of one slice are adjacent in the grid, so the slice is read
-// from HBM once and from L2 by the others.  Ragged I, J
-// and partial tiles are clamped and masked.
+// What bounds pass_b_deferred on an H100: FP32 FMA.  At (12, 16, 512,
+// 256) it is 2*R*I*I*J = 25.8 GFLOP against 100 MB fields.  W_c1 (I*I*4
+// = 1 MiB) does not fit a block, so pass B streams its transpose from L2
+// in kDefBK-row K-tiles (cp.async, double buffered) while the
+// exponentiated (I, kDefBN) strip stays resident; each thread owns an 8 x
+// 8 output tile, so four float4 shared-memory loads feed 64 FMAs (the
+// balance point of the SM's shared-memory wavefronts and its FMA rate).
+// Ragged I, J and partial tiles are clamped and masked.
 
 // SDFS_DEFB_SPLIT (compile-time, for timing the phases of
 // pass_b_deferred; 4, the default, is the kernel): 1 stops after the fold
@@ -513,12 +495,6 @@ constexpr int kDefBN = 32;   // pass-B-deferred columns per block
 constexpr int kDefBK = 8;    // W_c1^T rows per pass-B-deferred K-tile
 constexpr int kDefParts = kDefThreads / kDefBN;  // partial column maxima
 constexpr int kDefBT = 8;    // pass-B-deferred thread tile: 8 rows x 8 columns
-constexpr int kDefTM = 8;    // pass-C-deferred c2 tile: rows per thread
-constexpr int kDefTN = 4;    //   and columns per thread
-constexpr int kSpreadThreads = 512;  // pass C, a block alone on its SM
-// Shared memory above which a slice pass-C block is alone on its SM
-// (228 KB per SM, 1 KB of it reserved per resident block).
-constexpr size_t kHalfSmBytes = 233472 / 2 - 1024;
 
 // Shared-memory floats of pass_b_deferred: the (I, kDefBN) strip, two
 // K-tiles of kDefBK rows of Ip = round_up4(I), partial column maxima and
@@ -526,32 +502,6 @@ constexpr size_t kHalfSmBytes = 233472 / 2 - 1024;
 __host__ __device__ inline int pass_b_deferred_smem_floats(int I) {
   return I * kDefBN + 2 * kDefBK * round_up4(I) + kDefParts * kDefBN +
          kDefBN;
-}
-
-// Row stride of pass_c_deferred's transposed chunk (rows r); the +4
-// spreads the transposing stores over banks, the rounding keeps float4
-// loads aligned.
-__host__ __device__ inline int pass_c_deferred_rstride(int R) {
-  return round_up4(R) + 4;
-}
-
-// Floats of pass_c_deferred's region that holds the transposed
-// exponentiated chunk (JK rows) during the c2 contraction and the r1
-// result (R, TC) after it.
-__host__ __device__ inline int pass_c_deferred_et_floats(int R, int TC,
-                                                         int JK) {
-  const int et = JK * pass_c_deferred_rstride(R);
-  return et > R * TC ? et : R * TC;
-}
-
-// Shared-memory floats of pass_c_deferred: the accumulator (R, TC), the
-// et / r1 region, the raw input chunk (R, JK), the W_c2^T chunk
-// (JK, TC), m1 (R), M2 (K) and M3.
-__host__ __device__ inline int pass_c_deferred_smem_floats(int L, int K,
-                                                           int TC, int JK) {
-  const int R = L * K;
-  return R * TC + pass_c_deferred_et_floats(R, TC, JK) + R * JK + JK * TC +
-         round_up4(R) + round_up4(K) + 4;
 }
 
 template <bool HAS_SUB>
@@ -940,220 +890,571 @@ pass_b_resident_kernel(const float* __restrict__ ell,
   }
 }
 
+// ------------------------------------------- deferred and batched pass C
+//
+// pass_c_slab_kernel, one thread-block cluster of cs blocks per (slice i,
+// tile of TC columns j of the slice), computes, with R = L*K rows
+// (l, k):
+//
+//   1. acc[r, t] = sum_j' exp(mid[r, j'] - m1[r]) W_c2^T[j', j0 + t]
+//      (fast mode: mid * scale[r]), m1[r] the max over the slice's J
+//      values of mid[r], the sum in order of j';
+//   2. M2[k] = max over l of m1[l, k]; M3 = max over k of M2; the linear
+//      carry acc * exp(m1 - M2[k]); y = (W_r1 contracted over l) *
+//      exp(M2[k] - M3);
+//   3. z = W_r2 contracted over k; lh = log(z) + M3 (fast: + S) +
+//      add_row + add_col; out = log1p(beta * exp(lh / theta)).
+//
+// Replaces the c2_deferred and c2_batched branches of
+// streamed_two_phase.py:446 (_c_kernel, lines 474-485 and 506-539), with
+// the same formulas and shifts; the sums run in order of j', l' and k'.
+//
+// What bounds it on an H100: FP32 FMA.  The GCY view (12, 16, 512, 256)
+// is 2*R*I*J*J = 12.9 GFLOP of c2 and 1.4 of row phase against 100 MB of
+// fields; the continuous-SSY cell (56, 56, 56, 64) 1.44 GFLOP of c2 and
+// 2.52 of row phase against 90 MB.  Design:
+//
+// - Block rho of the cluster owns the rows of k-slab rho (all l, k in
+//   [rho*nk, (rho+1)*nk)): M2[k] and the carry are local to the slab, and
+//   so is the r1 contraction over l.  M3 is one cluster-wide maximum of
+//   the blocks' slab maxima, read over distributed shared memory.  A set
+//   whose rows fit one block runs a cluster of 1 (the GCY view: 192 rows
+//   of 128 columns).
+// - The c2 product: each thread owns a fixed 8 x 8 tile of the (slab rows,
+//   TC) accumulator, in registers for the whole J loop, threads = tiles.
+//   The slab's raw values and the W_c2^T chunk stream in chunks of JK
+//   columns j' by cp.async (two raw buffers, three W buffers), each chunk
+//   exponentiated once into a transposed buffer; one barrier per chunk:
+//   after it, chunk c + 2's copy starts, chunk c + 1 is exponentiated
+//   and chunk c's product runs, so the copies and the exponentials
+//   overlap the products.  Per k: four float4 shared loads feed 64 FMAs.
+// - The shift m1 is the running maximum of the row over the chunks read
+//   so far (online, as in a streamed softmax): chunk c is exponentiated
+//   against it, and the thread's rows of acc are rescaled by exp(m_old -
+//   m_new) before chunk c's product.  After the last chunk m1 is the
+//   slice's maximum and acc = sum exp(mid - m1) W_c2^T, so the slice is
+//   read once, not once more for its maxima.
+// - The row phase runs the same 8 x 8 register tiles on W_r1^T, W_r2^T
+//   staged in shared memory (zero-padded to 8 rows).  After r1 (and
+//   cluster.sync()), block rho takes l-slab rho and gathers y[l, all k,
+//   t] from the k-slabs' owners over DSMEM (cluster.map_shared_rank);
+//   after a second cluster.sync() (the peers' y is no longer read) it
+//   runs r2 into shared memory, then the epilogue element by element with
+//   float4 loads and stores.  Each slice is read from device memory by
+//   J/TC clusters (1 at the continuous-SSY cell, TC = J = 64, cs = 8),
+//   and exponentiated as often.
+// - Ragged L, K, J: the last k- and l-slabs are short (an l-slab may be
+//   empty), rows and columns past the set are zero-filled or masked;
+//   J % 4 != 0 takes 4-byte copies.
+//
+// pass_c_slab_layout chooses (cs, TC, JK, threads): the widest TC (a
+// multiple of 8, at most kSlabMaxTC, not wider than J rounds up to), then
+// the smallest cluster whose block fits kSlabMaxThreads threads and a
+// block's shared memory, with JK = 32 where that fits, else 16
+// (streamed_two_phase.pass_c_deferred_layout mirrors it;
+// sdfs_pass_c_deferred_layout reports it).
+
+// SDFS_PASSC_DEF_SPLIT (compile-time, for timing the phases; 4, the
+// default, is the kernel): 1 stops after the streamed pass without the
+// c2 product (copies, exponentials, shifts; fast mode: the scaled copies)
+// and the cluster maximum, 2 after the c2 product, 3 after the carries
+// and the r1 contraction; 1-3 store that phase's result in place of the
+// output.
+#ifndef SDFS_PASSC_DEF_SPLIT
+#define SDFS_PASSC_DEF_SPLIT 4
+#endif
+
+constexpr int kSlabMaxThreads = 512;
+constexpr int kSlabMaxTC = 128;       // widest column tile
+constexpr int kSlabMaxCluster = 8;    // the portable cluster size limit
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Row stride of the transposed chunk; the +4 spreads the transposing
+// stores over banks.
+__host__ __device__ inline int slab_rstride(int rows) {
+  return round_up8(rows) + 4;
+}
+
+// Floats of region A (the accumulator of the slab's rows; with a cluster,
+// later the l-slab's gathered y) and of the region A + B (B, as large:
+// y of the slab's rows, later r2's result) that the streamed chunks alias
+// during the J loop.
+__host__ __device__ inline int slab_a_floats(int L, int K, int nk, int nl,
+                                             int tc) {
+  const int rows = L * nk;
+  return (rows > nl * K ? rows : nl * K) * tc;
+}
+__host__ __device__ inline int slab_x_floats(int L, int K, int nk, int nl,
+                                             int tc, int jk) {
+  const int rows = L * nk;
+  const int chunks =
+      2 * rows * (jk + 4) + 2 * jk * slab_rstride(rows) + 3 * jk * tc;
+  const int ab = 2 * slab_a_floats(L, K, nk, nl, tc);
+  return chunks > ab ? chunks : ab;
+}
+// W_r1^T (L rows of round_up8(L)), later W_r2^T (K rows of round_up8(K)).
+__host__ __device__ inline int slab_wt_floats(int L, int K) {
+  const int a = L * round_up8(L), b = K * round_up8(K);
+  return a > b ? a : b;
+}
+// The region, W^T, m1 (the slab's rows), two chunks' rescale factors,
+// M2 (its k), the slab maximum and the rows' field-row table (ints).
+__host__ __device__ inline int slab_smem_floats(int L, int K, int nk, int nl,
+                                                int tc, int jk) {
+  const int rows = L * nk;
+  return slab_x_floats(L, K, nk, nl, tc, jk) + slab_wt_floats(L, K) +
+         round_up4(rows) + 2 * round_up8(rows) + round_up4(nk) + 4 +
+         round_up4(rows);
+}
+
+struct SlabLayout {
+  int cs, nk, nl, tc, jk, threads, smem_floats;
+};
+
+__host__ inline bool pass_c_slab_layout(int L, int K, int J,
+                                        SlabLayout* lay) {
+  const int tc_max = round_up8(J) < kSlabMaxTC ? round_up8(J) : kSlabMaxTC;
+  for (int tc = tc_max; tc >= 8; tc -= 8) {
+    for (int cs = 1; cs <= kSlabMaxCluster && cs <= K; ++cs) {
+      const int nk = cdiv(K, cs);
+      if (cdiv(K, nk) != cs) continue;    // the slabs of a smaller cluster
+      const int nl = cdiv(L, cs);
+      const int threads = (cdiv(L * nk, 8) * (tc / 8) + 31) / 32 * 32;
+      if (threads > kSlabMaxThreads) continue;
+      for (int jk = 32; jk >= 16; jk -= 16) {   // 32-column chunks first
+        const int floats = slab_smem_floats(L, K, nk, nl, tc, jk);
+        if (sizeof(float) * (size_t)floats <= kSmemLimit) {
+          *lay = SlabLayout{cs, nk, nl, tc, jk, threads, floats};
+          return true;
+        }
+      }
+    }
+  }
+  return false;
+}
+
+// acc[i][q] += sum_{k < kw} at[k * lda + i] * b[k * ldb + col(q)] with
+// col(q) = q for q < 4 and half + q - 4 after: the 8 x 8 tile of rows
+// at's 8 columns, the 4 + 4 columns of b at 0 and half; the sum in order
+// of k.  at, b, lda, ldb and half keep every float4 16-byte aligned.
+__device__ __forceinline__ void fma_tile(const float* at, int lda,
+                                         const float* b, int ldb, int half,
+                                         int kw, float (&acc)[8][8]) {
+#pragma unroll 4
+  for (int k = 0; k < kw; ++k) {
+    const float4 a0 = *reinterpret_cast<const float4*>(at + k * lda);
+    const float4 a1 = *reinterpret_cast<const float4*>(at + k * lda + 4);
+    const float4 b0 = *reinterpret_cast<const float4*>(b + k * ldb);
+    const float4 b1 = *reinterpret_cast<const float4*>(b + k * ldb + half);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[i][q] = fmaf(av[i], bv[q], acc[i][q]);
+  }
+}
+
 // FAST (the batched pass C's fast mode): mid is linear, scaled per row by
-// scale, no shifts; S is added back after the log.  SPREAD: the layout
-// of a block alone on its SM (the narrow tiles that shared memory leaves
-// at thousands of rows, e.g. TC = 4 at R = 3,136): 512 threads, and the
-// c2 items' rows spread so that neighbouring threads take neighbouring
-// rows (see the c2 loop).  c2_stride: floats between consecutive slices'
-// factors in w_c2t (0: one shared W_c2^T).
-template <bool FAST, bool SPREAD>
-__global__ void __launch_bounds__(SPREAD ? kSpreadThreads : kDefThreads)
-pass_c_deferred_kernel(const float* __restrict__ mid,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ S,
-                       const float* __restrict__ w_c2t, size_t c2_stride,
-                       const float* __restrict__ w_r1,
-                       const float* __restrict__ w_r2,
-                       const float* __restrict__ add_row,
-                       const float* __restrict__ add_col,
-                       float* __restrict__ out, int L, int K, int J, int TC,
-                       int JK, float theta, float beta) {
-  extern __shared__ float smem[];
-  const int R = L * K, KT = K * TC, Rs = pass_c_deferred_rstride(R);
-  float* acc = smem;                 // (R, TC): c2 result, then carried
-  float* et = acc + R * TC;          // (JK, Rs): exp(w - m1), transposed
-  float* y = et;                     // (R, TC): after the l' contraction
-  float* raw = et + pass_c_deferred_et_floats(R, TC, JK);  // (R, JK) chunk
-  float* wc = raw + R * JK;          // (JK, TC): W_c2^T chunk
-  float* m1 = wc + JK * TC;          // (R): per-(row, slice) shift (fast: scale)
-  float* M2 = m1 + round_up4(R);     // (K): max over l of m1
-  float* M3 = M2 + round_up4(K);     // (1): max over k of M2
+// scale, no shifts; S is added back after the log.  c2_stride: floats
+// between consecutive slices' factors in w_c2t (0: one shared W_c2^T).
+// JK: columns j' per streamed chunk (16 or 32).  Grid (cs * ceil(J /
+// TC), I), clusters of (cs, 1, 1).
+template <bool FAST, int JK>
+__global__ void __launch_bounds__(kSlabMaxThreads)
+pass_c_slab_kernel(const float* __restrict__ mid,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ S,
+                   const float* __restrict__ w_c2t, size_t c2_stride,
+                   const float* __restrict__ w_r1,
+                   const float* __restrict__ w_r2,
+                   const float* __restrict__ add_row,
+                   const float* __restrict__ add_col,
+                   float* __restrict__ out, int L, int K, int J, int cs,
+                   int nk, int nl, int TC, float theta, float beta) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float smem[];     // 16-byte aligned base
+  const int rank = blockIdx.x % cs, ct = blockIdx.x / cs;
+  const int k0 = rank * nk, nko = min(nk, K - k0);          // own k-slab
+  const int l0 = rank * nl, nlo = max(0, min(nl, L - l0));  // own l-slab
+  const int rows = L * nk, Rs = slab_rstride(rows), Rp = round_up8(rows);
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
-  const int j0 = blockIdx.x * TC, tcw = min(TC, J - j0);
+  const int j0 = ct * TC, tcw = min(TC, J - j0), half = TC / 2;
   const size_t C = (size_t)gridDim.y * J;
   const size_t col0 = (size_t)blockIdx.y * J;   // first column of slice i
   const float* in = mid + col0;
   const float* wz = w_c2t + blockIdx.y * c2_stride;   // slice i's W_c2^T
+  const int a_floats = slab_a_floats(L, K, nk, nl, TC);
+  float* A = smem;                    // acc; then (cluster) the l-slab's y
+  float* B = A + a_floats;            // y; then r2's result
+  constexpr int JKp = JK + 4;         // raw row stride: conflict-free rows
+  float* raw = smem;                  // J loop: 2 x (rows, JKp)
+  float* et = raw + 2 * rows * JKp;   //   2 x (JK, Rs)
+  float* wc = et + 2 * JK * Rs;       //   3 x (JK, TC)
+  float* wt = smem + slab_x_floats(L, K, nk, nl, TC, JK);
+  float* m1 = wt + slab_wt_floats(L, K);            // (rows)
+  float* fct = m1 + round_up4(rows);                // 2 x (Rp)
+  float* M2 = fct + 2 * Rp;                         // (nk)
+  float* Mx = M2 + round_up4(nk);                   // the slab's max of M2
+  int* rtab = reinterpret_cast<int*>(Mx + 4);       // (rows) field rows
+  auto sync = [&]() {
+    if (cs > 1) cluster.sync(); else __syncthreads();
+  };
+  // Slab row q = l * nk + kk is field row (l, k0 + kk) when kk < nko; a
+  // ragged last slab's other rows are -1 in rtab and hold 0 in both raw
+  // buffers (their accumulators are never read).
+  for (int q = tid; q < rows; q += nt) {
+    const int kk = q % nk;
+    rtab[q] = kk < nko ? (q / nk) * K + k0 + kk : -1;
+    m1[q] = -INFINITY;
+  }
+  if (nko < nk)
+    for (int x = tid; x < rows * JKp; x += nt)
+      if ((x / JKp) % nk >= nko)
+        raw[x] = raw[rows * JKp + x] = 0.f;
+  __syncthreads();
 
-  // The first chunk's copy starts now and lands during the shifts.  A
-  // chunk is R rows of kw <= JK contiguous values; 16-byte copies when J
-  // % 4 == 0 keeps every row of every chunk 16-byte aligned.
-  auto load_raw = [&](int c0) {
-    const int kw = min(JK, J - c0);
-    if (J % 4 == 0) {
-      const int q = kw / 4;
-      for (int x = tid; x < R * q; x += nt) {
-        const int r = x / q, k = 4 * (x % q);
-        cp_async16(raw + r * JK + k, in + r * C + c0 + k);
+  // Chunk c: the slab's raw values of columns [c0, c0 + kw) into raw[c %
+  // 2], W_c2^T rows c0.. (TC columns, zero past the set) into wc[c % 3];
+  // one commit group per call, empty past the last chunk.
+  const int nch = cdiv(J, JK);
+  const bool vec = (J % 4 == 0);      // every row and tile 16-byte aligned
+  auto fetch = [&](int c) {
+    if (c < nch) {
+      const int c0 = c * JK, kw = min(JK, J - c0);
+      float* rb = raw + (c & 1) * rows * JKp;
+      float* wb = wc + (c % 3) * JK * TC;
+      if (vec && kw == JK) {          // whole chunks: no division per copy
+        constexpr int q4 = JK / 4;
+        for (int x = tid; x < rows * q4; x += nt) {
+          const int q = x / q4, k = 4 * (x % q4), r = rtab[q];
+          if (r >= 0)
+            cp_async16(rb + q * JKp + k, in + (size_t)r * C + c0 + k);
+        }
+      } else if (vec) {
+        const int q4 = kw / 4;
+        for (int x = tid; x < rows * q4; x += nt) {
+          const int q = x / q4, k = 4 * (x % q4), r = rtab[q];
+          if (r >= 0)
+            cp_async16(rb + q * JKp + k, in + (size_t)r * C + c0 + k);
+        }
+      } else {
+        for (int x = tid; x < rows * kw; x += nt) {
+          const int q = x / kw, k = x % kw, r = rtab[q];
+          if (r >= 0)
+            cp_async4(rb + q * JKp + k, in + (size_t)r * C + c0 + k);
+        }
       }
-    } else {
-      for (int x = tid; x < R * kw; x += nt) {
-        const int r = x / kw, k = x % kw;
-        cp_async4(raw + r * JK + k, in + r * C + c0 + k);
+      if (vec) {
+        const int t4 = TC / 4;
+        for (int x = tid; x < kw * t4; x += nt) {
+          const int k = x / t4, t = 4 * (x % t4);
+          if (t < tcw)
+            cp_async16(wb + k * TC + t, wz + (size_t)(c0 + k) * J + j0 + t);
+          else
+            *reinterpret_cast<float4*>(wb + k * TC + t) =
+                make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      } else {
+        for (int x = tid; x < kw * TC; x += nt) {
+          const int k = x / TC, t = x % TC;
+          if (t < tcw)
+            cp_async4(wb + k * TC + t, wz + (size_t)(c0 + k) * J + j0 + t);
+          else
+            wb[k * TC + t] = 0.f;
+        }
       }
     }
     cp_async_commit();
   };
-  load_raw(0);
+  fetch(0);
+  fetch(1);
 
-  // Shifts: m1[r] over the slice's J values (a warp takes 4 rows at a
-  // time and unrolls, so many independent loads are in flight per lane),
-  // then M2[k], M3.  In fast mode m1 holds the row scales instead.
-  if constexpr (FAST) {
-    for (int r = tid; r < R; r += nt) m1[r] = __ldg(scale + r);
-  } else {
-    for (int r0 = 4 * warp; r0 < R; r0 += 4 * nw) {
-      float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-      if (J % 4 == 0) {              // float4 loads: rows 16-byte aligned
-#pragma unroll 4
-        for (int x = lane; x < J / 4; x += 32)
+  // Fast mode: the row scales into m1.  W_r1^T into wt.  The padding rows
+  // of the transposed chunks and of the rescale factors hold 0, set once.
+  if constexpr (FAST)
+    for (int q = tid; q < rows; q += nt)
+      m1[q] = rtab[q] >= 0 ? __ldg(scale + rtab[q]) : 0.f;
+  const int Lp = round_up8(L), Kp = round_up8(K);
+  for (int x = tid; x < L * Lp; x += nt) {
+    const int m = x / Lp, l = x % Lp;
+    wt[x] = l < L ? __ldg(w_r1 + l * L + m) : 0.f;
+  }
+  for (int x = tid; x < 2 * (JK + 1) * 8; x += nt) {
+    const int line = x / 8, q = rows + x % 8;
+    if (q < Rp) {
+      if (line < 2 * JK) et[line * Rs + q] = 0.f;
+      else fct[(line - 2 * JK) * Rp + q] = 0.f;
+    }
+  }
+
+  // 1. The c2 product: the thread's 8 x 8 tile of (slab rows, TC) in
+  // registers.  exps(c): g lanes per row exponentiate chunk c against the
+  // row's running maximum (two passes over their JK / g values, float4
+  // reads of the padded raw row; the maximum combined by shuffles),
+  // transposed into et[c % 2] (consecutive rows, consecutive banks), and
+  // store the row's rescale factor exp(m_old - m_new) in fct[c % 2]; fast
+  // mode scales instead.  Columns past a ragged last chunk take no part
+  // (and are not read).
+  const int ncg = TC / 8, nrg = cdiv(rows, 8);
+  const int rg = tid / ncg, cgp = tid % ncg;
+  const bool active = rg < nrg;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[i][q] = 0.f;
+  // g = 2^lg lanes per row share its columns (the most, up to JK / 4,
+  // that the block's threads cover), float4 reads of per4 each.
+  int lg = 0;
+  while ((2 << lg) * rows <= nt && (2 << lg) <= JK / 4) ++lg;
+  const int g = 1 << lg, per4 = (JK / 4) >> lg;
+  auto exps = [&](int c) {
+    const int kw = min(JK, J - c * JK);
+    const float* rb = raw + (c & 1) * rows * JKp;
+    float* eb = et + (c & 1) * JK * Rs;
+    float* fb = fct + (c & 1) * Rp;
+    const int n = (rows * g + 31) / 32 * 32;   // whole warps: the shuffles
+    for (int x = tid; x < n; x += nt) {
+      const int q = x >> lg, k0 = 4 * per4 * (x & (g - 1));
+      const bool here = q < rows;
+      const float4* row =
+          reinterpret_cast<const float4*>(rb + (here ? q : 0) * JKp + k0);
+      float mn = here ? m1[q] : 0.f;
+      if constexpr (!FAST) {
+        const float mo = mn;
+        for (int k4 = 0; k4 < per4; ++k4) {
+          const float4 a = row[k4];
+          const float v[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
           for (int u = 0; u < 4; ++u)
-            if (r0 + u < R) {
-              const float4 a = __ldg(
-                  reinterpret_cast<const float4*>(in + (r0 + u) * C) + x);
-              m[u] = fmaxf(m[u], fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w)));
-            }
-      } else {
-#pragma unroll 8
-        for (int j = lane; j < J; j += 32)
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            if (r0 + u < R) m[u] = fmaxf(m[u], in[(r0 + u) * C + j]);
+            if (k0 + 4 * k4 + u < kw) mn = fmaxf(mn, v[u]);
+        }
+        for (int o = g >> 1; o > 0; o >>= 1)
+          mn = fmaxf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+        if (here && k0 == 0) {
+          m1[q] = mn;
+          fb[q] = expf(mo - mn);
+        }
       }
+      if (!here) continue;
+      for (int k4 = 0; k4 < per4; ++k4) {
+        const float4 a = row[k4];
+        const float v[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float mu = warp_max(m[u]);
-        if (lane == 0 && r0 + u < R) m1[r0 + u] = mu;
+        for (int u = 0; u < 4; ++u)
+          eb[(k0 + 4 * k4 + u) * Rs + q] = FAST ? v[u] * mn : expf(v[u] - mn);
       }
     }
-    __syncthreads();
-    for (int k = tid; k < K; k += nt) {
+  };
+  cp_async_wait_prev();               // chunk 0 landed
+  __syncthreads();
+  exps(0);
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait_all();              // chunk c + 1 landed
+    __syncthreads();                  // et[c], chunk c + 1 ready; c - 1 done
+    fetch(c + 2);
+    if (c + 1 < nch) exps(c + 1);
+    if (SDFS_PASSC_DEF_SPLIT != 1 && active) {
+      if constexpr (!FAST) {
+        const float* fb = fct + (c & 1) * Rp + 8 * rg;
+        const float4 f0 = *reinterpret_cast<const float4*>(fb);
+        const float4 f1 = *reinterpret_cast<const float4*>(fb + 4);
+        const float fv[8] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[i][q] *= fv[i];
+      }
+      fma_tile(et + (c & 1) * JK * Rs + 8 * rg, Rs,
+               wc + (c % 3) * JK * TC + 4 * cgp, TC, half,
+               min(JK, J - c * JK), acc);
+    }
+  }
+  __syncthreads();                    // the chunks are read: A, B are free
+
+  // 2. The shifts: M2 per own k, the slab's maximum, M3 over the cluster.
+  float m3;
+  if constexpr (FAST) {
+    m3 = __ldg(S);
+  } else {
+    for (int kk = tid; kk < nko; kk += nt) {
       float m = -INFINITY;
-      for (int l = 0; l < L; ++l) m = fmaxf(m, m1[l * K + k]);
-      M2[k] = m;
+      for (int l = 0; l < L; ++l) m = fmaxf(m, m1[l * nk + kk]);
+      M2[kk] = m;
     }
     __syncthreads();
     if (tid == 0) {
       float m = -INFINITY;
-      for (int k = 0; k < K; ++k) m = fmaxf(m, M2[k]);
-      M3[0] = m;
+      for (int kk = 0; kk < nko; ++kk) m = fmaxf(m, M2[kk]);
+      Mx[0] = m;
     }
+    sync();                           // every slab's maximum is written
+    m3 = Mx[0];
+    for (int p = 0; p < cs; ++p)
+      if (p != rank) m3 = fmaxf(m3, *cluster.map_shared_rank(Mx, p));
   }
-
-  // c2: acc[r, t] = sum_j' exp(w[r, j'] - m1[r]) W_c2t[j', j0 + t] (fast:
-  // w[r, j'] * scale[r] in place of the exp), in
-  // chunks of JK rows j'; the sum runs in order of j'.  The next chunk's
-  // copy overlaps this chunk's contraction.  Item (tq, rb) owns columns
-  // kDefTN*tq.. of kDefTM rows: rows kDefTM*rb + u, read from et as two
-  // float4, or with SPREAD rows rb + u * n_rb, so that neighbouring
-  // threads take neighbouring rows and the accumulator's float4 accesses
-  // meet no bank conflicts at a narrow tile (the compact rows put threads
-  // kDefTM*TC floats apart in one bank: 32-way at TC = 4; chip_smoke.py at
-  // the continuous-SSY cell on an H100, fast mode: 2.57 ms compact with
-  // 256 threads, 1.10 ms in the SPREAD layout).
-  const int nq = TC / kDefTN;
-  const int n_rb = (R + kDefTM - 1) / kDefTM;
-  const int n_items = n_rb * nq;
-  for (int c0 = 0; c0 < J; c0 += JK) {
-    const int kw = min(JK, J - c0);
-    cp_async_wait_all();
-    __syncthreads();          // chunk landed; previous contraction done
-    for (int x = tid; x < R * JK; x += nt) {
-      const int r = x / JK, k = x % JK;
-      et[k * Rs + r] = (k >= kw) ? 0.f
-                       : FAST    ? raw[x] * m1[r]
-                                 : expf(raw[x] - m1[r]);
-    }
-    for (int x = tid; x < JK * TC; x += nt) {
-      const int k = x / TC, t = x % TC;
-      wc[x] = (k < kw && t < tcw) ? __ldg(wz + (size_t)(c0 + k) * J + j0 + t)
-                                  : 0.f;
-    }
-    __syncthreads();          // et, wc ready; raw free
-    if (c0 + JK < J) load_raw(c0 + JK);
-    for (int item = tid; item < n_items; item += nt) {
-      const int tq = item % nq, rb = item / nq;
-      int rr[kDefTM];
+#if SDFS_PASSC_DEF_SPLIT == 1
+  for (int x = tid; x < rows * tcw; x += nt) {
+    const int q = x / tcw;
+    if (rtab[q] >= 0)
+      out[(size_t)rtab[q] * C + col0 + j0 + x % tcw] =
+          FAST ? m1[q] : m1[q] + M2[q % nk] + m3;
+  }
+  if (cs > 1) cluster.sync();         // the peers have read Mx
+  return;
+#endif
+#if SDFS_PASSC_DEF_SPLIT == 2
+  if (active)
 #pragma unroll
-      for (int u = 0; u < kDefTM; ++u)
-        rr[u] = SPREAD ? rb + u * n_rb : kDefTM * rb + u;
-      float4 a4[kDefTM];
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * rg + i;
+      if (r >= rows || rtab[r] < 0) continue;
 #pragma unroll
-      for (int u = 0; u < kDefTM; ++u)
-        a4[u] = (c0 == 0 || rr[u] >= R)
-                    ? make_float4(0.f, 0.f, 0.f, 0.f)
-                    : *reinterpret_cast<const float4*>(acc + rr[u] * TC +
-                                                       kDefTN * tq);
-      for (int k = 0; k < kw; ++k) {
-        const float4 b = *reinterpret_cast<const float4*>(
-            wc + k * TC + kDefTN * tq);
-        const float* ek = et + k * Rs;
-        float ev[kDefTM];
-        if constexpr (SPREAD) {
-#pragma unroll
-          for (int u = 0; u < kDefTM; ++u) ev[u] = ek[min(rr[u], R - 1)];
-        } else {
-          const float4 e0 = *reinterpret_cast<const float4*>(ek + rr[0]);
-          const float4 e1 = *reinterpret_cast<const float4*>(ek + rr[0] + 4);
-          ev[0] = e0.x; ev[1] = e0.y; ev[2] = e0.z; ev[3] = e0.w;
-          ev[4] = e1.x; ev[5] = e1.y; ev[6] = e1.z; ev[7] = e1.w;
-        }
-#pragma unroll
-        for (int u = 0; u < kDefTM; ++u) {
-          a4[u].x = fmaf(ev[u], b.x, a4[u].x);
-          a4[u].y = fmaf(ev[u], b.y, a4[u].y);
-          a4[u].z = fmaf(ev[u], b.z, a4[u].z);
-          a4[u].w = fmaf(ev[u], b.w, a4[u].w);
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int t0 = 4 * cgp + h * half;
+        if (t0 >= tcw) continue;
+        float* dst = out + (size_t)rtab[r] * C + col0 + j0 + t0;
+        if (vec)
+          *reinterpret_cast<float4*>(dst) = make_float4(
+              acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+              acc[i][4 * h + 3]);
+        else
+          for (int u = 0; u < 4 && t0 + u < tcw; ++u)
+            dst[u] = acc[i][4 * h + u];
       }
+    }
+  if (cs > 1) cluster.sync();
+  return;
+#endif
+
+  // 3. The carry exp(m1 - M2[k]) per row into A, then r1 per own k:
+  // y[l, k, t] = (sum_m W_r1[l, m] A[m, k, t]) * exp(M2[k] - M3) into B.
+  if (active) {
 #pragma unroll
-      for (int u = 0; u < kDefTM; ++u)
-        if (rr[u] < R)
-          *reinterpret_cast<float4*>(acc + rr[u] * TC + kDefTN * tq) = a4[u];
+    for (int i = 0; i < 8; ++i) {
+      const int q = 8 * rg + i;
+      if (q >= rows || rtab[q] < 0) continue;
+      float cr = 1.f;
+      if constexpr (!FAST) cr = expf(m1[q] - M2[q % nk]);
+      *reinterpret_cast<float4*>(A + q * TC + 4 * cgp) = make_float4(
+          acc[i][0] * cr, acc[i][1] * cr, acc[i][2] * cr, acc[i][3] * cr);
+      *reinterpret_cast<float4*>(A + q * TC + half + 4 * cgp) = make_float4(
+          acc[i][4] * cr, acc[i][5] * cr, acc[i][6] * cr, acc[i][7] * cr);
     }
   }
   __syncthreads();
-
-  // Linear carry: rescale row r = (l, k) by exp(m1[r] - M2[k]) (one exp
-  // per row, kept in m1), and the r1 result by exp(M2[k] - M3) (one per
-  // k, kept in M2).  Fast mode carries unshifted and adds S back.
-  const float m3 = FAST ? __ldg(S) : M3[0];
-  if constexpr (!FAST) {
-    for (int r = tid; r < R; r += nt) m1[r] = expf(m1[r] - M2[r % K]);
-    __syncthreads();
-    for (int k = tid; k < K; k += nt) M2[k] = expf(M2[k] - m3);
-    for (int x = tid; x < R * TC; x += nt) acc[x] *= m1[x / TC];
-    __syncthreads();
+  const int nlg = cdiv(L, 8);
+  for (int item = tid; item < nko * nlg * ncg; item += nt) {
+    const int cq = item % ncg, lg = (item / ncg) % nlg;
+    const int kk = item / (ncg * nlg);
+    float v[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[i][q] = 0.f;
+    fma_tile(wt + 8 * lg, Lp, A + kk * TC + 4 * cq, nk * TC, half, L, v);
+    float e2 = 1.f;
+    if constexpr (!FAST) e2 = expf(M2[kk] - m3);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int l = 8 * lg + i;
+      if (l >= L) continue;
+      float* dst = B + (l * nk + kk) * TC + 4 * cq;
+      *reinterpret_cast<float4*>(dst) = make_float4(
+          v[i][0] * e2, v[i][1] * e2, v[i][2] * e2, v[i][3] * e2);
+      *reinterpret_cast<float4*>(dst + half) = make_float4(
+          v[i][4] * e2, v[i][5] * e2, v[i][6] * e2, v[i][7] * e2);
+    }
   }
-
-  // r1: y[l, k, t] = sum_m W_r1[l, m] acc[m, k, t], rescaled.
-  block_matmul(
-      L, KT, L,
-      [&](int l, int m) { return __ldg(w_r1 + l * L + m); },
-      [&](int m, int col) { return acc[m * KT + col]; },
-      [&](int l, int col, float v) {
-        y[l * KT + col] = FAST ? v : v * M2[col / TC];
-      });
+#if SDFS_PASSC_DEF_SPLIT == 3
   __syncthreads();
+  for (int x = tid; x < rows * tcw; x += nt) {
+    const int q = x / tcw;
+    if (rtab[q] >= 0)
+      out[(size_t)rtab[q] * C + col0 + j0 + x % tcw] = B[q * TC + x % tcw];
+  }
+  if (cs > 1) cluster.sync();
+  return;
+#endif
+  sync();                             // every slab's y is written
 
-  // r2 + epilogue: z[l, k, t] = sum_m W_r2[k, m] y[l, m, t], columns
-  // n = l * TC + t.
-  block_matmul(
-      K, L * TC, K,
-      [&](int k, int m) { return __ldg(w_r2 + k * K + m); },
-      [&](int m, int n) { return y[(n / TC) * KT + m * TC + n % TC]; },
-      [&](int k, int n, float v) {
-        const int l = n / TC, t = n % TC;
-        if (t >= tcw) return;
-        const int r = l * K + k;
-        const size_t c = col0 + j0 + t;
-        const float lh = logf(v) + m3 + __ldg(add_row + r) +
-                         __ldg(add_col + c);
-        out[r * C + c] = log1pf(beta * expf(lh / theta));
-      });
+  // 4. W_r2^T; with a cluster, the l-slab's y[l, all k, t] gathered from
+  // the k-slabs' owners into A.
+  for (int x = tid; x < K * Kp; x += nt) {
+    const int m = x / Kp, k = x % Kp;
+    wt[x] = k < K ? __ldg(w_r2 + k * K + m) : 0.f;
+  }
+  const float* y = B;                 // one block: y[l, k, t] in place
+  if (cs > 1) {
+    const int t4 = TC / 4;
+    for (int x = tid; x < nlo * K * t4; x += nt) {
+      const int t = 4 * (x % t4), m = (x / t4) % K, ll = x / (t4 * K);
+      const int p = m / nk;
+      const float* src = cluster.map_shared_rank(B, p) +
+                         ((l0 + ll) * nk + m - p * nk) * TC + t;
+      *reinterpret_cast<float4*>(A + (ll * K + m) * TC + t) =
+          *reinterpret_cast<const float4*>(src);
+    }
+    y = A;
+  }
+  sync();                             // W_r2^T, y ready; the peers' B read
+
+  // r2 per own l into the free region (l-slab rows [l][k][t]), then the
+  // epilogue over it element by element: coalesced float4 loads and
+  // stores, no register tile live across the transcendentals.
+  float* z = cs > 1 ? B : A;
+  const int nkg = cdiv(K, 8);
+  for (int item = tid; item < nlo * nkg * ncg; item += nt) {
+    const int cq = item % ncg, kg = (item / ncg) % nkg;
+    const int ll = item / (ncg * nkg);
+    float v[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[i][q] = 0.f;
+    fma_tile(wt + 8 * kg, Kp, y + ll * K * TC + 4 * cq, TC, half, K, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int k = 8 * kg + i;
+      if (k >= K) continue;
+      float* dst = z + (ll * K + k) * TC + 4 * cq;
+      *reinterpret_cast<float4*>(dst) =
+          make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+      *reinterpret_cast<float4*>(dst + half) =
+          make_float4(v[i][4], v[i][5], v[i][6], v[i][7]);
+    }
+  }
+  __syncthreads();
+  const int t4n = TC / 4;
+  for (int x = tid; x < nlo * K * t4n; x += nt) {
+    const int t = 4 * (x % t4n), lk = x / t4n;   // lk = ll * K + k
+    if (t >= tcw) continue;
+    const int r = l0 * K + lk;
+    const float4 zv = *reinterpret_cast<const float4*>(z + lk * TC + t);
+    const float zz[4] = {zv.x, zv.y, zv.z, zv.w};
+    const float ar = __ldg(add_row + r);
+    const size_t c = col0 + j0 + t;
+    float* dst = out + (size_t)r * C + c;
+    if (vec) {
+      const float4 a4 = __ldg(reinterpret_cast<const float4*>(add_col + c));
+      const float ac[4] = {a4.x, a4.y, a4.z, a4.w};
+      float o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float lh = logf(zz[u]) + m3 + ar + ac[u];
+        o[u] = log1pf(beta * expf(lh / theta));
+      }
+      *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2], o[3]);
+    } else {
+      for (int u = 0; u < 4 && t + u < tcw; ++u) {
+        const float lh = logf(zz[u]) + m3 + ar + __ldg(add_col + c + u);
+        dst[u] = log1pf(beta * expf(lh / theta));
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------ pair pass C
@@ -1588,27 +1889,56 @@ cudaError_t dispatch_pass_b(const PassBArgs& a) {
   return launch_pass_b<MODE, false, false, HAS_MID>(a);
 }
 
-template <bool FAST>
-cudaError_t launch_pass_c_slices(const float* mid, const float* scale,
-                                 const float* S, const float* w_c2t,
-                                 size_t c2_stride, const float* w_r1,
-                                 const float* w_r2, const float* add_row,
-                                 const float* add_col, float* out, int L,
-                                 int K, int I, int J, int TC, int JK,
-                                 float theta, float beta, void* stream) {
-  const size_t smem =
-      sizeof(float) * (size_t)pass_c_deferred_smem_floats(L, K, TC, JK);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((J + TC - 1) / TC, I);
-  const bool spread = smem > kHalfSmBytes;     // one block per SM
-  const auto kernel = spread ? pass_c_deferred_kernel<FAST, true>
-                             : pass_c_deferred_kernel<FAST, false>;
-  const cudaError_t err = prepare(kernel, smem);
+// One launch of the deferred or batched pass C: clusters of the layout's
+// cs blocks, a grid of (cs * column tiles, slices).
+template <bool FAST, int JK>
+cudaError_t launch_slab(const SlabLayout& lay, const float* mid,
+                        const float* scale, const float* S,
+                        const float* w_c2t, size_t c2_stride,
+                        const float* w_r1, const float* w_r2,
+                        const float* add_row, const float* add_col,
+                        float* out, int L, int K, int I, int J, float theta,
+                        float beta, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)lay.smem_floats;
+  cudaError_t err = prepare(pass_c_slab_kernel<FAST, JK>, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, spread ? kSpreadThreads : kDefThreads, smem, st>>>(
-      mid, scale, S, w_c2t, c2_stride, w_r1, w_r2, add_row, add_col, out, L,
-      K, J, TC, JK, theta, beta);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(lay.cs * cdiv(J, lay.tc), I);
+  cfg.blockDim = dim3(lay.threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = lay.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, pass_c_slab_kernel<FAST, JK>, mid, scale, S,
+                           w_c2t, c2_stride, w_r1, w_r2, add_row, add_col,
+                           out, L, K, J, lay.cs, lay.nk, lay.nl, lay.tc,
+                           theta, beta);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <bool FAST>
+cudaError_t launch_pass_c_slab(const float* mid, const float* scale,
+                               const float* S, const float* w_c2t,
+                               size_t c2_stride, const float* w_r1,
+                               const float* w_r2, const float* add_row,
+                               const float* add_col, float* out, int L, int K,
+                               int I, int J, float theta, float beta,
+                               void* stream) {
+  SlabLayout lay;
+  if (!pass_c_slab_layout(L, K, J, &lay)) return cudaErrorInvalidValue;
+  return lay.jk == 32
+             ? launch_slab<FAST, 32>(lay, mid, scale, S, w_c2t, c2_stride,
+                                     w_r1, w_r2, add_row, add_col, out, L, K,
+                                     I, J, theta, beta, stream)
+             : launch_slab<FAST, 16>(lay, mid, scale, S, w_c2t, c2_stride,
+                                     w_r1, w_r2, add_row, add_col, out, L, K,
+                                     I, J, theta, beta, stream);
 }
 
 }  // namespace
@@ -1702,18 +2032,16 @@ int sdfs_pass_b_deferred(const float* ell, const float* w_c1t,
 
 // Deferred-c2 pass C over mid (R = L*K, I*J) log domain: c2 with
 // w_c2t (J, J) = W_c2 transposed, then the row phase and the epilogue,
-// in blocks of TC columns (TC % 4 == 0) of one slice, streaming the
-// slice in chunks of JK columns.  add_row (L*K,), add_col (I*J,);
+// in the layout of pass_c_slab_layout.  add_row (L*K,), add_col (I*J,);
 // out (R, I*J).
 int sdfs_pass_c_deferred(const float* mid, const float* w_c2t,
                          const float* w_r1, const float* w_r2,
                          const float* add_row, const float* add_col,
-                         float* out, int L, int K, int I, int J, int TC,
-                         int JK, float theta, float beta, void* stream) {
-  if (TC % kDefTN != 0 || TC <= 0 || JK <= 0) return cudaErrorInvalidValue;
-  return launch_pass_c_slices<false>(mid, nullptr, nullptr, w_c2t, 0, w_r1,
-                                     w_r2, add_row, add_col, out, L, K, I, J,
-                                     TC, JK, theta, beta, stream);
+                         float* out, int L, int K, int I, int J, float theta,
+                         float beta, void* stream) {
+  return launch_pass_c_slab<false>(mid, nullptr, nullptr, w_c2t, 0, w_r1,
+                                   w_r2, add_row, add_col, out, L, K, I, J,
+                                   theta, beta, stream);
 }
 
 // Batched pass C over mid (R = L*K, I*J): linear (mode fast; scale (R,),
@@ -1723,19 +2051,33 @@ int sdfs_pass_c_batched(const float* mid, const float* scale, const float* S,
                         const float* w_c2t, const float* w_r1,
                         const float* w_r2, const float* add_row,
                         const float* add_col, float* out, int L, int K,
-                        int I, int J, int TC, int JK, float theta,
-                        float beta, int mode, void* stream) {
-  if (TC % kDefTN != 0 || TC <= 0 || JK <= 0) return cudaErrorInvalidValue;
+                        int I, int J, float theta, float beta, int mode,
+                        void* stream) {
   const size_t stride = (size_t)J * J;
   if (mode == kModeFast)
-    return launch_pass_c_slices<true>(mid, scale, S, w_c2t, stride, w_r1,
-                                      w_r2, add_row, add_col, out, L, K, I,
-                                      J, TC, JK, theta, beta, stream);
+    return launch_pass_c_slab<true>(mid, scale, S, w_c2t, stride, w_r1,
+                                    w_r2, add_row, add_col, out, L, K, I, J,
+                                    theta, beta, stream);
   if (mode == kModeLse)
-    return launch_pass_c_slices<false>(mid, nullptr, nullptr, w_c2t, stride,
-                                       w_r1, w_r2, add_row, add_col, out, L,
-                                       K, I, J, TC, JK, theta, beta, stream);
+    return launch_pass_c_slab<false>(mid, nullptr, nullptr, w_c2t, stride,
+                                     w_r1, w_r2, add_row, add_col, out, L, K,
+                                     I, J, theta, beta, stream);
   return cudaErrorInvalidValue;
+}
+
+// The deferred and batched pass C's layout at (L, K, J), as its launcher
+// chooses it (pass_c_deferred_layout mirrors it): lay = {cluster size,
+// column tile, chunk columns, threads, shared-memory bytes}; 0 when no
+// layout fits.
+int sdfs_pass_c_deferred_layout(int L, int K, int J, int* lay) {
+  SlabLayout s;
+  if (!pass_c_slab_layout(L, K, J, &s)) return 0;
+  lay[0] = s.cs;
+  lay[1] = s.tc;
+  lay[2] = s.jk;
+  lay[3] = s.threads;
+  lay[4] = (int)(sizeof(float) * (size_t)s.smem_floats);
+  return 1;
 }
 
 // Pair pass C over mid (R = L*K, n_i*n_y*n_b*n_j) log domain: per c1

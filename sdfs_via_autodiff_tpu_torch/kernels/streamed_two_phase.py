@@ -73,7 +73,7 @@ __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
            "pass_c_deferred_plain", "pass_c_pair", "pass_c_pair_plain",
            "pair_device_operands", "pair_cluster_size", "pair_rows",
            "pair_row_owner", "pair_groups", "pass_c_tile",
-           "pass_c_deferred_tiles",
+           "pass_c_deferred_tiles", "pass_c_deferred_layout",
            "streamed_config", "streamed_supported", "make_streamed_T_log"]
 
 # Kernel launches per pass since the last reset (the wrappers add one per
@@ -191,17 +191,76 @@ def _pass_c_deferred_smem_bytes(L: int, K: int, TC: int, JK: int) -> int:
 
 
 def pass_c_deferred_tiles(L: int, K: int) -> Optional[Tuple[int, int]]:
-    """(TC, JK) of a deferred pass-C block: the widest column tile, then
-    the widest input chunk, that leave room for two blocks per SM, else
-    that fit one block; None when none fits.  (Each slice's TC-column
-    blocks re-read and re-exponentiate it, so wide tiles pay; measured at
-    (12, 16, 512, 256) on an H100: (64, 16) two per SM 1.53 ms, (32, 32)
-    two per SM 1.70 ms, (64, 32) one per SM 2.03 ms.)"""
+    """(TC, JK) of the earlier deferred pass-C kernel's block (all R rows,
+    the (R, TC) accumulator in shared memory): the widest column tile,
+    then the widest input chunk, that leave room for two blocks per SM,
+    else that fit one block; None when none fits.  Its footprint stays
+    the classifier of :func:`streamed_config`, so that no set moves
+    between configurations; the kernel runs the layout of
+    :func:`pass_c_deferred_layout`."""
     for limit in (_SM_SMEM // 2 - _BLOCK_RESERVED, SMEM_LIMIT):
         for tc in _PASS_C_DEFERRED_TILES:
             for jk in _PASS_C_DEFERRED_CHUNKS:
                 if _pass_c_deferred_smem_bytes(L, K, tc, jk) <= limit:
                     return tc, jk
+    return None
+
+
+# The deferred and batched pass C's slab layout (mirroring the .cu): the
+# most threads of a block (kSlabMaxThreads), the widest column tile
+# (kSlabMaxTC) and the largest cluster (kSlabMaxCluster, the portable
+# limit).
+_SLAB_MAX_THREADS, _SLAB_MAX_TC, _SLAB_MAX_CLUSTER = 512, 128, 8
+
+
+def pass_c_slab_smem_bytes(L: int, K: int, nk: int, nl: int, TC: int,
+                           JK: int) -> int:
+    """Shared memory of one slab block (mirrors the .cu's
+    slab_smem_floats): region A (the slab's accumulator, later the
+    l-slab's gathered y) and B, as large (the slab's y, later r2's
+    result), which the streamed chunks (two raw with rows padded by 4,
+    two transposed, three W_c2^T) alias during the J loop; W_r1^T or
+    W_r2^T padded to 8 rows; m1, two chunks' rescale factors, M2, the
+    slab maximum and the rows' field-row table."""
+    rows = L * nk
+    chunks = (2 * rows * (JK + 4) + 2 * JK * (_up8(rows) + 4) + 3 * JK * TC)
+    ab = 2 * max(rows, nl * K) * TC
+    wt = max(L * _up8(L), K * _up8(K))
+    return 4 * (max(chunks, ab) + wt + _up4(rows) + 2 * _up8(rows)
+                + _up4(nk) + 4 + _up4(rows))
+
+
+def pass_c_deferred_layout(
+        L: int, K: int,
+        J: int) -> Optional[Tuple[str, int, int, int, int, int]]:
+    """(layout, cluster size cs, column tile TC, chunk columns JK,
+    threads, shared-memory bytes) of the deferred and batched pass C at
+    (L, K, J), as its launcher chooses them (mirrors the .cu's
+    pass_c_slab_layout): the widest TC (a multiple of 8, at most 128 and
+    the J rounded up to 8), then the smallest cluster whose k-slabs of nk
+    = ceil(K / cs) give a block of at most 512 threads (an 8 x 8 tile
+    each over the slab's L * nk rows and TC columns) that fits shared
+    memory, with JK = 32 where that fits, else 16.  "block" when one
+    block holds all rows (cs = 1), else "cluster"; None when nothing fits
+    (some sets with L or K above 100 that the earlier kernel's footprint,
+    :func:`pass_c_deferred_tiles`, accepts).  Block rank rho owns k-slab
+    rho (rows (l, k), k in [rho * nk, (rho + 1) * nk)) for the c2 product
+    and r1, and l-slab rho (nl = ceil(L / cs)) for r2 and the
+    epilogue."""
+    for tc in range(min(_SLAB_MAX_TC, _up8(J)), 0, -8):
+        for cs in range(1, min(_SLAB_MAX_CLUSTER, K) + 1):
+            nk = -(-K // cs)
+            if -(-K // nk) != cs:
+                continue
+            nl = -(-L // cs)
+            threads = -(-(-(-L * nk // 8)) * (tc // 8) // 32) * 32
+            if threads > _SLAB_MAX_THREADS:
+                continue
+            for jk in (32, 16):
+                smem = pass_c_slab_smem_bytes(L, K, nk, nl, tc, jk)
+                if smem <= SMEM_LIMIT:
+                    return ("block" if cs == 1 else "cluster", cs, tc, jk,
+                            threads, smem)
     return None
 
 
@@ -435,18 +494,20 @@ def _lib():
                                     i, i, i, i, f, f, i, p]
         lib.sdfs_pass_c.restype = i
         lib.sdfs_pass_c_batched.argtypes = [p, p, p, p, p, p, p, p, p,
-                                            i, i, i, i, i, i, f, f, i, p]
+                                            i, i, i, i, f, f, i, p]
         lib.sdfs_pass_c_batched.restype = i
         lib.sdfs_pass_b_deferred.argtypes = [p, p, p, p, p, i, i, i, f, p]
         lib.sdfs_pass_b_deferred.restype = i
         lib.sdfs_pass_c_deferred.argtypes = [p, p, p, p, p, p, p,
-                                             i, i, i, i, i, i, f, f, p]
+                                             i, i, i, i, f, f, p]
         lib.sdfs_pass_c_deferred.restype = i
         lib.sdfs_pass_c_pair.argtypes = [p, p, p, p, p, p, p, p,
                                          i, i, i, i, i, i, f, f, p]
         lib.sdfs_pass_c_pair.restype = i
         lib.sdfs_pass_b_deferred_bn.argtypes = [i, i]
         lib.sdfs_pass_b_deferred_bn.restype = i
+        lib.sdfs_pass_c_deferred_layout.argtypes = [i, i, i, p]
+        lib.sdfs_pass_c_deferred_layout.restype = i
         lib.sdfs_error_string.argtypes = [i]
         lib.sdfs_error_string.restype = ctypes.c_char_p
         lib._sdfs_typed = True
@@ -671,11 +732,9 @@ def _pass_c_batched_cuda(mid, scale, S, W_c2t, W_r1, W_r2, add_row, add_col,
     if L * K != R or I * J != C:
         raise ValueError(f"mid {tuple(mid.shape)} does not match W_r1/W_r2 "
                          f"({L}*{K} rows) and W_c2t ({I} slices of {J})")
-    tiles = pass_c_deferred_tiles(L, K)
-    if tiles is None or I > _GRID_Y_MAX:
+    if pass_c_deferred_layout(L, K, J) is None or I > _GRID_Y_MAX:
         raise ValueError(f"batched pass C with {R} rows, {I} slices "
                          "exceeds shared memory or the grid")
-    TC, JK = tiles
     out = torch.empty_like(mid)
     lib = _lib()
     with torch.cuda.device(dev):
@@ -683,7 +742,7 @@ def _pass_c_batched_cuda(mid, scale, S, W_c2t, W_r1, W_r2, add_row, add_col,
         rc = lib.sdfs_pass_c_batched(
             _ptr(mid), _ptr(scale), _ptr(S), _ptr(W_c2t), _ptr(W_r1),
             _ptr(W_r2), _ptr(add_row), _ptr(add_col), _ptr(out), L, K, I, J,
-            TC, JK, float(theta), float(beta), _MODES[mode],
+            float(theta), float(beta), _MODES[mode],
             ctypes.c_void_p(stream))
     _raise_on(lib, rc, "batched pass C")
     LAUNCHES["pass_c_batched" if mode == "fast"
@@ -787,18 +846,16 @@ def _pass_c_deferred_cuda(mid, W_c2t, W_r1, W_r2, add_row, add_col, theta,
         raise ValueError(f"mid {tuple(mid.shape)} does not match W_r1/W_r2 "
                          f"({L}*{K} rows) and W_c2t ({J}-column slices)")
     I = C // J
-    tiles = pass_c_deferred_tiles(L, K)
-    if tiles is None or I > _GRID_Y_MAX:
+    if pass_c_deferred_layout(L, K, J) is None or I > _GRID_Y_MAX:
         raise ValueError(f"deferred pass C with {R} rows, {I} slices "
                          "exceeds shared memory or the grid")
-    TC, JK = tiles
     out = torch.empty_like(mid)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdfs_pass_c_deferred(
             _ptr(mid), _ptr(W_c2t), _ptr(W_r1), _ptr(W_r2), _ptr(add_row),
-            _ptr(add_col), _ptr(out), L, K, I, J, TC, JK, float(theta),
+            _ptr(add_col), _ptr(out), L, K, I, J, float(theta),
             float(beta), ctypes.c_void_p(stream))
     _raise_on(lib, rc, "deferred pass C")
     LAUNCHES["pass_c_deferred"] += 1

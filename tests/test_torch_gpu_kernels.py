@@ -10,6 +10,8 @@ tests/test_torch_gpu_kernels.py``.  Tolerances as in
 ``test_torch_strip_two_phase.py``.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -97,10 +99,12 @@ def test_pass_c_kernel_matches_plain(cuda, shapes, method, mode):
 
 # Deferred passes on GCY operand sets, natural shapes (z, z_pi, h_z, h_c,
 # h_zpi, h_lam) -> view (L, K, I, J): ragged (2, 3, 30, 30) and
-# (2, 4, 56, 258), the JAX test's (4, 8, 240, 128) and the 25.2M-point
-# grid's (12, 16, 512, 256).
+# (2, 4, 56, 258), the JAX test's (4, 8, 240, 128), the 25.2M-point
+# grid's (12, 16, 512, 256) and (12, 24, 240, 128), whose 288 rows take
+# a cluster of 2 blocks in the deferred pass C.
 DEFERRED_CASES = [(15, 2, 5, 2, 6, 3), (7, 8, 43, 2, 6, 4),
-                  (30, 8, 16, 4, 8, 8), (32, 16, 16, 12, 16, 16)]
+                  (30, 8, 16, 4, 8, 8), (32, 16, 16, 12, 16, 16),
+                  (30, 8, 16, 12, 8, 24)]
 
 
 def _gcy_setup(shapes, dev):
@@ -238,9 +242,12 @@ def test_gcy_continuous_pair_operator_matches_f64(cuda):
 
 
 # Continuous-SSY sets (c2 batched over the current h_z): the JAX test's
-# (4, 8, 6, 64), a ragged (3, 5, 7, 40) and (20, 20, 20, 20), with and
-# without the log-linear baseline.
-BATCHED_CASES = [(4, 8, 6, 64), (3, 5, 7, 40), (20, 20, 20, 20)]
+# (4, 8, 6, 64), a ragged (3, 5, 7, 40), (20, 20, 20, 20) and a ragged
+# (31, 29, 5, 42) whose batched pass C runs a cluster of 2 (k-slabs of
+# 15 and 14, l-slabs of 16 and 15, J % 4 != 0), with and without the
+# log-linear baseline.
+BATCHED_CASES = [(4, 8, 6, 64), (3, 5, 7, 40), (20, 20, 20, 20),
+                 (31, 29, 5, 42)]
 
 
 def _batched_setup(sizes, baseline, dev):
@@ -638,6 +645,75 @@ def test_pass_b_deferred_layouts_match_plain(cuda, R, I, J, with_sub):
     want = st.pass_b_deferred_plain(ell, *args)
     lim = ATOL + EPS32 * want.abs()
     assert bool(((got - want).abs() <= lim).all())
+
+
+# (L, K, J) of the deferred and batched pass C's layouts: the GCY view,
+# the continuous-SSY cell (a cluster of 8), the 20^4 anchor, the sets
+# above, and clusters of 2-7.
+SLAB_LAYOUTS = [(12, 16, 256), (56, 56, 64), (20, 20, 20), (4, 8, 64),
+                (3, 5, 40), (31, 29, 42), (12, 24, 128), (2, 3, 30),
+                (2, 4, 258), (4, 8, 128), (40, 40, 64), (48, 30, 64),
+                (64, 20, 33)]
+
+
+@pytest.mark.parametrize("L,K,J", SLAB_LAYOUTS)
+def test_pass_c_deferred_layout_mirrors_the_launcher(cuda, L, K, J):
+    want = st.pass_c_deferred_layout(L, K, J)
+    got = (ctypes.c_int * 5)()
+    assert st._lib().sdfs_pass_c_deferred_layout(L, K, J, got) == 1
+    assert tuple(got) == want[1:]
+
+
+# The deferred and batched pass C on seeded synthetic operands
+# (row-stochastic factors, log-domain midway values near theta*log(800)):
+# clusters of 1-8 (k- and l-slabs that do not divide K and L), several
+# column tiles, J % 4 != 0.
+SLAB_SYNTH = [(9, 11, 3, 37), (12, 69, 2, 64), (48, 30, 2, 64),
+              (23, 69, 2, 64), (30, 66, 2, 64), (35, 67, 2, 64),
+              (67, 36, 2, 64), (31, 29, 3, 42), (40, 40, 2, 130),
+              (8, 54, 2, 70)]
+
+
+@pytest.mark.parametrize("mode", ["fast", "lse", "deferred"])
+@pytest.mark.parametrize("L,K,I,J", SLAB_SYNTH)
+def test_pass_c_slab_layouts_match_plain(cuda, L, K, I, J, mode):
+    assert st.pass_c_deferred_layout(L, K, J) is not None
+    rng = np.random.default_rng(L * K + J)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                    dtype=torch.float32, device=cuda)
+
+    def stochastic(n):
+        W = rng.random((n, n))
+        return W / W.sum(axis=1, keepdims=True)
+
+    R, C = L * K, I * J
+    theta, beta = -36.0, 0.9987
+    a = theta * (np.log(800.0) + 0.05 * rng.standard_normal((R, C)))
+    W_c2t = np.stack([stochastic(J).T for _ in range(I)])
+    args = (f32(stochastic(L)), f32(stochastic(K)),
+            f32(0.01 * rng.standard_normal((L, K))),
+            f32(0.01 * rng.standard_normal(C)), theta, beta)
+    if mode == "deferred":
+        mid, w = f32(a), f32(W_c2t[0])
+        before = st.LAUNCHES["pass_c_deferred"]
+        got = st.pass_c_deferred(mid, w, *args)
+        assert st.LAUNCHES["pass_c_deferred"] == before + 1
+        want = st.pass_c_deferred_plain(mid, w, *args)
+    else:
+        scale = S = None
+        mid = f32(a)
+        if mode == "fast":
+            s = a.max(axis=1, keepdims=True)
+            mid, S = f32(np.exp(a - s)), f32(s.max().reshape(1))
+            scale = f32(np.exp(s - s.max()))
+        key = "pass_c_batched" if mode == "fast" else "pass_c_batched_lse"
+        before = st.LAUNCHES[key]
+        got = st.pass_c_batched(mid, scale, S, f32(W_c2t), *args, mode)
+        assert st.LAUNCHES[key] == before + 1
+        want = st.pass_c_batched_plain(mid, scale, S, f32(W_c2t), *args,
+                                       mode)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATOL
 
 
 # The fused kernels' chunked layout: (675, 650), more tiles than SMs and

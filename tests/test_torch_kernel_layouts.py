@@ -1,12 +1,13 @@
 """The work partitions of the port's deferred pass B (TPU kernel
-``_b_kernel_deferred``) and fused whole-solve kernel (``_fused_kernel``,
-``_solver_kernel``, ``_aa_kernel``), on the CPU through their Python
-mirrors: the layout each launcher picks fits a block's shared memory,
-and every output has exactly one owning block and thread (following the
-kernels' loops as written here; the ``gpu`` tests hold the layout
-mirrors against the launchers' own choice).  Also pins
+``_b_kernel_deferred``), deferred and batched pass C (``_c_kernel``'s
+c2_deferred and c2_batched branches) and fused whole-solve kernel
+(``_fused_kernel``, ``_solver_kernel``, ``_aa_kernel``), on the CPU
+through their Python mirrors: the layout each launcher picks fits a
+block's shared memory, and every output has exactly one owning block and
+thread (following the kernels' loops as written here; the ``gpu`` tests
+hold the layout mirrors against the launchers' own choice).  Also pins
 ``streamed_config``'s classification of the operand sets the other port
-tests build (the deferred pass B's layouts must not move a set between
+tests build (the kernels' layouts must not move a set between
 configurations).  The kernels themselves run in
 ``test_torch_gpu_kernels.py`` on the card.
 """
@@ -122,6 +123,117 @@ def test_pass_b_deferred_layout_choice():
     assert st.pass_b_deferred_smem_bytes(512) == 99_456
 
 
+def _slab_walk(L, K, J):
+    """One slice of the deferred / batched pass C, following the kernel's
+    loops (``pass_c_slab_kernel``) over every column tile and cluster
+    rank: Counters of the c2 accumulator entries (r, c) the threads own,
+    of the y[l, k, c] entries r1 produces and the exchange reads (as
+    (l, k, c) -> ranks), and of the outputs (r, c) the epilogue stores."""
+    _, cs, tc, _, threads, _ = st.pass_c_deferred_layout(L, K, J)
+    nk, nl = -(-K // cs), -(-L // cs)
+    rows, ncg, half, t4 = L * nk, tc // 8, tc // 2, tc // 4
+    cols = lambda cq: [4 * cq + u for u in range(4)] + [
+        half + 4 * cq + u for u in range(4)]
+    acc = collections.Counter()
+    made, read = collections.defaultdict(list), collections.defaultdict(list)
+    outs = collections.Counter()
+    for j0 in range(0, J, tc):
+        tcw = min(tc, J - j0)
+        for rank in range(cs):
+            k0, l0 = rank * nk, rank * nl
+            nko, nlo = min(nk, K - k0), max(0, min(nl, L - l0))
+            for tid in range(threads):           # c2: one tile a thread
+                rg, cq = divmod(tid, ncg)
+                for q in range(8 * rg, min(8 * rg + 8, rows)):
+                    if q % nk < nko:
+                        r = (q // nk) * K + k0 + q % nk
+                        acc.update((r, j0 + t) for t in cols(cq) if t < tcw)
+            nlg = -(-L // 8)                     # r1 items
+            for item in range(nko * nlg * ncg):
+                cq, lg = item % ncg, (item // ncg) % nlg
+                kk = item // (ncg * nlg)
+                for l in range(8 * lg, min(8 * lg + 8, L)):
+                    for t in cols(cq):
+                        made[(l, k0 + kk, j0 + t)].append(rank)
+            if cs > 1:                           # the l-slab's gather
+                for x in range(nlo * K * t4):
+                    t, m, ll = 4 * (x % t4), (x // t4) % K, x // (t4 * K)
+                    for u in range(4):
+                        read[(l0 + ll, m, j0 + t + u)].append(
+                            (rank, m // nk))
+            for x in range(nlo * K * t4):        # the epilogue
+                t, lk = 4 * (x % t4), x // t4
+                if t < tcw:
+                    outs.update((l0 * K + lk, j0 + t + u) for u in range(4)
+                                if t + u < tcw)
+    return cs, acc, made, read, outs
+
+
+# (L, K, J) of the deferred and batched pass C: the 25.2M GCY view, the
+# 11.2M continuous-SSY cell (a cluster of 8), the 20^4 anchor, the gpu
+# test sets (4,8,6,64), (3,5,7,40) and the deferred cases' views, the
+# ragged (31,29,5,42) (a cluster of 2: k-slabs 15 + 14, l-slabs 16 +
+# 15, J % 4 != 0), clusters of 3-7 with ragged slabs, several column
+# tiles.
+SLAB_CASES = [(12, 16, 256), (56, 56, 64), (20, 20, 20), (4, 8, 64),
+              (3, 5, 40), (2, 3, 30), (2, 4, 258), (4, 8, 128),
+              (12, 24, 128), (31, 29, 42), (12, 69, 64), (48, 30, 64),
+              (23, 69, 64), (30, 66, 64), (35, 67, 64), (40, 40, 130),
+              (9, 11, 37)]
+
+
+@pytest.mark.parametrize("L,K,J", SLAB_CASES)
+def test_pass_c_slab_layout_owns_every_output_once(L, K, J):
+    layout, cs, tc, jk, threads, smem = st.pass_c_deferred_layout(L, K, J)
+    assert smem <= st.SMEM_LIMIT and jk in (16, 32)
+    assert threads % 32 == 0 and threads <= 512 and tc % 8 == 0
+    assert layout == ("block" if cs == 1 else "cluster") and cs <= 8
+    cs, acc, made, read, outs = _slab_walk(L, K, J)
+    R = L * K
+    # Each accumulator entry and each output has one owner, all covered.
+    assert max(acc.values()) == 1 and len(acc) == R * J
+    assert max(outs.values()) == 1 and len(outs) == R * J
+    # Each y[l, k, c] is produced once, by the owner of k's slab.
+    nk = -(-K // cs)
+    assert all(v == [k // nk] for (l, k, c), v in made.items())
+    assert len(made) == R * -(-J // tc) * tc
+    if cs > 1:
+        # ... and read once in the exchange, from that owner, by the
+        # owner of l's slab.
+        nl = -(-L // cs)
+        assert read.keys() == made.keys()
+        assert all(v == [(l // nl, k // nk)] for (l, k, c), v in
+                   read.items())
+
+
+def test_pass_c_slab_layout_choice():
+    # The GCY view: one block of 192 rows x 128 columns, 384 threads,
+    # 32-column chunks; the continuous-SSY cell: a cluster of 8 k-slabs
+    # of 7 (392 rows x 64 columns, the whole slice), 16-column chunks.
+    assert st.pass_c_deferred_layout(12, 16, 256) == (
+        "block", 1, 128, 32, 384, 200_784)
+    assert st.pass_c_deferred_layout(56, 56, 64) == (
+        "cluster", 8, 64, 16, 416, 219_568)
+    assert st.pass_c_deferred_layout(20, 20, 20)[:3] == ("block", 1, 24)
+    assert st.pass_c_deferred_layout(31, 29, 42)[:3] == ("cluster", 2, 48)
+    # The classification's input is the earlier kernel's footprint.
+    assert st.pass_c_deferred_tiles(12, 16) == (64, 16)
+    assert st.pass_c_deferred_tiles(56, 56) == (4, 4)
+
+
+@pytest.mark.parametrize("J", [4, 16, 37, 64, 256])
+def test_pass_c_slab_layout_covers_the_classified_sets(J):
+    # Every (L, K) up to 96 that the classifier's footprint accepts has a
+    # layout that fits.
+    for L in range(1, 97, 5):
+        for K in range(1, 97, 3):
+            if st.pass_c_deferred_tiles(L, K) is None:
+                continue
+            lay = st.pass_c_deferred_layout(L, K, J)
+            assert lay is not None, (L, K, J)
+            assert lay[5] <= st.SMEM_LIMIT and lay[4] <= 512
+
+
 def _ssy(sizes, method="rouwenhorst", baseline=None):
     m = P.SSY()
     return P.two_phase_operands_ssy(
@@ -147,7 +259,8 @@ def _ssyc(sizes):
 
 
 # The configuration each set had before the deferred pass B gained its
-# resident layout (the conjugated form for the normalized sets).
+# resident layout and the deferred / batched pass C its slab layout (the
+# conjugated form for the normalized sets).
 CONFIG_CASES = [
     (lambda: _ssy((4, 8, 6, 64)), "full"),
     (lambda: _ssy((8, 16, 32, 384), "tauchen"), "full"),
@@ -160,8 +273,12 @@ CONFIG_CASES = [
     (lambda: _gcyc((5, 3, 3, 2, 40, 3)), "pair"),
     (lambda: _gcyc((4, 5, 3, 3, 33, 2)), "pair"),
     (lambda: _gcyc((5, 3, 2, 2, 40, 12)), "pair"),
+    (lambda: _gcy((30, 8, 16, 12, 8, 24)), "deferred"),
     (lambda: _ssyc((4, 8, 6, 64)), "batched"),
     (lambda: _ssyc((3, 5, 7, 40)), "batched"),
+    (lambda: _ssyc((20, 20, 20, 20)), "batched"),
+    (lambda: _ssyc((31, 29, 5, 42)), "batched"),
+    (lambda: _ssyc((56, 56, 56, 64)), "batched"),
     (lambda: st.streamed_coverable(_ssy((4, 5, 6, 7), baseline="loglinear")),
      "full"),
     (lambda: st.streamed_coverable(_gcy((30, 8, 16, 4, 8, 8), "rouwenhorst",
@@ -172,7 +289,12 @@ CONFIG_CASES = [
 @pytest.mark.parametrize("k", range(len(CONFIG_CASES)))
 def test_streamed_config_classifies_as_before(k):
     build, want = CONFIG_CASES[k]
-    assert st.streamed_config(build()) == want
+    ops = build()
+    assert st.streamed_config(ops) == want
+    if want in ("deferred", "batched"):
+        # ... and the pass-C kernel has a layout for it.
+        L, K, _, J = ops.shapes
+        assert st.pass_c_deferred_layout(L, K, J) is not None
 
 
 # (R, C) of the fused kernels' operand sets: continuous SSY 20^4 (the
