@@ -115,7 +115,11 @@ Phases, in order; any failure exits non-zero before the result line:
     row phases against their plain versions, both modes, with shared,
     dense-batched and lazy (rank 1 and 2) factors, with and without the
     fold, at SSY (4,5,6,7), (6,5,6,16) with every batched factor lazy,
-    the GCY (6,5,4,3,4,3) view, and both cells (plain and normalized);
+    the GCY (6,5,4,3,4,3) view, the column phase's product tiles at
+    their edges (SSY (20,13,5,70): 260 field rows over two column
+    tiles; (3,5,67,130): shared factors folded into N, ragged 128 x 128
+    tiles), and both cells (plain and normalized), each column phase one
+    ``strip_col`` launch count;
     pass B's mid_col branch against its plain version at (4,8,6,64) and
     (32,32,32,384) on a conjugated normalized SSY set with a seeded
     non-separable mid_col, and one application of that set against its
@@ -124,7 +128,10 @@ Phases, in order; any failure exits non-zero before the result line:
     normalized SSY 12.6M auto (the streamed full configuration with the
     fold) and strip, plain SSY strip (fast), normalized GCY 25.2M auto
     (the deferred configuration with the fold) and strip (rank-2 lazy),
-    plain GCY strip (lse);
+    plain GCY strip (lse); then the plain SSY Tauchen set (103,41,64,512)
+    through ``make_tiled_T_log_ssy(..., engine="auto")``, which the
+    streamed kernels' pass C has no layout for: it must run the strip
+    tier, within 5e-6 of its float64 twin;
 29. the paths, cold then warm: (a) ``wc_ratio_discrete(SSY(),
     (32,32,32,384), kernel="tiled", baseline="loglinear",
     discretization="tauchen", tol=2e-5)``, (b) Newton through
@@ -136,7 +143,8 @@ Phases, in order; any failure exits non-zero before the result line:
     launch counts, iterations, seconds, float64 residual and distance to
     the plain solve of the same grid;
 30. timing of the new kernels against their plain versions at the SSY
-    cell (the sets the paths ran them on);
+    cell (the sets the paths ran them on), and of the strip column phase
+    at the 25.2M GCY view (192, 512, 256), lse, rank-2 lazy and plain;
 31. a JSON line of per-kernel facts (with each kernel's bound: the
     largest of its FP32 operations over 67 TFLOP/s, its bytes over 3.35
     TB/s and, for the post-interp kernel, the pair pass C and the
@@ -265,7 +273,13 @@ STRIP_CHECKS = (("ssy", (4, 5, 6, 7), "rouwenhorst", None, None),
                 ("ssy", (6, 5, 6, 16), "rouwenhorst", "loglinear", 0),
                 ("gcy", (6, 5, 4, 3, 4, 3), "rouwenhorst", None, None),
                 ("gcy", (6, 5, 4, 3, 4, 3), "rouwenhorst", "loglinear", None),
-                ("gcy", (6, 5, 4, 3, 4, 3), "rouwenhorst", "loglinear", 0))
+                ("gcy", (6, 5, 4, 3, 4, 3), "rouwenhorst", "loglinear", 0),
+                ("ssy", (20, 13, 5, 70), "tauchen", "loglinear", 0),
+                ("ssy", (3, 5, 67, 130), "rouwenhorst", None, None))
+# A plain SSY Tauchen set whose shared factors the streamed tier covers
+# by its pass-C footprint but whose slab pass C has no layout: the tier
+# decision sends it to the strip tier (fast mode).
+UNCOVERED_SSY = (103, 41, 64, 512)
 MID_CHECKS = ((4, 8, 6, 64), (32, 32, 32, 384))
 MID_SCALE = 0.05            # seeded non-separable mid_col, log units
 REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
@@ -1631,7 +1645,12 @@ def strip_kernel_check(torch, tt, ops, dev, mode, lazy_bytes):
     ell = cast(base + 0.02 * rng.standard_normal(ops.shapes)).reshape(
         R, n1, n2)
     col_args = (d["W_c1"], d["W_c2"], th, mode, d["sub_row"], d["sub_col"])
+    key = "strip_col" + ("_fast" if mode == "fast" else "")
+    before = tt.LAUNCHES[key]
     got = tt.strip_col(ell, *col_args)
+    check(tt.LAUNCHES[key] == before + 1,
+          f"{key} {ops.shapes}: {tt.LAUNCHES[key] - before} launch counts "
+          "for one column phase")
     want = tt.strip_col_plain(ell, *col_args)
     scale = S = None
     if mode == "fast":
@@ -1829,6 +1848,27 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
         del T, x
         torch.cuda.empty_cache()
 
+    # 28b. A set the streamed pass C has no slab layout for runs the
+    # strip tier: one application against its float64 twin.
+    model_u = port.SSY()
+    disc_u = port.discretize_ssy(model_u, UNCOVERED_SSY, method="tauchen")
+    T = port.make_tiled_T_log_ssy(model_u, disc_u, engine="auto", device=dev)
+    T64 = port.T_ssy_factory(model_u, disc_u, space="log", device=dev)
+    ell64 = torch.as_tensor(noise_field(UNCOVERED_SSY, SEED), device=dev)
+    before = dict(tt.LAUNCHES)
+    got = T(ell64.float())
+    torch.cuda.synchronize()
+    err = float((got.double() - T64(ell64)).abs().max())
+    check(T.engine == "strip" and tt.LAUNCHES["strip_col_fast"]
+          == before["strip_col_fast"] + 1,
+          f"{UNCOVERED_SSY} auto runs {T.engine}/{T.mode}")
+    check(err <= OPERATOR_ATOL,
+          f"{UNCOVERED_SSY} {T.engine} one application vs f64: {err:.3e}")
+    print(f"operator plain SSY {UNCOVERED_SSY} auto: {T.engine}/{T.mode}, "
+          f"one application vs f64 max abs err {err:.3e} ({smi})")
+    del T, T64, ell64, got, model_u, disc_u
+    torch.cuda.empty_cache()
+
     # 29. The paths, each with every launch count set to 0 just before it.
     launches = {}
     tol_g = 1.2 * port.f32_tol_floor(model_g.theta)
@@ -1947,6 +1987,26 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
             2 * field + 4 * (L * L + K * K + R + C)
             + (4 * (R + 1) if mode == "fast" else 0))
         del col_args, row_args, ell, mid
+    # The strip column phase at the GCY view (192, 512, 256), lse:
+    # normalized (rank-2 lazy factors) and plain (shared).
+    for baseline in ("loglinear", None):
+        _, _, ops = _operand_set(port, "gcy", GCY_SHAPES, GCY_METHOD,
+                                 baseline, dense=baseline is None)
+        _, _, col_args, _, ell, _ = strip_kernel_check(torch, tt, ops, dev,
+                                                       "lse", None)
+        Lg, Kg, Ig, Jg = ops.shapes
+        Rg = Lg * Kg
+        k_ms = time_ms(torch, lambda y: tt.strip_col(y, *col_args), ell, n=20)
+        p_ms = time_ms(torch, lambda y: tt.strip_col_plain(y, *col_args),
+                       ell, n=20)
+        bms, _, term = bound_of(2 * Rg * Ig * Jg * (Ig + Jg),
+                                8 * Rg * Ig * Jg)
+        lazy = tuple(isinstance(w, tuple) for w in col_args[:2])
+        print(f"timing strip_col GCY view {tuple(ops.shapes)} {baseline} "
+              f"lse lazy {lazy}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({term}), share {bms / k_ms:.3f} ({smi})")
+        del ops, col_args, ell
+        torch.cuda.empty_cache()
     ops = mid_set(port, MAIN_SHAPES)
     rng = np.random.default_rng(SEED)
     e = cast(ops.baseline_log_w + 0.02 * rng.standard_normal(

@@ -1,13 +1,14 @@
 """Phase split and before/after timing of the port's redesigned kernels on
 one CUDA card: the post-interp kernel (B8), the pair pass C (B4), the
-deferred pass B (B3), the deferred and batched pass C (B2) and the fused
-whole-solve kernel (B5-B7).
+deferred pass B (B3), the deferred and batched pass C (B2), the fused
+whole-solve kernel (B5-B7) and the strip column phase (B9 col).
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 -m sdfs_via_autodiff_tpu_torch.bench.kernel_split \
       [--before DIR]
-      [--kernels post_interp,pass_c_pair,pass_b_deferred,pass_c_deferred,fused]
+      [--kernels post_interp,pass_c_pair,pass_b_deferred,pass_c_deferred,
+                 fused,strip_col]
 
 Each kernel's source stops after a phase under a compile-time switch
 (``SPLITS``; 1-3 store that phase's result in place of the output):
@@ -26,7 +27,10 @@ Each kernel's source stops after a phase under a compile-time switch
 - ``SDFS_FUSED_SPLIT`` in ``csrc/fused_two_matmul.cu``: 1 runs phase 1
   and its barrier per iteration, 2 adds phase 2; and
   ``SDFS_FUSED_BARRIER=1``, the whole loop with every grid barrier a bare
-  ``__syncthreads`` (wrong results; it times the barriers).
+  ``__syncthreads`` (wrong results; it times the barriers);
+- ``SDFS_STRIP_SPLIT`` in ``csrc/tiled_two_phase.cu`` (the column phase,
+  ``sdfs_strip_col``): 1 the first shift pass, 2 adds the c1
+  contraction, 3 the c2 shift (lse; in fast mode 3 times what 2 does).
 
 The script builds every variant with nvcc (one process each, all
 started together) and times each at the main paths' shapes with CUDA
@@ -36,8 +40,9 @@ iteration).  Differences of consecutive stops are the phases' times.
 
 ``--before DIR`` names a directory holding an earlier design's sources
 (``post_interp.cu``, ``streamed_two_phase.cu``, ``fused_two_matmul.cu``,
-the same C entry points) with the same switches: its splits are timed
-too, and the whole kernels in turns (before, after, after, before).
+``tiled_two_phase.cu``, the same C entry points) with the same switches:
+its splits are timed too, and the whole kernels in turns (before, after,
+after, before).
 Prints one line per measurement and a last JSON line.
 """
 
@@ -62,6 +67,7 @@ from sdfs_via_autodiff_tpu_torch.kernels import _build
 from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
 from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
 from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
+from sdfs_via_autodiff_tpu_torch.kernels import tiled_two_phase as tt
 
 POST_SIZES = ((20, 20, 20, 20), (15, 15, 15, 15))
 PAIR_SIZES = ((16, 8, 12, 12, 128, 8), (8, 8, 8, 8, 128, 8))
@@ -78,6 +84,11 @@ DEFC_SSYC = (56, 56, 56, 64)
 # The fused kernels: continuous SSY 20^4 and continuous GCY 6^6 (coarse
 # baseline); loops of FUSED_ITERS iterations at tol -1.
 FUSED_SSY, FUSED_GCY, FUSED_ITERS = (20, 20, 20, 20), (6,) * 6, 200
+# The strip column phase: the normalized SSY Tauchen cell (32,32,32,384)
+# in lse mode (c1 dense-batched, c2 lazy rank 1) and the plain one in
+# fast mode (shared factors); the 25.2M GCY Tauchen view (192, 512, 256)
+# normalized (rank-2 lazy) and plain, lse.
+STRIP_SSY, STRIP_GCY = (32, 32, 32, 384), (32, 16, 16, 12, 16, 16)
 # kernel: (source stem, switch, the stops before the whole kernel).
 SPLITS = {"post_interp": ("post_interp", "SDFS_SPLIT", (1, 2, 3)),
           "pass_c_pair": ("streamed_two_phase", "SDFS_PAIR_SPLIT", (1, 2, 3)),
@@ -85,7 +96,8 @@ SPLITS = {"post_interp": ("post_interp", "SDFS_SPLIT", (1, 2, 3)),
                               (1, 2, 3)),
           "pass_c_deferred": ("streamed_two_phase", "SDFS_PASSC_DEF_SPLIT",
                               (1, 2, 3)),
-          "fused": ("fused_two_matmul", "SDFS_FUSED_SPLIT", (1, 2))}
+          "fused": ("fused_two_matmul", "SDFS_FUSED_SPLIT", (1, 2)),
+          "strip_col": ("tiled_two_phase", "SDFS_STRIP_SPLIT", (1, 2, 3))}
 # Variants beside the stops: name -> (source stem, nvcc define).
 EXTRA = {"fused": {"nobarrier": ("fused_two_matmul",
                                  "-DSDFS_FUSED_BARRIER=1")}}
@@ -115,7 +127,7 @@ def _compile(src: Path, tag: str, name: str, defines) -> Path:
         raise RuntimeError(f"nvcc {src} {tag} {name}:\n{proc.stderr}")
     if name == "whole":
         keep = ("post_gather", "pass_c_pair", "pass_b_deferred",
-                "pass_c_deferred", "pass_c_slab", "fused_")
+                "pass_c_deferred", "pass_c_slab", "fused_", "strip_")
         lines = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()]
         for k, ln in enumerate(lines):
             if "Compiling entry function" in ln and any(x in ln for x in keep):
@@ -126,18 +138,24 @@ def _compile(src: Path, tag: str, name: str, defines) -> Path:
 def _typed(lib):
     """The library with its entry points typed (ctypes)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.c_longlong
     for name, args in (
             ("sdfs_post_interp", [p] * 15 + [i] * 5 + [f, f, i, p]),
             ("sdfs_pass_c_pair", [p] * 8 + [i] * 6 + [f, f, p]),
             ("sdfs_pass_b_deferred", [p] * 5 + [i] * 3 + [f, p]),
             ("sdfs_fused_solve", [i] + [p] * 10 + [i, i, f, f, f, i, i, i,
-                                                   f, f, p])):
+                                                   f, f, p]),
+            ("sdfs_strip_col", [p, p, p, f] + [p, ll, p, p, p, i] * 2
+             + [p] * 3 + [i] * 4 + [p])):
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes, fn.restype = args, i
     if hasattr(lib, "sdfs_fused_work_floats"):
         lib.sdfs_fused_work_floats.argtypes = [i] * 4
-        lib.sdfs_fused_work_floats.restype = ctypes.c_longlong
+        lib.sdfs_fused_work_floats.restype = ll
+    if hasattr(lib, "sdfs_strip_col_work_floats"):
+        lib.sdfs_strip_col_work_floats.argtypes = [i] * 3
+        lib.sdfs_strip_col_work_floats.restype = ll
     return lib
 
 
@@ -438,12 +456,86 @@ def _fused_calls(model, ops, ell0, algo, iters, dev):
     return call, out, plain
 
 
+def _strip_sets(dev):
+    """(label, ell, col_args) of the strip column-phase timings: col_args
+    = (W_c1, W_c2, theta, mode, sub_row, sub_col) as
+    :func:`tt.strip_col` takes them."""
+    cast = _cast(dev)
+    for name, sizes, baseline, mode in (
+            ("SSY", STRIP_SSY, "loglinear", "lse"),
+            ("SSY", STRIP_SSY, None, "fast"),
+            ("GCY", STRIP_GCY, "loglinear", "lse"),
+            ("GCY", STRIP_GCY, None, "lse")):
+        if name == "SSY":
+            model = port.SSY()
+            ops = port.two_phase_operands_ssy(
+                model, port.discretize_ssy(model, sizes, method="tauchen"),
+                baseline)
+        else:
+            # dense=False: the normalized set's batched factors run in
+            # their lazy form, so the dense ones are not built.
+            model = port.GCY()
+            ops = port.two_phase_operands_gcy(
+                model, port.discretize_gcy(model, sizes, method="tauchen"),
+                baseline, dense=False)
+        d = tt.strip_device_operands(ops, device=dev)
+        L, K, n1, n2 = ops.shapes
+        rng = np.random.default_rng(0)
+        base = (np.log(800.0) if ops.baseline_log_w is None
+                else ops.baseline_log_w)
+        ell = cast(base + 0.02 * rng.standard_normal(ops.shapes)).reshape(
+            L * K, n1, n2)
+        lazy = [isinstance(d[w], tuple) for w in ("W_c1", "W_c2")]
+        if ops.dense_placeholder and not all(lazy):
+            raise RuntimeError(f"{name} {sizes}: a placeholder factor")
+        yield (f"{name} {sizes} view {tuple(ops.shapes)} {baseline} {mode} "
+               f"lazy {lazy}", ell,
+               (d["W_c1"], d["W_c2"], float(ops.theta), mode, d["sub_row"],
+                d["sub_col"]))
+        del ops, d
+
+
+def _strip_calls(ell, col_args, dev):
+    """Caller of one ``sdfs_strip_col`` launch (the whole column phase;
+    scratch sized by each library)."""
+    W_c1, W_c2, th, mode, sub_row, sub_col = col_args
+    R, n1, n2 = ell.shape
+    out = torch.empty_like(ell)
+    s = torch.empty(R, dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+
+    def factor(W):
+        if isinstance(W, tuple):
+            return (None, 0, *W, W[1].shape[0])
+        return W, 0 if W.dim() == 2 else W.shape[1] * W.shape[2], None, \
+            None, None, 0
+
+    f1, f2 = factor(W_c1), factor(W_c2)
+
+    def call(lib):
+        work = torch.empty(int(lib.sdfs_strip_col_work_floats(R, n1, n2)),
+                           dtype=torch.float32, device=dev)
+
+        def go():
+            return lib.sdfs_strip_col(
+                _ptr(ell), _ptr(sub_row), _ptr(sub_col), th,
+                _ptr(f1[0]), f1[1], *(_ptr(t) for t in f1[2:5]), f1[5],
+                _ptr(f2[0]), f2[1], *(_ptr(t) for t in f2[2:5]), f2[5],
+                _ptr(out), _ptr(s), _ptr(work), R, n1, n2,
+                tt._MODES[mode], stream)
+        go.work = work
+        return go
+
+    plain = tt.strip_col_plain(ell, *col_args)
+    return call, out, plain[0] if mode == "fast" else plain
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--before", type=Path, default=None,
                     help="directory with an earlier design's post_interp.cu, "
-                         "streamed_two_phase.cu and fused_two_matmul.cu "
-                         "(with the switches)")
+                         "streamed_two_phase.cu, fused_two_matmul.cu and "
+                         "tiled_two_phase.cu (with the switches)")
     ap.add_argument("--kernels", default=",".join(SPLITS),
                     help="comma-separated subset of " + ", ".join(SPLITS))
     a = ap.parse_args()
@@ -541,6 +633,12 @@ def main() -> None:
                 measure("fused", f"{label} {what}", call, out, plain, n,
                         per=iters)
                 del call, out, plain
+            torch.cuda.empty_cache()
+    if "strip_col" in kernels:
+        for label, ell, col_args in _strip_sets(dev):
+            call, out, plain = _strip_calls(ell, col_args, dev)
+            measure("strip_col", label, call, out, plain, 20)
+            del call, out, plain, ell, col_args
             torch.cuda.empty_cache()
     print(json.dumps({"device": smi, "split": results}))
 

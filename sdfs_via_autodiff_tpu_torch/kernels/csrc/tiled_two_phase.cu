@@ -6,10 +6,9 @@
 // (n2, n1, n1), W_c2 shared (n2, n2) or batched over the CURRENT c1 index
 // i (n1, n2, n2), each dense or in the lazy form
 // W[b] = exp(logW0 + sum_k t[k, b] D[k]) (rank K = 1 for the normalized
-// SSY set, 2 for the normalized GCY one), built here tile by tile.
+// SSY set, 2 for the normalized GCY one).
 //
-//   column phase (strip_contract, with strip_midmax / strip_rowmax for
-//   the shifts), mode "lse":
+//   column phase (sdfs_strip_col), mode "lse":
 //     a = theta*ell [- sub_row[t] - sub_col[i, j], one FMA then one
 //     subtraction, as the port's pass B]; m1[t, j] = max_i a;
 //     a2[t, i, j] = m1 + log(sum_m W_c1(j)[i, m] exp(a[t, m, j] - m1));
@@ -28,45 +27,67 @@
 //     Replaces tiled_two_phase.py:195 (_row_phase_kernel) and :259
 //     (_row_phase_fast_kernel).
 //
-// What bounds them on an H100: the contractions are FP32 FMA chains (no
-// tensor cores: TF32's 10-bit mantissa misses the 1e-6-class bar),
-// 2*R*n1*n2*(n1 + n2) FLOP for the column phase (38.7 GFLOP at the
-// normalized GCY view (192, 512, 256), 10.7 at the normalized SSY
-// (1024, 32, 384)) against ~200 MB of field traffic: operations, not
-// bytes.  The TPU kernel holds whole row strips and whole (B, n, n)
-// factors in VMEM.  A Hopper block holds 227 KB, less than one GCY row
-// (512 KB) or one lazy slice (1 MB), so each contraction here is a tiled
-// batched matrix product, out[b][p, q] = sum_m F(b)[p, m] X[b][m, q],
-// with the batch b the factor's batch index (j for c1, i for c2), q the
-// field row t and m the contracted axis: one block per (8 batches,
-// 32 outputs p, 32 rows q), K-tiles of 8 of m staged in shared memory.
-// The field tile is transformed on load (fold, exp of the shifted value),
-// the factor tile read densely or built from the lazy form (one expf per
-// entry per block), and each thread keeps 4 x 8 sums in registers.  The
-// shifts are separate reductions, so every exp sees its final shift.
-// Threads are laid out so that neighbouring threads read and write
-// neighbouring batch entries for c1 (b = j is the minor axis) and
-// neighbouring p for c2 (p = j).  This first version does not stage the
-// next tile while computing the current one.
+// What bounds the column phase on an H100: 2*R*n1*n2*(n1 + n2) FP32 FMA
+// FLOP (10.5 GFLOP at the SSY cell (1024, 32, 384), 38.7 at the GCY view
+// (192, 512, 256); no tensor cores: TF32's 10-bit mantissa misses the
+// 1e-6-class bar) against ~100-200 MB of field traffic: operations.  The
+// TPU kernel holds whole row strips and (B, n, n) factors in VMEM; a
+// Hopper block holds 227 KB, so the phase is two tiled matrix products,
+// each fed by one pass over the field:
 //
-// The C entry points launch on the caller's stream, allocate nothing and
+//   1. a shift pass (strip_colmax_kernel: m1 per (t, j); fast:
+//      strip_rowmax_kernel: s per row) and an exp pass (strip_exp_kernel)
+//      that writes X1 = exp(a - shift) once, transposed through shared
+//      memory into a workspace laid out for the c1 product (field rows t
+//      contiguous): each field entry is exponentiated once per
+//      contraction;
+//   2. the c1 product (strip_gemm_kernel), whose epilogue (m1 + log, or
+//      the linear sum) writes a2 straight into the layout of c2's
+//      operand;
+//   3. lse: strip_shift_kernel, m2 per (t, i) and exp(a2 - m2) in place
+//      (each thread's values held in registers between the two);
+//   4. the c2 product, whose epilogue writes mid (m2 + log, or linear).
+//
+// strip_gemm_kernel computes out[b][p, q] = sum_m F(b)[p, m] X(b)[m, n]:
+// p the factor's output index, m the contracted one, n a field row t of
+// batch b (a batched factor: one grid row per batch) or, for a shared
+// factor, the pair (b, t) with the batch axis folded into N (one product
+// (P x M) . (M x B*R)).  A block owns a TM x TN output tile, each thread
+// an 8 x 8 tile in registers (rows ty*4 + {0..3} and TM/2 + ty*4 +
+// {0..3}, columns likewise, so both operands are read as float4 from
+// shared memory), each warp 4 x 8 threads' tiles (one shared-memory
+// wavefront per float4 load); K-chunks of 16 are double-buffered: X's
+// chunk arrives by cp.async while the current one is multiplied, F's
+// chunk is loaded into registers first and stored transposed after, a
+// lazy entry built there (logW0 + t[0,b] D[0] + t[1,b] D[1] in JAX's
+// _slice_W order, then expf), one barrier per chunk.  A lazy factor's
+// entries are built once
+// per block: once per launch where one column tile spans all field rows
+// (TN = 192 covers the GCY view's 192).  The tiles (gemm_tile, mirrored
+// by tiled_two_phase.strip_col_layout): P <= 32: 32 x 256; a lazy factor
+// or P <= 64: 64 x 192 (N <= 192) or 64 x 256; else 128 x 128.
+//
+// The C entry points launch on the caller's stream, allocate nothing (the
+// caller passes sdfs_strip_col_work_floats floats of workspace) and
 // return cudaGetLastError(); the Python wrappers validate every argument.
 // Transcendentals are CUDA's expf/logf/log1pf, built without fast-math.
+// SDFS_STRIP_SPLIT = 1 stops the column phase after its first shift and
+// exp pass, 2 after the c1 product, 3 after the c2 shift (lse), each
+// stage's result stored (bench/kernel_split.py).
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBB = 8;    // batches per block
-constexpr int kBP = 32;   // outputs p per block
-constexpr int kBQ = 32;   // field rows q per block
-constexpr int kBK = 8;    // contracted m per K-tile
-constexpr int kPad = 4;   // keeps shared rows 16-byte aligned, spreads banks
+constexpr int kKC = 16;           // contracted m per product chunk
+constexpr int kExpI = 8;          // i per exp-pass block
+constexpr int kGroups = 8;        // threads sharing one shift reduction
 constexpr int kRowThreads = 512;
 
-enum InMode { kInFoldExp = 0, kInExp = 1, kInLinear = 2 };
+__host__ __device__ constexpr int up4(int x) { return (x + 3) / 4 * 4; }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -102,30 +123,55 @@ __device__ __forceinline__ float fold(float x, float theta, float sr,
                  : theta * x;
 }
 
-// m1[t, j] = max_i a[t, i, j], a the folded ell (R, n1, n2): one thread
-// per (t, j), neighbouring threads on neighbouring j.
-template <bool HAS_SUB>
-__global__ void __launch_bounds__(kThreads)
-strip_midmax_kernel(const float* __restrict__ ell,
-                    const float* __restrict__ sub_row,
-                    const float* __restrict__ sub_col, float theta,
-                    float* __restrict__ m1, int n1, int n2) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t t = blockIdx.y;
-  if (j >= n2) return;
-  const float sr = HAS_SUB ? __ldg(sub_row + t) : 0.f;
-  const float* row = ell + t * n1 * n2;
-  float m = -INFINITY;
-  for (int i = 0; i < n1; ++i)
-    m = fmaxf(m, fold<HAS_SUB>(row[(size_t)i * n2 + j], theta, sr, sub_col,
-                               (size_t)i * n2 + j));
-  m1[t * n2 + j] = m;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  // src-size 0 fills the 16 bytes with zeros.
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// out[r] = max over the contiguous row r (length len) of src as it is
-// (FOLD false) or folded, theta*x less sub_row[r] and sub_col[x] when
-// HAS_SUB: one block per row.
-template <bool FOLD, bool HAS_SUB>
+// m1[j*Qp + t] = max_i a[t, i, j], a the folded ell (R, n1, n2): a block
+// of 32 columns j x kGroups, each group of threads striding i.
+template <bool HAS_SUB>
+__global__ void __launch_bounds__(kThreads)
+strip_colmax_kernel(const float* __restrict__ ell,
+                    const float* __restrict__ sub_row,
+                    const float* __restrict__ sub_col, float theta,
+                    float* __restrict__ m1, int n1, int n2, int Qp) {
+  __shared__ float part[kGroups][32];
+  const int jl = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + jl;
+  const size_t t = blockIdx.y;
+  float m = -INFINITY;
+  if (j < n2) {
+    const float sr = HAS_SUB ? __ldg(sub_row + t) : 0.f;
+    const float* row = ell + t * n1 * n2;
+#pragma unroll 4
+    for (int i = g; i < n1; i += kGroups) {
+      const size_t c = (size_t)i * n2 + j;
+      m = fmaxf(m, fold<HAS_SUB>(row[c], theta, sr, sub_col, c));
+    }
+  }
+  part[g][jl] = m;
+  __syncthreads();
+  if (g == 0 && j < n2) {
+#pragma unroll
+    for (int x = 1; x < kGroups; ++x) m = fmaxf(m, part[x][jl]);
+    m1[(size_t)j * Qp + t] = m;
+  }
+}
+
+// out[r] = max over the contiguous row r (length len) of the folded src
+// (theta*x, less sub_row[r] and sub_col[x] when HAS_SUB): one block per
+// row.
+template <bool HAS_SUB>
 __global__ void __launch_bounds__(kThreads)
 strip_rowmax_kernel(const float* __restrict__ src,
                     const float* __restrict__ sub_row,
@@ -137,143 +183,370 @@ strip_rowmax_kernel(const float* __restrict__ src,
   const float sr = HAS_SUB ? __ldg(sub_row + r) : 0.f;
   float m = -INFINITY;
   for (int x = threadIdx.x; x < len; x += blockDim.x)
-    m = fmaxf(m, FOLD ? fold<HAS_SUB>(row[x], theta, sr, sub_col, x)
-                      : row[x]);
+    m = fmaxf(m, fold<HAS_SUB>(row[x], theta, sr, sub_col, x));
   m = block_max(m, scratch);
   if (threadIdx.x == 0) out[r] = m;
 }
 
-// The operands of one batched contraction
-//   out[b][p, q] = [sh(b, q) + log] sum_m F(b)[p, m] X(b, m, q)
-// over batches b < B, outputs p < P, field rows q < Q, contracted m < M.
-struct Contract {
-  // Field: X(b, m, q) from src[q*sq + b*sb + m*sm]; kInFoldExp folds it
-  // (sub_row[q], sub_col[b*sb + m*sm]) and takes exp(a - sh), kInExp
-  // takes exp(x - sh), kInLinear reads it as it is.
-  const float* src;
-  long long sb, sm, sq;
-  const float *sub_row, *sub_col;
-  float theta;
-  // Shift sh(b, q) = sh[q*shq + b*shb].
-  const float* sh;
-  long long shb, shq;
-  // Factor: dense F[b*fb + p*M + m] (fb = 0 for a shared factor), or
-  // lazy exp(logw0[p*M + m] + sum_k t[k*B + b] * D[k*P*M + p*M + m]).
+// X[j*sj + i*si + t] = exp(a[t, i, j] - sh[j*shj + t*sht]): a block of
+// 32 t x 32 j over kExpI values of i, read along j into a shared tile
+// (all kExpI rounds of loads in flight), then written along t.
+template <bool HAS_SUB>
+__global__ void __launch_bounds__(kThreads)
+strip_exp_kernel(const float* __restrict__ ell,
+                 const float* __restrict__ sub_row,
+                 const float* __restrict__ sub_col, float theta,
+                 const float* __restrict__ sh, long long shj, long long sht,
+                 float* __restrict__ X, long long sj, long long si, int R,
+                 int n1, int n2) {
+  __shared__ float tile[kExpI][32][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int j0 = blockIdx.x * 32, t0 = blockIdx.y * 32;
+  const int i0 = blockIdx.z * kExpI, ni = min(kExpI, n1 - i0);
+  const int j = j0 + tx;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int t = t0 + ty + 8 * r;
+    if (t >= R || j >= n2) continue;
+    const float s = __ldg(sh + j * shj + t * sht);
+    const float sr = HAS_SUB ? __ldg(sub_row + t) : 0.f;
+    const float* row = ell + (size_t)t * n1 * n2;
+#pragma unroll
+    for (int u = 0; u < kExpI; ++u) {
+      if (u >= ni) break;
+      const size_t c = (size_t)(i0 + u) * n2 + j;
+      tile[u][ty + 8 * r][tx] =
+          expf(fold<HAS_SUB>(row[c], theta, sr, sub_col, c) - s);
+    }
+  }
+  __syncthreads();
+  const int t = t0 + tx;
+  if (t >= R) return;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int jj = j0 + ty + 8 * r;
+    if (jj >= n2) continue;
+#pragma unroll
+    for (int u = 0; u < kExpI; ++u)
+      if (u < ni) X[jj * sj + (i0 + u) * si + t] = tile[u][tx][ty + 8 * r];
+  }
+}
+
+// In place on X (i, j, t) = X[i*xi + j*xj + t]: m2[i*Qp + t] = max_j X,
+// then X = exp(X - m2).  A block of 32 t x kGroups, each group striding
+// j; up to kShiftHeld values a thread stay in registers between the two
+// loops, so X is read once (n2 <= kGroups * kShiftHeld).
+constexpr int kShiftHeld = 64;
+
+__global__ void __launch_bounds__(kThreads)
+strip_shift_kernel(float* __restrict__ X, long long xi, long long xj,
+                   float* __restrict__ m2, int R, int n2, int Qp) {
+  __shared__ float part[kGroups][32];
+  const int tl = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int t = blockIdx.x * 32 + tl;
+  const size_t i = blockIdx.y;
+  float* x = X + i * xi + t;
+  float held[kShiftHeld];
+  const bool in_regs = n2 <= kGroups * kShiftHeld;
+  float m = -INFINITY;
+  if (t < R) {
+    if (in_regs) {
+#pragma unroll
+      for (int u = 0; u < kShiftHeld; ++u) {
+        const int j = g + u * kGroups;
+        held[u] = j < n2 ? x[j * xj] : -INFINITY;
+        m = fmaxf(m, held[u]);
+      }
+    } else {
+#pragma unroll 4
+      for (int j = g; j < n2; j += kGroups) m = fmaxf(m, x[j * xj]);
+    }
+  }
+  part[g][tl] = m;
+  __syncthreads();
+#pragma unroll
+  for (int y = 0; y < kGroups; ++y) m = fmaxf(m, part[y][tl]);
+  if (t >= R) return;
+  if (g == 0) m2[i * Qp + t] = m;
+  if (in_regs) {
+#pragma unroll
+    for (int u = 0; u < kShiftHeld; ++u) {
+      const int j = g + u * kGroups;
+      if (j < n2) x[j * xj] = expf(held[u] - m);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = g; j < n2; j += kGroups) x[j * xj] = expf(x[j * xj] - m);
+  }
+}
+
+// One tiled product of the column phase (see the header):
+//   out[b*ob + p*op + q*oq] = [sh[b*shb + q*shq] + log] sum_m F(b)[p, m]
+//   X[b*xb + m*xm + n]
+// over p < P, m < M and columns n < N: q = n with b the grid's batch, or
+// (fold) b = n / Qp, q = n % Qp; columns with q >= Q are not stored.
+// X's rows are 16-byte aligned, N and Qp multiples of 4.
+struct Gemm {
+  const float* X;
+  long long xb, xm;
+  // Dense F[b*fb + p*M + m] (fb = 0: shared), or lazy
+  // exp(logw0[p*M + m] + sum_k t[k*nb + b] * D[k*P*M + p*M + m]).
   const float* F;
   long long fb;
   const float *logw0, *D, *t;
-  int rank;
-  // Output out[q*oq + b*ob + p*op].
   float* out;
   long long ob, op, oq;
-  int B, P, M, Q;
+  const float* sh;  // null: the linear sum
+  long long shb, shq;
+  int P, M, N, Q, Qp, nb, p_tiles;
+  int fold;
+  int vec;  // float4 stores: 1 along q (oq == 1), 2 along p (op == 1)
 };
 
-template <int IN, bool HAS_SUB, bool LAZY, bool OUT_LOG>
-__global__ void __launch_bounds__(kThreads)
-strip_contract_kernel(const Contract c) {
-  __shared__ __align__(16) float Fs[kBK][kBB][kBP + kPad];
-  __shared__ __align__(16) float Xs[kBK][kBB][kBQ + kPad];
+// Two blocks per SM are asked of the 192-thread tile only (at most 170
+// registers, no spills); capping the others at 128 registers spilled and
+// ran 1-12% slower (kernel_split, H100).
+template <int TM, int TN, int RANK>
+__global__ void __launch_bounds__((TM / 8) * (TN / 8),
+                                  (TM / 8) * (TN / 8) == 192 ? 2 : 1)
+strip_gemm_kernel(const Gemm g) {
+  constexpr int NT = (TM / 8) * (TN / 8);
+  constexpr int TX = TN / 8;
+  constexpr int A_N = TM * kKC, B_N = TN / 4 * kKC;
+  constexpr int A_PER = (A_N + NT - 1) / NT, B_PER = (B_N + NT - 1) / NT;
+  __shared__ __align__(16) float As[2][kKC][TM + 4];
+  __shared__ __align__(16) float Bs[2][kKC][TN + 4];
   const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * kBB, p0 = blockIdx.y * kBP,
-            q0 = blockIdx.z * kBQ;
-  // c1 (sb == 1): neighbouring threads on neighbouring batches; c2:
-  // on neighbouring outputs p.
-  const bool b_minor = c.sb == 1;
-  const int bb = b_minor ? (tid & 7) : ((tid >> 3) & 7);
-  const int pi = b_minor ? ((tid >> 3) & 7) : (tid & 7);
-  const int qi = tid >> 6;                     // rows qi*8 .. qi*8 + 7
-  const size_t PM = (size_t)c.P * c.M;
-
-  float acc[4][8];
+  const int p0 = (blockIdx.x % g.p_tiles) * TM;
+  const int n0 = (blockIdx.x / g.p_tiles) * TN;
+  const int b = blockIdx.y;
+  const float* X = g.X + (size_t)b * g.xb;
+  const float* F = RANK == 0 ? g.F + (size_t)b * g.fb : g.logw0;
+  const size_t PM = (size_t)g.P * g.M;
+  float tk[RANK > 0 ? RANK : 1];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int x = 0; x < 8; ++x) acc[r][x] = 0.f;
+  for (int k = 0; k < RANK; ++k) tk[k] = __ldg(g.t + (size_t)k * g.nb + b);
 
-  for (int m0 = 0; m0 < c.M; m0 += kBK) {
-    __syncthreads();                           // previous tile consumed
-    for (int x = tid; x < kBK * kBB * kBP; x += kThreads) {
-      const int m = x % kBK, p = (x / kBK) % kBP, lb = x / (kBK * kBP);
-      const int b = b0 + lb, pg = p0 + p, mg = m0 + m;
-      float v = 0.f;
-      if (b < c.B && pg < c.P && mg < c.M) {
-        const size_t e = (size_t)pg * c.M + mg;
-        if (LAZY) {
-          float a = __ldg(c.logw0 + e);
-          for (int k = 0; k < c.rank; ++k)
-            a = __fadd_rn(a, __fmul_rn(__ldg(c.t + (size_t)k * c.B + b),
-                                       __ldg(c.D + k * PM + e)));
-          v = expf(a);
-        } else {
-          v = __ldg(c.F + b * c.fb + e);
-        }
-      }
-      Fs[m][lb][p] = v;
+  // F's chunk: entry e = (p, m) = (e / kKC, e % kKC), neighbouring threads
+  // on neighbouring m; raw values held in registers across the product.
+  float ra[A_PER][RANK + 1];
+  auto load_a = [&](int m0) {
+#pragma unroll
+    for (int r = 0; r < A_PER; ++r) {
+      const int e = tid + r * NT;
+      const int p = p0 + e / kKC, m = m0 + e % kKC;
+      const bool ok = (A_N % NT == 0 || e < A_N) && p < g.P && m < g.M;
+      const size_t x = (size_t)p * g.M + m;
+      ra[r][0] = ok ? __ldg(F + x) : (RANK > 0 ? -INFINITY : 0.f);
+#pragma unroll
+      for (int k = 0; k < RANK; ++k)
+        ra[r][k + 1] = ok ? __ldg(g.D + k * PM + x) : 0.f;
     }
-    for (int x = tid; x < kBK * kBB * kBQ; x += kThreads) {
-      int m, lb;
-      if (b_minor) {
-        lb = x % kBB;
-        m = (x / kBB) % kBK;
-      } else {
-        m = x % kBK;
-        lb = (x / kBK) % kBB;
+  };
+  auto store_a = [&](int buf) {
+#pragma unroll
+    for (int r = 0; r < A_PER; ++r) {
+      const int e = tid + r * NT;
+      if (A_N % NT != 0 && e >= A_N) break;
+      float v = ra[r][0];
+      if (RANK > 0) {
+#pragma unroll
+        for (int k = 0; k < RANK; ++k)
+          v = __fadd_rn(v, __fmul_rn(tk[k], ra[r][k + 1]));
+        v = expf(v);
       }
-      const int q = x / (kBK * kBB);
-      const int b = b0 + lb, qg = q0 + q, mg = m0 + m;
-      float v = 0.f;
-      if (b < c.B && qg < c.Q && mg < c.M) {
-        const size_t col = (size_t)b * c.sb + (size_t)mg * c.sm;
-        const float raw = c.src[(size_t)qg * c.sq + col];
-        if (IN == kInLinear) {
-          v = raw;
-        } else {
-          const float sh = __ldg(c.sh + qg * c.shq + b * c.shb);
-          const float a =
-              (IN == kInFoldExp)
-                  ? fold<HAS_SUB>(raw, c.theta,
-                                  HAS_SUB ? __ldg(c.sub_row + qg) : 0.f,
-                                  c.sub_col, col)
-                  : raw;
-          v = expf(a - sh);
-        }
-      }
-      Xs[m][lb][q] = v;
+      As[buf][e % kKC][e / kKC] = v;
+    }
+  };
+  // X's chunk: 16-byte pieces, neighbouring threads on neighbouring
+  // columns; rows beyond M and columns beyond N read zeros.
+  auto load_b = [&](int m0, int buf) {
+#pragma unroll
+    for (int r = 0; r < B_PER; ++r) {
+      const int e = tid + r * NT;
+      if (B_N % NT != 0 && e >= B_N) break;
+      const int c4 = e % (TN / 4), row = e / (TN / 4);
+      const int m = m0 + row, n = n0 + 4 * c4;
+      const bool ok = m < g.M && n < g.N;
+      cp_async16(&Bs[buf][row][4 * c4], ok ? X + (size_t)m * g.xm + n : g.X,
+                 ok);
+    }
+    cp_async_commit();
+  };
+
+  // A warp owns 4 x 8 threads' tiles, so that its shared loads per k are
+  // 4 distinct float4 of A and 8 of B, one wavefront each (a warp along
+  // one row of 32 threads read 32 of B: 4 wavefronts, 14% slower at the
+  // SSY cell).
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ty = (warp / (TX / 8)) * 4 + (lane >> 3);
+  const int tx = (warp % (TX / 8)) * 8 + (lane & 7);
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int chunks = (g.M + kKC - 1) / kKC;
+  load_b(0, 0);
+  load_a(0);
+  store_a(0);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    const int cur = c & 1;
+    const bool more = c + 1 < chunks;
+    if (more) {
+      load_b((c + 1) * kKC, cur ^ 1);
+      load_a((c + 1) * kKC);
+    }
+#pragma unroll
+    for (int k = 0; k < kKC; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[cur][k][TM / 2 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[cur][k][TN / 2 + tx * 4]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (more) {
+      store_a(cur ^ 1);
+      cp_async_wait_all();
     }
     __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float f[4], xq[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) f[r] = Fs[k][bb][pi + 8 * r];
-      const float4 x0 = *reinterpret_cast<const float4*>(&Xs[k][bb][qi * 8]);
-      const float4 x1 =
-          *reinterpret_cast<const float4*>(&Xs[k][bb][qi * 8 + 4]);
-      xq[0] = x0.x; xq[1] = x0.y; xq[2] = x0.z; xq[3] = x0.w;
-      xq[4] = x1.x; xq[5] = x1.y; xq[6] = x1.z; xq[7] = x1.w;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int x = 0; x < 8; ++x) acc[r][x] = fmaf(f[r], xq[x], acc[r][x]);
-    }
   }
 
-  const int b = b0 + bb;
-  if (b >= c.B) return;
+  // Epilogue: each of the thread's 2 x 2 groups of 4 rows x 4 columns.
 #pragma unroll
-  for (int x = 0; x < 8; ++x) {
-    const int q = q0 + qi * 8 + x;
-    if (q >= c.Q) continue;
-    const float sh = OUT_LOG ? __ldg(c.sh + q * c.shq + b * c.shb) : 0.f;
+  for (int jg = 0; jg < 2; ++jg) {
+    const int n = n0 + jg * (TN / 2) + tx * 4;
+    if (n >= g.N) continue;
+    const int bb = g.fold ? n / g.Qp : b;
+    const int q = g.fold ? n - bb * g.Qp : n;
+    if (q >= g.Q) continue;
+    const int nq = min(4, g.Q - q);
+    float sh[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int p = p0 + pi + 8 * r;
-      if (p < c.P)
-        c.out[q * c.oq + b * c.ob + p * c.op] =
-            OUT_LOG ? sh + logf(acc[r][x]) : acc[r][x];
+    for (int u = 0; u < 4; ++u)
+      sh[u] = (g.sh != nullptr && u < nq)
+                  ? __ldg(g.sh + (size_t)bb * g.shb + (size_t)(q + u) * g.shq)
+                  : 0.f;
+#pragma unroll
+    for (int ig = 0; ig < 2; ++ig) {
+      const int pb = p0 + ig * (TM / 2) + ty * 4;
+      if (pb >= g.P) continue;
+      const int np = min(4, g.P - pb);
+      float v[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float a = acc[ig * 4 + i][jg * 4 + u];
+          v[i][u] = g.sh != nullptr ? sh[u] + logf(a) : a;
+        }
+      float* o = g.out + (size_t)bb * g.ob + (size_t)pb * g.op +
+                 (size_t)q * g.oq;
+      if (g.vec == 1 && nq == 4) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (i < np)
+            *reinterpret_cast<float4*>(o + i * g.op) =
+                make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+      } else if (g.vec == 2 && np == 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u < nq)
+            *reinterpret_cast<float4*>(o + u * g.oq) =
+                make_float4(v[0][u], v[1][u], v[2][u], v[3][u]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (i < np && u < nq) o[i * g.op + u * g.oq] = v[i][u];
+      }
     }
   }
+}
+
+// The factor of a contraction: 0 shared (dense, batch stride 0), 1 dense
+// batched, 2 lazy (batched).
+int factor_kind(const float* F, long long fb) {
+  return F == nullptr ? 2 : (fb != 0 ? 1 : 0);
+}
+
+// A product's tile (TM x TN): P <= 32 -> 32 x 256; a lazy factor or P <=
+// 64 -> 64 x 192 where N <= 192 (one column tile sweeps every field row)
+// else 64 x 256; else 128 x 128.
+void gemm_tile(int P, int N, int kind, int* tm, int* tn) {
+  if (P <= 32) {
+    *tm = 32, *tn = 256;
+  } else if (kind == 2 || P <= 64) {
+    *tm = 64, *tn = N <= 192 ? 192 : 256;
+  } else {
+    *tm = 128, *tn = 128;
+  }
+}
+
+// (TM, TN, p_tiles, n_tiles, batches, threads) of one contraction with
+// P outputs per batch, N columns, `batches` grid rows.
+void gemm_layout(int P, long long N, int kind, int batches, int* out) {
+  int tm, tn;
+  gemm_tile(P, (int)min(N, (long long)INT_MAX), kind, &tm, &tn);
+  out[0] = tm;
+  out[1] = tn;
+  out[2] = (P + tm - 1) / tm;
+  out[3] = (int)min((N + tn - 1) / tn, (long long)INT_MAX);
+  out[4] = batches;
+  out[5] = (tm / 8) * (tn / 8);
+}
+
+template <int TM, int TN>
+cudaError_t launch_gemm_tile(const Gemm& g, int rank, dim3 grid,
+                             cudaStream_t st) {
+  constexpr int NT = (TM / 8) * (TN / 8);
+  switch (rank) {
+    case 0:
+      strip_gemm_kernel<TM, TN, 0><<<grid, NT, 0, st>>>(g);
+      break;
+    case 1:
+      strip_gemm_kernel<TM, TN, 1><<<grid, NT, 0, st>>>(g);
+      break;
+    case 2:
+      strip_gemm_kernel<TM, TN, 2><<<grid, NT, 0, st>>>(g);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_gemm(Gemm g, int kind, int rank, int batches,
+                        cudaStream_t st) {
+  int lay[6];
+  gemm_layout(g.P, g.N, kind, batches, lay);
+  const long long blocks = (long long)lay[2] * lay[3];
+  if (blocks > INT_MAX || batches > 65535) return cudaErrorInvalidValue;
+  g.p_tiles = lay[2];
+  const dim3 grid((unsigned)blocks, batches);
+  if (lay[0] == 32) return launch_gemm_tile<32, 256>(g, rank, grid, st);
+  if (lay[0] == 64 && lay[1] == 192)
+    return launch_gemm_tile<64, 192>(g, rank, grid, st);
+  if (lay[0] == 64) return launch_gemm_tile<64, 256>(g, rank, grid, st);
+  return launch_gemm_tile<128, 128>(g, rank, grid, st);
+}
+
+// Workspace of the column phase: X1 and X2 (n1 * n2 * Qp each), m1 (n2 *
+// Qp), m2 (n1 * Qp), Qp = R rounded up to 4.
+long long col_work_floats(int R, int n1, int n2) {
+  const long long Qp = up4(R);
+  return 2LL * n1 * n2 * Qp + (long long)(n1 + n2) * Qp;
 }
 
 // out[i, n] = sum_m A[i, m] * B[m, n] for i < I, n < N, by the whole
@@ -407,101 +680,135 @@ strip_row_kernel(const float* __restrict__ mid,
       });
 }
 
-template <int IN, bool HAS_SUB, bool LAZY, bool OUT_LOG>
-cudaError_t launch_contract(const Contract& c, cudaStream_t st) {
-  const dim3 grid((c.B + kBB - 1) / kBB, (c.P + kBP - 1) / kBP,
-                  (c.Q + kBQ - 1) / kBQ);
-  strip_contract_kernel<IN, HAS_SUB, LAZY, OUT_LOG>
-      <<<grid, kThreads, 0, st>>>(c);
-  return cudaGetLastError();
-}
-
-template <int IN, bool HAS_SUB, bool OUT_LOG>
-cudaError_t dispatch_lazy(const Contract& c, cudaStream_t st) {
-  return c.logw0 != nullptr
-             ? launch_contract<IN, HAS_SUB, true, OUT_LOG>(c, st)
-             : launch_contract<IN, HAS_SUB, false, OUT_LOG>(c, st);
-}
-
 }  // namespace
 
 extern "C" {
 
-// m1 (R, n2) = max over i of the folded ell (R, n1, n2); sub_row (R,) and
-// sub_col (n1, n2) both given or both null.
-int sdfs_strip_midmax(const float* ell, const float* sub_row,
-                      const float* sub_col, float theta, float* m1, int R,
-                      int n1, int n2, void* stream) {
-  if ((sub_row == nullptr) != (sub_col == nullptr))
-    return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((n2 + kThreads - 1) / kThreads, R);
-  if (sub_row != nullptr)
-    strip_midmax_kernel<true><<<grid, kThreads, 0, st>>>(
-        ell, sub_row, sub_col, theta, m1, n1, n2);
-  else
-    strip_midmax_kernel<false><<<grid, kThreads, 0, st>>>(
-        ell, nullptr, nullptr, theta, m1, n1, n2);
-  return cudaGetLastError();
+// Workspace floats of sdfs_strip_col.
+long long sdfs_strip_col_work_floats(int R, int n1, int n2) {
+  return col_work_floats(R, n1, n2);
 }
 
-// out (rows,) = max over each contiguous row of src (rows, len), as it
-// is (fold 0) or folded (fold 1: theta*x, less sub_row (rows,) and
-// sub_col (len,) when given, both or neither).
-int sdfs_strip_rowmax(const float* src, const float* sub_row,
-                      const float* sub_col, float theta, int fold,
-                      float* out, int rows, int len, void* stream) {
-  if ((sub_row == nullptr) != (sub_col == nullptr) ||
-      (!fold && sub_row != nullptr))
-    return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (sub_row != nullptr)
-    strip_rowmax_kernel<true, true><<<rows, kThreads, 0, st>>>(
-        src, sub_row, sub_col, theta, out, len);
-  else if (fold)
-    strip_rowmax_kernel<true, false><<<rows, kThreads, 0, st>>>(
-        src, nullptr, nullptr, theta, out, len);
-  else
-    strip_rowmax_kernel<false, false><<<rows, kThreads, 0, st>>>(
-        src, nullptr, nullptr, theta, out, len);
-  return cudaGetLastError();
+// The launcher's layout of the column phase's two products: out[0..5] for
+// c1 and out[6..11] for c2, each (TM, TN, p_tiles, n_tiles, batches,
+// threads); kind1 / kind2 are the factors' kinds (0 shared, 1 dense
+// batched, 2 lazy).  Returns 1.
+int sdfs_strip_col_layout(int R, int n1, int n2, int kind1, int kind2,
+                          int* out) {
+  const long long Qp = up4(R);
+  gemm_layout(n1, kind1 ? Qp : n2 * Qp, kind1, kind1 ? n2 : 1, out);
+  gemm_layout(n2, kind2 ? Qp : n1 * Qp, kind2, kind2 ? n1 : 1, out + 6);
+  return 1;
 }
 
-// One batched contraction (see struct Contract).  in_mode: 0 fold + exp
-// (sub_row/sub_col optional, both or neither), 1 exp of the shifted
-// field, 2 the field as it is; out_log: write sh + log(sum).  A lazy
-// factor is given by logw0 (P, M), D (rank, P, M) and t (rank, B), a
-// dense one by F with batch stride fb.
-int sdfs_strip_contract(const float* src, long long sb, long long sm,
-                        long long sq, const float* sub_row,
-                        const float* sub_col, float theta, const float* sh,
-                        long long shb, long long shq, const float* F,
-                        long long fb, const float* logw0, const float* D,
-                        const float* t, int rank, float* out, long long ob,
-                        long long op, long long oq, int B, int P, int M,
-                        int Q, int in_mode, int out_log, void* stream) {
-  if ((sub_row == nullptr) != (sub_col == nullptr) ||
-      (logw0 == nullptr) == (F == nullptr) || B <= 0 || P <= 0 || M <= 0 ||
-      Q <= 0 || (P + kBP - 1) / kBP > 65535 || (Q + kBQ - 1) / kBQ > 65535)
+// The column phase of ell (R, n1, n2) into out (R, n1, n2): mode 0 fast
+// (s (R,) receives the row shifts), 1 lse.  Factor k is dense (Fk, batch
+// stride fbk, 0 when shared) or lazy (logw0_k, Dk, tk of rank 1 or 2);
+// sub_row (R,) and sub_col (n1, n2) both given or both null; work holds
+// sdfs_strip_col_work_floats floats.
+int sdfs_strip_col(const float* ell, const float* sub_row,
+                   const float* sub_col, float theta, const float* F1,
+                   long long fb1, const float* logw0_1, const float* D1,
+                   const float* t1, int rank1, const float* F2,
+                   long long fb2, const float* logw0_2, const float* D2,
+                   const float* t2, int rank2, float* out, float* s,
+                   float* work, int R, int n1, int n2, int mode,
+                   void* stream) {
+  const bool lazy1 = logw0_1 != nullptr, lazy2 = logw0_2 != nullptr;
+  if ((mode != 0 && mode != 1) || (sub_row == nullptr) != (sub_col == nullptr)
+      || (F1 == nullptr) != lazy1 || (F2 == nullptr) != lazy2
+      || (lazy1 ? rank1 < 1 || rank1 > 2 || !D1 || !t1 : rank1 != 0)
+      || (lazy2 ? rank2 < 1 || rank2 > 2 || !D2 || !t2 : rank2 != 0)
+      || R <= 0 || n1 <= 0 || n2 <= 0 || R > 65535 || n1 > 65535
+      || n2 > 65535)
     return cudaErrorInvalidValue;
-  const Contract c{src,   sb,    sm, sq,  sub_row, sub_col, theta, sh,
-                   shb,   shq,   F,  fb,  logw0,   D,       t,     rank,
-                   out,   ob,    op, oq,  B,       P,       M,     Q};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool sub = sub_row != nullptr;
-  if (in_mode == kInFoldExp) {
+  const bool fast = mode == 0, sub = sub_row != nullptr;
+  const int Qp = up4(R);
+  const long long field = (long long)n1 * n2 * Qp;
+  float* X1 = work;
+  float* X2 = work + field;
+  float* m1 = X2 + field;
+  float* m2 = m1 + (long long)n2 * Qp;
+  const int k1 = factor_kind(F1, fb1), k2 = factor_kind(F2, fb2);
+  // X1 (j, i, t) for c1: batched over j, or i-major with (j, t) folded.
+  const long long sj = k1 ? (long long)n1 * Qp : Qp;
+  const long long si = k1 ? Qp : (long long)n2 * Qp;
+  // X2 (i, j, t) for c2: batched over i, or j-major with (i, t) folded.
+  const long long x2i = k2 ? (long long)n2 * Qp : Qp;
+  const long long x2j = k2 ? Qp : (long long)n1 * Qp;
+
+  // 1. The first shift and X1 = exp(a - shift).
+  const float* sh1 = fast ? s : m1;
+  const long long shj = fast ? 0 : Qp;
+  if (fast) {
     if (sub)
-      return out_log ? dispatch_lazy<kInFoldExp, true, true>(c, st)
-                     : dispatch_lazy<kInFoldExp, true, false>(c, st);
-    return out_log ? dispatch_lazy<kInFoldExp, false, true>(c, st)
-                   : dispatch_lazy<kInFoldExp, false, false>(c, st);
+      strip_rowmax_kernel<true><<<R, kThreads, 0, st>>>(
+          ell, sub_row, sub_col, theta, s, n1 * n2);
+    else
+      strip_rowmax_kernel<false><<<R, kThreads, 0, st>>>(
+          ell, nullptr, nullptr, theta, s, n1 * n2);
+  } else {
+    const dim3 grid((n2 + 31) / 32, R);
+    if (sub)
+      strip_colmax_kernel<true><<<grid, kThreads, 0, st>>>(
+          ell, sub_row, sub_col, theta, m1, n1, n2, Qp);
+    else
+      strip_colmax_kernel<false><<<grid, kThreads, 0, st>>>(
+          ell, nullptr, nullptr, theta, m1, n1, n2, Qp);
   }
-  if (sub) return cudaErrorInvalidValue;
-  if (in_mode == kInExp && out_log)
-    return dispatch_lazy<kInExp, false, true>(c, st);
-  if (in_mode == kInLinear && !out_log)
-    return dispatch_lazy<kInLinear, false, false>(c, st);
-  return cudaErrorInvalidValue;
+  cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  {
+    const dim3 grid((n2 + 31) / 32, (R + 31) / 32,
+                    (n1 + kExpI - 1) / kExpI);
+    if (sub)
+      strip_exp_kernel<true><<<grid, kThreads, 0, st>>>(
+          ell, sub_row, sub_col, theta, sh1, shj, 1, X1, sj, si, R, n1, n2);
+    else
+      strip_exp_kernel<false><<<grid, kThreads, 0, st>>>(
+          ell, nullptr, nullptr, theta, sh1, shj, 1, X1, sj, si, R, n1, n2);
+  }
+  rc = cudaGetLastError();
+#if SDFS_STRIP_SPLIT == 1
+  return rc;
+#endif
+  if (rc != cudaSuccess) return rc;
+
+  // 2. c1: F = W_c1(j) (p = i, m = i'), columns t (or (j, t)); the
+  // epilogue writes a2 (m1 + log) or the linear sum into X2's layout.
+  Gemm g1{X1, k1 ? (long long)n1 * Qp : 0, k1 ? (long long)Qp : n2 * (long long)Qp,
+          F1, fb1, logw0_1, D1, t1, X2, x2j, x2i, 1,
+          fast ? nullptr : m1, Qp, 1,
+          n1, n1, (int)(k1 ? Qp : (long long)n2 * Qp), R, Qp, n2, 0,
+          !k1, 1};
+  if ((long long)n2 * Qp > INT_MAX) return cudaErrorInvalidValue;
+  rc = launch_gemm(g1, k1, rank1, k1 ? n2 : 1, st);
+#if SDFS_STRIP_SPLIT == 2
+  return rc;
+#endif
+  if (rc != cudaSuccess) return rc;
+
+  // 3. lse: m2 per (t, i) and exp(a2 - m2) in place.
+  if (!fast) {
+    strip_shift_kernel<<<dim3((R + 31) / 32, n1), kThreads, 0, st>>>(
+        X2, x2i, x2j, m2, R, n2, Qp);
+    rc = cudaGetLastError();
+  }
+#if SDFS_STRIP_SPLIT == 3
+  return rc;
+#endif
+  if (rc != cudaSuccess) return rc;
+
+  // 4. c2: F = W_c2(i) (p = j, m = j'), columns t (or (i, t)); the
+  // epilogue writes mid[t, i, j] (m2 + log, or the linear sum).
+  if ((long long)n1 * Qp > INT_MAX) return cudaErrorInvalidValue;
+  Gemm g2{X2, k2 ? (long long)n2 * Qp : 0, k2 ? (long long)Qp : n1 * (long long)Qp,
+          F2, fb2, logw0_2, D2, t2, out, n2, 1, (long long)n1 * n2,
+          fast ? nullptr : m2, Qp, 1,
+          n2, n2, (int)(k2 ? Qp : (long long)n1 * Qp), R, Qp, n1, 0,
+          !k2, n2 % 4 == 0 ? 2 : 0};
+  return launch_gemm(g2, k2, rank2, k2 ? n1 : 1, st);
 }
 
 // Row phase over mid (R = L*K, C) in tiles of TC columns: mode 0 fast

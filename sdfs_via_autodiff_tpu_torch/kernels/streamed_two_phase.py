@@ -306,9 +306,11 @@ def streamed_config(ops: TwoPhaseOperands) -> Optional[str]:
     a folded baseline: "pair" for a continuous-GCY set whose blocks fit;
     "batched" for a set whose c2 factor is batched over the current c1
     index (continuous SSY) when a field row's (I, J) group fits a pass-B
-    block and the deferred pass-C tiles fit; for shared factors "full"
+    block, the deferred pass-C tiles fit and the slab kernel has a
+    layout (:func:`pass_c_deferred_layout`); for shared factors "full"
     when the (I, J) group fits a pass-B block and the pass-C tile fits,
-    else "deferred" when the deferred passes' blocks fit; else None
+    else "deferred" when the deferred passes' blocks fit and the slab
+    kernel has a layout; else None
     (batched c1 factors, mid_col corrections on a pair or deferred set,
     or blocks beyond shared memory or the grid: not covered).  A
     batched set may still be covered through its conjugated-shared form
@@ -324,16 +326,18 @@ def streamed_config(ops: TwoPhaseOperands) -> Optional[str]:
             return "pair"
         return None
     row_block = pass_b_smem_bytes(I, J) <= SMEM_LIMIT
+    # The deferred and batched pass C run the sets the earlier kernel's
+    # footprint accepts and the slab kernel has a layout for.
+    slab = (pass_c_deferred_tiles(L, K) is not None
+            and pass_c_deferred_layout(L, K, J) is not None)
     if ops.c2_batched:
-        if (row_block and pass_c_deferred_tiles(L, K) is not None
-                and I <= _GRID_Y_MAX):
+        if row_block and slab and I <= _GRID_Y_MAX:
             return "batched"
         return None
     if row_block and pass_c_tile(L * K, K) is not None:
         return "full"
     if (not ops.has_mid and pass_b_deferred_smem_bytes(I) <= SMEM_LIMIT
-            and pass_c_deferred_tiles(L, K) is not None
-            and max(L * K, I) <= _GRID_Y_MAX):
+            and slab and max(L * K, I) <= _GRID_Y_MAX):
         return "deferred"
     return None
 

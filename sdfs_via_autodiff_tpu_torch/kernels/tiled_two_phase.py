@@ -26,8 +26,8 @@ phase has a plain PyTorch version (``strip_col_plain``,
 ``strip_row_plain``) and a dispatcher: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernels (built from source at first use) or
 to an error.  ``LAUNCHES`` counts the kernel launches per phase (the
-column phase is one shift reduction and one contraction per column axis,
-counted once).
+column phase is one shift and exp pass and one tiled product per column
+axis, counted once; ``strip_col_layout`` mirrors the products' tiles).
 """
 
 from __future__ import annotations
@@ -52,7 +52,8 @@ from .streamed_two_phase import (_GRID_Y_MAX, _SM_SMEM, _BLOCK_RESERVED,
                                  streamed_mode)
 
 __all__ = ["TPU_ONLY_OPTIONS", "reject_tpu_options", "LAUNCHES",
-           "strip_col", "strip_col_plain", "strip_row", "strip_row_plain",
+           "strip_col", "strip_col_plain", "strip_col_layout",
+           "strip_col_work_floats", "strip_row", "strip_row_plain",
            "strip_row_tile", "strip_device_operands", "tiled_engine",
            "make_tiled_T_log",
            "make_tiled_T_log_ssy", "make_tiled_T_log_ssy_continuous",
@@ -74,9 +75,8 @@ _MODES = {"fast": 0, "lse": 1}
 # form when the set has one (the JAX package's default).
 LAZY_BYTES = 6 * 1024 * 1024
 _STRIP_ROW_TILES = (64, 32, 16, 8, 4, 2, 1)
-# Field rows per column-phase block (the .cu's kBQ).
-_STRIP_COL_ROWS = 32
-_CONTRACT_IN = {"fold_exp": 0, "exp": 1, "linear": 2}
+# A column factor's kind, as the .cu's factor_kind numbers it.
+_FACTOR_KINDS = {"shared": 0, "dense": 1, "lazy": 2}
 
 # A column factor: a (n, n) or (B, n, n) tensor, or the lazy triple
 # (logW0 (n, n), D (K, n, n), t (K, B)).
@@ -178,14 +178,13 @@ def _lib():
     if not getattr(lib, "_sdfs_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         ll = ctypes.c_longlong
-        lib.sdfs_strip_midmax.argtypes = [p, p, p, f, p, i, i, i, p]
-        lib.sdfs_strip_midmax.restype = i
-        lib.sdfs_strip_rowmax.argtypes = [p, p, p, f, i, p, i, i, p]
-        lib.sdfs_strip_rowmax.restype = i
-        lib.sdfs_strip_contract.argtypes = [
-            p, ll, ll, ll, p, p, f, p, ll, ll, p, ll, p, p, p, i, p, ll, ll,
-            ll, i, i, i, i, i, i, p]
-        lib.sdfs_strip_contract.restype = i
+        lib.sdfs_strip_col.argtypes = ([p, p, p, f] + [p, ll, p, p, p, i] * 2
+                                       + [p, p, p, i, i, i, i, p])
+        lib.sdfs_strip_col.restype = i
+        lib.sdfs_strip_col_work_floats.argtypes = [i, i, i]
+        lib.sdfs_strip_col_work_floats.restype = ll
+        lib.sdfs_strip_col_layout.argtypes = [i, i, i, i, i, p]
+        lib.sdfs_strip_col_layout.restype = i
         lib.sdfs_strip_row.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                        f, f, i, p]
         lib.sdfs_strip_row.restype = i
@@ -219,19 +218,53 @@ def _check_factor(name: str, W: Factor, dev, n: int, B: int):
     return W, n * n, None
 
 
-def _contract(lib, stream, src, strides, fold, sh, sh_strides, factor,
-              out, out_strides, dims, in_mode: str, out_log: bool) -> None:
-    """One launch of the batched contraction kernel (see
-    ``csrc/tiled_two_phase.cu``, ``struct Contract``)."""
-    dense, fb, lazy = factor
-    sub_row, sub_col, theta = fold
-    log0, D, t = lazy if lazy is not None else (None, None, None)
-    rc = lib.sdfs_strip_contract(
-        _ptr(src), *strides, _ptr(sub_row), _ptr(sub_col), float(theta),
-        _ptr(sh), *sh_strides, _ptr(dense), fb, _ptr(log0), _ptr(D), _ptr(t),
-        0 if D is None else D.shape[0], _ptr(out), *out_strides, *dims,
-        _CONTRACT_IN[in_mode], int(out_log), stream)
-    _raise_on(lib, rc, "strip column-phase contraction")
+def _factor_kind(W: Factor) -> str:
+    """"shared", "dense" (batched) or "lazy": how the products read a
+    column factor."""
+    if isinstance(W, tuple):
+        return "lazy"
+    return "shared" if W.dim() == 2 else "dense"
+
+
+def _gemm_tile(P: int, N: int, kind: str) -> Tuple[int, int]:
+    """(TM, TN) of one column-phase product (mirrors the .cu's
+    gemm_tile): 32 x 256 for P <= 32; 64 x 192 (one column tile over N <=
+    192 field rows) or 64 x 256 for a lazy factor or P <= 64; else 128 x
+    128."""
+    if P <= 32:
+        return 32, 256
+    if kind == "lazy" or P <= 64:
+        return 64, 192 if N <= 192 else 256
+    return 128, 128
+
+
+def strip_col_work_floats(R: int, n1: int, n2: int) -> int:
+    """float32 workspace of one column phase (mirrors the .cu's
+    col_work_floats): X1 and X2 (n1 * n2 * Qp each), the shifts m1 (n2 *
+    Qp) and m2 (n1 * Qp), Qp = R rounded up to 4."""
+    Qp = -(-R // 4) * 4
+    return 2 * n1 * n2 * Qp + (n1 + n2) * Qp
+
+
+def strip_col_layout(R: int, n1: int, n2: int, kind1: str,
+                     kind2: str) -> dict:
+    """The column phase's two products as the launcher lays them out
+    (mirrors the .cu's sdfs_strip_col_layout): for "c1" and "c2" a tuple
+    (TM, TN, p_tiles, n_tiles, batches, threads).  c1 has P = M = n1 and
+    columns the field rows t of each batch j (dense or lazy W_c1), or the
+    (j, t) pairs of one product (shared W_c1, the batch axis folded into
+    N); c2 likewise with n2, batches i.  N counts Qp = R rounded up to 4
+    rows per batch."""
+    Qp = -(-R // 4) * 4
+
+    def one(P, B, kind):
+        batched = kind != "shared"
+        N = Qp if batched else B * Qp
+        tm, tn = _gemm_tile(P, N, kind)
+        return (tm, tn, -(-P // tm), -(-N // tn), B if batched else 1,
+                (tm // 8) * (tn // 8))
+
+    return {"c1": one(n1, n2, kind1), "c2": one(n2, n1, kind2)}
 
 
 def _strip_col_cuda(ell, W_c1, W_c2, theta, mode, sub_row, sub_col):
@@ -240,51 +273,38 @@ def _strip_col_cuda(ell, W_c1, W_c2, theta, mode, sub_row, sub_col):
     _check("ell", ell, dev, (R, n1, n2))
     f1 = _check_factor("W_c1", W_c1, dev, n1, n2)
     f2 = _check_factor("W_c2", W_c2, dev, n2, n1)
+    for name, (_, _, lazy) in (("W_c1", f1), ("W_c2", f2)):
+        if lazy is not None and lazy[1].shape[0] not in (1, 2):
+            raise ValueError(f"{name}: the strip kernels take lazy factors "
+                             f"of rank 1 or 2, not {lazy[1].shape[0]}")
     if sub_row is not None:
         _check("sub_row", sub_row, dev, (R,))
         _check("sub_col", sub_col, dev, (n1, n2))
-    if R > _GRID_Y_MAX:
-        raise ValueError(f"strip column phase with {R} rows exceeds the grid")
+    if max(R, n1, n2) > _GRID_Y_MAX:
+        raise ValueError(f"strip column phase at ({R}, {n1}, {n2}) "
+                         "exceeds the grid")
     lib = _lib()
     f32 = dict(dtype=torch.float32, device=dev)
-    a2 = torch.empty_like(ell)
     out = torch.empty_like(ell)
-    row, plane = n1 * n2, n2
-    fast = mode == "fast"
+    s = torch.empty((R,), **f32)
+    work = torch.empty((strip_col_work_floats(R, n1, n2),), **f32)
+
+    def args(f):
+        dense, fb, lazy = f
+        log0, D, t = lazy if lazy is not None else (None, None, None)
+        return (_ptr(dense), fb, _ptr(log0), _ptr(D), _ptr(t),
+                0 if D is None else D.shape[0])
+
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if fast:
-            sh1 = torch.empty((R,), **f32)
-            rc = lib.sdfs_strip_rowmax(_ptr(ell), _ptr(sub_row),
-                                       _ptr(sub_col), float(theta), 1,
-                                       _ptr(sh1), R, row, stream)
-            sh1_strides = (0, 1)
-        else:
-            sh1 = torch.empty((R, n2), **f32)
-            rc = lib.sdfs_strip_midmax(_ptr(ell), _ptr(sub_row),
-                                       _ptr(sub_col), float(theta),
-                                       _ptr(sh1), R, n1, n2, stream)
-            sh1_strides = (1, n2)
-        _raise_on(lib, rc, "strip column-phase shift")
-        # c1: batch b = j, outputs p = i, rows q = t, contracted m = i'.
-        _contract(lib, stream, ell, (1, plane, row),
-                  (sub_row, sub_col, theta), sh1, sh1_strides, f1, a2,
-                  (1, plane, row), (n2, n1, n1, R), "fold_exp", not fast)
-        # c2: batch b = i, outputs p = j, rows q = t, contracted m = j'.
-        if fast:
-            _contract(lib, stream, a2, (plane, 1, row), (None, None, 0.0),
-                      None, (0, 0), f2, out, (plane, 1, row),
-                      (n1, n2, n2, R), "linear", False)
-        else:
-            sh2 = torch.empty((R, n1), **f32)
-            rc = lib.sdfs_strip_rowmax(_ptr(a2), None, None, 0.0, 0,
-                                       _ptr(sh2), R * n1, n2, stream)
-            _raise_on(lib, rc, "strip column-phase shift")
-            _contract(lib, stream, a2, (plane, 1, row), (None, None, 0.0),
-                      sh2, (1, n1), f2, out, (plane, 1, row),
-                      (n1, n2, n2, R), "exp", True)
+        rc = lib.sdfs_strip_col(_ptr(ell), _ptr(sub_row), _ptr(sub_col),
+                                float(theta), *args(f1), *args(f2), _ptr(out),
+                                _ptr(s), _ptr(work), R, n1, n2, _MODES[mode],
+                                stream)
+    _raise_on(lib, rc, "strip column phase")
+    fast = mode == "fast"
     LAUNCHES["strip_col_fast" if fast else "strip_col"] += 1
-    return (out, sh1.reshape(R, 1)) if fast else out
+    return (out, s.reshape(R, 1)) if fast else out
 
 
 def strip_col(ell, W_c1: Factor, W_c2: Factor, theta: float, mode: str,
@@ -485,7 +505,9 @@ def _make_strip_T_log(ops: TwoPhaseOperands, dtype, mode: str,
     T.twin = twin
     T.mode = mode
     T.engine = "strip"
-    T.strip_sizes = (_STRIP_COL_ROWS, strip_row_tile(L, K))
+    T.strip_sizes = (strip_col_layout(R, n1, n2, _factor_kind(W_c1),
+                                      _factor_kind(W_c2))["c2"][1],
+                     strip_row_tile(L, K))
     T.lazy = (isinstance(W_c1, tuple), isinstance(W_c2, tuple))
     if ops.baseline_log_w is not None:
         T.baseline_log_w = torch.as_tensor(
@@ -510,9 +532,10 @@ def make_tiled_T_log(ops: TwoPhaseOperands,
     otherwise; a batched column factor larger than ``lazy_bytes`` runs in
     its lazy form when the set has one (``T.lazy`` says which did).  The
     returned ``T`` carries ``T.twin`` (the eager evaluator, the tangent of
-    ``torch.func.jvp``), ``T.mode``, ``T.engine``, ``T.strip_sizes`` (field
-    rows per column-phase block, columns per row-phase block) and, for a
-    set with a folded baseline, ``T.baseline_log_w``.
+    ``torch.func.jvp``), ``T.mode``, ``T.engine``, ``T.strip_sizes`` (the
+    columns of a c2 product tile, :func:`strip_col_layout`, and the
+    columns per row-phase block) and, for a set with a folded baseline,
+    ``T.baseline_log_w``.
     """
     reject_tpu_options(tpu_options)
     if dtype != torch.float32:

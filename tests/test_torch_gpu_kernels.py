@@ -404,7 +404,15 @@ def test_kernel_wrappers_validate_arguments(cuda):
 # Strip tier (B9) and pass B's mid_col branch (B1): (model, shapes,
 # method, baseline, lazy_bytes, mode) as in chip_smoke.py, ragged on
 # purpose.  Plain GCY sets run lse only (their rows span beyond float32's
-# exp range, outside fast mode's envelope).
+# exp range, outside fast mode's envelope).  The column phase's product
+# tiles (tiled_two_phase.strip_col_layout) at their edges: shared factors
+# folded into N (P and N ragged on 128 x 128 at (3,5,67,130); n2 % 4 != 0
+# at (4,5,6,7)), dense-batched ones on 128 x 128 and 32 x 256
+# ((3,4,70,9)), lazy rank 1 on 64 x 192 ((3,4,37,70)) and on 64 x 256
+# with R = 260 rows over two column tiles ((20,13,5,70)), lazy rank 2 on
+# 32 x 256 and 64 x 192 ((8,5,4,3,3,3): P = 40); M is never a multiple
+# of the 16-deep chunks there.  (2,3,5,520): n2 beyond the lse shift's
+# register-held 512 values.
 STRIP_CASES = [
     (n, s_, m_, b, lb, mode)
     for n, s_, m_, b, lb in (
@@ -413,7 +421,12 @@ STRIP_CASES = [
         ("ssy", (6, 5, 6, 16), "rouwenhorst", "loglinear", 0),
         ("gcy", (6, 5, 4, 3, 4, 3), "rouwenhorst", None, None),
         ("gcy", (6, 5, 4, 3, 4, 3), "tauchen", "loglinear", 0),
-        ("ssy", (3, 4, 37, 70), "tauchen", "loglinear", 0))
+        ("ssy", (3, 4, 37, 70), "tauchen", "loglinear", 0),
+        ("ssy", (3, 5, 67, 130), "rouwenhorst", None, None),
+        ("ssy", (3, 4, 70, 9), "tauchen", "loglinear", None),
+        ("ssy", (20, 13, 5, 70), "tauchen", "loglinear", 0),
+        ("gcy", (8, 5, 4, 3, 3, 3), "tauchen", "loglinear", 0),
+        ("ssy", (2, 3, 5, 520), "tauchen", "loglinear", 0))
     for mode in (("fast", "lse") if n == "ssy" or b else ("lse",))]
 
 
@@ -465,6 +478,34 @@ def test_strip_kernels_match_plain(cuda, name, shapes, method, baseline,
     out = tt.strip_row(mid, *row_args)
     assert float((out - tt.strip_row_plain(mid, *row_args)).abs().max()) \
         <= ATOL
+
+
+# (R, n1, n2, kind1, kind2) of the column phase: both cells (SSY
+# (1024, 32, 384) normalized and plain, the GCY view (192, 512, 256)
+# normalized and plain) and the STRIP_CASES sets' views.
+STRIP_LAYOUTS = [(1024, 32, 384, "dense", "lazy"),
+                 (1024, 32, 384, "shared", "shared"),
+                 (192, 512, 256, "lazy", "lazy"),
+                 (192, 512, 256, "shared", "shared"),
+                 (15, 67, 130, "shared", "shared"),
+                 (12, 70, 9, "dense", "dense"),
+                 (260, 5, 70, "lazy", "lazy"),
+                 (12, 37, 70, "lazy", "lazy"),
+                 (9, 40, 12, "lazy", "lazy"),
+                 (20, 6, 7, "shared", "dense")]
+
+
+@pytest.mark.parametrize("R,n1,n2,kind1,kind2", STRIP_LAYOUTS)
+def test_strip_col_layout_mirrors_the_launcher(cuda, R, n1, n2, kind1,
+                                               kind2):
+    want = tt.strip_col_layout(R, n1, n2, kind1, kind2)
+    got = (ctypes.c_int * 12)()
+    k = tt._FACTOR_KINDS
+    assert tt._lib().sdfs_strip_col_layout(R, n1, n2, k[kind1], k[kind2],
+                                           got) == 1
+    assert (tuple(got[:6]), tuple(got[6:])) == (want["c1"], want["c2"])
+    assert (tt._lib().sdfs_strip_col_work_floats(R, n1, n2)
+            == tt.strip_col_work_floats(R, n1, n2))
 
 
 @pytest.mark.parametrize("c2_here", [True, False])

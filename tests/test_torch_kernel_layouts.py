@@ -8,17 +8,23 @@ thread (following the kernels' loops as written here; the ``gpu`` tests
 hold the layout mirrors against the launchers' own choice).  Also pins
 ``streamed_config``'s classification of the operand sets the other port
 tests build (the kernels' layouts must not move a set between
-configurations).  The kernels themselves run in
+configurations) and walks the strip column phase's products
+(``tiled_two_phase.strip_col_layout``: each output stored once, each
+field entry exponentiated once per contraction, each lazy factor entry
+built once per column tile).  The kernels themselves run in
 ``test_torch_gpu_kernels.py`` on the card.
 """
 
 import collections
+import types
 
+import numpy as np
 import pytest
 
 import sdfs_via_autodiff_tpu_torch as P
 from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
 from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
+from sdfs_via_autodiff_tpu_torch.kernels import tiled_two_phase as tt
 
 
 def _once(writes):
@@ -234,6 +240,35 @@ def test_pass_c_slab_layout_covers_the_classified_sets(J):
             assert lay[5] <= st.SMEM_LIMIT and lay[4] <= 512
 
 
+@pytest.mark.parametrize("J", [16, 64, 256])
+def test_streamed_config_classes_only_sets_the_slab_kernel_runs(J):
+    # Every (L, K) in 1..256: a shared set whose column group is too wide
+    # for the full configuration (I = 512) and a batched one (I = 8) are
+    # classed "deferred" / "batched" only where the pass-C launcher has a
+    # slab layout; the others go to the strip tier.
+    for I, batched, want in ((512, False, "deferred"), (8, True, "batched")):
+        for L in range(1, 257):
+            for K in range(1, 257):
+                ops = types.SimpleNamespace(
+                    shapes=(L, K, I, J), c1_batched=False, c2_batched=batched,
+                    has_mid=False, is_pair=False, pair_shapes=None)
+                if st.streamed_config(ops) == want:
+                    assert st.pass_c_deferred_layout(L, K, J) is not None, (
+                        L, K, I, J)
+
+
+def test_uncovered_plain_ssy_set_runs_the_strip_tier():
+    # The plain SSY Tauchen set (103, 41, 64, 512): the earlier pass-C
+    # footprint fits, the slab kernel has no layout, so the decision is
+    # the strip tier (fast mode), where JAX runs it too.
+    ops = _ssy((103, 41, 64, 512), "tauchen")
+    assert st.pass_c_deferred_tiles(103, 41) is not None
+    assert st.pass_c_deferred_layout(103, 41, 512) is None
+    assert st.streamed_config(ops) is None
+    tier, run_ops, mode = tt.tiled_engine(ops)
+    assert (tier, mode) == ("strip", "fast") and run_ops is ops
+
+
 def _ssy(sizes, method="rouwenhorst", baseline=None):
     m = P.SSY()
     return P.two_phase_operands_ssy(
@@ -336,3 +371,134 @@ def test_fused_layout_choice():
     lay = fd.fused_layout(36, 1296)
     assert (lay["bm"], lay["n_tiles"], lay["resident"]) == (32, 82, False)
     assert not fd.fused_layout(675, 650)["resident"]
+
+
+def _strip_gemm_walk(P, M, Q, B, kind, lay):
+    """One column-phase product (``strip_gemm_kernel``), following its
+    loops over the launcher's grid: counts of the outputs (b, p, q) the
+    threads' epilogues store and of the lazy factor entries (b, p, m) the
+    blocks build while staging (every staged entry, lazy or not)."""
+    TM, TN, pt, nt, nb, NT = lay
+    Qp = -(-Q // 4) * 4
+    fold = kind == "shared"
+    N = B * Qp if fold else Qp
+    tid = np.arange(NT)
+    warp, lane = np.divmod(tid, 32)       # a warp: 4 x 8 threads' tiles
+    ty = (warp // (TN // 64)) * 4 + lane // 8
+    tx = (warp % (TN // 64)) * 8 + lane % 8
+    assert len(set(zip(ty, tx))) == NT
+    assert ty.max() < TM // 8 and tx.max() < TN // 8
+    four = np.arange(4)
+    rows = np.concatenate([ty[:, None] * 4 + four,
+                           TM // 2 + ty[:, None] * 4 + four], 1)
+    cols = np.concatenate([tx[:, None] * 4 + four,
+                           TN // 2 + tx[:, None] * 4 + four], 1)
+    # The staging loops: entry e = tid + r * NT of the TM x 16 chunk.
+    staged = (tid[:, None] + NT * np.arange(-(-TM * 16 // NT))).ravel()
+    staged = staged[staged < TM * 16]
+    assert np.array_equal(np.sort(staged), np.arange(TM * 16))
+    out = np.zeros((B, P, Q), int)
+    built = np.zeros((nb, P, M), int)
+    for bx in range(pt * nt):
+        p0, n0 = (bx % pt) * TM, (bx // pt) * TN
+        p, n = np.broadcast_arrays(p0 + rows[:, :, None],
+                                   n0 + cols[:, None, :])
+        for by in range(nb):
+            b = n // Qp if fold else np.full_like(n, by)
+            q = n % Qp if fold else n
+            ok = (p < P) & (n < N) & (q < Q)
+            np.add.at(out, (b[ok], p[ok], q[ok]), 1)
+            for m0 in range(0, M, 16):
+                pp, mm = p0 + staged // 16, m0 + staged % 16
+                ok = (pp < P) & (mm < M)
+                np.add.at(built, (by, pp[ok], mm[ok]), 1)
+    return out, built
+
+
+def _strip_exp_walk(R, n1, n2):
+    """Counts of the field entries (t, i, j) the exp pass
+    (``strip_exp_kernel``) exponentiates, over its grid of 32 j x 32 t x
+    8 i blocks of 8 x 32 threads, and of the a2 entries (i, j, t) the
+    lse shift (``strip_shift_kernel``) exponentiates, over its 32 t x n1
+    blocks of 8 groups striding j."""
+    exps = np.zeros((R, n1, n2), int)
+    ty, tx = np.divmod(np.arange(256), 32)
+    for j0 in range(0, n2, 32):
+        for t0 in range(0, R, 32):
+            for i0 in range(0, n1, 8):
+                for i in range(i0, min(i0 + 8, n1)):
+                    for r in range(4):
+                        t, j = t0 + ty + 8 * r, j0 + tx
+                        ok = (t < R) & (j < n2)
+                        np.add.at(exps, (t[ok], i, j[ok]), 1)
+    shifts = np.zeros((n1, n2, R), int)
+    g, tl = np.divmod(np.arange(256), 32)
+    for t0 in range(0, R, 32):
+        for i in range(n1):
+            for gg, t in zip(g, t0 + tl):
+                if t < R:
+                    shifts[i, gg::8, t] += 1
+    return exps, shifts
+
+
+# (R, n1, n2, kind1, kind2): the gpu tests' strip sets (shared factors
+# folded into N with P and N ragged on 128 x 128; dense-batched; lazy on
+# 64 x 192, and on 64 x 256 with R = 260 field rows over two column
+# tiles), a lazy factor whose Qp = 192 rows fit one column tile, and one
+# whose 200 do not.
+STRIP_WALKS = [(20, 6, 7, "shared", "shared"),
+               (15, 67, 130, "shared", "shared"),
+               (12, 70, 9, "dense", "dense"),
+               (260, 5, 70, "lazy", "lazy"),
+               (12, 37, 70, "lazy", "lazy"),
+               (9, 40, 12, "lazy", "lazy"),
+               (190, 33, 5, "lazy", "shared"),
+               (200, 33, 6, "lazy", "dense")]
+
+
+@pytest.mark.parametrize("R,n1,n2,kind1,kind2", STRIP_WALKS)
+def test_strip_col_layout_owns_every_output_once(R, n1, n2, kind1, kind2):
+    lay = tt.strip_col_layout(R, n1, n2, kind1, kind2)
+    for c, (P, B, kind) in (("c1", (n1, n2, kind1)),
+                            ("c2", (n2, n1, kind2))):
+        TM, TN, pt, nt, nb, threads = lay[c]
+        assert threads == (TM // 8) * (TN // 8) <= 256
+        # Static shared memory: two chunks of both operands.
+        assert 4 * 2 * 16 * (TM + 4 + TN + 4) <= 48 * 1024
+        out, built = _strip_gemm_walk(P, P, R, B, kind, lay[c])
+        # Every output of the contraction is stored once.
+        assert out.min() == 1 and out.max() == 1
+        # A factor entry is staged (for a lazy one: built, an expf each)
+        # once per column tile: once per launch where one tile spans
+        # every field row.
+        assert built.min() == built.max() == nt
+        if kind == "lazy" and -(-R // 4) * 4 <= 192:
+            assert nt == 1
+    # Each field entry is exponentiated once for c1, each a2 entry once
+    # for c2 (lse).
+    exps, shifts = _strip_exp_walk(R, n1, n2)
+    assert exps.min() == exps.max() == 1
+    assert shifts.min() == shifts.max() == 1
+    assert tt.strip_col_work_floats(R, n1, n2) == (
+        (2 * n1 * n2 + n1 + n2) * (-(-R // 4) * 4))
+
+
+def test_strip_col_layout_choice():
+    # Normalized SSY (c1 dense-batched, c2 lazy rank 1): 384 batches of
+    # one 32 x 256 tile row, then 64 x 256 tiles over 32 batches; plain
+    # SSY: W_c1 folded into N (1,536 tiles), W_c2 one 384 x 32,768
+    # product in 128 x 128 tiles; the normalized GCY view: 64 x 192 tiles
+    # whose one column tile spans all 192 field rows, so each lazy entry
+    # is built once per launch; the plain GCY view: 128 x 128 tiles.
+    lay = tt.strip_col_layout(1024, 32, 384, "dense", "lazy")
+    assert lay == {"c1": (32, 256, 1, 4, 384, 128),
+                   "c2": (64, 256, 6, 4, 32, 256)}
+    lay = tt.strip_col_layout(1024, 32, 384, "shared", "shared")
+    assert lay == {"c1": (32, 256, 1, 1536, 1, 128),
+                   "c2": (128, 128, 3, 256, 1, 256)}
+    lay = tt.strip_col_layout(192, 512, 256, "lazy", "lazy")
+    assert lay == {"c1": (64, 192, 8, 1, 256, 192),
+                   "c2": (64, 192, 4, 1, 512, 192)}
+    lay = tt.strip_col_layout(192, 512, 256, "shared", "shared")
+    assert lay == {"c1": (128, 128, 4, 384, 1, 256),
+                   "c2": (128, 128, 2, 768, 1, 256)}
