@@ -22,12 +22,14 @@ Phases, in order; any failure exits non-zero before the result line:
    kernels vs the plain eager twin (CUDA events);
 7. GCY: the deferred pass B and pass C against their plain versions at
    a ragged view (2,4,56,258) and at the 25.2M-point grid's
-   (12,16,512,256); one application of the GCY operator at
-   (32,16,16,12,16,16) Tauchen against the float64 operator;
+   (12,16,512,256); the deferred pass B's tensor-core layout at ragged
+   (R, I, J) = (3,301,70) and (2,517,37), with and without a fold; one
+   application of the GCY operator at (32,16,16,12,16,16) Tauchen
+   against the float64 operator;
 8. the GCY path: a float32 Newton solve through the deferred kernels at
    (32,16,16,12,16,16) Tauchen from the log-linear warm start, checked
-   against the float64 operator, with the launch counts, the outer and
-   BiCGStab iterations and the seconds;
+   against the float64 operator, with the launch counts (one deferred
+   pass B per pass C), the outer and BiCGStab iterations and the seconds;
 9. GCY: ms per application, kernels vs the eager twin, ms per tangent
    matvec, and each deferred kernel vs its plain version, the deferred
    pass B also with a synthetic folded baseline at that view;
@@ -143,10 +145,14 @@ Phases, in order; any failure exits non-zero before the result line:
     launch counts, iterations, seconds, float64 residual and distance to
     the plain solve of the same grid;
 30. timing of the new kernels against their plain versions at the SSY
-    cell (the sets the paths ran them on), and of the strip column phase
-    at the 25.2M GCY view (192, 512, 256), lse, rank-2 lazy and plain;
+    cell (the sets the paths ran them on), of the strip column phase at
+    the 25.2M GCY view (192, 512, 256), lse, rank-2 lazy and plain, and
+    of the row phase at its (L, K, C) = (12, 16, 131072), plain;
 31. a JSON line of per-kernel facts (with each kernel's bound: the
-    largest of its FP32 operations over 67 TFLOP/s, its bytes over 3.35
+    largest of its FP32 operations over 67 TFLOP/s, its TF32 tensor-core
+    operations over 495 TFLOP/s (the deferred pass B at I = 512: split
+    TF32, three TF32 products per FP32 one; its row also gives the FP32
+    route's bound, ``bound_fp32_ms``, and share), its bytes over 3.35
     TB/s and, for the post-interp kernel, the pair pass C and the
     deferred pass B with the fold, its special-function operations
     (expf, logf, log1pf) over 16 per clock per SM at the card's maximum
@@ -192,6 +198,8 @@ MAIN_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
 # (12,16,512,256)) and a ragged view (2,4,56,258) for the kernel checks.
 GCY_SHAPES, GCY_METHOD = (32, 16, 16, 12, 16, 16), "tauchen"
 GCY_RAGGED = (7, 8, 43, 2, 6, 4)
+# (R, I, J) of the deferred pass B's tensor-core layout at ragged shapes.
+DEFB_RAGGED = ((3, 301, 70), (2, 517, 37))
 GCY_F64_RESIDUAL = 5e-5     # max |T64(ell*) - ell*|
 # The continuous-SSY fused tier: the JAX suite's
 # ssy_continuous_fused_kernel_20^4_f32_20k_iters cell
@@ -256,6 +264,7 @@ SSYC_TOL = 2e-5
 SSYC_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
 ANCHOR20 = ((20, 20, 20, 20), 8, 2.5, 976.43571268, 8.62554633)
 PEAK_FP32 = 67e12           # H100 SXM FP32 (non-tensor) FLOP/s
+PEAK_TF32 = 495e12          # H100 SXM TF32 tensor-core FLOP/s (dense)
 HBM_BYTES_PER_S = 3.35e12
 _CSRC = "sdfs_via_autodiff_tpu_torch/kernels/csrc/"
 SOURCES = {"streamed_two_phase": _CSRC + "streamed_two_phase.cu",
@@ -280,6 +289,8 @@ STRIP_CHECKS = (("ssy", (4, 5, 6, 7), "rouwenhorst", None, None),
 # by its pass-C footprint but whose slab pass C has no layout: the tier
 # decision sends it to the strip tier (fast mode).
 UNCOVERED_SSY = (103, 41, 64, 512)
+# One step past it, R = 6,144: the row phase's narrow layout.
+NARROW_SSY = (128, 48, 64, 512)
 MID_CHECKS = ((4, 8, 6, 64), (32, 32, 32, 384))
 MID_SCALE = 0.05            # seeded non-separable mid_col, log units
 REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
@@ -309,9 +320,13 @@ SOURCE_OF = {k: SOURCES["fused_two_matmul" if k.startswith("fused")
                         else "tiled_two_phase" if k.startswith("strip")
                         else k if k in SOURCES else "streamed_two_phase"]
              for k in KERNELS}
-# (FP32 FLOP, bytes[, special-function operations]) of each kernel's
-# timed call, filled by the phases.
+# (FP32 FLOP, bytes[, special-function operations[, TF32 tensor-core
+# FLOP]]) of each kernel's timed call, filled by the phases.  A kernel
+# whose products run on the tensor cores (B3 at I = 512: split TF32,
+# three TF32 products per FP32 one) counts them as TF32 FLOP; FP32_WORK
+# keeps its FP32 FLOP for the bound of the FP32 route beside it.
 WORK = {}
+FP32_WORK = {}
 # Special-function results (expf, logf, log1pf: one each) per clock per
 # SM; main() sets SFU_PER_S from the SM count and the card's maximum SM
 # clock (nvidia-smi clocks.max.sm).
@@ -319,13 +334,15 @@ SFU_PER_CLOCK_PER_SM = 16
 SFU_PER_S = [0.0]
 
 
-def bound_of(flop, nbytes, sfu=0):
+def bound_of(flop, nbytes, sfu=0, tf32=0):
     """(bound_ms, bound_by, binding term) of work: the largest of FP32
-    operations over the peak rate, special-function operations over the
+    operations over the FP32 peak rate, TF32 tensor-core operations over
+    the TF32 peak rate, special-function operations over the
     special-function rate and bytes (each input read once, each output
     written once) over the memory rate."""
     terms = {"FP32": flop / PEAK_FP32, "bytes": nbytes / HBM_BYTES_PER_S,
-             "special functions": sfu / SFU_PER_S[0] if sfu else 0.0}
+             "special functions": sfu / SFU_PER_S[0] if sfu else 0.0,
+             "TF32": tf32 / PEAK_TF32}
     term = max(terms, key=terms.get)
     return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
             term)
@@ -420,6 +437,31 @@ def gcy_phases(torch, port, st, dev, smi):
         max_err["pass_b_deferred"] = max(max_err["pass_b_deferred"], err_b)
         max_err["pass_c_deferred"] = max(max_err["pass_c_deferred"], err_c)
         del ell, got_b, want_b, mid, got_c, want_c
+    # The tensor-core layout of the deferred pass B at ragged (R, I, J)
+    # (I not a multiple of 4, 8 or 16; J not of 4 or 2), with and
+    # without a fold, on seeded synthetic operands (W_c1 row-stochastic).
+    for R_, I_, J_ in DEFB_RAGGED:
+        check(st.pass_b_deferred_layout(I_, J_)[0] == "mma",
+              f"pass_b_deferred ({R_}, {I_}, {J_}) is not the tensor-core "
+              "layout")
+        rng = np.random.default_rng(SEED + I_)
+        W = rng.random((I_, I_))
+        W /= W.sum(axis=1, keepdims=True)
+        th_ = -36.0
+        e_ = cast(np.log(800.0) + 0.05 * rng.standard_normal((R_, I_, J_)))
+        fold = (cast(th_ * np.log(800.0) + 0.1 * rng.standard_normal(R_)),
+                cast(0.05 * rng.standard_normal((I_, J_))))
+        for sub in ((None, None), fold):
+            got = st.pass_b_deferred(e_, cast(W.T), th_, *sub)
+            want = st.pass_b_deferred_plain(e_, cast(W.T), th_, *sub)
+            err = float((got - want).abs().max())
+            check(bool(((got - want).abs()
+                        <= KERNEL_ATOL + eps32 * want.abs()).all()),
+                  f"pass_b_deferred ({R_}, {I_}, {J_}) fold "
+                  f"{sub[0] is not None}: max abs err {err:.3e}")
+            max_err["pass_b_deferred"] = max(max_err["pass_b_deferred"], err)
+            print(f"pass_b_deferred tensor cores ({R_}, {I_}, {J_}) fold "
+                  f"{sub[0] is not None}: max abs err {err:.3e}")
     T = port.make_tiled_T_log_gcy(model, disc, device=dev)
     check(T.engine == "streamed-deferred" and T.mode == "lse",
           f"GCY {GCY_SHAPES} runs {T.engine}/{T.mode}, not the deferred "
@@ -454,6 +496,8 @@ def gcy_phases(torch, port, st, dev, smi):
     check(all(launches[k] > 0 for k in ("pass_b_deferred",
                                          "pass_c_deferred")),
           f"a deferred kernel of the GCY path never launched: {launches}")
+    check(launches["pass_b_deferred"] == launches["pass_c_deferred"],
+          f"GCY path: not one deferred pass B per application: {launches}")
     ell_star = torch.log(sol.w_star.double())
     check(bool(torch.isfinite(ell_star).all())
           and tuple(ell_star.shape) == GCY_SHAPES, "GCY w* not finite/shaped")
@@ -494,12 +538,22 @@ def gcy_phases(torch, port, st, dev, smi):
     # and the two row contractions in pass C.  Each pass reads and writes
     # one f32 field (plus its small factors).
     field = 4 * R * C
-    WORK["pass_b_deferred"] = (2 * R * I * I * J, 2 * field + 4 * I * I)
+    # B3 at I = 512 runs split TF32 on the tensor cores: three TF32
+    # products per FP32 one; its FP32 bound is kept beside.
+    WORK["pass_b_deferred"] = (0, 2 * field + 4 * I * I, 0,
+                               3 * 2 * R * I * I * J)
+    FP32_WORK["pass_b_deferred"] = (2 * R * I * I * J, 2 * field + 4 * I * I)
     WORK["pass_c_deferred"] = (2 * R * I * J * J + 2 * C * R * (L + K),
                                2 * field + 4 * (J * J + L * L + K * K + R + C))
     for name, (k_ms, p_ms) in kernels_ms.items():
         print(f"timing {name} {ops.shapes}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms ({smi})")
+    b_tf32 = bound("pass_b_deferred")[0]
+    b_fp32 = bound_of(*FP32_WORK["pass_b_deferred"])[0]
+    k_ms = kernels_ms["pass_b_deferred"][0]
+    print(f"pass_b_deferred {ops.shapes} bounds: split-TF32 route "
+          f"{b_tf32:.4f} ms (share {b_tf32 / k_ms:.3f}), FP32 "
+          f"{b_fp32:.4f} ms (share {b_fp32 / k_ms:.3f}) ({smi})")
     # B3 with a folded baseline at this view (the normalized GCY cell's
     # shape; a synthetic fold: a row baseline near theta*log(800) and a
     # small column profile), kernel vs plain.
@@ -1671,7 +1725,12 @@ def strip_kernel_check(torch, tt, ops, dev, mode, lazy_bytes):
     del got, want
     row_args = (scale, S, d["W_r1"], d["W_r2"], d["add_row"], d["add_col"],
                 th, be, mode)
+    key = "strip_row" + ("_fast" if mode == "fast" else "")
+    before = tt.LAUNCHES[key]
     got_r = tt.strip_row(mid, *row_args)
+    check(tt.LAUNCHES[key] == before + 1,
+          f"{key} {ops.shapes}: {tt.LAUNCHES[key] - before} launch counts "
+          "for one row phase")
     want_r = tt.strip_row_plain(mid, *row_args)
     err_row = float((got_r - want_r).abs().max())
     check(bool(torch.isfinite(got_r).all()) and err_row <= KERNEL_ATOL,
@@ -1848,26 +1907,31 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
         del T, x
         torch.cuda.empty_cache()
 
-    # 28b. A set the streamed pass C has no slab layout for runs the
-    # strip tier: one application against its float64 twin.
-    model_u = port.SSY()
-    disc_u = port.discretize_ssy(model_u, UNCOVERED_SSY, method="tauchen")
-    T = port.make_tiled_T_log_ssy(model_u, disc_u, engine="auto", device=dev)
-    T64 = port.T_ssy_factory(model_u, disc_u, space="log", device=dev)
-    ell64 = torch.as_tensor(noise_field(UNCOVERED_SSY, SEED), device=dev)
-    before = dict(tt.LAUNCHES)
-    got = T(ell64.float())
-    torch.cuda.synchronize()
-    err = float((got.double() - T64(ell64)).abs().max())
-    check(T.engine == "strip" and tt.LAUNCHES["strip_col_fast"]
-          == before["strip_col_fast"] + 1,
-          f"{UNCOVERED_SSY} auto runs {T.engine}/{T.mode}")
-    check(err <= OPERATOR_ATOL,
-          f"{UNCOVERED_SSY} {T.engine} one application vs f64: {err:.3e}")
-    print(f"operator plain SSY {UNCOVERED_SSY} auto: {T.engine}/{T.mode}, "
-          f"one application vs f64 max abs err {err:.3e} ({smi})")
-    del T, T64, ell64, got, model_u, disc_u
-    torch.cuda.empty_cache()
+    # 28b. Sets the streamed pass C has no slab layout for run the strip
+    # tier (the second in the row phase's narrow layout): one application
+    # each against its float64 twin.
+    for shapes in (UNCOVERED_SSY, NARROW_SSY):
+        model_u = port.SSY()
+        disc_u = port.discretize_ssy(model_u, shapes, method="tauchen")
+        T = port.make_tiled_T_log_ssy(model_u, disc_u, engine="auto",
+                                      device=dev)
+        T64 = port.T_ssy_factory(model_u, disc_u, space="log", device=dev)
+        ell64 = torch.as_tensor(noise_field(shapes, SEED), device=dev)
+        before = dict(tt.LAUNCHES)
+        got = T(ell64.float())
+        torch.cuda.synchronize()
+        err = float((got.double() - T64(ell64)).abs().max())
+        check(T.engine == "strip" and all(
+            tt.LAUNCHES[k] == before[k] + 1
+            for k in ("strip_col_fast", "strip_row_fast")),
+              f"{shapes} auto runs {T.engine}/{T.mode}")
+        check(err <= OPERATOR_ATOL,
+              f"{shapes} {T.engine} one application vs f64: {err:.3e}")
+        print(f"operator plain SSY {shapes} auto: {T.engine}/{T.mode}, row "
+              f"layout {tt.strip_row_layout(*shapes[:2])}, one application "
+              f"vs f64 max abs err {err:.3e} ({smi})")
+        del T, T64, ell64, got, model_u, disc_u
+        torch.cuda.empty_cache()
 
     # 29. The paths, each with every launch count set to 0 just before it.
     launches = {}
@@ -1886,6 +1950,13 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
         check(r64 <= MAIN_F64_RESIDUAL, f"{label} f64 residual {r64:.3e}")
         check(all(got[k] > 0 for k in want),
               f"{label}: a kernel of the path never launched: {got}")
+        # One row phase per column phase (strips), one deferred pass B per
+        # pass C (GCY).
+        for k, per in (("strip_row", "strip_col"),
+                       ("strip_row_fast", "strip_col_fast"),
+                       ("pass_b_deferred", "pass_c_deferred")):
+            check(k not in want or got[k] == got[per],
+                  f"{label}: {got[k]} {k} launches for {got[per]} {per}")
         for k in want:
             launches[k] = got[k]
 
@@ -1988,12 +2059,13 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
             + (4 * (R + 1) if mode == "fast" else 0))
         del col_args, row_args, ell, mid
     # The strip column phase at the GCY view (192, 512, 256), lse:
-    # normalized (rank-2 lazy factors) and plain (shared).
+    # normalized (rank-2 lazy factors) and plain (shared); the row phase
+    # at its (L, K, C) = (12, 16, 131072), plain.
     for baseline in ("loglinear", None):
         _, _, ops = _operand_set(port, "gcy", GCY_SHAPES, GCY_METHOD,
                                  baseline, dense=baseline is None)
-        _, _, col_args, _, ell, _ = strip_kernel_check(torch, tt, ops, dev,
-                                                       "lse", None)
+        _, _, col_args, row_args, ell, mid = strip_kernel_check(
+            torch, tt, ops, dev, "lse", None)
         Lg, Kg, Ig, Jg = ops.shapes
         Rg = Lg * Kg
         k_ms = time_ms(torch, lambda y: tt.strip_col(y, *col_args), ell, n=20)
@@ -2005,7 +2077,20 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
         print(f"timing strip_col GCY view {tuple(ops.shapes)} {baseline} "
               f"lse lazy {lazy}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
               f"bound {bms:.4f} ms ({term}), share {bms / k_ms:.3f} ({smi})")
-        del ops, col_args, ell
+        if baseline is None:
+            Cg = Ig * Jg
+            k_ms = time_ms(torch, lambda y: tt.strip_row(y, *row_args), mid,
+                           n=20)
+            p_ms = time_ms(torch, lambda y: tt.strip_row_plain(y, *row_args),
+                           mid, n=20)
+            bms, _, term = bound_of(
+                2 * Cg * Rg * (Lg + Kg),
+                8 * Rg * Cg + 4 * (Lg * Lg + Kg * Kg + Rg + Cg),
+                6 * Rg * Cg)
+            print(f"timing strip_row GCY view (L, K, C) = {(Lg, Kg, Cg)} "
+                  f"lse: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({term}), share {bms / k_ms:.3f} ({smi})")
+        del ops, col_args, row_args, ell, mid
         torch.cuda.empty_cache()
     ops = mid_set(port, MAIN_SHAPES)
     rng = np.random.default_rng(SEED)
@@ -2319,6 +2404,11 @@ def main() -> None:
                      "bound_by": bound_by,
                      "share": bound_ms / kernels_ms[name][0],
                      "library_ms": None})
+        if name in FP32_WORK:
+            # The FP32 route's bound beside the tensor-core route's.
+            fp32_ms = bound_of(*FP32_WORK[name])[0]
+            rows[-1].update(bound_fp32_ms=fp32_ms,
+                            share_fp32=fp32_ms / kernels_ms[name][0])
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
 """Phase split and before/after timing of the port's redesigned kernels on
 one CUDA card: the post-interp kernel (B8), the pair pass C (B4), the
 deferred pass B (B3), the deferred and batched pass C (B2), the fused
-whole-solve kernel (B5-B7) and the strip column phase (B9 col).
+whole-solve kernel (B5-B7) and the strip column and row phases (B9 col,
+B9 row).
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 -m sdfs_via_autodiff_tpu_torch.bench.kernel_split \
       [--before DIR]
       [--kernels post_interp,pass_c_pair,pass_b_deferred,pass_c_deferred,
-                 fused,strip_col]
+                 fused,strip_col,strip_row]
 
 Each kernel's source stops after a phase under a compile-time switch
 (``SPLITS``; 1-3 store that phase's result in place of the output):
@@ -30,7 +31,11 @@ Each kernel's source stops after a phase under a compile-time switch
   ``__syncthreads`` (wrong results; it times the barriers);
 - ``SDFS_STRIP_SPLIT`` in ``csrc/tiled_two_phase.cu`` (the column phase,
   ``sdfs_strip_col``): 1 the first shift pass, 2 adds the c1
-  contraction, 3 the c2 shift (lse; in fast mode 3 times what 2 does).
+  contraction, 3 the c2 shift (lse; in fast mode 3 times what 2 does);
+- ``SDFS_STRIP_ROW_SPLIT`` in the same source (the row phase,
+  ``sdfs_strip_row``): 1 the load of the midway tile (fast: with the row
+  scales), 2 adds the lse shift and exp, 3 the r1 contraction, 4 the r2
+  shift and exp.
 
 The script builds every variant with nvcc (one process each, all
 started together) and times each at the main paths' shapes with CUDA
@@ -89,6 +94,11 @@ FUSED_SSY, FUSED_GCY, FUSED_ITERS = (20, 20, 20, 20), (6,) * 6, 200
 # fast mode (shared factors); the 25.2M GCY Tauchen view (192, 512, 256)
 # normalized (rank-2 lazy) and plain, lse.
 STRIP_SSY, STRIP_GCY = (32, 32, 32, 384), (32, 16, 16, 12, 16, 16)
+# The strip row phase: the normalized SSY cell in lse mode, the plain one
+# in fast mode, the GCY view (L, K, C) = (12, 16, 131072) in lse mode, and
+# a plain SSY Tauchen set the streamed tier declines whose row phase runs
+# the narrow layout (R = 6,144), in fast mode.
+STRIP_NARROW = (128, 48, 64, 512)
 # kernel: (source stem, switch, the stops before the whole kernel).
 SPLITS = {"post_interp": ("post_interp", "SDFS_SPLIT", (1, 2, 3)),
           "pass_c_pair": ("streamed_two_phase", "SDFS_PAIR_SPLIT", (1, 2, 3)),
@@ -97,7 +107,9 @@ SPLITS = {"post_interp": ("post_interp", "SDFS_SPLIT", (1, 2, 3)),
           "pass_c_deferred": ("streamed_two_phase", "SDFS_PASSC_DEF_SPLIT",
                               (1, 2, 3)),
           "fused": ("fused_two_matmul", "SDFS_FUSED_SPLIT", (1, 2)),
-          "strip_col": ("tiled_two_phase", "SDFS_STRIP_SPLIT", (1, 2, 3))}
+          "strip_col": ("tiled_two_phase", "SDFS_STRIP_SPLIT", (1, 2, 3)),
+          "strip_row": ("tiled_two_phase", "SDFS_STRIP_ROW_SPLIT",
+                        (1, 2, 3, 4))}
 # Variants beside the stops: name -> (source stem, nvcc define).
 EXTRA = {"fused": {"nobarrier": ("fused_two_matmul",
                                  "-DSDFS_FUSED_BARRIER=1")}}
@@ -126,7 +138,7 @@ def _compile(src: Path, tag: str, name: str, defines) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc {src} {tag} {name}:\n{proc.stderr}")
     if name == "whole":
-        keep = ("post_gather", "pass_c_pair", "pass_b_deferred",
+        keep = ("post_gather", "pass_c_pair", "pass_b_",
                 "pass_c_deferred", "pass_c_slab", "fused_", "strip_")
         lines = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()]
         for k, ln in enumerate(lines):
@@ -142,7 +154,6 @@ def _typed(lib):
     for name, args in (
             ("sdfs_post_interp", [p] * 15 + [i] * 5 + [f, f, i, p]),
             ("sdfs_pass_c_pair", [p] * 8 + [i] * 6 + [f, f, p]),
-            ("sdfs_pass_b_deferred", [p] * 5 + [i] * 3 + [f, p]),
             ("sdfs_fused_solve", [i] + [p] * 10 + [i, i, f, f, f, i, i, i,
                                                    f, f, p]),
             ("sdfs_strip_col", [p, p, p, f] + [p, ll, p, p, p, i] * 2
@@ -150,6 +161,11 @@ def _typed(lib):
         fn = getattr(lib, name, None)
         if fn is not None:
             fn.argtypes, fn.restype = args, i
+    if hasattr(lib, "sdfs_pass_b_deferred"):
+        # The tensor-core layout's entry takes a workspace.
+        n = 6 if hasattr(lib, "sdfs_pass_b_deferred_work_floats") else 5
+        lib.sdfs_pass_b_deferred.argtypes = [p] * n + [i] * 3 + [f, p]
+        lib.sdfs_pass_b_deferred.restype = i
     if hasattr(lib, "sdfs_fused_work_floats"):
         lib.sdfs_fused_work_floats.argtypes = [i] * 4
         lib.sdfs_fused_work_floats.restype = ll
@@ -295,14 +311,25 @@ def _defb_sets(dev):
 
 
 def _defb_calls(ell, w_c1t, th, sub_row, sub_col, dev):
+    """Caller of one deferred pass-B launch; a library with
+    ``sdfs_pass_b_deferred_work_floats`` also takes its workspace."""
     R, I, J = ell.shape
     out = torch.empty_like(ell)
     stream = _stream(dev)
 
     def call(lib):
-        return lambda: lib.sdfs_pass_b_deferred(
-            _ptr(ell), _ptr(w_c1t), _ptr(sub_row), _ptr(sub_col), _ptr(out),
-            R, I, J, th, stream)
+        work = ()
+        if hasattr(lib, "sdfs_pass_b_deferred_work_floats"):
+            fn = lib.sdfs_pass_b_deferred_work_floats
+            fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+            n = int(fn(R, I, J))
+            work = (torch.empty((n,), dtype=torch.float32, device=dev)
+                    if n else None,)
+        go = lambda: lib.sdfs_pass_b_deferred(
+            _ptr(ell), _ptr(w_c1t), _ptr(sub_row), _ptr(sub_col),
+            *(_ptr(t) for t in work), _ptr(out), R, I, J, th, stream)
+        go.work = work
+        return go
 
     plain = st.pass_b_deferred_plain(ell, w_c1t, th, sub_row, sub_col)
     return call, out, plain
@@ -530,12 +557,95 @@ def _strip_calls(ell, col_args, dev):
     return call, out, plain[0] if mode == "fast" else plain
 
 
+def _row_sets(dev):
+    """(label, mid, row_args) of the strip row-phase timings: row_args =
+    (scale, S, W_r1, W_r2, add_row, add_col, theta, beta, mode) as
+    :func:`tt.strip_row` takes them; mid is the plain column phase of a
+    seeded field."""
+    cast = _cast(dev)
+    for name, sizes, baseline, mode in (
+            ("SSY", STRIP_SSY, "loglinear", "lse"),
+            ("SSY", STRIP_SSY, None, "fast"),
+            ("GCY", STRIP_GCY, None, "lse"),
+            ("SSY", STRIP_NARROW, None, "fast")):
+        if name == "SSY":
+            model = port.SSY()
+            ops = port.two_phase_operands_ssy(
+                model, port.discretize_ssy(model, sizes, method="tauchen"),
+                baseline)
+        else:
+            model = port.GCY()
+            ops = port.two_phase_operands_gcy(
+                model, port.discretize_gcy(model, sizes, method="tauchen"),
+                baseline)
+        d = tt.strip_device_operands(ops, device=dev)
+        L, K, n1, n2 = ops.shapes
+        R, C = L * K, n1 * n2
+        rng = np.random.default_rng(0)
+        base = (np.log(800.0) if ops.baseline_log_w is None
+                else ops.baseline_log_w)
+        ell = cast(base + 0.02 * rng.standard_normal(ops.shapes)).reshape(
+            R, n1, n2)
+        th, be = float(ops.theta), float(ops.beta)
+        got = tt.strip_col_plain(ell, d["W_c1"], d["W_c2"], th, mode,
+                                 d["sub_row"], d["sub_col"])
+        scale = S = None
+        if mode == "fast":
+            got, s = got
+            S = s.max().reshape(1)
+            scale = torch.exp(s - S)
+        del ell
+        yield (f"{name} {sizes} (L, K, C) = {(L, K, C)} {baseline} {mode}",
+               got.reshape(R, C).contiguous(),
+               (scale, S, d["W_r1"], d["W_r2"], d["add_row"], d["add_col"],
+                th, be, mode))
+        del ops, d, got
+
+
+def _row_tile_v1(L: int, K: int) -> int:
+    """Columns per block of the first row-phase kernel, which
+    takes them as an argument: the widest of 64, 32, ..., 1 whose x and y
+    tiles and shifts leave room for two blocks per SM, else fit one."""
+    for limit in (st._SM_SMEM // 2 - st._BLOCK_RESERVED, st.SMEM_LIMIT):
+        for tc in (64, 32, 16, 8, 4, 2, 1):
+            if 4 * tc * (2 * L * K + K + L) <= limit:
+                return tc
+    raise ValueError(f"no row tile fits ({L}, {K})")
+
+
+def _row_calls(mid, row_args, dev):
+    """Caller of one ``sdfs_strip_row`` launch.  A library with
+    ``sdfs_strip_row_layout`` picks its own tile; an earlier one takes
+    :func:`_row_tile_v1`'s."""
+    scale, S, W_r1, W_r2, add_row, add_col, th, be, mode = row_args
+    L, K = W_r1.shape[0], W_r2.shape[0]
+    R, C = mid.shape
+    out = torch.empty_like(mid)
+    stream = _stream(dev)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+    def call(lib):
+        tiles = () if hasattr(lib, "sdfs_strip_row_layout") else (
+            _row_tile_v1(L, K),)
+        fn = lib.sdfs_strip_row
+        fn.argtypes, fn.restype = [p] * 8 + [i] * (3 + len(tiles)) + [
+            f, f, i, p], i
+        return lambda: fn(
+            _ptr(mid), _ptr(scale), _ptr(S), _ptr(W_r1), _ptr(W_r2),
+            _ptr(add_row), _ptr(add_col), _ptr(out), L, K, C, *tiles, th, be,
+            tt._MODES[mode], stream)
+
+    plain = tt.strip_row_plain(mid, *row_args)
+    return call, out, plain
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--before", type=Path, default=None,
                     help="directory with an earlier design's post_interp.cu, "
                          "streamed_two_phase.cu, fused_two_matmul.cu and "
-                         "tiled_two_phase.cu (with the switches)")
+                         "tiled_two_phase.cu (with the switches) and "
+                         "occupancy.cuh")
     ap.add_argument("--kernels", default=",".join(SPLITS),
                     help="comma-separated subset of " + ", ".join(SPLITS))
     a = ap.parse_args()
@@ -639,6 +749,12 @@ def main() -> None:
             call, out, plain = _strip_calls(ell, col_args, dev)
             measure("strip_col", label, call, out, plain, 20)
             del call, out, plain, ell, col_args
+            torch.cuda.empty_cache()
+    if "strip_row" in kernels:
+        for label, mid, row_args in _row_sets(dev):
+            call, out, plain = _row_calls(mid, row_args, dev)
+            measure("strip_row", label, call, out, plain, 20)
+            del call, out, plain, mid, row_args
             torch.cuda.empty_cache()
     print(json.dumps({"device": smi, "split": results}))
 

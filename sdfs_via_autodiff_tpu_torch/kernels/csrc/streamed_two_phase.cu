@@ -48,10 +48,12 @@
 // The C entry points launch on the caller's stream, allocate nothing and
 // return cudaGetLastError(); the Python wrappers validate every argument.
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cp_async.cuh"
 #include "occupancy.cuh"
 
 namespace {
@@ -137,25 +139,6 @@ __host__ __device__ inline int round_up4(int n) { return (n + 3) & ~3; }
 
 constexpr int kBK = 16;  // W_c2 rows per K-tile of pass B's j' contraction
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
 // out[i, j] = sum_m u[i, m] * w[m, j] for one field row (i < I, j < J):
 // pass B's j' contraction, ~90% of its FLOPs.  W (J, J) streams from L2
 // through two shared K-tiles of kBK rows (`stage`, 2 * kBK * J floats),
@@ -211,7 +194,7 @@ __device__ __forceinline__ void rows_times_w(int I, int J, int Jp,
       } else {
         cp_async_commit();             // empty group keeps the count
       }
-      cp_async_wait_prev();            // this thread's copies of `tile`
+      cp_async_wait<1>();            // this thread's copies of `tile`
       __syncthreads();                 // everyone's copies of `tile`
       if (active) {
         const float* wt = stage + (tile & 1) * kBK * J;
@@ -296,7 +279,7 @@ pass_b_kernel(const float* __restrict__ ell, const float* __restrict__ w_c1,
   float* mid_r = mid + r * IJ;
 
   // With a folded baseline, one rounding before the cancellation down to
-  // O(1), as pass_b_deferred_kernel<true> and the plain version compute it.
+  // O(1), as the deferred pass B and the plain version compute it.
   const float sr = HAS_SUB ? __ldg(sub_row + r) : 0.f;
   for (int x = tid; x < IJ; x += nt)
     a[x] = HAS_SUB ? __fsub_rn(__fmaf_rn(theta, ell_r[x], -sr),
@@ -450,13 +433,15 @@ pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
 // column phase: pass B contracts c1 only, and the shared c2 contraction
 // moves into pass C, in front of its row phase.
 //
-//   pass_b_deferred, one block per (field row r, tile of kDefBN columns
-//     j): a = theta * ell[r, :, j-tile] (I, kDefBN) in shared memory,
-//     less the folded baseline sub_row[r] + sub_col[i, j] when one is
-//     given, per-column shift m[j] = max over all I rows, then
-//     out[r, i, j] = m[j] + log(sum_m W_c1[i, m] exp(a[m, j] - m[j])).
-//     Replaces streamed_two_phase.py:384 (_b_kernel_deferred), both
-//     branches of has_sub.
+//   pass_b_deferred: a = theta * ell[r] (I, J), less the folded
+//     baseline sub_row[r] + sub_col[i, j] when one is given, per-column
+//     shift m[j] = max over all I rows, then
+//     out[r, i, j] = m[j] + log(sum_m W_c1[i, m] exp(a[m, j] - m[j])):
+//     the resident layout (pass_b_resident_kernel) where W_c1^T fits a
+//     block beside the strips, else the tensor-core layout (a column-max
+//     pass and pass_b_mma_kernel, split-TF32 products).  Replaces
+//     streamed_two_phase.py:384 (_b_kernel_deferred), both branches of
+//     has_sub.
 //   pass_c_deferred: the c2 contraction with the shared W_c2^T, then
 //     the linear-carry row phase and the epilogue (pass_c_slab_kernel,
 //     further down).  Replaces the c2_deferred branch of
@@ -473,201 +458,422 @@ pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
 //     contract as one MXU dot.  Pass B's c1-only branch at (56, 56, 56,
 //     64) is 1.26 GFLOP against 90 MB: HBM bounds that one.
 //
-// What bounds pass_b_deferred on an H100: FP32 FMA.  At (12, 16, 512,
-// 256) it is 2*R*I*I*J = 25.8 GFLOP against 100 MB fields.  W_c1 (I*I*4
-// = 1 MiB) does not fit a block, so pass B streams its transpose from L2
-// in kDefBK-row K-tiles (cp.async, double buffered) while the
-// exponentiated (I, kDefBN) strip stays resident; each thread owns an 8 x
-// 8 output tile, so four float4 shared-memory loads feed 64 FMAs (the
-// balance point of the SM's shared-memory wavefronts and its FMA rate).
-// Ragged I, J and partial tiles are clamped and masked.
+// What bounds pass_b_deferred on an H100 at I = 512: the c1 product,
+// 2*R*I*I*J = 25.8 GFLOP at (12, 16, 512, 256) against 100 MB of fields.
+// In FP32 FMA that is 0.385 ms; W_c1 (I*I*4 = 1 MiB) does not fit a
+// block, and the first design (one block per row and 32 columns, 8-row
+// K-tiles of W_c1^T, FP32 FMA) ran at 36 TFLOP/s and read W_c1^T from L2
+// 1,536 times (~1.6 GB) per launch.  This one (pass_b_mma_kernel) runs the
+// product on the tensor cores in split TF32: each operand x becomes hi =
+// tf32(x) (cvt.rna) and lo = tf32(x - hi), and three TF32 products per
+// k-step, lo*hi + hi*lo + hi*hi, are summed in FP32 (|x - hi - lo| <=
+// 2^-22 |x|; every term of the contraction is non-negative, W_c1 >= 0 and
+// exp(a - m) in (0, 1], so nothing cancels and the sum keeps FP32's
+// class of relative error).  The three products of one k-step go into a
+// fresh accumulator that is then added to the running sum with one FP32
+// add (round to nearest), so the tensor cores' own accumulation only ever
+// adds 24 terms to a small partial sum.  The work:
+//
+//   1. pass_b_exp_kernel: m[r, j] = max over m of the folded a and e =
+//      exp(a - m), each field entry folded and exponentiated once, into a
+//      workspace (R*J + R*I*J floats from the wrapper);
+//   2. pass_b_mma_kernel: a persistent grid over tiles of kMmaBM rows i x
+//      kMmaBN columns j of one field row r (i-tiles fastest, so that the
+//      blocks running together read the same columns of e from L2), its
+//      warps specialized.  8 producer warps copy each K-chunk of kMmaBK
+//      rows m, W_c1^T's (BK, BM) slab and e's (BK, BN) slab, by cp.async
+//      into a ring of kMmaStages stages (kMmaStages - 1 chunks ahead,
+//      across tile boundaries, so a tile's epilogue overlaps the next
+//      tile's copies), then split both into hi and lo, stored k-contiguous
+//      (rows of kMmaLdT floats: conflict-free ldmatrix) in one of
+//      kMmaBufs operand buffers; 8 consumer warps (2 x 4, each 64 x 32
+//      outputs in 4 x 4 mma.sync.m16n8k8 tiles) multiply from the others.
+//      Named barriers hand each buffer over ("full") and back ("empty"),
+//      so the copies and splits of the next chunks run beside the
+//      products and a tile's epilogue.
+//      Epilogue: out = m + log(sum).
+//
+// W_c1^T is read from L2 once per column tile (R * J / kMmaBN = 384
+// times, ~403 MB at the GCY view), e once per i-tile (I / kMmaBM = 4
+// times, ~403 MB).  Ragged I, J and partial tiles are zero-filled by the
+// copies and masked at the store.  (Earlier versions at the GCY view: the
+// fold and exp in the product kernel's split, once per i-tile, 1.1 ms;
+// every warp splitting then multiplying, 0.85 ms; e and W_c1 split in
+// global memory and copied as hi and lo, 0.99 ms, bound by the doubled
+// copies.)
 
-// SDFS_DEFB_SPLIT (compile-time, for timing the phases of
-// pass_b_deferred; 4, the default, is the kernel): 1 stops after the fold
-// and the column maxima, 2 after the exponentials, 3 after the c1
-// product; 1-3 store that phase's result in place of the output.
+// SDFS_DEFB_SPLIT (compile-time, for timing the phases of the deferred
+// pass B; 4, the default, is the kernel).  Tensor-core layout: 1 runs the
+// exp pass only, 2 adds the product kernel's copies and splits with no
+// products (its epilogue stores the zero sums), 3 adds the products and
+// stores the sums without m + log.  Resident layout: 1
+// stops after the fold and the column maxima, 2 after the exponentials,
+// 3 after the c1 product; each stores that phase's result.
 #ifndef SDFS_DEFB_SPLIT
 #define SDFS_DEFB_SPLIT 4
 #endif
 
-constexpr int kDefThreads = 256;
-constexpr int kDefBN = 32;   // pass-B-deferred columns per block
-constexpr int kDefBK = 8;    // W_c1^T rows per pass-B-deferred K-tile
-constexpr int kDefParts = kDefThreads / kDefBN;  // partial column maxima
-constexpr int kDefBT = 8;    // pass-B-deferred thread tile: 8 rows x 8 columns
+constexpr int kMmaConsumers = 256;  // 8 warps: the products
+constexpr int kMmaProducers = 256;  // 8 warps: copies and hi/lo splits
+constexpr int kMmaThreads = kMmaConsumers + kMmaProducers;
+constexpr int kMmaBM = 128;    // rows i per tile
+constexpr int kMmaBN = 128;    // columns j per tile
+constexpr int kMmaBK = 16;     // rows m per K-chunk
+constexpr int kMmaStages = 4;  // raw K-chunk ring
+constexpr int kMmaLdRaw = kMmaBM + 8;  // raw chunk row stride (= 8 mod 32)
+constexpr int kMmaLdT = kMmaBK + 4;    // hi/lo rows (k contiguous): 8 rows
+                                       // of 16 B at this stride hit 32
+                                       // banks (ldmatrix)
+constexpr int kMmaBufs = 2;    // hi/lo operand buffers
+constexpr int kMmaRaw = kMmaBK * kMmaLdRaw;
+constexpr int kMmaT = kMmaBM * kMmaLdT;
+// Shared-memory floats of pass_b_mma_kernel: the ring of raw chunks
+// (W_c1^T's and e's) and kMmaBufs buffers of the hi and lo operands.
+constexpr int kMmaSmemFloats =
+    kMmaStages * 2 * kMmaRaw + kMmaBufs * 4 * kMmaT;
+// Named barriers of pass_b_mma_kernel (0 is __syncthreads): the
+// producers' own, and per operand buffer "full" and "empty".
+constexpr int kBarProducers = 1, kBarFull = 2, kBarEmpty = 2 + kMmaBufs;
+constexpr int kExpParts = 16;  // exp pass: threads per column
+constexpr int kExpCache = 32;  // exp pass: values per thread kept in
+                               // registers (I <= kExpParts * kExpCache)
 
-// Shared-memory floats of pass_b_deferred: the (I, kDefBN) strip, two
-// K-tiles of kDefBK rows of Ip = round_up4(I), partial column maxima and
-// the shifts.
-__host__ __device__ inline int pass_b_deferred_smem_floats(int I) {
-  return I * kDefBN + 2 * kDefBK * round_up4(I) + kDefParts * kDefBN +
-         kDefBN;
+// x rounded to TF32 (round to nearest, ties away from zero), as a float
+// whose 13 low mantissa bits are 0.
+__device__ __forceinline__ float tf32(float x) {
+  unsigned u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return __uint_as_float(u);
 }
 
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const float* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// d += A (16 x 8, row) * B (8 x 8, col), TF32 operands, FP32 sums.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// m[r, j] = max over m of a[r, m, j] (a = theta*ell, or the fold
+// fma(theta, ell, -sub_row[r]) - sub_col[m, j]) and e[r, m, j] = exp(a -
+// m[r, j]): a block per (32 columns, field row), kExpParts threads per
+// column, each thread's values kept in registers between the two sweeps
+// when I <= kExpParts * kExpCache (else re-read, from L2).
 template <bool HAS_SUB>
-__global__ void __launch_bounds__(kDefThreads)
-pass_b_deferred_kernel(const float* __restrict__ ell,
-                       const float* __restrict__ w_c1t,
-                       const float* __restrict__ sub_row,
-                       const float* __restrict__ sub_col,
-                       float* __restrict__ out, int I, int J, float theta) {
-  extern __shared__ float smem[];     // 16-byte aligned base
-  const int Ip = round_up4(I);
-  float* e = smem;                        // (I, kDefBN)
-  float* stage = e + I * kDefBN;          // 2 x (kDefBK, Ip)
-  float* part = stage + 2 * kDefBK * Ip;  // (kDefParts, kDefBN)
-  float* shift = part + kDefParts * kDefBN;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int j0 = blockIdx.x * kDefBN;
-  const int jw = min(kDefBN, J - j0);
-  const size_t IJ = (size_t)I * J;
-  const float* ell_r = ell + blockIdx.y * IJ;
-  float* out_r = out + blockIdx.y * IJ;
-
-  // a = theta * ell, or fma(theta, ell, -sub_row[r]) - sub_col[m, j]
-  // with a folded baseline (one rounding before the cancellation down to
-  // O(1), as the plain version computes it), on the strip; columns past
-  // J hold 0 (never stored).  Unrolled so that several loads are in
-  // flight per thread.
-  const float sr = HAS_SUB ? __ldg(sub_row + blockIdx.y) : 0.f;
-#pragma unroll 8
-  for (int x = tid; x < I * kDefBN; x += nt) {
-    const int m = x / kDefBN, jj = x % kDefBN;
-    float v = 0.f;
-    if (jj < jw) {
-      const size_t at = (size_t)m * J + j0 + jj;
-      v = HAS_SUB ? __fsub_rn(__fmaf_rn(theta, ell_r[at], -sr),
-                              __ldg(sub_col + at))
-                  : theta * ell_r[at];
-    }
-    e[x] = v;
-  }
-  __syncthreads();
-  {
-    const int jj = tid % kDefBN, p = tid / kDefBN;
-    float mx = -INFINITY;
-#pragma unroll 8
-    for (int m = p; m < I; m += kDefParts) mx = fmaxf(mx, e[m * kDefBN + jj]);
-    part[p * kDefBN + jj] = mx;
-  }
-  __syncthreads();
-  if (tid < kDefBN) {
-    float mx = part[tid];
-    for (int p = 1; p < kDefParts; ++p) mx = fmaxf(mx, part[p * kDefBN + tid]);
-    shift[tid] = mx;
-  }
-  __syncthreads();
-#if SDFS_DEFB_SPLIT == 1
-  for (int x = tid; x < I * kDefBN; x += nt)
-    if (x % kDefBN < jw)
-      out_r[(size_t)(x / kDefBN) * J + j0 + x % kDefBN] = shift[x % kDefBN];
-  return;
-#endif
-#pragma unroll 8
-  for (int x = tid; x < I * kDefBN; x += nt)
-    e[x] = expf(e[x] - shift[x % kDefBN]);
-#if SDFS_DEFB_SPLIT == 2
-  for (int x = tid; x < I * kDefBN; x += nt)
-    if (x % kDefBN < jw)
-      out_r[(size_t)(x / kDefBN) * J + j0 + x % kDefBN] = e[x];
-  return;
-#endif
-
-  // c1: out[i, j] = shift[j] + log(sum_m W_c1t[m, i] e[m, j]).  Thread
-  // (rg, cg) owns the kDefBT x kDefBT tile of rows kDefBT*rg.. and
-  // columns kDefBT*cg..: per m, two float4 loads of the K-tile and two of
-  // the strip feed 64 FMAs.  The sum runs in order of m.
-  constexpr int kColGroups = kDefBN / kDefBT;
-  const int n_items = ((I + kDefBT - 1) / kDefBT) * kColGroups;
-  const int n_tiles = (I + kDefBK - 1) / kDefBK;
-  // 16-byte copies when the rows of W_c1t are 16-byte aligned (measured
-  // at (12, 16, 512, 256) on an H100: 4-byte copies 1.49 ms per launch,
-  // 16-byte 0.98).
-  auto load_tile = [&](int t) {
-    float* dst = stage + (t & 1) * kDefBK * Ip;
-    const int m0 = t * kDefBK, rows = min(kDefBK, I - m0);
-    const float* src = w_c1t + (size_t)m0 * I;
-    if (I % 4 == 0) {
-      const int q = I / 4;
-      for (int x = threadIdx.x; x < rows * q; x += blockDim.x)
-        cp_async16(dst + (x / q) * Ip + 4 * (x % q), src + 4 * x);
-    } else {
-      for (int x = threadIdx.x; x < rows * I; x += blockDim.x)
-        cp_async4(dst + (x / I) * Ip + x % I, src + x);
-    }
-    cp_async_commit();
+__global__ void __launch_bounds__(32 * kExpParts)
+pass_b_exp_kernel(const float* __restrict__ ell,
+                  const float* __restrict__ sub_row,
+                  const float* __restrict__ sub_col,
+                  float* __restrict__ colmax, float* __restrict__ e, int I,
+                  int J, float theta) {
+  __shared__ float part[kExpParts][33];
+  const int jj = threadIdx.x & 31, p = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + jj, r = blockIdx.y;
+  const size_t base = (size_t)r * I * J + j;
+  const float sr = HAS_SUB ? __ldg(sub_row + r) : 0.f;
+  const bool cached = I <= kExpParts * kExpCache;
+  auto fold = [&](int m) {
+    const float x = ell[base + (size_t)m * J];
+    return HAS_SUB ? __fsub_rn(__fmaf_rn(theta, x, -sr),
+                               __ldg(sub_col + (size_t)m * J + j))
+                   : theta * x;
   };
-  for (int base = 0; base < n_items; base += nt) {
-    const int item = base + tid;
-    const bool active = item < n_items;
-    const int c0 = (item % kColGroups) * kDefBT;
-    const int i0 = (item / kColGroups) * kDefBT;
-    float acc[kDefBT][kDefBT];
+  float v[kExpCache];
+  float mx = -INFINITY;
+  if (j < J) {
+    if (cached) {
 #pragma unroll
-    for (int t = 0; t < kDefBT; ++t)
-#pragma unroll
-      for (int q = 0; q < kDefBT; ++q) acc[t][q] = 0.f;
-    __syncthreads();                   // e ready; stage free
-    load_tile(0);
-    for (int tile = 0; tile < n_tiles; ++tile) {
-      if (tile + 1 < n_tiles) {
-        load_tile(tile + 1);
-      } else {
-        cp_async_commit();             // empty group keeps the count
+      for (int s = 0; s < kExpCache; ++s) {
+        const int m = p + kExpParts * s;
+        v[s] = m < I ? fold(m) : -INFINITY;
+        mx = fmaxf(mx, v[s]);
       }
-      cp_async_wait_prev();
-      __syncthreads();
-      if (active) {
-        const float* wt = stage + (tile & 1) * kDefBK * Ip;
-        const int m0 = tile * kDefBK;
-        const int kmax = min(kDefBK, I - m0);
+    } else {
 #pragma unroll 8
-        for (int k = 0; k < kmax; ++k) {
-          const float* eb = e + (m0 + k) * kDefBN + c0;
-          const float* wa = wt + k * Ip + i0;
-          const float4 b0 = *reinterpret_cast<const float4*>(eb);
-          const float4 b1 = *reinterpret_cast<const float4*>(eb + 4);
-          const float4 a0 = *reinterpret_cast<const float4*>(wa);
-          const float4 a1 = *reinterpret_cast<const float4*>(wa + 4);
-          const float bv[kDefBT] = {b0.x, b0.y, b0.z, b0.w,
-                                    b1.x, b1.y, b1.z, b1.w};
-          const float av[kDefBT] = {a0.x, a0.y, a0.z, a0.w,
-                                    a1.x, a1.y, a1.z, a1.w};
+      for (int m = p; m < I; m += kExpParts) mx = fmaxf(mx, fold(m));
+    }
+  }
+  part[p][jj] = mx;
+  __syncthreads();
+  if (p == 0) {
 #pragma unroll
-          for (int t = 0; t < kDefBT; ++t)
+    for (int q = 1; q < kExpParts; ++q) mx = fmaxf(mx, part[q][jj]);
+    part[0][jj] = mx;
+    if (j < J) colmax[(size_t)r * J + j] = mx;
+  }
+  __syncthreads();
+  mx = part[0][jj];
+  if (j < J) {
+    if (cached) {
 #pragma unroll
-            for (int q = 0; q < kDefBT; ++q)
-              acc[t][q] = fmaf(av[t], bv[q], acc[t][q]);
+      for (int s = 0; s < kExpCache; ++s) {
+        const int m = p + kExpParts * s;
+        if (m < I) e[base + (size_t)m * J] = expf(v[s] - mx);
+      }
+    } else {
+#pragma unroll 8
+      for (int m = p; m < I; m += kExpParts)
+        e[base + (size_t)m * J] = expf(fold(m) - mx);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMmaThreads, 1)
+pass_b_mma_kernel(const float* __restrict__ e,
+                  const float* __restrict__ w_c1t,
+                  const float* __restrict__ colmax, float* __restrict__ out,
+                  int R, int I, int J) {
+  extern __shared__ float smem[];     // 16-byte aligned base
+  float* ring = smem;                               // stages x {A, B}
+  float* ops = smem + kMmaStages * 2 * kMmaRaw;     // bufs x {Ah Al Bh Bl}
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_it = (I + kMmaBM - 1) / kMmaBM;
+  const int n_jt = (J + kMmaBN - 1) / kMmaBN;
+  const int n_ch = (I + kMmaBK - 1) / kMmaBK;
+  const int n_tiles = n_it * n_jt * R;  // < 2^31: the launcher checks
+  const int mine = (int)blockIdx.x < n_tiles
+                       ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int total = mine * n_ch;       // this block's chunks, in order
+  const size_t IJ = (size_t)I * J;
+
+  // A walk over this block's chunks g = q * n_ch + kc (tile q = blockIdx.x
+  // + q * gridDim.x, K-chunk kc): the tile's i0, j0 and field row r are
+  // decoded once per tile, not per chunk.
+  struct Cursor {
+    int g, kc, q, i0, j0, r;
+  };
+  auto set_tile = [&](Cursor& c) {
+    const int t = (int)blockIdx.x + c.q * (int)gridDim.x;
+    const int rest = t / n_it;
+    c.i0 = (t - rest * n_it) * kMmaBM;
+    c.r = rest / n_jt;
+    c.j0 = (rest - c.r * n_jt) * kMmaBN;
+  };
+  auto advance = [&](Cursor& c) {
+    ++c.g;
+    if (++c.kc == n_ch) {
+      c.kc = 0;
+      ++c.q;
+      set_tile(c);
+    }
+  };
+
+  if (warp >= kMmaConsumers / 32) {
+    // ---- Producers: copy each K-chunk into the raw ring (cp.async,
+    // kMmaStages - 1 chunks ahead), then split it into hi and lo in the
+    // operand buffer g % kMmaBufs once the consumers have released it.
+    const int ptid = tid - kMmaConsumers, pw = ptid >> 5;
+    const bool vec_i = I % 4 == 0, vec_j = J % 4 == 0;
+    Cursor cis{0, 0, 0, 0, 0, 0};      // next chunk to copy
+    set_tile(cis);
+    auto copy_slab = [&](float* dst, const float* src, int m0, int c0,
+                         int n, bool vec) {
+      // Rows m0..m0+15 and columns c0..c0+127 of src (row stride n, n
+      // columns) into dst (row stride kMmaLdRaw); zeros past I and n.
+      if (vec) {
+        for (int x = ptid; x < kMmaBK * 32; x += kMmaProducers) {
+          const int k = x >> 5, c = 4 * (x & 31);
+          const bool ok = m0 + k < I && c0 + c < n;
+          cp_async16(dst + k * kMmaLdRaw + c,
+                           ok ? src + (size_t)(m0 + k) * n + c0 + c : src,
+                           ok);
+        }
+      } else {
+        for (int x = ptid; x < kMmaBK * 128; x += kMmaProducers) {
+          const int k = x >> 7, c = x & 127;
+          const bool ok = m0 + k < I && c0 + c < n;
+          cp_async4(dst + k * kMmaLdRaw + c,
+                          ok ? src + (size_t)(m0 + k) * n + c0 + c : src,
+                          ok);
         }
       }
-      __syncthreads();                 // done with `tile` before reuse
+    };
+    auto issue = [&]() {
+      if (cis.g < total) {
+        float* st = ring + (cis.g % kMmaStages) * 2 * kMmaRaw;
+        const int m0 = cis.kc * kMmaBK;
+        copy_slab(st, w_c1t, m0, cis.i0, I, vec_i);
+        copy_slab(st + kMmaRaw, e + (size_t)cis.r * IJ, m0, cis.j0, J,
+                  vec_j);
+        advance(cis);
+      }
+      cp_async_commit();               // empty groups keep the count
+    };
+#pragma unroll 1
+    for (int s = 0; s < kMmaStages - 1; ++s) issue();
+#pragma unroll 1
+    for (int g = 0; g < total; ++g) {
+      bar_sync(kBarProducers, kMmaProducers);  // chunk g - 1's stage free
+      issue();                                 // chunk g + kMmaStages - 1
+      cp_async_wait<kMmaStages - 1>();         // chunk g landed
+      bar_sync(kBarProducers, kMmaProducers);  // ... for every producer
+      const int buf = g % kMmaBufs;
+      if (g >= kMmaBufs) bar_sync(kBarEmpty + buf, kMmaThreads);
+      // A = W_c1 (rows i, k contiguous), B = e (rows j, k contiguous):
+      // warp pw takes rows 16*pw.. of both, lane (rr, kk) = (lane / 4,
+      // lane % 4) row rr of each 8-row half and k = 4*kb + kk (raw reads
+      // at a stride = 8 mod 32, hi/lo stores at a stride of 20: 32 banks
+      // each).
+      const float* st = ring + (g % kMmaStages) * 2 * kMmaRaw;
+      float* T = ops + buf * 4 * kMmaT;
+      const int rr = lane >> 2, kk = lane & 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float a[kMmaBK / 4], b[kMmaBK / 4];
+#pragma unroll
+        for (int kb = 0; kb < kMmaBK / 4; ++kb) {
+          const int at = (4 * kb + kk) * kMmaLdRaw + 16 * pw + 8 * h + rr;
+          a[kb] = st[at];
+          b[kb] = st[kMmaRaw + at];
+        }
+#pragma unroll
+        for (int kb = 0; kb < kMmaBK / 4; ++kb) {
+          const int at = (16 * pw + 8 * h + rr) * kMmaLdT + 4 * kb + kk;
+          const float ah = tf32(a[kb]), bh = tf32(b[kb]);
+          T[at] = ah;
+          T[kMmaT + at] = tf32(a[kb] - ah);
+          T[2 * kMmaT + at] = bh;
+          T[3 * kMmaT + at] = tf32(b[kb] - bh);
+        }
+      }
+      bar_arrive(kBarFull + buf, kMmaThreads);
     }
-    if (active) {
+    cp_async_wait<0>();
+    return;
+  }
+
+  // ---- Consumers: warp tile rows wm*64.. (4 m16 tiles), columns wn*32..
+  // (4 n8 tiles).
+  Cursor cmm{0, 0, 0, 0, 0, 0};        // next chunk to multiply
+  set_tile(cmm);
+  const int wm = warp & 1, wn = warp >> 1;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  // ldmatrix row addresses: A matrices (rows 0-7 | 8-15) x (k 0-3 | 4-7),
+  // B matrices (k 0-3 | 4-7) x (columns 0-7 | 8-15).
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_k = (lane >> 4) * 4;
+  const int b_row = (lane & 7) + ((lane >> 4) & 1) * 8,
+            b_k = ((lane >> 3) & 1) * 4;
+  float acc[4][4][4];
 #pragma unroll
-      for (int t = 0; t < kDefBT; ++t) {
-        const int i = i0 + t;
-        if (i >= I) continue;
+  for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int q = 0; q < kDefBT; ++q) {
-          const int jj = c0 + q;
-#if SDFS_DEFB_SPLIT == 3
-          if (jj < jw) out_r[(size_t)i * J + j0 + jj] = acc[t][q];
-#else
-          if (jj < jw)
-            out_r[(size_t)i * J + j0 + jj] = shift[jj] + logf(acc[t][q]);
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+#pragma unroll 1
+  for (int g = 0; g < total; ++g) {
+    const int buf = g % kMmaBufs;
+    bar_sync(kBarFull + buf, kMmaThreads);       // chunk g's operands
+#if SDFS_DEFB_SPLIT != 2
+    const float* T = ops + buf * 4 * kMmaT;
+#pragma unroll
+    for (int k0 = 0; k0 < kMmaBK; k0 += 8) {
+      unsigned bh[4][2], bl[4][2];
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int off = (wn * 32 + np * 16 + b_row) * kMmaLdT + k0 + b_k;
+        unsigned h[4], l[4];
+        ldmatrix_x4(h, T + 2 * kMmaT + off);
+        ldmatrix_x4(l, T + 3 * kMmaT + off);
+        bh[2 * np][0] = h[0];
+        bh[2 * np][1] = h[1];
+        bh[2 * np + 1][0] = h[2];
+        bh[2 * np + 1][1] = h[3];
+        bl[2 * np][0] = l[0];
+        bl[2 * np][1] = l[1];
+        bl[2 * np + 1][0] = l[2];
+        bl[2 * np + 1][1] = l[3];
+      }
+      // A fragments one m16 tile at a time (registers: 128 a thread).
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        unsigned ah[4], al[4];
+        const int off = (wm * 64 + mt * 16 + a_row) * kMmaLdT + k0 + a_k;
+        ldmatrix_x4(ah, T + off);
+        ldmatrix_x4(al, T + kMmaT + off);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float t[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(t, al, bh[nt][0], bh[nt][1]);
+          mma_tf32(t, ah, bl[nt][0], bl[nt][1]);
+          mma_tf32(t, ah, bh[nt][0], bh[nt][1]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mt][nt][c] += t[c];
+        }
+      }
+    }
 #endif
-        }
+    // Release the buffer to the producers' chunk g + kMmaBufs.
+    if (g + kMmaBufs < total) bar_arrive(kBarEmpty + buf, kMmaThreads);
+    if (cmm.kc == n_ch - 1) {
+      // Epilogue of the tile: rows i0 + wm*64 + mt*16 + g8 (+8), columns
+      // j0 + wn*32 + nt*8 + 2*t4 (+1).
+      const int i0 = cmm.i0, j0 = cmm.j0, r = cmm.r;
+      float* out_r = out + (size_t)r * IJ;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int j = j0 + wn * 32 + nt * 8 + 2 * t4;
+        const float m_a = j < J ? __ldg(colmax + (size_t)r * J + j) : 0.f;
+        const float m_b =
+            j + 1 < J ? __ldg(colmax + (size_t)r * J + j + 1) : 0.f;
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = i0 + wm * 64 + mt * 16 + g8 + 8 * h;
+            if (i >= I || j >= J) continue;
+#if SDFS_DEFB_SPLIT == 2 || SDFS_DEFB_SPLIT == 3
+            const float va = acc[mt][nt][2 * h], vb = acc[mt][nt][2 * h + 1];
+#else
+            const float va = m_a + logf(acc[mt][nt][2 * h]);
+            const float vb = m_b + logf(acc[mt][nt][2 * h + 1]);
+#endif
+            float* o = out_r + (size_t)i * J + j;
+            if (j + 1 < J && J % 2 == 0) {
+              *reinterpret_cast<float2*>(o) = make_float2(va, vb);
+            } else {
+              o[0] = va;
+              if (j + 1 < J) o[1] = vb;
+            }
+          }
       }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
     }
+    advance(cmm);
   }
 }
 
 // The resident layout of the deferred pass B, for I small enough that
 // W_c1^T stays in shared memory beside two (I, BN) strips (I <= 144 at BN
 // = 128: the 18.9M-point continuous-GCY view (8,16,144,1024), 472
-// launches per solve).  The K-tiled kernel above leaves most of its
-// block idle there (72 thread tiles of 8 x 8 for 256 threads) and streams
-// the 83 KB W_c1^T through 18 K-tiles in each of 4,096 blocks.  Here a
+// launches per solve).  A block per (row, 32 columns) that streams W_c1^T
+// in K-tiles leaves most of its threads idle there (72 thread tiles of 8
+// x 8 for 256 threads) and reads the 83 KB W_c1^T in each of 4,096
+// blocks.  Here a
 // persistent grid (one block per SM at I = 144) loads W_c1^T once per
 // block with cp.async and walks items (field row r, strip of BN
 // columns): every thread owns an 8 x 8 output tile (rows 8*rg.., columns
@@ -676,7 +882,7 @@ pass_b_deferred_kernel(const float* __restrict__ ell,
 // 144, BN = 128), and the product runs over all of I with no barrier.
 // The next item's raw strip is copied (cp.async) into the second buffer
 // while the current one's maxima, exponentials and product run.  The
-// sum runs in order of m, as in the K-tiled kernel.
+// sum runs in order of m.
 constexpr int kResMaxThreads = 384;
 constexpr int kResParts = 2;          // partial column maxima per column
 constexpr int kFoldBatch = 32;        // sub_col loads in flight per thread
@@ -698,7 +904,7 @@ __host__ __device__ inline int pass_b_resident_threads(int I, int BN) {
 // Columns per item of the resident layout: the narrowest of 32, 64 and
 // 128 that covers J, else the widest, among those whose footprint fits
 // a block and whose threads are at most kResMaxThreads; 0 when none fits
-// (the K-tiled layout).
+// (the tensor-core layout).
 inline int pass_b_resident_bn(int I, int J) {
   int best = 0;
   for (int bn = 32; bn <= 128; bn *= 2) {
@@ -817,7 +1023,7 @@ pass_b_resident_kernel(const float* __restrict__ ell,
   int t = 0;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x, ++t) {
     float* e = strips + (t & 1) * I * BN;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();                  // strip (and W) landed; other strip free
     const int r = item / n_strips, j0 = (item % n_strips) * BN;
     const int jw = min(BN, J - j0);
@@ -1249,11 +1455,11 @@ pass_c_slab_kernel(const float* __restrict__ mid,
       }
     }
   };
-  cp_async_wait_prev();               // chunk 0 landed
+  cp_async_wait<1>();               // chunk 0 landed
   __syncthreads();
   exps(0);
   for (int c = 0; c < nch; ++c) {
-    cp_async_wait_all();              // chunk c + 1 landed
+    cp_async_wait<0>();              // chunk c + 1 landed
     __syncthreads();                  // et[c], chunk c + 1 ready; c - 1 done
     fetch(c + 2);
     if (c + 1 < nch) exps(c + 1);
@@ -1859,6 +2065,42 @@ cudaError_t launch_pass_b_resident(const float* ell, const float* w_c1t,
   return cudaGetLastError();
 }
 
+// One launch of the tensor-core deferred pass B: the exp pass (the column
+// maxima and e into the workspace), then a persistent grid of min(tiles,
+// co-resident blocks).
+template <bool HAS_SUB>
+cudaError_t launch_pass_b_mma(const float* ell, const float* w_c1t,
+                              const float* sub_row, const float* sub_col,
+                              float* work, float* out, int R, int I, int J,
+                              float theta, cudaStream_t st) {
+  float* colmax = work;
+  float* e = work + (size_t)R * J;     // 16-byte aligned when J % 4 == 0
+  pass_b_exp_kernel<HAS_SUB><<<dim3((J + 31) / 32, R), 32 * kExpParts, 0,
+                               st>>>(ell, sub_row, sub_col, colmax, e, I, J,
+                                     theta);
+  cudaError_t err = cudaGetLastError();
+#if SDFS_DEFB_SPLIT == 1
+  return err;
+#endif
+  if (err != cudaSuccess) return err;
+  const size_t smem = sizeof(float) * (size_t)kMmaSmemFloats;
+  err = prepare(pass_b_mma_kernel, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = blocks_per_sm((const void*)pass_b_mma_kernel, kMmaThreads, smem,
+                      &per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)((I + kMmaBM - 1) / kMmaBM) *
+                          ((J + kMmaBN - 1) / kMmaBN) * R;
+  if (tiles > INT_MAX / 2) return cudaErrorInvalidValue;
+  const long long cap = (long long)per_sm * sms;
+  const int grid = (int)(tiles < cap ? tiles : cap);
+  pass_b_mma_kernel<<<grid, kMmaThreads, smem, st>>>(e, w_c1t, colmax, out,
+                                                     R, I, J);
+  return cudaGetLastError();
+}
+
 // The arguments of one pass-B launch.
 struct PassBArgs {
   const float *ell, *w_c1, *w_c2t, *sub_row, *sub_col, *mid_col;
@@ -1997,11 +2239,12 @@ int sdfs_pass_c(const float* mid, const float* scale, const float* S,
 // Deferred-c2 pass B over R field rows of ell (R, I, J): c1 only.
 // w_c1t (I, I) = W_c1 transposed; sub_row (R,) and sub_col (I, J) both
 // given (a = theta*ell - sub_row[r] - sub_col[i, j]) or both null;
-// out (R, I, J) log domain.
+// work holds sdfs_pass_b_deferred_work_floats(R, I, J) floats (null when
+// that is 0); out (R, I, J) log domain.
 int sdfs_pass_b_deferred(const float* ell, const float* w_c1t,
                          const float* sub_row, const float* sub_col,
-                         float* out, int R, int I, int J, float theta,
-                         void* stream) {
+                         float* work, float* out, int R, int I, int J,
+                         float theta, void* stream) {
   if ((sub_row == nullptr) != (sub_col == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2012,22 +2255,20 @@ int sdfs_pass_b_deferred(const float* ell, const float* w_c1t,
                                               out, R, I, J, bn, theta, st)
                : launch_pass_b_resident<false>(ell, w_c1t, nullptr, nullptr,
                                                out, R, I, J, bn, theta, st);
-  const size_t smem =
-      sizeof(float) * (size_t)pass_b_deferred_smem_floats(I);
-  const dim3 grid((J + kDefBN - 1) / kDefBN, R);
-  cudaError_t err;
-  if (sub_row != nullptr) {
-    err = prepare(pass_b_deferred_kernel<true>, smem);
-    if (err != cudaSuccess) return err;
-    pass_b_deferred_kernel<true><<<grid, kDefThreads, smem, st>>>(
-        ell, w_c1t, sub_row, sub_col, out, I, J, theta);
-  } else {
-    err = prepare(pass_b_deferred_kernel<false>, smem);
-    if (err != cudaSuccess) return err;
-    pass_b_deferred_kernel<false><<<grid, kDefThreads, smem, st>>>(
-        ell, w_c1t, nullptr, nullptr, out, I, J, theta);
-  }
-  return cudaGetLastError();
+  if (work == nullptr || R > 65535) return cudaErrorInvalidValue;
+  return sub_row != nullptr
+             ? launch_pass_b_mma<true>(ell, w_c1t, sub_row, sub_col, work,
+                                       out, R, I, J, theta, st)
+             : launch_pass_b_mma<false>(ell, w_c1t, nullptr, nullptr, work,
+                                        out, R, I, J, theta, st);
+}
+
+// Workspace floats of the deferred pass B at (R, I, J): the tensor-core
+// layout's column maxima (R*J) and exponentials (R*I*J); 0 for the
+// resident layout.
+long long sdfs_pass_b_deferred_work_floats(int R, int I, int J) {
+  if (pass_b_resident_bn(I, J) > 0) return 0;
+  return (long long)R * J + (long long)R * I * J;
 }
 
 // Deferred-c2 pass C over mid (R = L*K, I*J) log domain: c2 with
@@ -2114,9 +2355,27 @@ int sdfs_pass_c_pair(const float* mid, const float* p_zpi, const float* pzt,
   return cudaGetLastError();
 }
 
-// Columns per item of the deferred pass B's resident layout at (I, J),
-// 0 for the K-tiled layout (pass_b_deferred_layout mirrors it).
-int sdfs_pass_b_deferred_bn(int I, int J) { return pass_b_resident_bn(I, J); }
+// The deferred pass B's layout at (I, J), as its launcher chooses it
+// (pass_b_deferred_layout mirrors it): lay = {0 resident or 1 tensor
+// cores, columns per item or tile, threads, shared-memory bytes, rows per
+// tile, rows m per K-chunk, ring stages} (7 ints; the last three 0 for
+// the resident layout).  Returns 1.
+int sdfs_pass_b_deferred_layout(int I, int J, int* lay) {
+  const int bn = pass_b_resident_bn(I, J);
+  if (bn > 0) {
+    const int v[7] = {0, bn, pass_b_resident_threads(I, bn),
+                      (int)(sizeof(float) *
+                            (size_t)pass_b_resident_smem_floats(I, bn)),
+                      0, 0, 0};
+    for (int k = 0; k < 7; ++k) lay[k] = v[k];
+    return 1;
+  }
+  const int v[7] = {1, kMmaBN, kMmaThreads,
+                    (int)(sizeof(float) * kMmaSmemFloats), kMmaBM, kMmaBK,
+                    kMmaStages};
+  for (int k = 0; k < 7; ++k) lay[k] = v[k];
+  return 1;
+}
 
 const char* sdfs_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

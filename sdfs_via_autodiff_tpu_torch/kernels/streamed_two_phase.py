@@ -92,9 +92,10 @@ _PASS_C_TILES = (32, 16, 8, 4, 2, 1)
 # Shared memory of one SM (228 KB), of which each resident block reserves
 # 1 KB.
 _SM_SMEM, _BLOCK_RESERVED = 233_472, 1_024
-# The deferred kernels' tiles (mirroring the .cu): pass B's columns per
-# block, W_c1^T rows per K-tile and partial maxima (kDefBN, kDefBK,
-# kDefParts); pass C's column tiles (multiples of 4) and input chunks.
+# The footprint of the first deferred pass-B kernel (a block per row and
+# 32 columns, 8-row K-tiles of W_c1^T, 8 partial maxima per column), which
+# streamed_config still classifies by; pass C's column tiles (multiples of
+# 4) and input chunks.
 _DEF_BN, _DEF_BK, _DEF_PARTS = 32, 8, 8
 _PASS_C_DEFERRED_TILES = (64, 32, 16, 8, 4)
 _PASS_C_DEFERRED_CHUNKS = (32, 16, 8, 4)
@@ -128,9 +129,11 @@ def pass_c_tile(R: int, K: int) -> Optional[int]:
 
 
 def pass_b_deferred_smem_bytes(I: int) -> int:
-    """Shared memory of one deferred pass-B block (mirrors the .cu: the
-    exponentiated (I, 32) strip, two 8-row K-tiles of W_c1^T with rows
-    padded to a multiple of 4, partial column maxima and shifts)."""
+    """Shared memory of one block of the first deferred pass-B kernel
+    (the exponentiated (I, 32) strip, two 8-row K-tiles of W_c1^T with
+    rows padded to a multiple of 4, partial column maxima and shifts): the
+    footprint :func:`streamed_config` classifies by, so that no set moves
+    between configurations with the kernels' layouts."""
     return 4 * (I * _DEF_BN + 2 * _DEF_BK * _up4(I)
                 + _DEF_PARTS * _DEF_BN + _DEF_BN)
 
@@ -139,6 +142,14 @@ def pass_b_deferred_smem_bytes(I: int) -> int:
 # threads of a block (kResMaxThreads), the partial column maxima per
 # column (kResParts) and the item widths pass_b_resident_bn chooses from.
 _RES_MAX_THREADS, _RES_PARTS, _RES_WIDTHS = 384, 2, (32, 64, 128)
+# The tensor-core layout (mirroring the .cu's kMma* constants): consumer
+# and producer threads, rows i and columns j per tile, rows m per K-chunk,
+# raw ring stages, hi/lo operand buffers and the shared-memory row strides
+# of a raw chunk and of the hi/lo operands.
+_MMA_CONSUMERS, _MMA_PRODUCERS = 256, 256
+_MMA_THREADS = _MMA_CONSUMERS + _MMA_PRODUCERS
+_MMA_BM, _MMA_BN, _MMA_BK, _MMA_STAGES, _MMA_BUFS = 128, 128, 16, 4, 2
+_MMA_LD_RAW, _MMA_LD_T = _MMA_BM + 8, _MMA_BK + 4
 
 
 def _up8(n: int) -> int:
@@ -158,15 +169,38 @@ def pass_b_resident_threads(I: int, BN: int) -> int:
     return -(-(BN // 8) * (_up8(I) // 8) // 32) * 32
 
 
+def pass_b_mma_smem_bytes() -> int:
+    """Shared memory of one tensor-core deferred pass-B block (mirrors
+    the .cu's kMmaSmemFloats): a ring of raw K-chunks, W_c1^T's and e's
+    (16, 136) slabs, and two buffers of the hi and lo operands, 4 x
+    (128, 20))."""
+    return 4 * (_MMA_STAGES * 2 * _MMA_BK * _MMA_LD_RAW
+                + _MMA_BUFS * 4 * _MMA_BM * _MMA_LD_T)
+
+
+def pass_b_deferred_work_floats(R: int, I: int, J: int) -> int:
+    """float32 workspace of the deferred pass B (mirrors the .cu's
+    sdfs_pass_b_deferred_work_floats): the tensor-core layout's column
+    maxima (R*J) and exponentials e = exp(a - m) (R*I*J); 0 for the
+    resident layout."""
+    if pass_b_deferred_layout(I, J)[0] == "resident":
+        return 0
+    return R * J + R * I * J
+
+
 def pass_b_deferred_layout(I: int, J: int) -> Tuple[str, int, int, int]:
-    """(layout, columns per block, threads, shared-memory bytes) of the
-    deferred pass B at (I, J), as its launcher chooses (mirrors the .cu):
-    "resident" (W_c1^T in shared memory, a persistent grid over items of
-    BN columns, BN the narrowest of 32, 64, 128 covering J, else the
-    widest, that fits) when it fits a block, else "ktiled" (one block of
-    256 threads per field row and 32 columns, W_c1^T streamed in K-tiles;
-    its footprint, :func:`pass_b_deferred_smem_bytes`, is the one
-    :func:`streamed_config` classifies by)."""
+    """(layout, columns per item or tile, threads, shared-memory bytes)
+    of the deferred pass B at (I, J), as its launcher chooses (mirrors the
+    .cu's ``sdfs_pass_b_deferred_layout``): "resident" (W_c1^T in shared
+    memory, a persistent grid over items of BN columns, BN the narrowest of
+    32, 64, 128 covering J, else the widest, that fits) when it fits a
+    block, else "mma" (an exp pass writing the column maxima and e =
+    exp(a - m) to a workspace, then a persistent grid over tiles of 128
+    rows i x 128 columns j of one field row, 8 producer warps copying
+    K-chunks of 16 into a ring of 4 stages and splitting them into TF32 hi
+    and lo, 8 consumer warps running the split-TF32 products on the tensor
+    cores).  The classification of
+    :func:`streamed_config` stays on :func:`pass_b_deferred_smem_bytes`."""
     best = 0
     for bn in _RES_WIDTHS:
         if (pass_b_resident_smem_bytes(I, bn) > SMEM_LIMIT
@@ -178,7 +212,8 @@ def pass_b_deferred_layout(I: int, J: int) -> Tuple[str, int, int, int]:
     if best:
         return ("resident", best, pass_b_resident_threads(I, best),
                 pass_b_resident_smem_bytes(I, best))
-    return "ktiled", _DEF_BN, 256, pass_b_deferred_smem_bytes(I)
+    return "mma", _MMA_BN, _MMA_THREADS, pass_b_mma_smem_bytes()
+
 
 
 def _pass_c_deferred_smem_bytes(L: int, K: int, TC: int, JK: int) -> int:
@@ -500,7 +535,8 @@ def _lib():
         lib.sdfs_pass_c_batched.argtypes = [p, p, p, p, p, p, p, p, p,
                                             i, i, i, i, f, f, i, p]
         lib.sdfs_pass_c_batched.restype = i
-        lib.sdfs_pass_b_deferred.argtypes = [p, p, p, p, p, i, i, i, f, p]
+        lib.sdfs_pass_b_deferred.argtypes = [p, p, p, p, p, p, i, i, i, f,
+                                             p]
         lib.sdfs_pass_b_deferred.restype = i
         lib.sdfs_pass_c_deferred.argtypes = [p, p, p, p, p, p, p,
                                              i, i, i, i, f, f, p]
@@ -508,8 +544,10 @@ def _lib():
         lib.sdfs_pass_c_pair.argtypes = [p, p, p, p, p, p, p, p,
                                          i, i, i, i, i, i, f, f, p]
         lib.sdfs_pass_c_pair.restype = i
-        lib.sdfs_pass_b_deferred_bn.argtypes = [i, i]
-        lib.sdfs_pass_b_deferred_bn.restype = i
+        lib.sdfs_pass_b_deferred_layout.argtypes = [i, i, p]
+        lib.sdfs_pass_b_deferred_layout.restype = i
+        lib.sdfs_pass_b_deferred_work_floats.argtypes = [i, i, i]
+        lib.sdfs_pass_b_deferred_work_floats.restype = ctypes.c_longlong
         lib.sdfs_pass_c_deferred_layout.argtypes = [i, i, i, p]
         lib.sdfs_pass_c_deferred_layout.restype = i
         lib.sdfs_error_string.argtypes = [i]
@@ -797,12 +835,17 @@ def _pass_b_deferred_cuda(ell, W_c1t, theta, sub_row, sub_col):
         raise ValueError(f"deferred pass B with I = {I}, R = {R} exceeds "
                          "shared memory or the grid")
     out = torch.empty_like(ell)
+    # The tensor-core layout's column maxima and exponentials.
+    n_work = pass_b_deferred_work_floats(R, I, J)
+    work = (torch.empty((n_work,), dtype=torch.float32, device=dev)
+            if n_work else None)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdfs_pass_b_deferred(_ptr(ell), _ptr(W_c1t), _ptr(sub_row),
-                                      _ptr(sub_col), _ptr(out), R, I, J,
-                                      float(theta), ctypes.c_void_p(stream))
+                                      _ptr(sub_col), _ptr(work), _ptr(out),
+                                      R, I, J, float(theta),
+                                      ctypes.c_void_p(stream))
     _raise_on(lib, rc, "deferred pass B")
     LAUNCHES["pass_b_deferred"] += 1
     return out

@@ -45,16 +45,16 @@ from ..operators.two_phase import (TwoPhaseOperands, make_eager_two_phase_T,
                                    two_phase_operands_ssy,
                                    two_phase_operands_ssy_continuous)
 from . import _build
-from .streamed_two_phase import (_GRID_Y_MAX, _SM_SMEM, _BLOCK_RESERVED,
-                                 SMEM_LIMIT, _check, _check_mode, _check_sub,
-                                 _folded, _ptr, make_streamed_T_log,
-                                 streamed_accepts, streamed_coverable,
-                                 streamed_mode)
+from .streamed_two_phase import (_GRID_Y_MAX, SMEM_LIMIT, _check,
+                                 _check_mode, _check_sub, _folded, _ptr,
+                                 _up8, make_streamed_T_log, streamed_accepts,
+                                 streamed_coverable, streamed_mode)
 
 __all__ = ["TPU_ONLY_OPTIONS", "reject_tpu_options", "LAUNCHES",
            "strip_col", "strip_col_plain", "strip_col_layout",
            "strip_col_work_floats", "strip_row", "strip_row_plain",
-           "strip_row_tile", "strip_device_operands", "tiled_engine",
+           "strip_row_tile", "strip_row_layout", "strip_device_operands",
+           "tiled_engine",
            "make_tiled_T_log",
            "make_tiled_T_log_ssy", "make_tiled_T_log_ssy_continuous",
            "make_tiled_T_log_gcy", "make_tiled_T_log_gcy_continuous"]
@@ -74,7 +74,9 @@ _MODES = {"fast": 0, "lse": 1}
 # Batched column factors above this many float32 bytes run in their lazy
 # form when the set has one (the JAX package's default).
 LAZY_BYTES = 6 * 1024 * 1024
-_STRIP_ROW_TILES = (64, 32, 16, 8, 4, 2, 1)
+# The row phase's layout (mirroring the .cu's strip_row_layout): threads
+# per block, the R * TC a tile aims at and the widest tile.
+_ROW_THREADS, _ROW_TILE_FLOATS, _ROW_TC_MAX = 512, 16_384, 64
 # A column factor's kind, as the .cu's factor_kind numbers it.
 _FACTOR_KINDS = {"shared": 0, "dense": 1, "lazy": 2}
 
@@ -185,9 +187,11 @@ def _lib():
         lib.sdfs_strip_col_work_floats.restype = ll
         lib.sdfs_strip_col_layout.argtypes = [i, i, i, i, i, p]
         lib.sdfs_strip_col_layout.restype = i
-        lib.sdfs_strip_row.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+        lib.sdfs_strip_row.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
                                        f, f, i, p]
         lib.sdfs_strip_row.restype = i
+        lib.sdfs_strip_row_layout.argtypes = [i, i, p]
+        lib.sdfs_strip_row_layout.restype = i
         lib.sdfs_strip_error_string.argtypes = [i]
         lib.sdfs_strip_error_string.restype = ctypes.c_char_p
         lib._sdfs_typed = True
@@ -323,21 +327,36 @@ def strip_col(ell, W_c1: Factor, W_c2: Factor, theta: float, mode: str,
     raise ValueError(f"no strip column-phase kernel for device {ell.device}")
 
 
-def _strip_row_smem_bytes(L: int, K: int, tc: int) -> int:
-    """Shared memory of one row-phase block (mirrors the .cu: x and y
-    (R*TC each) and the shifts over l (K*TC) and over k (L*TC))."""
-    return 4 * tc * (2 * L * K + K + L)
+def strip_row_layout(L: int, K: int) -> Optional[Tuple[int, ...]]:
+    """(TC, threads, shared-memory bytes, LS, slabs, wide) of the row
+    phase at (L, K), as its launcher chooses (mirrors the .cu's
+    sdfs_strip_row_layout).  With tc0 = min(64, 16384 // R): "wide" (1),
+    TC a multiple of 4 from max(4, tc0) down, two (L, LS) slabs of the
+    midway tile (row l's K*TC columns at a stride LS = TC (mod 32)),
+    W_r1^T and W_r2^T with rows padded to 8, the shifts over l (K*TC) and
+    over k (L*TC); else "narrow" (0), TC from 64 down, LS = K*TC, W_r1
+    and W_r2 read from global memory, two slabs, then one.
+    The first block that fits; None when none does."""
+    R = L * K
+    tc0 = min(_ROW_TILE_FLOATS // R, _ROW_TC_MAX)
+    for tc in range(max(4, tc0 // 4 * 4), 3, -4):
+        ls = K * tc + (tc - K * tc) % 32
+        smem = 4 * (2 * L * ls + (K + L) * tc + L * _up8(L) + K * _up8(K))
+        if smem <= SMEM_LIMIT:
+            return tc, _ROW_THREADS, smem, ls, 2, 1
+    for slabs in (2, 1):
+        for tc in range(_ROW_TC_MAX, 0, -1):
+            smem = 4 * (slabs * L * K * tc + (K + L) * tc)
+            if smem <= SMEM_LIMIT:
+                return tc, _ROW_THREADS, smem, K * tc, slabs, 0
+    return None
 
 
 def strip_row_tile(L: int, K: int) -> Optional[int]:
-    """Columns per row-phase block: the widest tile that leaves room for
-    two blocks per SM, else that fits one; None when not even one column
-    fits."""
-    for limit in (_SM_SMEM // 2 - _BLOCK_RESERVED, SMEM_LIMIT):
-        for tc in _STRIP_ROW_TILES:
-            if _strip_row_smem_bytes(L, K, tc) <= limit:
-                return tc
-    return None
+    """Columns per row-phase tile (:func:`strip_row_layout`), or None
+    when no tile fits."""
+    lay = strip_row_layout(L, K)
+    return None if lay is None else lay[0]
 
 
 def _strip_row_cuda(mid, scale, S, W_r1, W_r2, add_row, add_col, theta,
@@ -355,17 +374,16 @@ def _strip_row_cuda(mid, scale, S, W_r1, W_r2, add_row, add_col, theta,
     if mode == "fast":
         _check("scale", scale, dev, (R, 1))
         _check("S", S, dev, (1,))
-    TC = strip_row_tile(L, K)
-    if TC is None:
-        raise ValueError(f"strip row phase with {R} rows exceeds shared "
-                         "memory")
+    if strip_row_layout(L, K) is None:
+        raise ValueError(f"strip row phase at (L, K) = ({L}, {K}) exceeds "
+                         "shared memory")
     out = torch.empty_like(mid)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdfs_strip_row(_ptr(mid), _ptr(scale), _ptr(S), _ptr(W_r1),
                                 _ptr(W_r2), _ptr(add_row), _ptr(add_col),
-                                _ptr(out), L, K, C, TC, float(theta),
+                                _ptr(out), L, K, C, float(theta),
                                 float(beta), _MODES[mode],
                                 ctypes.c_void_p(stream))
     _raise_on(lib, rc, "strip row phase")

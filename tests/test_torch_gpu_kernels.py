@@ -656,18 +656,26 @@ def test_fused_anderson_kernel_falls_back_to_T(cuda, name):
 
 # The deferred pass B's two layouts on seeded synthetic operands (W_c1
 # row-stochastic, theta of the GCY calibration's size): resident at I =
-# 144 (the 18.9M-point view's) and I = 40, K-tiled at I = 512; J ragged
-# (not a multiple of the item width, not a multiple of 4).
+# 144 (the 18.9M-point view's) and I = 40, the tensor-core layout at I =
+# 512 and at I not a multiple of 4, 8 or 16 (301, 250, 517, 1000); J
+# ragged (not a multiple of the tile width, of 4 or of 2).
 DEFB_SYNTH = [(3, 144, 200), (2, 144, 37), (4, 40, 70), (2, 512, 70),
-              (1, 512, 37)]
+              (1, 512, 37), (2, 301, 70), (3, 250, 130), (1, 517, 37),
+              (1, 1000, 9), (2, 512, 256)]
 
 
 @pytest.mark.parametrize("with_sub", [True, False])
 @pytest.mark.parametrize("R,I,J", DEFB_SYNTH)
 def test_pass_b_deferred_layouts_match_plain(cuda, R, I, J, with_sub):
-    layout, bn, _, smem = st.pass_b_deferred_layout(I, J)
-    assert st._lib().sdfs_pass_b_deferred_bn(I, J) == (
-        bn if layout == "resident" else 0)
+    layout, bn, threads, smem = st.pass_b_deferred_layout(I, J)
+    lay = (ctypes.c_int * 7)()
+    lib = st._lib()
+    assert lib.sdfs_pass_b_deferred_layout(I, J, lay) == 1
+    mma = (st._MMA_BM, st._MMA_BK, st._MMA_STAGES)
+    assert tuple(lay) == (int(layout == "mma"), bn, threads, smem) + (
+        mma if layout == "mma" else (0, 0, 0))
+    assert (lib.sdfs_pass_b_deferred_work_floats(R, I, J)
+            == st.pass_b_deferred_work_floats(R, I, J))
     assert smem <= st.SMEM_LIMIT
     rng = np.random.default_rng(I + J)
     W = rng.random((I, I))
@@ -686,6 +694,66 @@ def test_pass_b_deferred_layouts_match_plain(cuda, R, I, J, with_sub):
     want = st.pass_b_deferred_plain(ell, *args)
     lim = ATOL + EPS32 * want.abs()
     assert bool(((got - want).abs() <= lim).all())
+
+
+# The strip row phase on seeded synthetic operands (W_r1, W_r2
+# row-stochastic; lse: log-domain midway values near theta*log(800);
+# fast: a linear field with row scales exp(s - S)): L and K of 1, 12, 16
+# and 32, C ragged (not a multiple of the tile, of 4, or below one tile);
+# the narrow layout at (128, 48), (80, 80), L = 300 and (170, 170) (one
+# slab).
+ROW_SYNTH = [(32, 32, 12288), (12, 16, 4099), (16, 12, 1000), (1, 32, 130),
+             (32, 1, 67), (1, 1, 9), (12, 32, 257), (16, 16, 66),
+             (103, 41, 70), (128, 48, 1001), (80, 80, 68), (300, 2, 130),
+             (170, 170, 5)]
+
+
+def _row_operands(L, K, C, mode, dev):
+    rng = np.random.default_rng(L * 1000 + K + C)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                    dtype=torch.float32, device=dev)
+    W1, W2 = rng.random((L, L)), rng.random((K, K))
+    W1 /= W1.sum(axis=1, keepdims=True)
+    W2 /= W2.sum(axis=1, keepdims=True)
+    R = L * K
+    theta, beta = -36.0, 0.9987
+    scale = S = None
+    if mode == "fast":
+        mid = f32(np.exp(0.5 * rng.standard_normal((R, C))))
+        s = theta * np.log(800.0) + 2.0 * rng.standard_normal((R, 1))
+        S = f32(np.array([s.max()]))
+        scale = f32(np.exp(s - s.max()))
+    else:
+        mid = f32(theta * np.log(800.0) + 3.0 * rng.standard_normal((R, C)))
+    add_row = f32(10.0 + 0.1 * rng.standard_normal((L, K)))
+    add_col = f32(0.1 * rng.standard_normal(C))
+    return mid, (scale, S, f32(W1), f32(W2), add_row, add_col, theta, beta,
+                 mode)
+
+
+@pytest.mark.parametrize("mode", ["fast", "lse"])
+@pytest.mark.parametrize("L,K,C", ROW_SYNTH)
+def test_strip_row_kernel_matches_plain(cuda, L, K, C, mode):
+    mid, args = _row_operands(L, K, C, mode, cuda)
+    key = "strip_row" + ("_fast" if mode == "fast" else "")
+    before = tt.LAUNCHES[key]
+    got = tt.strip_row(mid, *args)
+    assert tt.LAUNCHES[key] == before + 1
+    want = tt.strip_row_plain(mid, *args)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("L,K", [(32, 32), (12, 16), (16, 12), (1, 32),
+                                 (32, 1), (1, 1), (103, 41), (20, 13),
+                                 (2, 2), (128, 48), (80, 80), (300, 2),
+                                 (170, 170)])
+def test_strip_row_layout_mirrors_the_launcher(cuda, L, K):
+    want = tt.strip_row_layout(L, K)
+    got = (ctypes.c_int * 6)()
+    assert tt._lib().sdfs_strip_row_layout(L, K, got) == 1
+    assert tuple(got) == want
+    assert want[2] <= st.SMEM_LIMIT
 
 
 # (L, K, J) of the deferred and batched pass C's layouts: the GCY view,

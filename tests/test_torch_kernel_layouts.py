@@ -34,21 +34,38 @@ def _once(writes):
     return max(counts.values()) == 1, len(counts)
 
 
+def _mma_thread_cells():
+    """(i, j) offsets inside a 128 x 128 tile of the 64 outputs each of
+    the tensor-core pass B's 256 consumer threads own (mma.sync m16n8k8
+    accumulators: warp (wm, wn) = (warp % 2, warp // 2) holds rows wm*64..
+    in 4 m16 tiles and columns wn*32.. in 4 n8 tiles; lane (g, t) = (lane
+    // 4, lane % 4) rows g, g + 8 and columns 2t, 2t + 1 of each)."""
+    tid = np.arange(st._MMA_CONSUMERS)
+    warp, lane = np.divmod(tid, 32)
+    wm, wn, g, t = warp % 2, warp // 2, lane // 4, lane % 4
+    mt, nt, h, e = np.meshgrid(np.arange(4), np.arange(4), np.arange(2),
+                               np.arange(2), indexing="ij")
+    i = (wm * 64 + g)[:, None] + (mt * 16 + 8 * h).ravel()[None, :]
+    j = (wn * 32 + 2 * t)[:, None] + (nt * 8 + e).ravel()[None, :]
+    return i, j
+
+
 def _pass_b_deferred_writes(R, I, J, grid):
     """Every output (r, i, j) the deferred pass B stores, as (block,
     thread, r, i, j), following the kernel's loops.  ``grid`` is the
-    resident layout's persistent grid (the co-resident blocks); the
-    K-tiled grid is one block per (32-column strip, row), numbered strip
-    + row * strips."""
+    persistent grid (the co-resident blocks) of either layout; the
+    tensor-core layout's tile t = block + q * grid is i-tile t % n_i of
+    column tile t // n_i (j-tile, then field row)."""
     layout, bn, threads, _ = st.pass_b_deferred_layout(I, J)
-    strips = -(-J // bn)
     out = []
-
-    def tile(block, tid, r, j0, jw, i0, cols):
-        for i in range(i0, min(i0 + 8, I)):
-            out.extend((block, tid, r, i, j0 + c) for c in cols if c < jw)
-
     if layout == "resident":
+        strips = -(-J // bn)
+
+        def tile(block, tid, r, j0, jw, i0, cols):
+            for i in range(i0, min(i0 + 8, I)):
+                out.extend((block, tid, r, i, j0 + c) for c in cols
+                           if c < jw)
+
         n_cg, half = bn // 8, bn // 2
         for block in range(min(grid, R * strips)):
             for item in range(block, R * strips, grid):
@@ -61,16 +78,19 @@ def _pass_b_deferred_writes(R, I, J, grid):
                                 + [half + 4 * cg + b for b in range(4)])
                         tile(block, tid, r, j0, jw, 8 * rg, cols)
         return out
-    groups = st._DEF_BN // 8
-    n_items = -(-I // 8) * groups
-    for r in range(R):
-        for strip in range(strips):
-            j0 = strip * bn
-            jw = min(bn, J - j0)
-            for item in range(n_items):
-                c0, i0 = (item % groups) * 8, (item // groups) * 8
-                tile(strip + r * strips, item % threads, r, j0, jw, i0,
-                     range(c0, c0 + 8))
+    assert layout == "mma" and bn == st._MMA_BN
+    ci, cj = _mma_thread_cells()
+    n_i, n_j = -(-I // st._MMA_BM), -(-J // st._MMA_BN)
+    tids = np.broadcast_to(np.arange(st._MMA_CONSUMERS)[:, None], ci.shape)
+    for block in range(min(grid, n_i * n_j * R)):
+        for t in range(block, n_i * n_j * R, grid):
+            i0 = (t % n_i) * st._MMA_BM
+            rest = t // n_i
+            j0, r = (rest % n_j) * st._MMA_BN, rest // n_j
+            i, j = i0 + ci, j0 + cj
+            ok = (i < I) & (j < J)
+            out.extend((block, int(a), r, int(b), int(c)) for a, b, c in
+                       zip(tids[ok], i[ok], j[ok]))
     return out
 
 
@@ -96,37 +116,273 @@ def _fused_writes(R, C, grid):
 
 
 # (R, I, J, grid): I = 144 (the 18.9M-point continuous-GCY view's), 512
-# (the 25.2M-point GCY view's), ragged I and J (not multiples of 8, of
-# the item width, or of 4), grids smaller than the items.
+# (the 25.2M-point GCY view's), ragged I and J (not multiples of 4, 8,
+# 16, of the item or tile width), grids smaller than the items or tiles.
 DEFB_CASES = [(2, 144, 200, 5), (1, 144, 1024, 7), (1, 512, 40, 3),
               (3, 40, 70, 4), (2, 43, 6, 2), (1, 56, 258, 3),
-              (2, 240, 9, 1)]
+              (2, 240, 9, 1), (2, 512, 256, 5), (1, 301, 70, 2),
+              (2, 250, 130, 3), (1, 517, 37, 4), (3, 1000, 9, 7)]
 
 
 @pytest.mark.parametrize("R,I,J,grid", DEFB_CASES)
 def test_pass_b_deferred_layout_owns_every_output_once(R, I, J, grid):
     layout, bn, threads, smem = st.pass_b_deferred_layout(I, J)
     assert smem <= st.SMEM_LIMIT
-    assert threads % 32 == 0 and threads <= 384
-    once, n = _once(_pass_b_deferred_writes(R, I, J, grid))
+    assert threads % 32 == 0 and threads <= (384 if layout == "resident"
+                                             else 512)
+    writes = _pass_b_deferred_writes(R, I, J, grid)
+    once, n = _once(writes)
     assert once and n == R * I * J
     # The thread owning each output is inside the block.
-    assert all(0 <= w[1] < threads for w in
-               _pass_b_deferred_writes(R, I, J, grid))
+    assert all(0 <= w[1] < threads for w in writes)
 
 
 def test_pass_b_deferred_layout_choice():
     # W_c1^T stays resident at I = 144 with 128-column items and 288
-    # threads (every 8 x 8 tile busy); I = 512 streams it in K-tiles.
+    # threads (every 8 x 8 tile busy); I = 512 runs on the tensor cores,
+    # one block of 512 threads (8 consumer, 8 producer warps) per SM
+    # (151,552 B: two do not fit an SM's 233,472 B), with a workspace of
+    # the column maxima and exponentials.
     assert st.pass_b_deferred_layout(144, 1024) == ("resident", 128, 288,
                                                     231_936)
-    assert st.pass_b_deferred_layout(512, 256) == ("ktiled", 32, 256,
-                                                   99_456)
+    assert st.pass_b_deferred_layout(512, 256) == ("mma", 128, 512,
+                                                   151_552)
+    assert 2 * st.pass_b_mma_smem_bytes() > st._SM_SMEM
+    assert st.pass_b_deferred_work_floats(192, 512, 256) == 192 * 256 * 513
+    assert st.pass_b_deferred_work_floats(8, 144, 1024) == 0
     assert st.pass_b_deferred_layout(40, 20)[:2] == ("resident", 32)
-    assert st.pass_b_deferred_layout(240, 128)[0] == "ktiled"
-    # The classification's input is the K-tiled footprint, as before.
+    assert st.pass_b_deferred_layout(240, 128)[0] == "mma"
+    # The classification's input is the first kernel's footprint, as
+    # before.
     assert st.pass_b_deferred_smem_bytes(144) == 28_800
     assert st.pass_b_deferred_smem_bytes(512) == 99_456
+
+
+def _ldmatrix(addr_of_lane):
+    """What ldmatrix.x4 (b16, 8 x 8 matrices) hands each lane when every
+    row is 4 floats: matrix q's 8 rows start at the addresses lanes 8q..
+    8q + 7 give; lane l receives word l % 4 of row l // 4 of each matrix.
+    Returns (32, 4) float addresses."""
+    lanes = np.arange(32)
+    return np.stack([addr_of_lane[8 * q + lanes // 4] + lanes % 4
+                     for q in range(4)], axis=1)
+
+
+def test_pass_b_mma_fragments_follow_the_mma_layout():
+    # The hi/lo operands: A[i][k] and B[j][k] at row stride kMmaLdT = 20,
+    # read by ldmatrix.
+    ld = st._MMA_LD_T
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for mt, k0 in ((0, 0), (3, 8)):
+        row0 = 16 * mt
+        a_row = (lane & 7) + ((lane >> 3) & 1) * 8
+        a_k = (lane >> 4) * 4
+        got = _ldmatrix((row0 + a_row) * ld + k0 + a_k)
+        # mma.m16n8k8 .tf32 A: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+        # a3 (g + 8, t + 4).
+        want = np.stack([(row0 + g + 8 * (q & 1)) * ld + k0 + t + 4 * (q >> 1)
+                         for q in range(4)], axis=1)
+        assert np.array_equal(got, want)
+    for np_, k0 in ((0, 0), (1, 8)):
+        n0 = 16 * np_
+        b_row = (lane & 7) + ((lane >> 4) & 1) * 8
+        b_k = ((lane >> 3) & 1) * 4
+        got = _ldmatrix((n0 + b_row) * ld + k0 + b_k)
+        # B (col): b0 (k = t, n = g), b1 (k = t + 4, n = g); registers 0-1
+        # for n-tile 2*np, 2-3 for n-tile 2*np + 1.
+        want = np.stack([(n0 + 8 * (q >> 1) + g) * ld + k0 + t + 4 * (q & 1)
+                         for q in range(4)], axis=1)
+        assert np.array_equal(got, want)
+    # Each 8-row matrix read hits 32 distinct banks (rows of 16 bytes at a
+    # stride of 80 bytes); so do a producer warp's split stores (row * 20
+    # + k) and raw reads (k * 136 + row).
+    rows = np.arange(8)[:, None] * ld + np.arange(4)[None, :]
+    assert len(set((rows % 32).ravel())) == 32
+    rr, kk = lane >> 2, lane & 3
+    assert len(set((rr * ld + kk) % 32)) == 32
+    assert len(set((kk * st._MMA_LD_RAW + rr) % 32)) == 32
+
+
+@pytest.mark.parametrize("I,chunks_per_tile,tiles", [(512, 32, 3),
+                                                     (301, 19, 2), (16, 1, 5)])
+def test_pass_b_mma_pipeline_hands_each_chunk_over_once(
+        I, chunks_per_tile, tiles):
+    # Producers, chunk g: sync (chunk g - 1's raw stage free), copy chunk
+    # g + S - 1 into it, wait until at most S - 1 groups are pending (chunk
+    # g landed), sync, wait for buffer g % B's release (g >= B), split, mark
+    # it full.  Consumers, chunk g: wait until full, multiply, release it
+    # (when a chunk g + B exists).  Simulated as events in program order.
+    S, B = st._MMA_STAGES, st._MMA_BUFS
+    assert -(-I // st._MMA_BK) == chunks_per_tile
+    total = chunks_per_tile * tiles
+    issued = {c: -1 for c in range(min(S - 1, total))}
+    split, released = {}, {}
+    for g in range(total):
+        c = g + S - 1
+        if c < total:
+            # The stage held chunk g - 1, split before this iteration's
+            # first barrier.
+            assert c % S == (g - 1) % S and (g == 0 or split[g - 1] < g)
+            issued[c] = g
+        # wait_group(S - 1): the S - 1 groups committed after chunk g's
+        # (empty ones past the last chunk) may be pending.
+        assert issued[g] <= g
+        if g >= B:
+            assert released[g - B] < g         # buffer g % B free again
+        split[g] = g                           # full: consumers multiply g
+        if g + B < total:
+            released[g] = g                    # one release per wait
+    assert sorted(split) == list(range(total))
+    assert sorted(g + B for g in released) == list(range(B, total))
+    # Every (row, k) of a 128 x 16 chunk is split by one (producer warp,
+    # lane, half, k-block), A and B alike; every raw entry is copied by one
+    # producer thread (16-byte copies when I (A) or J (B) is a multiple of
+    # 4, else 4-byte ones).
+    cells = collections.Counter(
+        (16 * w + 8 * h + (ln >> 2), 4 * kb + (ln & 3))
+        for w in range(st._MMA_PRODUCERS // 32) for ln in range(32)
+        for h in range(2) for kb in range(st._MMA_BK // 4))
+    assert len(cells) == st._MMA_BM * st._MMA_BK
+    assert set(cells.values()) == {1}
+    P = st._MMA_PRODUCERS
+    for vec in (True, False):
+        n = 128 * 16 // (4 if vec else 1)
+        x = (np.arange(P)[:, None] + P * np.arange(-(-n // P))).ravel()
+        x = x[x < n]
+        got = ({(k, 4 * c + q) for k, c in zip(x >> 5, x & 31)
+                for q in range(4)} if vec else set(zip(x >> 7, x & 127)))
+        assert len(x) == n and len(got) == 128 * 16
+
+
+def _strip_row_walk(L, K, C, grid):
+    """Follow the row kernel's loops over every tile (tile t to block t %
+    grid) on a tagged copy of its shared slab: each stage reads the
+    entries it means to (the fetch's (r, c), r1's columns within its
+    round), and returns the counts of the outputs (r, c) stored.  Items
+    span V = 4 columns in the wide layout, 1 in the narrow one."""
+    TC, threads, smem, LS, slabs, wide = tt.strip_row_layout(L, K)
+    V = 4 if wide else 1
+    R, KT, CG = L * K, K * TC, TC // V
+    Lp, Kp = st._up8(L), st._up8(K)
+    LB, NG = Lp // 8, KT // V
+    G = min(NG, max(1, threads // LB))
+    out = np.zeros((R, C), int)
+    for t in range(-(-C // TC)):
+        c0 = t * TC
+        tcw = min(TC, C - c0)
+        # fetch: row r = (l, k) at l*LS + k*TC, tagged r*TC + c.
+        slab = np.full(L * LS, -1)
+        r, c = np.divmod(np.arange(R * TC), TC)
+        l, k = np.divmod(r, K)
+        addr = l * LS + k * TC + c
+        assert len(set(addr)) == R * TC and addr.max() < L * LS
+        slab[addr] = r * TC + c
+        tag = lambda l_, n: (l_ * K + n // TC) * TC + n % TC
+        # 1. a thread per column n = (k, c) reads x[l*LS + n] for every l.
+        n = np.arange(KT)
+        for l_ in range(L):
+            assert np.array_equal(slab[l_ * LS + n], tag(l_, n))
+        # 2. r1 in rounds: items (lb, column group) read x[m*LS + n0..]
+        # and write y[l*LS + n0..] for their 8 rows; a round reads only its
+        # own columns.
+        written = np.zeros((L, KT), int)
+        for g0 in range(0, NG, G):
+            gw = min(G, NG - g0)
+            tid = np.arange(gw * LB)
+            lb = tid // gw
+            n0 = V * (g0 + tid - lb * gw)
+            cols = set(n0.tolist())
+            assert cols == set(range(V * g0, V * (g0 + gw), V))
+            for m in range(L):
+                for q in range(V):
+                    assert np.array_equal(slab[m * LS + n0 + q],
+                                          tag(m, n0 + q))
+            for a in range(8):
+                ok = 8 * lb + a < L
+                for q in range(V):
+                    np.add.at(written, (8 * lb[ok] + a, n0[ok] + q), 1)
+        assert written.min() == written.max() == 1
+        # 3. a thread per (l, c) reads y[l*LS + k*TC + c] for every k: the
+        # r1 output of row l, column n = k*TC + c.
+        p = np.arange(L * TC)
+        l_, c_ = np.divmod(p, TC)
+        for k_ in range(K):
+            assert np.array_equal(slab[l_ * LS + k_ * TC + c_],
+                                  tag(l_, k_ * TC + c_))
+        # 4. r2 items (k-block, l, column group) store rows l*K + k0..,
+        # columns c0 + V*cq.. below the tile's width.
+        item = np.arange((Kp // 8) * L * CG)
+        kb, rest = np.divmod(item, L * CG)
+        l2, cq = np.divmod(rest, CG)
+        for a in range(8):
+            for q in range(V):
+                ok = (8 * kb + a < K) & (V * cq + q < tcw)
+                np.add.at(out, (l2[ok] * K + 8 * kb[ok] + a,
+                                c0 + V * cq[ok] + q), 1)
+    return out
+
+
+# (L, K, C, grid): the SSY cell (32, 32, 12288), the GCY view's (12, 16,
+# C), C4's (103, 41) (TC = 4, r1 in two rounds), L or K of 1, C ragged
+# (not a multiple of TC or of 4, below one tile); narrow: the plain SSY
+# Tauchen set one step past C4's (128, 48), (80, 80), L = 300 and K =
+# 300 (W^T too large), and (170, 170) (one slab, TC = 1).
+ROW_WALKS = [(32, 32, 12288 // 24, 7), (12, 16, 1000, 5), (103, 41, 70, 3),
+             (1, 32, 130, 2), (32, 1, 67, 4), (1, 1, 9, 1), (20, 13, 257, 3),
+             (16, 12, 66, 2), (128, 48, 7, 2), (80, 80, 5, 3),
+             (300, 2, 61, 2), (2, 300, 29, 1), (170, 170, 3, 2)]
+
+
+@pytest.mark.parametrize("L,K,C,grid", ROW_WALKS)
+def test_strip_row_layout_owns_every_output_once(L, K, C, grid):
+    TC, threads, smem, LS, slabs, wide = tt.strip_row_layout(L, K)
+    assert smem <= st.SMEM_LIMIT and threads == 512 and slabs in (1, 2)
+    out = _strip_row_walk(L, K, C, grid)
+    assert out.min() == out.max() == 1
+    if not wide:
+        assert LS == K * TC
+        return
+    # LS = TC (mod 32): a quarter-warp's float4 reads of r2's operand
+    # (TC/4 threads per row l) and the shift passes hit distinct banks.
+    assert TC % 4 == 0 and slabs == 2
+    assert LS % 32 == TC % 32 and LS >= K * TC
+    CG = TC // 4
+    addr = (np.arange(8)[:, None] // CG * LS + 4 * (np.arange(8)[:, None] % CG)
+            + np.arange(4)[None, :]) if CG < 8 else None
+    if addr is not None:
+        assert len(set((addr % 32).ravel())) == 32
+
+
+def test_strip_row_layout_choice():
+    # The SSY cell: TC = 16 (R * TC = 16,384; at least 16 at L = K = 32),
+    # two 66 KB slabs, one block of 512 threads per SM; the GCY view:
+    # TC = 64; C4's (103, 41): TC = 4.
+    assert tt.strip_row_layout(32, 32) == (16, 512, 147_456, 528, 2, 1)
+    assert 2 * 147_456 > st._SM_SMEM          # one block per SM
+    assert tt.strip_row_layout(12, 16) == (64, 512, 107_264, 1024, 2, 1)
+    assert tt.strip_row_layout(103, 41) == (4, 512, 188_160, 164, 2, 1)
+    assert tt.strip_row_tile(32, 32) == 16
+    # Past the wide layout (two slabs at TC >= 4 beside W_r1^T and
+    # W_r2^T) the narrow one at the widest TC that fits: (128, 48) and
+    # (80, 80) at TC = 4, L = 300 at TC = 38, (170, 170) with one slab.
+    assert tt.strip_row_layout(128, 48) == (4, 512, 199_424, 192, 2, 0)
+    assert tt.strip_row_layout(80, 80) == (4, 512, 207_360, 320, 2, 0)
+    assert tt.strip_row_layout(300, 2) == (38, 512, 228_304, 76, 2, 0)
+    assert tt.strip_row_layout(170, 170) == (1, 512, 116_960, 170, 1, 0)
+
+
+@pytest.mark.parametrize("L0", range(1, 301, 60))
+def test_strip_row_layout_covers_the_first_row_kernel(L0):
+    # The first row kernel (x and y tiles of R * TC floats each, the
+    # shifts over l and k, TC from 64 down to 1) ran every (L, K) whose
+    # one column, 4 * (2 * L * K + K + L) bytes, fits a block; each has a
+    # layout now (the narrow one at TC = 1 with two slabs takes the same).
+    for L in range(L0, L0 + 60):
+        for K in range(1, 301):
+            if 4 * (2 * L * K + K + L) <= st.SMEM_LIMIT:
+                lay = tt.strip_row_layout(L, K)
+                assert lay is not None and lay[2] <= st.SMEM_LIMIT, (L, K)
 
 
 def _slab_walk(L, K, J):
