@@ -145,14 +145,17 @@ Phases, in order; any failure exits non-zero before the result line:
     launch counts, iterations, seconds, float64 residual and distance to
     the plain solve of the same grid;
 30. timing of the new kernels against their plain versions at the SSY
-    cell (the sets the paths ran them on), of the strip column phase at
+    cell (the sets the paths ran them on; pass B with the fold and pass
+    C lse, the linear carry, on the normalized set (a), each first held
+    against its plain version there), of the strip column phase at
     the 25.2M GCY view (192, 512, 256), lse, rank-2 lazy and plain, and
     of the row phase at its (L, K, C) = (12, 16, 131072), plain;
 31. a JSON line of per-kernel facts (with each kernel's bound: the
     largest of its FP32 operations over 67 TFLOP/s, its TF32 tensor-core
-    operations over 495 TFLOP/s (the deferred pass B at I = 512: split
-    TF32, three TF32 products per FP32 one; its row also gives the FP32
-    route's bound, ``bound_fp32_ms``, and share), its bytes over 3.35
+    operations over 495 TFLOP/s (the deferred pass B at I = 512 and pass
+    B's c2 product: split TF32, three TF32 products per FP32 one; their
+    rows also give the FP32 route's bound, ``bound_fp32_ms``, and share),
+    its bytes over 3.35
     TB/s and, for the post-interp kernel, the pair pass C and the
     deferred pass B with the fold, its special-function operations
     (expf, logf, log1pf) over 16 per clock per SM at the card's maximum
@@ -311,6 +314,10 @@ REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "post_interp":
                 "sdfs_via_autodiff_tpu/kernels/post_interp_kernel.py:58",
             "pass_b_mid": f"{_JAX_KERNELS}:324",        # _b_kernel, has_mid
+            # _b_kernel with the fold (has_sub) and a shared c2, lse, and
+            # _c_kernel's shared-c2 lse, at the normalized SSY cell (a)
+            "pass_b_sub": f"{_JAX_KERNELS}:324",
+            "pass_c_lse": f"{_JAX_KERNELS}:446",
             "strip_col": f"{_JAX_STRIP}:170",           # _col_phase_kernel
             "strip_row": f"{_JAX_STRIP}:195",           # _row_phase_kernel
             "strip_col_fast": f"{_JAX_STRIP}:226",      # _col_phase_fast_kernel
@@ -346,6 +353,14 @@ def bound_of(flop, nbytes, sfu=0, tf32=0):
     term = max(terms, key=terms.get)
     return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
             term)
+
+
+def pass_b_work(name, R, I, J, nbytes):
+    """WORK and FP32_WORK of pass B with a shared c2 at (R, I, J): c1 in
+    FP32 FMA, c2 split TF32 (three TF32 products per FP32 one)."""
+    c1, c2 = 2 * R * I * I * J, 2 * R * I * J * J
+    WORK[name] = (c1, nbytes, 0, 3 * c2)
+    FP32_WORK[name] = (c1 + c2, nbytes)
 
 
 def bound(name: str):
@@ -1778,7 +1793,8 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
     cast = f32_cast(torch, dev)
     eps32 = float(np.finfo(np.float32).eps)
     max_err = {k: 0.0 for k in ("strip_col", "strip_row", "strip_col_fast",
-                                "strip_row_fast", "pass_b_mid")}
+                                "strip_row_fast", "pass_b_mid",
+                                "pass_b_sub", "pass_c_lse")}
     counters = (st.LAUNCHES, tt.LAUNCHES)
 
     # 27. The strip kernels vs plain: small sets, then both cells.
@@ -1972,6 +1988,10 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
         report(f"path normalized SSY {MAIN_SHAPES} auto, {run}", sol.result,
                secs, got, T64_s, torch.log(sol.w_star), plain_star["ssy"],
                ("pass_b", "pass_c"))
+        # Every pass B and pass C of this path is B1 with the fold, lse,
+        # and B2 lse.
+        launches["pass_b_sub"], launches["pass_c_lse"] = (got["pass_b"],
+                                                          got["pass_c"])
         del sol
         # (b) Normalized SSY on the strip tier (B9 lse) end to end.
         T = port.make_tiled_T_log_ssy(model_s, disc_s, baseline="loglinear",
@@ -2102,8 +2122,47 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
     kernels_ms["pass_b_mid"] = (
         time_ms(torch, lambda y: st.pass_b(y, *b_args), e),
         time_ms(torch, lambda y: st.pass_b_plain(y, *b_args), e))
-    WORK["pass_b_mid"] = (2 * R * (I * I * J + I * J * J),
-                          2 * field + 4 * (I * I + J * J + R + 2 * I * J))
+    pass_b_work("pass_b_mid", R, I, J,
+                2 * field + 4 * (I * I + J * J + R + 2 * I * J))
+    # B1 lse with the fold and B2 lse (the linear carry) on the normalized
+    # set (a) at the cell, the conjugated-shared set path (a) runs.
+    conj = st.streamed_coverable(ops_n)
+    check(port.streamed_config(conj) == "full" and not conj.has_mid,
+          "normalized SSY (a) is not the full configuration")
+    e = cast(conj.baseline_log_w + 0.02 * rng.standard_normal(
+        MAIN_SHAPES)).reshape(R, I, J)
+    b_args = (cast(conj.W_c1), cast(np.asarray(conj.W_c2).T),
+              float(conj.theta), "lse",
+              cast(np.asarray(conj.sub_row).reshape(R)), cast(conj.sub_col))
+    got, want = st.pass_b(e, *b_args), st.pass_b_plain(e, *b_args)
+    err = float((got - want).abs().max())
+    check(bool(((got - want).abs()
+                <= KERNEL_ATOL + eps32 * want.abs()).all()),
+          f"pass_b with the fold {MAIN_SHAPES}: max abs err {err:.3e}")
+    max_err["pass_b_sub"] = err
+    mid = want.reshape(R, C)
+    c_args = (None, None, cast(conj.W_r1), cast(conj.W_r2),
+              cast(conj.add_row), cast(np.asarray(conj.add_col).reshape(C)),
+              float(conj.theta), float(conj.beta), "lse")
+    out_k, out_p = st.pass_c(mid, *c_args), st.pass_c_plain(mid, *c_args)
+    err = float((out_k - out_p).abs().max())
+    check(bool(torch.isfinite(out_k).all()) and err <= KERNEL_ATOL,
+          f"pass_c lse {MAIN_SHAPES}: max abs err {err:.3e}")
+    max_err["pass_c_lse"] = err
+    del got, want, out_k, out_p
+    kernels_ms["pass_b_sub"] = (
+        time_ms(torch, lambda y: st.pass_b(y, *b_args), e),
+        time_ms(torch, lambda y: st.pass_b_plain(y, *b_args), e))
+    kernels_ms["pass_c_lse"] = (
+        time_ms(torch, lambda y: st.pass_c(y, *c_args), mid),
+        time_ms(torch, lambda y: st.pass_c_plain(y, *c_args), mid))
+    pass_b_work("pass_b_sub", R, I, J,
+                2 * field + 4 * (I * I + J * J + R + I * J))
+    WORK["pass_c_lse"] = (2 * C * R * (L + K),
+                          2 * field + 4 * (L * L + K * K + R + C),
+                          # expf per entry at the load, logf + expf +
+                          # log1pf at the epilogue, the carries per (k, c)
+                          4 * R * C + K * C)
     for name in max_err:
         k_ms, p_ms = kernels_ms[name]
         print(f"timing {name} {MAIN_SHAPES}: kernel {k_ms:.4f} ms, plain "
@@ -2323,8 +2382,8 @@ def main() -> None:
                 time_ms(torch, lambda y: st.pass_c_plain(y, *c_args), mid2))
             R, C = L * K, I * J
             field = 4 * R * C
-            WORK["pass_b"] = (2 * R * (I * I * J + I * J * J),
-                              2 * field + 4 * (I * I + J * J + R))
+            pass_b_work("pass_b", R, I, J,
+                        2 * field + 4 * (I * I + J * J + R))
             WORK["pass_c"] = (2 * C * R * (L + K),
                               2 * field + 4 * (L * L + K * K + 2 * R + C + 1))
             for name, (k_ms, p_ms) in kernels_ms.items():

@@ -9,7 +9,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     python3 -m sdfs_via_autodiff_tpu_torch.bench.kernel_split \
       [--before DIR]
       [--kernels post_interp,pass_c_pair,pass_b_deferred,pass_c_deferred,
-                 fused,strip_col,strip_row]
+                 fused,strip_col,strip_row,pass_b,pass_c]
 
 Each kernel's source stops after a phase under a compile-time switch
 (``SPLITS``; 1-3 store that phase's result in place of the output):
@@ -35,7 +35,15 @@ Each kernel's source stops after a phase under a compile-time switch
 - ``SDFS_STRIP_ROW_SPLIT`` in the same source (the row phase,
   ``sdfs_strip_row``): 1 the load of the midway tile (fast: with the row
   scales), 2 adds the lse shift and exp, 3 the r1 contraction, 4 the r2
-  shift and exp.
+  shift and exp, 5 r2 without the epilogue;
+- ``SDFS_PASSB_SPLIT`` in ``csrc/streamed_two_phase.cu`` (pass B with a
+  shared c2, and its c1-only branch): 1 the load, fold, shift and exp, 2
+  adds c1 (with mid_col, the lse shift and exp of its result), 3 the c2
+  product without the epilogue's log; and ``noproducts``
+  (``-DSDFS_DEFB_SPLIT=2``: the c2 product's copies and splits alone);
+- ``SDFS_PASSC_SPLIT`` in the same source (pass C with a shared c2): 1
+  the load and scale (lse: with the shifts and exp), 2 adds r1, 3 r2
+  without the epilogue.
 
 The script builds every variant with nvcc (one process each, all
 started together) and times each at the main paths' shapes with CUDA
@@ -99,6 +107,13 @@ STRIP_SSY, STRIP_GCY = (32, 32, 32, 384), (32, 16, 16, 12, 16, 16)
 # a plain SSY Tauchen set the streamed tier declines whose row phase runs
 # the narrow layout (R = 6,144), in fast mode.
 STRIP_NARROW = (128, 48, 64, 512)
+# Pass B with a shared c2 and pass C (the full configuration): the plain
+# SSY Tauchen cell (32,32,32,384) fast, the normalized set (a) at the cell
+# (conjugated-shared, lse with the fold), the mid_col set (e) (the same
+# set with a seeded mid_col of scale 0.05) and pass B's c1-only branch at
+# the continuous-SSY cell (56,56,56,64), fast and lse with the log-linear
+# fold.
+PASSB_SSY, PASSB_C1 = (32, 32, 32, 384), (56, 56, 56, 64)
 # kernel: (source stem, switch, the stops before the whole kernel).
 SPLITS = {"post_interp": ("post_interp", "SDFS_SPLIT", (1, 2, 3)),
           "pass_c_pair": ("streamed_two_phase", "SDFS_PAIR_SPLIT", (1, 2, 3)),
@@ -109,10 +124,14 @@ SPLITS = {"post_interp": ("post_interp", "SDFS_SPLIT", (1, 2, 3)),
           "fused": ("fused_two_matmul", "SDFS_FUSED_SPLIT", (1, 2)),
           "strip_col": ("tiled_two_phase", "SDFS_STRIP_SPLIT", (1, 2, 3)),
           "strip_row": ("tiled_two_phase", "SDFS_STRIP_ROW_SPLIT",
-                        (1, 2, 3, 4))}
+                        (1, 2, 3, 4, 5)),
+          "pass_b": ("streamed_two_phase", "SDFS_PASSB_SPLIT", (1, 2, 3)),
+          "pass_c": ("streamed_two_phase", "SDFS_PASSC_SPLIT", (1, 2, 3))}
 # Variants beside the stops: name -> (source stem, nvcc define).
 EXTRA = {"fused": {"nobarrier": ("fused_two_matmul",
-                                 "-DSDFS_FUSED_BARRIER=1")}}
+                                 "-DSDFS_FUSED_BARRIER=1")},
+         "pass_b": {"noproducts": ("streamed_two_phase",
+                                   "-DSDFS_DEFB_SPLIT=2")}}
 OUT_DIR = _build.BUILD_DIR / "split"
 
 
@@ -138,7 +157,7 @@ def _compile(src: Path, tag: str, name: str, defines) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc {src} {tag} {name}:\n{proc.stderr}")
     if name == "whole":
-        keep = ("post_gather", "pass_c_pair", "pass_b_",
+        keep = ("post_gather", "pass_c_pair", "pass_b_", "pass_c_kernel",
                 "pass_c_deferred", "pass_c_slab", "fused_", "strip_")
         lines = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()]
         for k, ln in enumerate(lines):
@@ -639,6 +658,126 @@ def _row_calls(mid, row_args, dev):
     return call, out, plain
 
 
+def _passb_sets(dev):
+    """(label, ell, b_args, c_args) of the pass-B and pass-C timings:
+    b_args = (W_c1, W_c2t, theta, mode, sub_row, sub_col, mid_col) as
+    :func:`st.pass_b` takes them; c_args = (scale, S, W_r1, W_r2,
+    add_row, add_col, theta, beta, mode) for pass C on the plain pass B's
+    result, or None (c1 only)."""
+    import dataclasses
+    cast = _cast(dev)
+    model = port.SSY()
+    disc = port.discretize_ssy(model, PASSB_SSY, method="tauchen")
+    L, K, I, J = PASSB_SSY
+    R = L * K
+    plain = port.two_phase_operands_ssy(model, disc)
+    conj = st.streamed_coverable(port.two_phase_operands_ssy(
+        model, disc, "loglinear"))
+    mid = dataclasses.replace(conj, mid_col=0.05 * np.random.default_rng(
+        1).standard_normal(PASSB_SSY[2:]))
+    for label, ops, mode in (("SSY cell fast", plain, "fast"),
+                             ("normalized SSY (a) lse fold", conj, "lse"),
+                             ("mid_col set (e) lse fold", mid, "lse")):
+        rng = np.random.default_rng(0)
+        base = (np.log(800.0) if ops.baseline_log_w is None
+                else ops.baseline_log_w)
+        ell = cast(base + 0.02 * rng.standard_normal(PASSB_SSY)).reshape(
+            R, I, J)
+        sub = ((cast(np.asarray(ops.sub_row).reshape(R)), cast(ops.sub_col))
+               if ops.has_sub else (None, None))
+        th, be = float(ops.theta), float(ops.beta)
+        b_args = (cast(ops.W_c1), cast(np.asarray(ops.W_c2).T), th, mode,
+                  *sub, cast(ops.mid_col) if ops.has_mid else None)
+        c_args = None
+        if not ops.has_mid:
+            b = st.pass_b_plain(ell, *b_args)
+            scale = S = None
+            if mode == "fast":
+                b, s = b
+                S = s.max().reshape(1)
+                scale = torch.exp(s - S)
+            c_args = (b.reshape(R, I * J).contiguous(), scale, S,
+                      cast(ops.W_r1), cast(ops.W_r2), cast(ops.add_row),
+                      cast(np.asarray(ops.add_col).reshape(I * J)), th, be,
+                      mode)
+        yield f"{PASSB_SSY} {label}", ell, b_args, c_args
+    grids = port.build_grid_ssy(model, *PASSB_C1)
+    L, K, I, J = PASSB_C1
+    R = L * K
+    x = port.ops.grids.flatten_mesh([g.cpu() for g in grids]).numpy()
+    ell0 = port.ssy_loglinear_factory(model)(x.T).reshape(PASSB_C1)
+    rng = np.random.default_rng(0)
+    for baseline, mode in ((None, "fast"), ("loglinear", "lse")):
+        ops = port.two_phase_operands_ssy_continuous(model, grids, 5,
+                                                     baseline)
+        ell = cast(ell0 + 0.02 * rng.standard_normal(PASSB_C1)).reshape(
+            R, I, J)
+        sub = ((cast(np.asarray(ops.sub_row).reshape(R)), cast(ops.sub_col))
+               if ops.has_sub else (None, None))
+        yield (f"{PASSB_C1} c1 only {mode}" + (" fold" if baseline else ""),
+               ell, (cast(ops.W_c1), None, float(ops.theta), mode, *sub,
+                     None), None)
+
+
+def _passb_calls(ell, b_args, dev):
+    """Caller of one ``sdfs_pass_b`` launch; a library with
+    ``sdfs_pass_b_work_floats`` also takes its workspace."""
+    W_c1, W_c2t, th, mode, sub_row, sub_col, mid_col = b_args
+    R, I, J = ell.shape
+    out = torch.empty_like(ell)
+    s = torch.empty((R, 1), dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+    def call(lib):
+        fn = lib.sdfs_pass_b
+        work = ()
+        if hasattr(lib, "sdfs_pass_b_work_floats"):
+            wf = lib.sdfs_pass_b_work_floats
+            wf.argtypes, wf.restype = [i] * 4, ctypes.c_longlong
+            n = int(wf(R, I, J, int(W_c2t is not None)))
+            work = (torch.empty((n,), dtype=torch.float32, device=dev)
+                    if n else None,)
+        fn.argtypes, fn.restype = [p] * (8 + len(work)) + [i] * 3 + [f, i,
+                                                                      p], i
+        go = lambda: fn(_ptr(ell), _ptr(W_c1), _ptr(W_c2t), _ptr(sub_row),
+                        _ptr(sub_col), _ptr(mid_col), _ptr(out), _ptr(s),
+                        *(_ptr(t) for t in work), R, I, J, th,
+                        st._MODES[mode], stream)
+        go.work = work
+        return go
+
+    plain = st.pass_b_plain(ell, *b_args)
+    return call, out, plain[0] if mode == "fast" else plain
+
+
+def _passc_calls(c_args, dev):
+    """Caller of one shared-c2 pass-C launch: ``sdfs_pass_c`` (the first
+    kernel, which takes its column tile :func:`st.pass_c_tile`) or
+    ``sdfs_pass_c_row`` (the row-phase kernel)."""
+    mid, scale, S, W_r1, W_r2, add_row, add_col, th, be, mode = c_args
+    L, K = W_r1.shape[0], W_r2.shape[0]
+    R, C = mid.shape
+    out = torch.empty_like(mid)
+    stream = _stream(dev)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+    def call(lib):
+        if hasattr(lib, "sdfs_pass_c_row"):
+            fn, tiles = lib.sdfs_pass_c_row, ()
+        else:
+            fn, tiles = lib.sdfs_pass_c, (st.pass_c_tile(R, K),)
+        fn.argtypes, fn.restype = [p] * 8 + [i] * (3 + len(tiles)) + [
+            f, f, i, p], i
+        return lambda: fn(
+            _ptr(mid), _ptr(scale), _ptr(S), _ptr(W_r1), _ptr(W_r2),
+            _ptr(add_row), _ptr(add_col), _ptr(out), L, K, C, *tiles, th, be,
+            st._MODES[mode], stream)
+
+    plain = st.pass_c_plain(*c_args)
+    return call, out, plain
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--before", type=Path, default=None,
@@ -755,6 +894,18 @@ def main() -> None:
             call, out, plain = _row_calls(mid, row_args, dev)
             measure("strip_row", label, call, out, plain, 20)
             del call, out, plain, mid, row_args
+            torch.cuda.empty_cache()
+    if "pass_b" in kernels or "pass_c" in kernels:
+        for label, ell, b_args, c_args in _passb_sets(dev):
+            if "pass_b" in kernels:
+                call, out, plain = _passb_calls(ell, b_args, dev)
+                measure("pass_b", label, call, out, plain, 50)
+                del call, out, plain
+            if "pass_c" in kernels and c_args is not None:
+                call, out, plain = _passc_calls(c_args, dev)
+                measure("pass_c", label, call, out, plain, 50)
+                del call, out, plain
+            del ell, b_args, c_args
             torch.cuda.empty_cache()
     print(json.dumps({"device": smi, "split": results}))
 

@@ -7,19 +7,22 @@
 // ell[r, c] with rows r = (h_lam, h_c) = (l, k) and columns
 // c = (h_z, z) = (i, j) runs as two passes over the field:
 //
-//   pass B (column phase), one block per field row r:
-//     a = theta * ell[r] (I, J), or with a folded baseline
-//     a = fma(theta, ell, -sub_row[r]) - sub_col[i, j]; contract i' with
-//     W_c1, add the conjugated-shared correction mid_col[i, j] (HAS_MID,
-//     lse mode only), then contract j' with a shared W_c2 (C2_HERE) or
-//     not at all (a batched c2 contracts in pass_c_batched).  Replaces
+//   pass B (column phase): a = theta * ell[r] (I, J), or with a folded
+//     baseline a = fma(theta, ell, -sub_row[r]) - sub_col[i, j]; contract
+//     i' with W_c1, add the conjugated-shared correction mid_col[i, j]
+//     (lse mode only), then contract j' with a shared W_c2 or not at all
+//     (a batched c2 contracts in pass_c_batched).  Replaces
 //     sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py:324 (_b_kernel):
-//     c2_here, has_sub and has_mid both ways.
-//   pass C (row phase), one block per tile of TC consecutive columns
-//     holding all R = L*K rows: contract l' with W_r1, then k' with W_r2,
-//     add add_row[l, k] + add_col[c], epilogue log1p(beta*exp(lh/theta)).
-//     Replaces streamed_two_phase.py:446 (_c_kernel) without batched or
-//     deferred c2 (the deferred branch is pass_c_deferred, further down).
+//     c2_here, has_sub and has_mid both ways.  Two kernels, further down:
+//     a c1 pass (pass_b_c1_kernel) and the c2 product on the tensor cores
+//     (pass_b_mma_kernel<true, .>, the deferred pass B's product).
+//   pass C (row phase) with a shared c2: contract l' with W_r1, then k'
+//     with W_r2, add add_row[l, k] + add_col[c], epilogue
+//     log1p(beta*exp(lh/theta)).  Replaces the shared-c2 branch of
+//     streamed_two_phase.py:446 (_c_kernel): the row-phase kernel of
+//     row_phase.cuh, one template with the strip tier's row phase
+//     (sdfs_pass_c_row).  The deferred, batched and pair branches are
+//     further down.
 //
 // mode 0 ("fast"): pass B takes one shift per field row, s_r = max a, and
 // emits the linear midway field W_c1 exp(a - s_r) W_c2^T with s; pass C
@@ -28,25 +31,9 @@
 // at every contraction; pass C carries its two row contractions linearly
 // with low-rank rescales (the linear-carry LSE of the TPU kernel).
 //
-// What bounds these kernels on an H100: the contractions are FP32 FMA
-// chains (no tensor cores: TF32's 10-bit mantissa misses the 1e-6-class
-// one-application bar) at O(N * (I + J)) and O(N * (L + K)) FLOPs, about
-// 12 GFLOP per application at 32x32x32x384, against 200 MB of field
-// traffic: the FMA pipe and shared-memory load slots, not HBM, are the
-// limit.  The design keeps every intermediate of a phase in shared memory
-// (one read and one write of the field per pass) and register-tiles each
-// contraction (several outputs per thread) so that each shared-memory
-// load feeds several FMAs.  The small factors are read through L1.  W_c2
-// is J*J*4 = 576 KB at J = 384, beyond the 227 KB a block may hold, so
-// pass B's j' contraction (~90% of its FLOPs) streams it from L2, where
-// it stays resident, in 16-row K-tiles through the pass's first buffer
-// (free by then), the next tile's cp.async copy overlapping the current
-// tile's FMAs.  Ragged shapes (I = 56, J not a multiple of 4, TC not
-// dividing C) are clamped and masked.  Transcendentals are CUDA's
-// expf/logf/log1pf, built without fast-math.
-//
 // The C entry points launch on the caller's stream, allocate nothing and
 // return cudaGetLastError(); the Python wrappers validate every argument.
+// Transcendentals are CUDA's expf/logf/log1pf, built without fast-math.
 
 #include <climits>
 #include <cooperative_groups.h>
@@ -56,14 +43,32 @@
 #include "cp_async.cuh"
 #include "occupancy.cuh"
 
+// SDFS_PASSB_SPLIT / SDFS_PASSC_SPLIT (compile-time, for timing the
+// phases; 4, the default, is the kernel).  Pass B: 1 stops after the
+// load, fold, shift and exp (the c1 pass stores e), 2 after the c1 pass
+// (c1, mid_col, the lse row shift and exp: the c2 product's operand U),
+// 3 after the c2 product (its sums stored without the log).  Pass C: 1
+// after the load and scale (lse: with the shifts and exp), 2 after r1,
+// 3 after r2 (its sums stored without the epilogue): the row kernel's
+// SDFS_STRIP_ROW_SPLIT 2, 3 and 5.
+#ifndef SDFS_PASSB_SPLIT
+#define SDFS_PASSB_SPLIT 4
+#endif
+#ifndef SDFS_PASSC_SPLIT
+#define SDFS_PASSC_SPLIT 4
+#endif
+
+#if SDFS_PASSC_SPLIT < 4 && !defined(SDFS_STRIP_ROW_SPLIT)
+#define SDFS_STRIP_ROW_SPLIT \
+  (SDFS_PASSC_SPLIT == 1 ? 2 : SDFS_PASSC_SPLIT == 2 ? 3 : 5)
+#endif
+
+#include "row_phase.cuh"
+
 namespace {
 
 constexpr int kModeFast = 0;
 constexpr int kModeLse = 1;
-constexpr int kPassBThreads = 256;
-constexpr int kPassCThreads = 512;
-constexpr int kTI = 8;   // output rows per thread in a contraction
-constexpr int kTJ = 4;   // output columns per thread in a contraction
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -72,84 +77,22 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Max over the block; every thread gets the result.  scratch holds 32
-// floats.
-__device__ float block_max(float v, float* scratch) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  v = warp_max(v);
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = (threadIdx.x < (blockDim.x >> 5)) ? scratch[threadIdx.x] : -INFINITY;
-  if (warp == 0) {
-    v = warp_max(v);
-    if (lane == 0) scratch[0] = v;
-  }
-  __syncthreads();
-  const float r = scratch[0];
-  __syncthreads();
-  return r;
-}
-
-// out[i, n] = sum_m A[i, m] * B[m, n] for i < I, n < N, by the whole
-// block.  Each thread owns kTI rows and kTJ columns n = q0 + q * nq
-// (nq = ceil(N / kTJ)), so neighbouring threads touch neighbouring
-// columns (coalesced global loads, conflict-free shared loads) while the
-// A loads are broadcasts.  Out-of-range rows and columns are clamped for
-// the loads and skipped at the store.  The sum runs in order of m.
-template <class LoadA, class LoadB, class Store>
-__device__ __forceinline__ void block_matmul(int I, int N, int M,
-                                             LoadA load_a, LoadB load_b,
-                                             Store store) {
-  const int nq = (N + kTJ - 1) / kTJ;
-  const int n_items = nq * ((I + kTI - 1) / kTI);
-  for (int item = threadIdx.x; item < n_items; item += blockDim.x) {
-    const int q0 = item % nq, i0 = (item / nq) * kTI;
-    int ii[kTI], nn[kTJ];
-#pragma unroll
-    for (int t = 0; t < kTI; ++t) ii[t] = min(i0 + t, I - 1);
-#pragma unroll
-    for (int q = 0; q < kTJ; ++q) nn[q] = min(q0 + q * nq, N - 1);
-    float acc[kTI][kTJ];
-#pragma unroll
-    for (int t = 0; t < kTI; ++t)
-#pragma unroll
-      for (int q = 0; q < kTJ; ++q) acc[t][q] = 0.f;
-    for (int m = 0; m < M; ++m) {
-      float b[kTJ];
-#pragma unroll
-      for (int q = 0; q < kTJ; ++q) b[q] = load_b(m, nn[q]);
-#pragma unroll
-      for (int t = 0; t < kTI; ++t) {
-        const float a = load_a(ii[t], m);
-#pragma unroll
-        for (int q = 0; q < kTJ; ++q) acc[t][q] = fmaf(a, b[q], acc[t][q]);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kTI; ++t)
-#pragma unroll
-      for (int q = 0; q < kTJ; ++q) {
-        const int i = i0 + t, n = q0 + q * nq;
-        if (i < I && n < N) store(i, n, acc[t][q]);
-      }
-  }
-}
-
 __host__ __device__ inline int round_up4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int round_up8(int n) { return (n + 7) & ~7; }
+__host__ __device__ inline int round_up32(int n) { return (n + 31) & ~31; }
 
-constexpr int kBK = 16;  // W_c2 rows per K-tile of pass B's j' contraction
+constexpr size_t kSmemLimit = 232448;  // a block's shared memory (227 KB)
+constexpr int kBK = 16;  // W rows per K-tile of rows_times_w (pass_c_pair)
 
-// out[i, j] = sum_m u[i, m] * w[m, j] for one field row (i < I, j < J):
-// pass B's j' contraction, ~90% of its FLOPs.  W (J, J) streams from L2
-// through two shared K-tiles of kBK rows (`stage`, 2 * kBK * J floats),
-// the next tile's cp.async copy overlapping the current tile's FMAs.
-// Each thread owns TI rows and TJ columns n = q0 + q * nq; u (row stride
-// Jp = round_up4(J), zero-padded) is read as float4 broadcasts along m,
-// W tiles as conflict-free rows.  Tile rows past J are zero-filled so
-// the padded m add exact zeros.  The sum runs in order of m.
-//
-// VEC16 (pass_c_pair, J % 4 == 0 and w 16-byte aligned) copies the tiles
-// in 16-byte pieces; pass B keeps its 4-byte copies.
+// out[i, j] = sum_m u[i, m] * w[m, j] for i < I, j < J (pass_c_pair's z'
+// product).  W (J, J) streams from L2 through two shared K-tiles of kBK
+// rows (`stage`, 2 * kBK * J floats), the next tile's cp.async copy
+// overlapping the current tile's FMAs.  Each thread owns TI rows and TJ
+// columns n = q0 + q * nq; u (row stride Jp = round_up4(J), zero-padded)
+// is read as float4 broadcasts along m, W tiles as conflict-free rows.
+// Tile rows past J are zero-filled so the padded m add exact zeros.  The
+// sum runs in order of m.  VEC16 (J % 4 == 0 and w 16-byte aligned)
+// copies the tiles in 16-byte pieces, else 4-byte ones.
 template <int TI, int TJ, bool VEC16 = false, class Store>
 __device__ __forceinline__ void rows_times_w(int I, int J, int Jp,
                                              const float* u,
@@ -234,196 +177,331 @@ __device__ __forceinline__ void rows_times_w(int I, int J, int Jp,
   }
 }
 
-// Floats of pass B's first buffer: the (I, J) field slice, later the two
-// K-tiles of W_c2 (rounded to a float4 boundary).
-__host__ __device__ inline int pass_b_a_floats(int I, int J) {
-  const int tiles = 2 * kBK * J;
-  return round_up4(I * J > tiles ? I * J : tiles);
+// ------------------------------------------------ pass B, the c1 pass
+//
+// What bounds pass B with a shared c2 on an H100: its c2 contraction.  At
+// the SSY cell (R, I, J) = (1024, 32, 384) that is 2*R*I*J*J = 9.66 of
+// the pass's 10.5 GFLOP (0.144 ms of FP32 FMA), against 100.7 MB of field
+// (0.030 ms).  The first design ran both contractions per field row in one
+// block (W_c2^T, 576 KB, streamed from L2 in 4-byte copies by each of
+// 1,024 blocks) at a third of the FP32 rate.  This one splits the pass:
+//
+//   1. pass_b_c1_kernel, a persistent grid over steps of RB field rows:
+//      the next step's (RB, I, J) slab arrives by cp.async (16-byte where
+//      J % 4 == 0) while the current one is processed, W_c1^T is resident
+//      in shared memory (read through __ldg where it does not fit).  The
+//      fold (one FMA then one subtraction, as the plain version), the
+//      shift (per row in fast mode, per column in lse mode) and one exp
+//      per entry, in place; c1 in FP32 register tiles of 8 rows i x 4
+//      columns j per thread (two float4 of W_c1^T, broadcast, and one of
+//      the slab per m: 32 FMA), RB chosen so that a step has ~256 tiles
+//      (I = 32, J = 384: one row of 384 tiles; I = 56, J = 64: two rows
+//      of 112); lse: + shift, log, + mid_col ((shift + log) + mid, as the
+//      TPU kernel rounds it).  Then with a shared c2, lse mode takes the
+//      row shift sh[r, i] = max_j and U = exp(u - sh); U (row stride Jp =
+//      round_up4(J), zeros past J) and sh go to a workspace.  Without c2
+//      the pass writes mid itself.
+//   2. pass_b_mma_kernel<true, .>: mid (R*I, J) = U W_c2^T in split TF32 on
+//      the tensor cores (the deferred pass B's product kernel, further
+//      down, with the field rows as its M side and W_c2^T as its B
+//      operand), tiles of 128 x 128 with the N tiles fastest, so that the
+//      blocks running together share U's rows in L2; epilogue linear
+//      (fast) or sh + log (lse).  Every term is non-negative (W_c2 >= 0,
+//      U in [0, 1] or the linear field), so nothing cancels.
+//
+// The c1-only branch (a c2 batched over i, pass_c_batched) is the c1 pass
+// alone (RB = 2 at (56, 56, 56, 64): 1.26 GFLOP against 90 MB, bytes
+// bound).  Ragged I, J: rows past I are zero in W_c1^T, slab columns past
+// J are zero after the exp, partial steps skip their missing rows.
+
+constexpr int kC1MaxThreads = 384;
+constexpr int kC1Items = 256;   // 8 x 4 tiles per step the layout aims at
+constexpr int kC1MaxRows = 8;   // field rows per step
+
+struct C1Layout {
+  int rb;       // field rows per step
+  int threads;
+  int slabs;    // 2 (the next step's slab in flight) or 1
+  int wres;     // 1: W_c1^T in shared memory; 0: W_c1 through __ldg
+  int smem;     // floats
+};
+
+// Shared-memory floats of the c1 pass: the slabs (RB, I, Jp), W_c1^T (I
+// rows of round_up8(I)), the column shifts (RB, Jp) and the row shifts
+// (RB, round_up8(I)).
+__host__ __device__ inline int c1_smem_floats(int I, int J, int rb,
+                                              int slabs, int wres) {
+  const int Jp = round_up4(J), Ip = round_up8(I);
+  return slabs * rb * I * Jp + (wres ? I * Ip : 0) + rb * Jp + rb * Ip;
 }
 
-// Shared-memory floats of pass B: the first buffer, u (I rows of
-// Jp = round_up4(J)), one shift vector, and the block-reduction scratch.
-__host__ __device__ inline int pass_b_smem_floats(int I, int J) {
-  return pass_b_a_floats(I, J) + I * round_up4(J) + (I > J ? I : J) + 32;
+// The c1 pass's layout at (I, J): RB = kC1Items / tiles per row (1 to
+// kC1MaxRows), threads = RB * tiles rounded up to a warp (at most
+// kC1MaxThreads, tiles in rounds past that); two slabs with W_c1^T
+// resident, then one slab, then W_c1 from global memory, RB from its
+// target down, the first that fits; false when none does.
+inline bool pass_b_c1_layout(int I, int J, C1Layout* lay) {
+  const int tiles = (round_up8(I) / 8) * (round_up4(J) / 4);
+  int rb0 = kC1Items / tiles;
+  rb0 = rb0 < 1 ? 1 : rb0 > kC1MaxRows ? kC1MaxRows : rb0;
+  for (int v = 0; v < 3; ++v) {
+    const int slabs = v == 0 ? 2 : 1, wres = v < 2;
+    for (int rb = rb0; rb >= 1; --rb) {
+      const int smem = c1_smem_floats(I, J, rb, slabs, wres);
+      if (sizeof(float) * (size_t)smem > kSmemLimit) continue;
+      const int t = round_up32(rb * tiles);
+      *lay = C1Layout{rb, t < kC1MaxThreads ? t : kC1MaxThreads, slabs,
+                      wres, smem};
+      return true;
+    }
+  }
+  return false;
 }
 
-// Shared-memory floats of pass C: x and y (R*TC each), the per-(k, t)
-// and per-t lse shifts.
-__host__ __device__ inline int pass_c_smem_floats(int L, int K, int TC) {
-  return 2 * L * K * TC + K * TC + TC;
-}
-
-// HAS_SUB: subtract the folded baseline first.  HAS_MID (lse mode): add
-// mid_col[i, j] to the log-domain c1 result, (shift + log) + mid as the
-// TPU kernel rounds it.  C2_HERE: contract j' with the shared W_c2 after
-// i'; without it the block writes the c1 result (linear in fast mode,
-// log domain in lse mode) and stops.
-template <int MODE, bool HAS_SUB, bool C2_HERE, bool HAS_MID>
-__global__ void __launch_bounds__(kPassBThreads)
-pass_b_kernel(const float* __restrict__ ell, const float* __restrict__ w_c1,
-              const float* __restrict__ w_c2t,
-              const float* __restrict__ sub_row,
-              const float* __restrict__ sub_col,
-              const float* __restrict__ mid_col, float* __restrict__ mid,
-              float* __restrict__ s_out, int I, int J, float theta) {
-  static_assert(!HAS_MID || MODE == kModeLse, "mid_col needs lse mode");
+// C2: a shared c2 follows (out = the workspace U, row stride Jp; lse
+// writes the row shifts to rshift_out); else out = mid (R, I, J).  WRES:
+// W_c1^T resident.  sub_row/sub_col and mid_col may be null.
+template <int MODE, bool C2, bool WRES>
+__global__ void __launch_bounds__(kC1MaxThreads, 2)
+pass_b_c1_kernel(const float* __restrict__ ell,
+                 const float* __restrict__ w_c1,
+                 const float* __restrict__ sub_row,
+                 const float* __restrict__ sub_col,
+                 const float* __restrict__ mid_col, float* __restrict__ out,
+                 float* __restrict__ s_out, float* __restrict__ rshift_out,
+                 int R, int I, int J, C1Layout lay, float theta) {
   extern __shared__ float smem[];     // 16-byte aligned base
-  const int IJ = I * J, Jp = round_up4(J);
-  float* a = smem;                   // (I, J): theta*ell, then exp(a - shift)
-  float* u = a + pass_b_a_floats(I, J);  // (I, Jp): after c1
-  float* shift = u + I * Jp;         // (max(I, J)): per-column, then per-row
-  float* scratch = shift + (I > J ? I : J);
+  const int Jp = round_up4(J), Ip = round_up8(I);
+  const int IJ = I * J, IJp = I * Jp, RB = lay.rb;
+  const int IB = Ip / 8, CG = Jp / 4;
+  float* slabs = smem;                          // lay.slabs x (RB, I, Jp)
+  float* wt = slabs + lay.slabs * RB * IJp;     // WRES: (I, Ip), [m*Ip + i]
+  float* cshift = wt + (WRES ? I * Ip : 0);     // (RB, Jp): lse column shifts
+  float* rshift = cshift + RB * Jp;  // (RB, Ip): lse row shifts; fast: s
   const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t r = blockIdx.x;
-  const float* ell_r = ell + r * IJ;
-  float* mid_r = mid + r * IJ;
+  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+  const int n_steps = (R + RB - 1) / RB;
+  const bool pad = Jp != J;           // else 16-byte copies, no padding
+  const bool sub = sub_row != nullptr;
 
-  // With a folded baseline, one rounding before the cancellation down to
-  // O(1), as the deferred pass B and the plain version compute it.
-  const float sr = HAS_SUB ? __ldg(sub_row + r) : 0.f;
-  for (int x = tid; x < IJ; x += nt)
-    a[x] = HAS_SUB ? __fsub_rn(__fmaf_rn(theta, ell_r[x], -sr),
-                               __ldg(sub_col + x))
-                   : theta * ell_r[x];
-  if (C2_HERE)
-    for (int x = tid; x < I * (Jp - J); x += nt)      // zero u's padding
-      u[(x / (Jp - J)) * Jp + J + x % (Jp - J)] = 0.f;
-  __syncthreads();
-
-  if (MODE == kModeFast) {
-    float m = -INFINITY;
-    for (int x = tid; x < IJ; x += nt) m = fmaxf(m, a[x]);
-    const float s = block_max(m, scratch);
-    for (int x = tid; x < IJ; x += nt) a[x] = expf(a[x] - s);
-    if (tid == 0) s_out[r] = s;
-  } else {
-    for (int j = tid; j < J; j += nt) {
-      float m = -INFINITY;
-      for (int i = 0; i < I; ++i) m = fmaxf(m, a[i * J + j]);
-      shift[j] = m;
+  if (WRES)
+    for (int x = tid; x < I * Ip; x += nt) {
+      const int m = x / Ip, i = x - m * Ip;
+      wt[x] = i < I ? __ldg(w_c1 + i * I + m) : 0.f;
     }
-    __syncthreads();
-    for (int x = tid; x < IJ; x += nt) a[x] = expf(a[x] - shift[x % J]);
-  }
-  __syncthreads();
 
-  // c1: u[i, j] = sum_m W_c1[i, m] a[m, j] (to mid without C2_HERE).
-  block_matmul(
-      I, J, I,
-      [&](int i, int m) { return __ldg(w_c1 + i * I + m); },
-      [&](int m, int j) { return a[m * J + j]; },
-      [&](int i, int j, float v) {
-        float o = (MODE == kModeFast) ? v : shift[j] + logf(v);
-        if (HAS_MID) o += __ldg(mid_col + i * J + j);
-        if (C2_HERE) {
-          u[i * Jp + j] = o;
-        } else {
-          mid_r[i * J + j] = o;
-        }
-      });
-  if constexpr (!C2_HERE) return;
-  __syncthreads();
-
-  if (MODE == kModeLse) {
-    const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
-    for (int i = warp; i < I; i += nw) {
-      float m = -INFINITY;
-      for (int j = lane; j < J; j += 32) m = fmaxf(m, u[i * Jp + j]);
-      m = warp_max(m);
-      if (lane == 0) shift[i] = m;
+  // Step q's rows r0.. into buf (rows past R and columns past J zero).
+  auto fetch = [&](int q, float* buf) {
+    const int r0 = q * RB;
+    const float* src = ell + (size_t)r0 * IJ;
+    if (!pad) {
+      const long long avail = (long long)(R - r0) * IJ;
+      for (int x = tid; x < RB * IJ / 4; x += nt) {
+        const bool ok = 4LL * x < avail;
+        cp_async16(buf + 4 * x, ok ? src + 4 * x : ell, ok);
+      }
+    } else {
+      for (int x = tid; x < RB * IJp; x += nt) {
+        const int rr = x / IJp, e = x - rr * IJp, i = e / Jp, j = e - i * Jp;
+        const bool ok = j < J && r0 + rr < R;
+        cp_async4(buf + x, ok ? src + (size_t)rr * IJ + i * J + j : ell, ok);
+      }
     }
-    __syncthreads();
-    for (int x = tid; x < IJ; x += nt) {
-      const int i = x / J, j = x % J;
-      u[i * Jp + j] = expf(u[i * Jp + j] - shift[i]);
-    }
-    __syncthreads();
-  }
-
-  // c2: mid[r, i, j] = sum_m W_c2[j, m] u[i, m] = sum_m u[i, m] W_c2t[m, j].
-  auto store = [&](int i, int j, float v) {
-    mid_r[i * J + j] = (MODE == kModeFast) ? v : shift[i] + logf(v);
+    cp_async_commit();
   };
-  // Tile shapes by J: one round of 256 items at J = 384 (16 x 3 outputs
-  // per thread); 8 x 2 keeps ~200 items busy at J = 64.  `a` is free now
-  // and holds the W_c2 K-tiles.
-  if (J >= 256) {
-    rows_times_w<16, 3>(I, J, Jp, u, w_c2t, a, store);
-  } else {
-    rows_times_w<8, 2>(I, J, Jp, u, w_c2t, a, store);
-  }
-}
+  // theta * x less the folded baseline: one rounding of theta*x - sub_row
+  // before the cancellation down to O(1), then the column part.
+  auto fold = [&](float x, float sr, int i, int j) {
+    return sub ? __fsub_rn(__fmaf_rn(theta, x, -sr),
+                           __ldg(sub_col + i * J + j))
+               : theta * x;
+  };
 
-template <int MODE>
-__global__ void __launch_bounds__(kPassCThreads)
-pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
-              const float* __restrict__ S, const float* __restrict__ w_r1,
-              const float* __restrict__ w_r2,
-              const float* __restrict__ add_row,
-              const float* __restrict__ add_col, float* __restrict__ out,
-              int L, int K, int C, int TC, float theta, float beta) {
-  extern __shared__ float smem[];
-  const int R = L * K, KT = K * TC;
-  float* x = smem;              // (L, K, TC): the midway tile
-  float* y = x + R * TC;        // (L, K, TC): after the l' contraction
-  float* m1 = y + R * TC;       // (K, TC): lse shift over l
-  float* m2 = m1 + KT;          // (TC): lse shift over k
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int c0 = blockIdx.x * TC;
-  const int tcw = min(TC, C - c0);
+  if (blockIdx.x < n_steps) fetch(blockIdx.x, slabs);
+  const int NG = RB * CG;                       // column groups of a step
+  const int G = min(NG, max(1, nt / IB));       // column groups per round
+  int it = 0;
+  for (int q = blockIdx.x; q < n_steps; q += gridDim.x, ++it) {
+    float* x = slabs + (lay.slabs == 2 ? (it & 1) : 0) * RB * IJp;
+    const int r0 = q * RB, rows = min(RB, R - r0);
+    if (lay.slabs == 1 && it > 0) {
+      __syncthreads();                 // the last step's reads of x done
+      fetch(q, x);
+    }
+    cp_async_wait<0>();
+    __syncthreads();                   // slab q landed; the other one free
+    if (lay.slabs == 2 && q + (int)gridDim.x < n_steps)
+      fetch(q + gridDim.x, slabs + ((it + 1) & 1) * RB * IJp);
 
-  for (int idx = tid; idx < R * TC; idx += nt) {
-    const int r = idx / TC, t = idx % TC;
-    float v = (t < tcw) ? mid[(size_t)r * C + c0 + t] : 0.f;
-    if (MODE == kModeFast) v *= __ldg(scale + r);
-    x[idx] = v;
-  }
-  __syncthreads();
-
-  if (MODE == kModeLse) {
-    for (int col = tid; col < KT; col += nt) {
-      float m = -INFINITY;
-      for (int l = 0; l < L; ++l) m = fmaxf(m, x[l * KT + col]);
-      m1[col] = m;
+    // 1. Fold, shift and exp in place, a thread per column (rr, j): the
+    // column maxima (lse: the shifts; fast: reduced to the row shifts
+    // s[r], a warp per row); columns past J stay zero since the copy.
+    for (int c = tid; c < rows * Jp; c += nt) {
+      const int rr = c / Jp, j = c - rr * Jp;
+      if (j >= J) continue;
+      float* col = x + rr * IJp + j;
+      const float sr = sub ? __ldg(sub_row + r0 + rr) : 0.f;
+      float mx = -INFINITY;
+#pragma unroll 8
+      for (int i = 0; i < I; ++i) {
+        const float v = fold(col[i * Jp], sr, i, j);
+        col[i * Jp] = v;
+        mx = fmaxf(mx, v);
+      }
+      if (MODE == kModeLse)
+#pragma unroll 8
+        for (int i = 0; i < I; ++i) col[i * Jp] = expf(col[i * Jp] - mx);
+      cshift[c] = mx;
     }
     __syncthreads();
-    for (int t = tid; t < TC; t += nt) {
-      float m = -INFINITY;
-      for (int k = 0; k < K; ++k) m = fmaxf(m, m1[k * TC + t]);
-      m2[t] = m;
+    if (MODE == kModeFast) {
+      for (int rr = warp; rr < rows; rr += nw) {
+        float mx = -INFINITY;
+        for (int j = lane; j < J; j += 32) mx = fmaxf(mx, cshift[rr * Jp + j]);
+        mx = warp_max(mx);
+        if (lane == 0) {
+          rshift[rr * Ip] = mx;
+          s_out[r0 + rr] = mx;
+        }
+      }
+      __syncthreads();
+      for (int c = tid; c < rows * Jp; c += nt) {
+        const int rr = c / Jp, j = c - rr * Jp;
+        if (j >= J) continue;
+        float* col = x + rr * IJp + j;
+        const float s = rshift[rr * Ip];
+#pragma unroll 8
+        for (int i = 0; i < I; ++i) col[i * Jp] = expf(col[i * Jp] - s);
+      }
+      __syncthreads();
     }
-    for (int idx = tid; idx < R * TC; idx += nt)
-      x[idx] = expf(x[idx] - m1[idx % KT]);
+#if SDFS_PASSB_SPLIT == 1
+    for (int c = tid; c < rows * Jp; c += nt) {
+      const int rr = c / Jp, j = c - rr * Jp;
+      if (j < J)
+        for (int i = 0; i < I; ++i)
+          out[((size_t)(r0 + rr) * I + i) * (C2 ? Jp : J) + j] =
+              x[rr * IJp + i * Jp + j];
+    }
+    continue;
+#endif
+
+    // 2. c1 in rounds of G column groups (all i-blocks of a group in one
+    // round, so that lse's store back over x overwrites only columns the
+    // round has read); a warp's threads share an i-block.
+    for (int g0 = 0; g0 < NG; g0 += G) {
+      const int gw = min(G, NG - g0);
+      const bool act = tid < gw * IB;
+      const int ib = act ? tid / gw : 0;
+      const int g = g0 + (act ? tid - ib * gw : 0);
+      const int rr = g / CG, j0 = 4 * (g - rr * CG), i0 = 8 * ib;
+      const bool live = act && rr < rows;
+      float acc[8][4];
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+      if (live) {
+        const float* xp = x + rr * IJp + j0;
+#pragma unroll 2
+        for (int m = 0; m < I; ++m) {
+          float w[8];
+          if (WRES) {
+            const float4 wa =
+                *reinterpret_cast<const float4*>(wt + m * Ip + i0);
+            const float4 wb =
+                *reinterpret_cast<const float4*>(wt + m * Ip + i0 + 4);
+            w[0] = wa.x; w[1] = wa.y; w[2] = wa.z; w[3] = wa.w;
+            w[4] = wb.x; w[5] = wb.y; w[6] = wb.z; w[7] = wb.w;
+          } else {
+#pragma unroll
+            for (int a = 0; a < 8; ++a)
+              w[a] = i0 + a < I ? __ldg(w_c1 + (i0 + a) * I + m) : 0.f;
+          }
+          const float4 v = *reinterpret_cast<const float4*>(xp + m * Jp);
+#pragma unroll
+          for (int a = 0; a < 8; ++a) {
+            acc[a][0] = fmaf(w[a], v.x, acc[a][0]);
+            acc[a][1] = fmaf(w[a], v.y, acc[a][1]);
+            acc[a][2] = fmaf(w[a], v.z, acc[a][2]);
+            acc[a][3] = fmaf(w[a], v.w, acc[a][3]);
+          }
+        }
+      }
+      // lse: shift + log (+ mid_col), as the TPU kernel rounds it.
+      if (MODE == kModeLse && live) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int j = j0 + b;
+          const float sh = cshift[rr * Jp + j];
+#pragma unroll
+          for (int a = 0; a < 8; ++a) {
+            float o = sh + logf(acc[a][b]);
+            if (mid_col != nullptr && i0 + a < I && j < J)
+              o += __ldg(mid_col + (i0 + a) * J + j);
+            acc[a][b] = o;
+          }
+        }
+      }
+      if (C2 && MODE == kModeLse) {
+        __syncthreads();               // every read of these columns done
+        if (live)
+#pragma unroll
+          for (int a = 0; a < 8; ++a)
+            if (i0 + a < I)
+              *reinterpret_cast<float4*>(x + rr * IJp + (i0 + a) * Jp + j0) =
+                  make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+      } else if (live) {
+        // fast with c2: U (zeros past J: the slab's are); without c2: mid.
+        const size_t row0 = (size_t)(r0 + rr) * I;
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+          const int i = i0 + a;
+          if (i >= I) break;
+          if (C2 || !pad) {
+            *reinterpret_cast<float4*>(out + (row0 + i) * (C2 ? Jp : J) +
+                                       j0) =
+                make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+          } else {
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              if (j0 + b < J) out[(row0 + i) * J + j0 + b] = acc[a][b];
+          }
+        }
+      }
+    }
+    if (!(C2 && MODE == kModeLse)) continue;
+
+    // 3. lse with c2: sh[r, i] = max_j, a warp per row; U = exp(u - sh)
+    // (zeros past J) and sh to the workspace.
     __syncthreads();
+    for (int p = warp; p < rows * I; p += nw) {
+      const int rr = p / I, i = p - rr * I;
+      const float* row = x + rr * IJp + i * Jp;
+      float mx = -INFINITY;
+      for (int j = lane; j < J; j += 32) mx = fmaxf(mx, row[j]);
+      mx = warp_max(mx);
+      if (lane == 0) {
+        rshift[rr * Ip + i] = mx;
+        rshift_out[(size_t)(r0 + rr) * I + i] = mx;
+      }
+    }
+    __syncthreads();
+    float* U = out + (size_t)r0 * IJp;
+    for (int e4 = tid; e4 < rows * IJp / 4; e4 += nt) {
+      const int e = 4 * e4, rr = e / IJp, i = (e - rr * IJp) / Jp;
+      const int j = e % Jp;
+      const float sh = rshift[rr * Ip + i];
+      const float4 v = *reinterpret_cast<const float4*>(x + e);
+      const float in[4] = {v.x, v.y, v.z, v.w};
+      float o[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        o[b] = j + b < J ? expf(in[b] - sh) : 0.f;
+      *reinterpret_cast<float4*>(U + e) = make_float4(o[0], o[1], o[2], o[3]);
+    }
   }
-
-  // r1: y[l, k, t] = sum_m W_r1[l, m] x[m, k, t]; in lse mode the carry
-  // rescale exp(m1[k, t] - m2[t]) rides the store.
-  block_matmul(
-      L, KT, L,
-      [&](int l, int m) { return __ldg(w_r1 + l * L + m); },
-      [&](int m, int col) { return x[m * KT + col]; },
-      [&](int l, int col, float v) {
-        if (MODE == kModeLse) v *= expf(m1[col] - m2[col % TC]);
-        y[l * KT + col] = v;
-      });
-  __syncthreads();
-
-  // r2 + epilogue: z[l, k, t] = sum_m W_r2[k, m] y[l, m, t], columns
-  // n = l * TC + t.
-  const float shift0 = (MODE == kModeFast) ? __ldg(S) : 0.f;
-  block_matmul(
-      K, L * TC, K,
-      [&](int k, int m) { return __ldg(w_r2 + k * K + m); },
-      [&](int m, int n) { return y[(n / TC) * KT + m * TC + n % TC]; },
-      [&](int k, int n, float v) {
-        const int l = n / TC, t = n % TC;
-        if (t >= tcw) return;
-        const int r = l * K + k;
-        const float lh = logf(v) + (MODE == kModeFast ? shift0 : m2[t]) +
-                         __ldg(add_row + r) + __ldg(add_col + c0 + t);
-        out[(size_t)r * C + c0 + t] = log1pf(beta * expf(lh / theta));
-      });
+  cp_async_wait<0>();
 }
 
 // ------------------------------------------------- deferred-c2 passes
@@ -449,7 +527,7 @@ pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
 //   pass_c_batched (continuous SSY): the same kernel with each slice i
 //     contracted against its own factor P_z[i] (W_c2^T of slice i at
 //     w_c2t + i * J * J, indexed directly: no block-diagonal maps), after
-//     pass_b_kernel's c1-only branch.  In lse mode exactly the deferred
+//     pass B's c1-only branch.  In lse mode exactly the deferred
 //     recipe; in fast mode the input is pass B's linear c1 result, row r
 //     scaled by scale[r] = exp(s_r - S), no shifts and no carries, and S
 //     is added back after the log.  Replaces the c2_batched branch of
@@ -463,7 +541,8 @@ pass_c_kernel(const float* __restrict__ mid, const float* __restrict__ scale,
 // In FP32 FMA that is 0.385 ms; W_c1 (I*I*4 = 1 MiB) does not fit a
 // block, and the first design (one block per row and 32 columns, 8-row
 // K-tiles of W_c1^T, FP32 FMA) ran at 36 TFLOP/s and read W_c1^T from L2
-// 1,536 times (~1.6 GB) per launch.  This one (pass_b_mma_kernel) runs the
+// 1,536 times (~1.6 GB) per launch.  This one (pass_b_mma_kernel,
+// which pass B's c2 product shares) runs the
 // product on the tensor cores in split TF32: each operand x becomes hi =
 // tf32(x) (cvt.rna) and lo = tf32(x - hi), and three TF32 products per
 // k-step, lo*hi + hi*lo + hi*hi, are summed in FP32 (|x - hi - lo| <=
@@ -527,10 +606,16 @@ constexpr int kMmaLdT = kMmaBK + 4;    // hi/lo rows (k contiguous): 8 rows
 constexpr int kMmaBufs = 2;    // hi/lo operand buffers
 constexpr int kMmaRaw = kMmaBK * kMmaLdRaw;
 constexpr int kMmaT = kMmaBM * kMmaLdT;
-// Shared-memory floats of pass_b_mma_kernel: the ring of raw chunks
-// (W_c1^T's and e's) and kMmaBufs buffers of the hi and lo operands.
-constexpr int kMmaSmemFloats =
-    kMmaStages * 2 * kMmaRaw + kMmaBufs * 4 * kMmaT;
+// A raw K-chunk of an A operand stored (M, K) (pass B's U): kMmaBM rows of
+// kMmaBK values at the hi/lo rows' stride kMmaLdT.
+constexpr int kMmaRawMK = kMmaBM * kMmaLdT;
+// Shared-memory floats of pass_b_mma_kernel: the ring of raw chunks (A's
+// and B's) and kMmaBufs buffers of the hi and lo operands.
+__host__ __device__ constexpr int mma_smem_floats(bool a_mk) {
+  return kMmaStages * ((a_mk ? kMmaRawMK : kMmaRaw) + kMmaRaw) +
+         kMmaBufs * 4 * kMmaT;
+}
+constexpr int kMmaSmemFloats = mma_smem_floats(false);
 // Named barriers of pass_b_mma_kernel (0 is __syncthreads): the
 // producers' own, and per operand buffer "full" and "empty".
 constexpr int kBarProducers = 1, kBarFull = 2, kBarEmpty = 2 + kMmaBufs;
@@ -636,18 +721,32 @@ pass_b_exp_kernel(const float* __restrict__ ell,
   }
 }
 
+// Epilogues of pass_b_mma_kernel: the sum itself, colmax[r, j] + log
+// (the deferred pass B's column maxima) or colmax[i] + log (pass B's row
+// shifts).
+constexpr int kEpiLinear = 0, kEpiColLog = 1, kEpiRowLog = 2;
+
+// The tensor-core product of the deferred pass B and, with PASS_B, of
+// pass B's c2: out (I, J) = A B, A = W_c1^T (I, I) stored (K, M) and B =
+// e[r] (I, J) per field row r (the i-tiles fastest), or with PASS_B A =
+// U (I rows of round_up4(J), zero past J) stored (M, K) and B = W_c2^T
+// (J, J), one batch (R = 1), the j-tiles fastest (the blocks running
+// together share U's rows in L2).  Epilogue EPI: the sum, colmax[r, j] +
+// log or colmax[i] + log (pass B's row shifts).
+template <bool PASS_B, int EPI>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 pass_b_mma_kernel(const float* __restrict__ e,
                   const float* __restrict__ w_c1t,
                   const float* __restrict__ colmax, float* __restrict__ out,
                   int R, int I, int J) {
+  constexpr int kRawA = PASS_B ? kMmaRawMK : kMmaRaw;
   extern __shared__ float smem[];     // 16-byte aligned base
   float* ring = smem;                               // stages x {A, B}
-  float* ops = smem + kMmaStages * 2 * kMmaRaw;     // bufs x {Ah Al Bh Bl}
+  float* ops = smem + kMmaStages * (kRawA + kMmaRaw);  // bufs x {Ah Al Bh Bl}
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_it = (I + kMmaBM - 1) / kMmaBM;
   const int n_jt = (J + kMmaBN - 1) / kMmaBN;
-  const int n_ch = (I + kMmaBK - 1) / kMmaBK;
+  const int n_ch = ((PASS_B ? J : I) + kMmaBK - 1) / kMmaBK;
   const int n_tiles = n_it * n_jt * R;  // < 2^31: the launcher checks
   const int mine = (int)blockIdx.x < n_tiles
                        ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
@@ -663,10 +762,17 @@ pass_b_mma_kernel(const float* __restrict__ e,
   };
   auto set_tile = [&](Cursor& c) {
     const int t = (int)blockIdx.x + c.q * (int)gridDim.x;
-    const int rest = t / n_it;
-    c.i0 = (t - rest * n_it) * kMmaBM;
-    c.r = rest / n_jt;
-    c.j0 = (rest - c.r * n_jt) * kMmaBN;
+    if constexpr (PASS_B) {           // one batch, the j-tiles fastest
+      const int rest = t / n_jt;
+      c.j0 = (t - rest * n_jt) * kMmaBN;
+      c.i0 = rest * kMmaBM;
+      c.r = 0;
+    } else {
+      const int rest = t / n_it;
+      c.i0 = (t - rest * n_it) * kMmaBM;
+      c.r = rest / n_jt;
+      c.j0 = (rest - c.r * n_jt) * kMmaBN;
+    }
   };
   auto advance = [&](Cursor& c) {
     ++c.g;
@@ -688,11 +794,12 @@ pass_b_mma_kernel(const float* __restrict__ e,
     auto copy_slab = [&](float* dst, const float* src, int m0, int c0,
                          int n, bool vec) {
       // Rows m0..m0+15 and columns c0..c0+127 of src (row stride n, n
-      // columns) into dst (row stride kMmaLdRaw); zeros past I and n.
+      // columns) into dst (row stride kMmaLdRaw); zeros past the depth
+      // (I, or J in pass B) and n.
       if (vec) {
         for (int x = ptid; x < kMmaBK * 32; x += kMmaProducers) {
           const int k = x >> 5, c = 4 * (x & 31);
-          const bool ok = m0 + k < I && c0 + c < n;
+          const bool ok = m0 + k < (PASS_B ? J : I) && c0 + c < n;
           cp_async16(dst + k * kMmaLdRaw + c,
                            ok ? src + (size_t)(m0 + k) * n + c0 + c : src,
                            ok);
@@ -700,7 +807,7 @@ pass_b_mma_kernel(const float* __restrict__ e,
       } else {
         for (int x = ptid; x < kMmaBK * 128; x += kMmaProducers) {
           const int k = x >> 7, c = x & 127;
-          const bool ok = m0 + k < I && c0 + c < n;
+          const bool ok = m0 + k < (PASS_B ? J : I) && c0 + c < n;
           cp_async4(dst + k * kMmaLdRaw + c,
                           ok ? src + (size_t)(m0 + k) * n + c0 + c : src,
                           ok);
@@ -709,11 +816,26 @@ pass_b_mma_kernel(const float* __restrict__ e,
     };
     auto issue = [&]() {
       if (cis.g < total) {
-        float* st = ring + (cis.g % kMmaStages) * 2 * kMmaRaw;
+        float* st = ring + (cis.g % kMmaStages) * (kRawA + kMmaRaw);
         const int m0 = cis.kc * kMmaBK;
-        copy_slab(st, w_c1t, m0, cis.i0, I, vec_i);
-        copy_slab(st + kMmaRaw, e + (size_t)cis.r * IJ, m0, cis.j0, J,
-                  vec_j);
+        if constexpr (PASS_B) {
+          // A = U: rows i0..i0+127, columns m0..m0+15 (rows of Jp =
+          // round_up4(J) floats, zero past J); B = W_c2^T (J, J).
+          const int Jp = round_up4(J);
+          for (int x = ptid; x < kMmaBM * kMmaBK / 4; x += kMmaProducers) {
+            const int row = x >> 2, c = 4 * (x & 3);
+            const bool ok = cis.i0 + row < I && m0 + c < Jp;
+            cp_async16(st + row * kMmaLdT + c,
+                       ok ? w_c1t + (size_t)(cis.i0 + row) * Jp + m0 + c
+                          : w_c1t,
+                       ok);
+          }
+          copy_slab(st + kRawA, e, m0, cis.j0, J, vec_j);
+        } else {
+          copy_slab(st, w_c1t, m0, cis.i0, I, vec_i);
+          copy_slab(st + kMmaRaw, e + (size_t)cis.r * IJ, m0, cis.j0, J,
+                    vec_j);
+        }
         advance(cis);
       }
       cp_async_commit();               // empty groups keep the count
@@ -733,7 +855,7 @@ pass_b_mma_kernel(const float* __restrict__ e,
       // lane % 4) row rr of each 8-row half and k = 4*kb + kk (raw reads
       // at a stride = 8 mod 32, hi/lo stores at a stride of 20: 32 banks
       // each).
-      const float* st = ring + (g % kMmaStages) * 2 * kMmaRaw;
+      const float* st = ring + (g % kMmaStages) * (kRawA + kMmaRaw);
       float* T = ops + buf * 4 * kMmaT;
       const int rr = lane >> 2, kk = lane & 3;
 #pragma unroll
@@ -742,8 +864,9 @@ pass_b_mma_kernel(const float* __restrict__ e,
 #pragma unroll
         for (int kb = 0; kb < kMmaBK / 4; ++kb) {
           const int at = (4 * kb + kk) * kMmaLdRaw + 16 * pw + 8 * h + rr;
-          a[kb] = st[at];
-          b[kb] = st[kMmaRaw + at];
+          a[kb] = PASS_B ? st[(16 * pw + 8 * h + rr) * kMmaLdT + 4 * kb + kk]
+                         : st[at];
+          b[kb] = st[kRawA + at];
         }
 #pragma unroll
         for (int kb = 0; kb < kMmaBK / 4; ++kb) {
@@ -832,21 +955,25 @@ pass_b_mma_kernel(const float* __restrict__ e,
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int j = j0 + wn * 32 + nt * 8 + 2 * t4;
-        const float m_a = j < J ? __ldg(colmax + (size_t)r * J + j) : 0.f;
-        const float m_b =
-            j + 1 < J ? __ldg(colmax + (size_t)r * J + j + 1) : 0.f;
+        const float m_a = EPI == kEpiColLog && j < J
+                              ? __ldg(colmax + (size_t)r * J + j) : 0.f;
+        const float m_b = EPI == kEpiColLog && j + 1 < J
+                              ? __ldg(colmax + (size_t)r * J + j + 1) : 0.f;
 #pragma unroll
         for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int i = i0 + wm * 64 + mt * 16 + g8 + 8 * h;
             if (i >= I || j >= J) continue;
-#if SDFS_DEFB_SPLIT == 2 || SDFS_DEFB_SPLIT == 3
-            const float va = acc[mt][nt][2 * h], vb = acc[mt][nt][2 * h + 1];
-#else
-            const float va = m_a + logf(acc[mt][nt][2 * h]);
-            const float vb = m_b + logf(acc[mt][nt][2 * h + 1]);
-#endif
+            float va = acc[mt][nt][2 * h], vb = acc[mt][nt][2 * h + 1];
+            if constexpr (EPI == kEpiColLog) {
+              va = m_a + logf(va);
+              vb = m_b + logf(vb);
+            } else if constexpr (EPI == kEpiRowLog) {
+              const float sh = __ldg(colmax + i);
+              va = sh + logf(va);
+              vb = sh + logf(vb);
+            }
             float* o = out_r + (size_t)i * J + j;
             if (j + 1 < J && J % 2 == 0) {
               *reinterpret_cast<float2*>(o) = make_float2(va, vb);
@@ -867,6 +994,7 @@ pass_b_mma_kernel(const float* __restrict__ e,
   }
 }
 
+
 // The resident layout of the deferred pass B, for I small enough that
 // W_c1^T stays in shared memory beside two (I, BN) strips (I <= 144 at BN
 // = 128: the 18.9M-point continuous-GCY view (8,16,144,1024), 472
@@ -886,10 +1014,6 @@ pass_b_mma_kernel(const float* __restrict__ e,
 constexpr int kResMaxThreads = 384;
 constexpr int kResParts = 2;          // partial column maxima per column
 constexpr int kFoldBatch = 32;        // sub_col loads in flight per thread
-constexpr size_t kSmemLimit = 232448;  // a block's shared memory (227 KB)
-
-__host__ __device__ inline int round_up8(int n) { return (n + 7) & ~7; }
-
 // Shared-memory floats of the resident layout: W_c1^T (I rows of
 // round_up8(I), zero-padded), two (I, BN) strips, the partial column
 // maxima and the shifts.
@@ -2065,9 +2189,31 @@ cudaError_t launch_pass_b_resident(const float* ell, const float* w_c1t,
   return cudaGetLastError();
 }
 
+// One launch of pass_b_mma_kernel<PASS_B, EPI> on (e, w_c1t, colmax,
+// out, R, I, J): a persistent grid of min(tiles, co-resident blocks).
+template <bool PASS_B, int EPI>
+cudaError_t launch_mma(const float* e, const float* w_c1t,
+                       const float* colmax, float* out, int R, int I, int J,
+                       cudaStream_t st) {
+  const auto kernel = pass_b_mma_kernel<PASS_B, EPI>;
+  const size_t smem = sizeof(float) * (size_t)mma_smem_floats(PASS_B);
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = blocks_per_sm((const void*)kernel, kMmaThreads, smem, &per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)((I + kMmaBM - 1) / kMmaBM) *
+                          ((J + kMmaBN - 1) / kMmaBN) * R;
+  if (tiles > INT_MAX / 2) return cudaErrorInvalidValue;
+  const long long cap = (long long)per_sm * sms;
+  const int grid = (int)(tiles < cap ? tiles : cap);
+  kernel<<<grid, kMmaThreads, smem, st>>>(e, w_c1t, colmax, out, R, I, J);
+  return cudaGetLastError();
+}
+
 // One launch of the tensor-core deferred pass B: the exp pass (the column
-// maxima and e into the workspace), then a persistent grid of min(tiles,
-// co-resident blocks).
+// maxima and e into the workspace), then the split-TF32 product.
 template <bool HAS_SUB>
 cudaError_t launch_pass_b_mma(const float* ell, const float* w_c1t,
                               const float* sub_row, const float* sub_col,
@@ -2083,52 +2229,48 @@ cudaError_t launch_pass_b_mma(const float* ell, const float* w_c1t,
   return err;
 #endif
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * (size_t)kMmaSmemFloats;
-  err = prepare(pass_b_mma_kernel, smem);
+  constexpr int kEpi = (SDFS_DEFB_SPLIT == 2 || SDFS_DEFB_SPLIT == 3)
+                           ? kEpiLinear : kEpiColLog;
+  return launch_mma<false, kEpi>(e, w_c1t, colmax, out, R, I, J, st);
+}
+
+// One launch of the c1 pass in its layout: a persistent grid of
+// min(steps, co-resident blocks).
+template <int MODE, bool C2, bool WRES>
+cudaError_t launch_c1(const C1Layout& lay, const float* ell,
+                      const float* w_c1, const float* sub_row,
+                      const float* sub_col, const float* mid_col, float* out,
+                      float* s, float* rshift, int R, int I, int J,
+                      float theta, cudaStream_t st) {
+  const auto kernel = pass_b_c1_kernel<MODE, C2, WRES>;
+  const size_t smem = sizeof(float) * (size_t)lay.smem;
+  cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
-  err = blocks_per_sm((const void*)pass_b_mma_kernel, kMmaThreads, smem,
-                      &per_sm, &sms);
+  err = blocks_per_sm((const void*)kernel, lay.threads, smem, &per_sm, &sms);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long tiles = (long long)((I + kMmaBM - 1) / kMmaBM) *
-                          ((J + kMmaBN - 1) / kMmaBN) * R;
-  if (tiles > INT_MAX / 2) return cudaErrorInvalidValue;
+  const long long steps = (R + lay.rb - 1) / lay.rb;
   const long long cap = (long long)per_sm * sms;
-  const int grid = (int)(tiles < cap ? tiles : cap);
-  pass_b_mma_kernel<<<grid, kMmaThreads, smem, st>>>(e, w_c1t, colmax, out,
-                                                     R, I, J);
+  const int grid = (int)(steps < cap ? steps : cap);
+  kernel<<<grid, lay.threads, smem, st>>>(ell, w_c1, sub_row, sub_col,
+                                          mid_col, out, s, rshift, R, I, J,
+                                          lay, theta);
   return cudaGetLastError();
 }
 
-// The arguments of one pass-B launch.
-struct PassBArgs {
-  const float *ell, *w_c1, *w_c2t, *sub_row, *sub_col, *mid_col;
-  float *mid, *s;
-  int R, I, J;
-  float theta;
-  cudaStream_t st;
-};
-
-template <int MODE, bool HAS_SUB, bool C2_HERE, bool HAS_MID>
-cudaError_t launch_pass_b(const PassBArgs& a) {
-  const size_t smem = sizeof(float) * (size_t)pass_b_smem_floats(a.I, a.J);
-  const auto kernel = pass_b_kernel<MODE, HAS_SUB, C2_HERE, HAS_MID>;
-  const cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<a.R, kPassBThreads, smem, a.st>>>(a.ell, a.w_c1, a.w_c2t,
-                                             a.sub_row, a.sub_col, a.mid_col,
-                                             a.mid, a.s, a.I, a.J, a.theta);
-  return cudaGetLastError();
-}
-
-template <int MODE, bool HAS_MID>
-cudaError_t dispatch_pass_b(const PassBArgs& a) {
-  const bool sub = a.sub_row != nullptr, c2 = a.w_c2t != nullptr;
-  if (sub && c2) return launch_pass_b<MODE, true, true, HAS_MID>(a);
-  if (sub) return launch_pass_b<MODE, true, false, HAS_MID>(a);
-  if (c2) return launch_pass_b<MODE, false, true, HAS_MID>(a);
-  return launch_pass_b<MODE, false, false, HAS_MID>(a);
+template <int MODE, bool C2>
+cudaError_t dispatch_c1(const C1Layout& lay, const float* ell,
+                        const float* w_c1, const float* sub_row,
+                        const float* sub_col, const float* mid_col,
+                        float* out, float* s, float* rshift, int R, int I,
+                        int J, float theta, cudaStream_t st) {
+  return lay.wres ? launch_c1<MODE, C2, true>(lay, ell, w_c1, sub_row,
+                                              sub_col, mid_col, out, s,
+                                              rshift, R, I, J, theta, st)
+                  : launch_c1<MODE, C2, false>(lay, ell, w_c1, sub_row,
+                                               sub_col, mid_col, out, s,
+                                               rshift, R, I, J, theta, st);
 }
 
 // One launch of the deferred or batched pass C: clusters of the layout's
@@ -2190,50 +2332,89 @@ extern "C" {
 // Pass B over R field rows of ell (R, I, J).  w_c1 (I, I); w_c2t (J, J)
 // = W_c2 transposed, or null for c1 only; sub_row (R,) and sub_col (I, J)
 // both given (the folded baseline) or both null; mid_col (I, J) or null
-// (lse mode only); mid (R, I, J); s (R,) written in fast mode only.
+// (lse mode only); mid (R, I, J); s (R,) written in fast mode only; work
+// holds sdfs_pass_b_work_floats(R, I, J, w_c2t != null) floats (null
+// when that is 0).
 int sdfs_pass_b(const float* ell, const float* w_c1, const float* w_c2t,
                 const float* sub_row, const float* sub_col,
-                const float* mid_col, float* mid, float* s, int R, int I,
-                int J, float theta, int mode, void* stream) {
-  if ((sub_row == nullptr) != (sub_col == nullptr))
+                const float* mid_col, float* mid, float* s, float* work,
+                int R, int I, int J, float theta, int mode, void* stream) {
+  C1Layout lay;
+  if ((sub_row == nullptr) != (sub_col == nullptr) ||
+      (mode != kModeFast && mode != kModeLse) ||
+      (mode == kModeFast && mid_col != nullptr) || R <= 0 || I <= 0 ||
+      J <= 0 || !pass_b_c1_layout(I, J, &lay))
     return cudaErrorInvalidValue;
-  const PassBArgs a{ell, w_c1, w_c2t, sub_row, sub_col, mid_col, mid, s,
-                    R, I, J, theta, static_cast<cudaStream_t>(stream)};
-  if (mode == kModeFast && mid_col == nullptr)
-    return dispatch_pass_b<kModeFast, false>(a);
-  if (mode == kModeLse)
-    return mid_col == nullptr ? dispatch_pass_b<kModeLse, false>(a)
-                              : dispatch_pass_b<kModeLse, true>(a);
-  return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool fast = mode == kModeFast;
+  if (w_c2t == nullptr)
+    return fast ? dispatch_c1<kModeFast, false>(lay, ell, w_c1, sub_row,
+                                                sub_col, nullptr, mid, s,
+                                                nullptr, R, I, J, theta, st)
+                : dispatch_c1<kModeLse, false>(lay, ell, w_c1, sub_row,
+                                               sub_col, mid_col, mid, nullptr,
+                                               nullptr, R, I, J, theta, st);
+  if (work == nullptr) return cudaErrorInvalidValue;
+  // The workspace: U (R*I, Jp), then the lse row shifts (R*I).
+  float* U = work;
+  float* rshift = work + (size_t)R * I * round_up4(J);
+  cudaError_t err =
+      fast ? dispatch_c1<kModeFast, true>(lay, ell, w_c1, sub_row, sub_col,
+                                          nullptr, U, s, nullptr, R, I, J,
+                                          theta, st)
+           : dispatch_c1<kModeLse, true>(lay, ell, w_c1, sub_row, sub_col,
+                                         mid_col, U, nullptr, rshift, R, I,
+                                         J, theta, st);
+#if SDFS_PASSB_SPLIT < 3
+  return err;
+#endif
+  if (err != cudaSuccess) return err;
+  if ((long long)R * I > INT_MAX) return cudaErrorInvalidValue;
+  // mid (R*I, J) = U W_c2^T, the N tiles fastest.
+  if (fast || SDFS_PASSB_SPLIT == 3)
+    return launch_mma<true, kEpiLinear>(w_c2t, U, rshift, mid, 1, R * I, J,
+                                        st);
+  return launch_mma<true, kEpiRowLog>(w_c2t, U, rshift, mid, 1, R * I, J,
+                                      st);
 }
 
-// Pass C over mid (R = L*K, C) in tiles of TC columns.  scale (R,) and
-// S (1,) are read in fast mode only; add_row (L*K,), add_col (C,);
-// out (R, C).
-int sdfs_pass_c(const float* mid, const float* scale, const float* S,
-                const float* w_r1, const float* w_r2, const float* add_row,
-                const float* add_col, float* out, int L, int K, int C,
-                int TC, float theta, float beta, int mode, void* stream) {
-  const size_t smem = sizeof(float) * (size_t)pass_c_smem_floats(L, K, TC);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (C + TC - 1) / TC;
-  cudaError_t err;
-  if (mode == kModeFast) {
-    err = prepare(pass_c_kernel<kModeFast>, smem);
-    if (err != cudaSuccess) return err;
-    pass_c_kernel<kModeFast><<<blocks, kPassCThreads, smem, st>>>(
-        mid, scale, S, w_r1, w_r2, add_row, add_col, out, L, K, C, TC,
-        theta, beta);
-  } else if (mode == kModeLse) {
-    err = prepare(pass_c_kernel<kModeLse>, smem);
-    if (err != cudaSuccess) return err;
-    pass_c_kernel<kModeLse><<<blocks, kPassCThreads, smem, st>>>(
-        mid, scale, S, w_r1, w_r2, add_row, add_col, out, L, K, C, TC,
-        theta, beta);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+// Workspace floats of pass B at (R, I, J) with (c2 = 1) or without a
+// shared c2: U (R*I rows of round_up4(J)) and the row shifts (R*I); 0
+// without c2.
+long long sdfs_pass_b_work_floats(int R, int I, int J, int c2) {
+  if (!c2) return 0;
+  return (long long)R * I * round_up4(J) + (long long)R * I;
+}
+
+// Pass B's layout at (I, J), as its launchers choose it (pass_b_layout
+// mirrors it): lay = {rows per step, threads, slabs, W_c1^T resident,
+// shared-memory bytes} of the c1 pass, then {rows, columns, K-chunk,
+// ring stages, threads, shared-memory bytes} of the c2 product's tiles
+// (11 ints).  Returns 0 when the c1 pass has no layout.
+int sdfs_pass_b_layout(int I, int J, int* lay) {
+  C1Layout c;
+  if (!pass_b_c1_layout(I, J, &c)) return 0;
+  const int v[11] = {c.rb, c.threads, c.slabs, c.wres,
+                     (int)(sizeof(float) * (size_t)c.smem), kMmaBM, kMmaBN,
+                     kMmaBK, kMmaStages, kMmaThreads,
+                     (int)(sizeof(float) * (size_t)mma_smem_floats(true))};
+  for (int k = 0; k < 11; ++k) lay[k] = v[k];
+  return 1;
+}
+
+// Pass C with a shared c2 over mid (R = L*K, C) on the row-phase kernel
+// (row_phase.cuh): mode 0 fast (scale (R,), S (1,)), mode 1 lse with the
+// linear carry; add_row (L*K,), add_col (C,); out (R, C).
+int sdfs_pass_c_row(const float* mid, const float* scale, const float* S,
+                    const float* w_r1, const float* w_r2,
+                    const float* add_row, const float* add_col, float* out,
+                    int L, int K, int C, float theta, float beta, int mode,
+                    void* stream) {
+  if (mode != kModeFast && mode != kModeLse) return cudaErrorInvalidValue;
+  return launch_row_phase(mid, scale, S, w_r1, w_r2, add_row, add_col, out,
+                          L, K, C, theta, beta,
+                          mode == kModeFast ? kRowFast : kRowCarry,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // Deferred-c2 pass B over R field rows of ell (R, I, J): c1 only.

@@ -7,10 +7,16 @@ the field, with R = n_r1 * n_r2 rows and C = I * J columns, in one of
 four configurations.  A folded baseline (``sub_row``/``sub_col``) is
 subtracted in pass B in each of them but the deferred one.
 
-"full" (shared c2; pass B holds a field row's whole (I, J) column group):
+"full" (shared c2; a field row's whole (I, J) column group fits the
+first pass-B kernel's block, the footprint the classification keeps):
 
-    pass B (column phase):  ell (R, I, J) -> midway field (R, I, J)
-    pass C (row phase):     midway field (R, C) -> log T(w) (R, C)
+    pass B (column phase):  ell (R, I, J) -> midway field (R, I, J), as a
+                            c1 pass (U and its row shifts into a
+                            workspace) and a split-TF32 tensor-core c2
+                            product
+    pass C (row phase):     midway field (R, C) -> log T(w) (R, C), on the
+                            strip tier's row-phase kernel with the linear
+                            carry of the TPU kernel's lse
 
 A conjugated-shared set's ``mid_col`` (:func:`..operators.two_phase.
 conjugate_to_shared`) is added in pass B between its c1 and c2
@@ -66,6 +72,7 @@ from ..operators.two_phase import (TwoPhaseOperands, conjugate_to_shared,
 from . import _build
 
 __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
+           "pass_b_layout", "pass_b_work_floats", "strip_row_layout",
            "pass_b_deferred_layout",
            "streamed_coverable", "streamed_accepts", "streamed_mode",
            "pass_c_batched", "pass_c_batched_plain", "pass_b_deferred",
@@ -101,6 +108,8 @@ _PASS_C_DEFERRED_TILES = (64, 32, 16, 8, 4)
 _PASS_C_DEFERRED_CHUNKS = (32, 16, 8, 4)
 # CUDA's limit on a grid's y dimension (rows in pass B, slices in pass C).
 _GRID_Y_MAX = 65_535
+# The largest int32: pass B's c2 product indexes R*I rows with it.
+_INT_MAX = 2**31 - 1
 # Rows of P_z per K-tile of the pair kernel (the .cu's kBK), the
 # exponent bias of its exp stages and its largest cluster (the portable
 # limit).
@@ -112,20 +121,79 @@ def _up4(n: int) -> int:
 
 
 def pass_b_smem_bytes(I: int, J: int) -> int:
-    """Shared memory of one pass-B block (mirrors the .cu layout: the
-    first buffer also holds two 16-row K-tiles of W_c2, the second pads
-    its rows to a multiple of 4)."""
+    """Shared memory of one block of the first pass-B kernel (a block per
+    field row: the (I, J) slice, which later held two 16-row K-tiles of
+    W_c2, and the c1 result with rows padded to a multiple of 4): the
+    footprint :func:`streamed_config` classifies by, so that no set moves
+    between configurations with the kernels' layouts."""
     return 4 * (_up4(max(I * J, 32 * J)) + I * _up4(J) + max(I, J) + 32)
 
 
 def pass_c_tile(R: int, K: int) -> Optional[int]:
-    """Columns per pass-C block: the widest tile whose (R, TC) working set
-    (two buffers plus the lse shifts) fits one block's shared memory, or
-    None when not even one column fits."""
+    """Columns per block of the first pass-C kernel: the widest tile whose
+    (R, TC) working set (two buffers plus the lse shifts) fits one block's
+    shared memory, or None when not even one column fits.  Its footprint
+    stays the classifier of :func:`streamed_config`; pass C runs the row
+    kernel's layout (:func:`strip_row_layout`)."""
     for tc in _PASS_C_TILES:
         if 4 * (2 * R * tc + K * tc + tc) <= SMEM_LIMIT:
             return tc
     return None
+
+
+# Pass B's c1 pass (mirroring the .cu's pass_b_c1_layout): the most
+# threads of a block, the 8 x 4 register tiles per step it aims at and
+# the most field rows per step.
+_C1_MAX_THREADS, _C1_ITEMS, _C1_MAX_ROWS = 384, 256, 8
+
+
+def _up32(n: int) -> int:
+    return -(-n // 32) * 32
+
+
+def pass_b_c1_smem_bytes(I: int, J: int, rb: int, slabs: int,
+                         wres: int) -> int:
+    """Shared memory of one c1-pass block (mirrors the .cu's
+    c1_smem_floats): ``slabs`` (rb, I, round_up4(J)) slabs of the field,
+    W_c1^T (I rows of round_up8(I)) when resident, the column shifts
+    and the row shifts."""
+    return 4 * (slabs * rb * I * _up4(J) + (I * _up8(I) if wres else 0)
+                + rb * _up4(J) + rb * _up8(I))
+
+
+def pass_b_layout(I: int, J: int) -> Optional[Tuple[int, ...]]:
+    """Pass B's layout at (I, J) with a shared c2 or without, as its
+    launchers choose it (mirrors the .cu's ``sdfs_pass_b_layout``): (rows
+    per step RB, threads, slabs, W_c1^T resident, shared-memory bytes) of
+    the c1 pass, then (rows, columns, K-chunk, ring stages, threads,
+    shared-memory bytes) of the c2 product's tiles.  The c1 pass gives
+    each thread 8 x 4 outputs (rows i, columns j) of a step of RB field
+    rows, RB = 256 // (tiles per row) clamped to 1..8, threads the step's
+    tiles rounded up to a warp (at most 384, two blocks an SM by
+    registers, in rounds past that); two slabs with W_c1^T resident,
+    then one, then W_c1 read from global memory, RB from its target
+    down: the first that fits.  The c2 product (``pass_b_mma_kernel<true,
+    .>``) runs 128 x 128 tiles of (R*I, J), K-chunks of 16, a 4-stage
+    ring, 8 producer and 8 consumer warps.  None when the c1 pass has no
+    layout."""
+    tiles = (_up8(I) // 8) * (_up4(J) // 4)
+    rb0 = min(max(_C1_ITEMS // tiles, 1), _C1_MAX_ROWS)
+    for slabs, wres in ((2, 1), (1, 1), (1, 0)):
+        for rb in range(rb0, 0, -1):
+            smem = pass_b_c1_smem_bytes(I, J, rb, slabs, wres)
+            if smem <= SMEM_LIMIT:
+                return (rb, min(_C1_MAX_THREADS, _up32(rb * tiles)), slabs,
+                        wres, smem, _MMA_BM, _MMA_BN, _MMA_BK, _MMA_STAGES,
+                        _MMA_THREADS, pass_b_mma_smem_bytes(a_mk=True))
+    return None
+
+
+def pass_b_work_floats(R: int, I: int, J: int, c2: bool) -> int:
+    """float32 workspace of pass B (mirrors the .cu's
+    sdfs_pass_b_work_floats): with a shared c2 the c2 product's operand U
+    (R*I rows of round_up4(J), zeros past J) and the lse row shifts
+    (R*I); 0 without c2."""
+    return R * I * _up4(J) + R * I if c2 else 0
 
 
 def pass_b_deferred_smem_bytes(I: int) -> int:
@@ -169,12 +237,14 @@ def pass_b_resident_threads(I: int, BN: int) -> int:
     return -(-(BN // 8) * (_up8(I) // 8) // 32) * 32
 
 
-def pass_b_mma_smem_bytes() -> int:
-    """Shared memory of one tensor-core deferred pass-B block (mirrors
-    the .cu's kMmaSmemFloats): a ring of raw K-chunks, W_c1^T's and e's
-    (16, 136) slabs, and two buffers of the hi and lo operands, 4 x
-    (128, 20))."""
-    return 4 * (_MMA_STAGES * 2 * _MMA_BK * _MMA_LD_RAW
+def pass_b_mma_smem_bytes(a_mk: bool = False) -> int:
+    """Shared memory of one block of the split-TF32 product (mirrors the
+    .cu's mma_smem_floats): a ring of raw K-chunks, A's and B's, and two
+    buffers of the hi and lo operands, 4 x (128, 20).  B's raw chunk and
+    A's in the deferred pass B (W_c1^T) are (16, 136) slabs; A's in pass
+    B (``a_mk``: U, stored (M, K)) is (128, 20)."""
+    raw_a = _MMA_BM * _MMA_LD_T if a_mk else _MMA_BK * _MMA_LD_RAW
+    return 4 * (_MMA_STAGES * (raw_a + _MMA_BK * _MMA_LD_RAW)
                 + _MMA_BUFS * 4 * _MMA_BM * _MMA_LD_T)
 
 
@@ -334,6 +404,39 @@ def pair_groups(rank: int, n_b: int) -> list:
     cluster-size groups."""
     cs = pair_cluster_size(n_b)
     return list(range(rank, n_b, cs))
+
+
+# The row phase's layout (mirroring row_phase.cuh's strip_row_layout):
+# threads per block, the R * TC a tile aims at and the widest tile.
+_ROW_THREADS, _ROW_TILE_FLOATS, _ROW_TC_MAX = 512, 16_384, 64
+
+
+def strip_row_layout(L: int, K: int) -> Optional[Tuple[int, ...]]:
+    """(TC, threads, shared-memory bytes, LS, slabs, wide) of the row
+    phase at (L, K), as its launcher chooses (mirrors row_phase.cuh,
+    which ``sdfs_strip_row_layout`` reports): the strip tier's row phase
+    and the streamed tier's pass C with a shared c2.  With tc0 = min(64,
+    16384 // R): "wide" (1), TC a multiple of 4 from max(4, tc0) down,
+    two (L, LS) slabs of the midway tile (row l's K*TC columns at a
+    stride LS = TC (mod 32)),
+    W_r1^T and W_r2^T with rows padded to 8, the shifts over l (K*TC) and
+    over k (L*TC); else "narrow" (0), TC from 64 down, LS = K*TC, W_r1
+    and W_r2 read from global memory, two slabs, then one.
+    The first block that fits; None when none does."""
+    R = L * K
+    tc0 = min(_ROW_TILE_FLOATS // R, _ROW_TC_MAX)
+    for tc in range(max(4, tc0 // 4 * 4), 3, -4):
+        ls = K * tc + (tc - K * tc) % 32
+        smem = 4 * (2 * L * ls + (K + L) * tc + L * _up8(L) + K * _up8(K))
+        if smem <= SMEM_LIMIT:
+            return tc, _ROW_THREADS, smem, ls, 2, 1
+    for slabs in (2, 1):
+        for tc in range(_ROW_TC_MAX, 0, -1):
+            smem = 4 * (slabs * L * K * tc + (K + L) * tc)
+            if smem <= SMEM_LIMIT:
+                return tc, _ROW_THREADS, smem, K * tc, slabs, 0
+    return None
+
 
 
 def streamed_config(ops: TwoPhaseOperands) -> Optional[str]:
@@ -526,12 +629,16 @@ def _lib():
     lib = _build.load("streamed_two_phase")
     if not getattr(lib, "_sdfs_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sdfs_pass_b.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f, i,
-                                    p]
+        lib.sdfs_pass_b.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, f,
+                                    i, p]
         lib.sdfs_pass_b.restype = i
-        lib.sdfs_pass_c.argtypes = [p, p, p, p, p, p, p, p,
-                                    i, i, i, i, f, f, i, p]
-        lib.sdfs_pass_c.restype = i
+        lib.sdfs_pass_b_work_floats.argtypes = [i, i, i, i]
+        lib.sdfs_pass_b_work_floats.restype = ctypes.c_longlong
+        lib.sdfs_pass_b_layout.argtypes = [i, i, p]
+        lib.sdfs_pass_b_layout.restype = i
+        lib.sdfs_pass_c_row.argtypes = [p, p, p, p, p, p, p, p, i, i, i, f,
+                                        f, i, p]
+        lib.sdfs_pass_c_row.restype = i
         lib.sdfs_pass_c_batched.argtypes = [p, p, p, p, p, p, p, p, p,
                                             i, i, i, i, f, f, i, p]
         lib.sdfs_pass_c_batched.restype = i
@@ -590,19 +697,25 @@ def _pass_b_cuda(ell, W_c1, W_c2t, theta, mode, sub_row, sub_col, mid_col):
         _check("sub_col", sub_col, dev, (I, J))
     if mid_col is not None:
         _check("mid_col", mid_col, dev, (I, J))
-    if pass_b_smem_bytes(I, J) > SMEM_LIMIT:
-        raise ValueError(f"pass B block (I, J) = ({I}, {J}) exceeds "
-                         "shared memory")
+    if (pass_b_smem_bytes(I, J) > SMEM_LIMIT or pass_b_layout(I, J) is None
+            or R * I > _INT_MAX):
+        raise ValueError(f"pass B at (R, I, J) = ({R}, {I}, {J}) exceeds "
+                         "shared memory or the grid")
     mid = torch.empty_like(ell)
     s = (torch.empty((R, 1), dtype=torch.float32, device=dev)
          if mode == "fast" else None)
+    # The c2 product's operand U and the lse row shifts.
+    n_work = pass_b_work_floats(R, I, J, W_c2t is not None)
+    work = (torch.empty((n_work,), dtype=torch.float32, device=dev)
+            if n_work else None)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdfs_pass_b(_ptr(ell), _ptr(W_c1), _ptr(W_c2t),
                              _ptr(sub_row), _ptr(sub_col), _ptr(mid_col),
-                             _ptr(mid), _ptr(s), R, I, J, float(theta),
-                             _MODES[mode], ctypes.c_void_p(stream))
+                             _ptr(mid), _ptr(s), _ptr(work), R, I, J,
+                             float(theta), _MODES[mode],
+                             ctypes.c_void_p(stream))
     _raise_on(lib, rc, "pass B")
     if mid_col is not None:
         LAUNCHES["pass_b_mid"] += 1
@@ -675,18 +788,18 @@ def _pass_c_cuda(mid, scale, S, W_r1, W_r2, add_row, add_col, theta, beta,
     if mode == "fast":
         _check("scale", scale, dev, (R, 1))
         _check("S", S, dev, (1,))
-    TC = pass_c_tile(R, K)
-    if TC is None:
-        raise ValueError(f"pass C with {R} rows exceeds shared memory")
+    if strip_row_layout(L, K) is None:
+        raise ValueError(f"pass C at (L, K) = ({L}, {K}) exceeds shared "
+                         "memory")
     out = torch.empty_like(mid)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sdfs_pass_c(_ptr(mid), _ptr(scale), _ptr(S), _ptr(W_r1),
-                             _ptr(W_r2), _ptr(add_row), _ptr(add_col),
-                             _ptr(out), L, K, C, TC, float(theta),
-                             float(beta), _MODES[mode],
-                             ctypes.c_void_p(stream))
+        rc = lib.sdfs_pass_c_row(_ptr(mid), _ptr(scale), _ptr(S),
+                                 _ptr(W_r1), _ptr(W_r2), _ptr(add_row),
+                                 _ptr(add_col), _ptr(out), L, K, C,
+                                 float(theta), float(beta), _MODES[mode],
+                                 ctypes.c_void_p(stream))
     _raise_on(lib, rc, "pass C")
     LAUNCHES["pass_c"] += 1
     return out

@@ -47,8 +47,9 @@ from ..operators.two_phase import (TwoPhaseOperands, make_eager_two_phase_T,
 from . import _build
 from .streamed_two_phase import (_GRID_Y_MAX, SMEM_LIMIT, _check,
                                  _check_mode, _check_sub, _folded, _ptr,
-                                 _up8, make_streamed_T_log, streamed_accepts,
-                                 streamed_coverable, streamed_mode)
+                                 make_streamed_T_log, streamed_accepts,
+                                 streamed_coverable, streamed_mode,
+                                 strip_row_layout)
 
 __all__ = ["TPU_ONLY_OPTIONS", "reject_tpu_options", "LAUNCHES",
            "strip_col", "strip_col_plain", "strip_col_layout",
@@ -74,9 +75,6 @@ _MODES = {"fast": 0, "lse": 1}
 # Batched column factors above this many float32 bytes run in their lazy
 # form when the set has one (the JAX package's default).
 LAZY_BYTES = 6 * 1024 * 1024
-# The row phase's layout (mirroring the .cu's strip_row_layout): threads
-# per block, the R * TC a tile aims at and the widest tile.
-_ROW_THREADS, _ROW_TILE_FLOATS, _ROW_TC_MAX = 512, 16_384, 64
 # A column factor's kind, as the .cu's factor_kind numbers it.
 _FACTOR_KINDS = {"shared": 0, "dense": 1, "lazy": 2}
 
@@ -325,31 +323,6 @@ def strip_col(ell, W_c1: Factor, W_c2: Factor, theta: float, mode: str,
         return _strip_col_cuda(ell, W_c1, W_c2, theta, mode, sub_row,
                                sub_col)
     raise ValueError(f"no strip column-phase kernel for device {ell.device}")
-
-
-def strip_row_layout(L: int, K: int) -> Optional[Tuple[int, ...]]:
-    """(TC, threads, shared-memory bytes, LS, slabs, wide) of the row
-    phase at (L, K), as its launcher chooses (mirrors the .cu's
-    sdfs_strip_row_layout).  With tc0 = min(64, 16384 // R): "wide" (1),
-    TC a multiple of 4 from max(4, tc0) down, two (L, LS) slabs of the
-    midway tile (row l's K*TC columns at a stride LS = TC (mod 32)),
-    W_r1^T and W_r2^T with rows padded to 8, the shifts over l (K*TC) and
-    over k (L*TC); else "narrow" (0), TC from 64 down, LS = K*TC, W_r1
-    and W_r2 read from global memory, two slabs, then one.
-    The first block that fits; None when none does."""
-    R = L * K
-    tc0 = min(_ROW_TILE_FLOATS // R, _ROW_TC_MAX)
-    for tc in range(max(4, tc0 // 4 * 4), 3, -4):
-        ls = K * tc + (tc - K * tc) % 32
-        smem = 4 * (2 * L * ls + (K + L) * tc + L * _up8(L) + K * _up8(K))
-        if smem <= SMEM_LIMIT:
-            return tc, _ROW_THREADS, smem, ls, 2, 1
-    for slabs in (2, 1):
-        for tc in range(_ROW_TC_MAX, 0, -1):
-            smem = 4 * (slabs * L * K * tc + (K + L) * tc)
-            if smem <= SMEM_LIMIT:
-                return tc, _ROW_THREADS, smem, K * tc, slabs, 0
-    return None
 
 
 def strip_row_tile(L: int, K: int) -> Optional[int]:

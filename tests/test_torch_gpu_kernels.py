@@ -28,11 +28,14 @@ pytestmark = pytest.mark.gpu
 
 ATOL = 5e-6
 EPS32 = float(np.finfo(np.float32).eps)
-# Ragged cases too: J not a multiple of 4 on both of pass B's tile shapes
-# (J < 256 and J >= 256), I not a multiple of the row tiles.
+# Ragged cases too: J not a multiple of 4 (J < 256 and J >= 256), I not
+# a multiple of the c1 pass's 8-row tiles (I = 56 with J = 42 among
+# them), steps of several field rows with a partial last one, and the
+# SSY cell (32, 32, 32, 384).
 CASES = [((4, 8, 6, 64), "rouwenhorst"), ((56, 56, 56, 64), "rouwenhorst"),
          ((8, 16, 32, 384), "tauchen"), ((4, 6, 10, 30), "tauchen"),
-         ((2, 4, 12, 258), "tauchen")]
+         ((2, 4, 12, 258), "tauchen"), ((3, 5, 56, 42), "tauchen"),
+         ((32, 32, 32, 384), "tauchen")]
 
 
 @pytest.fixture
@@ -387,6 +390,105 @@ def test_eager_twin_refuses_tf32(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert bool(torch.isfinite(T.twin(x)).all())
+
+
+# Pass B's variants on the normalized SSY set (Tauchen, conjugated to
+# shared factors, the folded baseline): lse with the fold and a shared
+# c2, with a seeded mid_col, and c1 only (fast and lse) with the fold, at
+# a ragged set (I = 56, J = 42) and the SSY cell.
+@pytest.mark.parametrize("variant", ["fold", "mid", "c1_fast", "c1_lse"])
+@pytest.mark.parametrize("shapes", [(3, 5, 56, 42), (32, 32, 32, 384)])
+def test_pass_b_normalized_variants_match_plain(cuda, shapes, variant):
+    import dataclasses
+    m = P.SSY()
+    ops = P.conjugate_to_shared(P.two_phase_operands_ssy(
+        m, P.discretize_ssy(m, shapes, method="tauchen"), "loglinear"))
+    rng = np.random.default_rng(2)
+    if variant == "mid":
+        ops = dataclasses.replace(
+            ops, mid_col=0.05 * rng.standard_normal(shapes[2:]))
+    L, K, I, J = shapes
+    cast = lambda a: torch.as_tensor(np.ascontiguousarray(
+        a, np.float64)).to(device=cuda, dtype=torch.float32)
+    ell = cast(ops.baseline_log_w + 0.02 * rng.standard_normal(
+        shapes)).reshape(L * K, I, J)
+    c2 = variant in ("fold", "mid")
+    mode = "fast" if variant == "c1_fast" else "lse"
+    args = (cast(ops.W_c1), cast(np.asarray(ops.W_c2).T) if c2 else None,
+            float(ops.theta), mode,
+            cast(np.asarray(ops.sub_row).reshape(-1)), cast(ops.sub_col),
+            cast(ops.mid_col) if variant == "mid" else None)
+    key = {"fold": "pass_b", "mid": "pass_b_mid"}.get(variant,
+                                                      "pass_b_c1_sub")
+    before = st.LAUNCHES[key]
+    got = st.pass_b(ell, *args)
+    assert st.LAUNCHES[key] == before + 1
+    want = st.pass_b_plain(ell, *args)
+    if mode == "fast":
+        rel = ((got[0] - want[0]).abs() / want[0].abs()).max()
+        assert float(rel) <= 5e-6
+        assert float((got[1] - want[1]).abs().max()) <= ATOL
+    else:
+        assert bool(((got - want).abs() <= ATOL + EPS32 * want.abs()).all())
+
+
+# Pass B's c1-pass layouts on seeded synthetic operands (row-stochastic
+# factors, a field near log(800)): several rows a step with a partial
+# last one (13, 37), W_c1^T resident beside two slabs (200, 20) and W_c1
+# read from global memory beside one slab (512, 40), with and without c2.
+@pytest.mark.parametrize("c2", [True, False])
+@pytest.mark.parametrize("mode", ["fast", "lse"])
+@pytest.mark.parametrize("R,I,J", [(9, 13, 37), (5, 200, 20), (3, 512, 40)])
+def test_pass_b_c1_layouts_match_plain(cuda, R, I, J, mode, c2):
+    rng = np.random.default_rng(R * I + J)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                    dtype=torch.float32, device=cuda)
+    W1, W2 = rng.random((I, I)), rng.random((J, J))
+    W1 /= W1.sum(axis=1, keepdims=True)
+    W2 /= W2.sum(axis=1, keepdims=True)
+    ell = f32(np.log(800.0) + 0.05 * rng.standard_normal((R, I, J)))
+    args = (f32(W1), f32(W2.T) if c2 else None, -16.0, mode)
+    got = st.pass_b(ell, *args)
+    want = st.pass_b_plain(ell, *args)
+    if mode == "fast":
+        rel = ((got[0] - want[0]).abs() / want[0].abs()).max()
+        assert float(rel) <= 5e-6
+        assert float((got[1] - want[1]).abs().max()) <= ATOL
+    else:
+        assert bool(((got - want).abs() <= ATOL + EPS32 * want.abs()).all())
+
+
+@pytest.mark.parametrize("I,J", [(32, 384), (56, 64), (6, 64), (56, 42),
+                                 (13, 37), (1, 1), (200, 20), (512, 40),
+                                 (12, 258), (170, 170)])
+def test_pass_b_layout_mirrors_the_launcher(cuda, I, J):
+    want = st.pass_b_layout(I, J)
+    got = (ctypes.c_int * 11)()
+    assert st._lib().sdfs_pass_b_layout(I, J, got) == 1
+    assert tuple(got) == want
+    assert (st._lib().sdfs_pass_b_work_floats(100, I, J, 1)
+            == st.pass_b_work_floats(100, I, J, True))
+    assert st._lib().sdfs_pass_b_work_floats(100, I, J, 0) == 0
+
+
+# Pass C with a shared c2 (the row kernel with the linear carry in lse
+# mode) on seeded synthetic operands: the wide layout at the SSY cell's
+# (32, 32) and a ragged (12, 16, 4099); the narrow one at (128, 48)
+# (R = 6,144) and (80, 80).
+@pytest.mark.parametrize("mode", ["fast", "lse"])
+@pytest.mark.parametrize("L,K,C", [(32, 32, 12288), (12, 16, 4099),
+                                   (128, 48, 1001), (80, 80, 68)])
+def test_pass_c_row_layouts_match_plain(cuda, L, K, C, mode):
+    mid, args = _row_operands(L, K, C, mode, cuda)
+    wide = st.strip_row_layout(L, K)[5]
+    assert wide == (L * K < 5800)
+    before = dict(st.LAUNCHES), dict(tt.LAUNCHES)
+    got = st.pass_c(mid, *args)
+    assert st.LAUNCHES["pass_c"] == before[0]["pass_c"] + 1
+    assert tt.LAUNCHES == before[1]
+    want = st.pass_c_plain(mid, *args)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= ATOL
 
 
 def test_kernel_wrappers_validate_arguments(cuda):

@@ -1,5 +1,6 @@
-"""The work partitions of the port's deferred pass B (TPU kernel
-``_b_kernel_deferred``), deferred and batched pass C (``_c_kernel``'s
+"""The work partitions of the port's pass B (TPU kernel ``_b_kernel``:
+the c1 pass and the split-TF32 c2 product) and deferred pass B
+(``_b_kernel_deferred``), deferred and batched pass C (``_c_kernel``'s
 c2_deferred and c2_batched branches) and fused whole-solve kernel
 (``_fused_kernel``, ``_solver_kernel``, ``_aa_kernel``), on the CPU
 through their Python mirrors: the layout each launcher picks fits a
@@ -156,6 +157,133 @@ def test_pass_b_deferred_layout_choice():
     # before.
     assert st.pass_b_deferred_smem_bytes(144) == 28_800
     assert st.pass_b_deferred_smem_bytes(512) == 99_456
+
+
+def _pass_b_c1_writes(R, I, J, grid):
+    """Pass B's c1 pass, following the kernel's loops: step q = block +
+    it * grid holds field rows q*RB.. (a partial last step skips the rest);
+    r1-style rounds of G column groups (rr, cg) over every i-block.
+    Returns the counts of the outputs (r, i, j), j < J, stored, and checks
+    that each round's items cover whole column groups (every i-block of a
+    group in the round that reads it) and that a warp's threads span at
+    most two i-blocks (two W_c1^T addresses per load) where the round has
+    32 groups or more."""
+    rb, threads, slabs, wres, smem = st.pass_b_layout(I, J)[:5]
+    Jp, Ip = st._up4(J), st._up8(I)
+    IB, CG = Ip // 8, Jp // 4
+    NG = rb * CG
+    G = min(NG, max(1, threads // IB))
+    out = np.zeros((R, I, J), int)
+    n_steps = -(-R // rb)
+    for block in range(min(grid, n_steps)):
+        for q in range(block, n_steps, grid):
+            r0, rows = q * rb, min(rb, R - q * rb)
+            for g0 in range(0, NG, G):
+                gw = min(G, NG - g0)
+                tid = np.arange(gw * IB)
+                assert gw * IB <= threads
+                ib = tid // gw
+                g = g0 + tid - ib * gw
+                assert sorted(zip(g.tolist(), ib.tolist())) == [
+                    (x, y) for x in range(g0, g0 + gw) for y in range(IB)]
+                if gw >= 32:
+                    assert all(len(set(ib[w:w + 32])) <= 2
+                               for w in range(0, len(tid), 32))
+                rr, j0 = np.divmod(g, CG)
+                j0 = 4 * j0
+                live = rr < rows
+                for a in range(8):
+                    for b in range(4):
+                        ok = live & (8 * ib + a < I) & (j0 + b < J)
+                        np.add.at(out, (r0 + rr[ok], 8 * ib[ok] + a,
+                                        j0[ok] + b), 1)
+            # lse with c2: the exp pass's float4 items cover the step's
+            # rows * I * Jp values exactly.
+            assert rows * I * Jp % 4 == 0
+    return out
+
+
+def _pass_b_c2_writes(R, I, J, grid):
+    """Pass B's c2 product (pass_b_mma_kernel<true, .> on (M, N) = (R*I, J),
+    the N tiles fastest): counts of the outputs (m, n) the consumer
+    threads store."""
+    M, N = R * I, J
+    n_m, n_n = -(-M // st._MMA_BM), -(-N // st._MMA_BN)
+    ci, cj = _mma_thread_cells()
+    out = np.zeros((M, N), int)
+    for block in range(min(grid, n_m * n_n)):
+        for t in range(block, n_m * n_n, grid):
+            j0, i0 = (t % n_n) * st._MMA_BN, (t // n_n) * st._MMA_BM
+            i, j = i0 + ci, j0 + cj
+            ok = (i < M) & (j < N)
+            np.add.at(out, (i[ok], j[ok]), 1)
+    return out
+
+
+# (R, I, J, grid) of pass B: the SSY cell's (I, J) = (32, 384) (one row a
+# step), the continuous-SSY cell's (56, 64) (two rows a step, a partial
+# last step), (6, 64) (eight rows a step), ragged I and J (J % 4 != 0, I
+# not a multiple of 8), (512, 40) (one slab, W_c1 from global memory),
+# (12, 258) and a grid smaller than the steps or tiles.
+PASSB_CASES = [(5, 32, 384, 3), (7, 56, 64, 2), (17, 6, 64, 2),
+               (5, 56, 42, 3), (4, 13, 37, 1), (3, 1, 1, 2),
+               (3, 512, 40, 2), (9, 12, 258, 4), (4, 200, 20, 3)]
+
+
+@pytest.mark.parametrize("R,I,J,grid", PASSB_CASES)
+def test_pass_b_layout_owns_every_output_once(R, I, J, grid):
+    lay = st.pass_b_layout(I, J)
+    rb, threads, slabs, wres, smem = lay[:5]
+    assert smem <= st.SMEM_LIMIT and lay[10] <= st.SMEM_LIMIT
+    assert threads % 32 == 0 and threads <= 384 and slabs in (1, 2)
+    assert 1 <= rb <= 8
+    c1 = _pass_b_c1_writes(R, I, J, grid)
+    assert c1.min() == c1.max() == 1
+    c2 = _pass_b_c2_writes(R, I, J, grid)
+    assert c2.min() == c2.max() == 1
+
+
+def test_pass_b_layout_choice():
+    # The SSY cell: one field row a step, 384 threads of 8 x 4 tiles (all
+    # busy), two 48 KB slabs and W_c1^T: two blocks per SM; (56, 64): two
+    # rows a step, 224 threads; (512, 40): one slab and W_c1 read from
+    # global memory, 384 threads in rounds.  The c2 product: 128 x 128
+    # tiles, 16-deep K-chunks, a 4-stage ring, 512 threads, one block per
+    # SM.
+    assert st.pass_b_layout(32, 384)[:5] == (1, 384, 2, 1, 104_064)
+    assert 2 * 104_064 <= st._SM_SMEM - 2 * st._BLOCK_RESERVED
+    assert st.pass_b_layout(56, 64)[:5] == (2, 224, 2, 1, 70_848)
+    assert st.pass_b_layout(512, 40)[:5] == (1, 384, 1, 0, 84_128)
+    assert st.pass_b_layout(32, 384)[5:] == (128, 128, 16, 4, 512, 157_696)
+    assert 2 * st.pass_b_mma_smem_bytes(a_mk=True) > st._SM_SMEM
+    assert st.pass_b_work_floats(1024, 32, 384, True) == 1024 * 32 * 385
+    assert st.pass_b_work_floats(5, 56, 42, True) == 5 * 56 * 45
+    assert st.pass_b_work_floats(3136, 56, 64, False) == 0
+
+
+@pytest.mark.parametrize("I0", range(1, 301, 50))
+def test_pass_b_layout_covers_the_first_kernel(I0):
+    # Every (I, J) the first pass-B kernel's block took
+    # (pass_b_smem_bytes, the footprint streamed_config classifies by)
+    # has a layout; the accepted J of an I run from 1 up.
+    for I in range(I0, I0 + 50):
+        J = 1
+        while st.pass_b_smem_bytes(I, J) <= st.SMEM_LIMIT:
+            lay = st.pass_b_layout(I, J)
+            assert lay is not None and lay[4] <= st.SMEM_LIMIT, (I, J)
+            J += 1
+
+
+@pytest.mark.parametrize("L0", range(1, 301, 60))
+def test_strip_row_layout_covers_the_first_pass_c_kernel(L0):
+    # Pass C runs the row kernel: every (L, K) the first pass-C kernel's
+    # tile took (pass_c_tile, the footprint streamed_config classifies
+    # by; R up to ~29,000) has a row layout.
+    for L in range(L0, L0 + 60):
+        for K in range(1, 301):
+            if st.pass_c_tile(L * K, K) is not None:
+                lay = st.strip_row_layout(L, K)
+                assert lay is not None and lay[2] <= st.SMEM_LIMIT, (L, K)
 
 
 def _ldmatrix(addr_of_lane):

@@ -14,6 +14,14 @@ the emulated kernel within the kernel-vs-plain limit (5e-6 plus one
 float32 rounding of the value) of ``pass_b_deferred_plain`` and of the
 JAX package's deferred pass B (the Pallas kernel in interpret mode).  So
 the route can hold the bar before the card is asked.
+
+Pass B's c2 product (TPU kernel ``_b_kernel``, CUDA
+``pass_b_mma_kernel<true, .>`` after the c1 pass) runs the same arithmetic
+with the field on the left: mid (R*I, J) = U W_c2^T, U the c1 pass's
+linear field (fast) or exp(u - row max) (lse).  At a small SSY Tauchen
+set with the cell's 384-deep contraction it stays within 5e-6 of float64
+(relative in fast mode, in log in lse mode), and within the kernel-vs-
+plain limit of ``pass_b_plain``.
 """
 
 import numpy as np
@@ -208,3 +216,78 @@ def test_emulated_kernel_matches_the_pallas_kernel(factors):
         got = emulate(torch.as_tensor(ell), torch.as_tensor(W.T), theta,
                       *sub)[0].numpy()
         assert np.all(np.abs(got - want) <= ATOL + EPS32 * np.abs(want))
+
+
+def emulate_c2(U, W_c2t, promote=True):
+    """The split-TF32 product U (M, K) W_c2t (K, N) as the c2 product
+    runs it: K padded to a multiple of 8 with zeros, per k-step of 8 the
+    three TF32 products into a fresh accumulator, then one float32 add."""
+    M, K = U.shape
+    N = W_c2t.shape[1]
+    Kp = -(-K // 8) * 8
+    A = torch.zeros((M, Kp), dtype=torch.float32)
+    A[:, :K] = U
+    B = torch.zeros((Kp, N), dtype=torch.float32)
+    B[:K] = W_c2t
+    (ah, al), (bh, bl) = split(A), split(B)
+    acc = torch.zeros((M, N), dtype=torch.float32)
+    for k in range(0, Kp, 8):
+        ks = slice(k, k + 8)
+        t = torch.zeros_like(acc) if promote else acc
+        t = mma_rz(t, al[:, ks], bh[ks])
+        t = mma_rz(t, ah[:, ks], bl[ks])
+        t = mma_rz(t, ah[:, ks], bh[ks])
+        acc = acc + t if promote else t
+    return acc
+
+
+@pytest.fixture(scope="module")
+def ssy_c2_set():
+    """A small SSY Tauchen set with the cell's J = 384 (the c2 depth) and
+    its c1 results: the fast field's linear U with row shifts s, and the
+    lse field's log-domain u, on a seeded field near log(800)."""
+    import sdfs_via_autodiff_tpu_torch as P
+    m = P.SSY()
+    shapes = (2, 3, 8, 384)
+    ops = P.two_phase_operands_ssy(m, P.discretize_ssy(m, shapes,
+                                                       method="tauchen"))
+    L, K, I, J = shapes
+    rng = np.random.default_rng(7)
+    ell = torch.as_tensor(np.log(800.0) + 0.05 * rng.standard_normal(
+        (L * K, I, J)), dtype=torch.float32)
+    f32 = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                    dtype=torch.float32)
+    W_c1, W_c2t = f32(ops.W_c1), f32(np.asarray(ops.W_c2).T)
+    th = float(ops.theta)
+    u_fast, s = st.pass_b_plain(ell, W_c1, None, th, "fast")
+    u_lse = st.pass_b_plain(ell, W_c1, None, th, "lse")
+    return ell, W_c1, W_c2t, th, u_fast, s, u_lse
+
+
+@pytest.mark.parametrize("mode", ["fast", "lse"])
+def test_pass_b_c2_split_tf32_holds_the_bar(ssy_c2_set, mode):
+    ell, W_c1, W_c2t, th, u_fast, s, u_lse = ssy_c2_set
+    R, I, J = ell.shape
+    if mode == "fast":
+        U = u_fast.reshape(R * I, J)
+    else:
+        u = u_lse.reshape(R * I, J)
+        sh = torch.amax(u, dim=1, keepdim=True)
+        U = torch.exp(u - sh)
+    acc = emulate_c2(U, W_c2t)
+    exact = U.double() @ W_c2t.double()
+    want = st.pass_b_plain(ell, W_c1, W_c2t, th, mode)
+    if mode == "fast":
+        # The linear field against the float64 product of the same U and
+        # W_c2^T, and against the plain version: 5e-6 relative.
+        assert float(((acc.double() - exact).abs() / exact).max()) <= 5e-6
+        got = acc.reshape(R, I, J)
+        assert float(((got - want[0]).abs() / want[0].abs()).max()) <= 5e-6
+    else:
+        # sh + log(sum): within 5e-6 in log of the float64 sum, and the
+        # emulated pass within 5e-6 plus one float32 rounding of the
+        # value of the plain version.
+        err = float((torch.log(acc.double()) - torch.log(exact)).abs().max())
+        assert err <= ATOL
+        got = (sh + torch.log(acc)).reshape(R, I, J)
+        assert bool(((got - want).abs() <= ATOL + EPS32 * want.abs()).all())
