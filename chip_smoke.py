@@ -150,7 +150,27 @@ Phases, in order; any failure exits non-zero before the result line:
     against its plain version there), of the strip column phase at
     the 25.2M GCY view (192, 512, 256), lse, rank-2 lazy and plain, and
     of the row phase at its (L, K, C) = (12, 16, 131072), plain;
-31. a JSON line of per-kernel facts (with each kernel's bound: the
+31. the solver layer (the fast stages' launch counts read as in 5):
+    ``polish=True`` at tol 1e-7 (the fast float32 stage at 1e-4, then
+    float64 Newton on the card through the fast operator's tangent):
+    discrete SSY at (32,32,32,384) Tauchen (checked within 1e-9 on log w
+    against a float64 Newton solve without ``tangent_T`` from the same
+    float32 start), discrete GCY at (32,16,16,12,16,16) Tauchen and
+    continuous SSY tiled at (56,56,56,64) from the log-linear start, each
+    with its float64 residual (at most 1e-7), both stages' iterations and
+    seconds and the fast stage's kernel launches;
+32. ``inner="gmres"`` (restart 20, 5 cycles a step) at the SSY cell,
+    float32, tol 2e-5, within 2e-4 of the BiCGStab solve of phase 5;
+33. ``inner="dense"`` and ``method="gd"`` on the card, SSY (4,4,4,6)
+    float64: dense within 1e-10 of BiCGStab, gd at tol 1e-4;
+34. the calibration gradient: ``wc_ratio_differentiable(SSY(), 20^4,
+    fields=("beta", "gamma"), quad_degree=5, tol=1e-11)`` in float64,
+    d mean log w* against central differences (rtol 2e-4), the seconds
+    of the solve and of the adjoint;
+35. ``calibrate_moments`` at 15^4, degree 5, 10^6 draws, from beta =
+    0.9985 to the E[w] of SSY's beta (within 5e-6), and a risk-free-rate
+    gradient through w*;
+36. a JSON line of per-kernel facts (with each kernel's bound: the
     largest of its FP32 operations over 67 TFLOP/s, its TF32 tensor-core
     operations over 495 TFLOP/s (the deferred pass B at I = 512 and pass
     B's c2 product: split TF32, three TF32 products per FP32 one; their
@@ -174,6 +194,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -2170,6 +2191,270 @@ def normalized_phases(torch, port, st, tt, dev, smi, plain_star):
     return max_err, launches, kernels_ms
 
 
+# The solver layer and calibration (phases 31-35).
+POLISH_TOL = 1e-7           # the reference's default tolerance
+POLISH_REF_TOL = 1e-10      # the float64 Newton reference, no tangent_T
+POLISH_REF_ATOL = 1e-9      # polished log w vs that reference
+GMRES_MAXITER = 5           # restart cycles: 100 matvecs a step, as
+                            # BiCGStab's 50 iterations
+GMRES_ATOL = 2e-4           # log w*, GMRES vs BiCGStab at tol 2e-5
+SMALL_SHAPES = (4, 4, 4, 6)
+DENSE_ATOL = 1e-10          # dense vs BiCGStab fixed point, float64
+GD_TOL = 1e-4
+GRAD_SIZES, GRAD_DEGREE, GRAD_TOL = (20, 20, 20, 20), 5, 1e-11
+GRAD_EPS = {"beta": 1e-7, "gamma": 1e-5}
+GRAD_FD_RTOL = 2e-4
+CAL_SIZES, CAL_START_BETA, CAL_BETA_ATOL = (15, 15, 15, 15), 0.9985, 5e-6
+
+
+class StageSpy:
+    """Wraps the port's Newton solver to record each call (a polish has
+    two: the fast stage and the float64 stage): dtype, device, result,
+    Krylov iterations, whether it had a tangent_T, and seconds."""
+
+    def __init__(self, torch, port):
+        self.torch, self.solvers = torch, port.solvers.api.SOLVERS
+        self.calls = []
+
+    def __enter__(self):
+        self.newton = self.solvers["newton"]
+
+        def spy(T, x0, **kw):
+            inner = kw.setdefault("inner_iterations", [])
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = self.newton(T, x0, **kw)
+            self.torch.cuda.synchronize()
+            self.calls.append(dict(
+                dtype=x0.dtype, device=x0.device, res=res, inner=inner,
+                tangent=kw.get("tangent_T") is not None,
+                secs=time.perf_counter() - t0))
+            return res
+
+        self.solvers["newton"] = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.solvers["newton"] = self.newton
+
+    def describe(self):
+        return "; ".join(
+            f"stage {i} {str(c['dtype']).replace('torch.', '')} on "
+            f"{c['device']}{' with tangent_T' if c['tangent'] else ''}: "
+            f"{c['res']}, Krylov iterations {sum(c['inner'])}, "
+            f"{c['secs']:.3f} s" for i, c in enumerate(self.calls))
+
+
+def polish_phase(torch, port, st, label, run, kernels, smi):
+    """Run one polished solve (``run()``) with the launch counts set to 0
+    just before it; check its float64 residual, dtype, device and that
+    ``kernels`` launched.  Returns (solution, the spy)."""
+    with StageSpy(torch, port) as spy:
+        sol, secs, launches = solve_path(torch, [st.LAUNCHES], run)
+    res = sol.result
+    now = {k: v for k, v in launches.items() if v}
+    print(f"polish {label}, tol {POLISH_TOL:g}: {res} in {secs:.3f} s; "
+          f"{spy.describe()}; launches {now} ({smi})")
+    check(res.converged and res.residual <= POLISH_TOL,
+          f"polish {label}: {res}")
+    check(sol.w_star.dtype == torch.float64 and sol.w_star.is_cuda,
+          f"polish {label}: w* {sol.w_star.dtype} on {sol.w_star.device}")
+    check(bool(torch.isfinite(sol.w_star).all()),
+          f"polish {label}: w* not finite")
+    check(len(spy.calls) == 2 and spy.calls[1]["tangent"]
+          and spy.calls[0]["dtype"] == torch.float32,
+          f"polish {label}: stages {spy.describe()}")
+    check(all(launches[k] > 0 for k in kernels),
+          f"polish {label}: a kernel of the fast stage never launched: "
+          f"{now}")
+    return sol, spy
+
+
+def solver_layer_phases(torch, port, st, dev, smi, plain_ssy):
+    """Phases 31-35: polish at three cells, Newton's GMRES, dense and
+    gd, the calibration gradient and calibration."""
+    from sdfs_via_autodiff_tpu_torch.operators.continuous_common import (
+        mc_draws)
+    from sdfs_via_autodiff_tpu_torch.ops.interp import lin_interp
+
+    model = port.SSY()
+    f64 = torch.float64
+
+    # 31a. Discrete SSY polish at the main cell.
+    sol, spy = polish_phase(
+        torch, port, st, f"discrete SSY {MAIN_SHAPES} {MAIN_METHOD} tiled",
+        lambda: port.wc_ratio_discrete(
+            model, MAIN_SHAPES, kernel="tiled", discretization=MAIN_METHOD,
+            tol=POLISH_TOL, polish=True, device=dev),
+        ("pass_b", "pass_c"), smi)
+    ell = torch.log(sol.w_star)
+    ell32 = spy.calls[0]["res"].x
+    d32 = float((ell - ell32.double()).abs().max())
+    t0 = time.perf_counter()
+    ref = port.wc_ratio_discrete(
+        model, MAIN_SHAPES, discretization=MAIN_METHOD, tol=POLISH_REF_TOL,
+        w_init=torch.exp(ell32.double()), device=dev)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    d_ref = float((ell - torch.log(ref.w_star)).abs().max())
+    print(f"polish discrete SSY {MAIN_SHAPES}: {sol.result.iterations} "
+          f"float64 outer steps; sup |log w - log w_f32| = {d32:.3e}; vs "
+          f"float64 Newton without tangent_T from the same start (tol "
+          f"{POLISH_REF_TOL:g}: {ref.result}, {ref_s:.3f} s): sup diff "
+          f"{d_ref:.3e} ({smi})")
+    check(ref.converged and d_ref <= POLISH_REF_ATOL,
+          f"polish discrete SSY vs float64 Newton: {d_ref:.3e}, {ref.result}")
+    del sol, spy, ell, ell32, ref
+    torch.cuda.empty_cache()
+
+    # 31b. Discrete GCY polish at the 25.2M cell.
+    sol, _ = polish_phase(
+        torch, port, st, f"discrete GCY {GCY_SHAPES} {GCY_METHOD} tiled",
+        lambda: port.wc_ratio_discrete(
+            port.GCY(), GCY_SHAPES, kernel="tiled",
+            discretization=GCY_METHOD, tol=POLISH_TOL, polish=True,
+            device=dev),
+        ("pass_b_deferred", "pass_c_deferred"), smi)
+    del sol
+    torch.cuda.empty_cache()
+
+    # 31c. Continuous SSY tiled polish at (56,56,56,64), from the log-linear
+    # start as path 24 (a).
+    grids = port.build_grid_ssy(model, *SSYC_SHAPES)
+    w0 = torch.exp(torch.as_tensor(loglinear_start(port, model, grids),
+                                   device=dev))
+    sol, _ = polish_phase(
+        torch, port, st, f"continuous SSY {SSYC_SHAPES} tiled",
+        lambda: port.wc_ratio_continuous(
+            model, SSYC_SHAPES, kernel="tiled", tol=POLISH_TOL, polish=True,
+            w_init=w0, device=dev),
+        ("pass_b_c1", "pass_c_batched"), smi)
+    del sol, w0
+    torch.cuda.empty_cache()
+
+    # 32. inner="gmres" at the SSY main cell.
+    inner = []
+    sol, secs, launches = solve_path(
+        torch, [st.LAUNCHES], lambda: port.wc_ratio_discrete(
+            model, MAIN_SHAPES, kernel="tiled", discretization=MAIN_METHOD,
+            tol=MAIN_TOL, inner="gmres", inner_maxiter=GMRES_MAXITER,
+            inner_iterations=inner, device=dev))
+    d = float((torch.log(sol.w_star) - plain_ssy).abs().max())
+    print(f"gmres path {MAIN_SHAPES} {MAIN_METHOD} tiled, tol {MAIN_TOL:g}, "
+          f"restart 20, {GMRES_MAXITER} cycles a step: {sol.result} in "
+          f"{secs:.3f} s; Arnoldi steps per Newton step {inner} = "
+          f"{sum(inner)}; launches {launches}; sup |log w - log w_bicgstab| "
+          f"= {d:.3e} ({smi})")
+    check(sol.converged, f"gmres path: {sol.result}")
+    check(launches["pass_b"] > 0 and launches["pass_c"] > 0,
+          f"gmres path: a kernel never launched: {launches}")
+    check(d <= GMRES_ATOL, f"gmres path vs BiCGStab: {d:.3e}")
+    del sol
+    torch.cuda.empty_cache()
+
+    # 33. inner="dense" and method="gd" on the card.
+    disc = port.discretize_ssy(model, SMALL_SHAPES)
+    T = port.T_ssy_factory(model, disc, space="log", device=dev)
+    x0 = torch.full(SMALL_SHAPES, np.log(800.0), dtype=f64, device=dev)
+    out = {}
+    for name, kw in (("bicgstab", dict(method="newton", tol=1e-12)),
+                     ("dense", dict(method="newton", inner="dense",
+                                    tol=1e-12)),
+                     ("gd", dict(method="gd", tol=GD_TOL))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = port.solve(T, x0, **kw)
+        torch.cuda.synchronize()
+        print(f"{name} on {dev} {SMALL_SHAPES} float64: {out[name]} in "
+              f"{time.perf_counter() - t0:.3f} s ({smi})")
+    d = float((out["dense"].x - out["bicgstab"].x).abs().max())
+    print(f"dense vs bicgstab: sup diff {d:.3e}")
+    check(out["dense"].converged and d <= DENSE_ATOL,
+          f"dense Newton on the card: {out['dense']}, diff {d:.3e}")
+    check(out["gd"].converged and out["gd"].residual <= GD_TOL
+          and out["gd"].x.is_cuda, f"gd on the card: {out['gd']}")
+
+    # 34. The calibration gradient at 20^4.
+    wc_fn, p0 = port.wc_ratio_differentiable(
+        model, GRAD_SIZES, fields=("beta", "gamma"), quad_degree=GRAD_DEGREE,
+        tol=GRAD_TOL, device=dev)
+    p = {k: v.clone().requires_grad_(True) for k, v in p0.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = torch.mean(torch.log(wc_fn(p)))
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(loss, list(p.values()))
+    torch.cuda.synchronize()
+    adj_s = time.perf_counter() - t0
+    g = {k: float(v) for k, v in zip(p, grads)}
+
+    def loss_at(k, v):
+        q = {n: x.clone() for n, x in p0.items()}
+        q[k] = torch.tensor(v, dtype=f64)
+        with torch.no_grad():
+            return float(torch.mean(torch.log(wc_fn(q))))
+
+    t0 = time.perf_counter()
+    fd = {k: (loss_at(k, float(p0[k]) + e) - loss_at(k, float(p0[k]) - e))
+          / (2 * e) for k, e in GRAD_EPS.items()}
+    fd_s = time.perf_counter() - t0
+    rel = {k: abs(g[k] - fd[k]) / abs(fd[k]) for k in g}
+    print(f"calibration gradient {GRAD_SIZES} degree {GRAD_DEGREE} tol "
+          f"{GRAD_TOL:g} float64 on {dev}: d mean log w*/d(beta, gamma) = "
+          f"{g}; central differences {fd} (rel {rel}); solve {solve_s:.3f} s, "
+          f"adjoint {adj_s:.3f} s, four difference solves {fd_s:.3f} s "
+          f"({smi})")
+    check(all(np.isfinite(v) for v in g.values())
+          and all(r <= GRAD_FD_RTOL for r in rel.values()),
+          f"calibration gradient vs central differences: {rel}")
+    del wc_fn, p, loss, grads
+
+    # 35. Calibration at the anchor methodology (15^4, 10^6 draws).
+    t0 = time.perf_counter()
+    wc_fn, p0 = port.wc_ratio_differentiable(
+        model, CAL_SIZES, fields=("beta",), quad_degree=ANCHOR_DEGREE,
+        tol=1e-10, device=dev)
+    draws = mc_draws(4, ANCHOR_DRAWS, 1234).to(dev)   # calibrate's draws
+    with torch.no_grad():
+        mu, _ = port.one_step_moments_differentiable(
+            model, wc_fn.grids, wc_fn(p0), draws)
+    cal, info = port.calibrate_moments(
+        dataclasses.replace(model, beta=CAL_START_BETA), CAL_SIZES,
+        {"mean": float(mu)}, fields=("beta",), quad_degree=ANCHOR_DEGREE,
+        tol=1e-10, num_draws=ANCHOR_DRAWS, max_steps=10, device=dev)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    err = abs(cal.beta - model.beta)
+    print(f"calibration {CAL_SIZES} degree {ANCHOR_DEGREE}, {ANCHOR_DRAWS} "
+          f"draws, from beta = {CAL_START_BETA}: target E[w] = "
+          f"{float(mu):.6f}, beta = {cal.beta:.9f} (|err| {err:.2e}), "
+          f"converged {info['converged']}, {info['steps']} steps, cost "
+          f"{info['cost']:.3e}, {cal_s:.3f} s ({smi})")
+    check(info["converged"] and err <= CAL_BETA_ATOL,
+          f"calibration: beta {cal.beta}, {info['converged']}")
+    grids = wc_fn.grids
+
+    def rf(q):
+        w_grid = wc_fn(q)
+        m = dataclasses.replace(model, beta=q["beta"])
+        w_func = lambda x: lin_interp(x.reshape(4, -1), w_grid,
+                                      grids).reshape(
+                                          x.shape[1:] if x.ndim > 1 else ())
+        return port.risk_free_rate(m, w_func, degree=ANCHOR_DEGREE,
+                                   device=dev)(torch.zeros(4, dtype=f64))
+
+    q = {"beta": p0["beta"].clone().requires_grad_(True)}
+    t0 = time.perf_counter()
+    r = rf(q)
+    g_rf = float(torch.autograd.grad(r, q["beta"])[0])
+    print(f"risk-free rate at the origin {float(r.detach()):.6e}, "
+          f"d r_f / d beta = "
+          f"{g_rf:.6e} through w* ({time.perf_counter() - t0:.3f} s)")
+    check(np.isfinite(g_rf), f"risk-free rate gradient {g_rf}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2448,9 +2733,13 @@ def main() -> None:
     max_err.update(norm_err)
     launches.update({k: norm_launches[k] for k in norm_err})
     kernels_ms.update(norm_ms)
+
+    # 31-35. The solver layer and calibration.
+    torch.cuda.empty_cache()
+    solver_layer_phases(torch, port, st, dev, smi, plain_star["ssy"].double())
     del plain_star
 
-    # 32. Result.
+    # 36. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:

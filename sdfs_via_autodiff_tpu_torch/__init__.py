@@ -21,8 +21,14 @@ and the ``"loglin"`` semantics, quadrature or Monte Carlo), the
 whole-solve kernels (``algorithm="fused_sa"``/``"fused_anderson"``), the
 post-interp kernel for SSY (``kernel="tiled", interp="post"``) and the
 streamed pair kernels for GCY (``kernel="tiled", baseline="coarse"``);
-and the SDF pipeline (``construct_wstar_callable``,
-``one_step_w_moments``, ``sdf_factory``).
+the SDF pipeline (``construct_wstar_callable``,
+``one_step_w_moments``, ``sdf_factory``) and pricing (``expected_sdf``,
+``risk_free_rate``); the solvers (Newton with BiCGStab, GMRES or a dense
+inner solve and a float32 ``tangent_T``, successive approximation,
+Anderson, L-BFGS ``"gd"``), ``polish`` in both drivers (a float64
+Newton refinement of a fast solve), and calibration
+(``wc_ratio_differentiable`` on implicit differentiation,
+``calibrate_moments``).
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``.
 """
@@ -67,11 +73,17 @@ from .kernels import (LAUNCHES, FUSED_LAUNCHES, STRIP_LAUNCHES,
                       make_post_interp_kernel_T_ssy)
 from .sdf import (construct_wstar_callable, simulate_states,
                   simulated_w_moments, one_step_w_moments, sdf_factory,
-                  sdf_factory_ssy, sdf_factory_gcy)
+                  sdf_factory_ssy, sdf_factory_gcy, expected_sdf,
+                  risk_free_rate, expected_sdf_ssy, risk_free_rate_ssy,
+                  expected_sdf_gcy, risk_free_rate_gcy)
 from .solvers import (SolveResult, solve, solver, successive_approx,
-                      newton_solver, bicgstab_mixed, anderson_solver)
+                      newton_solver, bicgstab_mixed, gmres, anderson_solver,
+                      gradient_solver, implicit_fixed_point,
+                      implicit_sensitivity)
 from .drivers import (WCSolution, wc_ratio_discrete, wc_ratio_continuous,
-                      wc_ratio_continuation, prolong_w, f32_tol_floor)
+                      wc_ratio_continuation, wc_ratio_differentiable,
+                      prolong_w, f32_tol_floor)
+from .calibrate import calibrate_moments, one_step_moments_differentiable
 from .interop import (model_from_fields, operands_from_numpy,
                       kron_operands_from_numpy, grids_from_numpy,
                       node_set_from_numpy, post_interp_operands_from_numpy,

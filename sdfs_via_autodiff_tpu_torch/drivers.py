@@ -11,13 +11,17 @@ kernels for discrete SSY and GCY and for continuous SSY with interp
 with interp "post"/"loglin"), and
 the continuous ``algorithm="fused_sa"``/``"fused_anderson"`` the
 whole-solve CUDA kernels (their plain PyTorch versions on a CPU
-device).  Every ``wc_ratio_*`` call runs on the card unless the caller
-passes ``device="cpu"``.
+device).  ``polish`` refines either driver's solve with a float64
+Newton solve; ``wc_ratio_differentiable`` makes w* a differentiable
+function of model fields (implicit differentiation).  Every
+``wc_ratio_*`` call runs on the card unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 import warnings
 from typing import Optional, Sequence
@@ -42,10 +46,11 @@ from .operators.discrete_gcy import (T_gcy_factory, discretize_gcy,
 from .operators.discrete_ssy import T_ssy_factory, discretize_ssy
 from .ops.grids import build_grid_gcy, build_grid_ssy, flatten_mesh
 from .ops.interp import lin_interp
-from .solvers import SolveResult, solve
+from .solvers import SolveResult, newton_solver, solve
 
 __all__ = ["WCSolution", "wc_ratio_discrete", "wc_ratio_continuous",
-           "wc_ratio_continuation", "prolong_w", "f32_tol_floor"]
+           "wc_ratio_continuation", "wc_ratio_differentiable", "prolong_w",
+           "f32_tol_floor"]
 
 DEFAULT_INIT_W = 800.0   # reference w_init
 
@@ -107,6 +112,52 @@ def _run_solver(T, w0, space, algorithm, tol, solver_opts,
     return WCSolution(w_star=w_star, grids=None, result=res, space=space)
 
 
+def _polish_stage(polish) -> str:
+    """Normalize the ``polish`` argument to a stage placement: ``True``
+    and ``"device"`` refine in float64 on the caller's device (the card:
+    IEEE float64 there); ``"host"`` refines on the CPU."""
+    if polish is True or polish == "device":
+        return "device"
+    if polish == "host":
+        return "host"
+    raise ValueError(f"polish must be True, 'host', or 'device', "
+                     f"got {polish!r}")
+
+
+def _newton_applicable(solver_opts: dict) -> dict:
+    """The caller's solver options that the Newton solver accepts: the
+    polish stage always refines with Newton, whatever the fast stage
+    ran."""
+    allowed = set(inspect.signature(newton_solver).parameters) - {"T", "x0"}
+    return {k: v for k, v in solver_opts.items() if k in allowed}
+
+
+def _polish_opts(polish, kernel, T_fast, solver_opts, dev):
+    """(device, Newton options) of the float64 polish stage.
+
+    On the caller's device a ``kernel="tiled"`` fast stage lends its
+    float32 operator as ``tangent_T`` (mixed-precision iterative
+    refinement); it lives there, so the host stage linearizes ``T``.
+    """
+    stage = _polish_stage(polish)
+    popts = _newton_applicable(solver_opts)
+    pdev = dev if stage == "device" else torch.device("cpu")
+    if stage == "device" and kernel == "tiled" and "tangent_T" not in popts:
+        popts["tangent_T"] = T_fast
+    return pdev, popts
+
+
+_CHECKPOINT_ITEM = ("ROADMAP queue A item \"Checkpoints "
+                    "(utils/checkpoint.py)\"")
+
+
+def _reject_checkpoint(checkpoint_path) -> None:
+    if checkpoint_path:
+        raise NotImplementedError(
+            f"checkpoint_path={checkpoint_path!r} is not ported yet; it "
+            f"lands with {_CHECKPOINT_ITEM}")
+
+
 def wc_ratio_discrete(model,
                       shapes: Sequence[int],
                       *,
@@ -141,8 +192,17 @@ def wc_ratio_discrete(model,
     the solver; the TPU-only options of the JAX tiled tier are rejected.
     A model that is neither SSY nor GCY raises ``TypeError``.
 
-    Not ported yet, each raising ``NotImplementedError``: ``polish``
-    (ROADMAP queue A item 4) and ``checkpoint_path`` (item 10).
+    ``polish`` (``True``, ``"device"`` or ``"host"``): solve first as
+    asked at ``tol=max(tol, 1e-4)`` (the fast stage), then refine with a
+    float64 Newton solve of the plain eager operator in log space (the
+    baseline dropped: float64 needs no range fold) from the fast stage's
+    w*, with the caller's Newton-applicable solver options.  ``True``
+    and ``"device"`` run that stage on ``device`` — with
+    ``kernel="tiled"`` its Krylov matvecs linearize the fast stage's
+    float32 operator (``newton_solver(tangent_T=)``) — and ``"host"``
+    runs it on the CPU.  (In the JAX package ``True`` means the host.)
+    ``checkpoint_path`` is not ported and raises
+    ``NotImplementedError``.
     """
     space = space or "log"
     if kernel not in ("xla", "tiled"):
@@ -151,14 +211,29 @@ def wc_ratio_discrete(model,
         raise TypeError(f"unsupported model {type(model).__name__}")
     if baseline not in (None, "loglinear"):
         raise ValueError(f"unknown baseline {baseline!r}")
-    for name, value, item in (("polish", polish, "item 4"),
-                              ("checkpoint_path", checkpoint_path,
-                               "item 10")):
-        if value:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet; it lands with "
-                f"ROADMAP queue A {item}")
+    _reject_checkpoint(checkpoint_path)
+    if polish:
+        _polish_stage(polish)
     dev = resolve_device(device)
+    sol, T = _solve_discrete(
+        model, shapes, algorithm=algorithm,
+        tol=max(tol, 1e-4) if polish else tol, space=space, w_init=w_init,
+        dtype=dtype, kernel=kernel, baseline=baseline,
+        discretization=discretization, dev=dev, solver_opts=solver_opts)
+    if not polish:
+        return sol
+    pdev, popts = _polish_opts(polish, kernel, T, solver_opts, dev)
+    del T
+    return wc_ratio_discrete(
+        model, shapes, algorithm="newton", tol=tol, space="log",
+        discretization=discretization, device=pdev,
+        w_init=sol.w_star.to(device=pdev, dtype=torch.float64), **popts)
+
+
+def _solve_discrete(model, shapes, *, algorithm, tol, space, w_init, dtype,
+                    kernel, baseline, discretization, dev, solver_opts):
+    """The discrete solve: (WCSolution, the operator it iterated)."""
+    solver_opts = dict(solver_opts)
     gcy = isinstance(model, GCY)
     disc = (discretize_gcy if gcy else discretize_ssy)(
         model, tuple(shapes), method=discretization)
@@ -193,12 +268,7 @@ def wc_ratio_discrete(model,
           if w_init is None
           else torch.as_tensor(w_init).to(device=dev, dtype=wdtype))
     return _run_solver(T, w0, space, algorithm, tol, solver_opts,
-                       theta=model.theta)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet; it lands with "
-                               f"ROADMAP queue A {item}")
+                       theta=model.theta), T
 
 
 def _check_kernel_path(model, kernel, method, interp, space, baseline):
@@ -304,23 +374,56 @@ def wc_ratio_continuous(model,
     when ``w_init`` is None.
 
     ``engine`` reaches both factories (the JAX driver passes it to the
-    SSY factory only).  Not ported yet, each raising
-    ``NotImplementedError`` with its ROADMAP item: ``polish`` (item 6)
-    and ``checkpoint_path`` (item 10).
+    SSY factory only).
+
+    ``polish`` (``True``, ``"device"`` or ``"host"``): solve first as
+    asked at ``tol=max(tol, 1e-4)`` (the fast stage), then refine with a
+    float64 Newton solve of the same configuration through the eager
+    operator (``kernel="xla"``, log space, the baseline dropped) from
+    the fast stage's w*, with the caller's Newton-applicable solver
+    options.  ``True`` and ``"device"`` run that stage on ``device`` —
+    with ``kernel="tiled"`` its Krylov matvecs linearize the fast
+    stage's float32 operator (``newton_solver(tangent_T=)``) — and
+    ``"host"`` runs it on the CPU.  (In the JAX package ``True`` means
+    the host.)  ``checkpoint_path`` is not ported and raises
+    ``NotImplementedError``.
     """
     space = space or "log"
     if not isinstance(model, (SSY, GCY)):
         raise TypeError(f"unsupported model {type(model).__name__}")
-    gcy = isinstance(model, GCY)
-    for name, value, item in (("polish", polish, "item 6"),
-                              ("checkpoint_path", checkpoint_path,
-                               "item 10")):
-        if value:
-            raise _not_ported(f"{name}={value!r}", item)
+    _reject_checkpoint(checkpoint_path)
+    if polish:
+        _polish_stage(polish)
     _check_kernel_path(model, kernel, method, interp, space, baseline)
     if algorithm is None:
         algorithm = _default_algorithm(model, kernel)
     dev = resolve_device(device)
+    common = dict(num_std_devs=num_std_devs, method=method, interp=interp,
+                  quad_degree=quad_degree, mc_draw_size=mc_draw_size,
+                  seed=seed, batch_size=batch_size, engine=engine)
+    sol, T = _solve_continuous(
+        model, grid_sizes, algorithm=algorithm,
+        tol=max(tol, 1e-4) if polish else tol, space=space, w_init=w_init,
+        baseline=baseline, dtype=dtype, kernel=kernel, dev=dev,
+        solver_opts=solver_opts, **common)
+    if not polish:
+        return sol
+    pdev, popts = _polish_opts(polish, kernel, T, solver_opts, dev)
+    del T
+    return wc_ratio_continuous(
+        model, grid_sizes, algorithm="newton", tol=tol, space="log",
+        device=pdev, w_init=sol.w_star.to(device=pdev, dtype=torch.float64),
+        **common, **popts)
+
+
+def _solve_continuous(model, grid_sizes, *, num_std_devs, method, interp,
+                      quad_degree, mc_draw_size, seed, algorithm, tol,
+                      space, w_init, batch_size, baseline, dtype, kernel,
+                      engine, dev, solver_opts):
+    """The continuous solve: (WCSolution, the operator it iterated; None
+    for the fused whole-solve kernels)."""
+    solver_opts = dict(solver_opts)
+    gcy = isinstance(model, GCY)
     gdtype = dtype or torch.float64
     baseline_spec = baseline
     if isinstance(baseline, str) and baseline == "coarse":
@@ -353,13 +456,13 @@ def wc_ratio_continuous(model,
         sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
                           theta=model.theta)
         return dataclasses.replace(
-            sol, grids=tuple(g.to(torch.float32) for g in grids))
+            sol, grids=tuple(g.to(torch.float32) for g in grids)), T
     if algorithm in ("fused_anderson", "fused_sa"):
         return _wc_ratio_continuous_fused(
             model, grid_sizes, algorithm=algorithm, tol=tol,
             num_std_devs=num_std_devs, method=method, interp=interp,
             quad_degree=quad_degree, w_init=w_init, device=dev,
-            baseline_spec=baseline_spec, **solver_opts)
+            baseline_spec=baseline_spec, **solver_opts), None
     make_grids, factory = ((build_grid_gcy, T_gcy_continuous_factory) if gcy
                            else (build_grid_ssy, T_ssy_continuous_factory))
     grids = make_grids(model, *grid_sizes, num_std_devs=num_std_devs,
@@ -372,7 +475,130 @@ def wc_ratio_continuous(model,
     w0 = _w0(T, w_init, shape, gdtype, dev)
     sol = _run_solver(T, w0, space, algorithm, tol, solver_opts,
                       theta=model.theta)
-    return dataclasses.replace(sol, grids=tuple(grids))
+    return dataclasses.replace(sol, grids=tuple(grids)), T
+
+
+# Fields that enter the discrete operator only through the factor
+# construction (theta, kappa): differentiable with the discretization
+# held fixed.  Dynamics fields shape the chains themselves and need the
+# continuous kind, whose operator construction stays in the graph.
+_PREFERENCE_FIELDS = frozenset({"beta", "gamma", "psi", "mu_c"})
+
+
+def wc_ratio_differentiable(model,
+                            grid_sizes: Sequence[int],
+                            *,
+                            fields: Sequence[str] = ("beta", "gamma", "psi"),
+                            kind: str = "continuous",
+                            quad_degree: int = 5,
+                            space: str = "log",
+                            num_std_devs: float = 3.2,
+                            dtype: Optional[torch.dtype] = None,
+                            algorithm: str = "newton",
+                            tol: float = 1e-7,
+                            w_init=None,
+                            adjoint_rtol: float = 1e-8,
+                            adjoint_maxiter: int = 200,
+                            device="cuda",
+                            **solver_opts):
+    """A differentiable calibration map ``p -> w*(p)``.
+
+    Returns ``(wc_fn, p0)``: ``p0`` is a dict of the base model's values
+    of ``fields`` as 0-d float64 tensors on the CPU (the parameters enter
+    the operator's host-side construction, whose arrays then move to
+    ``device``), and ``wc_fn(p)`` solves the model with those values on
+    ``device`` and returns the W/C ratio field, differentiable in ``p``
+    through the implicit function theorem
+    (:func:`..solvers.implicit.implicit_fixed_point`): a gradient costs
+    one fixed-point solve plus one adjoint Krylov solve.
+
+    ``kind="continuous"`` differentiates the factored quadrature
+    ``interp="pre"`` chain (any model field) with grids and quadrature
+    nodes fixed at the base calibration (``wc_fn.grids``, on
+    ``device``); no baseline fold, float64 by default.
+    ``kind="discrete"`` differentiates the per-axis discrete operator with
+    the Rouwenhorst discretization held fixed, which is exact for the
+    preference fields (beta, gamma, psi, mu_c) only; other fields raise.
+    """
+    from .solvers.implicit import implicit_fixed_point
+
+    fam = type(model)
+    gcy = isinstance(model, GCY)
+    valid = {f.name for f in dataclasses.fields(fam)}
+    bad = [f for f in fields if f not in valid]
+    if bad:
+        raise ValueError(f"unknown model fields {bad}; valid: {sorted(valid)}")
+    if space not in ("w", "log"):
+        raise ValueError(f"unknown space {space!r}")
+    if kind not in ("continuous", "discrete"):
+        raise ValueError(f"unknown kind {kind!r}")
+    if len(grid_sizes) != (6 if gcy else 4):
+        raise ValueError(f"grid_sizes must have {6 if gcy else 4} "
+                         "entries for this family")
+    if kind == "discrete":
+        non_pref = [f for f in fields if f not in _PREFERENCE_FIELDS]
+        if non_pref:
+            raise ValueError(
+                f"kind='discrete' holds the Rouwenhorst discretization "
+                f"fixed, so only preference fields "
+                f"{sorted(_PREFERENCE_FIELDS & valid)} differentiate "
+                f"exactly; {non_pref} shape the chains themselves — use "
+                f"kind='continuous' for dynamics-field gradients")
+    dev = resolve_device(device)
+    gdtype = dtype or torch.float64
+    fields = tuple(fields)
+    shape = tuple(int(s) for s in grid_sizes)
+    w0 = (torch.full(shape, DEFAULT_INIT_W, dtype=gdtype, device=dev)
+          if w_init is None
+          else torch.as_tensor(w_init).to(device=dev,
+                                          dtype=gdtype).reshape(shape))
+    x0 = torch.log(w0) if space == "log" else w0
+
+    grids = None
+    if kind == "discrete":
+        disc = (discretize_gcy if gcy else discretize_ssy)(model, shape)
+        factory = T_gcy_factory if gcy else T_ssy_factory
+
+        def build(m):
+            return factory(m, disc, space=space, dtype=gdtype, device=dev)
+    else:
+        if gcy:
+            from .operators.continuous_gcy import _factored_T
+        else:
+            from .operators.continuous_ssy import _factored_T
+        grids = (build_grid_gcy if gcy else build_grid_ssy)(
+            model, *grid_sizes, num_std_devs=num_std_devs, dtype=gdtype)
+
+        def build(m):
+            return _factored_T(m, grids, quad_degree, space, gdtype, None,
+                               device=dev)
+
+    # The operator is built once per parameter point: the solver applies
+    # T_of_p(p, .) many times with the same tensors.
+    last = {"p": None, "T": None}
+
+    def T_of_p(p, x):
+        leaves = tuple(p[k] for k in fields)
+        if last["p"] is None or any(a is not b for a, b in
+                                    zip(last["p"], leaves)):
+            m = dataclasses.replace(model, **dict(zip(fields, leaves)))
+            last["p"], last["T"] = leaves, build(m)
+        return last["T"](x)
+
+    def wc_fn(p):
+        x_star = implicit_fixed_point(
+            T_of_p, {k: p[k] for k in fields}, x0, method=algorithm,
+            tol=tol, adjoint_rtol=adjoint_rtol,
+            adjoint_maxiter=adjoint_maxiter, **solver_opts)
+        return torch.exp(x_star) if space == "log" else x_star
+
+    # The grids the returned field is collocated on (continuous kind):
+    # moment pipelines interpolate on these.  None for the discrete kind.
+    wc_fn.grids = (None if grids is None
+                   else tuple(g.to(dev) for g in grids))
+    p0 = {f: torch.tensor(float(getattr(model, f)), dtype=torch.float64)
+          for f in fields}
+    return wc_fn, p0
 
 
 def prolong_w(w_coarse, grids_coarse, grids_fine) -> torch.Tensor:

@@ -34,8 +34,8 @@ def construct_wstar_callable(w_star_vals=None,
             raise ValueError("provide (w_star_vals, grids) or datafile")
         raise NotImplementedError(
             "construct_wstar_callable(datafile=...) reads a checkpoint, "
-            "which is not ported yet; it lands with ROADMAP queue A item 10 "
-            "(A5, utils/checkpoint.py)")
+            "which is not ported yet; it lands with ROADMAP queue A item "
+            "\"Checkpoints (utils/checkpoint.py)\"")
     dev = resolve_device(device)
     w = torch.as_tensor(w_star_vals).to(dev)
     grids = tuple(torch.as_tensor(g).to(device=dev, dtype=w.dtype)

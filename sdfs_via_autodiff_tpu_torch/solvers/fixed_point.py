@@ -16,7 +16,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .krylov import SYNC_EVERY, bicgstab_mixed
+from .krylov import SYNC_EVERY, bicgstab_mixed, gmres
 from .result import SolveResult
 
 DEFAULT_TOL = 1e-7
@@ -110,24 +110,40 @@ def newton_solver(T: Callable,
                   inner_tol: float = 1e-4,
                   inner_maxiter: Optional[int] = 50,
                   safeguard: bool = True,
+                  tangent_T: Optional[Callable] = None,
                   verbose: bool = False,
                   stall_iters: int = 30,
                   inner_iterations: Optional[list] = None) -> SolveResult:
     """Newton–Kantorovich iteration for a fixed point of T.
 
-    Iterates ``q(x) = x - J(x)^{-1} g(x)`` for ``g(x) = T(x) - x``; the
-    Jacobian is never materialized.  ``g(x)`` comes from ``T`` (the
-    kernels, for the tiled tier); the inner matvecs ``v -> J(x) v`` come
-    from a linearization of ``T.twin`` when ``T`` has one (the eager
+    Iterates ``q(x) = x - J(x)^{-1} g(x)`` for ``g(x) = T(x) - x``.
+    ``g(x)`` comes from ``T`` (the kernels, for the tiled tier); the
+    linearization comes from ``T.twin`` when ``T`` has one (the eager
     evaluator of the same math — what the JAX package's custom JVP
-    routes ``jax.linearize`` to), else of ``T``, through
-    ``torch.func.jvp``, and are solved by :func:`.krylov.bicgstab_mixed`.
+    routes ``jax.linearize`` to), else from ``T``.
 
-    The inner tolerance is *relative* to ||g(x)|| (an inexact-Newton
+    ``inner``: "bicgstab" (:func:`.krylov.bicgstab_mixed`: iterate-dtype
+    vectors, float64 scalars) or "gmres" (:func:`.krylov.gmres`,
+    restarted, ``inner_maxiter`` restart cycles), both matrix-free with
+    matvecs ``v -> J(x) v`` through ``torch.func.jvp``; or "dense":
+    ``torch.func.jacfwd`` of the flat residual and ``torch.linalg.solve``
+    (small grids; ``inner_tol`` and ``inner_maxiter`` do not apply, and
+    a ``tangent_T`` raises ``ValueError``).  Another name raises
+    ``ValueError``.
+
+    The Krylov tolerance is *relative* to ||g(x)|| (an inexact-Newton
     forcing term): with an absolute tolerance, any iterate with ||g(x)||
     below it makes the zero vector an acceptable Krylov solution and the
     outer loop reports convergence at a spurious point.
     ``inner_maxiter=None`` means ``10 * x0.numel()``.
+
+    ``tangent_T`` (mixed-precision iterative refinement): a float32 twin
+    of ``T`` on the same field, e.g. the tiled kernels' operator.  The
+    Krylov matvecs then linearize ``tangent_T.twin`` (or ``tangent_T``)
+    at ``x`` in float32 against the float32 right-hand side
+    ``g(x)``, while the residual ``g(x)`` and the safeguard stay on
+    ``T``: each outer step contracts by about the float32 solve's
+    relative error, so the solve still reaches ``T``'s precision.
 
     ``safeguard=True`` rejects a Newton candidate whose residual is
     non-finite or grew by more than 10x in favour of a plain fixed-point
@@ -135,36 +151,24 @@ def newton_solver(T: Callable,
     ``safeguard=False`` a non-finite candidate poisons the iterate so the
     outer NaN guard stops with ``converged=False``.
 
-    ``inner_iterations``, when a list, receives each step's BiCGStab
-    iteration count (0 for the frozen steps that end a chunk after the
-    stop condition failed).
+    ``inner_iterations``, when a list, receives each step's Krylov
+    iteration count (BiCGStab iterations, GMRES Arnoldi steps; 0 for the
+    frozen steps that end a chunk after the stop condition failed).
     """
-    if inner != "bicgstab":
-        raise NotImplementedError(
-            f"inner={inner!r}: only 'bicgstab' is ported; 'gmres' and "
-            "'dense' come with the rest of ROADMAP queue A item 3")
+    if inner not in ("bicgstab", "gmres", "dense"):
+        raise ValueError(f"unknown inner solver {inner!r}")
+    if inner == "dense" and tangent_T is not None:
+        # The JAX package ignores tangent_T here without a word.
+        raise ValueError("tangent_T applies to the Krylov inner solvers, "
+                         "not inner='dense'")
     g = lambda x: T(x) - x
     lin = getattr(T, "twin", T)
     maxiter = (inner_maxiter if inner_maxiter is not None
                else 10 * x0.numel())
     inf = torch.tensor(math.inf, dtype=torch.float64, device=x0.device)
 
-    def q(x, running):
-        gx = g(x)
-        # A jvp per matvec, not torch.func.linearize: linearize traces the
-        # chain with make_fx on every Newton step, a host cost larger
-        # than the primal it saves (PERF.md, "Newton's tangent").
-        jac_prod = lambda v: torch.func.jvp(lambda y: lin(y) - y,
-                                            (x,), (v,))[1]
-        # A frozen step (after the stop condition failed inside a chunk)
-        # skips the Krylov solve: atol = inf stops it before any matvec.
-        atol = torch.where(running, (inner_tol * torch.linalg.vector_norm(
-            gx.reshape(-1))).to(torch.float64), inf)
-        b, n_inner = bicgstab_mixed(jac_prod, gx, atol=atol,
-                                    maxiter=maxiter)
-        if inner_iterations is not None:
-            inner_iterations.append(n_inner)
-        x_new = x - b.to(x.dtype)
+    def accept(x, gx, x_new):
+        """The safeguard: a plain step T(x) where the candidate is bad."""
         bad = ~torch.all(torch.isfinite(gx)) | ~torch.all(
             torch.isfinite(x_new))
         if safeguard:
@@ -173,6 +177,48 @@ def newton_solver(T: Callable,
             bad = bad | ~torch.all(torch.isfinite(g_cand)) | grew
             return torch.where(bad, x + gx, x_new)
         return torch.where(bad, torch.full_like(x_new, math.nan), x_new)
+
+    if inner == "dense":
+        def q(x, running):
+            if inner_iterations is not None:
+                inner_iterations.append(0)
+            if not bool(running):      # a frozen step: its result is unused
+                return x
+            gx = g(x)
+            shape = x.shape
+            gl = lambda v: (lin(v.reshape(shape))
+                            - v.reshape(shape)).reshape(-1)
+            J = torch.func.jacfwd(gl)(x.reshape(-1))
+            step = torch.linalg.solve(J, gx.reshape(-1)).reshape(shape)
+            return accept(x, gx, x - step)
+    else:
+        def krylov(mv, rhs, atol):
+            if inner == "bicgstab":
+                return bicgstab_mixed(mv, rhs, atol=atol, maxiter=maxiter)
+            return gmres(mv, rhs, atol=atol, maxiter=maxiter)
+
+        def q(x, running):
+            gx = g(x)
+            if tangent_T is None:
+                xt, rhs, tl = x, gx, lin
+            else:
+                xt, rhs = x.float(), gx.float()
+                tl = getattr(tangent_T, "twin", tangent_T)
+            # A jvp per matvec, not torch.func.linearize: linearize traces
+            # the chain with make_fx on every Newton step, a host cost
+            # larger than the primal it saves (PERF.md, "Newton's
+            # tangent").
+            jac_prod = lambda v: torch.func.jvp(lambda y: tl(y) - y,
+                                                (xt,), (v,))[1]
+            # A frozen step (after the stop condition failed inside a
+            # chunk) skips the Krylov solve: atol = inf stops it before
+            # any matvec.
+            atol = torch.where(running, (inner_tol * torch.linalg.vector_norm(
+                rhs.reshape(-1))).to(torch.float64), inf)
+            b, n_inner = krylov(jac_prod, rhs, atol)
+            if inner_iterations is not None:
+                inner_iterations.append(n_inner)
+            return accept(x, gx, x - b.to(x.dtype))
 
     return _iterate(q, x0, tol, max_iter, verbose=verbose,
                     stall_iters=stall_iters,

@@ -1,4 +1,7 @@
-"""Matrix-free BiCGStab with float64 reductions (port of ``solvers/krylov.py``).
+"""Matrix-free Krylov solvers with float64 reductions.
+
+Port of ``solvers/krylov.py`` (BiCGStab) and of the restarted GMRES the
+JAX package's Newton solver takes from ``jax.scipy.sparse.linalg``.
 
 Every VECTOR stays in the iterate dtype (float32 matvecs and state — the
 expensive part) while every REDUCTION and recurrence scalar is float64: at
@@ -18,9 +21,10 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["SYNC_EVERY", "bicgstab_mixed"]
+__all__ = ["SYNC_EVERY", "bicgstab_mixed", "gmres"]
 
 # Iterations between host reads of a solver loop's stop condition (also
 # used by ``fixed_point._iterate``).
@@ -117,3 +121,69 @@ def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
             state = tuple(torch.where(run, new, old)
                           for new, old in zip(body(state), state))
     return state[0].reshape(shape), int(state[7])
+
+
+def gmres(matvec: Callable, b, *, tol: float = 1e-5, atol=0.0,
+          restart: int = 20,
+          maxiter: Optional[int] = None) -> Tuple[torch.Tensor, int]:
+    """Solve ``A x = b`` (A = ``matvec``) by restarted GMRES from x = 0.
+
+    The contract of ``jax.scipy.sparse.linalg.gmres`` (its default
+    "batched" form): stop when ||b - A x||_2 <= max(tol * ||b||_2, atol);
+    each cycle builds a Krylov basis of ``restart`` vectors (fewer on
+    breakdown), solves the small least-squares problem for the
+    correction and recomputes the true residual with one more matvec;
+    ``maxiter`` counts restart cycles (None means ``10 * b.numel()``).
+
+    The basis vectors stay in ``b``'s dtype; the Arnoldi process is
+    modified Gram-Schmidt with float64 dot products, the Hessenberg
+    matrix is float64 and its least-squares problem is solved on the host
+    (numpy, minimum norm, so a basis cut short by a breakdown gives zero
+    weights to its null vectors).  The host reads the stop condition once
+    per cycle and the Hessenberg matrix once per cycle.  ``atol`` may be
+    a 0-d tensor (``inf`` skips the solve).  Returns ``(x, n)`` with
+    ``n`` the number of Arnoldi steps (matvecs of the bases).
+    """
+    vdtype, shape, dev = b.dtype, b.shape, b.device
+    f64 = torch.float64
+    n = b.numel()
+    restart = min(int(restart), n)
+    maxiter = 10 * n if maxiter is None else int(maxiter)
+    eps = torch.finfo(vdtype).eps
+    flat_mv = lambda v: matvec(v.reshape(shape)).reshape(-1)
+    norm64 = lambda v: torch.sqrt(_dot64(v, v))
+
+    bf = b.reshape(-1)
+    x, r = torch.zeros_like(bf), bf
+    target = torch.maximum(tol * norm64(bf),
+                           torch.as_tensor(atol, dtype=f64, device=dev))
+    rnorm = norm64(r)
+    steps = cycles = 0
+    while cycles < maxiter and bool(rnorm > target):   # one read a cycle
+        use = rnorm > eps
+        V = [torch.where(use, r / rnorm.to(vdtype), torch.zeros_like(r))]
+        H = torch.zeros((restart + 1, restart), dtype=f64, device=dev)
+        for k in range(restart):
+            w = flat_mv(V[k])
+            w_norm0 = norm64(w)
+            for j in range(k + 1):               # modified Gram-Schmidt
+                h = _dot64(V[j], w)
+                H[j, k] = h
+                w = w - h.to(vdtype) * V[j]
+            w_norm = norm64(w)
+            # Breakdown (an invariant subspace): the next vector is zero,
+            # and so are the rest of this cycle's.
+            live = w_norm > eps * w_norm0
+            H[k + 1, k] = torch.where(live, w_norm, torch.zeros_like(w_norm))
+            V.append(torch.where(live, w / w_norm.to(vdtype),
+                                 torch.zeros_like(w)))
+            steps += 1
+        e1 = np.zeros(restart + 1)
+        e1[0] = float(rnorm)
+        y = np.linalg.lstsq(H.cpu().numpy(), e1, rcond=None)[0]
+        for j in range(restart):
+            x = x + float(y[j]) * V[j]
+        r = bf - flat_mv(x)
+        rnorm = norm64(r)
+        cycles += 1
+    return x.reshape(shape), steps

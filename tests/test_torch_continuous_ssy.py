@@ -194,27 +194,33 @@ def test_wc_ratio_continuous_newton_matches_jax():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    # kernel="tiled" is ported for every interp; an unported option beside
-    # it still raises.
-    ({"kernel": "tiled", "polish": True}, "item 6"),
-    # baseline="coarse" is ported; an unported option beside it raises
-    # before its coarse float64 solve runs.
-    ({"baseline": "coarse", "polish": True}, "item 6"),
-    ({"polish": True}, "item 6"),
-    ({"checkpoint_path": "w.npz"}, "item 10"),
+    # polish is ported: with the tiled fast stage, with the coarse
+    # baseline (dropped by the float64 stage) and with the default
+    # float64 fast stage, the polished solve converges.
+    ({"kernel": "tiled", "polish": True}, None),
+    ({"baseline": "coarse", "polish": True}, None),
+    ({"polish": True}, None),
+    ({"checkpoint_path": "w.npz"}, "Checkpoints"),
 ])
 def test_later_slices_raise_not_implemented(kwargs, match):
+    if match is None:
+        sol = P.wc_ratio_continuous(P.SSY(), (3, 3, 3, 4), device="cpu",
+                                    tol=1e-9, **kwargs)
+        assert sol.converged and sol.result.residual <= 1e-9
+        assert sol.w_star.dtype == torch.float64
+        return
     with pytest.raises(NotImplementedError, match=match):
         P.wc_ratio_continuous(P.SSY(), (3, 3, 3, 4), device="cpu", **kwargs)
 
 
 def test_continuous_gcy_and_other_paths_raise():
     # Continuous GCY, its Monte Carlo and node-chain paths are ported
-    # (tests/test_torch_continuous_gcy.py and test_torch_post_interp.py);
-    # polish is not.
-    with pytest.raises(NotImplementedError, match="item 6"):
-        P.wc_ratio_continuous(P.GCY(), (3,) * 6, method="monte_carlo",
-                              polish=True, device="cpu")
+    # (tests/test_torch_continuous_gcy.py and test_torch_post_interp.py),
+    # and so is polish: the GCY solve polishes to tol (the Monte Carlo
+    # operator takes the same route, tests/test_torch_polish.py).
+    sol = P.wc_ratio_continuous(P.GCY(), (3,) * 6, quad_degree=3,
+                                polish=True, tol=1e-9, device="cpu")
+    assert sol.converged and sol.result.residual <= 1e-9
     with pytest.raises(TypeError, match="unsupported model"):
         P.wc_ratio_continuous(object(), (3, 3, 3, 4), device="cpu")
     with pytest.raises(ValueError, match="unknown kernel"):

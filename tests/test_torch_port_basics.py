@@ -159,6 +159,14 @@ def test_entry_points_default_to_cuda():
               lambda: P.simulate_states(m, 10),
               lambda: P.one_step_w_moments(m, lambda x: x[0], num_draws=10),
               lambda: P.simulated_w_moments(m, lambda x: x[0], num_steps=10)]
+    # The solver layer and calibration: polish, the differentiable map,
+    # calibration and pricing.
+    calls += [lambda: P.wc_ratio_discrete(m, (3, 3, 3, 4), polish=True),
+              lambda: P.wc_ratio_continuous(m, (3, 3, 3, 4), polish="host"),
+              lambda: P.wc_ratio_differentiable(m, (3, 3, 3, 4)),
+              lambda: P.calibrate_moments(m, (3, 3, 3, 4), {"mean": 1.0}),
+              lambda: P.expected_sdf(m, lambda x: x[0]),
+              lambda: P.risk_free_rate_gcy(g, lambda x: x[0])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

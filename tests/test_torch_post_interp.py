@@ -574,7 +574,7 @@ def test_driver_monte_carlo_and_gather(gcy):
     # interp="pre" runs the streamed kernels now; an unported option
     # beside it is refused before any solve work.
     (dict(kernel="tiled", interp="pre", checkpoint_path="w.npz"),
-     NotImplementedError, "item 10"),
+     NotImplementedError, "Checkpoints"),
 ])
 def test_driver_validates_kernel_paths_before_solving(kwargs, exc, match):
     with pytest.raises(exc, match=match):

@@ -67,7 +67,7 @@ def test_wstar_callable_matches_jax(solved):
           + rng.uniform(-0.1, 1.1, (4, 200))
           * np.asarray([float(g[-1] - g[0]) for g in sol.grids])[:, None])
     _close(fp(torch.as_tensor(xs)), fj(jnp.asarray(xs)))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="Checkpoints"):
         P.construct_wstar_callable(datafile="w.npz", device="cpu")
     with pytest.raises(ValueError, match="provide"):
         P.construct_wstar_callable(w, None, device="cpu")

@@ -129,8 +129,12 @@ def test_solver_api():
     res = P.solve(T, x0, method="anderson", tol=1e-12)
     assert res.converged
     np.testing.assert_allclose(res.x.numpy(), 2.0, rtol=0, atol=1e-11)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.solve(T, x0, method="gd")
+    # method="gd" (L-BFGS) is ported: it converges to the fixed point.
+    res = P.solve(T, x0, method="gd", tol=1e-8)
+    assert res.converged
+    np.testing.assert_allclose(res.x.numpy(), 2.0, rtol=0, atol=1e-7)
+    np.testing.assert_allclose(P.solver(T, x0, algorithm="gd").numpy(), 2.0,
+                               rtol=0, atol=1e-4)
     with pytest.raises(ValueError, match="unknown method"):
         P.solve(T, x0, method="bfgs")
     with pytest.warns(UserWarning, match="Falling back"):
