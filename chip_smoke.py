@@ -170,7 +170,41 @@ Phases, in order; any failure exits non-zero before the result line:
 35. ``calibrate_moments`` at 15^4, degree 5, 10^6 draws, from beta =
     0.9985 to the E[w] of SSY's beta (within 5e-6), and a risk-free-rate
     gradient through w*;
-36. a JSON line of per-kernel facts (with each kernel's bound: the
+36. the command line (``sdfs_via_autodiff_tpu_torch.cli.main``, in
+    process, launch counts read as in 5): ``info``; ``check ssy --kind
+    discrete --shapes 32,32,32,384 --decompose``; then
+    ``existence_check`` in float64 at the SSY 12.6M and GCY 25.2M
+    Tauchen cells (r(H), beta r(H)^(1/theta) < 1, power iterations,
+    seconds);
+37. ``solve ssy --kind discrete --kernel tiled --discretization tauchen
+    --shapes 32,32,32,384 --tol 2e-5 --checkpoint``: converged, phase
+    5's launch counts, w_mean within 2e-4 relative of phase 5's, and
+    ``load_solution`` of the file bitwise the solve's w*;
+38. ``timed_solve`` around the 12.6M tiled Newton solve (cold, warm,
+    point-updates/s), then, in a process of its own
+    (``chip_smoke.py --trace-child DIR``), ``utils.trace`` around three
+    applications: the trace file names the pass B and pass C kernels;
+39. ``solve ssy --kind continuous --kernel tiled --baseline loglinear
+    --shapes 56,56,56,64 --tol 2e-5 --checkpoint`` (pass B c1-only with
+    the fold, pass C batched lse), then ``simulate`` (10^6 steps) and
+    ``price`` from the file, each timed, and
+    ``construct_wstar_callable(datafile=)`` against the solve's own
+    interpolant at 10^4 seeded states (1e-12);
+40. de Groot: ``degroot_fixed_point(SSY(), (15,)*4, h=0.99, tol=1e-9)``
+    and the same through ``solve ssy --spec degroot`` (the JSON must
+    match), ``existence_check_degroot`` (S~ < 0), 100 applications of
+    the float64 log-space operator at the 12.6M Tauchen grid, and the
+    h = 1, s_lam = 0 closed form g* = ((1-beta) w*)^theta at 15^4
+    (1e-8 on ln g);
+41. ``wc_ratio_sweep`` over SSY gamma in {8.3, 8.6, 8.89, 9.2} at 32^4,
+    Anderson, tol 1e-7, 2,000 iterations at most, float64, against four
+    sequential ``wc_ratio_continuous`` solves from the same start (1e-9
+    on log w*), both timed;
+42. ``stability_exponent_mc(SSY())`` at T = 100,000 and N = 10,000,
+    timed, and on a damped calibration (T = 10,000, N = 2,000) against
+    ``stability_decomposition`` (1e-5) and the Gaussian closed form of
+    S_lambda (2e-6);
+43. a JSON line of per-kernel facts (with each kernel's bound: the
     largest of its FP32 operations over 67 TFLOP/s, its TF32 tensor-core
     operations over 495 TFLOP/s (the deferred pass B at I = 512 and pass
     B's c2 product: split TF32, three TF32 products per FP32 one; their
@@ -193,12 +227,17 @@ The port never imports JAX, and neither does this script.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -2455,6 +2494,343 @@ def solver_layer_phases(torch, port, st, dev, smi, plain_ssy):
     check(np.isfinite(g_rf), f"risk-free rate gradient {g_rf}")
 
 
+# The command line and the rest of the single-card API (phases 36-42).
+CLI_DISCRETE = ["solve", "ssy", "--kind", "discrete", "--kernel", "tiled",
+                "--discretization", MAIN_METHOD,
+                "--shapes", ",".join(map(str, MAIN_SHAPES)),
+                "--tol", f"{MAIN_TOL:g}"]
+CLI_CONTINUOUS = ["solve", "ssy", "--kind", "continuous", "--kernel",
+                  "tiled", "--baseline", "loglinear",
+                  "--shapes", ",".join(map(str, SSYC_SHAPES)),
+                  "--tol", f"{SSYC_TOL:g}"]
+CLI_W_MEAN_RTOL = 2e-4      # the CLI's w_mean vs phase 5's solve
+DATAFILE_ATOL = 1e-12       # datafile interpolant vs the solve's own
+DATAFILE_STATES = 10_000
+DEGROOT_SIZES, DEGROOT_H, DEGROOT_TOL = (15, 15, 15, 15), 0.99, 1e-9
+DEGROOT_APPS = 100
+DEGROOT_CLOSED_ATOL = 1e-8  # ln g* vs theta ln((1-beta) w*), h = 1
+SWEEP_GAMMAS, SWEEP_SIZES = (8.3, 8.6, 8.89, 9.2), (32, 32, 32, 32)
+SWEEP_TOL, SWEEP_MAX_ITER, SWEEP_ATOL = 1e-7, 2000, 1e-9
+MC_T, MC_N = 100_000, 10_000
+TRACE_APPS, TRACE_SETTLE_S = 3, 0.5
+TRACE_CHILD_FLAG, TRACE_CHILD_TIMEOUT_S = "--trace-child", 300
+DAMPED_T, DAMPED_N = 10_000, 2_000
+DAMPED_S_ATOL, DAMPED_SLAM_ATOL = 1e-5, 2e-6
+
+
+class DriverSpy:
+    """Records what the port's drivers return while the command line
+    runs (``cli`` imports them from ``drivers`` at call time)."""
+
+    NAMES = ("wc_ratio_discrete", "wc_ratio_continuous")
+
+    def __init__(self, port):
+        self.drivers, self.solutions = port.drivers, []
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.drivers, n) for n in self.NAMES}
+
+        def wrap(fn):
+            def spy(*args, **kw):
+                sol = fn(*args, **kw)
+                self.solutions.append(sol)
+                return sol
+            return spy
+
+        for n, fn in self.saved.items():
+            setattr(self.drivers, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.drivers, n, fn)
+
+
+def trace_child(log_dir: str) -> None:
+    """``chip_smoke.py --trace-child DIR`` (phase 38, a process of its
+    own): ``utils.trace`` around TRACE_APPS applications of the 12.6M
+    tiled operator, the trace written to ``DIR``; prints the device
+    events by kernel as a JSON line."""
+    import torch
+
+    import sdfs_via_autodiff_tpu_torch as port
+    from sdfs_via_autodiff_tpu_torch.utils import trace
+
+    dev = torch.device("cuda", 0)
+    disc = port.discretize_ssy(port.SSY(), MAIN_SHAPES, method=MAIN_METHOD)
+    T = port.make_tiled_T_log_ssy(port.SSY(), disc, device=dev)
+    x0 = torch.full(MAIN_SHAPES, float(np.log(800.0)), dtype=torch.float32,
+                    device=dev)
+    T(x0)                       # load the kernels before the window
+    torch.cuda.synchronize()
+    with trace(log_dir) as prof:
+        time.sleep(TRACE_SETTLE_S)
+        for _ in range(TRACE_APPS):
+            T(x0)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    print(json.dumps({e.key[:72]: e.count for e in prof.key_averages()
+                      if e.device_type == cuda}))
+
+
+def run_cli(torch, counters, argv):
+    """``cli.main(argv)`` in process with every launch count set to 0
+    just before it: (exit code, its JSON line, seconds, launches)."""
+    from sdfs_via_autodiff_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, secs, launches = solve_path(torch, counters,
+                                        lambda: cli.main(argv))
+    text = buf.getvalue().strip()
+    print(f"sdfs-torch {' '.join(argv)} -> rc {rc}, {secs:.3f} s: {text}")
+    check(rc == 0, f"sdfs-torch {' '.join(argv)} exited {rc}")
+    return json.loads(text.splitlines()[-1]), secs, launches
+
+
+def api_phases(torch, port, st, dev, smi, main_ref):
+    """Phases 36-42: the command line (info, check, the two tiled solves
+    with checkpoints, simulate, price), the existence checks, de Groot,
+    the sweep, the Monte Carlo exponent and profiling.  ``main_ref``
+    holds phase 5's launches and w mean.  Returns the command line's
+    launch counts by kernel."""
+    from sdfs_via_autodiff_tpu_torch.utils import (load_solution,
+                                                   stability_exponent_mc,
+                                                   timed_solve)
+    from sdfs_via_autodiff_tpu_torch.utils.profiling import TRACE_FILE
+
+    f64 = torch.float64
+    model = port.SSY()
+    counters = [st.LAUNCHES]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # 36. info, check, existence at the two Tauchen cells.
+        info, _, _ = run_cli(torch, counters, ["info"])
+        check(info["device"].startswith("cuda") and info["device_count"] >= 1,
+              f"info: {info}")
+        out, secs, _ = run_cli(torch, counters, [
+            "check", "ssy", "--kind", "discrete", "--shapes",
+            ",".join(map(str, MAIN_SHAPES)), "--decompose"])
+        dec = out["decomposition"]
+        check(out["exists_unique"] and out["stability_exponent"] < 1
+              and abs(dec["S"] - np.log(out["stability_exponent"])) < 1e-8,
+              f"check --decompose: {out}")
+        for label, fam, shapes in (("SSY", port.SSY(), MAIN_SHAPES),
+                                   ("GCY", port.GCY(), GCY_SHAPES)):
+            disc = (port.discretize_ssy if label == "SSY"
+                    else port.discretize_gcy)(fam, shapes,
+                                              method=MAIN_METHOD)
+            rep, secs, _ = solve_path(torch, [], lambda: port.existence_check(
+                fam, disc, device=dev))
+            print(f"existence_check {label} {shapes} {MAIN_METHOD} float64: "
+                  f"r(H) = {rep.spectral_radius!r}, beta r(H)^(1/theta) = "
+                  f"{rep.stability_exponent!r}, {rep.iterations} power "
+                  f"iterations, {secs:.3f} s ({smi})")
+            check(rep.exists_unique and rep.stability_exponent < 1,
+                  f"existence_check {label}: {rep}")
+            del disc
+        torch.cuda.empty_cache()
+
+        # 37. The discrete tiled solve with a checkpoint.
+        path = os.path.join(tmp, "discrete.npz")
+        with DriverSpy(port) as spy:
+            out, secs, launches = run_cli(torch, counters,
+                                          CLI_DISCRETE + ["--checkpoint", path])
+        now = {k: v for k, v in launches.items() if v}
+        cli_launches = {k: launches[k] for k in ("pass_b", "pass_c")}
+        rel = abs(out["w_mean"] - main_ref["w_mean"]) / main_ref["w_mean"]
+        print(f"CLI discrete tiled: {out['iterations']} Newton iterations, "
+              f"launches {now} (phase 5: {main_ref['launches']}), w_mean "
+              f"{out['w_mean']!r} vs phase 5 {main_ref['w_mean']!r} (rel "
+              f"{rel:.3e}), {secs:.3f} s ({smi})")
+        check(out["converged"] is True, f"CLI discrete solve: {out}")
+        check(now == main_ref["launches"],
+              f"CLI discrete launches {now} != phase 5's "
+              f"{main_ref['launches']}")
+        check(rel <= CLI_W_MEAN_RTOL, f"CLI discrete w_mean rel {rel:.3e}")
+        ckpt = load_solution(path)
+        w_file = ckpt.w_star
+        w_sol = spy.solutions[-1].w_star.cpu().numpy()
+        check(w_file.dtype == w_sol.dtype and np.array_equal(w_file, w_sol)
+              and ckpt.meta.get("kernel") == "tiled",
+              f"checkpoint w* is not the solve's (meta {ckpt.meta})")
+        print(f"checkpoint {os.path.getsize(path)} bytes: w* {w_file.dtype} "
+              f"{w_file.shape} bitwise the solve's; meta {ckpt.meta}")
+        del spy, ckpt, w_file, w_sol
+        torch.cuda.empty_cache()
+
+        # 38. Profiling.
+        disc = port.discretize_ssy(model, MAIN_SHAPES, method=MAIN_METHOD)
+        T = port.make_tiled_T_log_ssy(model, disc, device=dev)
+        x0 = torch.full(MAIN_SHAPES, float(np.log(800.0)),
+                        dtype=torch.float32, device=dev)
+        ts = timed_solve(port.solve, T, x0, method="newton", tol=MAIN_TOL)
+        print(f"timed_solve 12.6M tiled Newton: warm {ts}; cold "
+              f"{ts.wall_seconds + ts.compile_seconds:.3f} s ({smi})")
+        check(ts.result.converged, f"timed_solve: {ts.result}")
+        del T, x0, disc
+        torch.cuda.empty_cache()
+        # A torch.profiler session late in this long process recorded no
+        # device activity in some runs on the H100 (in others it dropped
+        # the first kernels of its window), so the trace runs in a
+        # process of its own, where it is the first session.
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), TRACE_CHILD_FLAG,
+             tmp], capture_output=True, text=True,
+            timeout=TRACE_CHILD_TIMEOUT_S)
+        check(child.returncode == 0,
+              f"the trace process exited {child.returncode}: "
+              f"{child.stderr[-2000:]}")
+        with open(os.path.join(tmp, TRACE_FILE)) as fh:
+            text = fh.read()
+        print(f"trace {TRACE_FILE} of {TRACE_APPS} applications: "
+              f"{len(text)} bytes; device events "
+              f"{child.stdout.strip().splitlines()[-1]}")
+        check("pass_b_c1_kernel" in text and "strip_row_kernel" in text,
+              "the trace names no pass B or pass C kernel")
+        del text
+        # 39. The continuous tiled solve, then simulate and price.
+        path = os.path.join(tmp, "continuous.npz")
+        with DriverSpy(port) as spy:
+            out, secs, launches = run_cli(
+                torch, counters, CLI_CONTINUOUS + ["--checkpoint", path])
+        now = {k: v for k, v in launches.items() if v}
+        print(f"CLI continuous tiled (loglinear): {out['iterations']} Newton "
+              f"iterations, launches {now}, {secs:.3f} s ({smi})")
+        check(out["converged"] is True, f"CLI continuous solve: {out}")
+        check(all(launches[k] > 0 for k in ("pass_b_c1_sub",
+                                            "pass_c_batched_lse")),
+              f"CLI continuous: a kernel never launched: {now}")
+        cli_launches.update({k: launches[k] for k in ("pass_b_c1_sub",
+                                                      "pass_c_batched_lse")})
+        sol = spy.solutions[-1]
+        f_mem = port.construct_wstar_callable(sol.w_star, sol.grids,
+                                              device=dev)
+        f_file = port.construct_wstar_callable(datafile=path, device=dev)
+        rng = np.random.default_rng(SEED)
+        lo = np.array([float(g[0]) for g in sol.grids])
+        hi = np.array([float(g[-1]) for g in sol.grids])
+        xs = torch.as_tensor(lo[:, None] + (hi - lo)[:, None] * rng.uniform(
+            size=(4, DATAFILE_STATES)), device=dev)
+        err = float((f_file(xs).double() - f_mem(xs).double()).abs().max())
+        print(f"construct_wstar_callable(datafile=) vs the solve's own "
+              f"interpolant at {DATAFILE_STATES} seeded states: max abs "
+              f"{err:.3e}")
+        check(err <= DATAFILE_ATOL, f"datafile interpolant: {err:.3e}")
+        del spy, sol, f_mem, f_file, xs
+        torch.cuda.empty_cache()
+        sim, secs, _ = run_cli(torch, counters,
+                               ["simulate", "ssy", "--checkpoint", path])
+        print(f"simulate 10^6 + 10^3 steps: {secs:.3f} s ({smi})")
+        check(sim["steps"] == 1_000_000 and sim["w_mean"] > 1
+              and sim["w_std"] > 0, f"simulate: {sim}")
+        pr, secs, _ = run_cli(torch, counters, ["price", "--checkpoint", path])
+        print(f"price: {secs:.3f} s ({smi})")
+        check(0.0 < pr["expected_sdf"] < 1.0
+              and abs(pr["risk_free_rate"] + np.log(pr["expected_sdf"]))
+              < 1e-6, f"price: {pr}")
+
+        # 40. de Groot.
+        sol, secs, _ = solve_path(torch, [], lambda: port.degroot_fixed_point(
+            model, DEGROOT_SIZES, h=DEGROOT_H, tol=DEGROOT_TOL, device=dev))
+        lg = sol.log_g_star
+        print(f"degroot_fixed_point SSY {DEGROOT_SIZES} h={DEGROOT_H} tol "
+              f"{DEGROOT_TOL:g}: {sol.result}, ln g* in [{float(lg.min()):.6f}, "
+              f"{float(lg.max()):.6f}], {secs:.3f} s ({smi})")
+        check(sol.converged and bool(torch.isfinite(lg).all()),
+              f"degroot_fixed_point: {sol.result}")
+        out, secs, _ = run_cli(torch, counters, [
+            "solve", "ssy", "--shapes", ",".join(map(str, DEGROOT_SIZES)),
+            "--spec", "degroot", "--h", str(DEGROOT_H),
+            "--tol", f"{DEGROOT_TOL:g}"])
+        want = dict(iterations=sol.result.iterations, converged=True,
+                    log_g_min=float(lg.min()), log_g_max=float(lg.max()),
+                    log_g_mean=float(lg.mean()))
+        check(all(out[k] == v for k, v in want.items()),
+              f"CLI de Groot {out} vs the API's {want}")
+        disc15 = port.discretize_ssy(model, DEGROOT_SIZES)
+        rep = port.existence_check_degroot(model, disc15, h=DEGROOT_H,
+                                           device=dev)
+        print(f"existence_check_degroot {DEGROOT_SIZES} h={DEGROOT_H}: {rep}, "
+              f"{rep.iterations} power iterations")
+        check(rep.exists_unique and rep.S_alt < 0,
+              f"existence_check_degroot: {rep}")
+        disc = port.discretize_ssy(model, MAIN_SHAPES, method=MAIN_METHOD)
+        Td = port.T_degroot_factory(model, disc, h=DEGROOT_H, space="log",
+                                    device=dev)
+        x = torch.full(MAIN_SHAPES, model.theta * np.log(
+            (1 - model.beta) * 800.0), dtype=f64, device=dev)
+        check(bool(torch.isfinite(Td(x)).all()),
+              "de Groot operator at 12.6M: not finite")
+        ms = time_ms(torch, Td, x, n=DEGROOT_APPS, runs=1)
+        print(f"T_degroot_factory(space='log') float64 at {MAIN_SHAPES} "
+              f"{MAIN_METHOD}: {ms:.4f} ms per application over "
+              f"{DEGROOT_APPS} ({smi})")
+        del Td, x, disc
+        torch.cuda.empty_cache()
+        noshock = dataclasses.replace(model, s_lam=0.0)
+        wc = port.wc_ratio_discrete(noshock, DEGROOT_SIZES, tol=1e-11,
+                                    device=dev)
+        dg, secs, _ = solve_path(torch, [], lambda: port.degroot_fixed_point(
+            noshock, DEGROOT_SIZES, tol=1e-12, device=dev))
+        err = float((dg.log_g_star - noshock.theta * torch.log(
+            (1 - noshock.beta) * wc.w_star)).abs().max())
+        print(f"de Groot h = 1, s_lam = 0 at {DEGROOT_SIZES}: sup |ln g* - "
+              f"theta ln((1-beta) w*)| = {err:.3e} ({dg.result}, "
+              f"{secs:.3f} s)")
+        check(wc.converged and dg.converged and err <= DEGROOT_CLOSED_ATOL,
+              f"de Groot closed form: {err:.3e}")
+
+        # 41. The sweep against sequential solves.
+        members = [dataclasses.replace(model, gamma=g) for g in SWEEP_GAMMAS]
+        (w, res, _), sweep_s, _ = solve_path(
+            torch, [], lambda: port.wc_ratio_sweep(
+                members, SWEEP_SIZES, algorithm="anderson", tol=SWEEP_TOL,
+                max_iter=SWEEP_MAX_ITER, device=dev))
+        seq, seq_s, _ = solve_path(torch, [], lambda: [
+            port.wc_ratio_continuous(
+                m, SWEEP_SIZES, algorithm="anderson", tol=SWEEP_TOL,
+                max_iter=SWEEP_MAX_ITER, device=dev,
+                w_init=torch.full(SWEEP_SIZES, 800.0, dtype=f64, device=dev))
+            for m in members])
+        errs = [float((torch.log(w[i]) - torch.log(s.w_star)).abs().max())
+                for i, s in enumerate(seq)]
+        print(f"wc_ratio_sweep gamma {SWEEP_GAMMAS} at {SWEEP_SIZES} anderson "
+              f"tol {SWEEP_TOL:g}: {res}, {sweep_s:.3f} s; sequential "
+              f"{[s.result.iterations for s in seq]} iterations, "
+              f"{seq_s:.3f} s; max |log w diff| per member {errs} ({smi})")
+        check(bool(res.converged.all()) and all(s.converged for s in seq)
+              and max(errs) <= SWEEP_ATOL, f"sweep vs sequential: {errs}")
+        del w, res, seq
+        torch.cuda.empty_cache()
+
+        # 42. The Monte Carlo stability exponent.
+        mc, secs, _ = solve_path(torch, [], lambda: stability_exponent_mc(
+            model, T=MC_T, N=MC_N, device=dev))
+        print(f"stability_exponent_mc SSY T={MC_T} N={MC_N}: {mc}, "
+              f"{secs:.3f} s ({smi})")
+        check(all(np.isfinite(mc[k]) for k in ("S", "S_lambda", "S_c")),
+              f"MC exponent: {mc}")
+        damped = dataclasses.replace(
+            model, s_lam=4e-5, s_z=np.sqrt(0.0039) / 10,
+            s_c=np.sqrt(0.0096) / 10, phi_z=1e-5)
+        dec = port.stability_decomposition(
+            damped, port.discretize_ssy(damped, (8, 8, 8, 12)), device=dev)
+        mc, secs, _ = solve_path(torch, [], lambda: stability_exponent_mc(
+            damped, T=DAMPED_T, N=DAMPED_N, seed=0, device=dev))
+        s_lam = damped.theta / 2 * damped.s_lam ** 2 / (1 - damped.rho_lam) ** 2
+        print(f"damped calibration: MC {mc} ({secs:.3f} s); decomposition "
+              f"{dec}; closed-form S_lambda {s_lam!r}")
+        check(abs(dec.S_lambda - s_lam) <= 1e-8
+              and abs(mc["S"] - dec.S) <= DAMPED_S_ATOL
+              and abs(mc["S_lambda"] - s_lam) <= DAMPED_SLAM_ATOL,
+              f"MC triple cross-check: {mc}, {dec}, {s_lam}")
+
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return cli_launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2615,6 +2991,8 @@ def main() -> None:
           f"w* in [{float(w.min()):.3f}, {float(w.max()):.3f}]")
     check(r64 <= MAIN_F64_RESIDUAL, f"f64 residual {r64:.3e}")
     plain_star = {"ssy": ell_star.float()}
+    main_ref = {"launches": {k: v for k, v in launches.items() if v},
+                "w_mean": float(w.mean())}
     del T64, sol, w, ell_star
 
     # 6. Timing.  The solve above was the process's first: it carries
@@ -2739,7 +3117,11 @@ def main() -> None:
     solver_layer_phases(torch, port, st, dev, smi, plain_star["ssy"].double())
     del plain_star
 
-    # 36. Result.
+    # 36-42. The command line and the rest of the single-card API.
+    torch.cuda.empty_cache()
+    cli_launches = api_phases(torch, port, st, dev, smi, main_ref)
+
+    # 43. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:
@@ -2752,6 +3134,9 @@ def main() -> None:
                      "bound_by": bound_by,
                      "share": bound_ms / kernels_ms[name][0],
                      "library_ms": None})
+        if name in cli_launches:
+            # The command line's tiled solves (phases 37 and 39).
+            rows[-1]["cli_launches"] = cli_launches[name]
         if name in FP32_WORK:
             # The FP32 route's bound beside the tensor-core route's.
             fp32_ms = bound_of(*FP32_WORK[name])[0]
@@ -2765,4 +3150,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [TRACE_CHILD_FLAG]:
+        trace_child(sys.argv[2])
+    else:
+        main()

@@ -28,7 +28,13 @@ inner solve and a float32 ``tangent_T``, successive approximation,
 Anderson, L-BFGS ``"gd"``), ``polish`` in both drivers (a float64
 Newton refinement of a fast solve), and calibration
 (``wc_ratio_differentiable`` on implicit differentiation,
-``calibrate_moments``).
+``calibrate_moments``); checkpoints in the JAX package's format
+(``checkpoint_path``, ``save_solution``, ``load_solution``,
+``construct_wstar_callable(datafile=)``), the spectral existence checks
+(``existence_check``, ``stability_decomposition``), the de Groot
+specification (``degroot_fixed_point``), calibration sweeps
+(``wc_ratio_sweep``), profiling (``utils.trace``, ``utils.timed_solve``)
+and the ``sdfs-torch`` command line (``cli.py``).
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``.
 """
@@ -42,7 +48,9 @@ from .operators import (SSYDiscretization, discretize_ssy, T_ssy_factory,
                         two_phase_operands_gcy,
                         two_phase_operands_gcy_continuous,
                         conjugate_to_shared, make_eager_two_phase_T,
-                        T_gcy_continuous_factory)
+                        T_gcy_continuous_factory, T_degroot_factory,
+                        T_degroot_continuous_factory,
+                        existence_check_degroot)
 from .operators.continuous_ssy import T_ssy_continuous_factory
 from .operators.continuous_common import make_gather_T
 from .operators.post_interp import (ssy_quadrature_nodes, node_basis_ssy,
@@ -81,8 +89,11 @@ from .solvers import (SolveResult, solve, solver, successive_approx,
                       gradient_solver, implicit_fixed_point,
                       implicit_sensitivity)
 from .drivers import (WCSolution, wc_ratio_discrete, wc_ratio_continuous,
-                      wc_ratio_continuation, wc_ratio_differentiable,
-                      prolong_w, f32_tol_floor)
+                      wc_ratio_continuation, wc_ratio_sweep,
+                      wc_ratio_differentiable, prolong_w, f32_tol_floor,
+                      DeGrootSolution, degroot_fixed_point)
+from .utils import (save_solution, load_solution, existence_check,
+                    stability_decomposition)
 from .calibrate import calibrate_moments, one_step_moments_differentiable
 from .interop import (model_from_fields, operands_from_numpy,
                       kron_operands_from_numpy, grids_from_numpy,

@@ -12,8 +12,11 @@ with interp "post"/"loglin"), and
 the continuous ``algorithm="fused_sa"``/``"fused_anderson"`` the
 whole-solve CUDA kernels (their plain PyTorch versions on a CPU
 device).  ``polish`` refines either driver's solve with a float64
-Newton solve; ``wc_ratio_differentiable`` makes w* a differentiable
-function of model fields (implicit differentiation).  Every
+Newton solve; ``checkpoint_path`` writes the solution in the JAX
+package's format (:mod:`.utils.checkpoint`); ``wc_ratio_differentiable``
+makes w* a differentiable function of model fields (implicit
+differentiation); ``wc_ratio_sweep`` solves a batch of calibrations;
+``degroot_fixed_point`` solves the de Groot specification.  Every
 ``wc_ratio_*`` call runs on the card unless the caller passes
 ``device="cpu"``.
 """
@@ -47,10 +50,12 @@ from .operators.discrete_ssy import T_ssy_factory, discretize_ssy
 from .ops.grids import build_grid_gcy, build_grid_ssy, flatten_mesh
 from .ops.interp import lin_interp
 from .solvers import SolveResult, newton_solver, solve
+from .utils.checkpoint import save_solution
 
 __all__ = ["WCSolution", "wc_ratio_discrete", "wc_ratio_continuous",
-           "wc_ratio_continuation", "wc_ratio_differentiable", "prolong_w",
-           "f32_tol_floor"]
+           "wc_ratio_continuation", "wc_ratio_sweep",
+           "wc_ratio_differentiable", "prolong_w", "f32_tol_floor",
+           "DeGrootSolution", "degroot_fixed_point"]
 
 DEFAULT_INIT_W = 800.0   # reference w_init
 
@@ -147,15 +152,17 @@ def _polish_opts(polish, kernel, T_fast, solver_opts, dev):
     return pdev, popts
 
 
-_CHECKPOINT_ITEM = ("ROADMAP queue A item \"Checkpoints "
-                    "(utils/checkpoint.py)\"")
-
-
-def _reject_checkpoint(checkpoint_path) -> None:
+def _save(checkpoint_path, model, grids, sol, kernel, **meta) -> None:
+    """Write ``sol`` to ``checkpoint_path`` (when given) with the JAX
+    drivers' meta: the caller's settings, ``kernel="tiled"`` on the
+    tiled tier, then iterations and residual."""
     if checkpoint_path:
-        raise NotImplementedError(
-            f"checkpoint_path={checkpoint_path!r} is not ported yet; it "
-            f"lands with {_CHECKPOINT_ITEM}")
+        if kernel == "tiled":
+            meta["kernel"] = "tiled"
+        save_solution(checkpoint_path, model, grids, sol.w_star,
+                      meta=dict(meta,
+                                iterations=int(sol.result.iterations),
+                                residual=float(sol.result.residual)))
 
 
 def wc_ratio_discrete(model,
@@ -201,8 +208,12 @@ def wc_ratio_discrete(model,
     ``kernel="tiled"`` its Krylov matvecs linearize the fast stage's
     float32 operator (``newton_solver(tangent_T=)``) — and ``"host"``
     runs it on the CPU.  (In the JAX package ``True`` means the host.)
-    ``checkpoint_path`` is not ported and raises
-    ``NotImplementedError``.
+
+    ``checkpoint_path`` writes the solution
+    (:func:`..utils.checkpoint.save_solution`, no grids) with the JAX
+    driver's meta: kind, shapes, algorithm, tol, space (and
+    ``kernel="tiled"`` on the tiled tier), iterations and residual; with
+    ``polish`` the float64 stage writes it.
     """
     space = space or "log"
     if kernel not in ("xla", "tiled"):
@@ -211,7 +222,6 @@ def wc_ratio_discrete(model,
         raise TypeError(f"unsupported model {type(model).__name__}")
     if baseline not in (None, "loglinear"):
         raise ValueError(f"unknown baseline {baseline!r}")
-    _reject_checkpoint(checkpoint_path)
     if polish:
         _polish_stage(polish)
     dev = resolve_device(device)
@@ -221,13 +231,17 @@ def wc_ratio_discrete(model,
         dtype=dtype, kernel=kernel, baseline=baseline,
         discretization=discretization, dev=dev, solver_opts=solver_opts)
     if not polish:
+        _save(checkpoint_path, model, (), sol, kernel, kind="discrete",
+              shapes=list(shapes), algorithm=algorithm, tol=tol,
+              space=space)
         return sol
     pdev, popts = _polish_opts(polish, kernel, T, solver_opts, dev)
     del T
     return wc_ratio_discrete(
         model, shapes, algorithm="newton", tol=tol, space="log",
         discretization=discretization, device=pdev,
-        w_init=sol.w_star.to(device=pdev, dtype=torch.float64), **popts)
+        w_init=sol.w_star.to(device=pdev, dtype=torch.float64),
+        checkpoint_path=checkpoint_path, **popts)
 
 
 def _solve_discrete(model, shapes, *, algorithm, tol, space, w_init, dtype,
@@ -385,13 +399,17 @@ def wc_ratio_continuous(model,
     with ``kernel="tiled"`` its Krylov matvecs linearize the fast
     stage's float32 operator (``newton_solver(tangent_T=)``) — and
     ``"host"`` runs it on the CPU.  (In the JAX package ``True`` means
-    the host.)  ``checkpoint_path`` is not ported and raises
-    ``NotImplementedError``.
+    the host.)
+
+    ``checkpoint_path`` writes the solution with its grids
+    (:func:`..utils.checkpoint.save_solution`) and the JAX driver's
+    meta: kind, method, interp, quad_degree, num_std_devs, algorithm,
+    tol, space (and ``kernel="tiled"`` on the tiled tier), iterations
+    and residual; with ``polish`` the float64 stage writes it.
     """
     space = space or "log"
     if not isinstance(model, (SSY, GCY)):
         raise TypeError(f"unsupported model {type(model).__name__}")
-    _reject_checkpoint(checkpoint_path)
     if polish:
         _polish_stage(polish)
     _check_kernel_path(model, kernel, method, interp, space, baseline)
@@ -407,13 +425,19 @@ def wc_ratio_continuous(model,
         baseline=baseline, dtype=dtype, kernel=kernel, dev=dev,
         solver_opts=solver_opts, **common)
     if not polish:
+        fused = algorithm in ("fused_anderson", "fused_sa")
+        _save(checkpoint_path, model, sol.grids, sol, kernel,
+              kind="continuous", method=method, interp=interp,
+              quad_degree=quad_degree, num_std_devs=num_std_devs,
+              algorithm=algorithm, tol=tol,
+              space="log" if fused else space)
         return sol
     pdev, popts = _polish_opts(polish, kernel, T, solver_opts, dev)
     del T
     return wc_ratio_continuous(
         model, grid_sizes, algorithm="newton", tol=tol, space="log",
         device=pdev, w_init=sol.w_star.to(device=pdev, dtype=torch.float64),
-        **common, **popts)
+        checkpoint_path=checkpoint_path, **common, **popts)
 
 
 def _solve_continuous(model, grid_sizes, *, num_std_devs, method, interp,
@@ -738,3 +762,196 @@ def _wc_ratio_continuous_fused(model, grid_sizes, *, algorithm, tol,
                                         and not math.isnan(err)))
     return WCSolution(w_star=torch.exp(ell), grids=tuple(grids),
                       result=result, space="log")
+
+
+def wc_ratio_sweep(models: Sequence,
+                   grid_sizes: Sequence[int],
+                   *,
+                   num_std_devs: float = 3.2,
+                   quad_degree: int = 5,
+                   algorithm: str = "newton",
+                   tol: float = 1e-7,
+                   space: str = "log",
+                   w_init=None,
+                   dtype: Optional[torch.dtype] = None,
+                   device="cuda",
+                   **solver_opts):
+    """Solve many calibrations of one model family: each member's
+    factored quadrature ``interp="pre"`` operator on its own grids, in
+    ``dtype`` (float64 when None) on ``device``.
+
+    The JAX package vmaps build-and-solve under one ``jit`` so that one
+    compile covers the sweep; the port compiles nothing and solves the
+    members one after the other (a vmapped while loop stops each member
+    on its own condition too, so the results are the same).  No
+    ``baseline`` fold.  ``w_init`` is None (w = 800), a field of the grid
+    shape shared by every member, or one per member, (S,) + shape.
+
+    Returns ``(w_star, result, grids_stacked)``: w* stacked (S,) + shape,
+    a :class:`SolveResult` whose fields have a leading sweep axis
+    (``x`` stacked on ``device``; ``iterations``, ``residual`` and
+    ``converged`` as CPU tensors), and each grid axis stacked (S, n).
+    """
+    models = list(models)
+    if not models:
+        raise ValueError("empty sweep")
+    fam = type(models[0])
+    if any(type(m) is not fam for m in models):
+        raise ValueError("one sweep = one model family; got mixed types")
+    if space not in ("w", "log"):
+        raise ValueError(f"unknown space {space!r}")
+    gcy = isinstance(models[0], GCY)
+    if gcy:
+        from .operators.continuous_gcy import _factored_T
+    else:
+        from .operators.continuous_ssy import _factored_T
+    if len(grid_sizes) != (6 if gcy else 4):
+        raise ValueError(f"grid_sizes must have {6 if gcy else 4} "
+                         "entries for this family")
+    dev = resolve_device(device)
+    gdtype = dtype or torch.float64
+    S = len(models)
+    shape = tuple(int(s) for s in grid_sizes)
+    if w_init is None:
+        w0 = torch.full((S,) + shape, DEFAULT_INIT_W, dtype=gdtype,
+                        device=dev)
+    else:
+        w0 = torch.as_tensor(w_init).to(device=dev, dtype=gdtype)
+        if tuple(w0.shape) == shape:
+            w0 = w0.expand((S,) + shape)
+        elif tuple(w0.shape) != (S,) + shape:
+            raise ValueError(f"w_init shape {tuple(w0.shape)} matches "
+                             f"neither {shape} nor {(S,) + shape}")
+    x0 = torch.log(w0) if space == "log" else w0
+    make_grids = build_grid_gcy if gcy else build_grid_ssy
+    grids_list = [make_grids(m, *grid_sizes, num_std_devs=num_std_devs,
+                             dtype=gdtype) for m in models]
+    results = [solve(_factored_T(m, grids, quad_degree, space, gdtype,
+                                 None, device=dev),
+                     x0[i], method=algorithm, tol=tol, **solver_opts)
+               for i, (m, grids) in enumerate(zip(models, grids_list))]
+    res = SolveResult(
+        x=torch.stack([r.x for r in results]),
+        iterations=torch.tensor([r.iterations for r in results]),
+        residual=torch.tensor([r.residual for r in results],
+                              dtype=torch.float64),
+        converged=torch.tensor([r.converged for r in results]))
+    w_star = torch.exp(res.x) if space == "log" else res.x
+    grids_stacked = tuple(torch.stack([g[d] for g in grids_list]).to(dev)
+                          for d in range(len(grid_sizes)))
+    return w_star, res, grids_stacked
+
+
+# ---------------------------------------------------------------------------
+# de Groot alternative specification
+
+@dataclasses.dataclass
+class DeGrootSolution:
+    """Fixed point g* = (V/C)^(1-gamma) of the de Groot aggregator.
+
+    ``log_g_star`` is the canonical storage: theta enters T~ as an
+    *outer* power, so g* scales like (O(1))^theta (at the GCY
+    calibration with h = 1 it lives at e^97..e^124).  ``g_star``
+    materializes exp(log g*) on demand.
+    """
+    log_g_star: torch.Tensor
+    grids: Optional[tuple]
+    result: SolveResult
+    space: str
+
+    @property
+    def converged(self) -> bool:
+        return self.result.converged
+
+    @property
+    def g_star(self) -> torch.Tensor:
+        return torch.exp(self.log_g_star)
+
+
+def degroot_fixed_point(model,
+                        sizes: Sequence[int],
+                        *,
+                        kind: str = "discrete",
+                        h=None,
+                        algorithm: str = "newton",
+                        tol: float = 1e-10,
+                        space: Optional[str] = None,
+                        quad_degree: int = 5,
+                        num_std_devs: float = 3.2,
+                        discretization: str = "rouwenhorst",
+                        g_init_w: float = DEFAULT_INIT_W,
+                        sa_warm_tol: float = 1e-6,
+                        sa_warm_maxiter: int = 20000,
+                        checkpoint_path: Optional[str] = None,
+                        device="cuda",
+                        **solver_opts) -> DeGrootSolution:
+    """End-to-end float64 solve of the de Groot alternative specification
+    on ``device`` (the card unless the caller asks for the CPU).
+
+    Builds the untilted chain on the discretized (``kind="discrete"``)
+    or continuous-quadrature (``kind="continuous"``) tier
+    (:mod:`.operators.degroot`), then solves T~g = g.  The log space is
+    the default; ``algorithm="newton"`` there runs the two-stage recipe:
+    successive approximation to ``sa_warm_tol`` (the outer map is stiff
+    in theta, so a cold Newton start can stall), then Newton to ``tol``.
+    ``space="w"`` solves in g directly (small-theta / cross-check tier).
+    The start maps w = ``g_init_w`` through g = ((1-beta) w)^theta.
+
+    ``checkpoint_path`` stores ln g* (meta ``spec="degroot"``,
+    ``field="log_g"``, kind, shapes, algorithm, tol, space, h,
+    iterations, residual), which the command line's ``simulate`` and
+    ``price`` refuse.
+    """
+    from .operators.degroot import (T_degroot_continuous_factory,
+                                    T_degroot_factory)
+
+    space = space or "log"
+    theta, beta = model.theta, model.beta
+    dev = resolve_device(device)
+    if kind == "discrete":
+        disc = (discretize_ssy if isinstance(model, SSY)
+                else discretize_gcy)(model, tuple(sizes),
+                                     method=discretization)
+        T = T_degroot_factory(model, disc, h=h, space=space, device=dev)
+        grids = None
+        shapes = disc.shapes
+    elif kind == "continuous":
+        make_grids = (build_grid_ssy if isinstance(model, SSY)
+                      else build_grid_gcy)
+        grids = make_grids(model, *sizes, num_std_devs=num_std_devs)
+        T = T_degroot_continuous_factory(model, grids, h=h,
+                                         quad_degree=quad_degree,
+                                         space=space, device=dev)
+        grids = tuple(g.to(dev) for g in grids)
+        shapes = tuple(len(g) for g in grids)
+    else:
+        raise ValueError(f"kind must be 'discrete' or 'continuous', "
+                         f"got {kind!r}")
+
+    ell0 = torch.full(tuple(shapes), float(theta) * float(
+        np.log((1.0 - beta) * g_init_w)), dtype=torch.float64, device=dev)
+    if space == "log":
+        x0 = ell0
+        if algorithm == "newton":
+            x0 = solve(T, x0, method="successive_approx", tol=sa_warm_tol,
+                       max_iter=sa_warm_maxiter).x
+        res = solve(T, x0, method=algorithm, tol=tol, **solver_opts)
+        log_g = res.x
+    else:
+        res = solve(T, torch.exp(ell0), method=algorithm, tol=tol,
+                    **solver_opts)
+        log_g = torch.log(res.x)
+    sol = DeGrootSolution(log_g_star=log_g, grids=grids, result=res,
+                          space=space)
+    if checkpoint_path:
+        # The stored field is ln g* (scale-safe); the spec/field markers
+        # keep the file self-describing beside w* checkpoints.
+        h_list = (None if h is None else np.asarray(
+            h.cpu() if isinstance(h, torch.Tensor) else h).tolist())
+        save_solution(checkpoint_path, model, grids or (), log_g,
+                      meta=dict(spec="degroot", field="log_g", kind=kind,
+                                shapes=[int(s) for s in shapes],
+                                algorithm=algorithm, tol=tol, space=space,
+                                h=h_list, iterations=int(res.iterations),
+                                residual=float(res.residual)))
+    return sol

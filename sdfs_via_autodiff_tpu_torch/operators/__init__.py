@@ -6,6 +6,8 @@ from .continuous_common import (hat_basis, expectation_matrix, make_gather_T,
                                 additive_profiles, warn_if_f32_range_unsafe)
 from .continuous_ssy import next_state_ssy, T_ssy_continuous_factory
 from .continuous_gcy import next_state_gcy, T_gcy_continuous_factory
+from .degroot import (T_degroot_factory, T_degroot_continuous_factory,
+                      existence_check_degroot)
 from .two_phase import (TwoPhaseOperands, two_phase_operands_ssy,
                         two_phase_operands_ssy_continuous,
                         two_phase_operands_gcy,
@@ -23,4 +25,6 @@ __all__ = [
     "normalize_expectation_matrix", "additive_profiles", "make_gather_T",
     "warn_if_f32_range_unsafe", "next_state_ssy", "T_ssy_continuous_factory",
     "next_state_gcy", "T_gcy_continuous_factory",
+    "T_degroot_factory", "T_degroot_continuous_factory",
+    "existence_check_degroot",
 ]

@@ -149,6 +149,16 @@ _CHAIN = (("lL,ABCDEL->ABCDEl", 5), ("dD,ABCDEl->ABCdEl", 3),
           ("bB,ABcdel->Abcdel", 1), ("aA,Abcdel->abcdel", 0))
 
 
+def _hw_theta_factored_gcy(v, factors, A2, A3):
+    """(H v) for v = w^theta: the six per-axis contractions of
+    :data:`_CHAIN` (``factors`` in chain order, the h_lam one first),
+    then the current-state tilt A2 (h_c) and A3 (z, z_pi, h_z, h_zpi)."""
+    for M, (subs, _) in zip(factors, _CHAIN):
+        v = torch.einsum(subs, M, v)
+    return (A2[None, None, None, :, None, None]
+            * A3[:, :, :, None, :, None] * v)
+
+
 def T_gcy_factory(model: GCY,
                   disc: GCYDiscretization,
                   *,
@@ -187,11 +197,7 @@ def T_gcy_factory(model: GCY,
 
     if space == "w":
         def T(w):
-            u = w ** theta
-            for M, (subs, _) in zip(factors, _CHAIN):
-                u = torch.einsum(subs, M, u)
-            hwt = (A2[None, None, None, :, None, None]
-                   * A3[:, :, :, None, :, None] * u)
+            hwt = _hw_theta_factored_gcy(w ** theta, factors, A2, A3)
             return 1.0 + beta * hwt ** (1.0 / theta)
         return T
 

@@ -13,6 +13,11 @@ the same draws on every device, but not the JAX package's PRNG stream,
 so the two packages' simulated moments agree within sampling error, not
 draw by draw.  Explicit ``shocks`` / ``draws`` replace the generator for
 a comparison on the same states.
+
+On the card the path runs in chunks of :data:`SIM_CHUNK` steps, each
+after the first replaying one captured CUDA graph
+(:func:`..utils.graphs.run_chunks`): a step is a dozen launches on four
+numbers, so a plain Python loop is bound by the host.
 """
 
 from __future__ import annotations
@@ -28,11 +33,14 @@ from ..models.ssy import SSY
 from ..operators.continuous_common import mc_draws
 from ..operators.continuous_gcy import next_state_gcy
 from ..operators.continuous_ssy import next_state_ssy
+from ..utils.graphs import run_chunks
 
 __all__ = ["simulate_states", "simulated_w_moments", "one_step_w_moments",
            "sdf_factory", "sdf_factory_ssy", "sdf_factory_gcy"]
 
 _F64 = torch.float64
+# Steps per chunk of a simulated path (one captured CUDA graph).
+SIM_CHUNK = 1024
 
 
 def _next_state_for(model):
@@ -51,9 +59,10 @@ def simulate_states(model, num_steps: int, *, seed: int = 1234, x0=None,
     (the origin when None).
 
     A loop of the model's ``next_state`` steps, as the JAX package's
-    ``lax.scan``: each state is written into the path on the device, so
-    no step reads back to the host (each costs a few small launches).
-    ``shocks`` (num_steps, dim) replaces the generator's draws.
+    ``lax.scan``; no step reads back to the host.  On a CUDA device
+    the chunks after the first replay a captured CUDA graph of the
+    loop's kernels (bitwise the loop's path).  ``shocks``
+    (num_steps, dim) replaces the generator's draws.
     """
     step, dim = _next_state_for(model)
     dev = resolve_device(device)
@@ -61,11 +70,35 @@ def simulate_states(model, num_steps: int, *, seed: int = 1234, x0=None,
            else torch.as_tensor(shocks).reshape(num_steps, dim))
     eps = eps.to(device=dev, dtype=dtype).contiguous()
     x = (torch.zeros(dim, dtype=dtype, device=dev) if x0 is None
-         else torch.as_tensor(x0).to(device=dev, dtype=dtype).reshape(dim))
+         else torch.as_tensor(x0).to(device=dev,
+                                     dtype=dtype).reshape(dim).clone())
     path = torch.empty((num_steps, dim), dtype=dtype, device=dev)
-    for t in range(num_steps):
-        x = step(x, eps[t])
-        path[t] = x
+    chunk = max(1, min(SIM_CHUNK, num_steps))
+    eps_c = torch.empty((chunk, dim), dtype=dtype, device=dev)
+    path_c = torch.empty((chunk, dim), dtype=dtype, device=dev)
+
+    def steps(n):
+        def run():
+            y = x
+            for t in range(n):
+                y = step(y, eps_c[t])
+                path_c[t] = y
+            x.copy_(y)
+        return run
+
+    def load(c, n=chunk):
+        eps_c[:n].copy_(eps[c * chunk:c * chunk + n])
+
+    def store(c, n=chunk):
+        path[c * chunk:c * chunk + n].copy_(path_c[:n])
+
+    full, rest = divmod(num_steps, chunk)
+    run_chunks(steps(chunk), full, before=load, after=store,
+               graphs=dev.type == "cuda")
+    if rest:
+        load(full, rest)
+        steps(rest)()
+        store(full, rest)
     return path.T
 
 
@@ -81,8 +114,9 @@ def simulated_w_moments(model, w_star_func: Callable,
                         burn_in: int = 1000, device="cuda",
                         shocks=None) -> Tuple[float, float]:
     """Mean and standard deviation of w* along a simulated state path of
-    ``num_steps`` steps after ``burn_in``; ``shocks`` (num_steps +
-    burn_in, dim) replaces the generator's draws."""
+    ``num_steps`` steps after ``burn_in`` (:func:`simulate_states`);
+    ``shocks`` (num_steps + burn_in, dim) replaces the generator's
+    draws."""
     path = simulate_states(model, num_steps + burn_in, seed=seed,
                            device=device, shocks=shocks)
     return _moments(w_star_func(path[:, burn_in:]))

@@ -12,6 +12,7 @@ import torch
 
 from ..config import resolve_device
 from ..ops.interp import lin_interp
+from ..utils.checkpoint import load_solution
 
 __all__ = ["construct_wstar_callable"]
 
@@ -25,18 +26,16 @@ def construct_wstar_callable(w_star_vals=None,
     dtype.  ``x`` has shape (dim,) or (dim, N) (a tensor or an array);
     the result is a 0-d or (N,) tensor.
 
-    As in the JAX package, ``datafile`` is read only when the arrays are
-    missing; reading a checkpoint comes with the checkpoint module and
-    raises ``NotImplementedError`` until then.
+    Pass ``(w_star_vals, grids)``, or ``datafile``: a checkpoint written
+    by :func:`..utils.checkpoint.save_solution` of either package, read
+    (as in the JAX package) only when the arrays are missing.
     """
+    dev = resolve_device(device)
     if w_star_vals is None or grids is None:
         if datafile is None:
             raise ValueError("provide (w_star_vals, grids) or datafile")
-        raise NotImplementedError(
-            "construct_wstar_callable(datafile=...) reads a checkpoint, "
-            "which is not ported yet; it lands with ROADMAP queue A item "
-            "\"Checkpoints (utils/checkpoint.py)\"")
-    dev = resolve_device(device)
+        ckpt = load_solution(datafile)
+        w_star_vals, grids = ckpt.w_star, ckpt.grids
     w = torch.as_tensor(w_star_vals).to(dev)
     grids = tuple(torch.as_tensor(g).to(device=dev, dtype=w.dtype)
                   for g in grids)

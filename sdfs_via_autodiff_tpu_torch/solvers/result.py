@@ -23,6 +23,9 @@ class SolveResult:
     iterations: number of operator applications of the *outer* loop
     residual:   final sup-norm error
     converged:  residual <= tol and no NaN/divergence guard tripped
+
+    ``drivers.wc_ratio_sweep`` returns one with a leading sweep axis on
+    every field (``x`` stacked; the others as CPU tensors).
     """
 
     x: torch.Tensor
@@ -31,6 +34,11 @@ class SolveResult:
     converged: bool
 
     def __repr__(self) -> str:
+        if isinstance(self.residual, torch.Tensor):
+            # A sweep's result: one entry per member.
+            return (f"SolveResult(iterations={self.iterations.tolist()}, "
+                    f"residual={[f'{r:.3e}' for r in self.residual.tolist()]}"
+                    f", converged={self.converged.tolist()})")
         return (f"SolveResult(iterations={self.iterations}, "
                 f"residual={self.residual:.3e}, "
                 f"converged={self.converged})")

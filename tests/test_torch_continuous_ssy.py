@@ -200,17 +200,22 @@ def test_wc_ratio_continuous_newton_matches_jax():
     ({"kernel": "tiled", "polish": True}, None),
     ({"baseline": "coarse", "polish": True}, None),
     ({"polish": True}, None),
-    ({"checkpoint_path": "w.npz"}, "Checkpoints"),
+    # checkpoint_path is ported: the file holds the solve's w* and grids.
+    ({"checkpoint_path": "w.npz"}, "checkpoint"),
 ])
-def test_later_slices_raise_not_implemented(kwargs, match):
-    if match is None:
-        sol = P.wc_ratio_continuous(P.SSY(), (3, 3, 3, 4), device="cpu",
-                                    tol=1e-9, **kwargs)
-        assert sol.converged and sol.result.residual <= 1e-9
-        assert sol.w_star.dtype == torch.float64
-        return
-    with pytest.raises(NotImplementedError, match=match):
-        P.wc_ratio_continuous(P.SSY(), (3, 3, 3, 4), device="cpu", **kwargs)
+def test_later_slices_raise_not_implemented(kwargs, match, tmp_path):
+    if "checkpoint_path" in kwargs:
+        kwargs = dict(kwargs, checkpoint_path=str(tmp_path / "w.npz"))
+    sol = P.wc_ratio_continuous(P.SSY(), (3, 3, 3, 4), device="cpu",
+                                tol=1e-9, **kwargs)
+    assert sol.converged and sol.result.residual <= 1e-9
+    assert sol.w_star.dtype == torch.float64
+    if match == "checkpoint":
+        ckpt = P.load_solution(kwargs["checkpoint_path"])
+        np.testing.assert_array_equal(ckpt.w_star, sol.w_star.numpy())
+        for g, want in zip(ckpt.grids, sol.grids):
+            np.testing.assert_array_equal(g, want.numpy())
+        assert ckpt.meta["kind"] == "continuous" and ckpt.meta["tol"] == 1e-9
 
 
 def test_continuous_gcy_and_other_paths_raise():

@@ -1048,3 +1048,23 @@ def test_post_interp_wrapper_validates_arguments(cuda):
     corners[0] = corners[0].long()
     with pytest.raises(TypeError, match="int32"):
         pk.post_interp(args[0], tuple(corners), *args[2:])
+
+
+@pytest.mark.parametrize("model", [P.SSY(), P.GCY()])
+def test_simulation_graphs_are_the_loop(cuda, model, monkeypatch):
+    # The chunks replayed as CUDA graphs run the loop's kernels on the
+    # same buffers: the path and the Monte Carlo exponent are bitwise the
+    # plain loop's (full chunks and a partial last one).
+    from sdfs_via_autodiff_tpu_torch.sdf.simulate import SIM_CHUNK
+    from sdfs_via_autodiff_tpu_torch.utils import graphs as G
+    from sdfs_via_autodiff_tpu_torch.utils.spectral import (
+        MC_CHUNK, stability_exponent_mc)
+
+    steps, T = 3 * SIM_CHUNK + 11, 3 * MC_CHUNK + 7
+    graphs = P.simulate_states(model, steps, device=cuda)
+    b = stability_exponent_mc(model, T=T, N=300, device=cuda)
+    monkeypatch.setattr(G, "_ENABLED", False)
+    loop = P.simulate_states(model, steps, device=cuda)
+    a = stability_exponent_mc(model, T=T, N=300, device=cuda)
+    assert graphs.is_cuda and torch.equal(graphs, loop)
+    assert a == b

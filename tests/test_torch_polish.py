@@ -155,8 +155,16 @@ def test_tangent_build_failure_raises_where_jax_passes(monkeypatch):
     assert len(builds) == 2 and sol.converged
 
 
-def test_checkpoint_path_names_its_roadmap_item():
+def test_checkpoint_path_names_its_roadmap_item(tmp_path):
+    # checkpoint_path is ported: with polish the float64 stage writes the
+    # file, with the JAX drivers' meta of that stage (no kernel key).
     for call in (P.wc_ratio_discrete, P.wc_ratio_continuous):
-        with pytest.raises(NotImplementedError, match="Checkpoints"):
-            call(P.SSY(), SHAPES, polish=True, checkpoint_path="w.npz",
-                 device="cpu")
+        path = str(tmp_path / f"{call.__name__}.npz")
+        sol = call(P.SSY(), SHAPES, polish=True, checkpoint_path=path,
+                   dtype=torch.float32, tol=1e-9, device="cpu")
+        ckpt = P.load_solution(path)
+        assert ckpt.w_star.dtype == np.float64
+        np.testing.assert_array_equal(ckpt.w_star, sol.w_star.numpy())
+        assert ckpt.meta["algorithm"] == "newton"
+        assert ckpt.meta["tol"] == 1e-9 and "kernel" not in ckpt.meta
+        assert ckpt.meta["residual"] == sol.result.residual <= 1e-9

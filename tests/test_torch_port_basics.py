@@ -167,6 +167,18 @@ def test_entry_points_default_to_cuda():
               lambda: P.calibrate_moments(m, (3, 3, 3, 4), {"mean": 1.0}),
               lambda: P.expected_sdf(m, lambda x: x[0]),
               lambda: P.risk_free_rate_gcy(g, lambda x: x[0])]
+    # Checkpoints, the spectral checks, de Groot, the sweep.
+    calls += [lambda: P.existence_check(m, d),
+              lambda: P.stability_decomposition(m, d),
+              lambda: P.utils.stability_exponent_mc(m, T=3, N=2),
+              lambda: P.T_degroot_factory(m, d),
+              lambda: P.T_degroot_continuous_factory(m, grids),
+              lambda: P.existence_check_degroot(m, d),
+              lambda: P.degroot_fixed_point(m, (3, 3, 3, 4)),
+              lambda: P.wc_ratio_sweep([m], (3, 3, 3, 4)),
+              lambda: P.construct_wstar_callable(datafile="absent.npz"),
+              lambda: P.utils.checkpoint.SolutionCheckpoint(
+                  1, "SSY", {}, (np.zeros(2),), np.zeros(2), {}).grids_torch()]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

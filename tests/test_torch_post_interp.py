@@ -571,10 +571,10 @@ def test_driver_monte_carlo_and_gather(gcy):
     (dict(kernel="tiled", interp="loglin", space="w"), ValueError,
      "in log space"),
     (dict(kernel="tiled", interp="lin"), ValueError, "unknown interp"),
-    # interp="pre" runs the streamed kernels now; an unported option
-    # beside it is refused before any solve work.
-    (dict(kernel="tiled", interp="pre", checkpoint_path="w.npz"),
-     NotImplementedError, "Checkpoints"),
+    # interp="pre" runs the streamed kernels now; a TPU-only option of
+    # the JAX tiled tier beside it is refused before any solve work.
+    (dict(kernel="tiled", interp="pre", transcendentals="fast"),
+     ValueError, "TPU-only"),
 ])
 def test_driver_validates_kernel_paths_before_solving(kwargs, exc, match):
     with pytest.raises(exc, match=match):

@@ -54,7 +54,7 @@ def _close(got, want, rtol=1e-12):
                                atol=0)
 
 
-def test_wstar_callable_matches_jax(solved):
+def test_wstar_callable_matches_jax(solved, tmp_path):
     sol, w, grids = solved
     fj = J.construct_wstar_callable(sol.w_star, sol.grids)
     fp = P.construct_wstar_callable(w, grids, device="cpu")
@@ -67,8 +67,11 @@ def test_wstar_callable_matches_jax(solved):
           + rng.uniform(-0.1, 1.1, (4, 200))
           * np.asarray([float(g[-1] - g[0]) for g in sol.grids])[:, None])
     _close(fp(torch.as_tensor(xs)), fj(jnp.asarray(xs)))
-    with pytest.raises(NotImplementedError, match="Checkpoints"):
-        P.construct_wstar_callable(datafile="w.npz", device="cpu")
+    # From a checkpoint file alone: the same interpolant.
+    path = str(tmp_path / "w.npz")
+    P.save_solution(path, P.SSY(), grids, w)
+    ff = P.construct_wstar_callable(datafile=path, device="cpu")
+    _close(ff(torch.as_tensor(xs)), fp(torch.as_tensor(xs)), rtol=0)
     with pytest.raises(ValueError, match="provide"):
         P.construct_wstar_callable(w, None, device="cpu")
 

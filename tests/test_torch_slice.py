@@ -45,7 +45,7 @@ def test_tiled_newton_slice_matches_jax_f64():
     (P.SSY(), {"checkpoint_path": "w.npz"}, "checkpoint_path"),
     (P.GCY(), {"baseline": "loglinear"}, "baseline"),
 ])
-def test_later_slices_raise_not_implemented(model, kwargs, match):
+def test_later_slices_raise_not_implemented(model, kwargs, match, tmp_path):
     shapes = SHAPES if isinstance(model, P.SSY) else (4, 3, 3, 2, 3, 2)
     if match == "baseline":
         # Ported (the normalized tiers): the solve runs and converges.
@@ -61,9 +61,15 @@ def test_later_slices_raise_not_implemented(model, kwargs, match):
         assert sol.converged and sol.result.residual <= 1e-7
         assert sol.w_star.dtype == torch.float64
         return
-    with pytest.raises(NotImplementedError, match=match):
-        P.wc_ratio_discrete(model, shapes, kernel="tiled", device="cpu",
-                            **kwargs)
+    # Ported (checkpoints): the tiled solve writes its float32 w* with
+    # the JAX driver's meta, kernel="tiled" among it.
+    path = str(tmp_path / kwargs[match])
+    sol = P.wc_ratio_discrete(model, shapes, kernel="tiled", device="cpu",
+                              tol=2e-5, checkpoint_path=path)
+    ckpt = P.load_solution(path)
+    assert sol.converged and ckpt.meta["kernel"] == "tiled"
+    assert ckpt.meta["iterations"] == sol.result.iterations
+    np.testing.assert_array_equal(ckpt.w_star, sol.w_star.numpy())
 
 
 def test_unsupported_model_and_options():
