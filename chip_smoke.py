@@ -204,7 +204,24 @@ Phases, in order; any failure exits non-zero before the result line:
     timed, and on a damped calibration (T = 10,000, N = 2,000) against
     ``stability_decomposition`` (1e-5) and the Gaussian closed form of
     S_lambda (2e-6);
-43. a JSON line of per-kernel facts (with each kernel's bound: the
+43. the sharded path at world size 1: a real NCCL process group (rank
+    0, ``cuda:0``, a free local port); ``parallel.
+    streamed_shard_map_factory`` on the SSY 12.6M Tauchen set (fast):
+    one application against ``make_streamed_T_log``'s (1e-6, and
+    whether bitwise), a float32 Newton solve through it from w = 800 at
+    tol 2e-5 (w* within 1e-6 relative of phase 5's, B1 / B2 launched as
+    in phase 5), and ``T_ssy_shard_map_factory`` and
+    ``two_phase_shard_map_factory`` in float64 at (8,8,6,6) against the
+    single-device float64 operators (1e-12);
+44. the sharded kernels rank by rank at a 4-rank layout on one card
+    (``parallel.streamed_shard_plan``, one plan per rank; the reshards
+    by slicing and concatenation): SSY 12.6M fast (256 rows and 3,072
+    columns a rank), the normalized SSY set (a), GCY 25.2M deferred (48
+    rows and 32,768 columns a rank) and the continuous-GCY 18.9M pair
+    set (n = 4): each rank's pass B and pass C against their plain
+    versions, the assembled field against the single-device operator,
+    the launches and each rank's kernel times;
+45. a JSON line of per-kernel facts (with each kernel's bound: the
     largest of its FP32 operations over 67 TFLOP/s, its TF32 tensor-core
     operations over 495 TFLOP/s (the deferred pass B at I = 512 and pass
     B's c2 product: split TF32, three TF32 products per FP32 one; their
@@ -215,8 +232,9 @@ Phases, in order; any failure exits non-zero before the result line:
     (expf, logf, log1pf) over 16 per clock per SM at the card's maximum
     SM clock, from this run's shapes and iteration counts, and its share
     of that bound; the deferred pass B has a row without the fold (25.2M
-    GCY view) and one with it (18.9M continuous-GCY view)), then the
-    result line
+    GCY view) and one with it (18.9M continuous-GCY view); with the
+    launches of phase 43's sharded solve (``sharded_launches``) and of
+    phase 44 (``rank_launches``)), then the result line
     ``{"ok": true, "device": {...}}``.
 
 The kernels build in parallel (one nvcc per source).  Each path runs
@@ -953,8 +971,8 @@ def pair_kernel_check(torch, st, ops, dev, seed):
 
 def gcy_continuous_phases(torch, port, st, dev, smi):
     """Phases 14-16 (continuous GCY).  Returns the kernels' max abs
-    errors vs plain, the path's launch counts and (kernel ms, plain ms)
-    of pass_c_pair at 18.9M."""
+    errors vs plain, the path's launch counts, (kernel ms, plain ms)
+    of pass_c_pair at 18.9M and the 18.9M operand set (phase 44)."""
     from sdfs_via_autodiff_tpu_torch import drivers
 
     model = port.GCY()
@@ -992,7 +1010,7 @@ def gcy_continuous_phases(torch, port, st, dev, smi):
                                   mid)
         else:
             del ell, b_args, c_args, mid
-    grids, base18 = timing_sets[GCYC_SHAPES][:2]
+    grids, base18, ops18 = timing_sets[GCYC_SHAPES][:3]
     T = port.make_tiled_T_log_gcy_continuous(model, grids, baseline=base18,
                                              device=dev)
     check(T.engine == "streamed-pair" and T.mode == "lse",
@@ -1113,7 +1131,7 @@ def gcy_continuous_phases(torch, port, st, dev, smi):
             sa_split(torch, port, T, tol, smi)
         del T, x, ell, b_args, c_args, mid
         torch.cuda.empty_cache()
-    return max_err, launches, kernels_ms
+    return max_err, launches, kernels_ms, ops18
 
 
 def sa_split(torch, port, T, tol, smi):
@@ -2831,6 +2849,259 @@ def api_phases(torch, port, st, dev, smi, main_ref):
     return cli_launches
 
 
+# The sharded path (phases 43-44).
+SHARD_APP_ATOL = 1e-6       # sharded application vs make_streamed_T_log
+SHARD_W_RTOL = 1e-6         # sharded Newton w* vs phase 5's
+SHARD_F64_SIZES = (8, 8, 6, 6)
+SHARD_F64_ATOL = 1e-12      # the float64 factories vs single device
+SHARD_RANKS = 4             # the layout phase 44 runs rank by rank
+
+
+def sharded_world1_phase(torch, port, st, dev, smi, main_ref):
+    """Phase 43: the sharded operators under a real NCCL process group of
+    world size 1.  Returns the sharded Newton solve's launches by kernel
+    row name."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+    from sdfs_via_autodiff_tpu_torch import parallel as par
+    from sdfs_via_autodiff_tpu_torch.config import num_devices
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port_no = sock.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port_no}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        check(num_devices() == 1, "num_devices() != 1 at world size 1")
+        mesh = par.make_mesh(device="cuda")
+        model = port.SSY()
+        disc = port.discretize_ssy(model, MAIN_SHAPES, method=MAIN_METHOD)
+        ops = port.two_phase_operands_ssy(model, disc)
+        T = par.streamed_shard_map_factory(ops, mesh)
+        T1 = port.make_streamed_T_log(ops, device=dev)
+        check(T.mode == "fast" and T1.mode == "fast",
+              f"sharded SSY operator runs {T.mode}")
+        x = torch.as_tensor(noise_field(MAIN_SHAPES, SEED),
+                            device=dev).float()
+        y = T(x).to_local()
+        y1 = T1(x)
+        err = float((y - y1).abs().max())
+        bitwise = bool(torch.equal(y, y1))
+        check(bool(torch.isfinite(y).all()) and err <= SHARD_APP_ATOL,
+              f"sharded application vs make_streamed_T_log: {err:.3e}")
+        print(f"sharded streamed operator, world size 1 (NCCL), "
+              f"{MAIN_SHAPES} {MAIN_METHOD}: one application vs "
+              f"make_streamed_T_log max abs err {err:.3e}, bitwise equal "
+              f"{bitwise}; input sharding {T.input_sharding}")
+        del x, y, y1
+        x0 = T.from_local(torch.log(torch.full(
+            MAIN_SHAPES, 800.0, dtype=torch.float32, device=dev)))
+        torch.cuda.synchronize()
+        for k in st.LAUNCHES:
+            st.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        res = port.solve(T, x0, method="newton", tol=MAIN_TOL)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: v for k, v in st.LAUNCHES.items() if v}
+        check(res.converged, f"sharded Newton did not converge: {res}")
+        check(launches == main_ref["launches"],
+              f"sharded Newton launches {launches} != phase 5's "
+              f"{main_ref['launches']}")
+        w = torch.exp(res.x.to_local())
+        rel = float(((w - main_ref["w_star"]).abs()
+                     / main_ref["w_star"]).max())
+        check(rel <= SHARD_W_RTOL,
+              f"sharded Newton w* vs phase 5: rel {rel:.3e}")
+        print(f"sharded Newton (world size 1): {res}, {secs:.3f} s "
+              f"({smi}), launches {launches} (phase 5: "
+              f"{main_ref['launches']}), w* vs phase 5 max rel "
+              f"{rel:.3e}, x placements {res.x.placements}")
+        del T, T1, x0, res, w
+        # The float64 factories at a small grid.
+        disc = port.discretize_ssy(model, SHARD_F64_SIZES)
+        ell = torch.as_tensor(noise_field(SHARD_F64_SIZES, SEED), device=dev)
+        ref = port.T_ssy_factory(model, disc, space="log", device=dev)(ell)
+        errs = {}
+        T_a = par.T_ssy_shard_map_factory(model, disc, mesh)
+        errs["T_ssy_shard_map_factory"] = float(
+            (T_a(ell).to_local() - ref).abs().max())
+        ops = port.two_phase_operands_ssy(model, disc)
+        T_b = par.two_phase_shard_map_factory(ops, mesh,
+                                              dtype=torch.float64)
+        ref_b = port.make_eager_two_phase_T(ops, torch.float64,
+                                            device=dev)(ell)
+        errs["two_phase_shard_map_factory"] = float(
+            (T_b(ell).to_local() - ref_b).abs().max())
+        for name, e in errs.items():
+            check(e <= SHARD_F64_ATOL, f"{name} f64 vs single: {e:.3e}")
+            print(f"{name} {SHARD_F64_SIZES} float64, world size 1: vs the "
+                  f"single-device operator max abs err {e:.3e}")
+    finally:
+        dist.destroy_process_group()
+    return {k: launches.get(k, 0) for k in ("pass_b", "pass_c")}
+
+
+def _plain_pass_b(st, plan, e):
+    """The plain version of ``plan.pass_b(e)`` on the plan's tensors."""
+    if plan.config in ("deferred", "pair"):
+        return st.pass_b_deferred_plain(e, plan.W_c1t, plan.theta,
+                                        plan.sub_row, plan.sub_col)
+    return st.pass_b_plain(e, plan.W_c1, None if plan.config == "batched"
+                           else plan.W_c2t, plan.theta, plan.mode,
+                           plan.sub_row, plan.sub_col, plan.mid_col)
+
+
+def _plain_pass_c(st, plan, mid, scale, S):
+    """The plain version of ``plan.pass_c(mid, scale, S)``."""
+    args = (plan.W_r1, plan.W_r2, plan.add_row, plan.add_col, plan.theta,
+            plan.beta)
+    if plan.config == "pair":
+        return st.pass_c_pair_plain(mid, plan.P_zpi, plan.PzT, *args)
+    if plan.config == "deferred":
+        return st.pass_c_deferred_plain(mid, plan.W_c2t, *args)
+    if plan.config == "batched":
+        return st.pass_c_batched_plain(mid, scale, S, plan.W_c2t, *args,
+                                       plan.mode)
+    return st.pass_c_plain(mid, scale, S, *args, plan.mode)
+
+
+def _rank_by_rank(torch, port, par, st, ops, x, n, mode_label, smi):
+    """One application of the streamed operator for ``ops`` on ``x`` as
+    ``n`` ranks would run it, on this card: each rank's plan, its pass B
+    and pass C against their plain versions, the reshards by slicing and
+    concatenation, the assembled field against the single-device
+    operator.  Returns (max abs errors (B, C), launches, per-rank ms)."""
+    eps32 = float(np.finfo(np.float32).eps)
+    dev = x.device
+    plans = [par.streamed_shard_plan(ops, n, r, device=dev)
+             for r in range(n)]
+    p0 = plans[0]
+    R_loc, C_loc, I, J = p0.R_loc, p0.C_loc, p0.shapes[2], p0.shapes[3]
+    e = x.reshape(p0.R, I, J)
+    fast = p0.mode == "fast"
+    torch.cuda.synchronize()
+    before = dict(st.LAUNCHES)
+    mids, shifts = [], []
+    for r, plan in enumerate(plans):
+        got = plan.pass_b(e[r * R_loc:(r + 1) * R_loc].contiguous())
+        if fast:
+            got, s = got
+            shifts.append(s)
+        mids.append(got)
+    launches_b = {k: st.LAUNCHES[k] - before[k] for k in st.LAUNCHES}
+    err_b = 0.0
+    for r, plan in enumerate(plans):
+        e_r = e[r * R_loc:(r + 1) * R_loc].contiguous()
+        want = _plain_pass_b(st, plan, e_r)
+        got = mids[r]
+        if fast:
+            want = want[0]
+            rel = float(((got - want).abs() / want.abs()).max())
+            check(rel <= KERNEL_RTOL_LINEAR,
+                  f"{mode_label} rank {r} pass B: rel {rel:.3e}")
+            err_b = max(err_b, float((got - want).abs().max()))
+        else:
+            d = (got - want).abs()
+            check(bool((d <= KERNEL_ATOL + eps32 * want.abs()).all()),
+                  f"{mode_label} rank {r} pass B: {float(d.max()):.3e}")
+            err_b = max(err_b, float(d.max()))
+    scale = S = None
+    if fast:
+        S = torch.amax(torch.cat(shifts)).reshape(1)
+        scale = torch.exp(torch.cat(shifts) - S)
+    before = dict(st.LAUNCHES)
+    outs, midvs = [], []
+    for c, plan in enumerate(plans):
+        midv = torch.cat([m.reshape(R_loc, -1)[:, c * C_loc:(c + 1) * C_loc]
+                          for m in mids]).contiguous()
+        midvs.append(midv)
+        outs.append(plan.pass_c(midv, scale, S))
+    launches_c = {k: st.LAUNCHES[k] - before[k] for k in st.LAUNCHES}
+    err_c = 0.0
+    for c, plan in enumerate(plans):
+        want = _plain_pass_c(st, plan, midvs[c], scale, S)
+        d = float((outs[c] - want).abs().max())
+        check(bool(torch.isfinite(outs[c]).all()) and d <= KERNEL_ATOL,
+              f"{mode_label} rank {c} pass C: {d:.3e}")
+        err_c = max(err_c, d)
+    field = torch.cat(outs, dim=1).reshape(p0.shapes)
+    single = port.make_streamed_T_log(ops, device=dev)(x)
+    d = float((field - single).abs().max())
+    check(d <= SHARD_APP_ATOL, f"{mode_label} assembled vs single-device "
+          f"operator: {d:.3e}")
+    ms_b = [time_ms(torch, lambda y, p=p: p.pass_b(y),
+                    e[r * R_loc:(r + 1) * R_loc].contiguous(), n=20)
+            for r, p in enumerate(plans)]
+    ms_c = [time_ms(torch, lambda y, p=p: p.pass_c(y, scale, S), midvs[r],
+                    n=20) for r, p in enumerate(plans)]
+    launches = {k: launches_b[k] + launches_c[k] for k in st.LAUNCHES
+                if launches_b[k] + launches_c[k]}
+    print(f"rank by rank, {mode_label}, {n} ranks ({R_loc} rows, {C_loc} "
+          f"columns a rank): pass B vs plain max abs err {err_b:.3e}, pass "
+          f"C {err_c:.3e}; assembled vs single-device operator max abs err "
+          f"{d:.3e}, bitwise equal {bool(torch.equal(field, single))}; "
+          f"launches {launches}; ms per rank pass B "
+          f"{[round(v, 4) for v in ms_b]}, pass C "
+          f"{[round(v, 4) for v in ms_c]} ({smi})")
+    return (err_b, err_c), launches, (ms_b, ms_c)
+
+
+def rank_by_rank_phase(torch, port, st, dev, smi, gcyc_ops):
+    """Phase 44: the streamed shard factory's per-rank plans at a 4-rank
+    layout, rank by rank on this card.  Returns the launches by kernel
+    row name."""
+    from sdfs_via_autodiff_tpu_torch import parallel as par
+
+    t0 = time.perf_counter()
+    ssy = port.SSY()
+    disc = port.discretize_ssy(ssy, MAIN_SHAPES, method=MAIN_METHOD)
+    plain = port.two_phase_operands_ssy(ssy, disc)
+    norm = port.two_phase_operands_ssy(ssy, disc, "loglinear")
+    gcy = port.GCY()
+    gops = port.two_phase_operands_gcy(
+        gcy, port.discretize_gcy(gcy, GCY_SHAPES, method=GCY_METHOD))
+    rng = np.random.default_rng(SEED)
+    cast = f32_cast(torch, dev)
+    # (label, operand set, input, {LAUNCHES key: kernel row name})
+    sets = (("SSY 12.6M fast", plain, noise_field(MAIN_SHAPES, SEED),
+             {"pass_b": "pass_b", "pass_c": "pass_c"}),
+            ("SSY 12.6M normalized (a)", norm, None,
+             {"pass_b": "pass_b_sub", "pass_c": "pass_c_lse"}),
+            ("GCY 25.2M deferred", gops, noise_field(gops.shapes, SEED),
+             {"pass_b_deferred": "pass_b_deferred",
+              "pass_c_deferred": "pass_c_deferred"}),
+            ("continuous GCY 18.9M pair", gcyc_ops, None,
+             {"pass_b_deferred": "pass_b_deferred_sub",
+              "pass_c_pair": "pass_c_pair"}))
+    launches_by_row = {}
+    for label, ops, field, rows in sets:
+        covered = port.streamed_coverable(ops)
+        if field is None:
+            field = (np.asarray(covered.baseline_log_w)
+                     + 0.05 * rng.standard_normal(covered.shapes))
+        n = SHARD_RANKS
+        if covered.is_pair and covered.pair_shapes[0] % n:
+            n = 2
+        check(covered.shapes[0] % n == 0 and covered.shapes[2] % n == 0,
+              f"{label}: {covered.shapes} does not split over {n} ranks")
+        _, launches, _ = _rank_by_rank(
+            torch, port, par, st, ops, cast(field).reshape(covered.shapes), n,
+            label, smi)
+        for key, row in rows.items():
+            check(launches.get(key, 0) == n,
+                  f"{label}: {key} launched {launches.get(key, 0)} times, "
+                  f"not once per rank ({n})")
+            launches_by_row[row] = launches.get(key, 0)
+        torch.cuda.empty_cache()
+    print(f"rank by rank phase: {time.perf_counter() - t0:.2f} s")
+    return launches_by_row
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2992,7 +3263,7 @@ def main() -> None:
     check(r64 <= MAIN_F64_RESIDUAL, f"f64 residual {r64:.3e}")
     plain_star = {"ssy": ell_star.float()}
     main_ref = {"launches": {k: v for k, v in launches.items() if v},
-                "w_mean": float(w.mean())}
+                "w_mean": float(w.mean()), "w_star": w.float()}
     del T64, sol, w, ell_star
 
     # 6. Timing.  The solve above was the process's first: it carries
@@ -3072,7 +3343,7 @@ def main() -> None:
 
     # 14-16. Continuous GCY.
     torch.cuda.empty_cache()
-    gcyc_err, gcyc_launches, gcyc_ms = gcy_continuous_phases(
+    gcyc_err, gcyc_launches, gcyc_ms, gcyc_ops = gcy_continuous_phases(
         torch, port, st, dev, smi)
     max_err["pass_b_deferred_sub"] = gcyc_err["pass_b_deferred"]
     max_err["pass_c_pair"] = gcyc_err["pass_c_pair"]
@@ -3121,7 +3392,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     cli_launches = api_phases(torch, port, st, dev, smi, main_ref)
 
-    # 43. Result.
+    # 43-44. The sharded path.
+    torch.cuda.empty_cache()
+    sharded_launches = sharded_world1_phase(torch, port, st, dev, smi,
+                                            main_ref)
+    del main_ref
+    torch.cuda.empty_cache()
+    rank_launches = rank_by_rank_phase(torch, port, st, dev, smi, gcyc_ops)
+
+    # 45. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:
@@ -3137,6 +3416,12 @@ def main() -> None:
         if name in cli_launches:
             # The command line's tiled solves (phases 37 and 39).
             rows[-1]["cli_launches"] = cli_launches[name]
+        if name in sharded_launches:
+            # The sharded Newton solve at world size 1 (phase 43).
+            rows[-1]["sharded_launches"] = sharded_launches[name]
+        if name in rank_launches:
+            # Per sharded application, over the ranks (phase 44).
+            rows[-1]["rank_launches"] = rank_launches[name]
         if name in FP32_WORK:
             # The FP32 route's bound beside the tensor-core route's.
             fp32_ms = bound_of(*FP32_WORK[name])[0]

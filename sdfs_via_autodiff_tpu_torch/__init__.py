@@ -33,8 +33,10 @@ Newton refinement of a fast solve), and calibration
 ``construct_wstar_callable(datafile=)``), the spectral existence checks
 (``existence_check``, ``stability_decomposition``), the de Groot
 specification (``degroot_fixed_point``), calibration sweeps
-(``wc_ratio_sweep``), profiling (``utils.trace``, ``utils.timed_solve``)
-and the ``sdfs-torch`` command line (``cli.py``).
+(``wc_ratio_sweep``), profiling (``utils.trace``, ``utils.timed_solve``),
+the ``sdfs-torch`` command line (``cli.py``) and grid sharding on
+``torch.distributed`` (``parallel``: meshes, the sharded operators and
+the solvers on their shards).
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``.
 """

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "num_devices"]
 
 
 def resolve_device(device) -> torch.device:
@@ -23,3 +23,13 @@ def resolve_device(device) -> torch.device:
             f"device={str(device)!r} was requested but no CUDA device is "
             "available; the port does not fall back to the CPU")
     return dev
+
+
+def num_devices() -> int:
+    """The number of devices the program runs on: the world size of the
+    default process group when one is initialized (one rank per
+    device), else the number of CUDA devices."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return torch.cuda.device_count()

@@ -1173,8 +1173,9 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
     "streamed-deferred" or "streamed-pair": the JAX package's names), and
     for a set with a folded baseline
     ``T.baseline_log_w`` (ell0 on the view, float32 on ``device``).  Its
-    forward-mode derivative (``torch.func.jvp``) is the twin's tangent at
-    the same point.
+    derivatives are the twin's at the same point: forward mode
+    (``torch.func.jvp``) its tangent, reverse mode (``backward``,
+    ``torch.func.vjp``) its transpose.
     """
     if dtype != torch.float32:
         raise ValueError("the streamed kernels are the float32 tier")
@@ -1246,6 +1247,8 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
         return out.reshape(ops.shapes)
 
     class _StreamedT(torch.autograd.Function):
+        # Both derivatives are the eager twin's at the same point, as the
+        # JAX package's custom_jvp operator transposes its twin's tangent.
         @staticmethod
         def forward(ell):
             return primal(ell)
@@ -1253,11 +1256,20 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
         @staticmethod
         def setup_context(ctx, inputs, output):
             ctx.save_for_forward(inputs[0])
+            ctx.save_for_backward(inputs[0])
 
         @staticmethod
         def jvp(ctx, dell):
             (ell,) = ctx.saved_tensors
             return torch.func.jvp(twin, (ell,), (dell,))[1]
+
+        @staticmethod
+        def backward(ctx, grad):
+            (ell,) = ctx.saved_tensors
+            with torch.enable_grad():
+                x = ell.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad(twin(x), x, grad)
+            return g
 
     def T(ell):
         return _StreamedT.apply(ell)

@@ -477,6 +477,8 @@ def _make_strip_T_log(ops: TwoPhaseOperands, dtype, mode: str,
         return out.reshape(ops.shapes)
 
     class _StripT(torch.autograd.Function):
+        # Both derivatives are the eager twin's at the same point, as the
+        # JAX package's custom_jvp operator transposes its twin's tangent.
         @staticmethod
         def forward(ell):
             return primal(ell)
@@ -484,11 +486,20 @@ def _make_strip_T_log(ops: TwoPhaseOperands, dtype, mode: str,
         @staticmethod
         def setup_context(ctx, inputs, output):
             ctx.save_for_forward(inputs[0])
+            ctx.save_for_backward(inputs[0])
 
         @staticmethod
         def jvp(ctx, dell):
             (ell,) = ctx.saved_tensors
             return torch.func.jvp(twin, (ell,), (dell,))[1]
+
+        @staticmethod
+        def backward(ctx, grad):
+            (ell,) = ctx.saved_tensors
+            with torch.enable_grad():
+                x = ell.detach().requires_grad_(True)
+                (g,) = torch.autograd.grad(twin(x), x, grad)
+            return g
 
     def T(ell):
         return _StripT.apply(ell)

@@ -75,8 +75,10 @@ class GCYDiscretization:
 
 
 def discretize_gcy(model: GCY, shapes: Tuple[int, ...],
+                   dtype: torch.dtype = torch.float64,
                    method: str = "rouwenhorst") -> GCYDiscretization:
-    """Discretization of the six GCY states, host float64.
+    """Discretization of the six GCY states, built in host float64 and
+    cast to ``dtype`` (on the CPU).
 
     method="rouwenhorst" or "tauchen" (the same shared-matrix structure,
     Tauchen's construction)."""
@@ -112,7 +114,7 @@ def discretize_gcy(model: GCY, shapes: Tuple[int, ...],
     z_states = (centers.T[:, None, :, None] + spread[None, :, None, :])
     z_P = chain_P(n_z, m.rho)
 
-    cast = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    cast = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(dtype)
     return GCYDiscretization(
         shapes=tuple(shapes),
         h_z_states=cast(h_z_states), h_z_Q=cast(h_z_Q),

@@ -65,8 +65,10 @@ class SSYDiscretization:
 
 
 def discretize_ssy(model: SSY, shapes: Tuple[int, int, int, int],
+                   dtype: torch.dtype = torch.float64,
                    method: str = "rouwenhorst") -> SSYDiscretization:
-    """Discretization of the four SSY states, host float64.
+    """Discretization of the four SSY states, built in host float64 and
+    cast to ``dtype`` (on the CPU; the factories move what they use).
 
     method="rouwenhorst": one chain per h process; for z, a
     volatility-dependent family z_states[i, :] = sigma_z[i] * ladder(rho)
@@ -93,7 +95,7 @@ def discretize_ssy(model: SSY, shapes: Tuple[int, int, int, int],
     z_states = sigma_z_states[:, None] * z_ladder[None, :]
     z_P = chain_P(n_z, m.rho)
 
-    cast = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    cast = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(dtype)
     return SSYDiscretization(
         shapes=tuple(shapes),
         h_lam_states=cast(h_lam_states), h_lam_Q=cast(h_lam_Q),

@@ -33,7 +33,7 @@ from ..config import resolve_device
 __all__ = ["TwoPhaseOperands", "two_phase_operands_ssy",
            "two_phase_operands_ssy_continuous", "two_phase_operands_gcy",
            "two_phase_operands_gcy_continuous", "conjugate_to_shared",
-           "make_eager_two_phase_T"]
+           "make_eager_two_phase_T", "eager_column_phase"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -697,25 +697,13 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
     (``torch.backends.cuda.matmul.allow_tf32``, off by default), whose
     10-bit mantissa misses the operator's 1e-6-class accuracy.
     """
-    if ops.dense_placeholder:
-        raise ValueError(
-            "operand set was built with dense=False (batched column "
-            "factors not materialized); conjugate_to_shared it for the "
-            "streamed tier, or rebuild with dense=True")
     dev = resolve_device(device)
+    column = eager_column_phase(ops, dtype, device=dev)
     n_r1, n_r2, n_c1, n_c2 = ops.shapes
     R, C = n_r1 * n_r2, n_c1 * n_c2
     cast = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
         device=dev, dtype=dtype)
-    W_r1, W_r2, W_c1 = map(cast, (ops.W_r1, ops.W_r2, ops.W_c1))
-    if ops.is_pair:
-        P_z, P_zpi = map(cast, ops.pair_c2)      # (i, j, b, J), (y, b, B)
-        n_i, n_y, n_b, n_j = ops.pair_shapes
-    else:
-        W_c2 = cast(ops.W_c2)
-        c2_sub = "ijm,tim->tij" if ops.c2_batched else "jm,tim->tij"
-    c1_sub = "jim,tmj->tij" if ops.c1_batched else "im,tmj->tij"
-    mid = cast(ops.mid_col) if ops.has_mid else None
+    W_r1, W_r2 = map(cast, (ops.W_r1, ops.W_r2))
     add = cast(ops.add_row[:, :, None]
                + np.asarray(ops.add_col).reshape(-1)[None, None, :])
     sub = None
@@ -725,25 +713,11 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
     theta, beta = float(ops.theta), float(ops.beta)
 
     def T(ell):
-        if ell.is_cuda and torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError("the eager two-phase operator needs full-FP32 "
-                               "matmuls; set torch.backends.cuda.matmul."
-                               "allow_tf32 = False")
+        check_full_fp32(ell)
         a = theta * ell.to(dtype).reshape(R, n_c1, n_c2)
         if sub is not None:
             a = a - sub
-        m = torch.amax(a, dim=1, keepdim=True)
-        a = m + torch.log(torch.einsum(c1_sub, W_c1, torch.exp(a - m)))
-        if mid is not None:
-            a = a + mid
-        m = torch.amax(a, dim=2, keepdim=True)
-        if ops.is_pair:
-            e = torch.exp(a - m).reshape(R, n_i, n_y, n_b, n_j)
-            v = torch.einsum("ybB,tiyBJ->tiybJ", P_zpi, e)
-            u = torch.einsum("ijbJ,tiybJ->tiybj", P_z, v)
-            a = m + torch.log(u.reshape(R, n_c1, n_c2))
-        else:
-            a = m + torch.log(torch.einsum(c2_sub, W_c2, torch.exp(a - m)))
+        a = column(a)
         b = a.reshape(n_r1, n_r2, C)
         m = torch.amax(b, dim=0, keepdim=True)
         b = m + torch.log(torch.einsum("lm,mkt->lkt", W_r1,
@@ -756,3 +730,55 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
             ops.shapes)
 
     return T
+
+
+def check_full_fp32(x: torch.Tensor) -> None:
+    """Raise when float32 matmuls on ``x``'s CUDA device may run in TF32
+    (the eager operators need full FP32)."""
+    if x.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the eager two-phase operator needs full-FP32 "
+                           "matmuls; set torch.backends.cuda.matmul."
+                           "allow_tf32 = False")
+
+
+def eager_column_phase(ops: TwoPhaseOperands,
+                       dtype: torch.dtype = torch.float32, *,
+                       device="cuda") -> Callable:
+    """The column phase of :func:`make_eager_two_phase_T`: ``a`` (rows,
+    n_c1, n_c2), theta*ell less the folded baseline, -> the c1
+    contraction, ``mid_col`` and the c2 contraction, per field row (so
+    any block of rows, such as one rank's shard, maps alone)."""
+    if ops.dense_placeholder:
+        raise ValueError(
+            "operand set was built with dense=False (batched column "
+            "factors not materialized); conjugate_to_shared it for the "
+            "streamed tier, or rebuild with dense=True")
+    dev = resolve_device(device)
+    n_c1, n_c2 = ops.shapes[2:]
+    cast = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
+        device=dev, dtype=dtype)
+    W_c1 = cast(ops.W_c1)
+    if ops.is_pair:
+        P_z, P_zpi = map(cast, ops.pair_c2)      # (i, j, b, J), (y, b, B)
+        n_i, n_y, n_b, n_j = ops.pair_shapes
+    else:
+        W_c2 = cast(ops.W_c2)
+        c2_sub = "ijm,tim->tij" if ops.c2_batched else "jm,tim->tij"
+    c1_sub = "jim,tmj->tij" if ops.c1_batched else "im,tmj->tij"
+    mid = cast(ops.mid_col) if ops.has_mid else None
+
+    def column(a):
+        m = torch.amax(a, dim=1, keepdim=True)
+        a = m + torch.log(torch.einsum(c1_sub, W_c1, torch.exp(a - m)))
+        if mid is not None:
+            a = a + mid
+        m = torch.amax(a, dim=2, keepdim=True)
+        if ops.is_pair:
+            rows = a.shape[0]
+            e = torch.exp(a - m).reshape(rows, n_i, n_y, n_b, n_j)
+            v = torch.einsum("ybB,tiyBJ->tiybJ", P_zpi, e)
+            u = torch.einsum("ijbJ,tiybJ->tiybj", P_z, v)
+            return m + torch.log(u.reshape(rows, n_c1, n_c2))
+        return m + torch.log(torch.einsum(c2_sub, W_c2, torch.exp(a - m)))
+
+    return column

@@ -31,6 +31,7 @@ import torch
 from .fixed_point import DEFAULT_TOL
 from .krylov import SYNC_EVERY
 from .result import SolveResult
+from .sharding import solve_parts
 
 __all__ = ["anderson_solver"]
 
@@ -70,8 +71,11 @@ def anderson_solver(T: Callable,
     improvement) stops f32 limit cycles.  The returned point is verified
     with one more application of T and replaced by the best recorded
     iterate when it is worse or not finite, so ``residual`` belongs to
-    ``x``.
+    ``x``.  A DTensor ``x0`` with a sharded operator runs on the local
+    shard, with the sup-norms, the Gram matrix and the finiteness check
+    all-reduced (``solvers/sharding.py``).
     """
+    T, _, x0, red, wrap, _ = solve_parts(T, x0)
     m = history_size
     shape = tuple(x0.shape)
     dtype, dev = x0.dtype, x0.device
@@ -85,14 +89,14 @@ def anderson_solver(T: Callable,
     def aa_combination(fx):
         """Solve the ridge normal equations over the m stored pairs."""
         G = (F - X).reshape(m, -1).to(gram_dtype)
-        A = G @ G.T                                   # (m, m) Gram
+        A = red.gram(G)                               # (m, m) Gram
         scale = torch.clamp(torch.trace(A) / m, min=1e-30)
         A = A + ridge * scale * torch.eye(m, dtype=gram_dtype, device=dev)
         c = _solve_small_spd(A, torch.ones(m, dtype=gram_dtype, device=dev))
         alpha = (c / torch.sum(c)).to(dtype)
         x_plus = ((1.0 - beta) * torch.tensordot(alpha, X, dims=1)
                   + beta * torch.tensordot(alpha, F, dims=1))
-        bad = ~torch.all(torch.isfinite(x_plus))
+        bad = ~red.all_finite(x_plus)
         return torch.where(bad, fx, x_plus)
 
     x, x_best, err, best = x0, x0, big, big
@@ -110,7 +114,7 @@ def anderson_solver(T: Callable,
         for _ in range(SYNC_EVERY):
             run = cond()
             fx = T(x)
-            err_new = torch.amax(torch.abs(fx - x))
+            err_new = red.sup(fx - x)
             x_best = torch.where(run & (err_new < best), x, x_best)
             slot = k % m
             X[slot] = torch.where(run, x, X[slot])
@@ -131,10 +135,10 @@ def anderson_solver(T: Callable,
     # point; then verify the returned point (one more application) and
     # fall back to the best recorded iterate when it is worse.
     x = torch.where(torch.isnan(err), x_best, x)
-    fr = torch.amax(torch.abs(T(x) - x))
+    fr = red.sup(T(x) - x)
     use_best = torch.isnan(fr) | (fr > best)
     x = torch.where(use_best, x_best, x)
     err = torch.where(use_best, best, fr)
     converged = bool((err <= tol_t) & ~torch.isnan(err))
-    return SolveResult(x=x, iterations=int(it), residual=float(err),
+    return SolveResult(x=wrap(x), iterations=int(it), residual=float(err),
                        converged=converged)

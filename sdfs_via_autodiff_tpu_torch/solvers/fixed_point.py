@@ -18,6 +18,7 @@ import torch
 
 from .krylov import SYNC_EVERY, bicgstab_mixed, gmres
 from .result import SolveResult
+from .sharding import LOCAL, Reductions, solve_parts
 
 DEFAULT_TOL = 1e-7
 DEFAULT_MAX_ITER = 1_000_000
@@ -30,13 +31,11 @@ STALL_ITERS = 200     # consecutive non-improving iterations before giving up
 STALL_RTOL = 1e-5     # relative residual decrease that counts as progress
 
 
-def _sup(v):
-    return torch.amax(torch.abs(v))
-
-
 def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
-             stall_iters: int = STALL_ITERS,
-             final_residual: Optional[Callable] = None) -> SolveResult:
+             trace_len: int = 0, stall_iters: int = STALL_ITERS,
+             final_residual: Optional[Callable] = None,
+             red: Reductions = LOCAL,
+             wrap: Callable = lambda x: x) -> SolveResult:
     """Run ``x <- step(x, running)`` until sup-norm convergence.
 
     ``running`` is a 0-d device bool: False for the iterations a chunk
@@ -48,6 +47,16 @@ def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
     ``STALL_RTOL`` over the best residual seen.  ``final_residual``
     replaces the step size as the reported residual (Newton: the true
     fixed-point residual).
+
+    ``trace_len`` > 0 records each iteration's step size in
+    ``SolveResult.error_trace``, a (trace_len,) tensor on the iterate's
+    device padded with NaN (iterations past the end overwrite its last
+    entry, as in the JAX package).  It is written by index on the device
+    and never read inside the loop.
+
+    ``red`` takes the loop's sup-norms (over every shard of a sharded
+    iterate, ``solvers/sharding.py``); ``wrap`` maps the final iterate
+    to the result's ``x``.
     """
     dtype, dev = x0.dtype, x0.device
     big = torch.tensor(math.inf, dtype=dtype, device=dev)
@@ -56,6 +65,10 @@ def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
     it = torch.zeros((), dtype=torch.int64, device=dev)
     since = torch.zeros((), dtype=torch.int64, device=dev)
     alive = torch.ones((), dtype=torch.bool, device=dev)
+    trace = slots = None
+    if trace_len:
+        trace = torch.full((trace_len,), math.nan, dtype=dtype, device=dev)
+        slots = torch.arange(trace_len, device=dev)
 
     def cond():
         return ((err > tol_t) & (it < max_iter) & alive
@@ -67,10 +80,13 @@ def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
         for _ in range(SYNC_EVERY):
             run = cond()
             x_new = step(x, run)
-            err_new = _sup(x_new - x)
+            err_new = red.sup(x_new - x)
             ok = torch.isfinite(err_new)
             improved = err_new < best * (1.0 - STALL_RTOL)
             keep = run & ok
+            if trace is not None:
+                at = run & (slots == torch.clamp(it, max=trace_len - 1))
+                trace = torch.where(at, err_new, trace)
             x = torch.where(keep, x_new, x)
             err = torch.where(keep, err_new, err)
             since = torch.where(run, torch.where(ok & improved, 0, since + 1),
@@ -84,8 +100,8 @@ def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
         # solution, so report the actual fixed-point residual instead.
         err = final_residual(x)
     converged = bool((err <= tol_t) & ~torch.isnan(err))
-    return SolveResult(x=x, iterations=int(it), residual=float(err),
-                       converged=converged)
+    return SolveResult(x=wrap(x), iterations=int(it), residual=float(err),
+                       converged=converged, error_trace=trace)
 
 
 def successive_approx(T: Callable,
@@ -94,11 +110,16 @@ def successive_approx(T: Callable,
                       max_iter: int = DEFAULT_MAX_ITER,
                       *,
                       verbose: bool = False,
+                      trace_len: int = 0,
                       stall_iters: int = STALL_ITERS) -> SolveResult:
     """Successive approximation x <- T(x) to a sup-norm fixed point, with
-    the residual plateau guard (see :func:`_iterate`)."""
-    return _iterate(lambda x, running: T(x), x0, tol, max_iter,
-                    verbose=verbose, stall_iters=stall_iters)
+    the residual plateau guard and the optional residual trace (see
+    :func:`_iterate`).  A DTensor ``x0`` with a sharded operator runs on
+    the local shard (``solvers/sharding.py``)."""
+    op, _, x0, red, wrap, _ = solve_parts(T, x0)
+    return _iterate(lambda x, running: op(x), x0, tol, max_iter,
+                    verbose=verbose, trace_len=trace_len,
+                    stall_iters=stall_iters, red=red, wrap=wrap)
 
 
 def newton_solver(T: Callable,
@@ -112,6 +133,7 @@ def newton_solver(T: Callable,
                   safeguard: bool = True,
                   tangent_T: Optional[Callable] = None,
                   verbose: bool = False,
+                  trace_len: int = 0,
                   stall_iters: int = 30,
                   inner_iterations: Optional[list] = None) -> SolveResult:
     """Newton–Kantorovich iteration for a fixed point of T.
@@ -151,9 +173,16 @@ def newton_solver(T: Callable,
     ``safeguard=False`` a non-finite candidate poisons the iterate so the
     outer NaN guard stops with ``converged=False``.
 
+    ``trace_len`` records each outer step's size (see :func:`_iterate`).
+
     ``inner_iterations``, when a list, receives each step's Krylov
     iteration count (BiCGStab iterations, GMRES Arnoldi steps; 0 for the
     frozen steps that end a chunk after the stop condition failed).
+
+    A DTensor ``x0`` with a sharded operator (``parallel/shard_ops.py``)
+    runs on the local shard, linearizing ``T.local_twin``, with every
+    norm and dot product all-reduced (``solvers/sharding.py``); ``inner``
+    "dense" and ``tangent_T`` raise ``ValueError`` there.
     """
     if inner not in ("bicgstab", "gmres", "dense"):
         raise ValueError(f"unknown inner solver {inner!r}")
@@ -161,20 +190,21 @@ def newton_solver(T: Callable,
         # The JAX package ignores tangent_T here without a word.
         raise ValueError("tangent_T applies to the Krylov inner solvers, "
                          "not inner='dense'")
+    T, lin, x0, red, wrap, numel = solve_parts(T, x0)
+    if red.sharded and (inner == "dense" or tangent_T is not None):
+        raise ValueError("a sharded Newton solve takes the Krylov inner "
+                         "solvers without tangent_T")
     g = lambda x: T(x) - x
-    lin = getattr(T, "twin", T)
-    maxiter = (inner_maxiter if inner_maxiter is not None
-               else 10 * x0.numel())
+    maxiter = inner_maxiter if inner_maxiter is not None else 10 * numel
     inf = torch.tensor(math.inf, dtype=torch.float64, device=x0.device)
 
     def accept(x, gx, x_new):
         """The safeguard: a plain step T(x) where the candidate is bad."""
-        bad = ~torch.all(torch.isfinite(gx)) | ~torch.all(
-            torch.isfinite(x_new))
+        bad = ~red.all_finite(gx) | ~red.all_finite(x_new)
         if safeguard:
             g_cand = g(x_new)
-            grew = _sup(g_cand) > 10.0 * _sup(gx)
-            bad = bad | ~torch.all(torch.isfinite(g_cand)) | grew
+            grew = red.sup(g_cand) > 10.0 * red.sup(gx)
+            bad = bad | ~red.all_finite(g_cand) | grew
             return torch.where(bad, x + gx, x_new)
         return torch.where(bad, torch.full_like(x_new, math.nan), x_new)
 
@@ -194,8 +224,9 @@ def newton_solver(T: Callable,
     else:
         def krylov(mv, rhs, atol):
             if inner == "bicgstab":
-                return bicgstab_mixed(mv, rhs, atol=atol, maxiter=maxiter)
-            return gmres(mv, rhs, atol=atol, maxiter=maxiter)
+                return bicgstab_mixed(mv, rhs, atol=atol, maxiter=maxiter,
+                                      red=red)
+            return gmres(mv, rhs, atol=atol, maxiter=maxiter, red=red)
 
         def q(x, running):
             gx = g(x)
@@ -213,13 +244,14 @@ def newton_solver(T: Callable,
             # A frozen step (after the stop condition failed inside a
             # chunk) skips the Krylov solve: atol = inf stops it before
             # any matvec.
-            atol = torch.where(running, (inner_tol * torch.linalg.vector_norm(
-                rhs.reshape(-1))).to(torch.float64), inf)
+            atol = torch.where(running, (inner_tol * red.norm(rhs)).to(
+                torch.float64), inf)
             b, n_inner = krylov(jac_prod, rhs, atol)
             if inner_iterations is not None:
                 inner_iterations.append(n_inner)
             return accept(x, gx, x - b.to(x.dtype))
 
     return _iterate(q, x0, tol, max_iter, verbose=verbose,
-                    stall_iters=stall_iters,
-                    final_residual=lambda x: _sup(g(x)))
+                    trace_len=trace_len, stall_iters=stall_iters,
+                    final_residual=lambda x: red.sup(g(x)), red=red,
+                    wrap=wrap)

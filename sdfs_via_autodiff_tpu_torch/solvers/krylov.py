@@ -24,6 +24,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .sharding import LOCAL, Reductions
+
 __all__ = ["SYNC_EVERY", "bicgstab_mixed", "gmres"]
 
 # Iterations between host reads of a solver loop's stop condition (also
@@ -31,21 +33,18 @@ __all__ = ["SYNC_EVERY", "bicgstab_mixed", "gmres"]
 SYNC_EVERY = 8
 
 
-def _dot64(a, b):
-    """<a, b> accumulated in float64."""
-    return torch.dot(a.to(torch.float64), b.to(torch.float64))
-
-
 def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
                    maxiter: Optional[int] = 50,
-                   x0=None) -> Tuple[torch.Tensor, int]:
+                   x0=None,
+                   red: Reductions = LOCAL) -> Tuple[torch.Tensor, int]:
     """Solve ``A x = b`` (A = ``matvec``) by BiCGStab with float64
     recurrence scalars over iterate-dtype vectors.
 
     Returns ``(x, iterations)``.  ``atol`` (a float or a 0-d tensor, which
     may be ``inf`` to skip the solve) is the absolute target on
     ||b - A x||_2, evaluated on the recursive residual.  ``maxiter`` must
-    bound the loop (None is rejected).
+    bound the loop (None is rejected).  ``red`` takes the dot products
+    (all-reduced over the shards of a sharded iterate).
     """
     if maxiter is None:
         raise ValueError("bicgstab_mixed requires an explicit maxiter")
@@ -66,28 +65,28 @@ def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
     one = torch.ones((), dtype=f64, device=dev)
     atol2 = torch.as_tensor(atol, dtype=f64, device=dev) ** 2
     # Breakdown floors, relative to the initial residual scale.
-    rho0 = _dot64(r, r)
+    rho0 = red.dot64(r, r)
     tiny = torch.clamp(rho0, min=1.0) * 1e-28
 
     def cond(state):
         _, r, _, _, _, _, _, it, ok = state
-        rnorm2 = _dot64(r, r)
+        rnorm2 = red.dot64(r, r)
         return ((rnorm2 > atol2) & (it < maxiter) & ok
                 & torch.isfinite(rnorm2))
 
     def body(state):
         x, r, p, v, rho, alpha, omega, it, ok = state
-        rho_new = _dot64(r_hat, r)
+        rho_new = red.dot64(r_hat, r)
         beta = (rho_new / rho) * (alpha / omega)
         p_new = r + down(beta) * (p - down(omega) * v)
         v_new = matvec(p_new.reshape(shape)).reshape(-1)
-        rv = _dot64(r_hat, v_new)
+        rv = red.dot64(r_hat, v_new)
         alpha_new = rho_new / rv
         s = r - down(alpha_new) * v_new
         x_half = x + down(alpha_new) * p_new
         t = matvec(s.reshape(shape)).reshape(-1)
-        tt = _dot64(t, t)
-        omega_new = _dot64(t, s) / tt
+        tt = red.dot64(t, t)
+        omega_new = red.dot64(t, s) / tt
         x_full = x_half + down(omega_new) * s
         r_full = s - down(omega_new) * t
         # Three-way outcome, in priority order:
@@ -99,7 +98,7 @@ def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
         # (3) healthy -> full BiCGStab update.
         bad_a = ((rho_new.abs() <= tiny) | (rv.abs() <= tiny)
                  | ~torch.isfinite(beta) | ~torch.isfinite(alpha_new))
-        half = ((_dot64(s, s) <= atol2) | (tt <= tiny)
+        half = ((red.dot64(s, s) <= atol2) | (tt <= tiny)
                 | ~torch.isfinite(omega_new))
 
         def pick(full_, half_, old):
@@ -125,7 +124,8 @@ def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
 
 def gmres(matvec: Callable, b, *, tol: float = 1e-5, atol=0.0,
           restart: int = 20,
-          maxiter: Optional[int] = None) -> Tuple[torch.Tensor, int]:
+          maxiter: Optional[int] = None,
+          red: Reductions = LOCAL) -> Tuple[torch.Tensor, int]:
     """Solve ``A x = b`` (A = ``matvec``) by restarted GMRES from x = 0.
 
     The contract of ``jax.scipy.sparse.linalg.gmres`` (its default
@@ -142,16 +142,17 @@ def gmres(matvec: Callable, b, *, tol: float = 1e-5, atol=0.0,
     weights to its null vectors).  The host reads the stop condition once
     per cycle and the Hessenberg matrix once per cycle.  ``atol`` may be
     a 0-d tensor (``inf`` skips the solve).  Returns ``(x, n)`` with
-    ``n`` the number of Arnoldi steps (matvecs of the bases).
+    ``n`` the number of Arnoldi steps (matvecs of the bases).  ``red``
+    takes the dot products and the element count.
     """
     vdtype, shape, dev = b.dtype, b.shape, b.device
     f64 = torch.float64
-    n = b.numel()
+    n = red.numel(b)
     restart = min(int(restart), n)
     maxiter = 10 * n if maxiter is None else int(maxiter)
     eps = torch.finfo(vdtype).eps
     flat_mv = lambda v: matvec(v.reshape(shape)).reshape(-1)
-    norm64 = lambda v: torch.sqrt(_dot64(v, v))
+    norm64 = lambda v: torch.sqrt(red.dot64(v, v))
 
     bf = b.reshape(-1)
     x, r = torch.zeros_like(bf), bf
@@ -167,7 +168,7 @@ def gmres(matvec: Callable, b, *, tol: float = 1e-5, atol=0.0,
             w = flat_mv(V[k])
             w_norm0 = norm64(w)
             for j in range(k + 1):               # modified Gram-Schmidt
-                h = _dot64(V[j], w)
+                h = red.dot64(V[j], w)
                 H[j, k] = h
                 w = w - h.to(vdtype) * V[j]
             w_norm = norm64(w)

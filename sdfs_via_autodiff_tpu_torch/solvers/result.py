@@ -9,6 +9,7 @@ are plain Python numbers; the iterate stays on its device.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -23,6 +24,9 @@ class SolveResult:
     iterations: number of operator applications of the *outer* loop
     residual:   final sup-norm error
     converged:  residual <= tol and no NaN/divergence guard tripped
+    error_trace: the per-iteration residual history (a fixed-length
+        tensor padded with NaN) when ``trace_len`` asked for one, else
+        None
 
     ``drivers.wc_ratio_sweep`` returns one with a leading sweep axis on
     every field (``x`` stacked; the others as CPU tensors).
@@ -32,6 +36,7 @@ class SolveResult:
     iterations: int
     residual: float
     converged: bool
+    error_trace: Optional[torch.Tensor] = None
 
     def __repr__(self) -> str:
         if isinstance(self.residual, torch.Tensor):

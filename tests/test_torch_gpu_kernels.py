@@ -1068,3 +1068,107 @@ def test_simulation_graphs_are_the_loop(cuda, model, monkeypatch):
     a = stability_exponent_mc(model, T=T, N=300, device=cuda)
     assert graphs.is_cuda and torch.equal(graphs, loop)
     assert a == b
+
+
+def _backward_cases(dev):
+    """(label, operator) of each tiled configuration at small shapes."""
+    m = P.SSY()
+    d = P.discretize_ssy(m, (4, 4, 4, 6), method="tauchen")
+    g = P.GCY()
+    gg = P.build_grid_gcy(g, 8, 3, 2, 4, 128, 2)
+    return [
+        ("streamed", P.make_tiled_T_log_ssy(m, d, device=dev)),
+        ("strip", P.make_tiled_T_log_ssy(m, d, device=dev, engine="strip")),
+        ("deferred", P.make_tiled_T_log_ssy(
+            m, P.discretize_ssy(m, (2, 8, 64, 512), method="tauchen"),
+            device=dev)),
+        ("batched", P.make_tiled_T_log_ssy_continuous(
+            m, P.build_grid_ssy(m, 4, 5, 4, 8), 3, device=dev)),
+        ("gcy", P.make_tiled_T_log_gcy(
+            g, P.discretize_gcy(g, (4, 3, 3, 2, 3, 2), method="tauchen"),
+            device=dev)),
+        ("pair", P.make_tiled_T_log_gcy_continuous(
+            g, gg, 5, baseline="loglinear", device=dev)),
+    ]
+
+
+# The fields of _backward_cases' operators without a folded baseline.
+_BACKWARD_SHAPES = {"streamed": (4, 4, 4, 6), "strip": (4, 4, 4, 6),
+                    "deferred": (2, 8, 64, 512), "batched": (4, 5, 4, 8),
+                    "gcy": (4, 3, 3, 2, 3, 2)}
+
+
+def test_tiled_backward_is_the_twins_vjp_on_the_card(cuda):
+    # Reverse mode through the kernels' operators: the eager twin's
+    # transpose at the same point, bitwise (the backward runs the twin).
+    for label, T in _backward_cases(cuda):
+        rng = np.random.default_rng(1)
+        base = getattr(T, "baseline_log_w", None)
+        if base is None:
+            base = torch.full(_BACKWARD_SHAPES[label], 6.5, device=cuda)
+        x = (base + 0.02 * torch.as_tensor(
+            rng.standard_normal(tuple(base.shape)), device=cuda)).float()
+        ct = torch.as_tensor(rng.standard_normal(tuple(x.shape)),
+                             device=cuda, dtype=torch.float32)
+        _, vjp = torch.func.vjp(T, x)
+        (g,) = vjp(ct)
+        _, vjp_t = torch.func.vjp(T.twin, x)
+        (g_t,) = vjp_t(ct)
+        assert torch.equal(g, g_t), label
+        xr = x.clone().requires_grad_(True)
+        (T(xr) * ct).sum().backward()
+        assert torch.equal(xr.grad, g_t), label
+
+
+@pytest.fixture
+def nccl_world1(cuda):
+    """A NCCL process group of world size 1 on the card, for one test."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(cuda)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    yield cuda
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("recipe", [("ssy", (8, 16, 32, 384), None),
+                                    ("ssy", (8, 16, 32, 384), "loglinear"),
+                                    ("gcy", (32, 16, 16, 2, 16, 2), None)])
+def test_streamed_shard_factory_world1_nccl(nccl_world1, recipe):
+    from sdfs_via_autodiff_tpu_torch import parallel as par
+    dev = nccl_world1
+    name, shapes, baseline = recipe
+    if name == "ssy":
+        m = P.SSY()
+        ops = P.two_phase_operands_ssy(
+            m, P.discretize_ssy(m, shapes, method="tauchen"), baseline)
+    else:
+        m = P.GCY()
+        ops = P.two_phase_operands_gcy(
+            m, P.discretize_gcy(m, shapes, method="tauchen"))
+    mesh = par.make_mesh(device="cuda")
+    T = par.streamed_shard_map_factory(ops, mesh)
+    T1 = P.make_streamed_T_log(ops, device=dev)
+    covered = P.streamed_coverable(ops)
+    rng = np.random.default_rng(2)
+    base = (np.asarray(covered.baseline_log_w)
+            if covered.baseline_log_w is not None
+            else np.full(covered.shapes, np.log(800.0)))
+    x = torch.as_tensor(base + 0.05 * rng.standard_normal(covered.shapes),
+                        device=dev, dtype=torch.float32)
+    before = dict(st.LAUNCHES)
+    y = T(x).to_local()
+    assert sum(st.LAUNCHES.values()) - sum(before.values()) == 2
+    y1 = T1(x)
+    assert torch.equal(y, y1)
+    # Newton's tangent through the sharded twin, as on one device.
+    v = torch.as_tensor(rng.standard_normal(covered.shapes), device=dev,
+                        dtype=torch.float32)
+    _, dy = torch.func.jvp(T.local, (x,), (v,))
+    _, dy1 = torch.func.jvp(T1, (x,), (v,))
+    assert torch.equal(dy, dy1)

@@ -182,3 +182,37 @@ def test_entry_points_default_to_cuda():
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_parallel_imports_and_runs_with_jax_blocked():
+    # parallel/ and the solvers' sharded path, at world size 1 under gloo,
+    # with jax and the JAX package unimportable.
+    code = (
+        "import sys, socket\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['sdfs_via_autodiff_tpu'] = None\n"
+        "import torch, torch.distributed as dist\n"
+        "import sdfs_via_autodiff_tpu_torch as p\n"
+        "from sdfs_via_autodiff_tpu_torch import parallel as par\n"
+        "s = socket.socket(); s.bind(('127.0.0.1', 0))\n"
+        "port = s.getsockname()[1]; s.close()\n"
+        "dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:"
+        "{port}', rank=0, world_size=1)\n"
+        "mesh = par.make_mesh(device='cpu')\n"
+        "m = p.SSY()\n"
+        "d = p.discretize_ssy(m, (4, 3, 3, 4))\n"
+        "T = par.T_ssy_shard_map_factory(m, d, mesh)\n"
+        "x0 = par.shard_grid_array(torch.full((4, 3, 3, 4), 6.7,\n"
+        "                          dtype=torch.float64), mesh)\n"
+        "r = p.solve(T, x0, method='newton', tol=1e-10)\n"
+        "assert r.converged, r\n"
+        "ops = p.two_phase_operands_ssy(m, p.discretize_ssy(m, (4, 4, 4, 8)))\n"
+        "S = par.streamed_shard_map_factory(ops, mesh)\n"
+        "assert bool(torch.isfinite(S(torch.full((4, 4, 4, 8), 6.7))\n"
+        "                           .full_tensor()).all())\n"
+        "dist.destroy_process_group()\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
