@@ -221,7 +221,24 @@ Phases, in order; any failure exits non-zero before the result line:
     set (n = 4): each rank's pass B and pass C against their plain
     versions, the assembled field against the single-device operator,
     the launches and each rank's kernel times;
-45. a JSON line of per-kernel facts (with each kernel's bound: the
+45. the single-device operators and solvers on a DTensor iterate
+    (``ops/dtensor.py``, ``parallel/gspmd.py``), inside phase 43's NCCL group on its 1 x 1
+    mesh: one float64 application of ``T_ssy_factory(space="log")`` at
+    the SSY 12.6M Tauchen cell, of ``T_gcy_factory`` at the GCY 25.2M
+    cell and of the continuous-SSY factored operator at (56,56,56,64),
+    each bitwise the single-device one with its placements kept; the
+    tangent route (the derivative of a VJP) against ``torch.func.jvp``
+    at the SSY cell, ms per matvec by CUDA events; the card's allocated
+    bytes after 50 more applications no more than after one; float64
+    Newton at tol 1e-10 from phase 31's float32 w* on the DTensor
+    (within 1e-10 of
+    phase 31's float64 Newton reference) and Anderson at tol 1e-9 from
+    the same start (against the single-device Anderson solve); phase
+    34's calibration gradient from a DTensor start (1e-8 relative);
+    phase 40's de Groot Newton solve (1e-12); one kernel-backed operator
+    refusing a DTensor; each solve's seconds beside its single-device
+    counterpart's;
+46. a JSON line of per-kernel facts (with each kernel's bound: the
     largest of its FP32 operations over 67 TFLOP/s, its TF32 tensor-core
     operations over 495 TFLOP/s (the deferred pass B at I = 512 and pass
     B's c2 product: split TF32, three TF32 products per FP32 one; their
@@ -2329,7 +2346,9 @@ def polish_phase(torch, port, st, label, run, kernels, smi):
 
 def solver_layer_phases(torch, port, st, dev, smi, plain_ssy):
     """Phases 31-35: polish at three cells, Newton's GMRES, dense and
-    gd, the calibration gradient and calibration."""
+    gd, the calibration gradient and calibration.  Returns what phase 45
+    is held to: phase 31's float32 w* and float64 Newton reference (log
+    w*, seconds, result) and phase 34's gradient and seconds."""
     from sdfs_via_autodiff_tpu_torch.operators.continuous_common import (
         mc_draws)
     from sdfs_via_autodiff_tpu_torch.ops.interp import lin_interp
@@ -2361,7 +2380,11 @@ def solver_layer_phases(torch, port, st, dev, smi, plain_ssy):
           f"{d_ref:.3e} ({smi})")
     check(ref.converged and d_ref <= POLISH_REF_ATOL,
           f"polish discrete SSY vs float64 Newton: {d_ref:.3e}, {ref.result}")
-    del sol, spy, ell, ell32, ref
+    # Phase 45 starts from the float32 w* and holds its DTensor solve to
+    # the float64 reference.
+    refs = {"ell32": ell32, "newton64": torch.log(ref.w_star),
+            "newton64_s": ref_s, "newton64_result": ref.result}
+    del sol, spy, ell, ref
     torch.cuda.empty_cache()
 
     # 31b. Discrete GCY polish at the 25.2M cell.
@@ -2466,6 +2489,7 @@ def solver_layer_phases(torch, port, st, dev, smi, plain_ssy):
     check(all(np.isfinite(v) for v in g.values())
           and all(r <= GRAD_FD_RTOL for r in rel.values()),
           f"calibration gradient vs central differences: {rel}")
+    refs.update(grad=g, grad_s=solve_s + adj_s)
     del wc_fn, p, loss, grads
 
     # 35. Calibration at the anchor methodology (15^4, 10^6 draws).
@@ -2510,6 +2534,7 @@ def solver_layer_phases(torch, port, st, dev, smi, plain_ssy):
           f"d r_f / d beta = "
           f"{g_rf:.6e} through w* ({time.perf_counter() - t0:.3f} s)")
     check(np.isfinite(g_rf), f"risk-free rate gradient {g_rf}")
+    return refs
 
 
 # The command line and the rest of the single-card API (phases 36-42).
@@ -2606,11 +2631,12 @@ def run_cli(torch, counters, argv):
     return json.loads(text.splitlines()[-1]), secs, launches
 
 
-def api_phases(torch, port, st, dev, smi, main_ref):
+def api_phases(torch, port, st, dev, smi, main_ref, refs):
     """Phases 36-42: the command line (info, check, the two tiled solves
     with checkpoints, simulate, price), the existence checks, de Groot,
     the sweep, the Monte Carlo exponent and profiling.  ``main_ref``
-    holds phase 5's launches and w mean.  Returns the command line's
+    holds phase 5's launches and w mean; ``refs`` receives the de Groot
+    solve's ln g* and seconds (phase 45).  Returns the command line's
     launch counts by kernel."""
     from sdfs_via_autodiff_tpu_torch.utils import (load_solution,
                                                    stability_exponent_mc,
@@ -2757,6 +2783,7 @@ def api_phases(torch, port, st, dev, smi, main_ref):
               f"{float(lg.max()):.6f}], {secs:.3f} s ({smi})")
         check(sol.converged and bool(torch.isfinite(lg).all()),
               f"degroot_fixed_point: {sol.result}")
+        refs["degroot"], refs["degroot_s"] = lg, secs
         out, secs, _ = run_cli(torch, counters, [
             "solve", "ssy", "--shapes", ",".join(map(str, DEGROOT_SIZES)),
             "--spec", "degroot", "--h", str(DEGROOT_H),
@@ -2857,10 +2884,10 @@ SHARD_F64_ATOL = 1e-12      # the float64 factories vs single device
 SHARD_RANKS = 4             # the layout phase 44 runs rank by rank
 
 
-def sharded_world1_phase(torch, port, st, dev, smi, main_ref):
+def sharded_world1_phase(torch, port, st, dev, smi, main_ref, refs):
     """Phase 43: the sharded operators under a real NCCL process group of
-    world size 1.  Returns the sharded Newton solve's launches by kernel
-    row name."""
+    world size 1, then phase 45 (:func:`gspmd_phase`) in the same group.
+    Returns the sharded Newton solve's launches by kernel row name."""
     import datetime
     import socket
 
@@ -2941,9 +2968,234 @@ def sharded_world1_phase(torch, port, st, dev, smi, main_ref):
             check(e <= SHARD_F64_ATOL, f"{name} f64 vs single: {e:.3e}")
             print(f"{name} {SHARD_F64_SIZES} float64, world size 1: vs the "
                   f"single-device operator max abs err {e:.3e}")
+        del T_a, T_b, ell, ref, ref_b
+        torch.cuda.empty_cache()
+        gspmd_phase(torch, port, dev, smi, mesh, refs)
     finally:
         dist.destroy_process_group()
     return {k: launches.get(k, 0) for k in ("pass_b", "pass_c")}
+
+
+# The single-device operators and solvers on a DTensor (phase 45).
+GSPMD_NEWTON_ATOL = 1e-10   # DTensor Newton vs phase 31's float64 one
+GSPMD_AA_TOL = 1e-9         # Anderson's tolerance from the float32 w*
+GSPMD_AA_MAX_ITER = 3000
+GSPMD_GRAD_RTOL = 1e-8      # DTensor gradient vs phase 34's
+GSPMD_DEGROOT_ATOL = 1e-12  # DTensor de Groot vs phase 40's
+GSPMD_MATVECS = 5           # matvecs a timing run
+GSPMD_LEAK_APPS = 50        # applications that must leave no bytes
+
+
+def gspmd_phase(torch, port, dev, smi, mesh, refs):
+    """Phase 45: the single-device factories and the solvers on a
+    DTensor iterate (``ops/dtensor.py``, ``parallel/gspmd.py``), on
+    phase 43's 1 x 1 NCCL mesh, at the cells the earlier phases drive;
+    see the module docstring, item 45."""
+    import dataclasses as dc
+
+    from sdfs_via_autodiff_tpu_torch import parallel as par
+    from sdfs_via_autodiff_tpu_torch.drivers import DEFAULT_INIT_W
+    from sdfs_via_autodiff_tpu_torch.operators.continuous_ssy import (
+        _factored_T)
+
+    t_phase = time.perf_counter()
+    f64 = torch.float64
+    model = port.SSY()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a)-(c) One application on a DTensor: bitwise, placements kept.
+    gcy = port.GCY()
+    cases = (
+        (f"T_ssy_factory(space='log') {MAIN_SHAPES} {MAIN_METHOD}",
+         lambda: port.T_ssy_factory(model, port.discretize_ssy(
+             model, MAIN_SHAPES, method=MAIN_METHOD), space="log",
+             device=dev), MAIN_SHAPES),
+        (f"T_gcy_factory(space='log') {GCY_SHAPES} {GCY_METHOD}",
+         lambda: port.T_gcy_factory(gcy, port.discretize_gcy(
+             gcy, GCY_SHAPES, method=GCY_METHOD), space="log", device=dev),
+         GCY_SHAPES),
+        (f"T_ssy_continuous_factory(interp='pre', space='log') "
+         f"{SSYC_SHAPES}",
+         lambda: port.T_ssy_continuous_factory(
+             model, port.build_grid_ssy(model, *SSYC_SHAPES), interp="pre",
+             space="log", device=dev), SSYC_SHAPES))
+    for label, build, shapes in cases:
+        T = build()
+        x = torch.as_tensor(noise_field(shapes, SEED), device=dev)
+        xd = par.shard_grid_array(x, mesh)
+        y, d_s = timed(lambda: T(xd))
+        y1, s_s = timed(lambda: T(x))
+        equal = bool(torch.equal(y.to_local(), y1))
+        kept = tuple(y.placements) == tuple(xd.placements)
+        print(f"DTensor {label} float64, 1 x 1 mesh: bitwise the "
+              f"single-device application {equal}, placements "
+              f"{tuple(y.placements)} kept {kept}; first application "
+              f"{d_s:.3f} s (single device {s_s:.3f} s) ({smi})")
+        check(equal and kept, f"DTensor {label}: bitwise {equal}, "
+              f"placements kept {kept}")
+        if shapes == MAIN_SHAPES:
+            T_main = T
+            ms_d = time_ms(torch, T, xd, n=GSPMD_MATVECS, runs=3)
+            ms_1 = time_ms(torch, T, x, n=GSPMD_MATVECS, runs=3)
+            print(f"DTensor application at {MAIN_SHAPES}: {ms_d:.3f} ms, "
+                  f"single device {ms_1:.3f} ms, by CUDA events ({smi})")
+            # Nothing keeps an application's lifted constants or
+            # temporaries: more applications leave the card's allocated
+            # bytes where one left them.
+            T(xd)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            for _ in range(GSPMD_LEAK_APPS):
+                T(xd)
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            print(f"allocated on the card after 1 DTensor application at "
+                  f"{MAIN_SHAPES}: {before} bytes; after "
+                  f"{GSPMD_LEAK_APPS} more: {after} bytes")
+            check(after <= before, f"DTensor applications keep "
+                  f"{after - before} bytes on the card")
+            # The tangent route against torch.func.jvp.
+            rng = np.random.default_rng(SEED + 1)
+            v = torch.as_tensor(rng.standard_normal(shapes), device=dev)
+            op = par.local_operator(T, xd)
+            xl, vl = op.to_local(xd), op.to_local(
+                par.shard_grid_array(v, mesh))
+            mv = op.local_twin.linearize(xl)
+            jv, setup_s = timed(lambda: mv(vl) + vl)
+            want = torch.func.jvp(T, (x,), (v,))[1]
+            err = float((jv - want).abs().max())
+            ms_route = time_ms(torch, mv, vl, n=GSPMD_MATVECS, runs=3)
+            ms_jvp = time_ms(torch, lambda u: torch.func.jvp(
+                lambda y_: T(y_) - y_, (x,), (u,))[1], v,
+                n=GSPMD_MATVECS, runs=3)
+            print(f"tangent route on the DTensor (derivative of a VJP) at "
+                  f"{MAIN_SHAPES}: {ms_route:.3f} ms per matvec (first "
+                  f"matvec with the linearization {setup_s:.3f} s), "
+                  f"single-device torch.func.jvp {ms_jvp:.3f} ms per "
+                  f"matvec, by CUDA events; max abs vs jvp {err:.3e} "
+                  f"({smi})")
+            check(err <= 1e-12, f"tangent route vs jvp: {err:.3e}")
+            del op, xl, vl, mv, jv, want, v
+        del T, x, xd, y, y1
+        torch.cuda.empty_cache()
+
+    # (d) Newton from phase 31's float32 w*, float64 on the DTensor.
+    start = refs["ell32"].double()
+    x0 = par.shard_grid_array(start, mesh)
+    res, secs = timed(lambda: port.solve(T_main, x0, method="newton",
+                                         tol=POLISH_REF_TOL))
+    d = float((res.x.to_local() - refs["newton64"]).abs().max())
+    print(f"DTensor Newton float64 at {MAIN_SHAPES} from phase 31's "
+          f"float32 w*, tol {POLISH_REF_TOL:g}: {res}, {secs:.3f} s "
+          f"(phase 31's single-device float64 Newton: "
+          f"{refs['newton64_result']}, {refs['newton64_s']:.3f} s); sup "
+          f"diff {d:.3e}; x placements {tuple(res.x.placements)} ({smi})")
+    check(res.converged and par.is_dtensor(res.x)
+          and d <= GSPMD_NEWTON_ATOL,
+          f"DTensor Newton vs phase 31: {d:.3e}, {res}")
+    del res
+
+    # (e) Anderson from the same start.
+    opts = dict(method="anderson", tol=GSPMD_AA_TOL,
+                max_iter=GSPMD_AA_MAX_ITER)
+    res, secs = timed(lambda: port.solve(T_main, x0, **opts))
+    ref, ref_s = timed(lambda: port.solve(T_main, start, **opts))
+    beta = model.beta
+    bound_aa = 2 * GSPMD_AA_TOL * beta / (1 - beta)
+    d = float((res.x.to_local() - ref.x).abs().max())
+    d64 = float((res.x.to_local() - refs["newton64"]).abs().max())
+    print(f"DTensor Anderson float64 at {MAIN_SHAPES} from phase 31's "
+          f"float32 w*, tol {GSPMD_AA_TOL:g}: {res}, {secs:.3f} s; single "
+          f"device {ref}, {ref_s:.3f} s; sup diff {d:.3e} (bitwise "
+          f"{bool(torch.equal(res.x.to_local(), ref.x))}), vs phase 31's "
+          f"float64 Newton {d64:.3e} ({smi})")
+    check(res.converged and ref.converged and d <= bound_aa
+          and d64 <= bound_aa, f"DTensor Anderson: {res}, {d:.3e}, "
+          f"{d64:.3e}")
+    del res, ref, x0, start, T_main
+    torch.cuda.empty_cache()
+
+    # (f) Phase 34's calibration gradient from a DTensor start.
+    fields = ("beta", "gamma")
+    grids = port.build_grid_ssy(model, *GRAD_SIZES, num_std_devs=3.2,
+                                dtype=f64)
+    built = {}
+
+    def T_of_p(p, x):
+        leaves = tuple(p[k] for k in fields)
+        if built.get("p") is None or any(
+                a is not b for a, b in zip(built["p"], leaves)):
+            m = dc.replace(model, **dict(zip(fields, leaves)))
+            built["p"] = leaves
+            built["T"] = _factored_T(m, grids, GRAD_DEGREE, "log", f64,
+                                     None, device=dev)
+        return built["T"](x)
+
+    x0 = par.shard_grid_array(torch.full(
+        GRAD_SIZES, float(np.log(DEFAULT_INIT_W)), dtype=f64, device=dev),
+        mesh)
+    p = {k: torch.tensor(float(getattr(model, k)), dtype=f64,
+                         requires_grad=True) for k in fields}
+
+    def gradient():
+        x = port.implicit_fixed_point(T_of_p, p, x0, method="newton",
+                                      tol=GRAD_TOL)
+        return torch.autograd.grad(x.mean().full_tensor(),
+                                   [p[k] for k in fields])
+
+    grads, secs = timed(gradient)
+    g = {k: float(v) for k, v in zip(fields, grads)}
+    rel = {k: abs(g[k] - refs["grad"][k]) / abs(refs["grad"][k])
+           for k in fields}
+    print(f"DTensor calibration gradient {GRAD_SIZES} degree "
+          f"{GRAD_DEGREE}: {g}, phase 34's {refs['grad']} (rel {rel}); "
+          f"solve and adjoint {secs:.3f} s (phase 34: "
+          f"{refs['grad_s']:.3f} s) ({smi})")
+    check(all(r <= GSPMD_GRAD_RTOL for r in rel.values()),
+          f"DTensor calibration gradient vs phase 34: {rel}")
+    del built, x0, p, grads
+
+    # (g) Phase 40's de Groot Newton solve: degroot_fixed_point's SA warm
+    # start on one device, then Newton on the DTensor.
+    Td = port.T_degroot_factory(model, port.discretize_ssy(
+        model, DEGROOT_SIZES), h=DEGROOT_H, space="log", device=dev)
+    ell0 = torch.full(DEGROOT_SIZES, model.theta * float(np.log(
+        (1 - model.beta) * DEFAULT_INIT_W)), dtype=f64, device=dev)
+    warm = port.solve(Td, ell0, method="successive_approx", tol=1e-6,
+                      max_iter=20000).x
+    res, secs = timed(lambda: port.solve(
+        Td, par.shard_grid_array(warm, mesh), method="newton",
+        tol=DEGROOT_TOL))
+    d = float((res.x.to_local() - refs["degroot"]).abs().max())
+    print(f"DTensor de Groot Newton {DEGROOT_SIZES} h={DEGROOT_H} tol "
+          f"{DEGROOT_TOL:g} from degroot_fixed_point's SA warm start: "
+          f"{res}, {secs:.3f} s (phase 40's whole solve "
+          f"{refs['degroot_s']:.3f} s); sup diff vs phase 40 {d:.3e} ({smi})")
+    check(res.converged and d <= GSPMD_DEGROOT_ATOL,
+          f"DTensor de Groot vs phase 40: {d:.3e}, {res}")
+    del Td, ell0, warm, res
+
+    # (h) A kernel-backed operator refuses a DTensor.
+    small = (4, 4, 4, 8)
+    Tk = port.make_streamed_T_log(port.two_phase_operands_ssy(
+        model, port.discretize_ssy(model, small)), device=dev)
+    try:
+        Tk(par.shard_grid_array(torch.full(small, 6.7, device=dev), mesh))
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    print(f"make_streamed_T_log's operator given a DTensor: ValueError "
+          f"{refused!r}")
+    check("streamed_shard_map_factory" in refused and "T.twin" in refused,
+          f"kernel-backed operator on a DTensor: {refused!r}")
+    print(f"phase 45 (the DTensor path): {time.perf_counter() - t_phase:.1f}"
+          f" s ({smi})")
 
 
 def _plain_pass_b(st, plan, e):
@@ -3385,22 +3637,23 @@ def main() -> None:
 
     # 31-35. The solver layer and calibration.
     torch.cuda.empty_cache()
-    solver_layer_phases(torch, port, st, dev, smi, plain_star["ssy"].double())
+    refs = solver_layer_phases(torch, port, st, dev, smi,
+                               plain_star["ssy"].double())
     del plain_star
 
     # 36-42. The command line and the rest of the single-card API.
     torch.cuda.empty_cache()
-    cli_launches = api_phases(torch, port, st, dev, smi, main_ref)
+    cli_launches = api_phases(torch, port, st, dev, smi, main_ref, refs)
 
-    # 43-44. The sharded path.
+    # 43-45. The sharded path and the DTensor path.
     torch.cuda.empty_cache()
     sharded_launches = sharded_world1_phase(torch, port, st, dev, smi,
-                                            main_ref)
-    del main_ref
+                                            main_ref, refs)
+    del main_ref, refs
     torch.cuda.empty_cache()
     rank_launches = rank_by_rank_phase(torch, port, st, dev, smi, gcyc_ops)
 
-    # 45. Result.
+    # 46. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:

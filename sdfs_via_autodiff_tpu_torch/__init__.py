@@ -35,8 +35,9 @@ Newton refinement of a fast solve), and calibration
 specification (``degroot_fixed_point``), calibration sweeps
 (``wc_ratio_sweep``), profiling (``utils.trace``, ``utils.timed_solve``),
 the ``sdfs-torch`` command line (``cli.py``) and grid sharding on
-``torch.distributed`` (``parallel``: meshes, the sharded operators and
-the solvers on their shards).
+``torch.distributed`` (``parallel``: meshes, the sharded operators, the
+single-device eager operators on a DTensor iterate, and the solvers and
+implicit gradients on their shards).
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``.
 """

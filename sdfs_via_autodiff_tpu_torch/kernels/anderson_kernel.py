@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import refuse
 from ..models.ssy import SSY
 from ..operators.discrete_ssy import SSYDiscretization
 from .fused_discrete import (ALGO_AA, LAUNCHES, MAX_HISTORY,
@@ -122,6 +123,7 @@ def fused_anderson(ell0, M1, M2T, log_kap, sub, theta: float, beta: float,
                          "mixing_frequency >= 1")
     opts = dict(history=history, mixing_frequency=mixing_frequency,
                 beta_aa=beta_aa, ridge=ridge)
+    refuse(ell0, "fused_anderson")
     if ell0.device.type == "cpu":
         return fused_anderson_plain(ell0, M1, M2T, log_kap, sub, theta, beta,
                                     tol, max_iter, **opts)
@@ -158,6 +160,7 @@ def make_fused_anderson_from_operands(M1, M2T, log_kap, theta, beta, shapes,
                 beta_aa=beta_aa, ridge=ridge)
 
     def solve_fused(ell0, tol=1e-6, max_iter=100_000):
+        refuse(ell0, "fused_anderson")
         ell_mat = torch.as_tensor(ell0).to(
             device=dev, dtype=torch.float32).reshape(rows, cols).contiguous()
         ell, iters, err = fused_anderson(ell_mat, M1, M2T, log_kap, sub,

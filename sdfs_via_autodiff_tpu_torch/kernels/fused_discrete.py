@@ -39,6 +39,7 @@ from typing import Callable, Optional
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import refuse, transparent
 from ..models.ssy import SSY
 from ..operators.continuous_common import expectation_matrix
 from ..operators.continuous_ssy import (_gauss_hermite, _host_grids,
@@ -411,6 +412,7 @@ def make_xla_T_from_operands(M1, M2T, log_kap, theta, beta, shapes,
     theta, beta = float(theta), float(beta)
     shapes = tuple(shapes)
 
+    @transparent
     def T(ell):
         ell_mat = ell.reshape(rows, cols).to(dtype)
         return fused_T_plain(ell_mat, M1, M2T, log_kap, sub, theta,
@@ -471,6 +473,7 @@ def make_fused_T_from_operands(M1, M2T, log_kap, theta, beta, shapes,
             return g
 
     def T(ell):
+        refuse(ell, "the fused operator")
         return _FusedT.apply(ell)
 
     T.twin = twin

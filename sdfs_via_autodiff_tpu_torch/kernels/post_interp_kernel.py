@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import refuse
 from ..ops.quadrature import gauss_hermite_normal
 from ..operators.post_interp import (_log_kappa_parts_ssy, _successors_ssy,
                                      make_node_chain_T_ssy, node_basis_ssy,
@@ -371,6 +372,7 @@ def make_post_interp_kernel_T_ssy(model, grids, quad_degree: int = 5,
             return g
 
     def T(ell):
+        refuse(ell, "make_post_interp_kernel_T_ssy's operator")
         return _PostInterpT.apply(ell)
 
     T.twin = twin

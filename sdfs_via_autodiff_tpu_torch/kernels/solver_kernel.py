@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import refuse
 from ..models.ssy import SSY
 from ..operators.discrete_ssy import SSYDiscretization
 from .fused_discrete import (ALGO_SA, LAUNCHES, _device_operands,
@@ -63,6 +64,7 @@ def fused_sa(ell0, M1, M2T, log_kap, sub, theta: float, beta: float,
     """The SA solve on the tensors' device: the plain version for CPU
     tensors, one launch of the CUDA kernel for CUDA tensors (same
     arguments and results as :func:`fused_sa_plain`)."""
+    refuse(ell0, "fused_sa")
     if ell0.device.type == "cpu":
         return fused_sa_plain(ell0, M1, M2T, log_kap, sub, theta, beta, tol,
                               max_iter)
@@ -88,6 +90,7 @@ def make_fused_solver_from_operands(M1, M2T, log_kap, theta, beta, shapes,
     theta, beta = float(theta), float(beta)
 
     def solve_fused(ell0, tol=1e-6, max_iter=100_000):
+        refuse(ell0, "fused_sa")
         ell_mat = torch.as_tensor(ell0).to(
             device=dev, dtype=torch.float32).reshape(rows, cols).contiguous()
         ell, iters, err = fused_sa(ell_mat, M1, M2T, log_kap, sub, theta,

@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import refuse
 from ..operators.two_phase import (TwoPhaseOperands, conjugate_to_shared,
                                    make_eager_two_phase_T)
 from . import _build
@@ -1272,6 +1273,7 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
             return g
 
     def T(ell):
+        refuse(ell, "make_streamed_T_log's operator")
         return _StreamedT.apply(ell)
 
     T.twin = twin

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import refuse
 from ..operators.two_phase import (TwoPhaseOperands, make_eager_two_phase_T,
                                    two_phase_operands_gcy,
                                    two_phase_operands_gcy_continuous,
@@ -502,6 +503,7 @@ def _make_strip_T_log(ops: TwoPhaseOperands, dtype, mode: str,
             return g
 
     def T(ell):
+        refuse(ell, "the strip tier's operator")
         return _StripT.apply(ell)
 
     T.twin = twin
@@ -684,7 +686,12 @@ def _natural_layout(ops: TwoPhaseOperands, view_T) -> Callable:
         return lambda ell: from_view(op(to_view(ell).reshape(ops.shapes))
                                      .reshape(view_shapes)).contiguous()
 
-    T = natural(view_T)
+    on_view = natural(view_T)
+
+    def T(ell):
+        refuse(ell, "the six-state tiled operator")
+        return on_view(ell)
+
     T.view_T = view_T
     T.to_view = to_view
     T.from_view = from_view

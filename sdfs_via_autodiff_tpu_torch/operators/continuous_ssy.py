@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import transparent
 from ..models.ssy import SSY, ssy_loglinear_factory
 from ..ops.contract import lse_matmul
 from ..ops.grids import build_grid_ssy
@@ -179,11 +180,13 @@ def _factored_T(model, grids, degree, space, dtype, baseline=None, *,
     if space == "w":
         kappa = torch.exp(log_kappa)
 
+        @transparent
         def T(w):
             kg = kappa[None, :, None, :] * apply_K(w ** theta)
             return 1.0 + beta * kg ** (1.0 / theta)
         return T
 
+    @transparent
     def T(ell):
         a = theta * (ell if ell0 is None else ell - ell0)
         a = lse_matmul(P_lam, a, "lL,LKIJ->lKIJ", 0)

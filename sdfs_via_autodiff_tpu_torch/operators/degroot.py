@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import transparent
 from ..models.gcy import GCY
 from ..models.ssy import SSY
 from ..ops.contract import lse_matmul
@@ -139,10 +140,12 @@ def _degroot_T(model, h, space, dtype, apply_K, apply_K_log, shapes,
     hb = _h_array(h, shapes, beta, wdtype, dev) * beta
 
     if space == "w":
+        @transparent
         def T(g):
             k = apply_K(g)
             return (1.0 - hb + hb * k ** (1.0 / theta)) ** theta
     else:
+        @transparent
         def T(ell):
             k_log = apply_K_log(ell)
             return theta_c * torch.log(1.0 - hb

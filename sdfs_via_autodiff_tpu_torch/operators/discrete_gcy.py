@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import transparent
 from ..models.gcy import GCY
 from ..ops.contract import lse_matmul, normalize_rows_log
 from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
@@ -198,6 +199,7 @@ def T_gcy_factory(model: GCY,
     A2, A3 = cast(A2), cast(A3)
 
     if space == "w":
+        @transparent
         def T(w):
             hwt = _hw_theta_factored_gcy(w ** theta, factors, A2, A3)
             return 1.0 + beta * hwt ** (1.0 / theta)
@@ -206,6 +208,7 @@ def T_gcy_factory(model: GCY,
     log_A2 = torch.log(A2)
     log_A3 = torch.log(A3)
 
+    @transparent
     def T(ell):
         # Per-axis log-sum-exp contractions (float32-safe at any range).
         a = theta * ell
@@ -351,6 +354,7 @@ def _T_gcy_normalized(model: GCY, disc: GCYDiscretization, *, dtype=None,
     ell0_t = cast(parts["ell0"])
     t_c = torch.tensor(theta, dtype=dtype, device=device)
 
+    @transparent
     def T(ell):
         a = t_c * (ell - ell0_t)
         for M, ls, subs, ax in steps:

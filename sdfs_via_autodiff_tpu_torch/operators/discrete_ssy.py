@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import transparent
 from ..models.ssy import SSY
 from ..ops.contract import lse_matmul, normalize_rows_log
 from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
@@ -168,6 +169,7 @@ def T_ssy_factory(model: SSY,
                                             disc.h_z_Q, disc.z_P))
 
     if space == "w":
+        @transparent
         def T(w):
             v = w ** theta
             hwt = _hw_theta_factored(v, B_lam, Qc, Qhz, zP, A2, A3)
@@ -177,6 +179,7 @@ def T_ssy_factory(model: SSY,
     log_A2 = torch.log(A2)
     log_A3 = torch.log(A3)
 
+    @transparent
     def T(ell):
         # Per-axis log-sum-exp contractions: exact for any dynamic range
         # of theta*ell (see ops/contract.py).
@@ -300,6 +303,7 @@ def _T_ssy_normalized(model: SSY, disc: SSYDiscretization, *, dtype=None,
     log_A3 = cast(arrs["log_A3"])[None, None, :, :]
     theta_c = torch.tensor(theta, dtype=dtype, device=device)
 
+    @transparent
     def T(ell):
         a = theta_c * (ell - ell0_t)
         for M, ls, subs, ax in steps:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..ops.dtensor import transparent
 
 __all__ = ["TwoPhaseOperands", "two_phase_operands_ssy",
            "two_phase_operands_ssy_continuous", "two_phase_operands_gcy",
@@ -712,6 +713,7 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
                    + np.asarray(ops.sub_col)[None, :, :])    # (R, c1, c2)
     theta, beta = float(ops.theta), float(ops.beta)
 
+    @transparent
     def T(ell):
         check_full_fp32(ell)
         a = theta * ell.to(dtype).reshape(R, n_c1, n_c2)

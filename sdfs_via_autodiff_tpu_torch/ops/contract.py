@@ -121,9 +121,28 @@ def _deep_passes(Mn, log_v, subscripts, axis, W, K):
     return out
 
 
+def _deep_windows(Mn, log_v, subscripts, axis, W, K):
+    """The windows of the derivative: for each shift k*W (k = 1 ..
+    max(K, 2) - 1), ``(em, u, first)`` with em = exp(min(v - m + kW,
+    80)), u its contraction with u's flushed entries set to 1, and
+    ``first`` the output elements this window is the shallowest normal
+    one of."""
+    m = _safe_shift(log_v, axis)
+    d = log_v - m
+    served = None
+    for k in range(1, max(K, 2)):
+        em = torch.exp(torch.clamp(d + k * W, max=_EXP_CAP))
+        u_k = torch.einsum(subscripts, Mn, em)
+        ok = u_k >= _MIN_NORMAL_F32
+        if served is None:
+            served = torch.zeros_like(ok)
+        yield em, torch.where(ok, u_k, torch.ones_like(u_k)), ~served & ok
+        served = served | ok
+
+
 class _LseMatmulDeep(torch.autograd.Function):
-    """Multi-window LSE contraction with a forward-mode derivative that
-    costs one einsum per window, not per pass of the primal.
+    """Multi-window LSE contraction with derivatives that cost one einsum
+    per window, not per pass of the primal.
 
     For every window the exact derivative is the softmax average
     ``(Mn @ (exp(v - m + s) dv)) / u_s`` for any shift s whose
@@ -131,7 +150,13 @@ class _LseMatmulDeep(torch.autograd.Function):
     shifted windows W, 2W, ... (window W covers what the unshifted pass
     covers), each selected per output element at the shallowest
     non-flushed shift.  Rows deeper than the deepest window get a zero
-    tangent row.  ``torch.func.jvp`` reaches it through ``jvp``."""
+    tangent row.  ``torch.func.jvp`` reaches it through ``jvp``;
+    ``backward`` is its transpose (the JAX package's ``custom_jvp``,
+    which JAX transposes for reverse mode): each window's outputs take
+    the cotangent over u_s, contracted back through ``Mn`` and scaled by
+    the window's exponentials, so the rows beyond the deepest window
+    send back nothing.  Both are plain torch operations, so reverse mode
+    over ``backward`` (a JVP as the derivative of a VJP) works too."""
 
     @staticmethod
     def forward(Mn, log_v, subscripts, axis, W, K):
@@ -141,30 +166,43 @@ class _LseMatmulDeep(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         Mn, log_v, subscripts, axis, W, K = inputs
         ctx.save_for_forward(Mn, log_v)
+        ctx.save_for_backward(Mn, log_v)
         ctx.spec = (subscripts, axis, W, K)
 
     @staticmethod
     def jvp(ctx, dM, dv, *_):
         Mn, log_v = ctx.saved_tensors
         subscripts, axis, W, K = ctx.spec
-        m = _safe_shift(log_v, axis)
-        d = log_v - m
-        dout = served = None
-        for k in range(1, max(K, 2)):
-            em = torch.exp(torch.clamp(d + k * W, max=_EXP_CAP))
-            u_k = torch.einsum(subscripts, Mn, em)
+        dout = None
+        for em, u_k, first in _deep_windows(Mn, log_v, *ctx.spec):
             num = torch.zeros_like(u_k)
             if dv is not None:
                 num = torch.einsum(subscripts, Mn, em * dv)
             if dM is not None:
                 num = num + torch.einsum(subscripts, dM, em)
-            ok = u_k >= _MIN_NORMAL_F32
-            val = num / torch.where(ok, u_k, torch.ones_like(u_k))
+            val = num / u_k
             if dout is None:
-                dout, served = torch.zeros_like(val), torch.zeros_like(ok)
-            dout = torch.where(~served & ok, val, dout)
-            served = served | ok
+                dout = torch.zeros_like(val)
+            dout = torch.where(first, val, dout)
         return dout
+
+    @staticmethod
+    def backward(ctx, ct):
+        Mn, log_v = ctx.saved_tensors
+        subscripts = ctx.spec[0]
+        ms, vs = subscripts.split("->")[0].split(",")
+        out = subscripts.split("->")[1]
+        want_M, want_v = ctx.needs_input_grad[:2]
+        gM = gv = None
+        for em, u_k, first in _deep_windows(Mn, log_v, *ctx.spec):
+            c = torch.where(first, ct / u_k, torch.zeros_like(ct))
+            if want_v:
+                t = em * torch.einsum(f"{ms},{out}->{vs}", Mn, c)
+                gv = t if gv is None else gv + t
+            if want_M:
+                t = torch.einsum(f"{vs},{out}->{ms}", em, c)
+                gM = t if gM is None else gM + t
+        return gM, gv, None, None, None, None
 
 
 def lse_matmul(M: torch.Tensor, log_v: torch.Tensor, subscripts: str,

@@ -71,9 +71,9 @@ def anderson_solver(T: Callable,
     improvement) stops f32 limit cycles.  The returned point is verified
     with one more application of T and replaced by the best recorded
     iterate when it is worse or not finite, so ``residual`` belongs to
-    ``x``.  A DTensor ``x0`` with a sharded operator runs on the local
-    shard, with the sup-norms, the Gram matrix and the finiteness check
-    all-reduced (``solvers/sharding.py``).
+    ``x``.  A DTensor ``x0`` runs on the local shard, with the
+    sup-norms, the Gram matrix and the finiteness check all-reduced over
+    the ranks holding distinct shards (``solvers/sharding.py``).
     """
     T, _, x0, red, wrap, _ = solve_parts(T, x0)
     m = history_size

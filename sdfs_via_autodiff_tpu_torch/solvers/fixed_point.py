@@ -16,9 +16,10 @@ from typing import Callable, Optional
 
 import torch
 
+from ..ops.dtensor import is_dtensor
 from .krylov import SYNC_EVERY, bicgstab_mixed, gmres
 from .result import SolveResult
-from .sharding import LOCAL, Reductions, solve_parts
+from .sharding import LOCAL, Reductions, solve_parts, tangent_matvec
 
 DEFAULT_TOL = 1e-7
 DEFAULT_MAX_ITER = 1_000_000
@@ -114,8 +115,8 @@ def successive_approx(T: Callable,
                       stall_iters: int = STALL_ITERS) -> SolveResult:
     """Successive approximation x <- T(x) to a sup-norm fixed point, with
     the residual plateau guard and the optional residual trace (see
-    :func:`_iterate`).  A DTensor ``x0`` with a sharded operator runs on
-    the local shard (``solvers/sharding.py``)."""
+    :func:`_iterate`).  A DTensor ``x0`` runs on the local shard
+    (``solvers/sharding.py``)."""
     op, _, x0, red, wrap, _ = solve_parts(T, x0)
     return _iterate(lambda x, running: op(x), x0, tol, max_iter,
                     verbose=verbose, trace_len=trace_len,
@@ -179,10 +180,12 @@ def newton_solver(T: Callable,
     iteration count (BiCGStab iterations, GMRES Arnoldi steps; 0 for the
     frozen steps that end a chunk after the stop condition failed).
 
-    A DTensor ``x0`` with a sharded operator (``parallel/shard_ops.py``)
-    runs on the local shard, linearizing ``T.local_twin``, with every
-    norm and dot product all-reduced (``solvers/sharding.py``); ``inner``
-    "dense" and ``tangent_T`` raise ``ValueError`` there.
+    A DTensor ``x0`` runs on the local shard, with every norm and dot
+    product all-reduced (``solvers/sharding.py``): a sharded operator
+    (``parallel/shard_ops.py``) linearizes ``T.local_twin`` by
+    ``torch.func.jvp``, any other operator runs on the DTensor
+    (``parallel/gspmd.py``) and is linearized by the derivative of its
+    VJP; ``inner`` "dense" and ``tangent_T`` raise ``ValueError`` there.
     """
     if inner not in ("bicgstab", "gmres", "dense"):
         raise ValueError(f"unknown inner solver {inner!r}")
@@ -190,10 +193,13 @@ def newton_solver(T: Callable,
         # The JAX package ignores tangent_T here without a word.
         raise ValueError("tangent_T applies to the Krylov inner solvers, "
                          "not inner='dense'")
+    distributed = is_dtensor(x0)
     T, lin, x0, red, wrap, numel = solve_parts(T, x0)
-    if red.sharded and (inner == "dense" or tangent_T is not None):
-        raise ValueError("a sharded Newton solve takes the Krylov inner "
-                         "solvers without tangent_T")
+    if distributed and (inner == "dense" or tangent_T is not None):
+        raise ValueError("a Newton solve on a DTensor iterate takes the "
+                         "Krylov inner solvers without tangent_T (the "
+                         "dense Jacobian and the float32 tangent operator "
+                         "are single-device)")
     g = lambda x: T(x) - x
     maxiter = inner_maxiter if inner_maxiter is not None else 10 * numel
     inf = torch.tensor(math.inf, dtype=torch.float64, device=x0.device)
@@ -238,9 +244,9 @@ def newton_solver(T: Callable,
             # A jvp per matvec, not torch.func.linearize: linearize traces
             # the chain with make_fx on every Newton step, a host cost
             # larger than the primal it saves (PERF.md, "Newton's
-            # tangent").
-            jac_prod = lambda v: torch.func.jvp(lambda y: tl(y) - y,
-                                                (xt,), (v,))[1]
+            # tangent").  A DTensor iterate's local form takes the
+            # derivative of a VJP instead.
+            jac_prod = tangent_matvec(tl, xt)
             # A frozen step (after the stop condition failed inside a
             # chunk) skips the Krylov solve: atol = inf stops it before
             # any matvec.

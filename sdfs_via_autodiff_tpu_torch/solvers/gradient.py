@@ -15,6 +15,7 @@ from typing import Callable
 
 import torch
 
+from ..ops.dtensor import is_dtensor
 from .result import SolveResult
 
 __all__ = ["gradient_solver"]
@@ -31,6 +32,11 @@ def gradient_solver(T: Callable,
     reported residual is ``T``'s.  ``tol``/``max_iter`` defaults follow
     the reference configuration.
     """
+    if is_dtensor(x0):
+        raise ValueError(
+            "method='gd' takes a plain tensor: torch.optim.LBFGS keeps its "
+            "history in flat views of the iterate, which a DTensor does "
+            "not give; use newton, anderson or successive_approx")
     lin = getattr(T, "twin", T)
     x = x0.detach().clone().requires_grad_(True)
     # One L-BFGS iteration per step() call.  max_eval bounds the line

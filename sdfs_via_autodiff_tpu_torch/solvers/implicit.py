@@ -30,8 +30,11 @@ from typing import Callable
 
 import torch
 
+from ..ops.dtensor import apply, is_dtensor
+from ..parallel.gspmd import jvp_by_vjp, local_operator
 from .api import solve
 from .krylov import bicgstab_mixed
+from .sharding import LOCAL, Reductions
 
 __all__ = ["implicit_fixed_point", "implicit_sensitivity"]
 
@@ -52,12 +55,16 @@ def _norm64(v):
     return torch.linalg.vector_norm(v.reshape(-1).to(torch.float64))
 
 
-def _check_krylov_residual(matvec, x, b, atol, label):
+def _check_krylov_residual(matvec, x, b, atol, label, red=LOCAL):
     """Warn when a Krylov solve stagnated (true residual above 10x its
     target): with beta ~ 1 the system (I - A) is nearly singular and
     BiCGStab can exhaust its iterations far from tolerance, which would
-    otherwise return a wrong derivative silently."""
-    rn = float(_norm64(b - matvec(x)).detach())
+    otherwise return a wrong derivative silently.  ``red`` sums the
+    residual's norm over the shards of a sharded iterate."""
+    r = b - matvec(x)
+    rn = float((_norm64(r) if not red.sharded
+                else torch.sqrt(red.dot64(r.reshape(-1), r.reshape(-1))))
+               .detach())
     atol = float(torch.as_tensor(atol).detach())
     if rn > 10.0 * max(atol, 1e-300):
         warnings.warn(
@@ -89,6 +96,9 @@ class _ImplicitFixedPoint(torch.autograd.Function):
         x_star, *leaves = ctx.saved_tensors
         T_of_p, rebuild = ctx.T_of_p, ctx.rebuild
         _, _, rtol, maxiter, _ = ctx.cfg
+        if is_dtensor(x_star):
+            return (None, None, None, None) + _adjoint_on_dtensor(
+                T_of_p, rebuild, tuple(leaves), x_star, ct, rtol, maxiter)
         p = rebuild(tuple(leaves))
         _, vjp_x = torch.func.vjp(lambda x: T_of_p(p, x), x_star)
         matvec = lambda u: u - vjp_x(u)[0]
@@ -98,6 +108,40 @@ class _ImplicitFixedPoint(torch.autograd.Function):
         _, vjp_p = torch.func.vjp(
             lambda *q: T_of_p(rebuild(q), x_star), *leaves)
         return (None, None, None, None) + tuple(vjp_p(u))
+
+
+def _local_parts(T_of_p, p, x_star):
+    """The local form of ``x -> T_of_p(p, x)`` at the DTensor ``x_star``
+    (``parallel.gspmd.local_operator``), its reductions and the local
+    shard of ``x_star``."""
+    op = local_operator(lambda x: T_of_p(p, x), x_star)
+    return op, Reductions(op.reduce_axis.group), op.to_local(x_star)
+
+
+def _adjoint_on_dtensor(T_of_p, rebuild, leaves, x_star, ct, rtol, maxiter):
+    """The reverse pass at a DTensor fixed point: the adjoint BiCGStab
+    solve on this rank's shard (dot products over the distinct shards),
+    its VJP matvecs one backward each of a graph built once, then
+    ``(dT/dp)^T u`` by a backward through the operator on the DTensor,
+    whose lifted constants return the parameters' gradients as plain
+    tensors (the same on every rank)."""
+    op, red, xl = _local_parts(T_of_p, rebuild(leaves), x_star)
+    ctl = op.to_local(ct)
+    with torch.enable_grad():
+        xg = xl.detach().requires_grad_(True)
+        y = op.local(xg)
+    matvec = lambda u: u - torch.autograd.grad(y, xg, u,
+                                               retain_graph=True)[0]
+    atol = rtol * torch.sqrt(red.dot64(ctl.reshape(-1), ctl.reshape(-1)))
+    u, _ = bicgstab_mixed(matvec, ctl, atol=atol, maxiter=maxiter, red=red)
+    _check_krylov_residual(matvec, u, ctl, atol, "adjoint", red)
+    with torch.enable_grad():
+        qs = tuple(q.detach().requires_grad_(True) for q in leaves)
+        out = apply(lambda x: T_of_p(rebuild(qs), x), x_star)
+        grads = torch.autograd.grad(out, qs, op.from_local(u),
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(q) if g is None else g
+                 for g, q in zip(grads, leaves))
 
 
 def implicit_fixed_point(T_of_p: Callable, p, x0, *,
@@ -119,6 +163,10 @@ def implicit_fixed_point(T_of_p: Callable, p, x0, *,
     The gradient error is O(solver residual) + O(adjoint residual).
     ``x0`` receives no gradient; grids and quadrature closed over by
     ``T_of_p`` are held fixed (sensitivities of the collocation values).
+
+    A DTensor ``x0`` solves on its shards (``solvers/sharding.py``) and
+    returns a DTensor with its placements; the adjoint solve runs on the
+    shards too, and the gradient is a plain tensor on every rank.
     """
     leaves, rebuild = _flatten(p)
     cfg = (method, tol, adjoint_rtol, adjoint_maxiter, solve_kwargs)
@@ -133,12 +181,18 @@ def implicit_sensitivity(T_of_p: Callable, p, dp, x_star, *,
 
     Solves ``(I - A) dx = (dT/dp) dp`` matrix-free, the matvec a
     ``torch.func.jvp`` of the operator in ``x``: one Krylov solve per
-    direction.  ``dp`` has ``p``'s structure.
+    direction.  ``dp`` has ``p``'s structure.  At a DTensor ``x_star``
+    both tangents are derivatives of VJPs (forward mode does not run on
+    a DTensor), the solve runs on the shards and ``dx`` is a DTensor
+    with ``x_star``'s placements.
     """
     leaves, rebuild = _flatten(p)
     dleaves = tuple(torch.as_tensor(d, dtype=q.dtype, device=q.device)
                     for d, q in zip(_flatten(dp)[0], leaves))
     x_star = x_star.detach()
+    if is_dtensor(x_star):
+        return _sensitivity_on_dtensor(T_of_p, p, rebuild, leaves, dleaves,
+                                       x_star, rtol, maxiter)
     b = torch.func.jvp(lambda *q: T_of_p(rebuild(q), x_star),
                        tuple(leaves), dleaves)[1]
     matvec = lambda v: v - torch.func.jvp(lambda x: T_of_p(p, x),
@@ -147,3 +201,18 @@ def implicit_sensitivity(T_of_p: Callable, p, dp, x_star, *,
     dx, _ = bicgstab_mixed(matvec, b, atol=atol, maxiter=maxiter)
     _check_krylov_residual(matvec, dx, b, atol, "tangent")
     return dx
+
+
+def _sensitivity_on_dtensor(T_of_p, p, rebuild, leaves, dleaves, x_star,
+                            rtol, maxiter):
+    """:func:`implicit_sensitivity` at a DTensor ``x_star``."""
+    b = jvp_by_vjp(lambda *q: apply(lambda x: T_of_p(rebuild(q), x),
+                                    x_star), leaves, dleaves)
+    op, red, xl = _local_parts(T_of_p, p, x_star)
+    bl = op.to_local(b)
+    j_minus_i = op.local_twin.linearize(xl)
+    matvec = lambda v: -j_minus_i(v)
+    atol = rtol * torch.sqrt(red.dot64(bl.reshape(-1), bl.reshape(-1)))
+    dx, _ = bicgstab_mixed(matvec, bl, atol=atol, maxiter=maxiter, red=red)
+    _check_krylov_residual(matvec, dx, bl, atol, "tangent", red)
+    return op.from_local(dx)

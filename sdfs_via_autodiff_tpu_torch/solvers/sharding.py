@@ -1,8 +1,9 @@
 """The solvers on a sharded iterate.
 
-A solve whose start is a DTensor and whose operator is one of the
-sharded operators of ``parallel/shard_ops.py`` runs its loop on this
-rank's shard, through ``T.local``.  Every quantity that the loop's
+A solve whose start is a DTensor runs its loop on this rank's shard,
+through ``T.local``: one of the sharded operators of
+``parallel/shard_ops.py``, or the local form of any other operator
+(``parallel/gspmd.py``).  Every quantity that the loop's
 decisions read (sup-norms, the float64 dot products and norms of the
 Krylov solvers, Anderson's Gram matrix, the finiteness checks) is
 all-reduced over the ranks that hold distinct shards, so each rank
@@ -19,7 +20,10 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-__all__ = ["Reductions", "LOCAL", "solve_parts"]
+from ..ops.dtensor import is_dtensor
+from ..parallel.gspmd import local_operator
+
+__all__ = ["Reductions", "LOCAL", "solve_parts", "tangent_matvec"]
 
 
 class Reductions:
@@ -88,21 +92,26 @@ def solve_parts(T: Callable, x0):
     solve.  For a DTensor start: ``T.local``, ``T.local_twin``, this
     rank's shard of ``x0``, the :class:`Reductions` of T's shard group, a
     function wrapping a shard back into a DTensor and the global element
-    count; a DTensor start with an operator that is not one of the
-    sharded operators raises ``ValueError``.  Otherwise ``T``, ``T.twin``
-    (or ``T``), ``x0``, :data:`LOCAL`, the identity and
+    count, where ``T`` is one of the sharded operators of
+    ``parallel.shard_ops`` or else the local form of any operator at
+    ``x0`` (``parallel.gspmd.local_operator``: the single-device
+    operators run on the DTensor, reduced over the ranks holding distinct
+    shards, and linearized by the derivative of a VJP).  Otherwise
+    ``T``, ``T.twin`` (or ``T``), ``x0``, :data:`LOCAL`, the identity and
     ``x0.numel()``."""
-    if dist.is_available() and dist.is_initialized():
-        from torch.distributed.tensor import DTensor
-        if isinstance(x0, DTensor):
-            if not hasattr(T, "local"):
-                raise ValueError(
-                    "a DTensor iterate needs one of the sharded operators "
-                    "of parallel.shard_ops (T_ssy_shard_map_factory, "
-                    "two_phase_shard_map_factory, "
-                    "streamed_shard_map_factory); single-device operators "
-                    "on a sharded iterate are not ported")
-            return (T.local, T.local_twin, T.to_local(x0),
-                    Reductions(T.reduce_axis.group), T.from_local,
-                    x0.numel())
+    if is_dtensor(x0):
+        if not hasattr(T, "local"):
+            T = local_operator(T, x0)
+        return (T.local, T.local_twin, T.to_local(x0),
+                Reductions(T.reduce_axis.group), T.from_local, x0.numel())
     return T, getattr(T, "twin", T), x0, LOCAL, (lambda x: x), x0.numel()
+
+
+def tangent_matvec(lin: Callable, x) -> Callable:
+    """Newton's ``v -> J(x) v - v`` of ``lin``: ``torch.func.jvp`` per
+    matvec, or the derivative of a VJP for a DTensor iterate's local form
+    (``parallel.gspmd.VjpLinearization``), on which forward mode does not
+    run."""
+    if hasattr(lin, "linearize"):
+        return lin.linearize(x)
+    return lambda v: torch.func.jvp(lambda y: lin(y) - y, (x,), (v,))[1]

@@ -1136,6 +1136,30 @@ def nccl_world1(cuda):
     dist.destroy_process_group()
 
 
+def test_dtensor_newton_world1_nccl(nccl_world1):
+    # A single-device operator on a DTensor iterate (parallel/gspmd.py):
+    # the float64 Newton solve from a DTensor start on the card's 1 x 1
+    # mesh against the plain start's, with the tangent taken as the
+    # derivative of a VJP; the result keeps its placements.
+    from sdfs_via_autodiff_tpu_torch import parallel as par
+    dev = nccl_world1
+    m = P.SSY()
+    shapes = (8, 8, 4, 4)
+    T = P.T_ssy_factory(m, P.discretize_ssy(m, shapes), space="log",
+                        device=dev)
+    x0 = torch.full(shapes, float(np.log(800.0)), dtype=torch.float64,
+                    device=dev)
+    mesh = par.make_mesh(device="cuda")
+    xd = par.shard_grid_array(x0, mesh)
+    assert torch.equal(T(xd).to_local(), T(x0))
+    ref = P.solve(T, x0, method="newton", tol=1e-10)
+    res = P.solve(T, xd, method="newton", tol=1e-10)
+    assert res.converged and ref.converged
+    assert par.is_dtensor(res.x) and res.x.placements == xd.placements
+    assert res.iterations == ref.iterations
+    assert float((res.x.to_local() - ref.x).abs().max()) <= 1e-11
+
+
 @pytest.mark.parametrize("recipe", [("ssy", (8, 16, 32, 384), None),
                                     ("ssy", (8, 16, 32, 384), "loglinear"),
                                     ("gcy", (32, 16, 16, 2, 16, 2), None)])

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import socket
 import traceback
 import types
@@ -613,3 +614,496 @@ def sharding_demo(rank: int, world: int) -> dict:
                                           res3.converged),
             "iterations": (res.iterations, res2.iterations,
                            res3.iterations)}
+
+
+# ------------------------------------- single-device operators on DTensors
+
+# The GSPMD-transparent cases (the single-device factories applied to a
+# DTensor iterate): the operator, its grid shapes and the field's level.
+# The JAX side builds the same operators (tests/test_torch_gspmd.py).
+GSPMD_MESHES = {"2x2": (2, 2), "4x1": (4, 1)}
+GSPMD_OPS = {
+    "ssy_log": ("ssy", (8, 8, 6, 6), dict(space="log")),
+    "ssy_w": ("ssy", (8, 8, 6, 6), dict(space="w")),
+    "ssy_normalized": ("ssy", (8, 8, 6, 6),
+                       dict(space="log", baseline="loglinear")),
+    "ssy_normalized_f32": ("ssy", (8, 8, 6, 6),
+                           dict(space="log", baseline="loglinear",
+                                dtype="float32")),
+    "gcy_log": ("gcy", (4, 4, 4, 4, 2, 2), dict(space="log")),
+    "gcy_normalized": ("gcy", (4, 4, 4, 4, 2, 2),
+                       dict(space="log", baseline="loglinear")),
+    "ssy_continuous": ("ssy_continuous", (8, 8, 6, 6), dict(space="log")),
+    "gcy_continuous": ("gcy_continuous", (4, 4, 4, 4, 2, 2),
+                       dict(space="log")),
+    "degroot": ("degroot", (8, 4, 4, 4), dict(space="log", h=0.99)),
+    "degroot_continuous": ("degroot_continuous", (8, 8, 6, 6),
+                           dict(space="log", h=0.99)),
+    "eager_two_phase": ("eager_two_phase", (8, 8, 6, 6), {}),
+    "xla_twin": ("xla_twin", (8, 8, 6, 6), {}),
+}
+
+
+def gspmd_operator(P, name):
+    """The port's single-device operator of GSPMD case ``name`` (CPU)."""
+    import torch
+    kind, shapes, kw = GSPMD_OPS[name]
+    kw = dict(kw, device="cpu")
+    if kw.get("dtype") == "float32":
+        kw["dtype"] = torch.float32
+    if kind == "ssy":
+        m = P.SSY()
+        return P.T_ssy_factory(m, P.discretize_ssy(m, shapes), **kw)
+    if kind == "gcy":
+        m = P.GCY()
+        return P.T_gcy_factory(m, P.discretize_gcy(m, shapes), **kw)
+    if kind == "ssy_continuous":
+        m = P.SSY()
+        return P.T_ssy_continuous_factory(m, P.build_grid_ssy(m, *shapes),
+                                          interp="pre", **kw)
+    if kind == "gcy_continuous":
+        m = P.GCY()
+        return P.T_gcy_continuous_factory(
+            m, P.build_grid_gcy(m, *shapes), method="quadrature",
+            interp="pre", quad_degree=3, **kw)
+    if kind == "degroot":
+        m = P.SSY()
+        return P.T_degroot_factory(m, P.discretize_ssy(m, shapes), **kw)
+    if kind == "degroot_continuous":
+        m = P.SSY()
+        return P.T_degroot_continuous_factory(
+            m, P.build_grid_ssy(m, *shapes), quad_degree=3, **kw)
+    m = P.SSY()
+    disc = P.discretize_ssy(m, shapes)
+    if kind == "eager_two_phase":
+        return P.make_eager_two_phase_T(P.two_phase_operands_ssy(m, disc),
+                                        torch.float64, device="cpu")
+    M1, M2T, log_kap = P.kron_operands_ssy(m, disc, torch.float64)
+    return P.make_xla_T_from_operands(
+        M1, M2T, log_kap, m.theta, m.beta, shapes, shapes[0] * shapes[1],
+        shapes[2] * shapes[3], torch.float64, device="cpu")
+
+
+def gspmd_field(name, baseline=None) -> np.ndarray:
+    """The input of GSPMD case ``name`` (float64): the baseline plus
+    seeded noise of scale 0.02 for a normalized operator, log 800 plus
+    noise of scale 0.05 in log space, 800 plus noise of scale 5 in w
+    space; de Groot's ln g is theta * log((1 - beta) 800) plus noise."""
+    kind, shapes, kw = GSPMD_OPS[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    noise = rng.standard_normal(shapes)
+    if baseline is not None:
+        return np.asarray(baseline, np.float64) + 0.02 * noise
+    if kw.get("space") == "w":
+        return 800.0 + 5.0 * noise
+    if kind.startswith("degroot"):
+        from sdfs_via_autodiff_tpu_torch import SSY
+        m = SSY()
+        return m.theta * np.log((1 - m.beta) * 800.0) + 0.05 * noise
+    return np.log(800.0) + 0.05 * noise
+
+
+def _gspmd_mesh(par, world, label):
+    return par.make_mesh(world, shape=GSPMD_MESHES[label], device="cpu")
+
+
+def gspmd_operators(rank: int, world: int) -> dict:
+    """Every GSPMD_OPS case on a DTensor, on each mesh of GSPMD_MESHES:
+    the result against the single-device one (rank 0 also returns the
+    full field), whether the placements were kept and the sharded and
+    automatic SSY operators against each other; the tangent route
+    against ``torch.func.jvp``."""
+    import torch
+    import sdfs_via_autodiff_tpu_torch as P
+    from sdfs_via_autodiff_tpu_torch import parallel as par
+    out = {}
+    for label in GSPMD_MESHES:
+        mesh = _gspmd_mesh(par, world, label)
+        for name in GSPMD_OPS:
+            T = gspmd_operator(P, name)
+            x = torch.as_tensor(gspmd_field(name, getattr(
+                T, "baseline_log_w", None)))
+            if GSPMD_OPS[name][2].get("dtype") == "float32":
+                x = x.float()
+            xd = par.shard_grid_array(x, mesh)
+            y = T(xd)
+            want = T(x)
+            full = y.full_tensor()
+            res = {"placements_kept": (tuple(y.placements)
+                                       == tuple(xd.placements)),
+                   "sharded": not all(p.is_replicate()
+                                      for p in y.placements),
+                   "max_abs": float((full - want).abs().max()),
+                   "max_rel": float(((full - want) / want).abs().max()),
+                   "level": float(want.abs().max())}
+            if rank == 0:
+                res["out"] = full.double().numpy()
+            out[(label, name)] = res
+        out[(label, "tangent")] = _tangent_route(P, par, mesh)
+    out["hand_placed"] = _hand_placed_vs_automatic(P, par, world)
+    out["distinct"] = _distinct_shard_reductions(par, world)
+    out["fallback"] = _replicated_fallback(par, world)
+    out["live_dtensors"] = _live_dtensors_after_applications(P, par, world)
+    return out
+
+
+def _live_dtensors_after_applications(P, par, world, n=50) -> dict:
+    """The DTensors alive (``gc``) after one application of the SSY
+    log-space operator to a DTensor on the 2x2 mesh, and after ``n`` more:
+    the lifted constants and each application's temporaries are held by
+    nothing once the application returns."""
+    import gc
+    import torch
+    from torch.distributed.tensor import DTensor
+    mesh = _gspmd_mesh(par, world, "2x2")
+    T = gspmd_operator(P, "ssy_log")
+    xd = par.shard_grid_array(torch.as_tensor(gspmd_field("ssy_log")), mesh)
+
+    def live():
+        gc.collect()
+        return sum(type(o) is DTensor for o in gc.get_objects())
+    T(xd)
+    after_one = live()
+    for _ in range(n):
+        T(xd)
+    return {"after_one": after_one, "after_more": live(), "n": n}
+
+
+def _replicated_fallback(par, world) -> dict:
+    """An op whose sharding DTensor cannot propagate (as torch 2.11's
+    einsum that flattens two sharded axes) runs on replicated copies and
+    its result goes back to the field's placements: a stand-in einsum
+    that refuses sharded arguments, called through the lifting mode on
+    the 2x2 mesh, against the plain one; its VJP, and the derivative of
+    that VJP, against the plain ones; the warnings the gather gives."""
+    import warnings
+    import torch
+    from sdfs_via_autodiff_tpu_torch.ops import dtensor
+    from sdfs_via_autodiff_tpu_torch.parallel import gspmd
+    mesh = _gspmd_mesh(par, world, "2x2")
+    rng = np.random.default_rng(4)
+    A = torch.as_tensor(rng.random((8, 8)))
+    x, u, v = (torch.as_tensor(rng.standard_normal((8, 6, 4)))
+               for _ in range(3))
+    calls = []
+
+    def refusing(eq, M, X):
+        calls.append(tuple(X.placements))
+        if not all(p.is_replicate() for p in X.placements):
+            raise RuntimeError("flatten of a sharded axis\n\nSharding "
+                               "propagation failed for the stand-in")
+        return torch.einsum(eq, M, X)
+
+    def f(X):
+        with dtensor._Lift():
+            return dtensor._Lift().__torch_function__(
+                refusing, (), ("lm,mkj->lkj", A, torch.exp(X)))
+
+    f1 = lambda X: torch.einsum("lm,mkj->lkj", A, torch.exp(X))
+    xd, ud, vd = (par.shard_grid_array(t, mesh) for t in (x, u, v))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        y = f(xd)
+    out = {"kept": tuple(y.placements) == tuple(xd.placements),
+           "calls": len(calls),
+           "warnings": [(w.category.__name__, str(w.message))
+                        for w in caught],
+           "max_abs": float((y.full_tensor() - f1(x)).abs().max())}
+    xg = xd.detach().requires_grad_(True)
+    (g,) = torch.autograd.grad(f(xg), xg, ud)
+    (g1,) = torch.autograd.grad(f1(x.requires_grad_(True)), x, u)
+    out["vjp_max_abs"] = float((g.full_tensor() - g1).abs().max())
+    jv = gspmd.jvp_by_vjp(f, (xd,), (vd,))
+    jv1 = torch.func.jvp(f1, (x.detach(),), (v,))[1]
+    out["jvp_max_abs"] = float((jv.full_tensor() - jv1).abs().max())
+    return out
+
+
+def _distinct_shard_reductions(par, world) -> dict:
+    """The solvers' reductions at a DTensor start that a mesh axis
+    replicates ((Shard(0), Replicate()) on the 2x2 mesh): a float64 dot
+    product, a norm and the element count against the full field's."""
+    import torch
+    from sdfs_via_autodiff_tpu_torch.parallel import gspmd
+    from sdfs_via_autodiff_tpu_torch.solvers.sharding import Reductions
+    mesh = _gspmd_mesh(par, world, "2x2")
+    rng = np.random.default_rng(9)
+    a, b = (torch.as_tensor(rng.standard_normal((8, 6, 4, 4)))
+            for _ in range(2))
+    ad = par.shard_grid_array(a, mesh, {0: "dp"})
+    op = gspmd.local_operator(lambda x: x, ad)
+    red = Reductions(op.reduce_axis.group)
+    al, bl = op.to_local(ad), op.to_local(par.shard_grid_array(
+        b, mesh, {0: "dp"}))
+    return {"placements": str(tuple(ad.placements)),
+            "group_size": op.reduce_axis.size,
+            "dot_rel": float(abs(red.dot64(al.reshape(-1), bl.reshape(-1))
+                                 / torch.dot(a.reshape(-1), b.reshape(-1))
+                                 - 1)),
+            "norm_rel": float(abs(red.norm(al) / torch.linalg.vector_norm(
+                a.reshape(-1)) - 1)),
+            "numel": red.numel(al)}
+
+
+def _tangent_route(P, par, mesh) -> dict:
+    """The solvers' tangent on a DTensor (the derivative of a VJP, on the
+    local form) against the single-device ``torch.func.jvp``, for the
+    SSY and GCY operators in log space."""
+    import torch
+    from sdfs_via_autodiff_tpu_torch.parallel import gspmd
+    out = {}
+    for name in ("ssy_log", "gcy_log", "ssy_continuous"):
+        T = gspmd_operator(P, name)
+        x = torch.as_tensor(gspmd_field(name))
+        rng = np.random.default_rng(11)
+        v = torch.as_tensor(rng.standard_normal(tuple(x.shape)))
+        xd, vd = par.shard_grid_array(x, mesh), par.shard_grid_array(v, mesh)
+        op = gspmd.local_operator(T, xd)
+        j_minus_i = op.local_twin.linearize(op.to_local(xd))
+        vl = op.to_local(vd)
+        jv = op.from_local(j_minus_i(vl) + vl).full_tensor()
+        want = torch.func.jvp(T, (x,), (v,))[1]
+        out[name] = float((jv - want).abs().max())
+    return out
+
+
+def _hand_placed_vs_automatic(P, par, world) -> dict:
+    """JAX's test_shard_map_explicit_matches_gspmd: the h_lam-sharded
+    operator of shard_ops against the single-device operator on a
+    DTensor with the same placements, (8, 6, 6, 6) on a (world, 1)
+    mesh."""
+    import torch
+    m = P.SSY()
+    disc = P.discretize_ssy(m, (8, 6, 6, 6))
+    mesh = par.make_mesh(world, shape=(world, 1), device="cpu")
+    T_manual = par.T_ssy_shard_map_factory(m, disc, mesh)
+    T_auto = P.T_ssy_factory(m, disc, space="log", device="cpu")
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(np.log(800.0) + 0.05 * rng.standard_normal(
+        (8, 6, 6, 6)))
+    from torch.distributed.tensor import distribute_tensor
+    xd = distribute_tensor(x, mesh, T_manual.input_sharding)
+    a, b = T_auto(xd), T_manual(xd)
+    return {"max_abs": float((a.full_tensor() - b.full_tensor())
+                             .abs().max()),
+            "auto_kept": tuple(a.placements) == T_manual.input_sharding,
+            "manual_kept": tuple(b.placements) == T_manual.input_sharding,
+            "sharded": not all(p.is_replicate() for p in a.placements)}
+
+
+def _gspmd_refusals(P, par, world) -> dict:
+    """The kernel-backed operators and solvers given a DTensor, and the
+    solver options a DTensor iterate does not take: each message."""
+    import torch
+    mesh = par.make_mesh(world, device="cpu")
+    m = P.SSY()
+    shapes = (4, 4, 4, 8)
+    disc = P.discretize_ssy(m, shapes)
+    ops = P.two_phase_operands_ssy(m, disc)
+    xd = par.shard_grid_array(torch.full(shapes, 6.7), mesh)
+    fused = P.make_fused_T_log_ssy(m, disc, device="cpu")
+    grids = P.build_grid_ssy(m, *shapes)
+    gcy = P.GCY()
+    gshapes = (4, 3, 3, 2, 3, 2)
+    calls = {
+        "streamed": lambda: P.make_streamed_T_log(ops, device="cpu")(xd),
+        "tiled": lambda: P.make_tiled_T_log_ssy(m, disc, device="cpu")(xd),
+        "strip": lambda: P.make_tiled_T_log_ssy(
+            m, disc, device="cpu", engine="strip")(xd),
+        "tiled_gcy": lambda: P.make_tiled_T_log_gcy(
+            gcy, P.discretize_gcy(gcy, gshapes), device="cpu")(
+                par.shard_grid_array(torch.full(gshapes, 6.0), mesh)),
+        "fused": lambda: fused(xd),
+        "post_interp": lambda: P.make_post_interp_kernel_T_ssy(
+            m, grids, 3, device="cpu")(xd),
+        "fused_sa": lambda: P.make_fused_solver_ssy(m, disc, device="cpu")(
+            xd),
+        "fused_anderson": lambda: P.make_fused_anderson_ssy(
+            m, disc, device="cpu")(xd),
+        "solve_streamed": lambda: P.solve(P.make_streamed_T_log(
+            ops, device="cpu"), xd, method="newton"),
+    }
+    out = {k: _raises(f) for k, f in calls.items()}
+    T = P.T_ssy_factory(m, P.discretize_ssy(m, (8, 8, 4, 4)), space="log",
+                        device="cpu")
+    x0 = par.shard_grid_array(torch.full((8, 8, 4, 4), 6.7,
+                                         dtype=torch.float64), mesh)
+    out["dense"] = _raises(lambda: P.solve(T, x0, method="newton",
+                                           inner="dense"))
+    out["tangent_T"] = _raises(lambda: P.solve(T, x0, method="newton",
+                                               tangent_T=T))
+    out["gd"] = _raises(lambda: P.solve(T, x0, method="gd"))
+    # The twin of a kernel-backed operator takes the DTensor.
+    twin = P.make_streamed_T_log(ops, device="cpu").twin
+    y = twin(xd)
+    out["twin_kept"] = tuple(y.placements) == tuple(xd.placements)
+    return out
+
+
+# The GSPMD solves (world size 4, on each mesh of GSPMD_MESHES unless
+# "meshes" says otherwise): JAX's tests/test_sharding.py solves and their
+# sizes; the reference is the same solve from the plain start.
+GSPMD_SOLVES = {
+    "newton": dict(op=("ssy", (8, 8, 4, 4)), method="newton",
+                   opts=dict(tol=1e-10)),
+    "newton_gmres": dict(op=("ssy", (8, 8, 4, 4)), method="newton",
+                         opts=dict(tol=1e-10, inner="gmres",
+                                   inner_maxiter=2), meshes=("2x2",)),
+    "anderson": dict(op=("ssy", (8, 8, 4, 4)), method="anderson",
+                     opts=dict(tol=1e-9)),
+    "sa": dict(op=("ssy", (8, 8, 4, 4)), method="successive_approx",
+               opts=dict(tol=-1.0, max_iter=24, trace_len=8)),
+    "degroot_newton": dict(op=("degroot", (8, 4, 4, 4)), method="newton",
+                           opts=dict(tol=1e-11)),
+}
+
+
+def gspmd_solve_operator(P, kind, shapes):
+    """(T, x0) of a GSPMD solve: the float64 log-space SSY operator from
+    log 800, or de Groot's (h = 0.99) from theta log((1 - beta) 800)."""
+    import torch
+    m = P.SSY()
+    disc = P.discretize_ssy(m, shapes)
+    if kind == "ssy":
+        return (P.T_ssy_factory(m, disc, space="log", device="cpu"),
+                torch.full(shapes, float(np.log(800.0)),
+                           dtype=torch.float64))
+    return (P.T_degroot_factory(m, disc, space="log", h=0.99, device="cpu"),
+            torch.full(shapes, m.theta * float(np.log((1 - m.beta) * 800.0)),
+                       dtype=torch.float64))
+
+
+def implicit_problem(P, sizes=(8, 8, 6, 6)):
+    """JAX's test_implicit_gradient_on_sharded_iterate: mean of the
+    continuous SSY fixed point (quadrature degree 3, float64 log space)
+    as a function of beta; returns (T_of_p, beta0, x0)."""
+    import dataclasses
+    import torch
+    from sdfs_via_autodiff_tpu_torch.operators.continuous_ssy import (
+        _factored_T)
+    model = P.SSY()
+    grids = P.build_grid_ssy(model, *sizes)
+
+    def T_of_p(p, x):
+        return _factored_T(dataclasses.replace(model, beta=p["beta"]), grids,
+                           3, "log", torch.float64, None, device="cpu")(x)
+
+    return T_of_p, model.beta, torch.full(sizes, float(np.log(800.0)),
+                                          dtype=torch.float64)
+
+
+def _implicit_gradient(P, T_of_p, beta0, x0):
+    import torch
+    beta = torch.tensor(beta0, dtype=torch.float64, requires_grad=True)
+    x = P.implicit_fixed_point(T_of_p, {"beta": beta}, x0, method="newton",
+                               tol=1e-10)
+    loss = x.mean()
+    if hasattr(loss, "full_tensor"):
+        loss = loss.full_tensor()
+    (g,) = torch.autograd.grad(loss, beta)
+    return x, g
+
+
+def gspmd_solvers(rank: int, world: int) -> dict:
+    """Every GSPMD_SOLVES entry from a DTensor start with the
+    single-device operator, and from the plain start; and, on one
+    device, how far the same solve moves when its start moves by one
+    ulp (the spread any other rounding may give)."""
+    import torch
+    import sdfs_via_autodiff_tpu_torch as P
+    from sdfs_via_autodiff_tpu_torch import parallel as par
+    out = {}
+    for case, spec in GSPMD_SOLVES.items():
+        T, x0 = gspmd_solve_operator(P, *spec["op"])
+        ref = P.solve(T, x0, method=spec["method"], **spec["opts"])
+        if case in ("newton", "anderson"):
+            up = torch.nextafter(x0, torch.full_like(x0, math.inf))
+            moved = P.solve(T, up, method=spec["method"], **spec["opts"])
+            out[(case, "ulp_spread")] = float((moved.x - ref.x).abs().max())
+        for label in spec.get("meshes", GSPMD_MESHES):
+            mesh = _gspmd_mesh(par, world, label)
+            xd = par.shard_grid_array(x0, mesh)
+            res = P.solve(T, xd, method=spec["method"], **spec["opts"])
+            x = res.x.full_tensor()
+            r = {"iterations": res.iterations, "converged": res.converged,
+                 "residual": res.residual, "ref_iterations": ref.iterations,
+                 "ref_converged": ref.converged,
+                 "ref_residual": ref.residual,
+                 "max_abs_vs_single": float((x - ref.x).abs().max()),
+                 "is_dtensor": par.is_dtensor(res.x),
+                 "placements_kept": (tuple(res.x.placements)
+                                     == tuple(xd.placements)),
+                 "sharded": not all(p.is_replicate()
+                                    for p in res.x.placements)}
+            if res.error_trace is not None:
+                r["trace_max_abs"] = float(
+                    (res.error_trace - ref.error_trace).abs().max())
+            if rank == 0:
+                r["x"] = x.numpy()
+            out[(case, label)] = r
+    return out
+
+
+def gspmd_implicit(rank: int, world: int) -> dict:
+    """The implicit gradient (JAX's test_implicit_gradient_on_sharded_
+    iterate) and the implicit sensitivity from a DTensor start, on each
+    mesh of GSPMD_MESHES, against the plain start's."""
+    import torch
+    import sdfs_via_autodiff_tpu_torch as P
+    from sdfs_via_autodiff_tpu_torch import parallel as par
+    out = {}
+    T_of_p, beta0, x0 = implicit_problem(P)
+    x_ref, g_ref = _implicit_gradient(P, T_of_p, beta0, x0)
+    x_ref = x_ref.detach()
+    p0 = {"beta": torch.tensor(beta0, dtype=torch.float64)}
+    s_ref = P.implicit_sensitivity(T_of_p, p0, {"beta": 1.0}, x_ref,
+                                   rtol=1e-10)
+    out["ref_grad"] = float(g_ref)
+    for label in GSPMD_MESHES:
+        mesh = _gspmd_mesh(par, world, label)
+        xd = par.shard_grid_array(x0, mesh)
+        x, g = _implicit_gradient(P, T_of_p, beta0, xd)
+        x = x.detach()
+        s = P.implicit_sensitivity(T_of_p, p0, {"beta": 1.0}, x, rtol=1e-10)
+        out[label] = {
+            "grad": float(g), "grad_is_plain": type(g) is torch.Tensor,
+            "x_is_dtensor": par.is_dtensor(x),
+            "x_placements_kept": tuple(x.placements) == tuple(xd.placements),
+            "x_max_abs": float((x.full_tensor() - x_ref).abs().max()),
+            "sens_max_rel": float((s.full_tensor() - s_ref).abs().max()
+                                  / s_ref.abs().max()),
+            "sens_placements_kept": (tuple(s.placements)
+                                     == tuple(xd.placements))}
+    return out
+
+
+def gspmd_world1(rank: int, world: int) -> dict:
+    """World size 1 (a 1 x 1 mesh): the operators on a DTensor and SA,
+    Anderson and Newton from a DTensor start against the single-device
+    ones; and the refusals (``_gspmd_refusals``)."""
+    import torch
+    import sdfs_via_autodiff_tpu_torch as P
+    from sdfs_via_autodiff_tpu_torch import parallel as par
+    mesh = par.make_mesh(device="cpu")
+    out = {"refusals": _gspmd_refusals(P, par, world)}
+    for name in ("ssy_log", "ssy_normalized_f32", "gcy_log",
+                 "ssy_continuous", "degroot"):
+        T = gspmd_operator(P, name)
+        x = torch.as_tensor(gspmd_field(name, getattr(
+            T, "baseline_log_w", None)))
+        if GSPMD_OPS[name][2].get("dtype") == "float32":
+            x = x.float()
+        out[name] = bool(torch.equal(T(par.shard_grid_array(x, mesh))
+                                     .full_tensor(), T(x)))
+    T, x0 = gspmd_solve_operator(P, "ssy", (8, 8, 4, 4))
+    for method, opts in (("sa", dict(tol=-1.0, max_iter=24)),
+                         ("anderson", dict(tol=1e-9)),
+                         ("newton", dict(tol=1e-10))):
+        ref = P.solve(T, x0, method=method, **opts)
+        res = P.solve(T, par.shard_grid_array(x0, mesh), method=method,
+                      **opts)
+        x = res.x.full_tensor()
+        out[method] = {"equal": bool(torch.equal(x, ref.x)),
+                       "max_abs": float((x - ref.x).abs().max()),
+                       "iterations": (res.iterations, ref.iterations)}
+    return out
