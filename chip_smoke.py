@@ -227,8 +227,11 @@ Phases, in order; any failure exits non-zero before the result line:
     the SSY 12.6M Tauchen cell, of ``T_gcy_factory`` at the GCY 25.2M
     cell and of the continuous-SSY factored operator at (56,56,56,64),
     each bitwise the single-device one with its placements kept; the
-    tangent route (the derivative of a VJP) against ``torch.func.jvp``
-    at the SSY cell, ms per matvec by CUDA events; the card's allocated
+    tangent route (the operator's hand linearization run on the DTensor)
+    against ``torch.func.jvp`` at the SSY cell, and the derivative of a
+    VJP for ``T_ssy_factory(space="w")``, which has no hand
+    linearization, there (1e-12 of sup |jvp|), ms per matvec by CUDA
+    events; the card's allocated
     bytes after 50 more applications no more than after one; float64
     Newton at tol 1e-10 from phase 31's float32 w* on the DTensor
     (within 1e-10 of
@@ -238,7 +241,15 @@ Phases, in order; any failure exits non-zero before the result line:
     phase 40's de Groot Newton solve (1e-12); one kernel-backed operator
     refusing a DTensor; each solve's seconds beside its single-device
     counterpart's;
-46. a JSON line of per-kernel facts (with each kernel's bound: the
+46. Newton's tangent: at the SSY 12.6M, GCY 25.2M, continuous SSY
+    11.2M (a) and (b), normalized SSY (a) and fused 20^4 cells, the
+    hand linearization (``ops/tangent.py``, one primal per Newton step)
+    against ``torch.func.jvp`` of the twin at the Newton start: the
+    matvecs' difference, ms per matvec on each route (CUDA events,
+    median of 21), the build's ms per Newton step, the stored bytes, a
+    Newton solve's seconds with the card's allocated bytes before and
+    after it (equal), and the same solve's seconds on the jvp route;
+47. a JSON line of per-kernel facts (with each kernel's bound: the
     largest of its FP32 operations over 67 TFLOP/s, its TF32 tensor-core
     operations over 495 TFLOP/s (the deferred pass B at I = 512 and pass
     B's c2 product: split TF32, three TF32 products per FP32 one; their
@@ -361,6 +372,10 @@ SSYC_CHECKS = ((4, 8, 6, 64), (3, 5, 7, 40), (20, 20, 20, 20),
 SSYC_TOL = 2e-5
 SSYC_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
 ANCHOR20 = ((20, 20, 20, 20), 8, 2.5, 976.43571268, 8.62554633)
+# Phase 46: matvecs and builds timed per route, and the float32
+# linearized matvec's distance from the jvp one relative to sup |v| (the
+# CPU tests' bound at small sets; the cells measured 5.1e-8 to 2.3e-7).
+TANGENT_MATVECS, TANGENT_BUILDS, TANGENT_RTOL = 21, 5, 2e-6
 PEAK_FP32 = 67e12           # H100 SXM FP32 (non-tensor) FLOP/s
 PEAK_TF32 = 495e12          # H100 SXM TF32 tensor-core FLOP/s (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -2995,6 +3010,7 @@ def gspmd_phase(torch, port, dev, smi, mesh, refs):
 
     from sdfs_via_autodiff_tpu_torch import parallel as par
     from sdfs_via_autodiff_tpu_torch.drivers import DEFAULT_INIT_W
+    from sdfs_via_autodiff_tpu_torch.parallel import gspmd
     from sdfs_via_autodiff_tpu_torch.operators.continuous_ssy import (
         _factored_T)
 
@@ -3074,14 +3090,38 @@ def gspmd_phase(torch, port, dev, smi, mesh, refs):
             ms_jvp = time_ms(torch, lambda u: torch.func.jvp(
                 lambda y_: T(y_) - y_, (x,), (u,))[1], v,
                 n=GSPMD_MATVECS, runs=3)
-            print(f"tangent route on the DTensor (derivative of a VJP) at "
+            print(f"tangent route on the DTensor (the operator's hand "
+                  f"linearization, DTensor-dispatched) at "
                   f"{MAIN_SHAPES}: {ms_route:.3f} ms per matvec (first "
                   f"matvec with the linearization {setup_s:.3f} s), "
                   f"single-device torch.func.jvp {ms_jvp:.3f} ms per "
                   f"matvec, by CUDA events; max abs vs jvp {err:.3e} "
                   f"({smi})")
             check(err <= 1e-12, f"tangent route vs jvp: {err:.3e}")
-            del op, xl, vl, mv, jv, want, v
+            del op, xl, mv, jv, want
+            # An operator without a hand linearization (w space) takes
+            # the derivative of a VJP on the DTensor.
+            T_w = port.T_ssy_factory(model, port.discretize_ssy(
+                model, MAIN_SHAPES, method=MAIN_METHOD), space="w",
+                device=dev)
+            xw = torch.exp(x)
+            op = par.local_operator(T_w, par.shard_grid_array(xw, mesh))
+            vjp_route = isinstance(op.local_twin, gspmd.VjpLinearization)
+            mv = op.local_twin.linearize(op.to_local(
+                par.shard_grid_array(xw, mesh)))
+            jv, setup_s = timed(lambda: mv(vl) + vl)
+            want = torch.func.jvp(T_w, (xw,), (v,))[1]
+            err = float((jv - want).abs().max()) / float(want.abs().max())
+            ms_route = time_ms(torch, mv, vl, n=GSPMD_MATVECS, runs=3)
+            print(f"tangent route on the DTensor for T_ssy_factory("
+                  f"space='w') at {MAIN_SHAPES} (no hand linearization: "
+                  f"the derivative of a VJP, {type(op.local_twin).__name__})"
+                  f": {ms_route:.3f} ms per matvec (first matvec with the "
+                  f"linearization {setup_s:.3f} s), by CUDA events; max "
+                  f"abs vs jvp relative to sup|jvp| {err:.3e} ({smi})")
+            check(vjp_route and err <= 1e-12, f"w-space tangent route "
+                  f"{type(op.local_twin).__name__} vs jvp: {err:.3e}")
+            del T_w, xw, op, vl, mv, jv, want, v
         del T, x, xd, y, y1
         torch.cuda.empty_cache()
 
@@ -3352,6 +3392,149 @@ def rank_by_rank_phase(torch, port, st, dev, smi, gcyc_ops):
         torch.cuda.empty_cache()
     print(f"rank by rank phase: {time.perf_counter() - t0:.2f} s")
     return launches_by_row
+
+
+def tangent_phase(torch, port, dev, smi):
+    """Phase 46: Newton's tangent, the hand linearization (``T.linearize``,
+    ``ops/tangent.py``: one primal per Newton step, each matvec the
+    stored factors' contractions) against ``torch.func.jvp`` of the twin
+    per matvec, at the Newton cells.  Per cell, at the solve's start x
+    and a seeded v: the two matvecs' difference (relative to sup |v|, the
+    CPU tests' measure, and to sup |(J - I) v|), ms per matvec on each
+    route (CUDA events around each of 21 matvecs, median), the build's ms
+    (median of 5), the stored bytes, then a full Newton solve from x with
+    the card's allocated bytes before and after it (equal: the factors
+    go with the step) and its seconds, and the same solve on the jvp
+    route (a twin without ``linearize``)."""
+    from sdfs_via_autodiff_tpu_torch.ops.tangent import Linearization
+    from sdfs_via_autodiff_tpu_torch.solvers.sharding import tangent_matvec
+
+    ssy, gcy = port.SSY(), port.GCY()
+    grids_c = port.build_grid_ssy(ssy, *SSYC_SHAPES)
+
+    def ssy_cell():
+        disc = port.discretize_ssy(ssy, MAIN_SHAPES, method=MAIN_METHOD)
+        T = port.make_tiled_T_log_ssy(ssy, disc, device=dev)
+        return T, torch.full(MAIN_SHAPES, float(np.log(800.0)),
+                             device=dev), MAIN_TOL
+
+    def gcy_cell():
+        disc = port.discretize_gcy(gcy, GCY_SHAPES, method=GCY_METHOD)
+        T = port.make_tiled_T_log_gcy(gcy, disc, device=dev)
+        x = torch.as_tensor(port.gcy_loglinear_parts(gcy, disc)["ell0"],
+                            dtype=torch.float32, device=dev)
+        return T, x, 1.2 * port.f32_tol_floor(gcy.theta)
+
+    def ssyc_cell(baseline):
+        T = port.make_tiled_T_log_ssy_continuous(ssy, grids_c, 5,
+                                                 baseline=baseline,
+                                                 device=dev)
+        x = (T.baseline_log_w if baseline else torch.as_tensor(
+            loglinear_start(port, ssy, grids_c), dtype=torch.float32,
+            device=dev))
+        return T, x, SSYC_TOL
+
+    def normalized_cell():
+        disc = port.discretize_ssy(ssy, MAIN_SHAPES, method="tauchen")
+        T = port.make_tiled_T_log_ssy(ssy, disc, baseline="loglinear",
+                                      device=dev)
+        return T, T.baseline_log_w, MAIN_TOL
+
+    def fused_cell():
+        grids = [g.float() for g in port.build_grid_ssy(ssy, *FUSED_SIZES)]
+        T = port.make_fused_T_log_ssy_continuous(ssy, grids, device=dev)
+        return T, torch.zeros(FUSED_SIZES, device=dev), FUSED_NEWTON_TOL
+
+    cells = (("SSY 12.6M", ssy_cell), ("GCY 25.2M", gcy_cell),
+             ("continuous SSY 11.2M (a)", lambda: ssyc_cell(None)),
+             ("continuous SSY 11.2M (b)", lambda: ssyc_cell("loglinear")),
+             ("normalized SSY 12.6M (a)", normalized_cell),
+             ("fused 20^4", fused_cell))
+
+    def per_call_ms(fn, x, n=TANGENT_MATVECS):
+        fn(x)
+        times = []
+        for _ in range(n):
+            _, ms = events_ms(torch, lambda: fn(x))
+            times.append(ms)
+        return statistics.median(times)
+
+    out = {}
+    for label, make in cells:
+        torch.cuda.empty_cache()
+        T, x, tol = make()
+        twin = T.twin
+        v = torch.as_tensor(np.random.default_rng(SEED + 46).standard_normal(
+            tuple(x.shape)), dtype=torch.float32, device=dev)
+        lin = tangent_matvec(twin, x)
+        check(isinstance(lin, Linearization),
+              f"{label}: Newton's tangent is not the hand linearization")
+        jvp = lambda u: torch.func.jvp(lambda y: twin(y) - y, (x,), (u,))[1]
+        got, want = lin(v), jvp(v)
+        diff = float((got - want).abs().max())
+        rel_v = diff / float(v.abs().max())
+        rel_mv = diff / float(want.abs().max())
+        del got, want
+        ms_lin, ms_jvp = per_call_ms(lin, v), per_call_ms(jvp, v)
+        builds = []
+        for _ in range(TANGENT_BUILDS):
+            fresh = twin.linearize(x)
+            builds.append(events_ms(torch, fresh.build)[1])
+            nbytes = fresh.nbytes
+            del fresh
+        del lin
+        build_ms = statistics.median(builds)
+        # A full Newton solve: the factors of every step are freed when
+        # the step ends.
+        T(x)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        inner = []
+        t0 = time.perf_counter()
+        res = port.solve(T, x, method="newton", tol=tol,
+                         inner_iterations=inner)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        summary = str(res)
+        converged = res.converged
+        del res
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        # The same solve on the jvp route (a twin without linearize).
+        T_jvp = lambda y: T(y)
+        T_jvp.twin = lambda y: twin(y)
+        inner_j = []
+        t0 = time.perf_counter()
+        res = port.solve(T_jvp, x, method="newton", tol=tol,
+                         inner_iterations=inner_j)
+        torch.cuda.synchronize()
+        secs_j = time.perf_counter() - t0
+        summary_j = str(res)
+        converged_j = res.converged
+        del res, T_jvp
+        print(f"tangent {label} {tuple(x.shape)}: linearized matvec vs "
+              f"jvp max abs diff {diff:.3e} (relative to sup|v| "
+              f"{rel_v:.3e}, to sup|(J - I)v| {rel_mv:.3e}); "
+              f"{ms_lin:.4f} ms per linearized matvec, {ms_jvp:.4f} ms "
+              f"per jvp matvec (CUDA events, median of "
+              f"{TANGENT_MATVECS}); build {build_ms:.4f} ms per Newton "
+              f"step (median of {TANGENT_BUILDS}); stored {nbytes} bytes; "
+              f"Newton {summary}, {sum(inner)} BiCGStab iterations, "
+              f"{secs:.3f} s; allocated before {before} bytes, after "
+              f"{after} bytes; on the jvp route: Newton {summary_j}, "
+              f"{sum(inner_j)} BiCGStab iterations, {secs_j:.3f} s "
+              f"({smi})")
+        check(rel_v <= TANGENT_RTOL, f"{label}: linearized matvec vs jvp "
+              f"{rel_v:.3e} of sup|v|")
+        check(converged, f"{label}: Newton did not converge: {summary}")
+        check(converged_j, f"{label}: Newton on the jvp route did not "
+              f"converge: {summary_j}")
+        check(after == before, f"{label}: the Newton solve left "
+              f"{after - before} bytes on the card")
+        out[label] = (ms_lin, ms_jvp, build_ms, nbytes, secs, secs_j)
+        del T, twin, x, v
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -3653,7 +3836,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     rank_launches = rank_by_rank_phase(torch, port, st, dev, smi, gcyc_ops)
 
-    # 46. Result.
+    # 46. Newton's tangent: the hand linearization against jvp.
+    del gcyc_ops
+    tangent_phase(torch, port, dev, smi)
+
+    # 47. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:

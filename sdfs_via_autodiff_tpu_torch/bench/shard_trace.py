@@ -13,10 +13,10 @@ Tauchen (32,32,32,384) set (fast mode), and
   (single, sharded, sharded, single; host clock, synchronized), with the
   inner iterations of each;
 - times with CUDA events (median of 3 runs of 20 calls) one primal
-  application, one tangent matvec (``torch.func.jvp`` of the twin, as
-  Newton runs it) and the loop's reductions (sup, float64 dot, norm), each
-  on the single-device and the sharded side, and the tangent matvec's
-  host time per call;
+  application, one tangent matvec (a matvec of the twin's linearization
+  at x, as Newton runs it) and the loop's reductions (sup, float64 dot,
+  norm), each on the single-device and the sharded side, and the tangent
+  matvec's host time per call;
 - profiles one solve of each with ``torch.profiler`` and prints the
   kernels with the most device time, the ops with the most self host
   time, the device's busy share (kernel time over the solve's wall
@@ -162,10 +162,10 @@ def _run(dev, smi) -> dict:
                         device=dev)
     flat = v.reshape(-1)
     red = Reductions(Ts.reduce_axis.group)
+    lin1, lins = T1.twin.linearize(x), Ts.local_twin.linearize(x)
     pieces = {
         "primal": (lambda: T1(x), lambda: Ts.local(x)),
-        "tangent": (lambda: torch.func.jvp(T1.twin, (x,), (v,)),
-                    lambda: torch.func.jvp(Ts.local_twin, (x,), (v,))),
+        "tangent": (lambda: lin1(v), lambda: lins(v)),
         "sup": (lambda: LOCAL.sup(v), lambda: red.sup(v)),
         "dot64": (lambda: LOCAL.dot64(flat, flat),
                   lambda: red.dot64(flat, flat)),

@@ -39,7 +39,8 @@ from typing import Callable, Optional
 import torch
 
 from ..config import resolve_device
-from ..ops.dtensor import refuse, transparent
+from ..ops.dtensor import refuse
+from ..ops.tangent import linearizable, log1p_epilogue, lse_step, viewed
 from ..models.ssy import SSY
 from ..operators.continuous_common import expectation_matrix
 from ..operators.continuous_ssy import (_gauss_hermite, _host_grids,
@@ -285,20 +286,23 @@ def fused_layout(R: int, C: int, sms: int = SMS_H100) -> dict:
 
 # --------------------------------------------------------- the kernel
 
-def fused_T_plain(ell, M1, M2T, log_kap, sub, theta: float, beta: float):
+def fused_T_plain(ell, M1, M2T, log_kap, sub, theta: float, beta: float,
+                  tape=None):
     """One application on the (rows, cols) field ``ell``; ``sub`` (rows,
     cols) or None.  The shifts are constants of the tangent (detached),
-    as the JAX package's custom JVP treats them."""
+    as the JAX package's custom JVP treats them.  ``tape``
+    (``ops/tangent.Tape``) records the tangent-linear: the two matmuls,
+    each between its stage's factors."""
     p = theta * ell
+    if tape is not None:
+        tape.scale(theta)
     if sub is not None:
         p = p - sub
-    sh1 = torch.amax(p, dim=0, keepdim=True).detach()
-    u = torch.matmul(M1, torch.exp(p - sh1))
-    log_u = sh1 + torch.log(u)
-    sh2 = torch.amax(log_u, dim=1, keepdim=True).detach()
-    u = torch.matmul(torch.exp(log_u - sh2), M2T)
-    log_hwt = sh2 + torch.log(u) + log_kap
-    return torch.log1p(beta * torch.exp(log_hwt / theta))
+    log_u = lse_step(p, torch.amax(p, dim=0, keepdim=True).detach(),
+                     lambda t: torch.matmul(M1, t), tape)
+    log_hwt = lse_step(log_u, torch.amax(log_u, dim=1, keepdim=True).detach(),
+                       lambda t: torch.matmul(t, M2T), tape) + log_kap
+    return log1p_epilogue(log_hwt, theta, beta, tape)
 
 
 def _lib():
@@ -404,19 +408,21 @@ def make_xla_T_from_operands(M1, M2T, log_kap, theta, beta, shapes,
     """Two-matmul log-space T in plain PyTorch (no kernel, no size cap):
     the same math as the fused kernel, differentiable by ``torch.func``
     and ``torch.autograd``.  It is the fused operator's twin (its tangent
-    and gradient).  ``sub`` (rows, cols), as the kernel takes it, is an
-    extension of the JAX function, which has none."""
+    and gradient; ``T.linearize(x)`` is Newton's tangent-linear).
+    ``sub`` (rows, cols), as the kernel takes it, is an extension of the
+    JAX function, which has none."""
     dev = resolve_device(device)
     M1, M2T, log_kap, sub = _device_operands(M1, M2T, log_kap, sub, dtype,
                                              dev)
     theta, beta = float(theta), float(beta)
     shapes = tuple(shapes)
 
-    @transparent
-    def T(ell):
-        ell_mat = ell.reshape(rows, cols).to(dtype)
-        return fused_T_plain(ell_mat, M1, M2T, log_kap, sub, theta,
-                             beta).reshape(shapes)
+    @linearizable
+    def T(ell, tape=None):
+        ell_mat = viewed(ell, lambda t: t.reshape(rows, cols).to(dtype), tape)
+        out = fused_T_plain(ell_mat, M1, M2T, log_kap, sub, theta, beta,
+                            tape)
+        return viewed(out, lambda t: t.reshape(shapes), tape)
     return T
 
 

@@ -1176,7 +1176,8 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
     ``T.baseline_log_w`` (ell0 on the view, float32 on ``device``).  Its
     derivatives are the twin's at the same point: forward mode
     (``torch.func.jvp``) its tangent, reverse mode (``backward``,
-    ``torch.func.vjp``) its transpose.
+    ``torch.func.vjp``) its transpose; Newton linearizes the twin once
+    per step (``T.twin.linearize``, ``ops/tangent.py``).
     """
     if dtype != torch.float32:
         raise ValueError("the streamed kernels are the float32 tier")

@@ -40,6 +40,7 @@ import torch
 
 from ..config import resolve_device
 from ..ops.dtensor import refuse
+from ..ops.tangent import linearizable, viewed
 from ..operators.two_phase import (TwoPhaseOperands, make_eager_two_phase_T,
                                    two_phase_operands_gcy,
                                    two_phase_operands_gcy_continuous,
@@ -535,8 +536,9 @@ def make_tiled_T_log(ops: TwoPhaseOperands,
     baseline (whose folded factors the LSE steps renormalize), "fast"
     otherwise; a batched column factor larger than ``lazy_bytes`` runs in
     its lazy form when the set has one (``T.lazy`` says which did).  The
-    returned ``T`` carries ``T.twin`` (the eager evaluator, the tangent of
-    ``torch.func.jvp``), ``T.mode``, ``T.engine``, ``T.strip_sizes`` (the
+    returned ``T`` carries ``T.twin`` (the eager evaluator: Newton's
+    tangent through ``T.twin.linearize``, ``torch.func``'s derivatives),
+    ``T.mode``, ``T.engine``, ``T.strip_sizes`` (the
     columns of a c2 product tile, :func:`strip_col_layout`, and the
     columns per row-phase block) and, for a set with a folded baseline,
     ``T.baseline_log_w``.
@@ -692,10 +694,17 @@ def _natural_layout(ops: TwoPhaseOperands, view_T) -> Callable:
         refuse(ell, "the six-state tiled operator")
         return on_view(ell)
 
+    @linearizable
+    def twin(ell, tape=None):
+        out = view_T.twin.primal(
+            viewed(ell, lambda t: to_view(t).reshape(ops.shapes), tape), tape)
+        return viewed(out, lambda t: from_view(t.reshape(view_shapes))
+                      .contiguous(), tape)
+
     T.view_T = view_T
     T.to_view = to_view
     T.from_view = from_view
-    T.twin = natural(view_T.twin)
+    T.twin = twin
     T.mode = view_T.mode
     T.engine = view_T.engine
     for attr in ("strip_sizes", "lazy"):

@@ -27,6 +27,7 @@ from ..config import resolve_device
 from ..ops.dtensor import transparent
 from ..models.gcy import GCY, gcy_loglinear_factory
 from ..ops.contract import lse_matmul
+from ..ops.tangent import linearizable, log1p_epilogue
 from ..ops.grids import build_grid_gcy
 from ..ops.quadrature import tensor_quadrature_normal
 from .continuous_common import (expectation_matrix, make_gather_T, mc_draws,
@@ -217,19 +218,21 @@ def _factored_T(model, grids, degree, space, dtype, baseline=None, *,
             return 1.0 + beta * kg ** (1.0 / theta)
         return T
 
-    @transparent
-    def T(ell):
+    @linearizable
+    def T(ell, tape=None):
         a = theta * (ell if ell0 is None else ell - ell0)
-        a = lse_matmul(P_lam, a, "lL,LKIYJB->lKIYJB", 0)
-        a = lse_matmul(P_c, a, "kK,lKIYJB->lkIYJB", 1)
-        a = lse_matmul(P_hz, a, "iI,lkIYJB->lkiYJB", 2)
-        a = lse_matmul(P_hzpi, a, "yY,lkiYJB->lkiyJB", 3)
-        a = lse_matmul(P_zpi, a, "ybB,lkiyJB->lkiyJb", 5)
-        a = lse_matmul(P_z, a, "ijbJ,lkiyJb->lkiyjb", 4)
+        if tape is not None:
+            tape.scale(theta)
+        a = lse_matmul(P_lam, a, "lL,LKIYJB->lKIYJB", 0, tape=tape)
+        a = lse_matmul(P_c, a, "kK,lKIYJB->lkIYJB", 1, tape=tape)
+        a = lse_matmul(P_hz, a, "iI,lkIYJB->lkiYJB", 2, tape=tape)
+        a = lse_matmul(P_hzpi, a, "yY,lkiYJB->lkiyJB", 3, tape=tape)
+        a = lse_matmul(P_zpi, a, "ybB,lkiyJB->lkiyJb", 5, tape=tape)
+        a = lse_matmul(P_z, a, "ijbJ,lkiyJb->lkiyjb", 4, tape=tape)
         if ell0 is not None:
             a = a + theta * ell0
         log_kg = a + log_kappa[expand]
-        return torch.log1p(beta * torch.exp(log_kg / theta))
+        return log1p_epilogue(log_kg, theta, beta, tape)
 
     if ell0 is not None:
         T.baseline_log_w = ell0

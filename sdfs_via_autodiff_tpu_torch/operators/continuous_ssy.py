@@ -29,6 +29,7 @@ from ..config import resolve_device
 from ..ops.dtensor import transparent
 from ..models.ssy import SSY, ssy_loglinear_factory
 from ..ops.contract import lse_matmul
+from ..ops.tangent import linearizable, log1p_epilogue
 from ..ops.grids import build_grid_ssy
 from ..ops.quadrature import gauss_hermite_normal, tensor_quadrature_normal
 from .continuous_common import (expectation_matrix, make_gather_T, mc_draws,
@@ -186,17 +187,19 @@ def _factored_T(model, grids, degree, space, dtype, baseline=None, *,
             return 1.0 + beta * kg ** (1.0 / theta)
         return T
 
-    @transparent
-    def T(ell):
+    @linearizable
+    def T(ell, tape=None):
         a = theta * (ell if ell0 is None else ell - ell0)
-        a = lse_matmul(P_lam, a, "lL,LKIJ->lKIJ", 0)
-        a = lse_matmul(P_c, a, "kK,lKIJ->lkIJ", 1)
-        a = lse_matmul(P_hz, a, "iI,lkIJ->lkiJ", 2)
-        a = lse_matmul(P_z, a, "ijJ,lkiJ->lkij", 3)
+        if tape is not None:
+            tape.scale(theta)
+        a = lse_matmul(P_lam, a, "lL,LKIJ->lKIJ", 0, tape=tape)
+        a = lse_matmul(P_c, a, "kK,lKIJ->lkIJ", 1, tape=tape)
+        a = lse_matmul(P_hz, a, "iI,lkIJ->lkiJ", 2, tape=tape)
+        a = lse_matmul(P_z, a, "ijJ,lkiJ->lkij", 3, tape=tape)
         if ell0 is not None:
             a = a + theta * ell0
         log_kg = a + log_kappa[None, :, None, :]
-        return torch.log1p(beta * torch.exp(log_kg / theta))
+        return log1p_epilogue(log_kg, theta, beta, tape)
 
     if ell0 is not None:
         T.baseline_log_w = ell0

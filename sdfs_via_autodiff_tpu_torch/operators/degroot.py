@@ -41,6 +41,7 @@ from ..ops.dtensor import transparent
 from ..models.gcy import GCY
 from ..models.ssy import SSY
 from ..ops.contract import lse_matmul
+from ..ops.tangent import linearizable
 
 __all__ = ["T_degroot_factory", "T_degroot_continuous_factory",
            "existence_check_degroot", "DeGrootExistenceReport"]
@@ -81,11 +82,11 @@ def _K_tilde(model, disc, transcendentals: str = "accurate", dtype=None,
             # the canonical chain with plain Q_lam in place of B_lam
             return _hw_theta_factored(v, Ql, Qc, Qhz, zP, A2, A3)
 
-        def apply_K_log(a):                    # a = ln g
-            a = lse_matmul(Ql, a, "lm,mkij->lkij", 0)
-            a = lse_matmul(Qc, a, "km,lmij->lkij", 1)
-            a = lse_matmul(Qhz, a, "im,lkmj->lkij", 2)
-            a = lse_matmul(zP, a, "jm,lkim->lkij", 3)
+        def apply_K_log(a, tape=None):         # a = ln g
+            a = lse_matmul(Ql, a, "lm,mkij->lkij", 0, tape=tape)
+            a = lse_matmul(Qc, a, "km,lmij->lkij", 1, tape=tape)
+            a = lse_matmul(Qhz, a, "im,lkmj->lkij", 2, tape=tape)
+            a = lse_matmul(zP, a, "jm,lkim->lkij", 3, tape=tape)
             return (a + log_A2[None, :, None, None]
                     + log_A3[None, None, :, :])
 
@@ -103,9 +104,9 @@ def _K_tilde(model, disc, transcendentals: str = "accurate", dtype=None,
             # the canonical chain with plain Q_lam in place of B_lam
             return _hw_theta_factored_gcy(v, factors, A2, A3)
 
-        def apply_K_log(a):
+        def apply_K_log(a, tape=None):
             for M, (subs, axis) in zip(factors, _CHAIN):
-                a = lse_matmul(M, a, subs, axis)
+                a = lse_matmul(M, a, subs, axis, tape=tape)
             return (a + log_A2[None, None, None, :, None, None]
                     + log_A3[:, :, :, None, :, None])
 
@@ -145,11 +146,14 @@ def _degroot_T(model, h, space, dtype, apply_K, apply_K_log, shapes,
             k = apply_K(g)
             return (1.0 - hb + hb * k ** (1.0 / theta)) ** theta
     else:
-        @transparent
-        def T(ell):
-            k_log = apply_K_log(ell)
-            return theta_c * torch.log(1.0 - hb
-                                       + hb * torch.exp(k_log / theta_c))
+        @linearizable
+        def T(ell, tape=None):
+            k_log = apply_K_log(ell, tape)
+            e = hb * torch.exp(k_log / theta_c)
+            q = 1.0 - hb + e
+            if tape is not None:
+                tape.scale(e / q)
+            return theta_c * torch.log(q)
     return T
 
 
@@ -247,11 +251,11 @@ def _K_tilde_continuous(model, grids, degree,
             u = torch.einsum("ijJ,lkiJ->lkij", P_z, u)
             return kappa[None, :, None, :] * u
 
-        def apply_K_log(a):                    # a = ln g
-            a = lse_matmul(P_lam, a, "lL,LKIJ->lKIJ", 0)
-            a = lse_matmul(P_c, a, "kK,lKIJ->lkIJ", 1)
-            a = lse_matmul(P_hz, a, "iI,lkIJ->lkiJ", 2)
-            a = lse_matmul(P_z, a, "ijJ,lkiJ->lkij", 3)
+        def apply_K_log(a, tape=None):         # a = ln g
+            a = lse_matmul(P_lam, a, "lL,LKIJ->lKIJ", 0, tape=tape)
+            a = lse_matmul(P_c, a, "kK,lKIJ->lkIJ", 1, tape=tape)
+            a = lse_matmul(P_hz, a, "iI,lkIJ->lkiJ", 2, tape=tape)
+            a = lse_matmul(P_z, a, "ijJ,lkiJ->lkij", 3, tape=tape)
             return (a + log_A2[None, :, None, None]
                     + log_A3[None, None, None, :])
 
@@ -275,13 +279,13 @@ def _K_tilde_continuous(model, grids, degree,
             u = torch.einsum("ijbJ,lkiyJb->lkiyjb", P_z, u)
             return kappa[None, :, None, None, :, None] * u
 
-        def apply_K_log(a):
-            a = lse_matmul(P_lam, a, "lL,LKIYJB->lKIYJB", 0)
-            a = lse_matmul(P_c, a, "kK,lKIYJB->lkIYJB", 1)
-            a = lse_matmul(P_hz, a, "iI,lkIYJB->lkiYJB", 2)
-            a = lse_matmul(P_hzpi, a, "yY,lkiYJB->lkiyJB", 3)
-            a = lse_matmul(P_zpi, a, "ybB,lkiyJB->lkiyJb", 5)
-            a = lse_matmul(P_z, a, "ijbJ,lkiyJb->lkiyjb", 4)
+        def apply_K_log(a, tape=None):
+            a = lse_matmul(P_lam, a, "lL,LKIYJB->lKIYJB", 0, tape=tape)
+            a = lse_matmul(P_c, a, "kK,lKIYJB->lkIYJB", 1, tape=tape)
+            a = lse_matmul(P_hz, a, "iI,lkIYJB->lkiYJB", 2, tape=tape)
+            a = lse_matmul(P_hzpi, a, "yY,lkiYJB->lkiyJB", 3, tape=tape)
+            a = lse_matmul(P_zpi, a, "ybB,lkiyJB->lkiyJb", 5, tape=tape)
+            a = lse_matmul(P_z, a, "ijbJ,lkiyJb->lkiyjb", 4, tape=tape)
             return (a + log_A2[None, :, None, None, None, None]
                     + log_A3[None, None, None, None, :, None])
 

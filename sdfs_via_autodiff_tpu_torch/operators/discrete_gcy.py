@@ -33,6 +33,7 @@ from ..config import resolve_device
 from ..ops.dtensor import transparent
 from ..models.gcy import GCY
 from ..ops.contract import lse_matmul, normalize_rows_log
+from ..ops.tangent import linearizable, log1p_epilogue
 from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
 from ..ops.tauchen import tauchen, tauchen_P, tauchen_ladder
 
@@ -208,15 +209,17 @@ def T_gcy_factory(model: GCY,
     log_A2 = torch.log(A2)
     log_A3 = torch.log(A3)
 
-    @transparent
-    def T(ell):
+    @linearizable
+    def T(ell, tape=None):
         # Per-axis log-sum-exp contractions (float32-safe at any range).
         a = theta * ell
+        if tape is not None:
+            tape.scale(theta)
         for M, (subs, axis) in zip(factors, _CHAIN):
-            a = lse_matmul(M, a, subs, axis)
+            a = lse_matmul(M, a, subs, axis, tape=tape)
         log_hwt = (a + log_A2[None, None, None, :, None, None]
                    + log_A3[:, :, :, None, :, None])
-        return torch.log1p(beta * torch.exp(log_hwt / theta))
+        return log1p_epilogue(log_hwt, theta, beta, tape)
     return T
 
 
@@ -354,14 +357,17 @@ def _T_gcy_normalized(model: GCY, disc: GCYDiscretization, *, dtype=None,
     ell0_t = cast(parts["ell0"])
     t_c = torch.tensor(theta, dtype=dtype, device=device)
 
-    @transparent
-    def T(ell):
+    def primal(ell, tape=None):
         a = t_c * (ell - ell0_t)
+        if tape is not None:
+            tape.scale(t_c)
         for M, ls, subs, ax in steps:
             a = lse_matmul(M, a, subs, ax, deep_window=deep,
-                           deep_passes=3) + ls
+                           deep_passes=3, tape=tape) + ls
         log_hwt = t_c * ell0_t + a + log_A2 + log_A3
-        return torch.log1p(beta * torch.exp(log_hwt / t_c))
+        return log1p_epilogue(log_hwt, t_c, beta, tape)
 
+    # The float32 deep windows keep their own jvp (no linearization).
+    T = transparent(primal) if deep else linearizable(primal)
     T.baseline_log_w = ell0_t
     return T

@@ -30,6 +30,7 @@ from ..config import resolve_device
 from ..ops.dtensor import transparent
 from ..models.ssy import SSY
 from ..ops.contract import lse_matmul, normalize_rows_log
+from ..ops.tangent import linearizable, log1p_epilogue
 from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
 from ..ops.tauchen import tauchen, tauchen_P, tauchen_ladder
 
@@ -179,18 +180,20 @@ def T_ssy_factory(model: SSY,
     log_A2 = torch.log(A2)
     log_A3 = torch.log(A3)
 
-    @transparent
-    def T(ell):
+    @linearizable
+    def T(ell, tape=None):
         # Per-axis log-sum-exp contractions: exact for any dynamic range
         # of theta*ell (see ops/contract.py).
         a = theta * ell
-        a = lse_matmul(B_lam, a, "lm,mkij->lkij", 0)
-        a = lse_matmul(Qc, a, "km,lmij->lkij", 1)
-        a = lse_matmul(Qhz, a, "im,lkmj->lkij", 2)
-        a = lse_matmul(zP, a, "jm,lkim->lkij", 3)
+        if tape is not None:
+            tape.scale(theta)
+        a = lse_matmul(B_lam, a, "lm,mkij->lkij", 0, tape=tape)
+        a = lse_matmul(Qc, a, "km,lmij->lkij", 1, tape=tape)
+        a = lse_matmul(Qhz, a, "im,lkmj->lkij", 2, tape=tape)
+        a = lse_matmul(zP, a, "jm,lkim->lkij", 3, tape=tape)
         log_hwt = (a + log_A2[None, :, None, None]
                    + log_A3[None, None, :, :])
-        return torch.log1p(beta * torch.exp(log_hwt / theta))
+        return log1p_epilogue(log_hwt, theta, beta, tape)
     return T
 
 
@@ -303,14 +306,17 @@ def _T_ssy_normalized(model: SSY, disc: SSYDiscretization, *, dtype=None,
     log_A3 = cast(arrs["log_A3"])[None, None, :, :]
     theta_c = torch.tensor(theta, dtype=dtype, device=device)
 
-    @transparent
-    def T(ell):
+    def primal(ell, tape=None):
         a = theta_c * (ell - ell0_t)
+        if tape is not None:
+            tape.scale(theta_c)
         for M, ls, subs, ax in steps:
             a = lse_matmul(M, a, subs, ax, deep_window=deep,
-                           deep_passes=3) + ls
+                           deep_passes=3, tape=tape) + ls
         log_hwt = theta_c * ell0_t + a + log_A2 + log_A3
-        return torch.log1p(beta * torch.exp(log_hwt / theta_c))
+        return log1p_epilogue(log_hwt, theta_c, beta, tape)
 
+    # The float32 deep windows keep their own jvp (no linearization).
+    T = transparent(primal) if deep else linearizable(primal)
     T.baseline_log_w = ell0_t
     return T

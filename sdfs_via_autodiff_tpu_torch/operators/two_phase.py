@@ -17,7 +17,8 @@ grouping (:func:`two_phase_operands_gcy`, discrete;
 :func:`two_phase_operands_gcy_continuous`, continuous).  The streamed kernels (``kernels/streamed_two_phase.py``)
 run each phase as one pass over the field; :func:`make_eager_two_phase_T`
 is the plain eager evaluator of the same math — the kernels' tangent
-(Newton's inner matvecs) and their agreement oracle.
+(Newton's inner matvecs, through its ``linearize``) and their agreement
+oracle.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..ops.dtensor import transparent
+from ..ops.tangent import linearizable, lse_step, log1p_epilogue, viewed
 
 __all__ = ["TwoPhaseOperands", "two_phase_operands_ssy",
            "two_phase_operands_ssy_continuous", "two_phase_operands_gcy",
@@ -685,12 +686,13 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
 
     The same math as the kernels with per-axis shifts at every
     contraction: their agreement oracle and their tangent (it is
-    differentiable by ``torch.func``).  A batched c1 step contracts each
-    next-c2 slice with its own factor, ``einsum("jim,tmj->tij")``, a
-    batched c2 step each c1 slice, ``einsum("ijm,tim->tij")``, as in the
-    JAX package's XLA twin.  A set built with ``dense=False`` (broadcast
-    placeholders for its batched factors) raises ``ValueError``.  A pair
-    set's c2 step takes one
+    differentiable by ``torch.func``, and ``T.linearize(x)`` is Newton's
+    tangent-linear at ``x``, ``ops/tangent.py``).  A batched c1 step
+    contracts each next-c2 slice with its own factor,
+    ``einsum("jim,tmj->tij")``, a batched c2 step each c1 slice,
+    ``einsum("ijm,tim->tij")``, as in the JAX package's XLA twin.  A set
+    built with ``dense=False`` (broadcast placeholders for its batched
+    factors) raises ``ValueError``.  A pair set's c2 step takes one
     shift over the whole (B', J') slice, then contracts next-z_pi with
     P_zpi and next-z with P_z, as the JAX package's XLA twin does.
     float32 contractions run in full FP32: on a CUDA device it raises
@@ -712,24 +714,25 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
         sub = cast(np.asarray(ops.sub_row).reshape(-1)[:, None, None]
                    + np.asarray(ops.sub_col)[None, :, :])    # (R, c1, c2)
     theta, beta = float(ops.theta), float(ops.beta)
+    shapes = tuple(ops.shapes)
 
-    @transparent
-    def T(ell):
+    @linearizable
+    def T(ell, tape=None):
         check_full_fp32(ell)
-        a = theta * ell.to(dtype).reshape(R, n_c1, n_c2)
+        a = theta * viewed(ell, lambda t: t.to(dtype).reshape(R, n_c1, n_c2),
+                           tape)
+        if tape is not None:
+            tape.scale(theta)
         if sub is not None:
             a = a - sub
-        a = column(a)
-        b = a.reshape(n_r1, n_r2, C)
-        m = torch.amax(b, dim=0, keepdim=True)
-        b = m + torch.log(torch.einsum("lm,mkt->lkt", W_r1,
-                                       torch.exp(b - m)))
-        m = torch.amax(b, dim=1, keepdim=True)
-        b = m + torch.log(torch.einsum("km,lmt->lkt", W_r2,
-                                       torch.exp(b - m)))
+        b = viewed(column(a, tape), lambda t: t.reshape(n_r1, n_r2, C), tape)
+        b = lse_step(b, torch.amax(b, dim=0, keepdim=True),
+                     lambda t: torch.einsum("lm,mkt->lkt", W_r1, t), tape)
+        b = lse_step(b, torch.amax(b, dim=1, keepdim=True),
+                     lambda t: torch.einsum("km,lmt->lkt", W_r2, t), tape)
         log_hwt = b + add
-        return torch.log1p(beta * torch.exp(log_hwt / theta)).reshape(
-            ops.shapes)
+        out = log1p_epilogue(log_hwt, theta, beta, tape)
+        return viewed(out, lambda t: t.reshape(shapes), tape)
 
     return T
 
@@ -769,18 +772,20 @@ def eager_column_phase(ops: TwoPhaseOperands,
     c1_sub = "jim,tmj->tij" if ops.c1_batched else "im,tmj->tij"
     mid = cast(ops.mid_col) if ops.has_mid else None
 
-    def column(a):
-        m = torch.amax(a, dim=1, keepdim=True)
-        a = m + torch.log(torch.einsum(c1_sub, W_c1, torch.exp(a - m)))
+    def c2_pair(e):
+        rows = e.shape[0]
+        v = torch.einsum("ybB,tiyBJ->tiybJ", P_zpi,
+                         e.reshape(rows, n_i, n_y, n_b, n_j))
+        u = torch.einsum("ijbJ,tiybJ->tiybj", P_z, v)
+        return u.reshape(rows, n_c1, n_c2)
+
+    def column(a, tape=None):
+        a = lse_step(a, torch.amax(a, dim=1, keepdim=True),
+                     lambda t: torch.einsum(c1_sub, W_c1, t), tape)
         if mid is not None:
             a = a + mid
-        m = torch.amax(a, dim=2, keepdim=True)
-        if ops.is_pair:
-            rows = a.shape[0]
-            e = torch.exp(a - m).reshape(rows, n_i, n_y, n_b, n_j)
-            v = torch.einsum("ybB,tiyBJ->tiybJ", P_zpi, e)
-            u = torch.einsum("ijbJ,tiybJ->tiybj", P_z, v)
-            return m + torch.log(u.reshape(rows, n_c1, n_c2))
-        return m + torch.log(torch.einsum(c2_sub, W_c2, torch.exp(a - m)))
+        return lse_step(a, torch.amax(a, dim=2, keepdim=True),
+                        c2_pair if ops.is_pair
+                        else lambda t: torch.einsum(c2_sub, W_c2, t), tape)
 
     return column

@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .tangent import lse_step
+
 __all__ = ["lse_matmul", "normalize_rows_log"]
 
 
@@ -207,7 +209,7 @@ class _LseMatmulDeep(torch.autograd.Function):
 
 def lse_matmul(M: torch.Tensor, log_v: torch.Tensor, subscripts: str,
                axis: int, deep_window: float = 0.0,
-               deep_passes: int = 2) -> torch.Tensor:
+               deep_passes: int = 2, tape=None) -> torch.Tensor:
     """log of ``einsum(subscripts, M, exp(log_v))`` with a per-slice shift
     over the contracted ``axis`` of ``log_v``.
 
@@ -222,12 +224,18 @@ def lse_matmul(M: torch.Tensor, log_v: torch.Tensor, subscripts: str,
     output row, e.g. a Rouwenhorst ladder corner, can have its whole mass
     below the single window (exp(v - m) flushes to 0), and the deeper
     window represents it (:func:`_deep_passes`).
+
+    ``tape`` (``ops/tangent.Tape``) records the contraction's tangent for
+    Newton's linearization; the deep windows keep their own ``jvp`` and
+    refuse one.
     """
     M, log_s = _rowsum_align(M, subscripts, axis)
     if deep_window and log_v.dtype == torch.float32:
+        if tape is not None:
+            raise ValueError("the float32 deep-window contraction has no "
+                             "tangent tape; linearize it by torch.func.jvp")
         return _LseMatmulDeep.apply(M, log_v, subscripts, axis,
                                     float(deep_window),
                                     int(deep_passes)) + log_s
-    m = _safe_shift(log_v, axis)
-    u = torch.einsum(subscripts, M, torch.exp(log_v - m))
-    return m + torch.log(u) + log_s
+    return lse_step(log_v, _safe_shift(log_v, axis),
+                    lambda t: torch.einsum(subscripts, M, t), tape) + log_s

@@ -1,0 +1,164 @@
+"""Newton's tangent-linear of the log-sum-exp chains, built once per step.
+
+The JAX package's Newton solver calls ``jax.linearize`` once per Newton
+step: the primal chain runs once at the linearization point, its
+intermediates are kept, and every Krylov matvec is the pure tangent-linear
+chain.  ``torch.func.linearize`` traces the chain on every step, a host
+cost larger than the primal it saves, so the port writes the
+tangent-linear by hand: each operator's primal takes an optional
+:class:`Tape` and says, stage by stage, what its tangent is.
+
+Each contraction stage is ``y = m + log(W e^{a - m})``.  With
+``E = e^{a - m}`` and ``D = W E`` its tangent is
+
+    dy = W (E * da) / D,
+
+exact: the shift's tangent cancels between ``m`` and ``log``, so ties in
+the maximum do not matter.  The constants of the chain (baseline folds,
+``mid_col``, log kappa, row-normalization logs) carry no tangent, a
+scale by theta is a factor, and the epilogue ``log1p(q)``, ``q = beta
+e^{h/theta}``, has the factor ``q / ((1 + q) theta)``.  A matvec is then
+the stages' contractions with one elementwise product between each two:
+the tape multiplies every run of factors into one stored tensor (``1/D``
+of a stage times the next stage's ``E``), so a chain of n contractions
+keeps n + 1 field-sized factors and its matvec runs no exp, log or max.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .dtensor import apply, is_dtensor, transparent
+
+__all__ = ["Tape", "Linearization", "linearizable", "lse_step",
+           "log1p_epilogue", "viewed"]
+
+
+class Tape:
+    """The tangent-linear of a chain, written down while its primal runs.
+
+    Steps, in the primal's order: :meth:`scale` (an elementwise factor:
+    a float, a 0-d tensor or a field), :meth:`linear` (a linear map of the
+    field, such as a contraction), :meth:`view` (a reshape, permute or
+    cast, which commutes with the factors) and :meth:`lse` (a contraction
+    stage).  Consecutive factors are multiplied into one as they come,
+    through views, so the tape holds one factor between each two linear
+    maps."""
+
+    def __init__(self):
+        self._steps = []         # factors (tensors or floats) and maps
+        self._factor = None
+
+    def scale(self, f) -> None:
+        self._factor = f if self._factor is None else self._factor * f
+
+    def linear(self, fn: Callable) -> None:
+        self._flush()
+        self._steps.append(fn)
+
+    def view(self, fn: Callable) -> None:
+        if torch.is_tensor(self._factor) and self._factor.dim() > 0:
+            self._factor = fn(self._factor)
+        self._steps.append(fn)
+
+    def lse(self, e, contract: Callable, u) -> None:
+        """A stage ``m + log(contract(e))``, ``e = exp(a - m)``, ``u =
+        contract(e)``: its tangent ``contract(e * da) / u``."""
+        self.scale(e)
+        self.linear(contract)
+        self.scale(torch.reciprocal(u))
+
+    def _flush(self) -> None:
+        if self._factor is not None:
+            self._steps.append(self._factor)
+            self._factor = None
+
+    def finish(self) -> list:
+        self._flush()
+        return self._steps
+
+
+def viewed(x, fn: Callable, tape=None):
+    """``fn(x)`` for a reshape, permute or cast ``fn``, recording it on
+    ``tape``."""
+    if tape is not None:
+        tape.view(fn)
+    return fn(x)
+
+
+def lse_step(a, m, contract: Callable, tape=None):
+    """``m + log(contract(exp(a - m)))`` for the shift ``m``, recording the
+    stage on ``tape``."""
+    e = torch.exp(a - m)
+    u = contract(e)
+    if tape is not None:
+        tape.lse(e, contract, u)
+    return m + torch.log(u)
+
+
+def log1p_epilogue(log_hwt, theta, beta: float, tape=None):
+    """``log1p(beta * exp(log_hwt / theta))``, the log-space operators'
+    epilogue, recording its factor ``q / ((1 + q) theta)`` on ``tape``."""
+    q = beta * torch.exp(log_hwt / theta)
+    if tape is not None:
+        tape.scale(q / ((1 + q) * theta))
+    return torch.log1p(q)
+
+
+def _run(steps, v):
+    for s in steps:
+        v = s(v) if callable(s) else v * s
+    return v
+
+
+class Linearization:
+    """Newton's ``v -> J(x) v - v`` of ``primal(ell, tape)`` at ``x``.
+
+    The primal runs once, with a :class:`Tape`, on the first matvec (a
+    frozen Newton step, whose Krylov solve makes none, builds nothing);
+    every matvec then replays the tape.  The factors live as long as this
+    object: the solver drops it when its Newton step ends.  A DTensor
+    ``x`` builds and replays under ``ops/dtensor``'s constant lifting, the
+    result on the tangent's placements."""
+
+    def __init__(self, primal: Callable, x):
+        self._primal = primal
+        self._x = x
+        self._steps = None
+
+    def build(self) -> None:
+        tape = Tape()
+        with torch.no_grad():
+            if is_dtensor(self._x):
+                apply(lambda y: self._primal(y, tape), self._x)
+            else:
+                self._primal(self._x, tape)
+        self._steps = tape.finish()
+        self._x = None
+
+    def __call__(self, v):
+        if self._steps is None:
+            self.build()
+        with torch.no_grad():
+            jv = (apply(lambda t: _run(self._steps, t), v) if is_dtensor(v)
+                  else _run(self._steps, v))
+        return jv - v
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the stored factors (0 before the build)."""
+        return sum(s.numel() * s.element_size() for s in self._steps or ()
+                   if torch.is_tensor(s))
+
+
+def linearizable(primal: Callable) -> Callable:
+    """The operator ``primal(ell)`` (DTensor-transparent,
+    ``ops/dtensor.transparent``) with ``T.linearize(x)``, a
+    :class:`Linearization` of ``primal(ell, tape)`` at ``x``, and
+    ``T.primal``, for an operator that composes it."""
+    T = transparent(primal)
+    T.linearize = lambda x: Linearization(primal, x)
+    T.primal = primal
+    return T

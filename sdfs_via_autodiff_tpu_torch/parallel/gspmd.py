@@ -9,10 +9,13 @@ they need on top of that:
   start (this rank's shard -> DTensor -> T -> shard), as a
   :class:`~.shard_ops.ShardedOperator` whose reductions span only the
   ranks that hold distinct shards.
-* The tangent: forward-mode AD does not run on a DTensor (torch
-  2.11-2.13), so it is the derivative of a VJP (:class:`VjpLinearization`,
-  :func:`jvp_by_vjp`): per linearization point one primal and one
-  backward with its graph kept, then one double-backward pass per matvec.
+* The tangent: an operator with a hand linearization (``T.linearize``,
+  ``ops/tangent.py``) runs it on the DTensor, plain ops that DTensor
+  dispatches (:class:`_LocalLinearization`).  Forward-mode AD does not
+  run on a DTensor (torch 2.11-2.13), so for any other operator it is the
+  derivative of a VJP (:class:`VjpLinearization`, :func:`jvp_by_vjp`):
+  per linearization point one primal and one backward with its graph
+  kept, then one double-backward pass per matvec.
 """
 
 from __future__ import annotations
@@ -62,6 +65,24 @@ class VjpLinearization:
         return matvec
 
 
+class _LocalLinearization:
+    """The local form of an operator with a hand linearization: its
+    tangent tape built and replayed on the DTensor (this rank's shard in,
+    its shard out), one build per linearization point."""
+
+    def __init__(self, fn: Callable, linearize: Callable, spec: tuple):
+        self.fn = fn
+        self._linearize = linearize
+        self._spec = spec                # mesh, placements, shape, stride
+
+    def __call__(self, x):
+        return self.fn(x)
+
+    def linearize(self, x) -> Callable:
+        lin = self._linearize(from_local(x, *self._spec))
+        return lambda v: to_local(lin(from_local(v, *self._spec)))
+
+
 def jvp_by_vjp(fn: Callable, primals: tuple, tangents: tuple):
     """``fn``'s tangent at ``primals`` along ``tangents`` as the
     derivative of its VJP (one primal, one backward with its graph and
@@ -99,9 +120,10 @@ def local_operator(T: Callable, x0):
     """The local form of ``T`` at the DTensor start ``x0``: a
     :class:`~.shard_ops.ShardedOperator` with ``x0``'s mesh and
     placements whose ``local`` maps this rank's shard to its shard of
-    ``T``'s result, ``local_twin`` the same for ``T.twin`` (or ``T``) as
-    a :class:`VjpLinearization`, and ``reduce_axis`` the ranks holding
-    distinct shards."""
+    ``T``'s result, ``local_twin`` the same for ``T.twin`` (or ``T``),
+    linearized by its own ``linearize`` on the DTensor where it has one
+    (:class:`_LocalLinearization`), else a :class:`VjpLinearization`,
+    and ``reduce_axis`` the ranks holding distinct shards."""
     mesh, placements = x0.device_mesh, tuple(x0.placements)
     shape, stride = tuple(x0.shape), x0.stride()
 
@@ -114,7 +136,13 @@ def local_operator(T: Callable, x0):
             return to_local(y)
         return local
 
+    twin = getattr(T, "twin", T)
+    if hasattr(twin, "linearize"):
+        local_twin = _LocalLinearization(local_of(twin), twin.linearize,
+                                         (mesh, placements, shape, stride))
+    else:
+        local_twin = VjpLinearization(local_of(twin))
     return ShardedOperator(
         local_of(T), mesh, placements, shape, _distinct_axis(mesh,
                                                              placements),
-        local_twin=VjpLinearization(local_of(getattr(T, "twin", T))))
+        local_twin=local_twin)

@@ -50,6 +50,8 @@ from ..operators.discrete_ssy import SSYDiscretization, _ssy_factors
 from ..operators.two_phase import (TwoPhaseOperands, check_full_fp32,
                                    eager_column_phase)
 from ..ops.contract import lse_matmul
+from ..ops.tangent import (Linearization, log1p_epilogue, lse_step,
+                           viewed)
 from .mesh import mesh_device
 
 __all__ = ["ShardedOperator", "StreamedShardPlan", "T_ssy_shard_map_factory",
@@ -195,7 +197,7 @@ class _ReduceScatter(torch.autograd.Function):
 
 
 def _cross_shard_lse(b: torch.Tensor, W_cols: torch.Tensor, axis: int,
-                     ax: _Axis) -> torch.Tensor:
+                     ax: _Axis, tape=None) -> torch.Tensor:
     """One LSE contraction over a grid axis sharded on ``ax``: ``b``
     (L_loc, K_loc, C), the factor's column block ``W_cols`` (N, N_loc) of
     the sharded ``axis`` (0 or 1).  m + log u with the shift m the global
@@ -207,13 +209,15 @@ def _cross_shard_lse(b: torch.Tensor, W_cols: torch.Tensor, axis: int,
     :class:`_ReduceScatter`'s.  On one rank the shift is the rank's own
     maximum with ``torch.amax``'s derivative, as on one device: the
     result and its derivatives are then bitwise the single-device
-    step's, and a solve through the sharded operator takes its steps."""
+    step's, and a solve through the sharded operator takes its steps.
+    ``tape`` records the stage for Newton's linearization: its matvec
+    runs the partial matmul and the reduce-scatter on the tangent."""
     m = torch.amax(b, dim=axis, keepdim=True)
     if ax.size > 1:
         m = _all_reduce_max(m.detach(), ax)
-    u = _along(_ReduceScatter.apply, torch.einsum(
-        _CONTRACT[axis], W_cols, torch.exp(b - m)), axis, ax)
-    return m + torch.log(u)
+    return lse_step(b, m, lambda t: _along(
+        _ReduceScatter.apply, torch.einsum(_CONTRACT[axis], W_cols, t),
+        axis, ax), tape)
 
 
 # --------------------------------------------------------- the operator
@@ -366,7 +370,9 @@ def _sharded_eager_local(ops: TwoPhaseOperands, dtype, dev, ax_r1: _Axis,
     axis 1 (None: axis 1 whole).  The column phase is local; each sharded
     row contraction is a :func:`_cross_shard_lse`, an unsharded one the
     single-device step.  On one rank it is bitwise the single-device
-    operator (``make_eager_two_phase_T``)."""
+    operator (``make_eager_two_phase_T``).  The returned
+    ``local(ell, tape=None)`` records its tangent on ``tape``
+    (``ops/tangent.Tape``), in the single-device twin's steps."""
     column = eager_column_phase(ops, dtype, device=dev)
     L, K, n1, n2 = ops.shapes
     C = n1 * n2
@@ -387,22 +393,27 @@ def _sharded_eager_local(ops: TwoPhaseOperands, dtype, dev, ax_r1: _Axis,
             :, None, None] + np.asarray(ops.sub_col)[None, :, :])
     theta, beta = float(ops.theta), float(ops.beta)
 
-    def local(ell):
+    R_loc, shape = L_loc * K_loc, (L_loc, K_loc, n1, n2)
+
+    def local(ell, tape=None):
         check_full_fp32(ell)
-        a = theta * ell.to(dtype).reshape(L_loc * K_loc, n1, n2)
+        a = theta * viewed(ell, lambda t: t.to(dtype).reshape(R_loc, n1, n2),
+                           tape)
+        if tape is not None:
+            tape.scale(theta)
         if sub is not None:
             a = a - sub
-        b = column(a).reshape(L_loc, K_loc, C)
-        b = _cross_shard_lse(b, W_r1, 0, ax_r1)
+        b = viewed(column(a, tape), lambda t: t.reshape(L_loc, K_loc, C),
+                   tape)
+        b = _cross_shard_lse(b, W_r1, 0, ax_r1, tape)
         if ax_r2 is None:
-            m = torch.amax(b, dim=1, keepdim=True)
-            b = m + torch.log(torch.einsum("km,lmt->lkt", W_r2,
-                                           torch.exp(b - m)))
+            b = lse_step(b, torch.amax(b, dim=1, keepdim=True),
+                         lambda t: torch.einsum("km,lmt->lkt", W_r2, t),
+                         tape)
         else:
-            b = _cross_shard_lse(b, W_r2, 1, ax_r2)
-        log_hwt = b + add
-        return torch.log1p(beta * torch.exp(log_hwt / theta)).reshape(
-            L_loc, K_loc, n1, n2)
+            b = _cross_shard_lse(b, W_r2, 1, ax_r2, tape)
+        out = log1p_epilogue(b + add, theta, beta, tape)
+        return viewed(out, lambda t: t.reshape(shape), tape)
 
     return local
 
@@ -588,6 +599,20 @@ def _check_streamed_shards(ops: TwoPhaseOperands, n: int) -> None:
                         ops.pair_shapes)
 
 
+def _member_twin(twin_local: Callable) -> Callable:
+    """The local twin of one sweep member's slice, (1, ...) -> (1, ...),
+    and its linearization."""
+    def twin(x):
+        return twin_local(x[0])[None]
+
+    def linearize(x):
+        lin = twin_local.linearize(x[0])
+        return lambda v: lin(v[0])[None]
+
+    twin.linearize = linearize
+    return twin
+
+
 def streamed_shard_map_factory(ops, mesh, axis_names=None,
                                dtype: Optional[torch.dtype] = None,
                                mode: str = "auto", batch_axis=None,
@@ -618,10 +643,11 @@ def streamed_shard_map_factory(ops, mesh, axis_names=None,
 
     ``T.twin`` is the eager two-phase operator on the same row layout;
     ``torch.func.jvp`` and ``backward`` of ``T.local`` are its
-    derivatives.  ``T.mode`` is the resolved mode, ``T.baseline_log_w``
-    the warm start of a normalized set (stacked or broadcast over the
-    slices under ``batch_axis``), ``T.plan`` this rank's
-    :class:`StreamedShardPlan`."""
+    derivatives, and Newton linearizes it once per step
+    (``T.local_twin.linearize``).  ``T.mode`` is the resolved mode,
+    ``T.baseline_log_w`` the warm start of a normalized set (stacked or
+    broadcast over the slices under ``batch_axis``), ``T.plan`` this
+    rank's :class:`StreamedShardPlan`."""
     reject_tpu_options(tpu_options)
     if dtype is not None and dtype != torch.float32:
         raise ValueError("streamed kernels are the float32 tier; use "
@@ -681,6 +707,9 @@ def streamed_shard_map_factory(ops, mesh, axis_names=None,
     mine = members[slice_index] if members is not None else ops
     plan = StreamedShardPlan(mine, mode, n, intra.index, dev)
     twin_local = _sharded_eager_local(mine, torch.float32, dev, intra, None)
+    # Newton's tangent: the twin's tape, one build per step (its matvec
+    # runs the row contraction's reduce-scatter on the tangent).
+    twin_local.linearize = lambda x: Linearization(twin_local, x)
     fast = mode == "fast"
     L, K, I, J = ops.shapes
     R_loc, C_loc = plan.R_loc, plan.C_loc
@@ -741,7 +770,7 @@ def streamed_shard_map_factory(ops, mesh, axis_names=None,
             _placements(mesh, {batch_axis: 0, **{a: 1 for a in axis_names}}),
             (n_slice,) + tuple(ops.shapes),
             _axis(mesh, _mesh_order(mesh, (batch_axis,) + axis_names)),
-            local_twin=lambda x: twin_local(x[0])[None],
+            local_twin=_member_twin(twin_local),
             batch_axis=batch_axis, n_slice=n_slice)
         if members is not None:
             if all(om.baseline_log_w is not None for om in members):

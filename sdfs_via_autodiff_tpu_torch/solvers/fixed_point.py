@@ -148,7 +148,9 @@ def newton_solver(T: Callable,
     ``inner``: "bicgstab" (:func:`.krylov.bicgstab_mixed`: iterate-dtype
     vectors, float64 scalars) or "gmres" (:func:`.krylov.gmres`,
     restarted, ``inner_maxiter`` restart cycles), both matrix-free with
-    matvecs ``v -> J(x) v`` through ``torch.func.jvp``; or "dense":
+    matvecs ``v -> J(x) v`` (:func:`.sharding.tangent_matvec`: the
+    operator's hand linearization, built once per Newton step, or else
+    ``torch.func.jvp`` per matvec); or "dense":
     ``torch.func.jacfwd`` of the flat residual and ``torch.linalg.solve``
     (small grids; ``inner_tol`` and ``inner_maxiter`` do not apply, and
     a ``tangent_T`` raises ``ValueError``).  Another name raises
@@ -182,10 +184,11 @@ def newton_solver(T: Callable,
 
     A DTensor ``x0`` runs on the local shard, with every norm and dot
     product all-reduced (``solvers/sharding.py``): a sharded operator
-    (``parallel/shard_ops.py``) linearizes ``T.local_twin`` by
-    ``torch.func.jvp``, any other operator runs on the DTensor
-    (``parallel/gspmd.py``) and is linearized by the derivative of its
-    VJP; ``inner`` "dense" and ``tangent_T`` raise ``ValueError`` there.
+    (``parallel/shard_ops.py``) linearizes ``T.local_twin``, any other
+    operator runs on the DTensor (``parallel/gspmd.py``) and is
+    linearized there by its own linearization or else by the derivative
+    of its VJP; ``inner`` "dense" and ``tangent_T`` raise ``ValueError``
+    there.
     """
     if inner not in ("bicgstab", "gmres", "dense"):
         raise ValueError(f"unknown inner solver {inner!r}")
@@ -241,11 +244,12 @@ def newton_solver(T: Callable,
             else:
                 xt, rhs = x.float(), gx.float()
                 tl = getattr(tangent_T, "twin", tangent_T)
-            # A jvp per matvec, not torch.func.linearize: linearize traces
-            # the chain with make_fx on every Newton step, a host cost
-            # larger than the primal it saves (PERF.md, "Newton's
-            # tangent").  A DTensor iterate's local form takes the
-            # derivative of a VJP instead.
+            # One linearization per Newton step, as JAX's jax.linearize:
+            # an operator with a hand tangent-linear (``T.linearize``,
+            # ops/tangent.py) runs its primal once, on the step's first
+            # matvec, and each matvec replays the stored factors; the
+            # factors go with jac_prod when the step ends.  Operators
+            # without one take a torch.func.jvp per matvec.
             jac_prod = tangent_matvec(tl, xt)
             # A frozen step (after the stop condition failed inside a
             # chunk) skips the Krylov solve: atol = inf stops it before

@@ -108,10 +108,12 @@ def solve_parts(T: Callable, x0):
 
 
 def tangent_matvec(lin: Callable, x) -> Callable:
-    """Newton's ``v -> J(x) v - v`` of ``lin``: ``torch.func.jvp`` per
-    matvec, or the derivative of a VJP for a DTensor iterate's local form
-    (``parallel.gspmd.VjpLinearization``), on which forward mode does not
-    run."""
+    """Newton's ``v -> J(x) v - v`` of ``lin``: its own ``linearize(x)``
+    where it has one (the LSE-chain operators' hand tangent-linear,
+    ``ops/tangent.py``, built once per call; the derivative of a VJP for a
+    DTensor iterate's local form without one,
+    ``parallel.gspmd.VjpLinearization``), else ``torch.func.jvp`` per
+    matvec."""
     if hasattr(lin, "linearize"):
         return lin.linearize(x)
     return lambda v: torch.func.jvp(lambda y: lin(y) - y, (x,), (v,))[1]

@@ -120,8 +120,18 @@ def test_operator_on_a_dtensor_matches_jax(ranks, name):
 @pytest.mark.parametrize("label", sorted(tr.GSPMD_MESHES))
 def test_tangent_route_matches_jvp(ranks, label):
     for r in ranks:
-        for name, err in r[(label, "tangent")].items():
+        for name, (err, _) in r[(label, "tangent")].items():
             assert err <= 1e-13, name
+
+
+@pytest.mark.parametrize("label", sorted(tr.GSPMD_MESHES))
+def test_tangent_route_is_the_operators_own(ranks, label):
+    # A hand linearization runs on the DTensor; an operator without one
+    # (w space) takes the derivative of a VJP.
+    for r in ranks:
+        routes = {name: route for name, (_, route)
+                  in r[(label, "tangent")].items()}
+        assert routes == tr.TANGENT_ROUTES
 
 
 def test_hand_placed_operator_matches_the_automatic_one(ranks):

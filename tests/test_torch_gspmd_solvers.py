@@ -20,6 +20,9 @@ points are held to the sum of their sup-norm residuals over 1 - beta
 (each lies within its residual over 1 - beta of the fixed point, beta
 bounding the operator's contraction), Anderson to 2 tol beta / (1 -
 beta) (the bound of ``tests/test_torch_parallel_solvers.py``).
+The same bound holds the w-space Newton solve, whose tangent on the
+DTensor is the derivative of a VJP (no hand linearization in w space),
+to the single-device one and to JAX's.
 De Groot's Newton solve meets JAX's 1e-12, and the SA loop 1e-13.
 Against the JAX package's single-device solves: 1e-10 for the Newton
 fixed point (``tests/test_torch_solvers.py``), the Anderson bound above,
@@ -55,12 +58,17 @@ def _jax_solve(case):
     if kind == "ssy":
         T = J.T_ssy_factory(m, disc, space="log")
         x0 = jnp.full(shapes, jnp.log(800.0))
+    elif kind == "ssy_w":
+        T = J.T_ssy_factory(m, disc, space="w")
+        x0 = jnp.full(shapes, 800.0)
     else:
         from sdfs_via_autodiff_tpu.operators.degroot import T_degroot_factory
         T = T_degroot_factory(m, disc, space="log", h=0.99)
         x0 = jnp.full(shapes, m.theta * float(np.log((1 - m.beta) * 800.0)))
     res = J.solve(T, x0, method=spec["method"], **spec["opts"])
     assert bool(res.converged)
+    if kind == "ssy_w":
+        return np.asarray(res.x), float(res.residual)
     return np.asarray(res.x)
 
 
@@ -80,7 +88,9 @@ def _newton_bound(res):
 
 @pytest.mark.parametrize("case, label", [("newton", "2x2"),
                                          ("newton", "4x1"),
-                                         ("newton_gmres", "2x2")])
+                                         ("newton_gmres", "2x2"),
+                                         ("newton_w", "2x2"),
+                                         ("newton_w", "4x1")])
 def test_newton_on_a_dtensor_matches_the_single_device_solve(ranks, case,
                                                             label):
     res = ranks[0][(case, label)]
@@ -102,6 +112,17 @@ def test_newton_on_a_dtensor_matches_jax(ranks, case):
     for label in tr.GSPMD_SOLVES[case].get("meshes", tr.GSPMD_MESHES):
         np.testing.assert_allclose(ranks[0][(case, label)]["x"], want,
                                    rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("label", sorted(tr.GSPMD_MESHES))
+def test_w_space_newton_on_a_dtensor_matches_jax(ranks, label):
+    # The tangent is the derivative of a VJP here (no hand linearization
+    # in w space); the two fixed points are held to the sum of their
+    # residuals over 1 - beta.
+    want, want_residual = _jax_solve("newton_w")
+    res = ranks[0][("newton_w", label)]
+    bound = (res["residual"] + want_residual) / (1 - J.SSY().beta)
+    np.testing.assert_allclose(res["x"], want, rtol=0, atol=bound)
 
 
 @pytest.mark.parametrize("label", sorted(tr.GSPMD_MESHES))

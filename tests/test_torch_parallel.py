@@ -134,6 +134,15 @@ def test_streamed_application_is_two_all_to_alls(ranks, case):
         assert all(g < n // 8 for g in gathers)
 
 
+@pytest.mark.parametrize("case", [c for c in sorted(tr.CASES)
+                                  if tr.CASES[c]["factory"] == "streamed"])
+def test_streamed_local_twin_linearizes_like_its_jvp(ranks, case):
+    # Newton's tangent on each rank's shard (one sweep member per slice
+    # under batch_axis), relative to sup |v| as in test_torch_linearize.
+    for r in ranks[tr.CASES[case]["world"]]:
+        assert r[case]["linearize_rel_v"] <= 2e-6
+
+
 @pytest.mark.parametrize("case", ["streamed_dcn_2x2", "streamed_sweep_2x2"])
 def test_no_collective_crosses_the_slice_axis(ranks, case):
     # Mesh ("slice", "tp") of shape (2, 2): slice s holds ranks 2s, 2s+1.

@@ -89,7 +89,8 @@ def test_streamed_newton_reaches_the_float64_fixed_point(ranks):
 @pytest.mark.parametrize("name, bound", [("jvp_two_phase", 1e-13),
                                          ("vjp_two_phase", 1e-13),
                                          ("jvp_streamed_rel", 1e-5),
-                                         ("vjp_streamed_rel", 1e-5)])
+                                         ("vjp_streamed_rel", 1e-5),
+                                         ("lin_streamed_rel", 1e-5)])
 def test_sharded_derivatives_match_the_single_device_twins(ranks, name,
                                                            bound):
     for r in ranks:

@@ -317,6 +317,16 @@ def parallel_cases(rank: int, world: int) -> dict:
                "dtensor_input_equal": bool(torch.equal(full, y2)),
                "calls": log.calls, "mode": getattr(T, "mode", None),
                "local_shape": T.local_shape}
+        if spec["factory"] == "streamed":
+            # Newton's tangent on the shard: the twin's linearization
+            # against torch.func.jvp of the same twin.
+            xl = T.to_local(x)
+            vl = torch.as_tensor(np.random.default_rng(rank).standard_normal(
+                tuple(xl.shape)), dtype=torch.float32)
+            got = T.local_twin.linearize(xl)(vl)
+            jv = torch.func.jvp(T.local_twin, (xl,), (vl,))[1] - vl
+            res["linearize_rel_v"] = float((got - jv).abs().max()
+                                           / vl.abs().max())
         if rank == 0:
             res["out"] = full.double().numpy()
         out[case] = res
@@ -602,6 +612,12 @@ def _derivative_checks(P, par, world: int) -> dict:
     _, dy1 = torch.func.jvp(T1, (xs,), (ct,))
     out["jvp_streamed_rel"] = float((T.from_local(dy).full_tensor() - dy1)
                                     .abs().max() / dy1.abs().max())
+    # Newton's tangent on the shards: the twin's linearization.
+    mv = T.local_twin.linearize(T.to_local(xs))
+    cl = T.to_local(ct)
+    dy = T.from_local(mv(cl) + cl).full_tensor()
+    out["lin_streamed_rel"] = float((dy - dy1).abs().max()
+                                    / dy1.abs().max())
     return out
 
 
@@ -845,14 +861,25 @@ def _distinct_shard_reductions(par, world) -> dict:
             "numel": red.numel(al)}
 
 
+# The tangent route's cases: the operators with a hand linearization run
+# it on the DTensor; SSY in w space has none and takes the derivative of
+# a VJP.
+TANGENT_ROUTES = {"ssy_log": "_LocalLinearization",
+                  "gcy_log": "_LocalLinearization",
+                  "ssy_continuous": "_LocalLinearization",
+                  "ssy_w": "VjpLinearization"}
+
+
 def _tangent_route(P, par, mesh) -> dict:
-    """The solvers' tangent on a DTensor (the derivative of a VJP, on the
-    local form) against the single-device ``torch.func.jvp``, for the
-    SSY and GCY operators in log space."""
+    """The solvers' tangent on a DTensor (the local form's
+    linearization: the operator's own, run on the DTensor, or the
+    derivative of a VJP) against the single-device ``torch.func.jvp``,
+    for each case of TANGENT_ROUTES: the max abs difference and the
+    class of the local twin."""
     import torch
     from sdfs_via_autodiff_tpu_torch.parallel import gspmd
     out = {}
-    for name in ("ssy_log", "gcy_log", "ssy_continuous"):
+    for name in TANGENT_ROUTES:
         T = gspmd_operator(P, name)
         x = torch.as_tensor(gspmd_field(name))
         rng = np.random.default_rng(11)
@@ -863,7 +890,8 @@ def _tangent_route(P, par, mesh) -> dict:
         vl = op.to_local(vd)
         jv = op.from_local(j_minus_i(vl) + vl).full_tensor()
         want = torch.func.jvp(T, (x,), (v,))[1]
-        out[name] = float((jv - want).abs().max())
+        out[name] = (float((jv - want).abs().max()),
+                     type(op.local_twin).__name__)
     return out
 
 
@@ -955,12 +983,17 @@ GSPMD_SOLVES = {
                opts=dict(tol=-1.0, max_iter=24, trace_len=8)),
     "degroot_newton": dict(op=("degroot", (8, 4, 4, 4)), method="newton",
                            opts=dict(tol=1e-11)),
+    # No hand linearization in w space: Newton's tangent on the DTensor is
+    # the derivative of a VJP.
+    "newton_w": dict(op=("ssy_w", (8, 8, 4, 4)), method="newton",
+                     opts=dict(tol=1e-8)),
 }
 
 
 def gspmd_solve_operator(P, kind, shapes):
     """(T, x0) of a GSPMD solve: the float64 log-space SSY operator from
-    log 800, or de Groot's (h = 0.99) from theta log((1 - beta) 800)."""
+    log 800, the w-space one from 800, or de Groot's (h = 0.99) from
+    theta log((1 - beta) 800)."""
     import torch
     m = P.SSY()
     disc = P.discretize_ssy(m, shapes)
@@ -968,6 +1001,9 @@ def gspmd_solve_operator(P, kind, shapes):
         return (P.T_ssy_factory(m, disc, space="log", device="cpu"),
                 torch.full(shapes, float(np.log(800.0)),
                            dtype=torch.float64))
+    if kind == "ssy_w":
+        return (P.T_ssy_factory(m, disc, space="w", device="cpu"),
+                torch.full(shapes, 800.0, dtype=torch.float64))
     return (P.T_degroot_factory(m, disc, space="log", h=0.99, device="cpu"),
             torch.full(shapes, m.theta * float(np.log((1 - m.beta) * 800.0)),
                        dtype=torch.float64))
