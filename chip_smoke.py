@@ -80,8 +80,11 @@ Phases, in order; any failure exits non-zero before the result line:
 19. the continuous-SSY post-interp path at 20^4:
     ``wc_ratio_continuous(SSY(), (20,)*4, kernel="tiled", interp="post")``
     (cold only) and again with ``"loglin"`` (cold then warm; Newton, tol
-    2e-5, from w = 1), with the launch counts, the iterations and the
-    float64 residual through the float64 node chain;
+    2e-5, from w = 1, its tangent the float32 twin's linearization, one
+    build per Newton step), with the launch counts, the iterations and
+    the float64 residual through the float64 node chain; then a Newton
+    step's parts timed: the operator, its twin, the linearized matvec
+    and its build, and the jvp matvec;
 20. the reference's published one-step moment anchors at 15^4, degree
     5: a float64 Newton solve (tol 1e-9, ``interp="pre"`` and
     ``"loglin"``, 3.2 and 2.5 standard deviations), then
@@ -212,7 +215,8 @@ Phases, in order; any failure exits non-zero before the result line:
     tol 2e-5 (w* within 1e-6 relative of phase 5's, B1 / B2 launched as
     in phase 5), and ``T_ssy_shard_map_factory`` and
     ``two_phase_shard_map_factory`` in float64 at (8,8,6,6) against the
-    single-device float64 operators (1e-12);
+    single-device float64 operators (1e-12), and their linearized
+    matvecs against ``torch.func.jvp`` of ``T.local`` (1e-12 relative);
 44. the sharded kernels rank by rank at a 4-rank layout on one card
     (``parallel.streamed_shard_plan``, one plan per rank; the reshards
     by slicing and concatenation): SSY 12.6M fast (256 rows and 3,072
@@ -242,13 +246,17 @@ Phases, in order; any failure exits non-zero before the result line:
     refusing a DTensor; each solve's seconds beside its single-device
     counterpart's;
 46. Newton's tangent: at the SSY 12.6M, GCY 25.2M, continuous SSY
-    11.2M (a) and (b), normalized SSY (a) and fused 20^4 cells, the
-    hand linearization (``ops/tangent.py``, one primal per Newton step)
-    against ``torch.func.jvp`` of the twin at the Newton start: the
-    matvecs' difference, ms per matvec on each route (CUDA events,
-    median of 21), the build's ms per Newton step, the stored bytes, a
-    Newton solve's seconds with the card's allocated bytes before and
-    after it (equal), and the same solve's seconds on the jvp route;
+    11.2M (a) and (b), normalized SSY (a), fused 20^4, B8's "post" and
+    "loglin" 20^4, the Monte Carlo SSY node chain (20^4, 2,000 draws)
+    and the float32 per-axis normalized SSY 12.6M (deep windows) cells,
+    the hand linearization (``ops/tangent.py``, one primal per Newton
+    step) against ``torch.func.jvp`` of the twin at the Newton start:
+    the matvecs' difference (2e-6 of sup |v|), ms per matvec on each
+    route (CUDA events, median of 21), the build's ms per Newton step,
+    the stored bytes; then, except at the last two cells, a Newton
+    solve's seconds with the card's allocated bytes before and after it
+    (equal), and, except at "post", the same solve's seconds on the jvp
+    route;
 47. a JSON line of per-kernel facts (with each kernel's bound: the
     largest of its FP32 operations over 67 TFLOP/s, its TF32 tensor-core
     operations over 495 TFLOP/s (the deferred pass B at I = 512 and pass
@@ -1384,8 +1392,8 @@ def post_interp_phases(torch, port, dev, smi):
         del ell64, dense
     torch.cuda.empty_cache()
 
-    # 19. The path, "post" (cold only: its 45 Newton iterations take
-    # 67-90 s) then "loglin", cold then warm.
+    # 19. The path, "post" (cold only: on the jvp route its 45 Newton
+    # iterations took 67-90 s) then "loglin", cold then warm.
     grids = port.build_grid_ssy(model, *POST_SIZES)
     launches = None
     for interp in ("post", "loglin"):
@@ -1425,7 +1433,9 @@ def post_interp_phases(torch, port, dev, smi):
         del T64, sol, ell, w
         torch.cuda.empty_cache()
     # Where a Newton step's time goes: the primal through the kernel, the
-    # twin, and the tangent matvec (jvp of the float32 node-chain twin).
+    # twin, and the tangent matvec on both routes: the twin's
+    # linearization (built once per Newton step, its build timed apart)
+    # and jvp of the float32 node-chain twin.
     T = pk.make_post_interp_kernel_T_ssy(model, grids, POST_DEGREE, "post",
                                          device=dev)
     x = torch.as_tensor(noise_field(POST_SIZES, SEED), device=dev).float()
@@ -1434,10 +1444,14 @@ def post_interp_phases(torch, port, dev, smi):
     ms_twin = time_ms(torch, T.twin, x, n=10)
     ms_jvp = time_ms(torch, lambda y: torch.func.jvp(T.twin, (y,), (v,))[1],
                      x, n=5)
+    lin = T.twin.linearize(x)
+    _, ms_build = events_ms(torch, lin.build)
+    ms_lin = time_ms(torch, lin, v, n=10)
     print(f"timing post-interp {POST_SIZES}: operator T {ms_T:.3f} ms, its "
-          f"node-chain twin {ms_twin:.3f} ms, tangent matvec (jvp of the "
-          f"twin) {ms_jvp:.3f} ms ({smi})")
-    del T, x, v
+          f"node-chain twin {ms_twin:.3f} ms, tangent matvec: linearized "
+          f"{ms_lin:.3f} ms (its build {ms_build:.3f} ms once per Newton "
+          f"step), jvp of the twin {ms_jvp:.3f} ms ({smi})")
+    del T, x, v, lin
     return max_err, launches, kernels_ms
 
 
@@ -2983,7 +2997,23 @@ def sharded_world1_phase(torch, port, st, dev, smi, main_ref, refs):
             check(e <= SHARD_F64_ATOL, f"{name} f64 vs single: {e:.3e}")
             print(f"{name} {SHARD_F64_SIZES} float64, world size 1: vs the "
                   f"single-device operator max abs err {e:.3e}")
-        del T_a, T_b, ell, ref, ref_b
+        # Newton's tangent on the shard, built once per step, against
+        # torch.func.jvp of T.local.
+        v = torch.as_tensor(np.random.default_rng(SEED + 43).standard_normal(
+            SHARD_F64_SIZES), device=dev)
+        for name, T_s in (("T_ssy_shard_map_factory", T_a),
+                          ("two_phase_shard_map_factory", T_b)):
+            xl, vl = T_s.to_local(ell), T_s.to_local(v)
+            got = T_s.local_twin.linearize(xl)(vl)
+            want = torch.func.jvp(lambda y: T_s.local(y) - y, (xl,),
+                                  (vl,))[1]
+            rel = float((got - want).abs().max() / want.abs().max())
+            check(rel <= SHARD_F64_ATOL, f"{name}: linearized matvec vs "
+                  f"jvp {rel:.3e} relative")
+            print(f"{name} {SHARD_F64_SIZES} float64, world size 1: "
+                  f"linearized matvec (one build per Newton step) vs "
+                  f"torch.func.jvp of T.local max relative diff {rel:.3e}")
+        del T_a, T_b, ell, ref, ref_b, v, got, want
         torch.cuda.empty_cache()
         gspmd_phase(torch, port, dev, smi, mesh, refs)
     finally:
@@ -3409,6 +3439,8 @@ def tangent_phase(torch, port, dev, smi):
     from sdfs_via_autodiff_tpu_torch.ops.tangent import Linearization
     from sdfs_via_autodiff_tpu_torch.solvers.sharding import tangent_matvec
 
+    from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
+
     ssy, gcy = port.SSY(), port.GCY()
     grids_c = port.build_grid_ssy(ssy, *SSYC_SHAPES)
 
@@ -3445,11 +3477,42 @@ def tangent_phase(torch, port, dev, smi):
         T = port.make_fused_T_log_ssy_continuous(ssy, grids, device=dev)
         return T, torch.zeros(FUSED_SIZES, device=dev), FUSED_NEWTON_TOL
 
-    cells = (("SSY 12.6M", ssy_cell), ("GCY 25.2M", gcy_cell),
-             ("continuous SSY 11.2M (a)", lambda: ssyc_cell(None)),
-             ("continuous SSY 11.2M (b)", lambda: ssyc_cell("loglinear")),
-             ("normalized SSY 12.6M (a)", normalized_cell),
-             ("fused 20^4", fused_cell))
+    def post_cell(interp):
+        # B8's operator, from the driver's start (w = 1).
+        grids = port.build_grid_ssy(ssy, *POST_SIZES)
+        T = pk.make_post_interp_kernel_T_ssy(ssy, grids, POST_DEGREE,
+                                             interp, device=dev)
+        return T, torch.zeros(POST_SIZES, device=dev), POST_TOL
+
+    def mc_cell():
+        grids = port.build_grid_ssy(ssy, *MC_SSY_SIZES)
+        T = port.T_ssy_continuous_factory(
+            ssy, grids, method="monte_carlo", interp="post", space="log",
+            mc_draw_size=MC_DRAWS, dtype=torch.float32, device=dev)
+        return T, torch.full(MC_SSY_SIZES, float(np.log(800.0)),
+                             device=dev), None
+
+    def per_axis_normalized_cell():
+        # The float32 deep windows (normalized, per axis), Tauchen.
+        disc = port.discretize_ssy(ssy, MAIN_SHAPES, method="tauchen")
+        T = port.T_ssy_factory(ssy, disc, space="log", baseline="loglinear",
+                               dtype=torch.float32, device=dev)
+        return T, T.baseline_log_w, None
+
+    # (label, cell, Newton solves: on both routes, on the linearization
+    # only, or none).  The 20^4 "post" solve on the jvp route took
+    # 66-85 s (PERF.md): it is not rerun.
+    cells = (("SSY 12.6M", ssy_cell, "both"), ("GCY 25.2M", gcy_cell, "both"),
+             ("continuous SSY 11.2M (a)", lambda: ssyc_cell(None), "both"),
+             ("continuous SSY 11.2M (b)", lambda: ssyc_cell("loglinear"),
+              "both"),
+             ("normalized SSY 12.6M (a)", normalized_cell, "both"),
+             ("fused 20^4", fused_cell, "both"),
+             ("post 20^4 (B8)", lambda: post_cell("post"), "lin"),
+             ("loglin 20^4 (B8)", lambda: post_cell("loglin"), "both"),
+             (f"MC node chain SSY 20^4, {MC_DRAWS} draws", mc_cell, None),
+             ("per-axis normalized SSY 12.6M f32", per_axis_normalized_cell,
+              None))
 
     def per_call_ms(fn, x, n=TANGENT_MATVECS):
         fn(x)
@@ -3460,10 +3523,10 @@ def tangent_phase(torch, port, dev, smi):
         return statistics.median(times)
 
     out = {}
-    for label, make in cells:
+    for label, make, solves in cells:
         torch.cuda.empty_cache()
         T, x, tol = make()
-        twin = T.twin
+        twin = getattr(T, "twin", T)
         v = torch.as_tensor(np.random.default_rng(SEED + 46).standard_normal(
             tuple(x.shape)), dtype=torch.float32, device=dev)
         lin = tangent_matvec(twin, x)
@@ -3484,53 +3547,57 @@ def tangent_phase(torch, port, dev, smi):
             del fresh
         del lin
         build_ms = statistics.median(builds)
-        # A full Newton solve: the factors of every step are freed when
-        # the step ends.
-        T(x)
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        inner = []
-        t0 = time.perf_counter()
-        res = port.solve(T, x, method="newton", tol=tol,
-                         inner_iterations=inner)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        summary = str(res)
-        converged = res.converged
-        del res
-        torch.cuda.synchronize()
-        after = torch.cuda.memory_allocated()
-        # The same solve on the jvp route (a twin without linearize).
-        T_jvp = lambda y: T(y)
-        T_jvp.twin = lambda y: twin(y)
-        inner_j = []
-        t0 = time.perf_counter()
-        res = port.solve(T_jvp, x, method="newton", tol=tol,
-                         inner_iterations=inner_j)
-        torch.cuda.synchronize()
-        secs_j = time.perf_counter() - t0
-        summary_j = str(res)
-        converged_j = res.converged
-        del res, T_jvp
-        print(f"tangent {label} {tuple(x.shape)}: linearized matvec vs "
-              f"jvp max abs diff {diff:.3e} (relative to sup|v| "
-              f"{rel_v:.3e}, to sup|(J - I)v| {rel_mv:.3e}); "
-              f"{ms_lin:.4f} ms per linearized matvec, {ms_jvp:.4f} ms "
-              f"per jvp matvec (CUDA events, median of "
-              f"{TANGENT_MATVECS}); build {build_ms:.4f} ms per Newton "
-              f"step (median of {TANGENT_BUILDS}); stored {nbytes} bytes; "
-              f"Newton {summary}, {sum(inner)} BiCGStab iterations, "
-              f"{secs:.3f} s; allocated before {before} bytes, after "
-              f"{after} bytes; on the jvp route: Newton {summary_j}, "
-              f"{sum(inner_j)} BiCGStab iterations, {secs_j:.3f} s "
-              f"({smi})")
+        line = (f"tangent {label} {tuple(x.shape)}: linearized matvec vs "
+                f"jvp max abs diff {diff:.3e} (relative to sup|v| "
+                f"{rel_v:.3e}, to sup|(J - I)v| {rel_mv:.3e}); "
+                f"{ms_lin:.4f} ms per linearized matvec, {ms_jvp:.4f} ms "
+                f"per jvp matvec (CUDA events, median of "
+                f"{TANGENT_MATVECS}); build {build_ms:.4f} ms per Newton "
+                f"step (median of {TANGENT_BUILDS}); stored {nbytes} bytes")
         check(rel_v <= TANGENT_RTOL, f"{label}: linearized matvec vs jvp "
               f"{rel_v:.3e} of sup|v|")
-        check(converged, f"{label}: Newton did not converge: {summary}")
-        check(converged_j, f"{label}: Newton on the jvp route did not "
-              f"converge: {summary_j}")
-        check(after == before, f"{label}: the Newton solve left "
-              f"{after - before} bytes on the card")
+        secs = secs_j = None
+        if solves:
+            # A full Newton solve: the factors of every step are freed
+            # when the step ends.
+            T(x)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            inner = []
+            t0 = time.perf_counter()
+            res = port.solve(T, x, method="newton", tol=tol,
+                             inner_iterations=inner)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            summary = str(res)
+            converged = res.converged
+            del res
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            line += (f"; Newton {summary}, {sum(inner)} BiCGStab "
+                     f"iterations, {secs:.3f} s; allocated before {before} "
+                     f"bytes, after {after} bytes")
+            check(converged, f"{label}: Newton did not converge: {summary}")
+            check(after == before, f"{label}: the Newton solve left "
+                  f"{after - before} bytes on the card")
+        if solves == "both":
+            # The same solve on the jvp route (a twin without linearize).
+            T_jvp = lambda y: T(y)
+            T_jvp.twin = lambda y: twin(y)
+            inner_j = []
+            t0 = time.perf_counter()
+            res = port.solve(T_jvp, x, method="newton", tol=tol,
+                             inner_iterations=inner_j)
+            torch.cuda.synchronize()
+            secs_j = time.perf_counter() - t0
+            summary_j = str(res)
+            converged_j = res.converged
+            del res, T_jvp
+            line += (f"; on the jvp route: Newton {summary_j}, "
+                     f"{sum(inner_j)} BiCGStab iterations, {secs_j:.3f} s")
+            check(converged_j, f"{label}: Newton on the jvp route did not "
+                  f"converge: {summary_j}")
+        print(f"{line} ({smi})")
         out[label] = (ms_lin, ms_jvp, build_ms, nbytes, secs, secs_j)
         del T, twin, x, v
     torch.cuda.empty_cache()

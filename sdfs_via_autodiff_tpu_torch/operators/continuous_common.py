@@ -31,7 +31,9 @@ import torch
 
 from ..config import resolve_device
 from ..ops.grids import flatten_mesh
-from ..ops.interp import lin_interp
+from ..ops.interp import (gather_corners, interp_corners, lin_interp,
+                          uniform_grid_coords)
+from ..ops.tangent import Linearization
 
 __all__ = ["hat_basis", "hat_corners", "hat_from_corners",
            "expectation_matrix", "make_gather_T", "mc_draws",
@@ -199,6 +201,18 @@ def make_gather_T(next_state: Callable,
     "pre" (interpolate w^theta), "loglin" (interpolate log w).
     space: "w" iterates on w; "log" iterates on ell = log w with
     shift-stabilized expectations.
+
+    In log space ``T.linearize(x)`` is Newton's tangent, built once (as
+    the node chains', ``operators/post_interp.py``): at fixed successors
+    the interpolation is a linear map G of the field, so with the
+    field's tangent F * dell (F = e^{theta ell - max} theta for "pre",
+    e^{ell} for "post", 1 for "loglin") the tangent is
+    sigma * sum_q W_q G(F * dell)_q.  W (states, Q), formed batch by
+    batch, is w_q e^{pf_q} / E for "pre" (E the expectation),
+    theta p_q / vals_q for "post" and theta p_q for "loglin" (p_q the
+    softmax weights of the log-expectation), times the epilogue's sigma
+    = q / ((1 + q) theta).  Its matvec gathers the stored corners: no
+    exp, log or max.  It is single-device.
     """
     if interp not in ("post", "pre", "loglin"):
         raise ValueError(f"unknown interp {interp!r}")
@@ -253,11 +267,15 @@ def make_gather_T(next_state: Callable,
     log_kappa_flat = torch.cat([log_kappa(xb.T) for xb in batches]
                                ).reshape(shape).to(dtype)
 
-    def log_expect(a_vals):                   # (B, Q) -> (B,)
-        mx = torch.amax(a_vals, dim=1, keepdim=True)
-        return mx[:, 0] + torch.log(reduce_rule(torch.exp(a_vals - mx)))
+    w_q = 1.0 / shocks.shape[1] if weights is None else weights
 
-    def T(ell):
+    def log_expect(a_vals):                   # (B, Q) -> (B,), e, sum
+        mx = torch.amax(a_vals, dim=1, keepdim=True)
+        e = torch.exp(a_vals - mx)
+        den = reduce_rule(e)
+        return mx[:, 0] + torch.log(den), e, den
+
+    def primal(ell, tape=None):
         if interp == "pre":
             mx = torch.amax(theta * ell)
             field, shift = torch.exp(theta * ell - mx), mx
@@ -265,16 +283,39 @@ def make_gather_T(next_state: Callable,
             field, shift = torch.exp(ell), 0.0
         else:
             field, shift = ell, 0.0
-        out = []
+        out, factors, corners = [], [], []
         for xb in batches:
-            nxt, vals = successors(xb, field)
+            nxt = next_state(xb.T[:, :, None], shocks[:, None, :])
+            cb = interp_corners(shape, uniform_grid_coords(
+                grids, nxt.reshape(dim, -1)))
+            vals = gather_corners(field, cb).reshape(nxt.shape[1:])
             pf = theta * nxt[0]
-            if interp == "post":
-                out.append(log_expect(theta * torch.log(vals) + pf))
-            elif interp == "loglin":
-                out.append(log_expect(theta * vals + pf))
+            if interp == "pre":
+                e = torch.exp(pf)
+                den = reduce_rule(vals * e)
+                out.append(torch.log(den))
             else:
-                out.append(torch.log(reduce_rule(vals * torch.exp(pf))))
+                a = theta * (torch.log(vals) if interp == "post" else vals)
+                lk, e, den = log_expect(a + pf)
+                out.append(lk)
+                e = theta * (e / vals if interp == "post" else e)
+            if tape is not None:           # (B, Q) factor of the batch
+                factors.append(e * w_q / den[:, None])
+                corners.append(cb)
         log_kg = torch.cat(out).reshape(shape) + shift + log_kappa_flat
-        return torch.log1p(beta * torch.exp(log_kg / theta))
+        qe = beta * torch.exp(log_kg / theta)
+        if tape is not None:
+            if interp != "loglin":
+                tape.scale(theta * field if interp == "pre" else field)
+            tape.linear(lambda t: torch.cat(
+                [gather_corners(t, cb) for cb in corners]).reshape(n, -1))
+            sigma = qe / ((1 + qe) * theta)
+            tape.scale(torch.cat(factors) * sigma.reshape(n, 1))
+            tape.linear(lambda t: t.sum(1).reshape(shape))
+        return torch.log1p(qe)
+
+    def T(ell):
+        return primal(ell)
+
+    T.linearize = lambda x: Linearization(primal, x)
     return T

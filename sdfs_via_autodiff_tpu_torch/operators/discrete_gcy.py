@@ -367,7 +367,6 @@ def _T_gcy_normalized(model: GCY, disc: GCYDiscretization, *, dtype=None,
         log_hwt = t_c * ell0_t + a + log_A2 + log_A3
         return log1p_epilogue(log_hwt, t_c, beta, tape)
 
-    # The float32 deep windows keep their own jvp (no linearization).
-    T = transparent(primal) if deep else linearizable(primal)
+    T = linearizable(primal)
     T.baseline_log_w = ell0_t
     return T

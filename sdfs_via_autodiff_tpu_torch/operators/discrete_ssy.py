@@ -316,7 +316,6 @@ def _T_ssy_normalized(model: SSY, disc: SSYDiscretization, *, dtype=None,
         log_hwt = theta_c * ell0_t + a + log_A2 + log_A3
         return log1p_epilogue(log_hwt, theta_c, beta, tape)
 
-    # The float32 deep windows keep their own jvp (no linearization).
-    T = transparent(primal) if deep else linearizable(primal)
+    T = linearizable(primal)
     T.baseline_log_w = ell0_t
     return T

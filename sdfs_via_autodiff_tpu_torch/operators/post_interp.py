@@ -19,6 +19,21 @@ per-axis batched matmuls with a running log-sum-exp across nodes.  The
 form is exact (the gather's corner weights, reordered) and covers
 tensor-product quadrature and joint Monte Carlo draws alike.  The fused
 SSY kernel over the same nodes lives in :mod:`..kernels.post_interp_kernel`.
+
+Newton's tangent (``T.linearize``, ``ops/tangent.py``) is built once per
+step.  With u_q = chain_q(field), a_q = theta (log u_q + c) + pay_q +
+log w_q ("post"; theta u_q + ... for "loglin") and p_q = e^{a_q - lse},
+the log-sum-exp's tangent is sum_q p_q da_q, da_q = theta du_q / u_q
+("post"; theta du_q for "loglin"), and du_q = chain_q(dfield) with
+dfield = field * dell ("post", the detached max c cancels) or dell.  The
+build stores one (Q, N) factor G_q = sigma theta p_q / u_q (theta p_q
+for "loglin"), sigma the epilogue's factor q / ((1 + q) theta): the
+streaming pass keeps b_q = (a_q - m) - log u_q ((a_q - m) for
+"loglin") against its running max m, and once the final max M and sum
+S are known (lse = M + log S) G = sigma theta e^{b + m - M} / S in
+place.  A matvec is then the sum over chunks of sum_q G_q *
+chain_q(field * v): the chain's contractions once per chunk and one
+multiply-accumulate, with no exp, log or max.
 """
 
 from __future__ import annotations
@@ -30,6 +45,7 @@ import torch
 
 from ..config import resolve_device
 from ..ops.quadrature import tensor_quadrature_normal
+from ..ops.tangent import Linearization, viewed
 from .continuous_common import hat_basis, hat_corners
 from .continuous_gcy import _log_kappa_gcy
 from .continuous_ssy import _host_grids
@@ -41,8 +57,10 @@ __all__ = ["node_basis_ssy", "node_corners_ssy", "make_node_chain_T_ssy",
 _F64 = torch.float64
 # Default node-chunk size: the most nodes whose (chunk, N) intermediate
 # stays within this many bytes.  Each chunk costs a fixed number of
-# launches (and, under torch.func.jvp, of host dispatches), so few large
-# chunks beat the JAX package's 32-node chunks, which fit TPU memory.
+# launches, in the primal and again in every matvec of Newton's
+# linearization (one run of the chain's contractions per chunk), so few
+# large chunks beat the JAX package's 32-node chunks, which fit TPU
+# memory.
 CHUNK_BYTES = 128 * 2**20
 
 
@@ -148,32 +166,46 @@ def _node_stacks(arrs, log_weights, chunk, dtype, dev):
 
 
 def _lse_over_nodes(chain, field2, stacks, logw, interp, c, theta, shape,
-                    dtype, dev):
+                    dtype, dev, keep=None, n_nodes=0):
     """Streaming log-sum-exp over node chunks: returns log of
     sum_q exp(theta*f(u_q) + pay_q + logw_q) on ``shape`` (f = log + c
     for "post", the identity for "loglin").  The running max carries no
     tangent: the shift's contribution cancels exactly (the sum is
     shift-invariant), so detaching it is exact, as the JAX package's
-    ``stop_gradient``."""
+    ``stop_gradient``.  ``keep`` (a list) receives each chunk's
+    p_q / u_q ("post") or p_q ("loglin"), p_q = e^{a_q - lse}, for its
+    nodes among the first ``n_nodes`` (the padding's are left out): the
+    pass keeps (a_q - m) - log u_q against the running max m, so the
+    exponent is formed at the scale of the terms, and rescales it by the
+    final max and sum."""
     neg_inf = torch.tensor(-np.inf, dtype=dtype, device=dev)
     m = torch.full(shape, -np.inf, dtype=dtype, device=dev)
     acc = torch.zeros(shape, dtype=dtype, device=dev)
     pay_idx = (slice(None), slice(None)) + (None,) * (len(shape) - 1)
     w_idx = (slice(None),) + (None,) * len(shape)
+    ck = logw.shape[1]
     for n in range(logw.shape[0]):
         xs = [s[n] for s in stacks]
         u = chain(field2, xs[:-1])
         if interp == "post":
-            a = theta * (torch.log(u) + c)
+            log_u = torch.log(u)
+            a = theta * (log_u + c)
         else:
             a = theta * u
         a = a + xs[-1][pay_idx] + logw[n][w_idx]
         m_new = torch.maximum(m, torch.amax(a, dim=0).detach())
+        if keep is not None:
+            nq = min(ck, n_nodes - n * ck)
+            b = a[:nq] - m_new
+            keep.append((b.sub_(log_u[:nq]) if interp == "post" else b,
+                         m_new))
         # exp(m - m_new) with m = -inf on the first step: guard the
         # -inf - -inf = nan case.
         scale = torch.where(m == neg_inf, 0.0, torch.exp(m - m_new))
         acc = acc * scale + torch.sum(torch.exp(a - m_new[None]), dim=0)
         m = m_new
+    if keep is not None:
+        keep[:] = [b.add_(m_n - m).exp_().div_(acc) for b, m_n in keep]
     return m + torch.log(acc)
 
 
@@ -186,6 +218,44 @@ def _field(ell, interp, dtype):
         c = torch.amax(ell).detach()
         return torch.exp(ell - c), c
     return ell, torch.zeros((), dtype=dtype, device=ell.device)
+
+
+def _node_chain_T(chain, stacks, logw, n_nodes, interp, theta, beta,
+                  shapes, log_kappa, dtype, dev) -> Callable:
+    """The log-space operator of a node chain: ``chain(field2, xs)`` maps
+    the field as (L, N / L) to a chunk's (chunk,) + ``shapes`` successor
+    interpolants, ``stacks`` the chunked per-node arrays (the last the
+    payoff), ``log_kappa`` broadcast against ``shapes``.  ``T.linearize``
+    builds Newton's tangent (module docstring); it is single-device."""
+    n_l = shapes[0]
+
+    def primal(ell, tape=None):
+        ell = viewed(ell, lambda t: t.to(dtype), tape)
+        field, c = _field(ell, interp, dtype)
+        if tape is not None and interp == "post":
+            tape.scale(field)
+        field2 = viewed(field, lambda t: t.reshape(n_l, -1), tape)
+        keep = None if tape is None else []
+        lse = _lse_over_nodes(chain, field2, stacks, logw, interp, c, theta,
+                              shapes, dtype, dev, keep, n_nodes)
+        q = beta * torch.exp((lse + log_kappa) / theta)
+        if tape is not None:
+            # sigma * theta = q / (1 + q), folded into G with p_q / u_q.
+            s = q / (1 + q)
+            terms = []
+            for n, G in enumerate(keep):
+                G.mul_(s)
+                xs = [st[n] for st in stacks[:-1]]
+                terms.append((None, lambda t, xs=xs, nq=G.shape[0]:
+                              chain(t, xs)[:nq], G))
+            tape.branches(terms, out=lambda t: t.sum(0))
+        return torch.log1p(q)
+
+    def T(ell):
+        return primal(ell)
+
+    T.linearize = lambda x: Linearization(primal, x)
+    return T
 
 
 def make_node_chain_T_ssy(model, grids: Sequence, nodes, log_weights,
@@ -206,6 +276,8 @@ def make_node_chain_T_ssy(model, grids: Sequence, nodes, log_weights,
     so peak memory is O(chunk * N); by default a chunk's intermediate
     stays within :data:`CHUNK_BYTES` (the JAX package takes
     min(Q, 32) nodes).  Chunking changes the result only by rounding.
+    ``T.linearize(x)`` is Newton's tangent at x, built once (module
+    docstring).
     """
     if interp not in ("post", "loglin"):
         raise ValueError(f"unknown interp {interp!r}")
@@ -227,9 +299,10 @@ def make_node_chain_T_ssy(model, grids: Sequence, nodes, log_weights,
     ck = chunk
 
     def chain(field2, xs):
-        # field2: (L, K*I*J), shared by all nodes.  Each step is one
-        # batched matmul with the node chunk leading and the contracted
-        # axis adjacent, then one permute of the (chunk, N) intermediate.
+        # field2: (L, K*I*J), shared by all nodes (or a tangent).  Each
+        # step is one batched matmul with the node chunk leading and the
+        # contracted axis adjacent, then one permute of the (chunk, N)
+        # intermediate.
         b1, b2, b3, b4 = xs
         u = (b1.reshape(ck * n_l, n_l) @ field2).reshape(ck, n_l, n_k, n_i,
                                                          n_j)
@@ -241,15 +314,8 @@ def make_node_chain_T_ssy(model, grids: Sequence, nodes, log_weights,
         u = (b4 @ u.transpose(-1, -2)).reshape(ck, n_i, n_j, n_k, n_l)
         return u.permute(0, 4, 3, 1, 2)                # (ck, l, k, i, j)
 
-    def T(ell):
-        field, c = _field(ell, interp, dtype)
-        lse = _lse_over_nodes(chain, field.reshape(n_l, n_k * n_i * n_j),
-                              stacks, logw, interp, c, theta, shapes,
-                              dtype, dev)
-        log_kg = lse + log_kappa[None, :, None, :]
-        return torch.log1p(beta * torch.exp(log_kg / theta))
-
-    return T
+    return _node_chain_T(chain, stacks, logw, Q, interp, theta, beta,
+                         shapes, log_kappa[None, :, None, :], dtype, dev)
 
 
 def gcy_quadrature_nodes(quad_degree: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -355,12 +421,6 @@ def make_node_chain_T_gcy(model, grids: Sequence, nodes, log_weights,
                                               n_l)
         return u.permute(0, 6, 5, 1, 4, 3, 2)   # (ck, l, k, i, y, j, b)
 
-    def T(ell):
-        field, c = _field(ell, interp, dtype)
-        lse = _lse_over_nodes(
-            chain, field.reshape(n_l, n_k * n_i * n_y * n_j * n_b), stacks,
-            logw, interp, c, theta, shapes, dtype, dev)
-        log_kg = lse + log_kappa[None, :, None, None, :, None]
-        return torch.log1p(beta * torch.exp(log_kg / theta))
-
-    return T
+    return _node_chain_T(chain, stacks, logw, Q, interp, theta, beta,
+                         shapes, log_kappa[None, :, None, None, :, None],
+                         dtype, dev)

@@ -207,6 +207,22 @@ class _LseMatmulDeep(torch.autograd.Function):
         return gM, gv, None, None, None, None
 
 
+def _record_deep(tape, Mn, log_v, spec) -> None:
+    """The deep windows' tangent on ``tape``: one branch per window k,
+    ``pre`` its exponentials em_k, ``post`` one over its contraction
+    where it is the shallowest normal window and 0 elsewhere, the map
+    the contraction itself.  This is :meth:`_LseMatmulDeep.jvp`'s sum,
+    factor by factor: the rows beyond the deepest window keep a zero
+    tangent, and no product is flushed."""
+    contract = lambda t: torch.einsum(spec[0], Mn, t)
+    terms = []
+    for em, u_k, first in _deep_windows(Mn, log_v, *spec):
+        post = torch.where(first, torch.reciprocal(u_k),
+                           torch.zeros_like(u_k))
+        terms.append((em, contract, post))
+    tape.branches(terms)
+
+
 def lse_matmul(M: torch.Tensor, log_v: torch.Tensor, subscripts: str,
                axis: int, deep_window: float = 0.0,
                deep_passes: int = 2, tape=None) -> torch.Tensor:
@@ -226,16 +242,14 @@ def lse_matmul(M: torch.Tensor, log_v: torch.Tensor, subscripts: str,
     window represents it (:func:`_deep_passes`).
 
     ``tape`` (``ops/tangent.Tape``) records the contraction's tangent for
-    Newton's linearization; the deep windows keep their own ``jvp`` and
-    refuse one.
+    Newton's linearization.  The deep windows record theirs as branches
+    (:func:`_record_deep`).
     """
     M, log_s = _rowsum_align(M, subscripts, axis)
     if deep_window and log_v.dtype == torch.float32:
+        spec = (subscripts, axis, float(deep_window), int(deep_passes))
         if tape is not None:
-            raise ValueError("the float32 deep-window contraction has no "
-                             "tangent tape; linearize it by torch.func.jvp")
-        return _LseMatmulDeep.apply(M, log_v, subscripts, axis,
-                                    float(deep_window),
-                                    int(deep_passes)) + log_s
+            _record_deep(tape, M, log_v, spec)
+        return _LseMatmulDeep.apply(M, log_v, *spec) + log_s
     return lse_step(log_v, _safe_shift(log_v, axis),
                     lambda t: torch.einsum(subscripts, M, t), tape) + log_s

@@ -256,10 +256,12 @@ def apply(fn: Callable, x):
 
 def transparent(fn: Callable) -> Callable:
     """``fn`` taking a DTensor as well as a plain tensor (see the module
-    docstring); a plain tensor runs ``fn`` itself."""
+    docstring); a plain tensor runs ``fn`` itself.  ``T.takes_dtensor``
+    marks it."""
     @functools.wraps(fn)
     def T(x):
         return apply(fn, x) if is_dtensor(x) else fn(x)
+    T.takes_dtensor = True
     return T
 
 

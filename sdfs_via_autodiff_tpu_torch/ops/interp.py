@@ -14,7 +14,8 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["uniform_grid_coords", "multilinear_interp", "lin_interp"]
+__all__ = ["uniform_grid_coords", "multilinear_interp", "lin_interp",
+           "interp_corners", "gather_corners"]
 
 
 def uniform_grid_coords(grids: Sequence[torch.Tensor],
@@ -34,20 +35,17 @@ def uniform_grid_coords(grids: Sequence[torch.Tensor],
     return (x - lows.reshape(bshape)) / steps.reshape(bshape)
 
 
-def multilinear_interp(values: torch.Tensor,
-                       coords: torch.Tensor) -> torch.Tensor:
-    """Interpolate ``values`` (shape ``grid_shape``) at fractional
-    ``coords`` (shape ``(dim, N)``); returns shape ``(N,)``.
-
-    Edge handling clamps coordinates into the valid cell range.
-    """
-    dim = values.ndim
+def interp_corners(shape, coords: torch.Tensor) -> list:
+    """The 2^d corners of :func:`multilinear_interp` on a grid of
+    ``shape`` at fractional ``coords`` (dim, N): a list of (flat index
+    (N,), weight (N,)), one per corner, in its order."""
+    dim = len(shape)
     if coords.shape[0] != dim:
         raise ValueError(f"coords leading axis {coords.shape[0]} != values "
                          f"ndim {dim}")
     lo_idx, frac = [], []
     for d in range(dim):
-        n = values.shape[d]
+        n = shape[d]
         c = coords[d]
         if n == 1:
             lo_idx.append(torch.zeros_like(c, dtype=torch.int64))
@@ -57,17 +55,38 @@ def multilinear_interp(values: torch.Tensor,
         lo_idx.append(i0)
         frac.append(torch.clamp(c - i0, 0.0, 1.0))
 
-    out = None
+    out = []
     for corner in itertools.product((0, 1), repeat=dim):
-        idx = tuple(lo_idx[d] + corner[d] if values.shape[d] > 1
-                    else lo_idx[d] for d in range(dim))
-        wgt = None
+        flat, wgt = None, None
         for d in range(dim):
+            i = lo_idx[d] + corner[d] if shape[d] > 1 else lo_idx[d]
+            flat = i if flat is None else flat * shape[d] + i
             f = frac[d] if corner[d] else 1.0 - frac[d]
             wgt = f if wgt is None else wgt * f
-        term = values[idx] * wgt
+        out.append((flat, wgt))
+    return out
+
+
+def gather_corners(values: torch.Tensor, corners: list) -> torch.Tensor:
+    """``values`` interpolated at the corners of :func:`interp_corners`:
+    a linear map of ``values``."""
+    flat_vals = values.reshape(-1)
+    out = None
+    for flat, wgt in corners:
+        term = flat_vals[flat] * wgt
         out = term if out is None else out + term
     return out
+
+
+def multilinear_interp(values: torch.Tensor,
+                       coords: torch.Tensor) -> torch.Tensor:
+    """Interpolate ``values`` (shape ``grid_shape``) at fractional
+    ``coords`` (shape ``(dim, N)``); returns shape ``(N,)``.
+
+    Edge handling clamps coordinates into the valid cell range.
+    """
+    return gather_corners(values, interp_corners(tuple(values.shape),
+                                                 coords))
 
 
 def lin_interp(x: torch.Tensor, fun_vals: torch.Tensor,

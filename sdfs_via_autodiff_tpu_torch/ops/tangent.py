@@ -22,6 +22,22 @@ the stages' contractions with one elementwise product between each two:
 the tape multiplies every run of factors into one stored tensor (``1/D``
 of a stage times the next stage's ``E``), so a chain of n contractions
 keeps n + 1 field-sized factors and its matvec runs no exp, log or max.
+
+Where the primal sums several paths, the tape records one step for the
+sum, :meth:`Tape.branches`:
+
+    dy = sum_b post_b * L_b(pre_b * dx),
+
+each branch a linear map between two factors (``None`` for 1).  The
+factor pending on the tape multiplies into each ``pre_b``; where no
+branch has a ``pre`` it is stored once, as a factor before the sum.  A
+map ``out`` may follow each branch's product (a sum over a batch axis,
+say) before the branches are added.  Two users: the float32 deep
+windows of ``ops/contract.py`` (branch k: ``pre`` the window's
+exponentials, ``post`` one over its contraction where it is the
+shallowest normal window, else 0) and the node chains of
+``operators/post_interp.py`` (a branch per node chunk: the chunk's
+chain of contractions, ``post`` the folded (chunk, N) factor).
 """
 
 from __future__ import annotations
@@ -36,14 +52,36 @@ __all__ = ["Tape", "Linearization", "linearizable", "lse_step",
            "log1p_epilogue", "viewed"]
 
 
+class _Branches:
+    """The linear map ``v -> sum_b out(post_b * fn_b(pre_b * v))``."""
+
+    def __init__(self, terms, out):
+        self.terms, self.out = terms, out
+
+    def __call__(self, v):
+        acc = None
+        for pre, fn, post in self.terms:
+            t = fn(v if pre is None else v * pre)
+            if post is not None:
+                t = t * post
+            if self.out is not None:
+                t = self.out(t)
+            acc = t if acc is None else acc + t
+        return acc
+
+    def factors(self):
+        for pre, _, post in self.terms:
+            yield from (f for f in (pre, post) if f is not None)
+
+
 class Tape:
     """The tangent-linear of a chain, written down while its primal runs.
 
     Steps, in the primal's order: :meth:`scale` (an elementwise factor:
     a float, a 0-d tensor or a field), :meth:`linear` (a linear map of the
     field, such as a contraction), :meth:`view` (a reshape, permute or
-    cast, which commutes with the factors) and :meth:`lse` (a contraction
-    stage).  Consecutive factors are multiplied into one as they come,
+    cast, which commutes with the factors), :meth:`lse` (a contraction
+    stage) and :meth:`branches` (a sum of factored linear maps).  Consecutive factors are multiplied into one as they come,
     through views, so the tape holds one factor between each two linear
     maps."""
 
@@ -69,6 +107,19 @@ class Tape:
         self.scale(e)
         self.linear(contract)
         self.scale(torch.reciprocal(u))
+
+    def branches(self, terms, out: Callable = None) -> None:
+        """A sum ``sum_b out(post_b * fn_b(pre_b * v))`` over ``terms``,
+        a list of ``(pre, fn, post)``: ``fn`` a linear map, ``pre`` and
+        ``post`` factors or None, ``out`` a linear map or None."""
+        f, terms = self._factor, list(terms)
+        if f is None or all(pre is None for pre, _, _ in terms):
+            self._flush()
+        else:
+            self._factor = None
+            terms = [(f if pre is None else f * pre, fn, post)
+                     for pre, fn, post in terms]
+        self._steps.append(_Branches(terms, out))
 
     def _flush(self) -> None:
         if self._factor is not None:
@@ -113,6 +164,16 @@ def _run(steps, v):
     return v
 
 
+def _factors(steps):
+    """The stored tensors of ``steps``, each once."""
+    seen = {}
+    for s in steps:
+        for f in s.factors() if isinstance(s, _Branches) else (s,):
+            if torch.is_tensor(f):
+                seen.setdefault(id(f), f)
+    return seen.values()
+
+
 class Linearization:
     """Newton's ``v -> J(x) v - v`` of ``primal(ell, tape)`` at ``x``.
 
@@ -149,8 +210,8 @@ class Linearization:
     @property
     def nbytes(self) -> int:
         """Bytes of the stored factors (0 before the build)."""
-        return sum(s.numel() * s.element_size() for s in self._steps or ()
-                   if torch.is_tensor(s))
+        return sum(f.numel() * f.element_size()
+                   for f in _factors(self._steps or ()))
 
 
 def linearizable(primal: Callable) -> Callable:

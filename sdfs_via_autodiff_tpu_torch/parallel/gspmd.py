@@ -10,8 +10,9 @@ they need on top of that:
   :class:`~.shard_ops.ShardedOperator` whose reductions span only the
   ranks that hold distinct shards.
 * The tangent: an operator with a hand linearization (``T.linearize``,
-  ``ops/tangent.py``) runs it on the DTensor, plain ops that DTensor
-  dispatches (:class:`_LocalLinearization`).  Forward-mode AD does not
+  ``ops/tangent.py``) that takes a DTensor (``ops/dtensor.transparent``)
+  runs it on the DTensor, plain ops that DTensor dispatches
+  (:class:`_LocalLinearization`).  Forward-mode AD does not
   run on a DTensor (torch 2.11-2.13), so for any other operator it is the
   derivative of a VJP (:class:`VjpLinearization`, :func:`jvp_by_vjp`):
   per linearization point one primal and one backward with its graph
@@ -122,7 +123,10 @@ def local_operator(T: Callable, x0):
     placements whose ``local`` maps this rank's shard to its shard of
     ``T``'s result, ``local_twin`` the same for ``T.twin`` (or ``T``),
     linearized by its own ``linearize`` on the DTensor where it has one
-    (:class:`_LocalLinearization`), else a :class:`VjpLinearization`,
+    and takes a DTensor (``ops/dtensor.transparent``:
+    :class:`_LocalLinearization`), else a :class:`VjpLinearization`
+    (the node chains and the gather, whose linearization is
+    single-device),
     and ``reduce_axis`` the ranks holding distinct shards."""
     mesh, placements = x0.device_mesh, tuple(x0.placements)
     shape, stride = tuple(x0.shape), x0.stride()
@@ -137,7 +141,7 @@ def local_operator(T: Callable, x0):
         return local
 
     twin = getattr(T, "twin", T)
-    if hasattr(twin, "linearize"):
+    if hasattr(twin, "linearize") and getattr(twin, "takes_dtensor", False):
         local_twin = _LocalLinearization(local_of(twin), twin.linearize,
                                          (mesh, placements, shape, stride))
     else:

@@ -328,7 +328,8 @@ def T_ssy_shard_map_factory(model: SSY, disc: SSYDiscretization, mesh,
     against B_lam's column block, ``all_reduce(MAX)`` of its shift and a
     reduce-scatter); the other three are local.  ``dtype=None`` keeps the
     discretization's dtype.  Requires n_h_lam % mesh size on
-    ``axis_name`` == 0."""
+    ``axis_name`` == 0.  Newton linearizes ``T.local`` once per step
+    (``T.local.linearize``, ``ops/tangent.py``)."""
     beta, theta = model.beta, model.theta
     L, K, I, J = disc.shapes
     ax = _axis(mesh, (axis_name,))
@@ -348,15 +349,21 @@ def T_ssy_shard_map_factory(model: SSY, disc: SSYDiscretization, mesh,
     # reduce-scatter hands each rank its block of them.
     B_cols = B_lam[:, ax.index * L_loc:(ax.index + 1) * L_loc].contiguous()
 
-    def local(ell):
-        p = (theta * ell).reshape(L_loc, K, I * J)
-        a = _cross_shard_lse(p, B_cols, 0, ax).reshape(L_loc, K, I, J)
-        a = lse_matmul(Qc, a, "km,lmij->lkij", 1)
-        a = lse_matmul(Qhz, a, "im,lkmj->lkij", 2)
-        a = lse_matmul(zP, a, "jm,lkim->lkij", 3)
+    def local(ell, tape=None):
+        p = theta * viewed(ell, lambda t: t.reshape(L_loc, K, I * J), tape)
+        if tape is not None:
+            tape.scale(theta)
+        a = viewed(_cross_shard_lse(p, B_cols, 0, ax, tape),
+                   lambda t: t.reshape(L_loc, K, I, J), tape)
+        a = lse_matmul(Qc, a, "km,lmij->lkij", 1, tape=tape)
+        a = lse_matmul(Qhz, a, "im,lkmj->lkij", 2, tape=tape)
+        a = lse_matmul(zP, a, "jm,lkim->lkij", 3, tape=tape)
         log_hwt = a + log_A2[None, :, None, None] + log_A3[None, None, :, :]
-        return torch.log1p(beta * torch.exp(log_hwt / theta))
+        return log1p_epilogue(log_hwt, theta, beta, tape)
 
+    # Newton's tangent: the tape, one build per step (its matvec runs
+    # the next-h_lam contraction's reduce-scatter on the tangent).
+    local.linearize = lambda x: Linearization(local, x)
     return ShardedOperator(local, mesh, _placements(mesh, {axis_name: 0}),
                            disc.shapes, ax)
 
@@ -432,7 +439,9 @@ def two_phase_shard_map_factory(ops: TwoPhaseOperands, mesh,
     set with dense factors (discrete SSY and GCY, plain or normalized,
     continuous SSY); pair-factored and ``dense=False`` sets raise
     ``ValueError``.  ``dtype=None`` means float32, as in the JAX package.
-    Differentiable in both modes (``T.local`` under ``torch.func``)."""
+    Differentiable in both modes (``T.local`` under ``torch.func``);
+    Newton linearizes ``T.local`` once per step (``T.local.linearize``,
+    ``ops/tangent.py``)."""
     L, K = ops.shapes[:2]
     ax1, ax2 = _axis(mesh, (dp_axis,)), _axis(mesh, (tp_axis,))
     if L % ax1.size or K % ax2.size:
@@ -447,6 +456,7 @@ def two_phase_shard_map_factory(ops: TwoPhaseOperands, mesh,
     dev = mesh_device(mesh)
     dtype = dtype or torch.float32
     local = _sharded_eager_local(ops, dtype, dev, ax1, ax2)
+    local.linearize = lambda x: Linearization(local, x)
     T = ShardedOperator(local, mesh, _placements(mesh, {dp_axis: 0,
                                                         tp_axis: 1}),
                         ops.shapes,

@@ -9,7 +9,10 @@ derivative of a VJP there, gives the same steps).  The kernel-backed
 operators and solvers refuse a DTensor with a ``ValueError`` naming
 ``parallel.streamed_shard_map_factory`` and ``T.twin``, before any
 launch or gather; a DTensor Newton solve refuses ``inner="dense"`` and
-``tangent_T``, and ``method="gd"`` refuses a DTensor start.
+``tangent_T``, and ``method="gd"`` refuses a DTensor start.  At a
+DTensor start the float32 deep windows run their own linearization on
+the DTensor, while the node chains, whose linearization is
+single-device, keep the derivative of a VJP.
 """
 
 import pytest
@@ -56,3 +59,25 @@ def test_world_size_1_solve_is_bitwise_single_device(world1, method):
     res = world1[method]
     assert res["equal"], res
     assert res["iterations"][0] == res["iterations"][1]
+
+
+@pytest.mark.parametrize("name, route", [
+    ("ssy_normalized_f32", "_LocalLinearization"),
+    ("node_chain_f32", "VjpLinearization")])
+def test_dtensor_tangent_route_of_the_new_linearizations(world1, name,
+                                                         route):
+    # The float32 deep windows linearize on the DTensor (their operator
+    # takes one); the node chain keeps the derivative of a VJP there.
+    # Either matvec is the single-device linearization's to float32
+    # rounding (2e-6 of sup |v|).
+    got_route, rel_v = world1["tangent"][name]
+    assert got_route == route
+    assert rel_v <= 2e-6
+
+
+def test_node_chain_newton_from_a_dtensor_start(world1):
+    # The derivative of a VJP there, the chain's own linearization on
+    # one device: the same float64 fixed point (tol 1e-11).
+    route, max_abs, converged = world1["tangent"]["node_chain_newton"]
+    assert route == "VjpLinearization" and converged
+    assert max_abs <= 1e-10

@@ -206,9 +206,6 @@ CASES = ["ssy_plain", "gcy_view", "ssy_continuous_batched",
          "conjugated_sub_mid", "pair", "fused_kron", "fused_kron_sub",
          "T_ssy_factory", "T_ssy_factory_normalized", "T_gcy_factory",
          "continuous_ssy", "continuous_gcy", "degroot"]
-# The normalized per-axis operators run the deep windows in float32,
-# which keep their own jvp: no float32 linearization.
-NO_F32 = {"T_ssy_factory_normalized"}
 
 
 def _jvp_matvec(T, x, v):
@@ -243,11 +240,8 @@ def test_float64_linearization_matches_jax_linearize(case):
 
 
 def test_float32_linearization_is_the_jvp(case):
-    name, make, _, x, v = case
+    _, make, _, x, v = case
     T = make(torch.float32)
-    if name in NO_F32:
-        assert not hasattr(T, "linearize")
-        return
     xt, vt = torch.as_tensor(x, dtype=torch.float32), torch.as_tensor(
         v, dtype=torch.float32)
     got = T.linearize(xt)(vt)
@@ -338,21 +332,20 @@ class _Count(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-def test_matvecs_run_no_transcendental_and_newton_builds_once_a_step():
+def _builds_once_a_step(T, x, v) -> Counter:
+    """Checks that ``T.twin``'s linearization builds on its first matvec
+    only, that a matvec runs no transcendental and that a Newton solve
+    through ``T`` (its primal not counted) runs the twin's primal once per
+    Newton step; returns the transcendentals of one primal."""
     from sdfs_via_autodiff_tpu_torch.solvers.fixed_point import newton_solver
-    _, pd = _ssy_disc((4, 4, 4, 6))
-    T = P.make_tiled_T_log_ssy(P.SSY(), pd, device="cpu")
-    x = torch.full((4, 4, 4, 6), float(np.log(800.0)))
-    v = torch.as_tensor(np.random.default_rng(16).standard_normal(
-        (4, 4, 4, 6)), dtype=torch.float32)
     count = _Count()
     with count:
-        lin = T.twin.linearize(x)
+        lin = tangent_matvec(T.twin, x)
+    assert isinstance(lin, Linearization)
     assert not count.n                 # built on the first matvec only
     with count:
         lin.build()
     per_primal = Counter(count.n)
-    assert per_primal["exp"] == 5 and per_primal["log"] == 4
     count.n.clear()
     with count:
         lin(v)
@@ -373,6 +366,31 @@ def test_matvecs_run_no_transcendental_and_newton_builds_once_a_step():
     steps = sum(1 for n in inner if n > 0)
     assert steps >= 2
     assert count.n == Counter({k: steps * n for k, n in per_primal.items()})
+    return per_primal
+
+
+def test_matvecs_run_no_transcendental_and_newton_builds_once_a_step():
+    _, pd = _ssy_disc((4, 4, 4, 6))
+    T = P.make_tiled_T_log_ssy(P.SSY(), pd, device="cpu")
+    x = torch.full((4, 4, 4, 6), float(np.log(800.0)))
+    v = torch.as_tensor(np.random.default_rng(16).standard_normal(
+        (4, 4, 4, 6)), dtype=torch.float32)
+    per_primal = _builds_once_a_step(T, x, v)
+    assert per_primal["exp"] == 5 and per_primal["log"] == 4
+
+
+@pytest.mark.parametrize("interp", ["post", "loglin"])
+def test_post_interp_kernel_matvecs_run_no_transcendental_and_newton_builds_once_a_step(interp):
+    """The B8 operator on the CPU (its plain version): Newton's tangent
+    is its float32 node-chain twin's linearization."""
+    sizes = (3, 3, 3, 4)
+    T = P.make_post_interp_kernel_T_ssy(P.SSY(), P.build_grid_ssy(
+        P.SSY(), *sizes), 2, interp, device="cpu")
+    x = torch.full(sizes, float(np.log(700.0)))
+    v = torch.as_tensor(np.random.default_rng(17).standard_normal(sizes),
+                        dtype=torch.float32)
+    per_primal = _builds_once_a_step(T, x, v)
+    assert per_primal["exp"] >= 1 and per_primal["log1p"] == 1
 
 
 @pytest.mark.parametrize("model", ["ssy", "gcy"])
@@ -399,7 +417,9 @@ def test_newton_meets_jax_fixed_point(model):
 
 
 def _kept_on_jvp(name):
-    """Operators whose tangent stays a ``torch.func.jvp`` per matvec."""
+    """Operators whose tangent stays a ``torch.func.jvp`` per matvec
+    (w space), and those that left that route (their own
+    linearization)."""
     if name == "node_chain":
         pg = P.build_grid_ssy(P.SSY(), 4, 4, 4, 5)
         return P.T_ssy_continuous_factory(P.SSY(), pg, interp="post",
@@ -414,15 +434,29 @@ def _kept_on_jvp(name):
     return P.T_ssy_factory(P.SSY(), pd, space="w", device="cpu")
 
 
-@pytest.mark.parametrize("name", ["node_chain", "deep_window_f32",
-                                  "w_space"])
+@pytest.mark.parametrize("name", ["w_space"])
 def test_operators_left_on_the_jvp_matvec(name):
     T = _kept_on_jvp(name)
     assert not hasattr(getattr(T, "twin", T), "linearize")
-    shape = (4, 4, 4, 5) if name == "node_chain" else (4, 4, 4, 6)
-    x = torch.full(shape, float(np.log(800.0)))
-    if name == "w_space":
-        x = torch.exp(x.double())
+    x = torch.exp(torch.full((4, 4, 4, 6), float(np.log(800.0)),
+                             dtype=torch.float64))
     v = torch.ones_like(x)
     np.testing.assert_array_equal(tangent_matvec(T, x)(v).numpy(),
                                   _jvp_matvec(T, x, v).numpy())
+
+
+@pytest.mark.parametrize("name", ["node_chain", "deep_window_f32"])
+def test_operators_taken_off_the_jvp_matvec(name):
+    # The float32 node chain and the float32 deep windows, on the
+    # jvp route until their linearization: it is theirs now, and its
+    # matvec is the jvp's to float32 rounding.
+    T = _kept_on_jvp(name)
+    assert hasattr(T, "linearize")
+    shape = (4, 4, 4, 5) if name == "node_chain" else (4, 4, 4, 6)
+    x = torch.full(shape, float(np.log(800.0)))
+    if name == "deep_window_f32":
+        x = T.baseline_log_w.clone()
+    v = torch.ones_like(x)
+    mv = tangent_matvec(T, x)
+    assert isinstance(mv, Linearization)
+    assert _rel_v(mv(v), _jvp_matvec(T, x, v), v) <= JVP_RTOL32

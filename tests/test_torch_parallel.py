@@ -143,6 +143,17 @@ def test_streamed_local_twin_linearizes_like_its_jvp(ranks, case):
         assert r[case]["linearize_rel_v"] <= 2e-6
 
 
+@pytest.mark.parametrize("case", [c for c in sorted(tr.CASES)
+                                  if tr.CASES[c]["factory"] != "streamed"])
+def test_float64_local_linearizes_like_its_jvp(ranks, case):
+    # Newton's tangent on each rank's shard, built once per step: within
+    # 1e-13 of torch.func.jvp of T.local and, gathered, of the
+    # single-device operator's linearization.
+    for r in ranks[tr.CASES[case]["world"]]:
+        assert r[case]["linearize_abs"] <= F64_ATOL
+        assert r[case]["linearize_vs_single"] <= F64_ATOL
+
+
 @pytest.mark.parametrize("case", ["streamed_dcn_2x2", "streamed_sweep_2x2"])
 def test_no_collective_crosses_the_slice_axis(ranks, case):
     # Mesh ("slice", "tp") of shape (2, 2): slice s holds ranks 2s, 2s+1.

@@ -50,8 +50,10 @@ def test_every_rank_takes_the_same_steps(ranks, case):
 
 
 @pytest.mark.parametrize("case, atol", [("newton_two_phase_2x2", 1e-9),
+                                        ("newton_two_phase_4x1", 1e-9),
                                         ("gmres_two_phase_2x2", 1e-9),
-                                        ("newton_tssy_4x1", 1e-10)])
+                                        ("newton_tssy_4x1", 1e-10),
+                                        ("newton_tssy_2x2", 1e-10)])
 def test_float64_newton_matches_jax(ranks, case, atol):
     res = ranks[0][case]
     assert res["converged"]

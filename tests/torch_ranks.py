@@ -37,6 +37,8 @@ CASES = {
                      recipe=("ssy_disc", (8, 6, 6, 6))),
     "tssy_4x1": dict(world=4, mesh=(4, 1), factory="tssy",
                      recipe=("ssy_disc", (8, 6, 6, 6))),
+    "tssy_2x2": dict(world=4, mesh=(2, 2), factory="tssy",
+                     recipe=("ssy_disc", (8, 6, 6, 6))),
     "two_phase_ssy_2x1": dict(world=2, mesh=(2, 1), factory="two_phase",
                               recipe=("ssy", SSY_SHAPES)),
     "two_phase_ssy_2x2": dict(world=4, mesh=(2, 2), factory="two_phase",
@@ -327,6 +329,20 @@ def parallel_cases(rank: int, world: int) -> dict:
             jv = torch.func.jvp(T.local_twin, (xl,), (vl,))[1] - vl
             res["linearize_rel_v"] = float((got - jv).abs().max()
                                            / vl.abs().max())
+        else:
+            # Newton's tangent on the shard (float64): the local
+            # linearization against torch.func.jvp of T.local, and,
+            # gathered, against the single-device operator's.
+            xl = T.to_local(x)
+            v = torch.as_tensor(np.random.default_rng(7).standard_normal(
+                tuple(x.shape)))
+            vl = T.to_local(v)
+            got = T.local_twin.linearize(xl)(vl)
+            jv = torch.func.jvp(T.local, (xl,), (vl,))[1] - vl
+            res["linearize_abs"] = float((got - jv).abs().max())
+            res["linearize_vs_single"] = float(
+                (T.from_local(got).full_tensor()
+                 - single.linearize(x)(v)).abs().max())
         if rank == 0:
             res["out"] = full.double().numpy()
         out[case] = res
@@ -477,6 +493,12 @@ SOLVES = {
     "newton_tssy_4x1": dict(factory="tssy", mesh=(4, 1),
                             recipe=("ssy_disc", (8, 6, 4, 4)),
                             method="newton", opts=dict(tol=1e-10)),
+    "newton_tssy_2x2": dict(factory="tssy", mesh=(2, 2),
+                            recipe=("ssy_disc", (8, 6, 4, 4)),
+                            method="newton", opts=dict(tol=1e-10)),
+    "newton_two_phase_4x1": dict(factory="two_phase", mesh=(4, 1),
+                                 recipe=("ssy", (8, 8, 4, 4)),
+                                 method="newton", opts=dict(tol=1e-10)),
     "anderson_two_phase_2x2": dict(factory="two_phase", mesh=(2, 2),
                                    recipe=("ssy", (8, 8, 4, 4)),
                                    method="anderson", opts=dict(tol=1e-9)),
@@ -1142,4 +1164,49 @@ def gspmd_world1(rank: int, world: int) -> dict:
         out[method] = {"equal": bool(torch.equal(x, ref.x)),
                        "max_abs": float((x - ref.x).abs().max()),
                        "iterations": (res.iterations, ref.iterations)}
+    out["tangent"] = _world1_tangent_routes(P, par, mesh)
+    return out
+
+
+def _world1_tangent_routes(P, par, mesh) -> dict:
+    """At a DTensor start on one rank: the float32 deep windows' own
+    linearization (run on the DTensor) against the single-device one,
+    and the float32 node chain, whose linearization is single-device,
+    on the derivative of a VJP; then a float64 node-chain Newton solve
+    from a DTensor start against the single-device solve (on the
+    chain's own linearization).  Each: the local twin's class and the
+    max abs difference."""
+    import torch
+    from sdfs_via_autodiff_tpu_torch.parallel import gspmd
+    m = P.SSY()
+    grids = P.build_grid_ssy(m, 4, 4, 4, 5)
+    ops = {"ssy_normalized_f32": gspmd_operator(P, "ssy_normalized_f32"),
+           "node_chain_f32": P.T_ssy_continuous_factory(
+               m, grids, interp="post", space="log", quad_degree=3,
+               dtype=torch.float32, device="cpu")}
+    out = {}
+    for name, T in ops.items():
+        base = getattr(T, "baseline_log_w", None)
+        x = (base.clone() if base is not None
+             else torch.full((4, 4, 4, 5), float(np.log(700.0))))
+        v = torch.as_tensor(np.random.default_rng(8).standard_normal(
+            tuple(x.shape)), dtype=torch.float32)
+        xd, vd = par.shard_grid_array(x, mesh), par.shard_grid_array(v, mesh)
+        op = gspmd.local_operator(T, xd)
+        jv = op.from_local(op.local_twin.linearize(op.to_local(xd))(
+            op.to_local(vd))).full_tensor()
+        want = T.linearize(x)(v)
+        out[name] = (type(op.local_twin).__name__,
+                     float((jv - want).abs().max() / v.abs().max()))
+    T = P.T_ssy_continuous_factory(m, grids, interp="post", space="log",
+                                   quad_degree=3, device="cpu")
+    x0 = torch.full((4, 4, 4, 5), float(np.log(700.0)), dtype=torch.float64)
+    res = P.solve(T, par.shard_grid_array(x0, mesh), method="newton",
+                  tol=1e-11)
+    ref = P.solve(T, x0, method="newton", tol=1e-11)
+    out["node_chain_newton"] = (
+        type(gspmd.local_operator(T, par.shard_grid_array(
+            x0, mesh)).local_twin).__name__,
+        float((res.x.full_tensor() - ref.x).abs().max()),
+        bool(res.converged and ref.converged))
     return out
