@@ -496,6 +496,17 @@ def check(ok: bool, msg: str) -> None:
         fail(msg)
 
 
+@contextlib.contextmanager
+def krylov_counts(port):
+    """Yields a list that holds, once the block ends, the Krylov
+    iteration count of each Newton step the block ran (the port's
+    ``sdfs.krylov`` spans)."""
+    counts = []
+    with port.utils.profiling.recorded() as recs:
+        yield counts
+    counts.extend(r.count for r in recs if r.name == "sdfs.krylov")
+
+
 def noise_field(shapes, seed):
     """log(800) plus seeded noise of scale 0.05 (the JAX bench's input)."""
     rng = np.random.default_rng(seed)
@@ -612,12 +623,11 @@ def gcy_phases(torch, port, st, dev, smi):
     torch.cuda.synchronize()
     for k in st.LAUNCHES:
         st.LAUNCHES[k] = 0
-    inner = []
     t0 = time.perf_counter()
-    sol = port.wc_ratio_discrete(model, GCY_SHAPES, kernel="tiled",
-                                 discretization=GCY_METHOD,
-                                 algorithm="newton", tol=tol, device=dev,
-                                 inner_iterations=inner)
+    with krylov_counts(port) as inner:
+        sol = port.wc_ratio_discrete(model, GCY_SHAPES, kernel="tiled",
+                                     discretization=GCY_METHOD,
+                                     algorithm="newton", tol=tol, device=dev)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = dict(st.LAUNCHES)
@@ -1695,12 +1705,11 @@ def ssy_continuous_phases(torch, port, st, dev, smi):
             torch.cuda.synchronize()
             for k in st.LAUNCHES:
                 st.LAUNCHES[k] = 0
-            inner = []
             t0 = time.perf_counter()
-            sol = port.wc_ratio_continuous(
-                model, SSYC_SHAPES, kernel="tiled", baseline=baseline,
-                w_init=w_init, tol=SSYC_TOL, device=dev,
-                inner_iterations=inner)
+            with krylov_counts(port) as inner:
+                sol = port.wc_ratio_continuous(
+                    model, SSYC_SHAPES, kernel="tiled", baseline=baseline,
+                    w_init=w_init, tol=SSYC_TOL, device=dev)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             now = {k: v for k, v in st.LAUNCHES.items() if v}
@@ -2316,17 +2325,18 @@ class StageSpy:
     Krylov iterations, whether it had a tangent_T, and seconds."""
 
     def __init__(self, torch, port):
-        self.torch, self.solvers = torch, port.solvers.api.SOLVERS
+        self.torch, self.port = torch, port
+        self.solvers = port.solvers.api.SOLVERS
         self.calls = []
 
     def __enter__(self):
         self.newton = self.solvers["newton"]
 
         def spy(T, x0, **kw):
-            inner = kw.setdefault("inner_iterations", [])
             self.torch.cuda.synchronize()
             t0 = time.perf_counter()
-            res = self.newton(T, x0, **kw)
+            with krylov_counts(self.port) as inner:
+                res = self.newton(T, x0, **kw)
             self.torch.cuda.synchronize()
             self.calls.append(dict(
                 dtype=x0.dtype, device=x0.device, res=res, inner=inner,
@@ -2442,12 +2452,12 @@ def solver_layer_phases(torch, port, st, dev, smi, plain_ssy):
     torch.cuda.empty_cache()
 
     # 32. inner="gmres" at the SSY main cell.
-    inner = []
-    sol, secs, launches = solve_path(
-        torch, [st.LAUNCHES], lambda: port.wc_ratio_discrete(
-            model, MAIN_SHAPES, kernel="tiled", discretization=MAIN_METHOD,
-            tol=MAIN_TOL, inner="gmres", inner_maxiter=GMRES_MAXITER,
-            inner_iterations=inner, device=dev))
+    with krylov_counts(port) as inner:
+        sol, secs, launches = solve_path(
+            torch, [st.LAUNCHES], lambda: port.wc_ratio_discrete(
+                model, MAIN_SHAPES, kernel="tiled",
+                discretization=MAIN_METHOD, tol=MAIN_TOL, inner="gmres",
+                inner_maxiter=GMRES_MAXITER, device=dev))
     d = float((torch.log(sol.w_star) - plain_ssy).abs().max())
     print(f"gmres path {MAIN_SHAPES} {MAIN_METHOD} tiled, tol {MAIN_TOL:g}, "
           f"restart 20, {GMRES_MAXITER} cycles a step: {sol.result} in "
@@ -3563,10 +3573,9 @@ def tangent_phase(torch, port, dev, smi):
             T(x)
             torch.cuda.synchronize()
             before = torch.cuda.memory_allocated()
-            inner = []
             t0 = time.perf_counter()
-            res = port.solve(T, x, method="newton", tol=tol,
-                             inner_iterations=inner)
+            with krylov_counts(port) as inner:
+                res = port.solve(T, x, method="newton", tol=tol)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             summary = str(res)
@@ -3584,10 +3593,9 @@ def tangent_phase(torch, port, dev, smi):
             # The same solve on the jvp route (a twin without linearize).
             T_jvp = lambda y: T(y)
             T_jvp.twin = lambda y: twin(y)
-            inner_j = []
             t0 = time.perf_counter()
-            res = port.solve(T_jvp, x, method="newton", tol=tol,
-                             inner_iterations=inner_j)
+            with krylov_counts(port) as inner_j:
+                res = port.solve(T_jvp, x, method="newton", tol=tol)
             torch.cuda.synchronize()
             secs_j = time.perf_counter() - t0
             summary_j = str(res)

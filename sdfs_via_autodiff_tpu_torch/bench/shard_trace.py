@@ -41,6 +41,7 @@ import torch.distributed as dist
 import sdfs_via_autodiff_tpu_torch as port
 from sdfs_via_autodiff_tpu_torch import parallel as par
 from sdfs_via_autodiff_tpu_torch.solvers.sharding import LOCAL, Reductions
+from sdfs_via_autodiff_tpu_torch.utils.profiling import recorded
 
 SHAPES, METHOD, TOL = (32, 32, 32, 384), "tauchen", 2e-5
 TOP = 12
@@ -74,12 +75,13 @@ def _host_ms(fn, n=20) -> float:
 
 
 def _solve(T, x0):
-    inner = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = port.newton_solver(T, x0, tol=TOL, inner_iterations=inner)
+    with recorded() as recs:
+        res = port.newton_solver(T, x0, tol=TOL)
     torch.cuda.synchronize()
-    return res, time.perf_counter() - t0, sum(inner)
+    return res, time.perf_counter() - t0, sum(
+        r.count for r in recs if r.name == "sdfs.krylov")
 
 
 def _profile(label, T, x0) -> dict:

@@ -51,6 +51,7 @@ from .ops.grids import build_grid_gcy, build_grid_ssy, flatten_mesh
 from .ops.interp import lin_interp
 from .solvers import SolveResult, newton_solver, solve
 from .utils.checkpoint import save_solution
+from .utils.profiling import span, spanned
 
 __all__ = ["WCSolution", "wc_ratio_discrete", "wc_ratio_continuous",
            "wc_ratio_continuation", "wc_ratio_sweep",
@@ -214,40 +215,57 @@ def wc_ratio_discrete(model,
     driver's meta: kind, shapes, algorithm, tol, space (and
     ``kernel="tiled"`` on the tiled tier), iterations and residual; with
     ``polish`` the float64 stage writes it.
+
+    The call is a ``sdfs.solve`` span, the root of the spans it records
+    (``utils/profiling.py``); the operator's build is ``sdfs.build``.
     """
-    space = space or "log"
-    if kernel not in ("xla", "tiled"):
-        raise ValueError(f"unknown kernel {kernel!r}")
-    if not isinstance(model, (SSY, GCY)):
-        raise TypeError(f"unsupported model {type(model).__name__}")
-    if baseline not in (None, "loglinear"):
-        raise ValueError(f"unknown baseline {baseline!r}")
-    if polish:
-        _polish_stage(polish)
-    dev = resolve_device(device)
-    sol, T = _solve_discrete(
-        model, shapes, algorithm=algorithm,
-        tol=max(tol, 1e-4) if polish else tol, space=space, w_init=w_init,
-        dtype=dtype, kernel=kernel, baseline=baseline,
-        discretization=discretization, dev=dev, solver_opts=solver_opts)
-    if not polish:
-        _save(checkpoint_path, model, (), sol, kernel, kind="discrete",
-              shapes=list(shapes), algorithm=algorithm, tol=tol,
-              space=space)
-        return sol
-    pdev, popts = _polish_opts(polish, kernel, T, solver_opts, dev)
-    del T
-    return wc_ratio_discrete(
-        model, shapes, algorithm="newton", tol=tol, space="log",
-        discretization=discretization, device=pdev,
-        w_init=sol.w_star.to(device=pdev, dtype=torch.float64),
-        checkpoint_path=checkpoint_path, **popts)
+    with span("sdfs.solve"):
+        space = space or "log"
+        if kernel not in ("xla", "tiled"):
+            raise ValueError(f"unknown kernel {kernel!r}")
+        if not isinstance(model, (SSY, GCY)):
+            raise TypeError(f"unsupported model {type(model).__name__}")
+        if baseline not in (None, "loglinear"):
+            raise ValueError(f"unknown baseline {baseline!r}")
+        if polish:
+            _polish_stage(polish)
+        dev = resolve_device(device)
+        sol, T = _solve_discrete(
+            model, shapes, algorithm=algorithm,
+            tol=max(tol, 1e-4) if polish else tol, space=space, w_init=w_init,
+            dtype=dtype, kernel=kernel, baseline=baseline,
+            discretization=discretization, dev=dev, solver_opts=solver_opts)
+        if not polish:
+            _save(checkpoint_path, model, (), sol, kernel, kind="discrete",
+                  shapes=list(shapes), algorithm=algorithm, tol=tol,
+                  space=space)
+            return sol
+        pdev, popts = _polish_opts(polish, kernel, T, solver_opts, dev)
+        del T
+        return wc_ratio_discrete(
+            model, shapes, algorithm="newton", tol=tol, space="log",
+            discretization=discretization, device=pdev,
+            w_init=sol.w_star.to(device=pdev, dtype=torch.float64),
+            checkpoint_path=checkpoint_path, **popts)
 
 
 def _solve_discrete(model, shapes, *, algorithm, tol, space, w_init, dtype,
                     kernel, baseline, discretization, dev, solver_opts):
     """The discrete solve: (WCSolution, the operator it iterated)."""
     solver_opts = dict(solver_opts)
+    T, w0 = _build_discrete(model, shapes, space=space, w_init=w_init,
+                            dtype=dtype, kernel=kernel, baseline=baseline,
+                            discretization=discretization, dev=dev,
+                            solver_opts=solver_opts)
+    return _run_solver(T, w0, space, algorithm, tol, solver_opts,
+                       theta=model.theta), T
+
+
+@spanned("sdfs.build")
+def _build_discrete(model, shapes, *, space, w_init, dtype, kernel,
+                    baseline, discretization, dev, solver_opts):
+    """(operator, start w on ``dev``) of a discrete solve; takes the JAX
+    tiled tier's options out of ``solver_opts``."""
     gcy = isinstance(model, GCY)
     disc = (discretize_gcy if gcy else discretize_ssy)(
         model, tuple(shapes), method=discretization)
@@ -281,8 +299,7 @@ def _solve_discrete(model, shapes, *, algorithm, tol, space, w_init, dtype,
     w0 = (torch.full(tuple(shapes), DEFAULT_INIT_W, dtype=wdtype, device=dev)
           if w_init is None
           else torch.as_tensor(w_init).to(device=dev, dtype=wdtype))
-    return _run_solver(T, w0, space, algorithm, tol, solver_opts,
-                       theta=model.theta), T
+    return T, w0
 
 
 def _check_kernel_path(model, kernel, method, interp, space, baseline):

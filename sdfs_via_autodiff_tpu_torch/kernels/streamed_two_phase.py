@@ -70,6 +70,7 @@ from ..config import resolve_device
 from ..ops.dtensor import refuse
 from ..operators.two_phase import (TwoPhaseOperands, conjugate_to_shared,
                                    make_eager_two_phase_T)
+from ..utils.profiling import span
 from . import _build
 
 __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
@@ -1201,24 +1202,27 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
     theta, beta = float(ops.theta), float(ops.beta)
     cast = lambda a: torch.as_tensor(np.ascontiguousarray(
         a, np.float64)).to(device=dev, dtype=dtype)
-    W_r1, W_r2 = cast(ops.W_r1), cast(ops.W_r2)
-    add_row = cast(ops.add_row)
-    add_col = cast(np.asarray(ops.add_col).reshape(C))
-    twin = make_eager_two_phase_T(ops, dtype, device=dev)
-    sub_row = sub_col = None
-    if ops.has_sub:
-        sub_row = cast(np.asarray(ops.sub_row).reshape(R))
-        sub_col = cast(ops.sub_col)
-    mid_col = cast(ops.mid_col) if ops.has_mid else None
-    if pair:
-        P_zpi, PzT = pair_device_operands(ops, dtype, device=dev)
-    else:
-        # (J', J), or (I, J', J) for a c2 factor batched over i.
-        W_c2t = cast(np.swapaxes(ops.W_c2, -1, -2))
-    if deferred or pair:
-        W_c1t = cast(np.asarray(ops.W_c1).T)
-    else:
-        W_c1 = cast(ops.W_c1)
+    with span("sdfs.build.upload"):
+        W_r1, W_r2 = cast(ops.W_r1), cast(ops.W_r2)
+        add_row = cast(ops.add_row)
+        add_col = cast(np.asarray(ops.add_col).reshape(C))
+        twin = make_eager_two_phase_T(ops, dtype, device=dev)
+        sub_row = sub_col = None
+        if ops.has_sub:
+            sub_row = cast(np.asarray(ops.sub_row).reshape(R))
+            sub_col = cast(ops.sub_col)
+        mid_col = cast(ops.mid_col) if ops.has_mid else None
+        if pair:
+            P_zpi, PzT = pair_device_operands(ops, dtype, device=dev)
+        else:
+            # (J', J), or (I, J', J) for a c2 factor batched over i.
+            W_c2t = cast(np.swapaxes(ops.W_c2, -1, -2))
+        if deferred or pair:
+            W_c1t = cast(np.asarray(ops.W_c1).T)
+        else:
+            W_c1 = cast(ops.W_c1)
+        baseline_log_w = (None if ops.baseline_log_w is None
+                          else cast(ops.baseline_log_w))
 
     def primal(ell):
         e = ell.to(dtype).reshape(R, I, J).contiguous()
@@ -1275,12 +1279,13 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
 
     def T(ell):
         refuse(ell, "make_streamed_T_log's operator")
-        return _StreamedT.apply(ell)
+        with span("sdfs.primal"):
+            return _StreamedT.apply(ell)
 
     T.twin = twin
     T.mode = mode
     T.engine = ("streamed-pair" if pair else
                 "streamed-deferred" if deferred else "streamed")
-    if ops.baseline_log_w is not None:
-        T.baseline_log_w = cast(ops.baseline_log_w)
+    if baseline_log_w is not None:
+        T.baseline_log_w = baseline_log_w
     return T

@@ -46,6 +46,7 @@ from ..operators.two_phase import (TwoPhaseOperands, make_eager_two_phase_T,
                                    two_phase_operands_gcy_continuous,
                                    two_phase_operands_ssy,
                                    two_phase_operands_ssy_continuous)
+from ..utils.profiling import span
 from . import _build
 from .streamed_two_phase import (_GRID_Y_MAX, SMEM_LIMIT, _check,
                                  _check_mode, _check_sub, _folded, _ptr,
@@ -458,12 +459,17 @@ def _make_strip_T_log(ops: TwoPhaseOperands, dtype, mode: str,
     L, K, n1, n2 = ops.shapes
     R, C = L * K, n1 * n2
     theta, beta = float(ops.theta), float(ops.beta)
-    d = strip_device_operands(ops, lazy_bytes, device=dev)
+    with span("sdfs.build.upload"):
+        d = strip_device_operands(ops, lazy_bytes, device=dev)
+        twin = make_eager_two_phase_T(ops, dtype, device=dev)
+        baseline_log_w = (None if ops.baseline_log_w is None else
+                          torch.as_tensor(np.asarray(
+                              ops.baseline_log_w, np.float64)).to(
+                                  device=dev, dtype=dtype))
     W_c1, W_c2, sub_row, sub_col = (d["W_c1"], d["W_c2"], d["sub_row"],
                                     d["sub_col"])
     W_r1, W_r2, add_row, add_col = (d["W_r1"], d["W_r2"], d["add_row"],
                                     d["add_col"])
-    twin = make_eager_two_phase_T(ops, dtype, device=dev)
 
     def primal(ell):
         e = ell.to(dtype).reshape(R, n1, n2).contiguous()
@@ -505,7 +511,8 @@ def _make_strip_T_log(ops: TwoPhaseOperands, dtype, mode: str,
 
     def T(ell):
         refuse(ell, "the strip tier's operator")
-        return _StripT.apply(ell)
+        with span("sdfs.primal"):
+            return _StripT.apply(ell)
 
     T.twin = twin
     T.mode = mode
@@ -514,10 +521,8 @@ def _make_strip_T_log(ops: TwoPhaseOperands, dtype, mode: str,
                                       _factor_kind(W_c2))["c2"][1],
                      strip_row_tile(L, K))
     T.lazy = (isinstance(W_c1, tuple), isinstance(W_c2, tuple))
-    if ops.baseline_log_w is not None:
-        T.baseline_log_w = torch.as_tensor(
-            np.asarray(ops.baseline_log_w, np.float64)).to(device=dev,
-                                                           dtype=dtype)
+    if baseline_log_w is not None:
+        T.baseline_log_w = baseline_log_w
     return T
 
 

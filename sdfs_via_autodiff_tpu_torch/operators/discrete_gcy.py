@@ -36,6 +36,7 @@ from ..ops.contract import lse_matmul, normalize_rows_log
 from ..ops.tangent import linearizable, log1p_epilogue
 from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
 from ..ops.tauchen import tauchen, tauchen_P, tauchen_ladder
+from ..utils.profiling import spanned
 
 __all__ = ["GCYDiscretization", "discretize_gcy", "T_gcy_factory",
            "dense_H_gcy", "gcy_loglinear_parts"]
@@ -76,6 +77,7 @@ class GCYDiscretization:
                                + tuple(self.z_P.shape))
 
 
+@spanned("sdfs.build.discretize")
 def discretize_gcy(model: GCY, shapes: Tuple[int, ...],
                    dtype: torch.dtype = torch.float64,
                    method: str = "rouwenhorst") -> GCYDiscretization:

@@ -33,6 +33,7 @@ from ..ops.contract import lse_matmul, normalize_rows_log
 from ..ops.tangent import linearizable, log1p_epilogue
 from ..ops.rouwenhorst import rouwenhorst, rouwenhorst_P, rouwenhorst_ladder
 from ..ops.tauchen import tauchen, tauchen_P, tauchen_ladder
+from ..utils.profiling import spanned
 
 __all__ = ["SSYDiscretization", "discretize_ssy", "T_ssy_factory",
            "dense_H_ssy"]
@@ -66,6 +67,7 @@ class SSYDiscretization:
         return self.z_P.expand((self.shapes[2],) + tuple(self.z_P.shape))
 
 
+@spanned("sdfs.build.discretize")
 def discretize_ssy(model: SSY, shapes: Tuple[int, int, int, int],
                    dtype: torch.dtype = torch.float64,
                    method: str = "rouwenhorst") -> SSYDiscretization:

@@ -31,6 +31,7 @@ import torch
 
 from ..config import resolve_device
 from ..ops.tangent import linearizable, lse_step, log1p_epilogue, viewed
+from ..utils.profiling import spanned
 
 __all__ = ["TwoPhaseOperands", "two_phase_operands_ssy",
            "two_phase_operands_ssy_continuous", "two_phase_operands_gcy",
@@ -166,6 +167,7 @@ def _warn_ssy_f32_envelope(model, disc) -> None:
             stacklevel=3)
 
 
+@spanned("sdfs.build.operands")
 def two_phase_operands_ssy(model, disc, baseline: Optional[str] = None
                            ) -> TwoPhaseOperands:
     """Two-phase operands for the discrete SSY operator.
@@ -299,6 +301,7 @@ def _kron(X, Y):
         X.shape[0] * Y.shape[0], X.shape[1] * Y.shape[1])
 
 
+@spanned("sdfs.build.operands")
 def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None,
                            dense: bool = True) -> TwoPhaseOperands:
     """Two-phase operands for the discrete six-state GCY operator via

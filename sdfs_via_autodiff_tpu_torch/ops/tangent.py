@@ -46,6 +46,7 @@ from typing import Callable
 
 import torch
 
+from ..utils.profiling import spanned
 from .dtensor import apply, is_dtensor, transparent
 
 __all__ = ["Tape", "Linearization", "linearizable", "lse_step",
@@ -189,6 +190,7 @@ class Linearization:
         self._x = x
         self._steps = None
 
+    @spanned("sdfs.tangent.build")
     def build(self) -> None:
         tape = Tape()
         with torch.no_grad():
@@ -199,6 +201,7 @@ class Linearization:
         self._steps = tape.finish()
         self._x = None
 
+    @spanned("sdfs.tangent.matvec")
     def __call__(self, v):
         if self._steps is None:
             self.build()

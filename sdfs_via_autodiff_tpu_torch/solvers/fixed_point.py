@@ -17,7 +17,8 @@ from typing import Callable, Optional
 import torch
 
 from ..ops.dtensor import is_dtensor
-from .krylov import SYNC_EVERY, bicgstab_mixed, gmres
+from ..utils.profiling import spanned
+from .krylov import SYNC_EVERY, bicgstab_mixed, gmres, host_read
 from .result import SolveResult
 from .sharding import LOCAL, Reductions, solve_parts, tangent_matvec
 
@@ -60,8 +61,9 @@ def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
     to the result's ``x``.
     """
     dtype, dev = x0.dtype, x0.device
-    big = torch.tensor(math.inf, dtype=dtype, device=dev)
-    tol_t = torch.tensor(tol, dtype=dtype, device=dev)
+    # Filled on the device: a copy of a host scalar would wait for it.
+    big = torch.full((), math.inf, dtype=dtype, device=dev)
+    tol_t = torch.full((), tol, dtype=dtype, device=dev)
     x, err, best = x0, big, big
     it = torch.zeros((), dtype=torch.int64, device=dev)
     since = torch.zeros((), dtype=torch.int64, device=dev)
@@ -75,9 +77,10 @@ def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
         return ((err > tol_t) & (it < max_iter) & alive
                 & (since < stall_iters))
 
-    while bool(cond()):                        # one host read per chunk
+    while host_read(bool, cond()):             # one host read per chunk
         if verbose:
-            print(f"iter = {int(it)}, error = {float(err)}")
+            print(f"iter = {host_read(int, it)}, "
+                  f"error = {host_read(float, err)}")
         for _ in range(SYNC_EVERY):
             run = cond()
             x_new = step(x, run)
@@ -100,9 +103,10 @@ def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
         # a degenerate inner solve can return a zero step far from the
         # solution, so report the actual fixed-point residual instead.
         err = final_residual(x)
-    converged = bool((err <= tol_t) & ~torch.isnan(err))
-    return SolveResult(x=wrap(x), iterations=int(it), residual=float(err),
-                       converged=converged, error_trace=trace)
+    converged = host_read(bool, (err <= tol_t) & ~torch.isnan(err))
+    return SolveResult(x=wrap(x), iterations=host_read(int, it),
+                       residual=host_read(float, err), converged=converged,
+                       error_trace=trace)
 
 
 def successive_approx(T: Callable,
@@ -135,8 +139,7 @@ def newton_solver(T: Callable,
                   tangent_T: Optional[Callable] = None,
                   verbose: bool = False,
                   trace_len: int = 0,
-                  stall_iters: int = 30,
-                  inner_iterations: Optional[list] = None) -> SolveResult:
+                  stall_iters: int = 30) -> SolveResult:
     """Newton–Kantorovich iteration for a fixed point of T.
 
     Iterates ``q(x) = x - J(x)^{-1} g(x)`` for ``g(x) = T(x) - x``.
@@ -178,9 +181,10 @@ def newton_solver(T: Callable,
 
     ``trace_len`` records each outer step's size (see :func:`_iterate`).
 
-    ``inner_iterations``, when a list, receives each step's Krylov
-    iteration count (BiCGStab iterations, GMRES Arnoldi steps; 0 for the
-    frozen steps that end a chunk after the stop condition failed).
+    Each step is a ``sdfs.newton.step`` span (``utils/profiling.py``);
+    its Krylov solve's ``sdfs.krylov`` span counts the inner iterations
+    (BiCGStab iterations, GMRES Arnoldi steps; 0 for the frozen steps
+    that end a chunk after the stop condition failed).
 
     A DTensor ``x0`` runs on the local shard, with every norm and dot
     product all-reduced (``solvers/sharding.py``): a sharded operator
@@ -205,7 +209,7 @@ def newton_solver(T: Callable,
                          "are single-device)")
     g = lambda x: T(x) - x
     maxiter = inner_maxiter if inner_maxiter is not None else 10 * numel
-    inf = torch.tensor(math.inf, dtype=torch.float64, device=x0.device)
+    inf = torch.full((), math.inf, dtype=torch.float64, device=x0.device)
 
     def accept(x, gx, x_new):
         """The safeguard: a plain step T(x) where the candidate is bad."""
@@ -218,10 +222,9 @@ def newton_solver(T: Callable,
         return torch.where(bad, torch.full_like(x_new, math.nan), x_new)
 
     if inner == "dense":
+        @spanned("sdfs.newton.step")
         def q(x, running):
-            if inner_iterations is not None:
-                inner_iterations.append(0)
-            if not bool(running):      # a frozen step: its result is unused
+            if not host_read(bool, running):    # a frozen step: unused
                 return x
             gx = g(x)
             shape = x.shape
@@ -237,6 +240,7 @@ def newton_solver(T: Callable,
                                       red=red)
             return gmres(mv, rhs, atol=atol, maxiter=maxiter, red=red)
 
+        @spanned("sdfs.newton.step")
         def q(x, running):
             gx = g(x)
             if tangent_T is None:
@@ -256,9 +260,7 @@ def newton_solver(T: Callable,
             # any matvec.
             atol = torch.where(running, (inner_tol * red.norm(rhs)).to(
                 torch.float64), inf)
-            b, n_inner = krylov(jac_prod, rhs, atol)
-            if inner_iterations is not None:
-                inner_iterations.append(n_inner)
+            b, _ = krylov(jac_prod, rhs, atol)
             return accept(x, gx, x - b.to(x.dtype))
 
     return _iterate(q, x0, tol, max_iter, verbose=verbose,

@@ -14,7 +14,9 @@ and it reads its stop condition on the host once every
 :data:`SYNC_EVERY` iterations: inside a chunk each iteration evaluates
 the condition on the device and, once it fails, ``torch.where`` freezes
 the state, so the result and the iteration count equal those of a check
-after every iteration.
+after every iteration.  Every blocking read of a device value by the
+host in these loops and in ``fixed_point.py`` goes through
+:func:`host_read`, a ``sdfs.sync`` span (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -24,15 +26,25 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span, spanned
 from .sharding import LOCAL, Reductions
 
-__all__ = ["SYNC_EVERY", "bicgstab_mixed", "gmres"]
+__all__ = ["SYNC_EVERY", "bicgstab_mixed", "gmres", "host_read"]
 
 # Iterations between host reads of a solver loop's stop condition (also
 # used by ``fixed_point._iterate``).
 SYNC_EVERY = 8
 
 
+def host_read(convert: Callable, value):
+    """``convert(value)`` (``bool``, ``int``, ``float``, a copy to the
+    host) for a device ``value``: a blocking read, in a ``sdfs.sync``
+    span whose length is the time the host waits for the device."""
+    with span("sdfs.sync"):
+        return convert(value)
+
+
+@spanned("sdfs.krylov")
 def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
                    maxiter: Optional[int] = 50,
                    x0=None,
@@ -114,14 +126,17 @@ def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
     state = (x, r, z, z, one, one, one,
              torch.zeros((), dtype=torch.int64, device=dev),
              torch.ones((), dtype=torch.bool, device=dev))
-    while bool(cond(state)):                   # one host read per chunk
+    while host_read(bool, cond(state)):        # one host read per chunk
         for _ in range(SYNC_EVERY):
             run = cond(state)
             state = tuple(torch.where(run, new, old)
                           for new, old in zip(body(state), state))
-    return state[0].reshape(shape), int(state[7])
+    n = host_read(int, state[7])
+    count("sdfs.krylov", n)
+    return state[0].reshape(shape), n
 
 
+@spanned("sdfs.krylov")
 def gmres(matvec: Callable, b, *, tol: float = 1e-5, atol=0.0,
           restart: int = 20,
           maxiter: Optional[int] = None,
@@ -160,7 +175,7 @@ def gmres(matvec: Callable, b, *, tol: float = 1e-5, atol=0.0,
                            torch.as_tensor(atol, dtype=f64, device=dev))
     rnorm = norm64(r)
     steps = cycles = 0
-    while cycles < maxiter and bool(rnorm > target):   # one read a cycle
+    while cycles < maxiter and host_read(bool, rnorm > target):
         use = rnorm > eps
         V = [torch.where(use, r / rnorm.to(vdtype), torch.zeros_like(r))]
         H = torch.zeros((restart + 1, restart), dtype=f64, device=dev)
@@ -180,11 +195,13 @@ def gmres(matvec: Callable, b, *, tol: float = 1e-5, atol=0.0,
                                  torch.zeros_like(w)))
             steps += 1
         e1 = np.zeros(restart + 1)
-        e1[0] = float(rnorm)
-        y = np.linalg.lstsq(H.cpu().numpy(), e1, rcond=None)[0]
+        e1[0] = host_read(float, rnorm)
+        y = np.linalg.lstsq(host_read(lambda h: h.cpu().numpy(), H), e1,
+                            rcond=None)[0]
         for j in range(restart):
             x = x + float(y[j]) * V[j]
         r = bf - flat_mv(x)
         rnorm = norm64(r)
         cycles += 1
+    count("sdfs.krylov", steps)
     return x.reshape(shape), steps

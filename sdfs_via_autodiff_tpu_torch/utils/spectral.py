@@ -29,7 +29,6 @@ import torch
 from ..config import resolve_device
 from ..models.gcy import GCY
 from ..models.ssy import SSY
-from ..solvers.krylov import SYNC_EVERY
 from .graphs import run_chunks
 
 __all__ = ["power_iteration", "existence_check", "stability_decomposition",
@@ -53,6 +52,8 @@ def power_iteration(apply_H: Callable, shape, *, tol: float = 1e-10,
     1; a NaN stops too) or ``max_iter``.  Sup-norm normalization keeps
     the iterate O(1); the estimate is the normalization factor.
     """
+    # Imported here: the solvers import this package's recorder.
+    from ..solvers.krylov import SYNC_EVERY
     dev = resolve_device(device)
     v = torch.ones(shape, dtype=dtype, device=dev)
     lam = torch.ones((), dtype=dtype, device=dev)

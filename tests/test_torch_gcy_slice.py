@@ -16,6 +16,7 @@ import torch
 
 import sdfs_via_autodiff_tpu as J
 import sdfs_via_autodiff_tpu_torch as P
+from sdfs_via_autodiff_tpu_torch.utils.profiling import recorded
 
 SHAPES = (30, 8, 16, 2, 8, 2)
 
@@ -25,9 +26,10 @@ def test_gcy_tiled_newton_slice_matches_jax_f64():
     tol = 1.2 * P.f32_tol_floor(m.theta)
     d = P.discretize_gcy(m, SHAPES)
     assert P.streamed_config(P.two_phase_operands_gcy(m, d)) == "deferred"
-    inner = []
-    got = P.wc_ratio_discrete(m, SHAPES, kernel="tiled", tol=tol,
-                              device="cpu", inner_iterations=inner)
+    with recorded() as recs:
+        got = P.wc_ratio_discrete(m, SHAPES, kernel="tiled", tol=tol,
+                                  device="cpu")
+    inner = [r.count for r in recs if r.name == "sdfs.krylov"]
     assert got.converged
     # One BiCGStab count per Newton step, frozen chunk slots included.
     assert len(inner) >= got.result.iterations

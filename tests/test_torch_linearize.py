@@ -43,6 +43,7 @@ from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
 from sdfs_via_autodiff_tpu_torch.operators import degroot as PD
 from sdfs_via_autodiff_tpu_torch.ops.tangent import Linearization
 from sdfs_via_autodiff_tpu_torch.solvers.sharding import tangent_matvec
+from sdfs_via_autodiff_tpu_torch.utils.profiling import recorded
 
 JVP_RTOL64 = 1e-12
 JAX_RTOL64 = 1e-10
@@ -359,11 +360,10 @@ def _builds_once_a_step(T, x, v) -> Counter:
         finally:
             count.paused = False
     T_kernels.twin = T.twin
-    inner = []
-    with count:
-        res = newton_solver(T_kernels, x, tol=2e-5, inner_iterations=inner)
+    with count, recorded() as recs:
+        res = newton_solver(T_kernels, x, tol=2e-5)
     assert res.converged, res
-    steps = sum(1 for n in inner if n > 0)
+    steps = sum(1 for r in recs if r.name == "sdfs.krylov" and r.count > 0)
     assert steps >= 2
     assert count.n == Counter({k: steps * n for k, n in per_primal.items()})
     return per_primal
