@@ -9,7 +9,7 @@ PyTorch built for CUDA:
 Phases, in order; any failure exits non-zero before the result line:
 
 1. device facts (name, power limit, toolchain); full-FP32 matmuls;
-2. build the CUDA kernels from the four sources in ``kernels/csrc/``;
+2. build the CUDA kernels from the five sources in ``kernels/csrc/``;
 3. SSY: pass B and pass C against their plain PyTorch versions on the
    card, both modes, at (4,8,6,64), (56,56,56,64) Rouwenhorst and
    (32,32,32,384) Tauchen;
@@ -17,9 +17,18 @@ Phases, in order; any failure exits non-zero before the result line:
    card;
 5. the SSY path: a float32 Newton solve through the kernels at the
    12.6M-point (32,32,32,384) Tauchen grid, checked against the float64
-   operator, with the kernels' launch counts;
+   operator, with the kernels' launch counts (the fused Krylov passes'
+   against its BiCGStab iterations);
 6. SSY: a second (warm) solve's seconds, and ms per application,
-   kernels vs the plain eager twin (CUDA events);
+   kernels vs the plain eager twin (CUDA events); then the fused Krylov
+   passes (K1, ``kernels/csrc/krylov_fused.cu``) against the eager
+   BiCGStab loop on Newton's first SSY tangent at that grid (iteration
+   count within 1, x within 1e-3 of max |x|, fused solves bitwise
+   repeatable), their device ms per iteration against their byte bound
+   (CUDA events around each group of passes, a spin kernel ahead of
+   each group so the card never waits for the host's launches; and
+   without it, as in a solve), and the eager loop's vector work per
+   iteration (a solve's device time less its matvecs');
 7. GCY: the deferred pass B and pass C against their plain versions at
    a ragged view (2,4,56,258) and at the 25.2M-point grid's
    (12,16,512,256); the deferred pass B's tensor-core layout at ragged
@@ -311,6 +320,18 @@ KERNEL_RTOL_LINEAR = 5e-6
 OPERATOR_ATOL = 5e-6        # one application vs float64
 MAIN_TOL = 2e-5             # f32 Newton tolerance (above f32_tol_floor)
 MAIN_F64_RESIDUAL = 5e-5    # max |T64(ell*) - ell*|
+# K1 against the eager BiCGStab loop on the SSY tangent: the loops part
+# by float32 rounding of the steps as the dots' summation order moves
+# the scalars (the card tests' tolerance).
+KRYLOV_ITER_SLACK, KRYLOV_X_RTOL = 1, 1e-3
+KRYLOV_INNER_TOL, KRYLOV_MAXITER = 1e-4, 50     # Newton's inner defaults
+# Vectors of n entries each BiCGStab iteration's passes read or write:
+# P1 r, p, v, p; P2 rhat, v; P3 r, v, s; P4 t, s; P5 x, p, s, t, rhat,
+# x, r.
+KRYLOV_VECTORS_PER_ITER = 18
+# Clocks of the spin kernel ahead of each timed group of K1's passes
+# (~0.5 ms at 1.98 GHz, ten times the host's enqueue of a group).
+KRYLOV_SPIN_CYCLES = 1_000_000
 # GCY: the NORTHSTAR gcy_discrete_tauchen grid (25,165,824 states, view
 # (12,16,512,256)) and a ragged view (2,4,56,258) for the kernel checks.
 GCY_SHAPES, GCY_METHOD = (32, 16, 16, 12, 16, 16), "tauchen"
@@ -391,7 +412,8 @@ _CSRC = "sdfs_via_autodiff_tpu_torch/kernels/csrc/"
 SOURCES = {"streamed_two_phase": _CSRC + "streamed_two_phase.cu",
            "fused_two_matmul": _CSRC + "fused_two_matmul.cu",
            "post_interp": _CSRC + "post_interp.cu",
-           "tiled_two_phase": _CSRC + "tiled_two_phase.cu"}
+           "tiled_two_phase": _CSRC + "tiled_two_phase.cu",
+           "krylov_fused": _CSRC + "krylov_fused.cu"}
 _JAX_KERNELS = "sdfs_via_autodiff_tpu/kernels/streamed_two_phase.py"
 _JAX_STRIP = "sdfs_via_autodiff_tpu/kernels/tiled_two_phase.py"
 # The normalized tiers (baseline="loglinear") and the strip tier: the
@@ -439,10 +461,14 @@ REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "strip_col": f"{_JAX_STRIP}:170",           # _col_phase_kernel
             "strip_row": f"{_JAX_STRIP}:195",           # _row_phase_kernel
             "strip_col_fast": f"{_JAX_STRIP}:226",      # _col_phase_fast_kernel
-            "strip_row_fast": f"{_JAX_STRIP}:259"}      # _row_phase_fast_kernel
+            "strip_row_fast": f"{_JAX_STRIP}:259",      # _row_phase_fast_kernel
+            # K1, the five fused BiCGStab passes: the JAX package's
+            # BiCGStab is jnp code in XLA's while loop, no TPU kernel.
+            "krylov_pass": None}
 KERNELS = tuple(REPLACES)
 SOURCE_OF = {k: SOURCES["fused_two_matmul" if k.startswith("fused")
                         else "tiled_two_phase" if k.startswith("strip")
+                        else "krylov_fused" if k.startswith("krylov")
                         else k if k in SOURCES else "streamed_two_phase"]
              for k in KERNELS}
 # (FP32 FLOP, bytes[, special-function operations[, TF32 tensor-core
@@ -3612,6 +3638,148 @@ def tangent_phase(torch, port, dev, smi):
     return out
 
 
+def _krylov_expected_launches(counts, every):
+    """K1's launches for Krylov solves of ``counts`` iterations: P0,
+    then five passes an iteration over whole chunks of ``every``."""
+    return sum(1 + 5 * every * -(-n // every) for n in counts)
+
+
+def krylov_phase(torch, port, dev, smi):
+    """Phase 6's K1 part: the fused BiCGStab passes against the eager
+    loop on Newton's first tangent of the SSY path (w = 800) at
+    MAIN_SHAPES.  Returns (max abs error of x, device ms per iteration
+    of the five passes, the eager loop's vector ms per iteration)."""
+    from sdfs_via_autodiff_tpu_torch.kernels import krylov_fused as kf
+    from sdfs_via_autodiff_tpu_torch.solvers import krylov
+    from sdfs_via_autodiff_tpu_torch.solvers.sharding import (
+        LOCAL, tangent_matvec)
+
+    model = port.SSY()
+    disc = port.discretize_ssy(model, MAIN_SHAPES, method=MAIN_METHOD)
+    T = port.make_tiled_T_log_ssy(model, disc, device=dev)
+    x = torch.full(MAIN_SHAPES, float(np.log(800.0)), device=dev)
+    rhs = T(x) - x
+    jac = tangent_matvec(getattr(T, "twin", T), x)
+    atol = (KRYLOV_INNER_TOL * torch.linalg.vector_norm(rhs)).to(
+        torch.float64)
+    check(kf.fusable(rhs), "the SSY tangent's right-hand side is not "
+          "fusable")
+
+    events = []
+
+    def timed(v):
+        """``jac`` with CUDA events around each matvec."""
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = jac(v)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    def solve(fused):
+        """(x, count, device ms of the whole solve less its matvecs)."""
+        events.clear()
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        if fused:
+            out, n = krylov.bicgstab_fused(timed, rhs, atol=atol,
+                                           maxiter=KRYLOV_MAXITER)
+        else:
+            out, n = krylov._bicgstab_eager(timed, rhs, atol,
+                                            KRYLOV_MAXITER, None, LOCAL)
+        stop.record()
+        stop.synchronize()
+        mv = sum(a.elapsed_time(b) for a, b in events)
+        return out, n, start.elapsed_time(stop) - mv
+
+    def pass_ms(spin):
+        """Device ms per iteration of the five passes in one solve:
+        CUDA events around each group of passes of a copy of
+        ``bicgstab_fused``'s loop run to ``KRYLOV_MAXITER`` without a
+        stop read (a stopped solve's passes return at once and are left
+        out).  With ``spin`` a spin kernel runs before each group, so
+        the host has enqueued the group before the card reaches it: the
+        passes' own time; without, a group's interval also holds the
+        card's waits for the host's launches, as in a solve."""
+        def mark(e):
+            if spin:
+                torch.cuda._sleep(KRYLOV_SPIN_CYCLES)
+            e.record()
+
+        bf = rhs.reshape(-1)
+        xs, r, p = torch.zeros_like(bf), bf.clone(), torch.zeros_like(bf)
+        ps = kf.Passes(xs, r, p, bf, LOCAL)
+        ps.start(atol, KRYLOV_MAXITER)
+        marks, v = [], p
+        for _ in range(KRYLOV_MAXITER):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            mark(e[0])
+            ps(1, v)
+            e[1].record()
+            v = jac(p.reshape(MAIN_SHAPES))
+            mark(e[2])
+            ps(2, v)
+            ps(3, v)
+            e[3].record()
+            t = jac(r.reshape(MAIN_SHAPES))
+            mark(e[4])
+            ps(4, t)
+            ps(5, t)
+            e[5].record()
+            marks.append(e)
+        torch.cuda.synchronize()
+        n = int(ps.iterations)
+        ms = [sum(e[i].elapsed_time(e[i + 1]) for i in (0, 2, 4))
+              for e in marks[:n]]
+        return sum(ms) / n, n
+
+    x_e, n_e, vec_e = solve(False)
+    for k in kf.LAUNCHES:
+        kf.LAUNCHES[k] = 0
+    x_f, n_f, vec_f = solve(True)
+    launches = dict(kf.LAUNCHES)
+    x_f2, n_f2, _ = solve(True)
+    scale = float(x_e.abs().max())
+    err = float((x_f - x_e).abs().max())
+    print(f"K1 fused BiCGStab vs the eager loop, SSY tangent at "
+          f"{MAIN_SHAPES} {MAIN_METHOD} (w = 800, atol {float(atol):.4e}):"
+          f" iterations {n_f} fused, {n_e} eager; max |x_f - x_e| "
+          f"{err:.3e} of max |x| {scale:.3e} ({err / scale:.3e}); a second"
+          f" fused solve bitwise equal {bool(torch.equal(x_f, x_f2))}; "
+          f"launches {launches}")
+    check(n_f > 0 and abs(n_f - n_e) <= KRYLOV_ITER_SLACK,
+          f"K1: {n_f} fused iterations against {n_e} eager")
+    check(err <= KRYLOV_X_RTOL * scale,
+          f"K1: max |x_f - x_e| {err:.3e} over {KRYLOV_X_RTOL} x {scale:.3e}")
+    check(n_f2 == n_f and torch.equal(x_f, x_f2),
+          "K1: two fused solves differ")
+    check(launches == {"krylov_pass": _krylov_expected_launches(
+        [n_f], krylov.SYNC_EVERY), "krylov_epilogue": 0},
+          f"K1: launches {launches} for {n_f} iterations")
+    runs = [pass_ms(True) for _ in range(3)]
+    in_solve = [pass_ms(False) for _ in range(3)]
+    check(all(n == n_f for _, n in runs + in_solve),
+          f"K1: the timed loops ran {[n for _, n in runs + in_solve]} "
+          f"iterations, the solve {n_f}")
+    ms = statistics.median(m for m, _ in runs)
+    n_vec = rhs.numel()
+    WORK["krylov_pass"] = (0, KRYLOV_VECTORS_PER_ITER * n_vec
+                           * rhs.element_size())
+    bound_ms = bound("krylov_pass")[0]
+    print(f"timing K1 {MAIN_SHAPES} float32 ({n_vec} entries): the five "
+          f"passes {ms:.4f} ms per iteration (median of 3 solves of "
+          f"{n_f} iterations: {', '.join(f'{m:.4f}' for m, _ in runs)}), "
+          f"byte bound {bound_ms:.4f} ms ({WORK['krylov_pass'][1] / 1e6:.1f}"
+          f" MB), share {bound_ms / ms:.1%}; without the spin kernel (the "
+          f"card's waits for the host's launches included) "
+          f"{', '.join(f'{m:.4f}' for m, _ in in_solve)} ms; whole solve "
+          f"less its matvecs per iteration: fused {vec_f / n_f:.4f} ms, "
+          f"eager {vec_e / n_e:.4f} ms ({smi})")
+    return err, ms, vec_e / n_e
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3620,9 +3788,11 @@ def main() -> None:
     import sdfs_via_autodiff_tpu_torch as port
     from sdfs_via_autodiff_tpu_torch.kernels import _build
     from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
+    from sdfs_via_autodiff_tpu_torch.kernels import krylov_fused as kf
     from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
     from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
     from sdfs_via_autodiff_tpu_torch.kernels import tiled_two_phase as tt
+    from sdfs_via_autodiff_tpu_torch.solvers.krylov import SYNC_EVERY
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -3671,6 +3841,7 @@ def main() -> None:
     fd._lib()
     pk._lib()
     tt._lib()
+    kf._lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{', '.join(p.name for p in paths)}")
     for lib_path in paths:
@@ -3747,20 +3918,29 @@ def main() -> None:
     torch.cuda.synchronize()
     for k in st.LAUNCHES:
         st.LAUNCHES[k] = 0
+    for k in kf.LAUNCHES:
+        kf.LAUNCHES[k] = 0
     t0 = time.perf_counter()
-    sol = port.wc_ratio_discrete(model, MAIN_SHAPES, kernel="tiled",
-                                 discretization=MAIN_METHOD,
-                                 algorithm="newton", tol=MAIN_TOL,
-                                 device=dev)
-    torch.cuda.synchronize()
+    with krylov_counts(port) as inner:
+        sol = port.wc_ratio_discrete(model, MAIN_SHAPES, kernel="tiled",
+                                     discretization=MAIN_METHOD,
+                                     algorithm="newton", tol=MAIN_TOL,
+                                     device=dev)
+        torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
     launches = dict(st.LAUNCHES)
+    krylov_launches = dict(kf.LAUNCHES)
     res = sol.result
     print(f"main path {MAIN_SHAPES} {MAIN_METHOD} newton: {res}, "
-          f"{solve_s:.3f} s, launches {launches}")
+          f"{solve_s:.3f} s, launches {launches}; K1 {krylov_launches} "
+          f"for BiCGStab iterations {inner} a Newton step")
     check(res.converged, f"main path did not converge: {res}")
     check(launches["pass_b"] > 0 and launches["pass_c"] > 0,
           f"a kernel of the SSY path never launched: {launches}")
+    check(sum(inner) > 0 and krylov_launches == {
+        "krylov_pass": _krylov_expected_launches(inner, SYNC_EVERY),
+        "krylov_epilogue": 0},
+          f"K1 launches {krylov_launches} for BiCGStab iterations {inner}")
     disc = port.discretize_ssy(model, MAIN_SHAPES, method=MAIN_METHOD)
     T64 = port.T_ssy_factory(model, disc, space="log", device=dev)
     ell_star = torch.log(sol.w_star.double())
@@ -3833,14 +4013,18 @@ def main() -> None:
             for name, (k_ms, p_ms) in kernels_ms.items():
                 print(f"timing {name} fast {shapes}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms")
+    del T
+    torch.cuda.empty_cache()
+    max_err["krylov_pass"], *k1_ms = krylov_phase(torch, port, dev, smi)
+    kernels_ms["krylov_pass"] = tuple(k1_ms)
 
     # 7-9. GCY.
-    del T
     torch.cuda.empty_cache()
     gcy_err, gcy_launches, gcy_ms, plain_star["gcy"] = gcy_phases(
         torch, port, st, dev, smi)
     max_err.update(gcy_err)
     launches = {"pass_b": launches["pass_b"], "pass_c": launches["pass_c"],
+                "krylov_pass": krylov_launches["krylov_pass"],
                 **{k: gcy_launches[k] for k in gcy_err}}
     kernels_ms.update(gcy_ms)
 

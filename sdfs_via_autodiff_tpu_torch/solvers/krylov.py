@@ -14,9 +14,11 @@ and it reads its stop condition on the host once every
 :data:`SYNC_EVERY` iterations: inside a chunk each iteration evaluates
 the condition on the device and, once it fails, ``torch.where`` freezes
 the state, so the result and the iteration count equal those of a check
-after every iteration.  Every blocking read of a device value by the
-host in these loops and in ``fixed_point.py`` goes through
-:func:`host_read`, a ``sdfs.sync`` span (``utils/profiling.py``).
+after every iteration.  On CUDA vectors BiCGStab runs instead as five
+fused passes per iteration (:func:`bicgstab_fused`), whose recurrence
+scalars and stop flag stay on the device.  Every blocking read of a
+device value by the host in these loops and in ``fixed_point.py`` goes
+through :func:`host_read`, a ``sdfs.sync`` span (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels import krylov_fused
 from ..utils.profiling import count, span, spanned
 from .sharding import LOCAL, Reductions
 
-__all__ = ["SYNC_EVERY", "bicgstab_mixed", "gmres", "host_read"]
+__all__ = ["SYNC_EVERY", "bicgstab_mixed", "bicgstab_fused", "gmres",
+           "host_read"]
 
 # Iterations between host reads of a solver loop's stop condition (also
 # used by ``fixed_point._iterate``).
@@ -57,9 +61,25 @@ def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
     ||b - A x||_2, evaluated on the recursive residual.  ``maxiter`` must
     bound the loop (None is rejected).  ``red`` takes the dot products
     (all-reduced over the shards of a sharded iterate).
+
+    A float32 or float64 CUDA right-hand side outside any autograd graph
+    runs :func:`bicgstab_fused` (``kernels/krylov_fused.fusable``); any
+    other runs the eager loop below.
     """
     if maxiter is None:
         raise ValueError("bicgstab_mixed requires an explicit maxiter")
+    if krylov_fused.fusable(b):
+        x, n = bicgstab_fused(matvec, b, atol=atol, maxiter=maxiter, x0=x0,
+                              red=red)
+    else:
+        x, n = _bicgstab_eager(matvec, b, atol, maxiter, x0, red)
+    count("sdfs.krylov", n)
+    return x, n
+
+
+def _bicgstab_eager(matvec, b, atol, maxiter, x0, red):
+    """:func:`bicgstab_mixed` in eager PyTorch: every iteration's vector
+    work and float64 reductions as separate operations."""
     vdtype = b.dtype
     shape = b.shape
     dev = b.device
@@ -131,9 +151,51 @@ def bicgstab_mixed(matvec: Callable, b, *, atol=0.0,
             run = cond(state)
             state = tuple(torch.where(run, new, old)
                           for new, old in zip(body(state), state))
-    n = host_read(int, state[7])
-    count("sdfs.krylov", n)
-    return state[0].reshape(shape), n
+    return state[0].reshape(shape), host_read(int, state[7])
+
+
+def bicgstab_fused(matvec: Callable, b, *, atol=0.0, maxiter: int = 50,
+                   x0=None,
+                   red: Reductions = LOCAL) -> Tuple[torch.Tensor, int]:
+    """:func:`bicgstab_mixed`'s iteration on CUDA vectors as five passes
+    around its two matvecs (``kernels/krylov_fused.py``), with the
+    recurrence scalars, the breakdown flags, the stop flag and the count
+    in a float64 block on the device.  The host reads the stop flag once per
+    :data:`SYNC_EVERY` iterations and the count at the end, as the eager
+    loop does; x and the count are those of a stop check after every
+    iteration.  The vectors are updated in place: x, the residual (which
+    holds s between the half step and the next residual) and p are the
+    solve's own buffers; p, the matvec outputs and the residual may hold
+    anything once the stop is decided.  Adds the iterations to the
+    ``sdfs.krylov.fused`` count."""
+    shape = b.shape
+    # The kernels read dense vectors: a strided b is copied.
+    bf = b.reshape(-1).contiguous()
+    if x0 is None:
+        x, r, rhat = torch.zeros_like(bf), bf.clone(), bf
+    else:
+        x = x0.to(b.dtype).reshape(-1).clone(
+            memory_format=torch.contiguous_format)
+        r = bf - matvec(x0).reshape(-1)
+        rhat = r.clone()
+    # p starts at zero, and so does the v the first P1 reads: p serves.
+    p = torch.zeros_like(bf)
+    with torch.cuda.device(b.device):
+        ps = krylov_fused.Passes(x, r, p, rhat, red)
+        ps.start(atol, maxiter)
+        v = p
+        while host_read(bool, ps.running):     # one host read per chunk
+            for _ in range(SYNC_EVERY):
+                ps(1, v)
+                v = matvec(p.reshape(shape))
+                ps(2, v)
+                ps(3, v)
+                t = matvec(r.reshape(shape))
+                ps(4, t)
+                ps(5, t)
+        n = host_read(int, ps.iterations)
+    count("sdfs.krylov.fused", n)
+    return x.reshape(shape), n
 
 
 @spanned("sdfs.krylov")

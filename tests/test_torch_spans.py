@@ -31,6 +31,9 @@ TOL = 2e-5
 ROOT = Path(__file__).resolve().parent.parent
 SEED = 2 ** 31 + 7
 NEW_METRICS = ("build_ms", "host_syncs", "sync_wait_ms", "primal_host_us")
+# Readers that switch the port's recorder on: left out of a run without
+# the port's span readers.
+RECORDERS = NEW_METRICS + ("krylov_fused_share",)
 
 
 @pytest.fixture(autouse=True)
@@ -201,7 +204,7 @@ def _catalog(tmp_path: Path, algorithm: str, metrics=True, probe=False):
                                "why": "test"})
     for m in bench["end_to_end"] + bench["per_layer"]:
         if cell in m.get("workloads", ()):
-            if metrics or m["name"].split(".")[0] not in NEW_METRICS:
+            if metrics or m["name"].split(".")[0] not in RECORDERS:
                 m["workloads"].append("tiny.cell")
     if probe:
         (root / "metrics/tiny_probe.py").write_text(PROBE)
