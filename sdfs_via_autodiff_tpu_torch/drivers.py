@@ -45,7 +45,7 @@ from .operators.continuous_common import additive_profiles
 from .operators.continuous_gcy import T_gcy_continuous_factory
 from .operators.continuous_ssy import T_ssy_continuous_factory
 from .operators.discrete_gcy import (T_gcy_factory, discretize_gcy,
-                                     gcy_loglinear_parts)
+                                     gcy_loglinear_start)
 from .operators.discrete_ssy import T_ssy_factory, discretize_ssy
 from .ops.grids import build_grid_gcy, build_grid_ssy, flatten_mesh
 from .ops.interp import lin_interp
@@ -283,9 +283,7 @@ def _build_discrete(model, shapes, *, space, w_init, dtype, kernel,
                 # crawl.  The normalized operator already holds it.
                 ell0 = getattr(T, "baseline_log_w", None)
                 if ell0 is None:
-                    ell0 = torch.as_tensor(
-                        gcy_loglinear_parts(model, disc)["ell0"],
-                        dtype=torch.float32)
+                    ell0 = gcy_loglinear_start(model, disc, device=dev)
                 w_init = torch.exp(ell0)
         else:
             T = make_tiled_T_log_ssy(model, disc, baseline=baseline,

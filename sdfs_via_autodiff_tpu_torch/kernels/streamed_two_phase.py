@@ -70,7 +70,7 @@ from ..config import resolve_device
 from ..ops.dtensor import refuse
 from ..operators.two_phase import (TwoPhaseOperands, conjugate_to_shared,
                                    make_eager_two_phase_T)
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import _build
 
 __all__ = ["LAUNCHES", "pass_b", "pass_b_plain", "pass_c", "pass_c_plain",
@@ -1226,30 +1226,37 @@ def make_streamed_T_log(ops: TwoPhaseOperands,
 
     def primal(ell):
         e = ell.to(dtype).reshape(R, I, J).contiguous()
-        if pair:
-            mid = pass_b_deferred(e, W_c1t, theta, sub_row, sub_col)
-            out = pass_c_pair(mid.reshape(R, C), P_zpi, PzT, W_r1, W_r2,
-                              add_row, add_col, theta, beta)
-        elif deferred:
-            mid = pass_b_deferred(e, W_c1t, theta, sub_row, sub_col)
-            out = pass_c_deferred(mid.reshape(R, C), W_c2t, W_r1, W_r2,
-                                  add_row, add_col, theta, beta)
+        if pair or deferred:
+            if deferred:
+                count("sdfs.primal.deferred", 1)
+            with span("sdfs.primal.b"):
+                mid = pass_b_deferred(e, W_c1t, theta, sub_row, sub_col)
+            with span("sdfs.primal.c"):
+                if pair:
+                    out = pass_c_pair(mid.reshape(R, C), P_zpi, PzT, W_r1,
+                                      W_r2, add_row, add_col, theta, beta)
+                else:
+                    out = pass_c_deferred(mid.reshape(R, C), W_c2t, W_r1,
+                                          W_r2, add_row, add_col, theta,
+                                          beta)
         else:
             batched = config == "batched"
-            b = pass_b(e, W_c1, None if batched else W_c2t, theta, mode,
-                       sub_row, sub_col, mid_col)
-            scale = S = None
-            if mode == "fast":
-                b, s = b
-                S = torch.amax(s).reshape(1)
-                scale = torch.exp(s - S)
-            if batched:
-                out = pass_c_batched(b.reshape(R, C), scale, S, W_c2t, W_r1,
-                                     W_r2, add_row, add_col, theta, beta,
-                                     mode)
-            else:
-                out = pass_c(b.reshape(R, C), scale, S, W_r1, W_r2, add_row,
-                             add_col, theta, beta, mode)
+            with span("sdfs.primal.b"):
+                b = pass_b(e, W_c1, None if batched else W_c2t, theta, mode,
+                           sub_row, sub_col, mid_col)
+                scale = S = None
+                if mode == "fast":
+                    b, s = b
+                    S = torch.amax(s).reshape(1)
+                    scale = torch.exp(s - S)
+            with span("sdfs.primal.c"):
+                if batched:
+                    out = pass_c_batched(b.reshape(R, C), scale, S, W_c2t,
+                                         W_r1, W_r2, add_row, add_col, theta,
+                                         beta, mode)
+                else:
+                    out = pass_c(b.reshape(R, C), scale, S, W_r1, W_r2,
+                                 add_row, add_col, theta, beta, mode)
         return out.reshape(ops.shapes)
 
     class _StreamedT(torch.autograd.Function):

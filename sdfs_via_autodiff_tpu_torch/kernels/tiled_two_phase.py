@@ -679,7 +679,9 @@ def make_tiled_T_log_gcy_continuous(model, grids, degree: int = 5,
 
 def _natural_layout(ops: TwoPhaseOperands, view_T) -> Callable:
     """The six-state natural-layout operator around the view operator
-    ``view_T`` of ``ops`` (one permute in, one out)."""
+    ``view_T`` of ``ops`` (one permute in, one out).  Each crossing, with
+    the copy it forces, is an ``sdfs.layout`` span, also where the
+    tangent's tape replays it on every matvec."""
     perm, inv_perm = ops.perm, ops.inv_perm
     view_shapes = tuple(ops.state_shapes[p] for p in perm)
 
@@ -689,22 +691,22 @@ def _natural_layout(ops: TwoPhaseOperands, view_T) -> Callable:
     def from_view(ell_v):
         return ell_v.permute(inv_perm)
 
-    def natural(op):
-        return lambda ell: from_view(op(to_view(ell).reshape(ops.shapes))
-                                     .reshape(view_shapes)).contiguous()
+    def into(ell):
+        with span("sdfs.layout"):
+            return to_view(ell).reshape(ops.shapes)
 
-    on_view = natural(view_T)
+    def out_of(ell_v):
+        with span("sdfs.layout"):
+            return from_view(ell_v.reshape(view_shapes)).contiguous()
 
     def T(ell):
         refuse(ell, "the six-state tiled operator")
-        return on_view(ell)
+        return out_of(view_T(into(ell)))
 
     @linearizable
     def twin(ell, tape=None):
-        out = view_T.twin.primal(
-            viewed(ell, lambda t: to_view(t).reshape(ops.shapes), tape), tape)
-        return viewed(out, lambda t: from_view(t.reshape(view_shapes))
-                      .contiguous(), tape)
+        out = view_T.twin.primal(viewed(ell, into, tape), tape)
+        return viewed(out, out_of, tape)
 
     T.view_T = view_T
     T.to_view = to_view

@@ -242,6 +242,49 @@ def gcy_loglinear_parts(model: GCY, disc: GCYDiscretization) -> dict:
     """Separable components of the GCY log-linear closed form evaluated on
     the discretized grid (host float64 numpy); ``ell0`` is the full 6-D
     field, the standard warm start."""
+    parts = _loglinear_terms(model, disc)
+    parts["ell0"] = _ell0(parts, "cpu", torch.float64).numpy()
+    return parts
+
+
+def gcy_loglinear_start(model: GCY, disc: GCYDiscretization, *, device,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``gcy_loglinear_parts(model, disc)["ell0"]`` cast to ``dtype``,
+    formed on ``device`` from the separable terms (the host forms no 6-D
+    field)."""
+    return _ell0(_loglinear_terms(model, disc), device, dtype)
+
+
+def _ell0(parts: dict, device, dtype: torch.dtype) -> torch.Tensor:
+    """ell0 on the (a, b, c, d, e, l) grid: the terms summed in float64
+    on ``device``, then cast to ``dtype``."""
+    lift = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                     dtype=torch.float64, device=device)
+    psi_z, psi_pi = lift(parts["psi_z"]), lift(parts["psi_pi"])
+    ell0 = (parts["co"]["A0"]
+            + psi_z.permute(3, 0, 1, 2)[:, :, :, None, :, None]
+            + psi_pi.T[None, :, None, None, :, None]
+            + lift(parts["phi_c_"])[None, None, :, None, None, None]
+            + lift(parts["phi_d"])[None, None, None, :, None, None]
+            + lift(parts["phi_e"])[None, None, None, None, :, None]
+            + lift(parts["phi_l"])[None, None, None, None, None, :])
+    return ell0.to(dtype)
+
+
+def gcy_loglinear_column_span(model: GCY, disc: GCYDiscretization) -> float:
+    """The largest span of ``ell0`` within a column group of the tiled
+    view (a (h_c, h_lam) row: the terms in h_c and h_lam are constant
+    there), from the (z, z_pi, h_z, h_zpi) terms alone."""
+    p = _loglinear_terms(model, disc)
+    group = (p["psi_z"].transpose(3, 0, 1, 2)
+             + p["psi_pi"].T[None, :, None, :]
+             + p["phi_c_"][None, None, :, None]
+             + p["phi_e"][None, None, None, :])
+    return float(group.max() - group.min())
+
+
+def _loglinear_terms(model: GCY, disc: GCYDiscretization) -> dict:
+    """:func:`gcy_loglinear_parts` without ``ell0``."""
     from ..models.gcy import gcy_loglinear_factory
 
     m = model
@@ -260,18 +303,9 @@ def gcy_loglinear_parts(model: GCY, disc: GCYDiscretization) -> dict:
     phi_e = co["A_hzpi"] * (h_zpi * 2 * m.phi_zpi**2 + m.phi_zpi**2)
     psi_pi = co["A_zpi"] * zpi                          # (e, b)
     psi_z = co["A_z"] * zst                             # (b, c, e, a)
-
-    # ell0 on the (a, b, c, d, e, l) grid.
-    ell0 = (co["A0"]
-            + psi_z.transpose(3, 0, 1, 2)[:, :, :, None, :, None]
-            + psi_pi.T[None, :, None, None, :, None]
-            + phi_c_[None, None, :, None, None, None]
-            + phi_d[None, None, None, :, None, None]
-            + phi_e[None, None, None, None, :, None]
-            + phi_l[None, None, None, None, None, :])
     return dict(co=co, h_lam=h_lam, h_c=h_c, h_z=h_z, h_zpi=h_zpi,
                 phi_l=phi_l, phi_d=phi_d, phi_c_=phi_c_, phi_e=phi_e,
-                psi_pi=psi_pi, psi_z=psi_z, ell0=ell0)
+                psi_pi=psi_pi, psi_z=psi_z)
 
 
 # Per-axis chain of the normalized GCY operator (labels as in _CHAIN; the

@@ -325,7 +325,7 @@ def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None,
     (:func:`_two_phase_operands_gcy_normalized`; ``dense`` is read only
     there).
     """
-    from .discrete_gcy import _gcy_factors, gcy_loglinear_parts
+    from .discrete_gcy import _gcy_factors, gcy_loglinear_column_span
 
     if baseline is not None:
         if baseline != "loglinear":
@@ -341,9 +341,7 @@ def two_phase_operands_gcy(model, disc, baseline: Optional[str] = None,
     # column group) exceeds exp's f32 range, entire Kronecker rows
     # underflow to exact zero -> -inf/NaN.
     import warnings
-    ell0 = gcy_loglinear_parts(model, disc)["ell0"]
-    span = float((ell0.max(axis=(0, 1, 2, 4))
-                  - ell0.min(axis=(0, 1, 2, 4))).max())
+    span = gcy_loglinear_column_span(model, disc)
     if abs(model.theta) * span > 85.0:
         warnings.warn(
             f"theta * (within-column-group log-w span) ~ "
@@ -710,12 +708,15 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
     cast = lambda a: torch.as_tensor(np.asarray(a, np.float64)).to(
         device=dev, dtype=dtype)
     W_r1, W_r2 = map(cast, (ops.W_r1, ops.W_r2))
-    add = cast(ops.add_row[:, :, None]
-               + np.asarray(ops.add_col).reshape(-1)[None, None, :])
+    # Field-sized sums of small float64 terms, formed on the device (the
+    # host would form and copy them whole), then cast.
+    f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    add = (f64(ops.add_row)[:, :, None]
+           + f64(ops.add_col).reshape(-1)[None, None, :]).to(dtype)
     sub = None
     if ops.has_sub:
-        sub = cast(np.asarray(ops.sub_row).reshape(-1)[:, None, None]
-                   + np.asarray(ops.sub_col)[None, :, :])    # (R, c1, c2)
+        sub = (f64(ops.sub_row).reshape(-1)[:, None, None]
+               + f64(ops.sub_col)[None, :, :]).to(dtype)    # (R, c1, c2)
     theta, beta = float(ops.theta), float(ops.beta)
     shapes = tuple(ops.shapes)
 

@@ -31,6 +31,7 @@ __all__ = ["successive_approx", "newton_solver", "DEFAULT_TOL",
 
 STALL_ITERS = 200     # consecutive non-improving iterations before giving up
 STALL_RTOL = 1e-5     # relative residual decrease that counts as progress
+NONMONOTONE = 4       # Newton's safeguard: iterates whose residuals it weighs
 
 
 def _iterate(step: Callable, x0, tol, max_iter, *, verbose=False,
@@ -174,8 +175,14 @@ def newton_solver(T: Callable,
     relative error, so the solve still reaches ``T``'s precision.
 
     ``safeguard=True`` rejects a Newton candidate whose residual is
-    non-finite or grew by more than 10x in favour of a plain fixed-point
-    step T(x) (free — g(x) is already computed).  With
+    non-finite or more than 10x the largest residual of the last
+    :data:`NONMONOTONE` iterates (this one included: Grippo, Lampariello
+    and Lucidi's non-monotone rule), or whose step is zero (an inner
+    solve that broke down), in favour of a plain fixed-point step T(x)
+    (free — g(x) is already computed).  Against the current residual
+    alone, a strongly nonlinear operator (GCY's theta = -36) can reject
+    the right Newton direction step after step while plain steps crawl;
+    a zero step would end the loop far from the fixed point.  With
     ``safeguard=False`` a non-finite candidate poisons the iterate so the
     outer NaN guard stops with ``converged=False``.
 
@@ -211,13 +218,24 @@ def newton_solver(T: Callable,
     maxiter = inner_maxiter if inner_maxiter is not None else 10 * numel
     inf = torch.full((), math.inf, dtype=torch.float64, device=x0.device)
 
-    def accept(x, gx, x_new):
-        """The safeguard: a plain step T(x) where the candidate is bad."""
+    # The residuals of the last NONMONOTONE iterates that ran, on the
+    # device (no host read).
+    recent = torch.zeros(NONMONOTONE, dtype=x0.dtype, device=x0.device)
+
+    def accept(x, gx, step, running):
+        """The safeguard: a plain step T(x) where the candidate x - step
+        is bad."""
+        nonlocal recent
+        x_new = x - step
         bad = ~red.all_finite(gx) | ~red.all_finite(x_new)
         if safeguard:
+            recent = torch.where(
+                running, torch.cat([recent[1:], red.sup(gx).reshape(1)]),
+                recent)
             g_cand = g(x_new)
-            grew = red.sup(g_cand) > 10.0 * red.sup(gx)
-            bad = bad | ~red.all_finite(g_cand) | grew
+            grew = red.sup(g_cand) > 10.0 * torch.amax(recent)
+            bad = (bad | ~red.all_finite(g_cand) | grew
+                   | ~(red.sup(step) > 0))
             return torch.where(bad, x + gx, x_new)
         return torch.where(bad, torch.full_like(x_new, math.nan), x_new)
 
@@ -232,7 +250,7 @@ def newton_solver(T: Callable,
                             - v.reshape(shape)).reshape(-1)
             J = torch.func.jacfwd(gl)(x.reshape(-1))
             step = torch.linalg.solve(J, gx.reshape(-1)).reshape(shape)
-            return accept(x, gx, x - step)
+            return accept(x, gx, step, running)
     else:
         def krylov(mv, rhs, atol):
             if inner == "bicgstab":
@@ -261,7 +279,7 @@ def newton_solver(T: Callable,
             atol = torch.where(running, (inner_tol * red.norm(rhs)).to(
                 torch.float64), inf)
             b, _ = krylov(jac_prod, rhs, atol)
-            return accept(x, gx, x - b.to(x.dtype))
+            return accept(x, gx, b.to(x.dtype), running)
 
     return _iterate(q, x0, tol, max_iter, verbose=verbose,
                     trace_len=trace_len, stall_iters=stall_iters,

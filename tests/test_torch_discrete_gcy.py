@@ -85,6 +85,17 @@ def test_gcy_factors_dense_H_and_loglinear_parts_match_jax(shapes, method):
     assert set(pp) == set(jp) and pp["co"] == jp["co"]
     for k in sorted(set(jp) - {"co"}):
         _close(pp[k], jp[k], k)
+    # The tiled solve's start, formed from the separable terms where it
+    # runs, is the parts' ell0 cast, bit for bit; the tiled view's range
+    # guard reads the same span as the whole field gives.
+    start = P.operators.discrete_gcy.gcy_loglinear_start(pm, pd,
+                                                         device="cpu")
+    assert torch.equal(start, torch.as_tensor(pp["ell0"],
+                                              dtype=torch.float32))
+    ell0 = pp["ell0"]
+    span = (ell0.max(axis=(0, 1, 2, 4)) - ell0.min(axis=(0, 1, 2, 4))).max()
+    assert P.operators.discrete_gcy.gcy_loglinear_column_span(pm, pd) == \
+        pytest.approx(span, rel=1e-12, abs=1e-12)
 
 
 @pytest.mark.parametrize("space", ["w", "log"])

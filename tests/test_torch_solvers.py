@@ -140,3 +140,45 @@ def test_solver_api():
     with pytest.warns(UserWarning, match="Falling back"):
         np.testing.assert_allclose(P.solver(T, x0, algorithm="bfgs",
                                             verbose=False).numpy(), 2.0)
+
+
+def _scripted_krylov(monkeypatch, steps):
+    """Newton's inner solves return ``steps[k](rhs)`` at their k-th call
+    (the last one from then on)."""
+    calls = []
+
+    def krylov(matvec, rhs, **kw):
+        calls.append(rhs)
+        return steps[min(len(calls), len(steps)) - 1](rhs), 1
+    monkeypatch.setattr(fp, "bicgstab_mixed", krylov)
+
+
+def test_newton_safeguard_weighs_the_recent_residuals(monkeypatch):
+    """T(x) = x/2 + 1 from 0 (g(x) = 1 - x/2): a first step to 1.9 leaves
+    g = 0.05; a candidate at 0.8 (g = 0.6, 12x the current residual but
+    under 10x the first's) is taken, not replaced by a plain step; exact
+    Newton then ends it.  A step of zero is replaced by a plain one."""
+    _scripted_krylov(monkeypatch, [lambda r: torch.full_like(r, -1.9),
+                                   lambda r: torch.full_like(r, 1.1),
+                                   lambda r: -2.0 * r])
+    T = lambda x: 0.5 * x + 1.0
+    res = fp.newton_solver(T, torch.zeros(4, dtype=torch.float64),
+                           tol=1e-10, trace_len=8)
+    steps = res.error_trace[:res.iterations].tolist()
+    assert steps[:3] == pytest.approx([1.9, 1.1, 1.2])
+    assert res.converged and res.iterations == 4 and steps[3] == 0.0
+    torch.testing.assert_close(res.x, torch.full((4,), 2.0,
+                                                 dtype=torch.float64))
+
+
+def test_newton_safeguard_replaces_a_zero_step(monkeypatch):
+    """An inner solve that broke down (a zero step) takes the plain step
+    T(x): the solve goes on to the fixed point instead of stopping on a
+    step of zero far from it."""
+    _scripted_krylov(monkeypatch, [torch.zeros_like])
+    T = lambda x: 0.5 * x + 1.0
+    res = fp.newton_solver(T, torch.zeros(4, dtype=torch.float64),
+                           tol=1e-10)
+    assert res.converged and res.iterations > 30
+    torch.testing.assert_close(res.x, torch.full((4,), 2.0,
+                                                 dtype=torch.float64))
