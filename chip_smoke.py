@@ -18,7 +18,8 @@ Phases, in order; any failure exits non-zero before the result line:
 5. the SSY path: a float32 Newton solve through the kernels at the
    12.6M-point (32,32,32,384) Tauchen grid, checked against the float64
    operator, with the kernels' launch counts (the fused Krylov passes'
-   against its BiCGStab iterations);
+   against its BiCGStab iterations, each of the tangent passes' three
+   kernels against its tangent matvecs);
 6. SSY: a second (warm) solve's seconds, and ms per application,
    kernels vs the plain eager twin (CUDA events); then the fused Krylov
    passes (K1, ``kernels/csrc/krylov_fused.cu``) against the eager
@@ -221,8 +222,9 @@ Phases, in order; any failure exits non-zero before the result line:
     streamed_shard_map_factory`` on the SSY 12.6M Tauchen set (fast):
     one application against ``make_streamed_T_log``'s (1e-6, and
     whether bitwise), a float32 Newton solve through it from w = 800 at
-    tol 2e-5 (w* within 1e-6 relative of phase 5's, B1 / B2 launched as
-    in phase 5), and ``T_ssy_shard_map_factory`` and
+    tol 2e-5 (w* within 1e-6 relative of the single-device solve from
+    the same start on the same tangent steps, a DTensor's tangent keeping
+    the stages' steps; B1 / B2 launched as in phase 5), and ``T_ssy_shard_map_factory`` and
     ``two_phase_shard_map_factory`` in float64 at (8,8,6,6) against the
     single-device float64 operators (1e-12), and their linearized
     matvecs against ``torch.func.jvp`` of ``T.local`` (1e-12 relative);
@@ -266,7 +268,14 @@ Phases, in order; any failure exits non-zero before the result line:
     solve's seconds with the card's allocated bytes before and after it
     (equal), and, except at "post", the same solve's seconds on the jvp
     route;
-47. a JSON line of per-kernel facts (with each kernel's bound: the
+47. the tangent passes (K2) at the SSY 12.6M and GCY 25.2M shapes: the
+    tape's fused step, its three launches a matvec, J v and J v - v
+    against the einsum replay of the same tape (2e-6 of sup |v|), ms per
+    matvec of the step, of the replay and of Newton's whole matvec
+    (median of 3 runs of 50) beside the bound, a matvec's peak bytes
+    (the SSY cell's figures, with phase 5's launches, are the JSON
+    line's ``tangent_passes`` row);
+48. a JSON line of per-kernel facts (with each kernel's bound: the
     largest of its FP32 operations over 67 TFLOP/s, its TF32 tensor-core
     operations over 495 TFLOP/s (the deferred pass B at I = 512 and pass
     B's c2 product: split TF32, three TF32 products per FP32 one; their
@@ -464,7 +473,10 @@ REPLACES = {"pass_b": f"{_JAX_KERNELS}:324",            # _b_kernel
             "strip_row_fast": f"{_JAX_STRIP}:259",      # _row_phase_fast_kernel
             # K1, the five fused BiCGStab passes: the JAX package's
             # BiCGStab is jnp code in XLA's while loop, no TPU kernel.
-            "krylov_pass": None}
+            "krylov_pass": None,
+            # K2, the tangent passes' three kernels a matvec: the JAX
+            # tangent is jax.linearize of the XLA twin, no TPU kernel.
+            "tangent_passes": None}
 KERNELS = tuple(REPLACES)
 SOURCE_OF = {k: SOURCES["fused_two_matmul" if k.startswith("fused")
                         else "tiled_two_phase" if k.startswith("strip")
@@ -531,6 +543,16 @@ def krylov_counts(port):
     with port.utils.profiling.recorded() as recs:
         yield counts
     counts.extend(r.count for r in recs if r.name == "sdfs.krylov")
+
+
+@contextlib.contextmanager
+def span_count(port, name):
+    """Yields a list that holds, once the block ends, the number of the
+    port's ``name`` spans the block ran."""
+    n = []
+    with port.utils.profiling.recorded() as recs:
+        yield n
+    n.append(sum(1 for r in recs if r.name == name))
 
 
 def noise_field(shapes, seed):
@@ -2943,7 +2965,7 @@ def api_phases(torch, port, st, dev, smi, main_ref, refs):
 
 # The sharded path (phases 43-44).
 SHARD_APP_ATOL = 1e-6       # sharded application vs make_streamed_T_log
-SHARD_W_RTOL = 1e-6         # sharded Newton w* vs phase 5's
+SHARD_W_RTOL = 1e-6         # sharded Newton w* vs the stepwise solve
 SHARD_F64_SIZES = (8, 8, 6, 6)
 SHARD_F64_ATOL = 1e-12      # the float64 factories vs single device
 SHARD_RANKS = 4             # the layout phase 44 runs rank by rank
@@ -3005,15 +3027,31 @@ def sharded_world1_phase(torch, port, st, dev, smi, main_ref, refs):
               f"sharded Newton launches {launches} != phase 5's "
               f"{main_ref['launches']}")
         w = torch.exp(res.x.to_local())
-        rel = float(((w - main_ref["w_star"]).abs()
-                     / main_ref["w_star"]).max())
-        check(rel <= SHARD_W_RTOL,
-              f"sharded Newton w* vs phase 5: rel {rel:.3e}")
+        # A DTensor's tangent keeps the stages' steps (the tangent passes
+        # take plain tensors, phase 47), so the sharded solve's reference
+        # is the single-device solve from the same start on those steps:
+        # the twin records them where it sees a DTensor.
+        from sdfs_via_autodiff_tpu_torch.operators import two_phase as tp
+        fused_route = tp.is_dtensor
+        tp.is_dtensor = lambda t: True
+        try:
+            ref = port.solve(T1, x0.to_local(), method="newton",
+                             tol=MAIN_TOL)
+        finally:
+            tp.is_dtensor = fused_route
+        w_ref = torch.exp(ref.x)
+        rel = float(((w - w_ref).abs() / w_ref).max())
+        rel5 = float(((w - main_ref["w_star"]).abs()
+                      / main_ref["w_star"]).max())
+        check(ref.converged and rel <= SHARD_W_RTOL,
+              f"sharded Newton {res} vs the stepwise single-device solve "
+              f"{ref}: w* rel {rel:.3e}")
         print(f"sharded Newton (world size 1): {res}, {secs:.3f} s "
               f"({smi}), launches {launches} (phase 5: "
-              f"{main_ref['launches']}), w* vs phase 5 max rel "
-              f"{rel:.3e}, x placements {res.x.placements}")
-        del T, T1, x0, res, w
+              f"{main_ref['launches']}), w* vs the stepwise single-device "
+              f"solve max rel {rel:.3e} (vs phase 5's, on the tangent "
+              f"passes, {rel5:.3e}), x placements {res.x.placements}")
+        del T, T1, x0, res, w, ref, w_ref
         # The float64 factories at a small grid.
         disc = port.discretize_ssy(model, SHARD_F64_SIZES)
         ell = torch.as_tensor(noise_field(SHARD_F64_SIZES, SEED), device=dev)
@@ -3644,6 +3682,117 @@ def _krylov_expected_launches(counts, every):
     return sum(1 + 5 * every * -(-n // every) for n in counts)
 
 
+# The tangent passes against the einsum replay of the same tape: both
+# are float32 sums of the same terms in different orders (the passes' c2
+# product and the GCY view's c1 in split TF32), a few ulps of J |v| <=
+# |v| apart (the CPU tests' measure, 2e-6 of sup |v|).
+TANGENT_RTOL = 2e-6
+TANGENT_CALLS, TANGENT_RUNS = 50, 3
+
+
+def tangent_passes_phase(torch, port, dev, smi):
+    """Phase 47: the tangent passes (K2, ``kernels/tangent_two_phase.py``)
+    at the two Newton cells' shapes.  Per cell, at the solve's start x and
+    a seeded v: the tape's fused step, its launches per matvec (three: the
+    c1 pass or product, the c2 product, the row phase), its agreement with
+    its plain version (the einsum replay of the same tape, on the card)
+    for J v and J v - v, ms per matvec (CUDA events, median of 3 runs of
+    50) of the step, of the einsum replay and of Newton's whole matvec
+    (``Linearization``, GCY's layout crossings included), the bytes
+    allocated at a matvec's peak on each route, and the bound: seven
+    fields of bytes at HBM bandwidth, the contractions in split TF32 (c2,
+    and c1 where it runs on the tensor cores) and on FP32 FMA.  Returns
+    {cell: (ms, plain ms, bound ms, launches per matvec, largest error
+    relative to sup |v|)}; the SSY cell's work is the ``tangent_passes``
+    row's (``WORK``, ``FP32_WORK``)."""
+    from sdfs_via_autodiff_tpu_torch.kernels import tangent_two_phase as ktp
+    from sdfs_via_autodiff_tpu_torch.ops.tangent import Tape
+
+    ssy, gcy = port.SSY(), port.GCY()
+
+    def ssy_cell():
+        disc = port.discretize_ssy(ssy, MAIN_SHAPES, method=MAIN_METHOD)
+        return (port.make_tiled_T_log_ssy(ssy, disc, device=dev),
+                torch.full(MAIN_SHAPES, float(np.log(800.0)), device=dev))
+
+    def gcy_cell():
+        disc = port.discretize_gcy(gcy, GCY_SHAPES, method=GCY_METHOD)
+        return (port.make_tiled_T_log_gcy(gcy, disc, device=dev),
+                torch.as_tensor(port.gcy_loglinear_parts(gcy, disc)["ell0"],
+                                dtype=torch.float32, device=dev))
+
+    def peak_bytes(fn, v):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        fn(v)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) - base
+
+    out = {}
+    for label, make in (("SSY 12.6M", ssy_cell), ("GCY 25.2M", gcy_cell)):
+        T, x = make()
+        tape = Tape()
+        with torch.no_grad():
+            T.twin.primal(x, tape)
+        steps = [s for s in tape.finish()
+                 if isinstance(s, ktp.TwoPhaseTangent)]
+        check(len(steps) == 1, f"{label}: the tape holds one fused step")
+        step = steps[0]
+        L, K, I, J = step.shapes
+        R, C = L * K, I * J
+        g = torch.Generator(device=dev).manual_seed(SEED + 47)
+        v = torch.randn(step.shapes, generator=g, device=dev)
+        with torch.no_grad():
+            before = dict(ktp.LAUNCHES)
+            got = step(v)
+            torch.cuda.synchronize()
+            per = {k: ktp.LAUNCHES[k] - before[k] for k in before}
+            want = step.plain(v)
+            err = float((got - want).abs().max() / v.abs().max())
+            err_m = float((step.minus_identity(v) - (want - v)).abs().max()
+                          / v.abs().max())
+            bytes_fused = peak_bytes(step, v)
+            bytes_plain = peak_bytes(step.plain, v)
+            ms = time_ms(torch, step, v, TANGENT_CALLS, TANGENT_RUNS)
+            plain_ms = time_ms(torch, step.plain, v, TANGENT_CALLS,
+                               TANGENT_RUNS)
+            lin = T.twin.linearize(x)
+            vx = torch.randn(x.shape, generator=g, device=dev)
+            lin_ms = time_ms(torch, lin, vx, TANGENT_CALLS, TANGENT_RUNS)
+        want_per = {"tangent_c1": int(step.split == "full"),
+                    "tangent_c1_mma": int(step.split == "deferred"),
+                    "tangent_c2": 1, "tangent_row": 1}
+        check(per == want_per, f"{label}: tangent launches {per}")
+        check(err <= TANGENT_RTOL and err_m <= TANGENT_RTOL,
+              f"{label}: tangent passes vs einsum replay {err:.3g}, "
+              f"J v - v {err_m:.3g} of sup |v| (limit {TANGENT_RTOL:g})")
+        c1, c2 = 2 * R * I * I * J, 2 * R * I * J * J
+        rows = 2 * R * C * (L + K)
+        tf32 = 3 * (c2 + (c1 if step.split == "deferred" else 0))
+        flop = rows + (c1 if step.split == "full" else 0)
+        nbytes = 7 * 4 * R * C
+        bound_ms, bound_by, term = bound_of(flop, nbytes, 0, tf32)
+        fp32_ms = bound_of(c1 + c2 + rows, nbytes)[0]
+        if label == "SSY 12.6M":
+            WORK["tangent_passes"] = (flop, nbytes, 0, tf32)
+            FP32_WORK["tangent_passes"] = (c1 + c2 + rows, nbytes)
+        print(f"tangent passes {label} ({step.split}, (L, K, I, J) = "
+              f"{step.shapes}): {ms:.4f} ms a matvec [einsum replay "
+              f"{plain_ms:.4f}], Newton's matvec {lin_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({term}; bytes "
+              f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f}, FP32 route "
+              f"{fp32_ms:.4f}), share {bound_ms / ms:.1%}; vs replay "
+              f"{err:.3g}, J v - v {err_m:.3g} of sup |v|; peak "
+              f"{bytes_fused / 2**20:.1f} MiB a matvec [replay "
+              f"{bytes_plain / 2**20:.1f}]; launches {per}; {smi}")
+        out[label] = (ms, plain_ms, bound_ms, sum(per.values()),
+                      max(err, err_m))
+        del T, x, tape, steps, step, v, vx, got, want, lin
+        torch.cuda.empty_cache()
+    return out
+
+
 def krylov_phase(torch, port, dev, smi):
     """Phase 6's K1 part: the fused BiCGStab passes against the eager
     loop on Newton's first tangent of the SSY path (w = 800) at
@@ -3791,6 +3940,7 @@ def main() -> None:
     from sdfs_via_autodiff_tpu_torch.kernels import krylov_fused as kf
     from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
     from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
+    from sdfs_via_autodiff_tpu_torch.kernels import tangent_two_phase as ktp
     from sdfs_via_autodiff_tpu_torch.kernels import tiled_two_phase as tt
     from sdfs_via_autodiff_tpu_torch.solvers.krylov import SYNC_EVERY
 
@@ -3916,12 +4066,12 @@ def main() -> None:
 
     # 5. Main path.
     torch.cuda.synchronize()
-    for k in st.LAUNCHES:
-        st.LAUNCHES[k] = 0
-    for k in kf.LAUNCHES:
-        kf.LAUNCHES[k] = 0
+    for counter in (st.LAUNCHES, kf.LAUNCHES, ktp.LAUNCHES):
+        for k in counter:
+            counter[k] = 0
     t0 = time.perf_counter()
-    with krylov_counts(port) as inner:
+    with krylov_counts(port) as inner, \
+            span_count(port, "sdfs.tangent.matvec") as matvecs:
         sol = port.wc_ratio_discrete(model, MAIN_SHAPES, kernel="tiled",
                                      discretization=MAIN_METHOD,
                                      algorithm="newton", tol=MAIN_TOL,
@@ -3930,10 +4080,12 @@ def main() -> None:
     solve_s = time.perf_counter() - t0
     launches = dict(st.LAUNCHES)
     krylov_launches = dict(kf.LAUNCHES)
+    tangent_launches = dict(ktp.LAUNCHES)
     res = sol.result
     print(f"main path {MAIN_SHAPES} {MAIN_METHOD} newton: {res}, "
           f"{solve_s:.3f} s, launches {launches}; K1 {krylov_launches} "
-          f"for BiCGStab iterations {inner} a Newton step")
+          f"for BiCGStab iterations {inner} a Newton step; K2 "
+          f"{tangent_launches} for {matvecs[0]} tangent matvecs")
     check(res.converged, f"main path did not converge: {res}")
     check(launches["pass_b"] > 0 and launches["pass_c"] > 0,
           f"a kernel of the SSY path never launched: {launches}")
@@ -3941,6 +4093,13 @@ def main() -> None:
         "krylov_pass": _krylov_expected_launches(inner, SYNC_EVERY),
         "krylov_epilogue": 0},
           f"K1 launches {krylov_launches} for BiCGStab iterations {inner}")
+    # The SSY cell's split is "full": the c1 pass, the c2 product and the
+    # row phase once per tangent matvec.
+    check(matvecs[0] > 0 and tangent_launches == {
+        "tangent_c1": matvecs[0], "tangent_c1_mma": 0,
+        "tangent_c2": matvecs[0], "tangent_row": matvecs[0]},
+          f"K2 launches {tangent_launches} for {matvecs[0]} tangent "
+          f"matvecs")
     disc = port.discretize_ssy(model, MAIN_SHAPES, method=MAIN_METHOD)
     T64 = port.T_ssy_factory(model, disc, space="log", device=dev)
     ell_star = torch.log(sol.w_star.double())
@@ -4025,6 +4184,7 @@ def main() -> None:
     max_err.update(gcy_err)
     launches = {"pass_b": launches["pass_b"], "pass_c": launches["pass_c"],
                 "krylov_pass": krylov_launches["krylov_pass"],
+                "tangent_passes": sum(tangent_launches.values()),
                 **{k: gcy_launches[k] for k in gcy_err}}
     kernels_ms.update(gcy_ms)
 
@@ -4099,7 +4259,12 @@ def main() -> None:
     del gcyc_ops
     tangent_phase(torch, port, dev, smi)
 
-    # 47. Result.
+    # 47. The tangent passes at the Newton cells.
+    k2 = tangent_passes_phase(torch, port, dev, smi)["SSY 12.6M"]
+    max_err["tangent_passes"] = k2[4]
+    kernels_ms["tangent_passes"] = k2[:2]
+
+    # 48. Result.
     print(f"total {time.perf_counter() - t_start:.1f} s")
     rows = []
     for name in KERNELS:

@@ -13,7 +13,13 @@
 //     and of pass_c_plain): m1[k, c] = max_l mid, m2[c] = max_k m1, y =
 //     (W_r1 exp(mid - m1)) * exp(m1 - m2) linear, lh = m2 + log(W_r2 y);
 //
-// then + add_row[l, k] + add_col[c] and log1p(beta*exp(lh/theta)).
+// then + add_row[l, k] + add_col[c] and log1p(beta*exp(lh/theta));
+//
+//   kRowTangent (the row phase of Newton's tangent passes,
+//     streamed_two_phase.cu's sdfs_tangent_chain): no shifts, y = F4 *
+//     (W_r1 mid), out = F5 * (W_r2 y) (- v), with scale = F4 and add_row
+//     = F5 field-sized (R, C) factors, S = v or null; each thread loads
+//     its factors before its sums (v after them: both ahead spill).
 // Replaces sdfs_via_autodiff_tpu/kernels/tiled_two_phase.py:195
 // (_row_phase_kernel) and :259 (_row_phase_fast_kernel), and the row
 // phase of streamed_two_phase.py:446 (_c_kernel) with a shared c2.
@@ -76,7 +82,7 @@
 namespace {
 
 constexpr int kRowThreads = 512;
-constexpr int kRowFast = 0, kRowLse = 1, kRowCarry = 2;   // MODE
+constexpr int kRowFast = 0, kRowLse = 1, kRowCarry = 2, kRowTangent = 3;
 
 constexpr int kRowTileFloats = 16384;   // R * TC the layout aims at
 constexpr int kRowTcMax = 64;
@@ -167,6 +173,22 @@ __device__ __forceinline__ void load_w8(const float* wt, const float* w,
   }
 }
 
+// V values of a field-sized factor f at row r, columns c0 + c..: a float4
+// where vec4 (16-byte aligned, all V columns inside the tile), else one at
+// a time, 0 past the tile's tcw columns.
+template <int V>
+__device__ __forceinline__ void load_factor(const float* f, int C, int r,
+                                            int c0, int c, int tcw,
+                                            bool vec4, float (&out)[V]) {
+  const float* p = f + (size_t)r * C + c0 + c;
+  if (V == 4 && vec4 && c + 4 <= tcw) {
+    load_cols<V>(p, out);   // (global memory: read-only for the launch)
+  } else {
+#pragma unroll
+    for (int b = 0; b < V; ++b) out[b] = c + b < tcw ? __ldg(p + b) : 0.f;
+  }
+}
+
 template <int MODE, bool WIDE>
 __global__ void __launch_bounds__(kRowThreads, 1)
 strip_row_kernel(const float* __restrict__ mid,
@@ -178,6 +200,7 @@ strip_row_kernel(const float* __restrict__ mid,
                  int L, int K, int C, RowLayout lay, float theta,
                  float beta) {
   constexpr bool FAST = MODE == kRowFast, CARRY = MODE == kRowCarry;
+  constexpr bool TAN = MODE == kRowTangent;
   constexpr int V = WIDE ? 4 : 1;     // columns per item
   extern __shared__ float smem[];     // 16-byte aligned base
   const int TC = lay.tc, LS = lay.ls, Lp = lay.lp, Kp = lay.kp;
@@ -263,24 +286,26 @@ strip_row_kernel(const float* __restrict__ mid,
     }
 #endif
 
-    // 1. lse: m1 and exp(x - m1) per (k, c); fast: the row scales.
-    for (int n = tid; n < KT; n += nt) {
-      if (FAST) {
-        const int k = n / TC;
+    if constexpr (!TAN) {
+      // 1. lse: m1 and exp(x - m1) per (k, c); fast: the row scales.
+      for (int n = tid; n < KT; n += nt) {
+        if (FAST) {
+          const int k = n / TC;
 #pragma unroll 8
-        for (int l = 0; l < L; ++l)
-          x[l * LS + n] *= __ldg(scale + l * K + k);
-      } else {
-        float mx = -INFINITY;
+          for (int l = 0; l < L; ++l)
+            x[l * LS + n] *= __ldg(scale + l * K + k);
+        } else {
+          float mx = -INFINITY;
 #pragma unroll 8
-        for (int l = 0; l < L; ++l) mx = fmaxf(mx, x[l * LS + n]);
+          for (int l = 0; l < L; ++l) mx = fmaxf(mx, x[l * LS + n]);
 #pragma unroll 8
-        for (int l = 0; l < L; ++l)
-          x[l * LS + n] = expf(x[l * LS + n] - mx);
-        m1[n] = mx;
+          for (int l = 0; l < L; ++l)
+            x[l * LS + n] = expf(x[l * LS + n] - mx);
+          m1[n] = mx;
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
 #if SDFS_STRIP_ROW_SPLIT == 1 || SDFS_STRIP_ROW_SPLIT == 2
     stage(x, c0, tcw);
     continue;
@@ -301,11 +326,23 @@ strip_row_kernel(const float* __restrict__ mid,
       const int lb = act ? tid / gw : 0, n0 = act ? V * (g0 + tid - lb * gw)
                                                   : 0;
       const int l0 = 8 * lb;
-      float acc[8][V];
+      float acc[8][V], f4[8][V];
 #pragma unroll
       for (int a = 0; a < 8; ++a)
 #pragma unroll
         for (int b = 0; b < V; ++b) acc[a][b] = 0.f;
+      if constexpr (TAN) {
+        // F4 of the thread's outputs, in flight during the sums.
+        const int k = n0 / TC, c = n0 - k * TC;
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+#pragma unroll
+          for (int b = 0; b < V; ++b) f4[a][b] = 0.f;
+          if (act && l0 + a < L)
+            load_factor<V>(scale, C, (l0 + a) * K + k, c0, c, tcw, vec,
+                           f4[a]);
+        }
+      }
       if (act) {
         const float* xp = x + n0;
 #pragma unroll 4
@@ -320,7 +357,7 @@ strip_row_kernel(const float* __restrict__ mid,
         }
       }
       float sh[V] = {};
-      if (!FAST && act) load_cols<V>(m1 + n0, sh);
+      if (!FAST && !TAN && act) load_cols<V>(m1 + n0, sh);
       __syncthreads();               // every read of these columns done
       if (act) {
         // carry: the rescale exp(m1 - m2) of each column.
@@ -335,6 +372,7 @@ strip_row_kernel(const float* __restrict__ mid,
 #pragma unroll
           for (int b = 0; b < V; ++b)
             y[b] = FAST    ? acc[a][b]
+                   : TAN   ? acc[a][b] * f4[a][b]
                    : CARRY ? acc[a][b] * cr[b]
                            : sh[b] + logf(acc[a][b]);
           store_cols<V>(x + (l0 + a) * LS + n0, y);
@@ -373,11 +411,22 @@ strip_row_kernel(const float* __restrict__ mid,
       const int kb = item / (L * CG), rest = item - kb * (L * CG);
       const int l = rest / CG, cq = rest - l * CG;
       const int k0 = 8 * kb, c = V * cq;
-      float acc[8][V];
+      float acc[8][V], f5[8][V], vv[8][V];
 #pragma unroll
       for (int a = 0; a < 8; ++a)
 #pragma unroll
         for (int b = 0; b < V; ++b) acc[a][b] = 0.f;
+      if constexpr (TAN) {
+        // F5 of the item's outputs, in flight during the sums.
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+#pragma unroll
+          for (int b = 0; b < V; ++b) f5[a][b] = vv[a][b] = 0.f;
+          if (k0 + a < K)
+            load_factor<V>(add_row, C, l * K + k0 + a, c0, c, tcw, vec,
+                           f5[a]);
+        }
+      }
       const float* yp = x + l * LS + c;
 #pragma unroll 4
       for (int m = 0; m < K; ++m) {
@@ -390,25 +439,37 @@ strip_row_kernel(const float* __restrict__ mid,
           for (int b = 0; b < V; ++b) acc[a][b] = fmaf(w[a], v[b], acc[a][b]);
       }
       float sh[V], ac[V];
+      if constexpr (TAN) {
+        if (S != nullptr)             // v: J v - v
 #pragma unroll
-      for (int b = 0; b < V; ++b) {
-        sh[b] = FAST ? s0 : m2[CARRY ? c + b : l * TC + c + b];
-        ac[b] = c + b < tcw ? __ldg(add_col + c0 + c + b) : 0.f;
+          for (int a = 0; a < 8; ++a)
+            if (k0 + a < K)
+              load_factor<V>(S, C, l * K + k0 + a, c0, c, tcw, vec, vv[a]);
+      } else {
+#pragma unroll
+        for (int b = 0; b < V; ++b) {
+          sh[b] = FAST ? s0 : m2[CARRY ? c + b : l * TC + c + b];
+          ac[b] = c + b < tcw ? __ldg(add_col + c0 + c + b) : 0.f;
+        }
       }
 #pragma unroll
       for (int a = 0; a < 8; ++a) {
         const int k = k0 + a;
         if (k >= K) break;
         const int r = l * K + k;
-        const float ar = __ldg(add_row + r);
+        const float ar = TAN ? 0.f : __ldg(add_row + r);
         float o[V];
 #pragma unroll
         for (int b = 0; b < V; ++b) {
 #if SDFS_STRIP_ROW_SPLIT == 5
           o[b] = acc[a][b];
 #else
-          const float lh = sh[b] + logf(acc[a][b]) + ar + ac[b];
-          o[b] = log1pf(beta * expf(lh / theta));
+          if constexpr (TAN) {
+            o[b] = acc[a][b] * f5[a][b] - vv[a][b];
+          } else {
+            const float lh = sh[b] + logf(acc[a][b]) + ar + ac[b];
+            o[b] = log1pf(beta * expf(lh / theta));
+          }
 #endif
         }
         float* dst = out + (size_t)r * C + c0 + c;
@@ -425,31 +486,17 @@ strip_row_kernel(const float* __restrict__ mid,
   cp_async_wait<0>();
 }
 
-// One launch of the row phase in ``mode`` (kRowFast, kRowLse or
-// kRowCarry) over mid (R = L*K, C): a persistent grid of min(tiles,
-// co-resident blocks) in the layout of strip_row_layout.  scale (R,) and
-// S (1,) are read in fast mode only; add_row (L*K,), add_col (C,);
-// out (R, C).
-inline cudaError_t launch_row_phase(const float* mid, const float* scale,
-                                    const float* S, const float* w_r1,
-                                    const float* w_r2, const float* add_row,
-                                    const float* add_col, float* out, int L,
-                                    int K, int C, float theta, float beta,
-                                    int mode, cudaStream_t st) {
-  RowLayout lay;
-  if (mode < kRowFast || mode > kRowCarry || L <= 0 || K <= 0 || C <= 0 ||
-      !strip_row_layout(L, K, &lay))
-    return cudaErrorInvalidValue;
-  using Kernel = void (*)(const float*, const float*, const float*,
-                          const float*, const float*, const float*,
-                          const float*, float*, int, int, int, RowLayout,
-                          float, float);
-  // [mode][wide]
-  const Kernel kernels[3][2] = {
-      {strip_row_kernel<kRowFast, false>, strip_row_kernel<kRowFast, true>},
-      {strip_row_kernel<kRowLse, false>, strip_row_kernel<kRowLse, true>},
-      {strip_row_kernel<kRowCarry, false>, strip_row_kernel<kRowCarry, true>}};
-  const Kernel fn = kernels[mode][lay.wide];
+// One launch of strip_row_kernel<MODE, .> over mid (R = L*K, C) in the
+// layout lay (of strip_row_layout): a persistent grid of min(tiles,
+// co-resident blocks).
+template <int MODE>
+cudaError_t launch_row(const RowLayout& lay, const float* mid,
+                       const float* scale, const float* S, const float* w_r1,
+                       const float* w_r2, const float* add_row,
+                       const float* add_col, float* out, int L, int K, int C,
+                       float theta, float beta, cudaStream_t st) {
+  const auto fn = lay.wide ? &strip_row_kernel<MODE, true>
+                           : &strip_row_kernel<MODE, false>;
   const size_t smem = sizeof(float) * (size_t)lay.smem;
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -465,6 +512,27 @@ inline cudaError_t launch_row_phase(const float* mid, const float* scale,
                                       add_col, out, L, K, C, lay, theta,
                                       beta);
   return cudaGetLastError();
+}
+
+// One launch of the row phase in ``mode`` (kRowFast, kRowLse or
+// kRowCarry) over mid (R = L*K, C) in the layout of strip_row_layout.
+// scale (R,) and S (1,) are read in fast mode only; add_row (L*K,),
+// add_col (C,); out (R, C).
+inline cudaError_t launch_row_phase(const float* mid, const float* scale,
+                                    const float* S, const float* w_r1,
+                                    const float* w_r2, const float* add_row,
+                                    const float* add_col, float* out, int L,
+                                    int K, int C, float theta, float beta,
+                                    int mode, cudaStream_t st) {
+  RowLayout lay;
+  if (mode < kRowFast || mode > kRowCarry || L <= 0 || K <= 0 || C <= 0 ||
+      !strip_row_layout(L, K, &lay))
+    return cudaErrorInvalidValue;
+  const auto launch = mode == kRowFast ? &launch_row<kRowFast>
+                      : mode == kRowLse ? &launch_row<kRowLse>
+                                        : &launch_row<kRowCarry>;
+  return launch(lay, mid, scale, S, w_r1, w_r2, add_row, add_col, out, L, K,
+                C, theta, beta, st);
 }
 
 }  // namespace

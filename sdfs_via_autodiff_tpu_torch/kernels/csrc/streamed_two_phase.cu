@@ -31,6 +31,10 @@
 // at every contraction; pass C carries its two row contractions linearly
 // with low-rank rescales (the linear-carry LSE of the TPU kernel).
 //
+// Newton's tangent matvec of a set with shared column factors runs as
+// three more passes over the stored factors (the tangent passes, near the
+// end: sdfs_tangent_chain).
+//
 // The C entry points launch on the caller's stream, allocate nothing and
 // return cudaGetLastError(); the Python wrappers validate every argument.
 // Transcendentals are CUDA's expf/logf/log1pf, built without fast-math.
@@ -69,6 +73,7 @@ namespace {
 
 constexpr int kModeFast = 0;
 constexpr int kModeLse = 1;
+constexpr int kModeTangent = 2;   // the c1 pass of the tangent passes
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -217,6 +222,7 @@ __device__ __forceinline__ void rows_times_w(int I, int J, int Jp,
 constexpr int kC1MaxThreads = 384;
 constexpr int kC1Items = 256;   // 8 x 4 tiles per step the layout aims at
 constexpr int kC1MaxRows = 8;   // field rows per step
+constexpr int kC1Pre = 8;       // tangent: F1 float4 a thread loads ahead
 
 struct C1Layout {
   int rb;       // field rows per step
@@ -261,8 +267,17 @@ inline bool pass_b_c1_layout(int I, int J, C1Layout* lay) {
 // C2: a shared c2 follows (out = the workspace U, row stride Jp; lse
 // writes the row shifts to rshift_out); else out = mid (R, I, J).  WRES:
 // W_c1^T resident.  sub_row/sub_col and mid_col may be null.
+//
+// kModeTangent (with C2; the tangent passes, further down): ell is the
+// direction v and sub_row, sub_col the field-sized factors F1, F2 (R, I,
+// J); the slab is scaled by F1 in place of the fold, shift and exp, and
+// U = F2 * sum.  Each thread loads its first kC1Pre float4 of F1 during
+// the slab's wait and its F2 before its sums; one block an SM by the
+// launch bounds (with two, those registers spill: 0.13 ms against 0.072
+// at SSY's (32, 32, 32, 384)).
 template <int MODE, bool C2, bool WRES>
-__global__ void __launch_bounds__(kC1MaxThreads, 2)
+__global__ void __launch_bounds__(kC1MaxThreads,
+                                  MODE == kModeTangent ? 1 : 2)
 pass_b_c1_kernel(const float* __restrict__ ell,
                  const float* __restrict__ w_c1,
                  const float* __restrict__ sub_row,
@@ -283,6 +298,10 @@ pass_b_c1_kernel(const float* __restrict__ ell,
   const int n_steps = (R + RB - 1) / RB;
   const bool pad = Jp != J;           // else 16-byte copies, no padding
   const bool sub = sub_row != nullptr;
+  constexpr bool TAN = MODE == kModeTangent;
+  static_assert(!TAN || C2, "the tangent's c1 pass writes U");
+  const float* f1 = sub_row;          // TAN: the factors
+  const float* f2 = sub_col;
 
   if (WRES)
     for (int x = tid; x < I * Ip; x += nt) {
@@ -328,52 +347,87 @@ pass_b_c1_kernel(const float* __restrict__ ell,
       __syncthreads();                 // the last step's reads of x done
       fetch(q, x);
     }
+    // TAN: the thread's first kC1Pre float4 of F1, in flight during the
+    // wait.
+    const float4* fq4 = reinterpret_cast<const float4*>(f1 + (size_t)r0 * IJ);
+    const int n4 = pad ? 0 : rows * IJ / 4;
+    float4 fpre[kC1Pre];
+    if constexpr (TAN) {
+#pragma unroll
+      for (int k = 0; k < kC1Pre; ++k)
+        if (tid + k * nt < n4) fpre[k] = __ldg(fq4 + tid + k * nt);
+    }
     cp_async_wait<0>();
     __syncthreads();                   // slab q landed; the other one free
     if (lay.slabs == 2 && q + (int)gridDim.x < n_steps)
       fetch(q + gridDim.x, slabs + ((it + 1) & 1) * RB * IJp);
 
-    // 1. Fold, shift and exp in place, a thread per column (rr, j): the
-    // column maxima (lse: the shifts; fast: reduced to the row shifts
-    // s[r], a warp per row); columns past J stay zero since the copy.
-    for (int c = tid; c < rows * Jp; c += nt) {
-      const int rr = c / Jp, j = c - rr * Jp;
-      if (j >= J) continue;
-      float* col = x + rr * IJp + j;
-      const float sr = sub ? __ldg(sub_row + r0 + rr) : 0.f;
-      float mx = -INFINITY;
-#pragma unroll 8
-      for (int i = 0; i < I; ++i) {
-        const float v = fold(col[i * Jp], sr, i, j);
-        col[i * Jp] = v;
-        mx = fmaxf(mx, v);
-      }
-      if (MODE == kModeLse)
-#pragma unroll 8
-        for (int i = 0; i < I; ++i) col[i * Jp] = expf(col[i * Jp] - mx);
-      cshift[c] = mx;
-    }
-    __syncthreads();
-    if (MODE == kModeFast) {
-      for (int rr = warp; rr < rows; rr += nw) {
-        float mx = -INFINITY;
-        for (int j = lane; j < J; j += 32) mx = fmaxf(mx, cshift[rr * Jp + j]);
-        mx = warp_max(mx);
-        if (lane == 0) {
-          rshift[rr * Ip] = mx;
-          s_out[r0 + rr] = mx;
+    if constexpr (TAN) {
+      // 1. x = v * F1 in place; columns past J stay zero.
+      if (!pad) {
+        auto scale4 = [&](int e4, float4 b) {
+          float4 a = *reinterpret_cast<float4*>(x + 4 * e4);
+          a.x *= b.x; a.y *= b.y; a.z *= b.z; a.w *= b.w;
+          *reinterpret_cast<float4*>(x + 4 * e4) = a;
+        };
+#pragma unroll
+        for (int k = 0; k < kC1Pre; ++k)
+          if (tid + k * nt < n4) scale4(tid + k * nt, fpre[k]);
+        for (int e4 = tid + kC1Pre * nt; e4 < n4; e4 += nt)
+          scale4(e4, __ldg(fq4 + e4));
+      } else {
+        const float* fq = f1 + (size_t)r0 * IJ;
+        for (int e = tid; e < rows * IJp; e += nt) {
+          const int rr = e / IJp, rest = e - rr * IJp, i = rest / Jp;
+          const int j = rest - i * Jp;
+          if (j < J) x[e] *= __ldg(fq + (size_t)rr * IJ + i * J + j);
         }
       }
       __syncthreads();
+    } else {
+      // 1. Fold, shift and exp in place, a thread per column (rr, j): the
+      // column maxima (lse: the shifts; fast: reduced to the row shifts
+      // s[r], a warp per row); columns past J stay zero since the copy.
       for (int c = tid; c < rows * Jp; c += nt) {
         const int rr = c / Jp, j = c - rr * Jp;
         if (j >= J) continue;
         float* col = x + rr * IJp + j;
-        const float s = rshift[rr * Ip];
+        const float sr = sub ? __ldg(sub_row + r0 + rr) : 0.f;
+        float mx = -INFINITY;
 #pragma unroll 8
-        for (int i = 0; i < I; ++i) col[i * Jp] = expf(col[i * Jp] - s);
+        for (int i = 0; i < I; ++i) {
+          const float v = fold(col[i * Jp], sr, i, j);
+          col[i * Jp] = v;
+          mx = fmaxf(mx, v);
+        }
+        if (MODE == kModeLse)
+#pragma unroll 8
+          for (int i = 0; i < I; ++i) col[i * Jp] = expf(col[i * Jp] - mx);
+        cshift[c] = mx;
       }
       __syncthreads();
+      if (MODE == kModeFast) {
+        for (int rr = warp; rr < rows; rr += nw) {
+          float mx = -INFINITY;
+          for (int j = lane; j < J; j += 32)
+            mx = fmaxf(mx, cshift[rr * Jp + j]);
+          mx = warp_max(mx);
+          if (lane == 0) {
+            rshift[rr * Ip] = mx;
+            s_out[r0 + rr] = mx;
+          }
+        }
+        __syncthreads();
+        for (int c = tid; c < rows * Jp; c += nt) {
+          const int rr = c / Jp, j = c - rr * Jp;
+          if (j >= J) continue;
+          float* col = x + rr * IJp + j;
+          const float s = rshift[rr * Ip];
+#pragma unroll 8
+          for (int i = 0; i < I; ++i) col[i * Jp] = expf(col[i * Jp] - s);
+        }
+        __syncthreads();
+      }
     }
 #if SDFS_PASSB_SPLIT == 1
     for (int c = tid; c < rows * Jp; c += nt) {
@@ -401,6 +455,16 @@ pass_b_c1_kernel(const float* __restrict__ ell,
       for (int a = 0; a < 8; ++a)
 #pragma unroll
         for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+      // TAN: F2 of the thread's 8 x 4 outputs, in flight during the sums.
+      const size_t row0 = (size_t)(r0 + rr) * I;
+      float4 f2v[8];
+      if constexpr (TAN) {
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+          if (live && !pad && i0 + a < I)
+            f2v[a] = __ldg(reinterpret_cast<const float4*>(
+                f2 + (row0 + i0 + a) * J + j0));
+      }
       if (live) {
         const float* xp = x + rr * IJp + j0;
 #pragma unroll 2
@@ -428,6 +492,22 @@ pass_b_c1_kernel(const float* __restrict__ ell,
           }
         }
       }
+      if constexpr (TAN) {
+        if (live)
+#pragma unroll
+          for (int a = 0; a < 8; ++a) {
+            if (i0 + a >= I) break;
+            const float* fp = f2 + (row0 + i0 + a) * J + j0;
+            if (!pad) {
+              acc[a][0] *= f2v[a].x; acc[a][1] *= f2v[a].y;
+              acc[a][2] *= f2v[a].z; acc[a][3] *= f2v[a].w;
+            } else {
+#pragma unroll
+              for (int b = 0; b < 4; ++b)
+                if (j0 + b < J) acc[a][b] *= __ldg(fp + b);
+            }
+          }
+      }
       // lse: shift + log (+ mid_col), as the TPU kernel rounds it.
       if (MODE == kModeLse && live) {
 #pragma unroll
@@ -452,8 +532,8 @@ pass_b_c1_kernel(const float* __restrict__ ell,
               *reinterpret_cast<float4*>(x + rr * IJp + (i0 + a) * Jp + j0) =
                   make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
       } else if (live) {
-        // fast with c2: U (zeros past J: the slab's are); without c2: mid.
-        const size_t row0 = (size_t)(r0 + rr) * I;
+        // fast or TAN with c2: U (zeros past J: the slab's are); without
+        // c2: mid.
 #pragma unroll
         for (int a = 0; a < 8; ++a) {
           const int i = i0 + a;
@@ -610,9 +690,12 @@ constexpr int kMmaT = kMmaBM * kMmaLdT;
 // kMmaBK values at the hi/lo rows' stride kMmaLdT.
 constexpr int kMmaRawMK = kMmaBM * kMmaLdT;
 // Shared-memory floats of pass_b_mma_kernel: the ring of raw chunks (A's
-// and B's) and kMmaBufs buffers of the hi and lo operands.
-__host__ __device__ constexpr int mma_smem_floats(bool a_mk) {
-  return kMmaStages * ((a_mk ? kMmaRawMK : kMmaRaw) + kMmaRaw) +
+// and B's, with scale_b B's factor too) and kMmaBufs buffers of the hi
+// and lo operands.
+__host__ __device__ constexpr int mma_smem_floats(bool a_mk,
+                                                  bool scale_b = false) {
+  return kMmaStages * ((a_mk ? kMmaRawMK : kMmaRaw) +
+                       (scale_b ? 2 : 1) * kMmaRaw) +
          kMmaBufs * 4 * kMmaT;
 }
 constexpr int kMmaSmemFloats = mma_smem_floats(false);
@@ -722,9 +805,10 @@ pass_b_exp_kernel(const float* __restrict__ ell,
 }
 
 // Epilogues of pass_b_mma_kernel: the sum itself, colmax[r, j] + log
-// (the deferred pass B's column maxima) or colmax[i] + log (pass B's row
-// shifts).
-constexpr int kEpiLinear = 0, kEpiColLog = 1, kEpiRowLog = 2;
+// (the deferred pass B's column maxima), colmax[i] + log (pass B's row
+// shifts) or the sum times colmax[r, i, j] (a field-sized factor: the
+// tangent passes, further down).
+constexpr int kEpiLinear = 0, kEpiColLog = 1, kEpiRowLog = 2, kEpiScale = 3;
 
 // The tensor-core product of the deferred pass B and, with PASS_B, of
 // pass B's c2: out (I, J) = A B, A = W_c1^T (I, I) stored (K, M) and B =
@@ -732,17 +816,21 @@ constexpr int kEpiLinear = 0, kEpiColLog = 1, kEpiRowLog = 2;
 // U (I rows of round_up4(J), zero past J) stored (M, K) and B = W_c2^T
 // (J, J), one batch (R = 1), the j-tiles fastest (the blocks running
 // together share U's rows in L2).  Epilogue EPI: the sum, colmax[r, j] +
-// log or colmax[i] + log (pass B's row shifts).
-template <bool PASS_B, int EPI>
+// log or colmax[i] + log (pass B's row shifts).  SCALE_B (not with
+// PASS_B): B = e[r] * e_scale[r] elementwise, e_scale's chunks copied
+// beside e's and multiplied at the split (the tangent's c1 product).
+template <bool PASS_B, int EPI, bool SCALE_B = false>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 pass_b_mma_kernel(const float* __restrict__ e,
                   const float* __restrict__ w_c1t,
                   const float* __restrict__ colmax, float* __restrict__ out,
-                  int R, int I, int J) {
+                  int R, int I, int J, const float* __restrict__ e_scale) {
+  static_assert(!(PASS_B && SCALE_B), "B is W_c2^T in pass B");
   constexpr int kRawA = PASS_B ? kMmaRawMK : kMmaRaw;
+  constexpr int kStage = kRawA + (SCALE_B ? 2 : 1) * kMmaRaw;
   extern __shared__ float smem[];     // 16-byte aligned base
-  float* ring = smem;                               // stages x {A, B}
-  float* ops = smem + kMmaStages * (kRawA + kMmaRaw);  // bufs x {Ah Al Bh Bl}
+  float* ring = smem;                       // stages x {A, B (, B's factor)}
+  float* ops = smem + kMmaStages * kStage;  // bufs x {Ah Al Bh Bl}
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_it = (I + kMmaBM - 1) / kMmaBM;
   const int n_jt = (J + kMmaBN - 1) / kMmaBN;
@@ -816,7 +904,7 @@ pass_b_mma_kernel(const float* __restrict__ e,
     };
     auto issue = [&]() {
       if (cis.g < total) {
-        float* st = ring + (cis.g % kMmaStages) * (kRawA + kMmaRaw);
+        float* st = ring + (cis.g % kMmaStages) * kStage;
         const int m0 = cis.kc * kMmaBK;
         if constexpr (PASS_B) {
           // A = U: rows i0..i0+127, columns m0..m0+15 (rows of Jp =
@@ -835,6 +923,9 @@ pass_b_mma_kernel(const float* __restrict__ e,
           copy_slab(st, w_c1t, m0, cis.i0, I, vec_i);
           copy_slab(st + kMmaRaw, e + (size_t)cis.r * IJ, m0, cis.j0, J,
                     vec_j);
+          if constexpr (SCALE_B)
+            copy_slab(st + 2 * kMmaRaw, e_scale + (size_t)cis.r * IJ, m0,
+                      cis.j0, J, vec_j);
         }
         advance(cis);
       }
@@ -855,7 +946,7 @@ pass_b_mma_kernel(const float* __restrict__ e,
       // lane % 4) row rr of each 8-row half and k = 4*kb + kk (raw reads
       // at a stride = 8 mod 32, hi/lo stores at a stride of 20: 32 banks
       // each).
-      const float* st = ring + (g % kMmaStages) * (kRawA + kMmaRaw);
+      const float* st = ring + (g % kMmaStages) * kStage;
       float* T = ops + buf * 4 * kMmaT;
       const int rr = lane >> 2, kk = lane & 3;
 #pragma unroll
@@ -866,7 +957,8 @@ pass_b_mma_kernel(const float* __restrict__ e,
           const int at = (4 * kb + kk) * kMmaLdRaw + 16 * pw + 8 * h + rr;
           a[kb] = PASS_B ? st[(16 * pw + 8 * h + rr) * kMmaLdT + 4 * kb + kk]
                          : st[at];
-          b[kb] = st[kRawA + at];
+          b[kb] = SCALE_B ? st[kRawA + at] * st[kRawA + kMmaRaw + at]
+                          : st[kRawA + at];
         }
 #pragma unroll
         for (int kb = 0; kb < kMmaBK / 4; ++kb) {
@@ -952,6 +1044,48 @@ pass_b_mma_kernel(const float* __restrict__ e,
       // j0 + wn*32 + nt*8 + 2*t4 (+1).
       const int i0 = cmm.i0, j0 = cmm.j0, r = cmm.r;
       float* out_r = out + (size_t)r * IJ;
+      if constexpr (EPI == kEpiScale) {
+        // The factor's 8 pairs of a column block loaded before any is
+        // used (their latencies overlap), float2 where J is even.
+        const float* f_r = colmax + (size_t)r * IJ;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int j = j0 + wn * 32 + nt * 8 + 2 * t4;
+          float2 f[4][2];
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = i0 + wm * 64 + mt * 16 + g8 + 8 * h;
+              const float* fp = f_r + (size_t)i * J + j;
+              f[mt][h] = make_float2(0.f, 0.f);
+              if (i < I && j < J) {
+                if (J % 2 == 0) {
+                  f[mt][h] = __ldg(reinterpret_cast<const float2*>(fp));
+                } else {
+                  f[mt][h].x = __ldg(fp);
+                  if (j + 1 < J) f[mt][h].y = __ldg(fp + 1);
+                }
+              }
+            }
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = i0 + wm * 64 + mt * 16 + g8 + 8 * h;
+              if (i >= I || j >= J) continue;
+              const float va = acc[mt][nt][2 * h] * f[mt][h].x;
+              const float vb = acc[mt][nt][2 * h + 1] * f[mt][h].y;
+              float* o = out_r + (size_t)i * J + j;
+              if (j + 1 < J && J % 2 == 0) {
+                *reinterpret_cast<float2*>(o) = make_float2(va, vb);
+              } else {
+                o[0] = va;
+                if (j + 1 < J) o[1] = vb;
+              }
+            }
+        }
+      } else {
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int j = j0 + wn * 32 + nt * 8 + 2 * t4;
@@ -982,6 +1116,7 @@ pass_b_mma_kernel(const float* __restrict__ e,
               if (j + 1 < J) o[1] = vb;
             }
           }
+      }
       }
 #pragma unroll
       for (int a = 0; a < 4; ++a)
@@ -2189,14 +2324,16 @@ cudaError_t launch_pass_b_resident(const float* ell, const float* w_c1t,
   return cudaGetLastError();
 }
 
-// One launch of pass_b_mma_kernel<PASS_B, EPI> on (e, w_c1t, colmax,
-// out, R, I, J): a persistent grid of min(tiles, co-resident blocks).
-template <bool PASS_B, int EPI>
+// One launch of pass_b_mma_kernel<PASS_B, EPI, SCALE_B> on (e, w_c1t,
+// colmax, out, R, I, J, e_scale): a persistent grid of min(tiles,
+// co-resident blocks).
+template <bool PASS_B, int EPI, bool SCALE_B = false>
 cudaError_t launch_mma(const float* e, const float* w_c1t,
                        const float* colmax, float* out, int R, int I, int J,
-                       cudaStream_t st) {
-  const auto kernel = pass_b_mma_kernel<PASS_B, EPI>;
-  const size_t smem = sizeof(float) * (size_t)mma_smem_floats(PASS_B);
+                       cudaStream_t st, const float* e_scale = nullptr) {
+  const auto kernel = pass_b_mma_kernel<PASS_B, EPI, SCALE_B>;
+  const size_t smem =
+      sizeof(float) * (size_t)mma_smem_floats(PASS_B, SCALE_B);
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
   int sms = 0, per_sm = 0;
@@ -2208,7 +2345,8 @@ cudaError_t launch_mma(const float* e, const float* w_c1t,
   if (tiles > INT_MAX / 2) return cudaErrorInvalidValue;
   const long long cap = (long long)per_sm * sms;
   const int grid = (int)(tiles < cap ? tiles : cap);
-  kernel<<<grid, kMmaThreads, smem, st>>>(e, w_c1t, colmax, out, R, I, J);
+  kernel<<<grid, kMmaThreads, smem, st>>>(e, w_c1t, colmax, out, R, I, J,
+                                          e_scale);
   return cudaGetLastError();
 }
 
@@ -2324,6 +2462,7 @@ cudaError_t launch_pass_c_slab(const float* mid, const float* scale,
                                      w_r1, w_r2, add_row, add_col, out, L, K,
                                      I, J, theta, beta, stream);
 }
+
 
 }  // namespace
 
@@ -2556,6 +2695,87 @@ int sdfs_pass_b_deferred_layout(int I, int J, int* lay) {
                     kMmaStages};
   for (int k = 0; k < 7; ++k) lay[k] = v[k];
   return 1;
+}
+
+// ------------------------------------------------------- tangent passes
+//
+// Newton's tangent of the operator with shared column factors is, per
+// Krylov matvec, the chain (ops/tangent.py; F1..F5 the field-sized
+// float32 factors its tape stores, v the direction, fields (R, I, J) =
+// (R, C), R = L*K, C = I*J):
+//
+//   x2 = F2 * c1(F1 * v)      c1: contract i' with W_c1 per field row
+//   x3 = F3 * c2(x2)          c2: contract j' with W_c2
+//   out = F5 * r2(F4 * r1(x3))  (- v, Newton's J v - v, where asked)
+//
+// No exp, log or maximum: the stages' shifts are in the factors.  Three
+// launches of the primal's kernels in tangent cases, each factor product
+// in the prologue or epilogue of a contraction pass:
+//
+//   1. c1 and F2 (the c2 product's operand U, R*I rows of Jp =
+//      round_up4(J), zeros past J), in the primal's pass-B split: "full"
+//      (I small, the c1 pass's layout exists) pass_b_c1_kernel<
+//      kModeTangent, true, .>, F1 applied in place after the copy and F2
+//      at the store; "deferred" (I = 512 at the GCY view)
+//      pass_b_mma_kernel<false, kEpiScale, true>, the deferred pass B's
+//      split-TF32 product with F1 applied at the split and F2 at the
+//      store (J % 4 == 0: U unpadded);
+//   2. c2 and F3: pass_b_mma_kernel<true, kEpiScale>, pass B's product;
+//   3. r1, F4, r2, F5 (- v): strip_row_kernel<kRowTangent, .>
+//      (row_phase.cuh), F4 at r1's store back and F5 at r2's.
+//
+// Contractions stay FP32-accurate: FP32 FMA, or three-product split TF32
+// (|x - hi - lo| <= 2^-22 |x|).  The tangent's terms take both signs, so a
+// sum may cancel; its rounding is then that of an FP32 FMA sum of the
+// same terms, a few ulps of sum |term|.  What bounds a matvec on an H100:
+// c2's 2*R*I*J*J FLOP (9.66 G at SSY's (32,32,32,384): 0.059 ms in split
+// TF32), the c1 product at the GCY view (25.8 G), and seven fields of
+// bytes (0.105 ms at SSY, 0.21 at the GCY view).
+//
+// Arguments: v and the factors f1, f2 (R, I, J), f3, f4, f5 (R, C), all
+// float32, contiguous and 16-byte aligned; w_c1 (I, I) for split 0
+// ("full": the c1 pass) or w_c1t = W_c1 transposed for split 1
+// ("deferred": the c1 product on the tensor cores, J % 4 == 0); w_c2t
+// (J, J); w_r1 (L, L), w_r2 (K, K).  u holds R*I*round_up4(J) floats (the
+// c2 product's operand), x3 R*C; out (R, C) may be u when J % 4 == 0 (u
+// is read only by the c2 product).  minus: out = J v - v, else J v.
+int sdfs_tangent_chain(const float* v, const float* f1, const float* f2,
+                       const float* f3, const float* f4, const float* f5,
+                       const float* w_c1, const float* w_c1t,
+                       const float* w_c2t, const float* w_r1,
+                       const float* w_r2, float* u, float* x3, float* out,
+                       int L, int K, int I, int J, int split, int minus,
+                       void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int R = L * K;
+  const long long rows = (long long)R * I;
+  RowLayout row;
+  if (L <= 0 || K <= 0 || I <= 0 || J <= 0 || rows > INT_MAX ||
+      rows * J > INT_MAX || !strip_row_layout(L, K, &row))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (split == 0) {
+    C1Layout lay;
+    if (w_c1 == nullptr || !pass_b_c1_layout(I, J, &lay))
+      return cudaErrorInvalidValue;
+    err = dispatch_c1<kModeTangent, true>(lay, v, w_c1, f1, f2, nullptr, u,
+                                          nullptr, nullptr, R, I, J, 0.f,
+                                          st);
+  } else if (split == 1) {
+    if (w_c1t == nullptr || J % 4 != 0) return cudaErrorInvalidValue;
+    err = launch_mma<false, kEpiScale, true>(v, w_c1t, f2, u, R, I, J, st,
+                                             f1);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  err = launch_mma<true, kEpiScale>(w_c2t, u, f3, x3, 1, R * I, J, st);
+  if (err != cudaSuccess) return err;
+  // The row kernel's tangent case: scale = F4, add_row = F5, S = v (J v -
+  // v) or null.
+  return launch_row<kRowTangent>(row, x3, f4, minus ? v : nullptr, w_r1,
+                                 w_r2, f5, nullptr, out, L, K, I * J, 0.f,
+                                 0.f, st);
 }
 
 const char* sdfs_error_string(int code) {

@@ -659,6 +659,8 @@ def _lib():
         lib.sdfs_pass_b_deferred_work_floats.restype = ctypes.c_longlong
         lib.sdfs_pass_c_deferred_layout.argtypes = [i, i, i, p]
         lib.sdfs_pass_c_deferred_layout.restype = i
+        lib.sdfs_tangent_chain.argtypes = [p] * 14 + [i] * 6 + [p]
+        lib.sdfs_tangent_chain.restype = i
         lib.sdfs_error_string.argtypes = [i]
         lib.sdfs_error_string.restype = ctypes.c_char_p
         lib._sdfs_typed = True

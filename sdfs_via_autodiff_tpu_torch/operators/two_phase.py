@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..ops.tangent import linearizable, lse_step, log1p_epilogue, viewed
+from ..ops.dtensor import is_dtensor
+from ..ops.tangent import Tape, linearizable, lse_step, log1p_epilogue, viewed
 from ..utils.profiling import spanned
 
 __all__ = ["TwoPhaseOperands", "two_phase_operands_ssy",
@@ -700,6 +701,13 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
     while TF32 matmuls are allowed
     (``torch.backends.cuda.matmul.allow_tf32``, off by default), whose
     10-bit mantissa misses the operator's 1e-6-class accuracy.
+
+    A float32 set whose c1 and c2 factors are shared (2-D) and whose
+    shapes the tangent passes cover records its whole chain on Newton's
+    tape as one step (``kernels/tangent_two_phase.fused_chain``), which a
+    CUDA vector runs as the tangent passes; a DTensor, a float64 twin,
+    batched or pair factors and shapes with no passes record the stages
+    one by one.
     """
     dev = resolve_device(device)
     column = eager_column_phase(ops, dtype, device=dev)
@@ -719,9 +727,20 @@ def make_eager_two_phase_T(ops: TwoPhaseOperands,
                + f64(ops.sub_col)[None, :, :]).to(dtype)    # (R, c1, c2)
     theta, beta = float(ops.theta), float(ops.beta)
     shapes = tuple(ops.shapes)
+    # Imported here: the kernels' modules import this one.
+    from ..kernels.tangent_two_phase import fused_chain
+    fused = fused_chain(ops, dtype, *column.weights, W_r1, W_r2)
 
     @linearizable
     def T(ell, tape=None):
+        if tape is None or fused is None or is_dtensor(ell):
+            return chain(ell, tape)
+        steps = Tape()
+        out = chain(ell, steps)
+        tape.linear(fused(steps.finish()))
+        return out
+
+    def chain(ell, tape):
         check_full_fp32(ell)
         a = theta * viewed(ell, lambda t: t.to(dtype).reshape(R, n_c1, n_c2),
                            tape)
@@ -756,7 +775,9 @@ def eager_column_phase(ops: TwoPhaseOperands,
     """The column phase of :func:`make_eager_two_phase_T`: ``a`` (rows,
     n_c1, n_c2), theta*ell less the folded baseline, -> the c1
     contraction, ``mid_col`` and the c2 contraction, per field row (so
-    any block of rows, such as one rank's shard, maps alone)."""
+    any block of rows, such as one rank's shard, maps alone).
+    ``column.weights`` is (W_c1, W_c2) on the device in ``dtype`` (W_c2
+    None for a pair set)."""
     if ops.dense_placeholder:
         raise ValueError(
             "operand set was built with dense=False (batched column "
@@ -792,4 +813,5 @@ def eager_column_phase(ops: TwoPhaseOperands,
                         c2_pair if ops.is_pair
                         else lambda t: torch.einsum(c2_sub, W_c2, t), tape)
 
+    column.weights = (W_c1, None if ops.is_pair else W_c2)
     return column

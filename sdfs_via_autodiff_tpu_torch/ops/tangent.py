@@ -38,6 +38,12 @@ exponentials, ``post`` one over its contraction where it is the
 shallowest normal window, else 0) and the node chains of
 ``operators/post_interp.py`` (a branch per node chunk: the chunk's
 chain of contractions, ``post`` the folded (chunk, N) factor).
+
+A step may also be an object that holds its own factors (``factors()``)
+and may subtract ``v`` itself (``minus_identity``): the two-phase
+operators' whole chain as one step (``kernels/tangent_two_phase.py``),
+which :class:`Linearization` asks for ``J v - v`` where it is the tape's
+only step.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ from ..utils.profiling import spanned
 from .dtensor import apply, is_dtensor, transparent
 
 __all__ = ["Tape", "Linearization", "linearizable", "lse_step",
-           "log1p_epilogue", "viewed"]
+           "log1p_epilogue", "viewed", "replay"]
 
 
 class _Branches:
@@ -159,17 +165,19 @@ def log1p_epilogue(log_hwt, theta, beta: float, tape=None):
     return torch.log1p(q)
 
 
-def _run(steps, v):
+def replay(steps, v):
+    """``v`` through the finished steps of a :class:`Tape`."""
     for s in steps:
         v = s(v) if callable(s) else v * s
     return v
 
 
 def _factors(steps):
-    """The stored tensors of ``steps``, each once."""
+    """The stored tensors of ``steps`` (a step with ``factors()`` holds
+    its own), each once."""
     seen = {}
     for s in steps:
-        for f in s.factors() if isinstance(s, _Branches) else (s,):
+        for f in s.factors() if hasattr(s, "factors") else (s,):
             if torch.is_tensor(f):
                 seen.setdefault(id(f), f)
     return seen.values()
@@ -206,9 +214,13 @@ class Linearization:
         if self._steps is None:
             self.build()
         with torch.no_grad():
-            jv = (apply(lambda t: _run(self._steps, t), v) if is_dtensor(v)
-                  else _run(self._steps, v))
-        return jv - v
+            if is_dtensor(v):
+                return apply(lambda t: replay(self._steps, t), v) - v
+            if len(self._steps) == 1 and hasattr(self._steps[0],
+                                                 "minus_identity"):
+                # One step that subtracts v itself (a fused chain).
+                return self._steps[0].minus_identity(v)
+            return replay(self._steps, v) - v
 
     @property
     def nbytes(self) -> int:

@@ -22,7 +22,9 @@ from sdfs_via_autodiff_tpu_torch.kernels import fused_discrete as fd
 from sdfs_via_autodiff_tpu_torch.kernels import post_interp_kernel as pk
 from sdfs_via_autodiff_tpu_torch.kernels import solver_kernel as sk
 from sdfs_via_autodiff_tpu_torch.kernels import streamed_two_phase as st
+from sdfs_via_autodiff_tpu_torch.kernels import tangent_two_phase as ktp
 from sdfs_via_autodiff_tpu_torch.kernels import tiled_two_phase as tt
+from sdfs_via_autodiff_tpu_torch.ops.tangent import Tape
 
 pytestmark = pytest.mark.gpu
 
@@ -1196,3 +1198,104 @@ def test_streamed_shard_factory_world1_nccl(nccl_world1, recipe):
     _, dy = torch.func.jvp(T.local, (x,), (v,))
     _, dy1 = torch.func.jvp(T1, (x,), (v,))
     assert torch.equal(dy, dy1)
+
+
+# ------------------------------------------------ the tangent passes (K2)
+
+# Kernels vs the einsum replay of the same tape, relative to sup |v|:
+# float32 sums of the same terms in other orders (split TF32 in the
+# products), a few ulps of J |v| <= |v| apart.
+TANGENT_RTOL = 2e-6
+# (model, natural shapes, split): the SSY cell's rows reduced (full), a
+# ragged J with its padded U rows (full), a c1 product with a partial
+# 128-row tile (deferred), a GCY set at its small view (full, J = 9) and
+# the GCY cell's view (12, 16, 512, 256) with its rows reduced (deferred).
+TANGENT_CASES = [("ssy", (8, 16, 32, 384), "full"),
+                 ("ssy", (4, 6, 10, 30), "full"),
+                 ("ssy", (3, 5, 56, 42), "full"),
+                 ("ssy", (2, 2, 64, 512), "deferred"),
+                 ("gcy", (4, 3, 3, 2, 3, 2), "full"),
+                 ("gcy", (32, 16, 16, 2, 16, 4), "deferred")]
+
+
+def _tangent_operator(model, shapes, dev, noise=0.02):
+    """A tiled operator of the model on ``dev`` and a seeded point near
+    its iterates (SSY: log 800, GCY: the log-linear start), ``noise`` the
+    scale of the seeded departure."""
+    rng = np.random.default_rng(3)
+    if model == "ssy":
+        m = P.SSY()
+        T = P.make_tiled_T_log_ssy(
+            m, P.discretize_ssy(m, shapes, method="tauchen"), device=dev)
+        base = np.full(shapes, np.log(800.0))
+    else:
+        m = P.GCY()
+        disc = P.discretize_gcy(m, shapes, method="tauchen")
+        T = P.make_tiled_T_log_gcy(m, disc, device=dev)
+        base = np.asarray(P.gcy_loglinear_parts(m, disc)["ell0"])
+    x = base + noise * rng.standard_normal(base.shape)
+    return T, torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("model,shapes,split", TANGENT_CASES)
+def test_tangent_passes_match_the_einsum_replay(cuda, model, shapes, split):
+    T, x = _tangent_operator(model, shapes, cuda)
+    tape = Tape()
+    with torch.no_grad():
+        T.twin.primal(x, tape)
+    steps = [s for s in tape.finish() if isinstance(s, ktp.TwoPhaseTangent)]
+    assert len(steps) == 1
+    step = steps[0]
+    assert step.split == split
+    g = torch.Generator(device=cuda).manual_seed(4)
+    v = torch.randn(step.shapes, generator=g, device=cuda)
+    with torch.no_grad():
+        before = dict(ktp.LAUNCHES)
+        got = step(v)
+        launched = {k: ktp.LAUNCHES[k] - before[k] for k in before}
+        want = step.plain(v)
+        got_m = step.minus_identity(v)
+    assert launched == {"tangent_c1": int(split == "full"),
+                        "tangent_c1_mma": int(split == "deferred"),
+                        "tangent_c2": 1, "tangent_row": 1}
+    scale = float(v.abs().max())
+    assert float((got - want).abs().max()) <= TANGENT_RTOL * scale
+    assert float((got_m - (want - v)).abs().max()) <= TANGENT_RTOL * scale
+
+
+# A matvec's rounding moves BiCGStab's stopping iteration by a few in
+# some Newton steps (SSY cell: 235 against 239 iterations in 6 steps; the
+# reduced GCY view: 506 against 519 in 12), the outer count not at all.
+KRYLOV_SHARE = 0.05
+
+
+@pytest.mark.parametrize("model,shapes", [("ssy", (32, 32, 32, 384)),
+                                          ("gcy", (32, 16, 16, 2, 16, 4))])
+def test_newton_on_the_tangent_passes_counts_as_the_einsum_replay(
+        cuda, model, shapes, monkeypatch):
+    """One Newton solve with the passes and one with the einsum replay in
+    their place: outer counts within 1, Krylov counts within 5%, the fixed
+    points within ten tolerances."""
+    from sdfs_via_autodiff_tpu_torch.solvers.fixed_point import newton_solver
+    from sdfs_via_autodiff_tpu_torch.utils.profiling import recorded
+    T, x0 = _tangent_operator(model, shapes, cuda, noise=0.0)
+    tol = 2e-5 if model == "ssy" else 1.2 * P.f32_tol_floor(P.GCY().theta)
+
+    def solve():
+        with recorded() as recs:
+            res = newton_solver(T, x0, tol=tol)
+        total = lambda name: sum(r.count or 0 for r in recs if r.name == name)
+        return res, total("sdfs.krylov"), total("sdfs.tangent.fused")
+
+    res, krylov, fused = solve()
+    monkeypatch.setattr(
+        ktp.TwoPhaseTangent, "_cuda",
+        lambda self, v, minus: self.plain(v) - v if minus else self.plain(v))
+    before = dict(ktp.LAUNCHES)
+    ref, krylov_ref, _ = solve()
+    assert ktp.LAUNCHES == before              # the replay launched none
+    assert res.converged and ref.converged
+    assert fused >= krylov > 0
+    assert abs(res.iterations - ref.iterations) <= 1
+    assert abs(krylov - krylov_ref) <= KRYLOV_SHARE * krylov_ref
+    assert float((res.x - ref.x).abs().max()) <= 10 * tol

@@ -460,3 +460,157 @@ def test_operators_taken_off_the_jvp_matvec(name):
     mv = tangent_matvec(T, x)
     assert isinstance(mv, Linearization)
     assert _rel_v(mv(v), _jvp_matvec(T, x, v), v) <= JVP_RTOL32
+
+
+# ---------------------------- the fused chain of shared two-phase sets
+
+def _fused_case(name):
+    """A tiled operator on the CPU with shared column factors, a point
+    near its iterates and a seeded direction: SSY "full" and "deferred",
+    GCY's natural layout at a "full" view and at a "deferred" one (I =
+    512)."""
+    if name == "gcy_natural_deferred":
+        _, pd = _gcy_disc((32, 16, 8, 2, 8, 2))
+        T = P.make_tiled_T_log_gcy(P.GCY(), pd, device="cpu")
+        base = np.asarray(P.gcy_loglinear_parts(P.GCY(), pd)["ell0"])
+    else:
+        T, _, base = _tiled(name)
+    x = torch.as_tensor(_near(base, 21, 0.02), dtype=torch.float32)
+    v = torch.as_tensor(np.random.default_rng(22).standard_normal(
+        base.shape), dtype=torch.float32)
+    return T, x, v
+
+
+FUSED = {"streamed_full": "full", "deferred": "deferred",
+         "gcy_natural": "full", "gcy_natural_deferred": "deferred"}
+
+
+def _fused_step(T, x):
+    from sdfs_via_autodiff_tpu_torch.kernels.tangent_two_phase import (
+        TwoPhaseTangent)
+    from sdfs_via_autodiff_tpu_torch.ops.tangent import Tape
+    tape = Tape()
+    with torch.no_grad():
+        T.twin.primal(x, tape)
+    steps = tape.finish()
+    return steps, [s for s in steps if isinstance(s, TwoPhaseTangent)]
+
+
+@pytest.mark.parametrize("name", list(FUSED))
+def test_fused_chain_is_the_stepwise_replay(name, monkeypatch):
+    """A float32 set with shared column factors records one fused step
+    (the GCY natural layout around it: its two crossings), whose CPU
+    matvec is the stepwise tape's einsum replay to 1e-6."""
+    from sdfs_via_autodiff_tpu_torch.operators import two_phase
+    T, x, v = _fused_case(name)
+    steps, fused = _fused_step(T, x)
+    assert len(fused) == 1 and fused[0].split == FUSED[name]
+    assert len(steps) == (3 if name.startswith("gcy") else 1)
+    got = tangent_matvec(T.twin, x)(v)
+    # The stepwise tape: what the twin records where it does not fuse.
+    monkeypatch.setattr(two_phase, "is_dtensor", lambda t: True)
+    assert not _fused_step(T, x)[1]
+    want = tangent_matvec(T.twin, x)(v)
+    assert _rel(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("model", ["ssy", "gcy"])
+def test_fused_plain_version_takes_float64(model):
+    """The fused step's plain version over a float64 twin's tape: the
+    replay of the same steps to 1e-12."""
+    from sdfs_via_autodiff_tpu_torch.kernels.tangent_two_phase import (
+        TwoPhaseTangent, tangent_split)
+    from sdfs_via_autodiff_tpu_torch.ops.tangent import Tape, replay
+    if model == "ssy":
+        _, pd = _ssy_disc((4, 4, 4, 6))
+        ops = P.two_phase_operands_ssy(P.SSY(), pd)
+    else:
+        _, pd = _gcy_disc((32, 16, 8, 2, 8, 2))
+        ops = P.two_phase_operands_gcy(P.GCY(), pd)
+    T = P.make_eager_two_phase_T(ops, torch.float64, device="cpu")
+    base = (np.full(ops.shapes, np.log(800.0)) if model == "ssy" else
+            np.asarray(P.gcy_loglinear_parts(P.GCY(), pd)["ell0"]).transpose(
+                ops.perm).reshape(ops.shapes))
+    x = torch.as_tensor(_near(base, 23, 0.02))
+    v = torch.as_tensor(np.random.default_rng(24).standard_normal(
+        ops.shapes))
+    tape = Tape()
+    T.primal(x, tape)
+    steps = tape.finish()
+    step = TwoPhaseTangent(ops.shapes, tangent_split(ops), None, steps)
+    got = step.plain(v)
+    assert got.dtype == torch.float64
+    assert _rel(got, replay(steps, v)) <= JVP_RTOL64
+    assert _rel(step.minus_identity(v), replay(steps, v) - v) <= JVP_RTOL64
+
+
+def _route_case(name):
+    """(twin, point) of the routing test's operators."""
+    if name in ("streamed_full", "gcy_natural", "batched", "pair",
+                "normalized_conjugated", "strip", "strip_normalized"):
+        T, _, base = _tiled(name)
+        return T.twin, torch.as_tensor(_near(base, 25, 0.02),
+                                       dtype=torch.float32)
+    if name == "gcy_no_split":
+        # The GCY view (2, 2, 512, 225): I = 512 leaves the c1 pass no
+        # layout and J = 225 the c1 product none.
+        _, pd = _gcy_disc((32, 16, 15, 2, 15, 2))
+        T = P.make_tiled_T_log_gcy(P.GCY(), pd, device="cpu")
+        base = np.asarray(P.gcy_loglinear_parts(P.GCY(), pd)["ell0"])
+        return T.twin, torch.as_tensor(_near(base, 25, 0.02),
+                                       dtype=torch.float32)
+    if name == "float64":
+        _, pd = _ssy_disc((4, 4, 4, 6))
+        T = P.make_eager_two_phase_T(P.two_phase_operands_ssy(P.SSY(), pd),
+                                     torch.float64, device="cpu")
+        return T, torch.full((4, 4, 4, 6), float(np.log(800.0)),
+                             dtype=torch.float64)
+    T = _kept_on_jvp("node_chain")
+    return T, torch.full((4, 4, 4, 5), float(np.log(800.0)))
+
+
+# Shared float32 sets (the conjugated-shared one and the strip tier's
+# plain set among them) fuse; batched (the strip tier's normalized set,
+# continuous SSY), pair, float64 and node-chain twins, and a shared set
+# whose shapes have no tangent passes, keep their steps.
+ROUTES = {"streamed_full": True, "gcy_natural": True,
+          "normalized_conjugated": True, "strip": True,
+          "strip_normalized": False, "batched": False, "pair": False,
+          "float64": False, "node_chain": False, "gcy_no_split": False}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_fused_route_counts_once_a_matvec(name):
+    from sdfs_via_autodiff_tpu_torch.kernels.tangent_two_phase import (
+        TwoPhaseTangent)
+    twin, x = _route_case(name)
+    lin = tangent_matvec(twin, x)
+    assert isinstance(lin, Linearization)
+    v = torch.ones_like(x)
+    with recorded() as recs:
+        lin(v)
+        lin(v)
+    counts = [r.count for r in recs if r.name == "sdfs.tangent.fused"]
+    matvecs = sum(1 for r in recs if r.name == "sdfs.tangent.matvec")
+    assert matvecs == 2
+    assert counts == ([1, 1] if ROUTES[name] else [])
+    fused = [s for s in lin._steps if isinstance(s, TwoPhaseTangent)]
+    assert len(fused) == int(ROUTES[name])
+    if not ROUTES[name]:
+        assert len(lin._steps) > 1          # the stages, one by one
+
+
+def test_fused_split_follows_the_primal_configuration():
+    """"full" where the primal's pass B runs the c1 pass, "deferred" where
+    it runs c1 on the tensor cores: the two Newton cells, the deferred
+    SSY tier, a set outside the streamed configurations; none where
+    neither has a layout."""
+    from sdfs_via_autodiff_tpu_torch.kernels.tangent_two_phase import (
+        tangent_split)
+    _, pd = _ssy_disc((4, 4, 4, 6))
+    ops = P.two_phase_operands_ssy(P.SSY(), pd)
+    want = {(32, 32, 32, 384): "full", (12, 16, 512, 256): "deferred",
+            (2, 2, 64, 512): "deferred", (103, 41, 64, 512): "full",
+            (4, 6, 10, 30): "full", (2, 2, 512, 225): None}
+    assert {s: tangent_split(dataclasses.replace(ops, shapes=s))
+            for s in want} == want

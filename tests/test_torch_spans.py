@@ -33,7 +33,7 @@ SEED = 2 ** 31 + 7
 NEW_METRICS = ("build_ms", "host_syncs", "sync_wait_ms", "primal_host_us")
 # Readers that switch the port's recorder on: left out of a run without
 # the port's span readers.
-RECORDERS = NEW_METRICS + ("krylov_fused_share",)
+RECORDERS = NEW_METRICS + ("krylov_fused_share", "tangent_fused_share")
 
 
 @pytest.fixture(autouse=True)
@@ -159,7 +159,10 @@ def test_spans_are_annotations_of_the_profilers_trace(tmp_path):
     for e in events:
         if e.get("cat") == "user_annotation" and e["name"] != "warm":
             ann.setdefault(e["name"], []).append(float(e["ts"]))
-    assert Counter({k: len(v) for k, v in ann.items()}) == _names(recs)
+    # Point counts (``count`` with no open span of their name, such as a
+    # fused tangent matvec's) take no time and open no annotation.
+    spans = [r for r in recs if r.end_ns > r.start_ns]
+    assert Counter({k: len(v) for k, v in ann.items()}) == _names(spans)
     (anchor,) = ann.pop("anchor")
     # The trace's clock (us) against the recorder's (ns): one offset,
     # taken at the root, maps every span's start to its annotation.
@@ -250,6 +253,37 @@ def test_a_traced_run_reports_the_port_span_metrics(tmp_path, algorithm):
         assert syncs >= 2 * outer + math.ceil(outer / SYNC_EVERY) + 1 + 3
     else:
         assert syncs == math.ceil(outer / SYNC_EVERY) + 1 + 3
+
+
+def test_tangent_fused_share_is_one_on_the_fused_chain(tmp_path):
+    """The tiny SSY cell's twin (float32, shared column factors) records
+    its chain as one fused step, which the CPU runs as its plain version:
+    every matvec of the window counts ``sdfs.tangent.fused``."""
+    got = _run(_catalog(tmp_path, "newton"), SEED_UNTRACED)
+    assert got["tangent_fused_share"] == 1.0
+
+
+def test_tangent_fused_share_counts_the_fused_matvecs_of_the_window():
+    from collections import namedtuple
+
+    from wcbench.catalog import load
+    reader = load(ROOT / "BENCHMARK.json", ROOT / "wcbench").metric(
+        "tangent_fused_share")
+    Rec = namedtuple("Rec", "name start_ns end_ns count")
+
+    class Run:
+        from wcbench.spans import Spans
+        spans = Spans()
+    Run.spans.records["wcbench.solve"] = [(0, 0.0, 1.0, None),
+                                          (1, 1.0, 2.0, None)]
+    matvecs = [Rec("sdfs.tangent.matvec", t, t + 1e6, None)
+               for t in (1e8, 2e8, 1.1e9, 1.2e9)]
+    matvecs.append(Rec("sdfs.tangent.matvec", 5e9, 5.1e9, None))  # outside
+    Run.port_records = matvecs + [Rec("sdfs.tangent.fused", t, t, 1)
+                                  for t in (1e8, 2e8, 1.1e9)]
+    assert reader.read(Run) == pytest.approx(0.75)
+    Run.port_records = matvecs
+    assert reader.read(Run) is None
 
 
 def test_port_spans_match_the_harness_spans_in_the_trace(tmp_path):
